@@ -1,0 +1,111 @@
+"""The port's CLI (≙ ``distributedmnist_tpu/launch/__main__.py``), the
+``serve --decode`` verb:
+
+  python -m distributedmnist_tpu_torch.launch serve --decode \\
+      --train-dir D --serve-dir S [--device cpu] [decode/serve flags]
+
+It boots a :class:`~..servesvc.decode.DecodeReplica` on the newest
+loadable checkpoint in ``D`` (adopting the run config saved in it),
+serves until SIGTERM/SIGINT, and drains. The flag names are the
+reference CLI's. The device is ``cuda:0`` unless ``--device`` names
+another; without CUDA the default is an error, not a CPU run.
+Classification serving (``serve`` without ``--decode``) and the other
+verbs are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+_SERVE_FLAGS = ("host", "port", "queue_depth", "default_deadline_ms",
+                "compute_dtype")
+_DECODE_FLAGS = ("decode_slots", "max_new_tokens", "max_prompt_len",
+                 "swap_policy", "attention_kernel")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="distributedmnist_tpu_torch.launch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    pv = sub.add_parser(
+        "serve", help="decode replica: serve a published causal-LM "
+                      "checkpoint as streaming generations over a local "
+                      "socket (continuous batching, paged KV cache)")
+    pv.add_argument("--train-dir", "--train_dir", dest="train_dir",
+                    required=True, help="the publish dir to serve from")
+    pv.add_argument("--serve-dir", dest="serve_dir", default=".",
+                    help="where serve.json / serve_log.jsonl / "
+                         "heartbeats land")
+    pv.add_argument("--device", default=None,
+                    help="torch device (default cuda:0; 'cpu' runs the "
+                         "plain versions of the kernels)")
+    pv.add_argument("--decode", action="store_true",
+                    help="serve autoregressive decode (the only serving "
+                         "workload ported so far)")
+    pv.add_argument("--host", default=None)
+    pv.add_argument("--port", type=int, default=None,
+                    help="0 = ephemeral (the bound port is published in "
+                         "serve.json)")
+    pv.add_argument("--queue-depth", type=int, default=None,
+                    dest="queue_depth",
+                    help="admission bound; a full queue sheds with a "
+                         "typed reject")
+    pv.add_argument("--default-deadline-ms", type=float, default=None,
+                    dest="default_deadline_ms")
+    pv.add_argument("--compute-dtype", default=None, dest="compute_dtype",
+                    help="serving-side compute dtype override "
+                         "(serve.compute_dtype)")
+    pv.add_argument("--decode-slots", type=int, default=None,
+                    dest="decode_slots",
+                    help="concurrently generating sequences "
+                         "(decode.decode_slots)")
+    pv.add_argument("--max-new-tokens", type=int, default=None,
+                    dest="max_new_tokens",
+                    help="per-request generation ceiling "
+                         "(decode.max_new_tokens)")
+    pv.add_argument("--max-prompt-len", type=int, default=None,
+                    dest="max_prompt_len",
+                    help="longest admissible prompt "
+                         "(decode.max_prompt_len)")
+    pv.add_argument("--swap-policy", default=None, dest="swap_policy",
+                    help="pin | restart (decode.swap_policy; validated — "
+                         "this replica serves its boot checkpoint)")
+    pv.add_argument("--attention-kernel", default=None,
+                    dest="attention_kernel",
+                    help="dense | paged — decode attention "
+                         "(decode.attention_kernel); paged runs the "
+                         "paged-attention kernel")
+    return p
+
+
+def build_decode_replica(argv: list[str]):
+    """Parse ``serve`` arguments and construct (not start) the replica —
+    the same object ``serve`` runs, for callers that drive it in
+    process."""
+    args = build_parser().parse_args(argv)
+    if args.cmd != "serve" or not args.decode:
+        raise SystemExit("only `serve --decode` is ported so far "
+                         "(classification serving is not)")
+    from ..servesvc.decode import DecodeReplica
+    from ..servesvc.server import wait_for_run_config
+
+    cfg = wait_for_run_config(args.train_dir)
+    scfg = dataclasses.replace(
+        cfg.serve, **{k: getattr(args, k) for k in _SERVE_FLAGS
+                      if getattr(args, k) is not None})
+    dcfg = dataclasses.replace(
+        cfg.decode, **{k: getattr(args, k) for k in _DECODE_FLAGS
+                       if getattr(args, k) is not None})
+    cfg = cfg.replace(serve=scfg, decode=dcfg)
+    return DecodeReplica(args.train_dir, serve_dir=args.serve_dir,
+                         scfg=scfg, dcfg=dcfg, cfg=cfg, device=args.device)
+
+
+def main(argv: list[str] | None = None) -> None:
+    import sys
+    build_decode_replica(sys.argv[1:] if argv is None else argv
+                         ).serve_forever()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,224 @@
+"""A compact causal-LM transformer (≙ ``distributedmnist_tpu/models/
+transformer.py``) — the decode-serving slice: ``init``, ``apply`` (dense
+FFN), the prompt prefill with K/V export, and the one-token decode step
+over a paged KV cache.
+
+Params are a plain dict in the reference's layout, so a reference
+checkpoint converts leaf for leaf (``models/convert.py``):
+``embed [V, d]`` (also the tied LM head), ``pos [S, d]``, per block
+``ln1/ln2 {"scale": [d]}``, ``wqkv [d, 3, d]``, ``wo [d, d]``,
+``w1 [d, 4d]``, ``w2 [4d, d]``, and ``final_norm {"scale": [d]}``.
+
+Dtypes follow the reference at the same points: every param is cast to
+the compute dtype on entry (a no-op when the caller already holds them
+in it), ``_rms_norm`` computes in float32 and casts back, attention
+runs in float32 inside the kernels, and the decode attention's float32
+output is cast to the compute dtype before ``wo``.
+
+Tensor/sequence/pipeline parallelism and mixture-of-experts FFNs are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import local_self_attention
+from ..ops.paged_attention import paged_attention, paged_attention_dense
+
+Params = dict[str, Any]
+
+
+def _trunc_normal(shape, stddev, generator, device) -> torch.Tensor:
+    """N(0, stddev²) truncated to ±2σ, float32 (≙ the reference's
+    ``truncated_normal_init``; a torch generator draws other numbers
+    than a JAX key, so tests convert reference params instead)."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.nn.init.trunc_normal_(t, 0.0, stddev, -2 * stddev,
+                                       2 * stddev, generator=generator)
+
+
+def init(generator: torch.Generator, vocab_size: int = 256,
+         model_dim: int = 128, num_heads: int = 4, num_layers: int = 2,
+         max_seq_len: int = 512) -> Params:
+    """Float32 params on the generator's device."""
+    if model_dim % num_heads:
+        raise ValueError(f"model_dim={model_dim} not divisible by "
+                         f"num_heads={num_heads}")
+    dev = generator.device
+    d, ff, scale = model_dim, 4 * model_dim, 0.02
+    tn = lambda *shape: _trunc_normal(shape, scale, generator, dev)
+    ones = lambda: {"scale": torch.ones(d, dtype=torch.float32, device=dev)}
+    return {
+        "embed": tn(vocab_size, d),
+        "pos": tn(max_seq_len, d),
+        "blocks": [{"ln1": ones(), "wqkv": tn(d, 3, d), "wo": tn(d, d),
+                    "ln2": ones(), "w1": tn(d, ff), "w2": tn(ff, d)}
+                   for _ in range(num_layers)],
+        "final_norm": ones(),
+    }
+
+
+def cast_params(params: Params, dtype: torch.dtype) -> Params:
+    """Every leaf cast to ``dtype`` (leaves already in it are returned
+    as they are, so casting cast params costs nothing)."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [cast_params(v, dtype) for v in params]
+    return params.to(dtype)
+
+
+def _rms_norm(x: torch.Tensor, p: Params) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + 1e-6) * p["scale"]).to(x.dtype)
+
+
+def _attn_sublayer(x: torch.Tensor, blk: Params, *, num_heads: int,
+                   attn: Callable, return_kv: bool = False):
+    """Pre-norm attention sublayer: ``x + wo(attn(qkv(ln1(x))))``.
+
+    ``return_kv`` also returns this layer's K/V in ``[b, s, h, hd]``
+    (strided views of the qkv product) — what the prefill seeds the
+    paged cache with."""
+    b, s, d = x.shape
+    hd = d // num_heads
+    h = _rms_norm(x, blk["ln1"])
+    qkv = (h @ blk["wqkv"].reshape(d, 3 * d)).view(b, s, 3, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    bshd = lambda t: t.view(b, s, num_heads, hd)
+    if getattr(attn, "layout", "bhsd") == "bshd":
+        # the kernel reads the residual layout through its strides: no
+        # head transpose, no copy
+        o = attn(bshd(q), bshd(k), bshd(v)).reshape(b, s, d)
+    else:
+        heads = lambda t: bshd(t).transpose(1, 2)
+        o = attn(heads(q), heads(k), heads(v)).transpose(1, 2).reshape(
+            b, s, d)
+    out = x + o @ blk["wo"]
+    if return_kv:
+        return out, bshd(k), bshd(v)
+    return out
+
+
+def _ffn_sublayer(x: torch.Tensor, blk: Params) -> torch.Tensor:
+    """Pre-norm dense FFN sublayer: ``x + w2(relu(w1(ln2(x))))``."""
+    h = _rms_norm(x, blk["ln2"])
+    return x + F.relu(h @ blk["w1"]) @ blk["w2"]
+
+
+def _embed(p: Params, tokens: torch.Tensor,
+           positions: torch.Tensor | None) -> torch.Tensor:
+    if positions is None:
+        positions = torch.arange(tokens.shape[-1], device=tokens.device)
+    return p["embed"][tokens.long()] + p["pos"][positions.long()]
+
+
+def _head(x: torch.Tensor, p: Params) -> torch.Tensor:
+    x = _rms_norm(x, p["final_norm"])
+    return (x @ p["embed"].T).float()  # tied head
+
+
+def apply(params: Params, tokens: torch.Tensor, *, num_heads: int = 4,
+          attention_fn: Callable | None = None,
+          positions: torch.Tensor | None = None,
+          compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """tokens [batch, seq] → logits [batch, seq, vocab] float32."""
+    attn = attention_fn or local_self_attention
+    p = cast_params(params, compute_dtype)
+    x = _embed(p, tokens, positions)
+    for blk in p["blocks"]:
+        x = _attn_sublayer(x, blk, num_heads=num_heads, attn=attn)
+        x = _ffn_sublayer(x, blk)
+    return _head(x, p)
+
+
+def prefill_with_kv(params: Params, tokens: torch.Tensor, *,
+                    num_heads: int = 4,
+                    attention_fn: Callable | None = None,
+                    positions: torch.Tensor | None = None,
+                    compute_dtype: torch.dtype = torch.bfloat16
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prompt prefill: the causal forward through the configured
+    attention (the flash kernel when ``attention_impl="flash"``) that
+    also returns every layer's K/V for seeding a decode cache.
+
+    tokens [b, s] → (logits [b, s, vocab] float32, k [L, b, s, h, hd],
+    v [L, b, s, h, hd]) with K/V in the compute dtype."""
+    attn = attention_fn or local_self_attention
+    p = cast_params(params, compute_dtype)
+    x = _embed(p, tokens, positions)
+    ks, vs = [], []
+    for blk in p["blocks"]:
+        x, k, v = _attn_sublayer(x, blk, num_heads=num_heads, attn=attn,
+                                 return_kv=True)
+        ks.append(k)
+        vs.append(v)
+        x = _ffn_sublayer(x, blk)
+    return _head(x, p), torch.stack(ks), torch.stack(vs)
+
+
+def decode_step(params: Params, tokens: torch.Tensor,
+                positions: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, block_tables: torch.Tensor,
+                lengths: torch.Tensor, *, num_heads: int = 4,
+                block_size: int = 16,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                attention_kernel: str = "dense"
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One incremental decode step over S slots sharing one paged KV
+    cache.
+
+    * ``tokens`` [S] — each slot's newest token,
+    * ``positions`` [S] — that token's 0-based position,
+    * ``k_cache``/``v_cache`` [L, N, B, h, hd] — the paged cache (block
+      0 is the reserved null block),
+    * ``block_tables`` [S, P] int32 — each slot's position→block map
+      (idle slots: all zeros),
+    * ``lengths`` [S] int32 — context length including this token
+      (``positions + 1``; 0 for an idle slot, whose row is zeros).
+
+    ``attention_kernel``: ``"paged"`` runs kernel K5
+    (``ops/paged_attention.py``), which walks each table in-kernel;
+    ``"dense"`` runs its plain version, the full-table gather.
+
+    Returns (logits [S, vocab] float32, k_cache, v_cache). Unlike the
+    reference, which returns new cache arrays, this token's K/V are
+    written INTO the given caches (``index_put_``) and the same tensors
+    are returned — a functional copy of the whole cache per token is
+    what the reference's buffer donation avoids as well."""
+    if attention_kernel not in ("dense", "paged"):
+        raise ValueError(
+            f"decode.attention_kernel must be 'dense' or 'paged', "
+            f"got {attention_kernel!r}")
+    attend = paged_attention if attention_kernel == "paged" \
+        else paged_attention_dense
+    p = cast_params(params, compute_dtype)
+    num_slots = tokens.shape[0]
+    x = _embed(p, tokens, positions)  # [S, d]
+    d = x.shape[-1]
+    hd = d // num_heads
+    scale = 1.0 / (hd ** 0.5)
+    positions = positions.long()
+    blk_ids = block_tables.long().gather(
+        1, (positions // block_size)[:, None])[:, 0]
+    offs = positions % block_size
+    for li, blk in enumerate(p["blocks"]):
+        h = _rms_norm(x, blk["ln1"])
+        qkv = (h @ blk["wqkv"].reshape(d, 3 * d)).view(num_slots, 3, d)
+        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+        k_cache[li].index_put_(
+            (blk_ids, offs), k.reshape(num_slots, num_heads, hd).to(
+                k_cache.dtype))
+        v_cache[li].index_put_(
+            (blk_ids, offs), v.reshape(num_slots, num_heads, hd).to(
+                v_cache.dtype))
+        o = attend(q.view(num_slots, num_heads, hd), k_cache[li],
+                   v_cache[li], block_tables, lengths, scale=scale)
+        x = x + o.to(compute_dtype).reshape(num_slots, d) @ blk["wo"]
+        x = _ffn_sublayer(x, blk)
+    return _head(x, p), k_cache, v_cache

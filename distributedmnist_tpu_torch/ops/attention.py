@@ -1,0 +1,35 @@
+"""Plain causal attention (≙ ``distributedmnist_tpu/ops/ring_attention.py
+local_self_attention``).
+
+The single-device dense path: the ``[s, s]`` score matrix in float32,
+a finite ``-1e30`` causal mask (its ``exp`` underflows to exactly 0.0,
+so a masked row never makes a NaN), softmax in float32, and the output
+cast back to the query's dtype. It is the model's
+``attention_impl="dense"`` path and the oracle the flash kernel is held
+against (``ops/flash_attention.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30  # finite mask value: keeps softmax algebra NaN-free
+
+
+def local_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         scale: float | None = None) -> torch.Tensor:
+    """Exact attention over ``[batch, heads, seq, head_dim]``; returns
+    the query-shaped output in the query's dtype."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        s = q.shape[2]
+        mask = torch.ones((s, s), dtype=torch.bool,
+                          device=q.device).tril()
+        scores = scores.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)

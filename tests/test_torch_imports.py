@@ -1,0 +1,67 @@
+"""Import hygiene of the port: importing every module of
+``distributedmnist_tpu_torch`` (and ``chip_smoke.py``) loads no ``jax``,
+no ``flax`` and nothing of ``distributedmnist_tpu`` — checked in a fresh
+interpreter, through ``sys.modules`` — and no source names them in an
+import statement. ``chip_smoke.py`` refuses to run without CUDA and
+without the rest of the repository."""
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "distributedmnist_tpu_torch"
+FORBIDDEN = ("jax", "flax", "distributedmnist_tpu")
+
+_PROBE = """
+import importlib, pkgutil, runpy, sys
+import distributedmnist_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke")
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax",
+                                    "distributedmnist_tpu"))
+print("LOADED", len([k for k in sys.modules
+                     if k.startswith("distributedmnist_tpu_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_port_modules_load_no_jax():
+    p = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr[-3000:]
+    lines = p.stdout.splitlines()
+    assert "BAD []" in lines, p.stdout
+    assert int(lines[0].split()[1]) >= 20
+
+
+def test_no_import_statement_names_the_reference():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import)
+                     else [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) and not node.level
+                     else [])
+            for n in names:
+                assert n.split(".")[0] not in FORBIDDEN, f"{f}: {n}"
+
+
+def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
+    """Without a GPU, or in a directory holding only the script (no
+    port to drive): nonzero exit, no result line."""
+    import torch
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(REPO / "chip_smoke.py", alone)
+    dirs = [alone] if torch.cuda.is_available() else [REPO, alone]
+    for cwd in dirs:
+        p = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                           capture_output=True, text=True, timeout=300)
+        assert p.returncode != 0, (cwd, p.stdout[-2000:])
+        assert '"ok": true' not in p.stdout
