@@ -6,34 +6,56 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``distributedmnist_tpu_torch/
-csrc`` and drives the port's main path — the decode-serving replica of
-``python -m distributedmnist_tpu_torch.launch serve --decode`` — at the
-full width of the widest transformer the repository runs (d_model
-2048, 16 heads of 128, 4 layers, seq_len 1024, vocab 1024, bf16
-compute; 8 decode slots, 16-token blocks, 320 blocks, prompts up to
-512, up to 64 new tokens), with random weights from a seed.
+csrc`` and drives the port's two paths at the full width of the widest
+transformer the repository runs (d_model 2048, 16 heads of 128, 4
+layers, seq_len 1024, vocab 1024, bf16 compute, float32 params), with
+random weights from a seed:
+
+* training — ``python -m distributedmnist_tpu_torch.launch train``'s
+  Trainer, built in process by the CLI's ``build_trainer`` (global batch
+  16, ``synthetic_lm``, sync, sgd, constant learning rate), and a short
+  run at seq_len 64, where the backward takes the fused kernel K4;
+* decode serving — ``launch serve --decode``'s replica (8 decode slots,
+  16-token blocks, 320 blocks, prompts up to 512, up to 64 new tokens)
+  serving the checkpoint the training phase wrote.
 
 One JSON line per phase:
 
-1. ``env``     — the card, torch and CUDA versions; fails without CUDA
-               or without the port package beside this script.
-2. ``build``   — seconds to compile every kernel (one nvcc per source,
-               all at once).
-3. ``kernels`` — each kernel (K1 flash-attention forward, K5 paged
-               attention) against its plain PyTorch version on the
-               card at the main path's shapes, float32 and bfloat16:
-               max abs error beside the stated tolerance, kernel /
-               plain / library times (CUDA events), and the bound.
-4. ``e2e``     — publishes a full-width checkpoint, boots the replica
-               through the CLI's own builder, streams 8 concurrent
-               greedy requests over its socket, and checks: an ``ok``
-               terminal with exactly ``max_tokens`` tokens for each;
-               each first token equal to the argmax of an offline
-               prefill of its prompt; the K1 and K5 launch counters
-               grown by 4 per prefill and 4 per decode iteration; one
-               prefill plus 3 decode steps through the kernels within a
-               stated tolerance of the plain versions. Prints tokens/s,
-               TTFT p50 and inter-token p50.
+1. ``env``      — the card, torch and CUDA versions; fails without CUDA
+                or without the port package beside this script.
+2. ``build``    — seconds to compile every kernel (one nvcc per source,
+                all at once).
+3. ``kernels``  — each kernel against its plain PyTorch version on the
+                card at the main paths' shapes, float32 and bfloat16:
+                K1 flash-attention forward and K5 paged attention at
+                the decode shapes; K1-lse (forward with log-sum-exp),
+                K2 (dq), K3 (dk, dv) at the training shape and K4
+                (fused backward) at the short run's; max abs error
+                beside the stated tolerance, kernel / plain / library
+                times (CUDA events), and the bound.
+4. ``train``    — one step through the kernels against one step through
+                their plain versions from the same params and batch;
+                then 20 steps of the Trainer with every launch counter
+                set to 0 just before and read just after: finite losses,
+                the last below the first, K1-lse, K2 and K3 launched 4
+                times a step (K4 never); the final checkpoint read back;
+                a test-split eval through K1; ms per step (CUDA events),
+                tokens/s, peak memory and a ``torch.profiler`` split of
+                one step into GEMMs, attention kernels, other kernels
+                and device idle.
+5. ``train_k4`` — 5 steps at seq_len 64 (one tile): K4 launched 4 times
+                a step, K2 and K3 never.
+6. ``e2e``      — boots the decode replica on the training phase's
+                checkpoint through the CLI's ``build_decode_replica``,
+                streams 8 concurrent greedy requests over its socket,
+                and checks:
+                an ``ok`` terminal with exactly ``max_tokens`` tokens
+                for each; each first token equal to the argmax of an
+                offline prefill of its prompt; the K1 and K5 launch
+                counters grown by 4 per prefill and 4 per decode
+                iteration; one prefill plus 3 decode steps through the
+                kernels within a stated tolerance of the plain versions.
+                Prints tokens/s, TTFT p50 and inter-token p50.
 
 Then a ``kernels`` summary line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, the result line
@@ -43,7 +65,9 @@ phase and exits nonzero before the result line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -75,6 +99,37 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # relative) where the two round differently; K5 always outputs float32
 TOL = {("K1", "float32"): 1e-4, ("K1", "bfloat16"): 3e-2,
        ("K5", "float32"): 1e-4, ("K5", "bfloat16"): 1e-4}
+# K1-lse, K2, K3, K4 at the training shapes, elementwise
+# |kernel - plain| <= atol + rtol * |plain| (numpy's allclose): float32
+# differs by summation order; bfloat16 outputs by one bf16 ulp where
+# the two round differently (the gradients reach ~10 here, an ulp of
+# 2^-4, hence the relative term); lse is float32 from the same inputs
+BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 1e-2),
+           "lse": (1e-4, 1e-4)}
+
+# the training path (bench.py bench_transformer_flash's model and batch)
+TRAIN_STEPS = 20
+TRAIN = {"name": "chip_smoke_train", "model": MODEL, "decode": DECODE,
+         "serve": {"default_deadline_ms": 300000.0},
+         "data": {"dataset": "synthetic_lm", "batch_size": 16,
+                  "synthetic_train_size": 512, "synthetic_test_size": 32,
+                  "use_native_pipeline": False},
+         "optim": {"name": "sgd", "initial_learning_rate": 0.1,
+                   "learning_rate_decay_factor": 1.0},
+         "sync": {"mode": "sync"},
+         "eval": {"eval_batch_size": 16},
+         "train": {"max_steps": TRAIN_STEPS, "log_every_steps": 5,
+                   "save_interval_steps": 0, "save_results_period": 0,
+                   "summary_every_steps": 0, "seed": SEED}}
+# the short run: the same model at a sequence that fits one tile (K4)
+K4_SEQ, K4_BATCH, K4_STEPS = 64, 64, 5
+# one train step through the kernels vs through their plain versions
+# from the same params and batch (bf16 compute): attention outputs and
+# gradients differ by a bf16 ulp here and there, which moves the loss
+# (~6.9) by well under 2e-2 and each float32 param, through lr 0.1
+# times a gradient difference, by well under 1e-3
+STEP_LOSS_TOL = 2e-2
+STEP_PARAM_TOL = 1e-3
 # end to end, bf16 logits of one prefill + 3 decode steps, kernels vs
 # plain: per-layer attention rounding differences (one bf16 ulp here
 # and there) compound through 4 layers and the 2048-wide projections;
@@ -249,6 +304,118 @@ def _k5_case(dtype, gen, timed: bool) -> dict:
     return rec
 
 
+def _allclose_err(got, want, tol) -> tuple[float, float]:
+    """(max abs error, max of |got - want| / (atol + rtol |want|))."""
+    atol, rtol = tol
+    diff = (got.float() - want.float()).abs()
+    return (diff.max().item(),
+            (diff / (atol + rtol * want.float().abs())).max().item())
+
+
+def _train_attn_inputs(b: int, s: int, dtype, gen):
+    """The training path's attention inputs: strided q/k/v views of one
+    [b, s, 3, d] qkv product, and a cotangent."""
+    import torch
+    h, d = MODEL["num_heads"], MODEL["model_dim"] // MODEL["num_heads"]
+    qkv = torch.randn(b, s, 3, h * d, device=DEVICE, generator=gen).to(dtype)
+    q, k, v = (qkv[:, :, i].view(b, s, h, d) for i in range(3))
+    do = torch.randn(b, s, h, d, device=DEVICE, generator=gen).to(dtype)
+    return q, k, v, do
+
+
+def _attn_pairs(b: int, s: int) -> float:
+    """Causal (query, key) pairs of one call, over every head."""
+    return b * MODEL["num_heads"] * s * (s + 1) / 2
+
+
+def _sdpa_ms(q, k, v, do) -> tuple[float, float]:
+    """Library yardstick: forward and backward ms of
+    ``F.scaled_dot_product_attention(is_causal=True)`` under autograd
+    (backward = forward+backward - forward), on [b, h, s, d] copies."""
+    import torch
+    import torch.nn.functional as F
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+    fwd = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    fwd_ms = time_ms(fwd, iters=10)
+    total_ms = time_ms(lambda: torch.autograd.grad(fwd(), (qs, ks, vs), dos),
+                       iters=10)
+    return fwd_ms, total_ms - fwd_ms
+
+
+def _k1_lse_case(b: int, s: int, dtype, gen, timed: bool) -> dict:
+    import torch
+
+    from distributedmnist_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _train_attn_inputs(b, s, dtype, gen)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.flash_attention_fwd_lse_plain(q, k, v)
+    name = str(dtype).split(".")[-1]
+    err, ratio = _allclose_err(o, want_o, BWD_TOL[name])
+    lse_err, lse_ratio = _allclose_err(lse, want_lse, BWD_TOL["lse"])
+    rec = {"kernel": "K1-lse", "dtype": name, "shape": list(q.shape),
+           "max_abs_err": err, "lse_max_abs_err": lse_err,
+           "tol_ratio": max(ratio, lse_ratio),
+           "tol": {"o": BWD_TOL[name], "lse": BWD_TOL["lse"]}}
+    if timed:
+        bb, ss, h, d = q.shape
+        nbytes = 4 * bb * ss * h * d * q.element_size() + bb * h * ss * 4
+        t, by = bound(nbytes, 4 * d * _attn_pairs(bb, ss), name)
+        fwd_ms, bwd_ms = _sdpa_ms(q, k, v, do)
+        rec.update(ms=time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v)),
+                   plain_ms=time_ms(
+                       lambda: fa.flash_attention_fwd_lse_plain(q, k, v),
+                       iters=10),
+                   library_ms=fwd_ms, library_bwd_ms=bwd_ms,
+                   bound_ms=t * 1e3, bound_by=by)
+    return rec
+
+
+# per kernel: the plain-backward outputs it computes, the [b, s, h, d]
+# tensors it reads and writes, and its score-sized products (each
+# 2·d FLOP a causal pair: q·kᵀ and do·vᵀ recomputed, then dq = ds·k /
+# dv = pᵀ·do and dk = dsᵀ·q)
+_BWD = {"K2": ((0,), 5, 1, 3), "K3": ((1, 2), 5, 2, 4),
+        "K4": ((0, 1, 2), 5, 3, 5)}
+
+
+def _bwd_case(kernel: str, b: int, s: int, dtype, gen,
+              timed: bool) -> dict:
+    import torch
+
+    from distributedmnist_tpu_torch.ops import flash_attention as fa
+    fn = {"K2": fa.flash_attention_bwd_dq, "K3": fa.flash_attention_bwd_dkv,
+          "K4": fa.flash_attention_bwd_fused}[kernel]
+    outs, n_in, n_out, products = _BWD[kernel]
+    q, k, v, do = _train_attn_inputs(b, s, dtype, gen)
+    o, lse = fa.flash_attention_fwd_lse_plain(q, k, v)
+    got = fn(q, k, v, o, lse, do)
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    name = str(dtype).split(".")[-1]
+    errs = [_allclose_err(g, want[i], BWD_TOL[name])
+            for g, i in zip(got, outs)]
+    rec = {"kernel": kernel, "dtype": name, "shape": list(q.shape),
+           "route": fa.backward_route(s),
+           "max_abs_err": max(e for e, _ in errs),
+           "tol_ratio": max(r for _, r in errs), "tol": BWD_TOL[name]}
+    if timed:
+        bb, ss, h, d = q.shape
+        nbytes = ((n_in + n_out) * bb * ss * h * d * q.element_size()
+                  + bb * h * ss * 4)
+        t, by = bound(nbytes, products * 2 * d * _attn_pairs(bb, ss), name)
+        _, bwd_ms = _sdpa_ms(q, k, v, do)
+        rec.update(ms=time_ms(lambda: fn(q, k, v, o, lse, do)),
+                   # the plain backward computes dq, dk and dv at once
+                   plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
+                       q, k, v, o, lse, do), iters=10),
+                   library_ms=bwd_ms, bound_ms=t * 1e3, bound_by=by)
+    return rec
+
+
 def phase_kernels() -> dict:
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -265,25 +432,29 @@ def phase_kernels() -> dict:
         check(c["max_abs_err"] <= c["tol"],
               f"{c['kernel']} {c['dtype']} disagrees with its plain "
               f"version: max abs err {c['max_abs_err']} > {c['tol']}")
-    timed = {c["kernel"]: c for c in cases if "ms" in c}
+    # the training kernels: bfloat16 (the path's dtype) at the full
+    # training batch, timed; float32 at a batch of 2
+    seq, batch = MODEL["seq_len"], TRAIN["data"]["batch_size"]
+    train_cases = []
+    for dtype, b, k4_b in ((torch.float32, 2, 4),
+                           (torch.bfloat16, batch, K4_BATCH)):
+        timed = dtype == torch.bfloat16
+        train_cases.append(_k1_lse_case(b, seq, dtype, gen, timed))
+        train_cases.append(_bwd_case("K2", b, seq, dtype, gen, timed))
+        train_cases.append(_bwd_case("K3", b, seq, dtype, gen, timed))
+        train_cases.append(_bwd_case("K4", k4_b, K4_SEQ, dtype, gen, timed))
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "cases": train_cases})
+    for c in train_cases:
+        check(c["tol_ratio"] <= 1.0,
+              f"{c['kernel']} {c['dtype']} disagrees with its plain "
+              f"version beyond atol + rtol |plain| {c['tol']}: "
+              f"max abs err {c['max_abs_err']}")
+    timed = {c["kernel"]: c for c in cases + train_cases if "ms" in c}
     return timed
 
 
 # -- phase 4 ----------------------------------------------------------------
-
-def _publish(train_dir: str, cfg) -> float:
-    import torch
-
-    from distributedmnist_tpu_torch.models.convert import params_to_reference
-    from distributedmnist_tpu_torch.models.registry import get_model
-    from distributedmnist_tpu_torch.train.checkpoint import save_checkpoint
-    t0 = time.time()
-    model = get_model(cfg.model)
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED))
-    save_checkpoint(train_dir, params_to_reference(params), 1,
-                    extra={"config": cfg.to_dict()})
-    return time.time() - t0
-
 
 def _drive(port: int, prompts, tag: str) -> tuple[list, list, float]:
     from distributedmnist_tpu_torch.servesvc import ServeClient
@@ -425,75 +596,330 @@ def _profile_decode_step(rep, steps: int = 10) -> dict:
             "kernels_per_step": launches / steps}
 
 
-def phase_e2e() -> dict:
+# -- phases 4 and 5 ---------------------------------------------------------
+
+def _counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel."""
+    from distributedmnist_tpu_torch.ops import flash_attention as fa
+    from distributedmnist_tpu_torch.ops.paged_attention import \
+        paged_attention
+    return {"K1": fa.flash_attention_bshd,
+            "K1-lse": fa.flash_attention_fwd_lse,
+            "K2": fa.flash_attention_bwd_dq,
+            "K3": fa.flash_attention_bwd_dkv,
+            "K4": fa.flash_attention_bwd_fused, "K5": paged_attention}
+
+
+def reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _build_trainer(tmp: str, name: str, *overrides: str):
+    """The Trainer ``launch train`` runs, built through its own CLI
+    ``build_trainer`` from a config file."""
+    from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+    path = f"{tmp}/{name}.json"
+    with open(path, "w") as f:
+        json.dump(TRAIN, f)
+    return build_trainer(["train", "--config", path,
+                          f"train.train_dir={tmp}/{name}", *overrides,
+                          "--device", DEVICE])
+
+
+def _copy_state(state):
+    from distributedmnist_tpu_torch.parallel.api import tree_map
+    clone = lambda t: t.clone()
+    return dataclasses.replace(state, params=tree_map(clone, state.params),
+                               momentum=tree_map(clone, state.momentum))
+
+
+def _plain_attention():
+    """The model's attention through the plain versions of K1-lse and
+    K2/K3 on the card: the same forward-with-lse and FlashAttention-2
+    backward the kernels compute, written in PyTorch."""
+    import torch
+
+    from distributedmnist_tpu_torch.ops import flash_attention as fa
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = fa.flash_attention_fwd_lse_plain(q, k, v)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            return fa.flash_attention_bwd_plain(*ctx.saved_tensors, do)
+
+    def attn(q, k, v):
+        return Plain.apply(q, k, v)
+
+    attn.layout = "bshd"
+    return attn
+
+
+def _step_vs_plain(trainer, batch) -> tuple[float, float]:
+    """One train step through the kernels and one through their plain
+    versions, from copies of the same state on the same batch: (|loss
+    difference|, max |param difference| after the update)."""
+    import torch
+
+    from distributedmnist_tpu_torch.models import transformer
+    from distributedmnist_tpu_torch.parallel.api import (build_train_step,
+                                                         tree_leaves)
+    attn = _plain_attention()
+    cfg = trainer.model
+
+    def plain_apply(params, tokens, positions=None, *, train=False):
+        return transformer.apply(params, tokens, num_heads=MODEL["num_heads"],
+                                 attention_fn=attn, positions=positions,
+                                 compute_dtype=cfg.compute_dtype)
+
+    plain_step = build_train_step(dataclasses.replace(cfg, apply=plain_apply),
+                                  trainer.cfg, trainer.schedule)
+    out = []
+    for step_fn in (trainer.step_fn, plain_step):
+        state, m = step_fn(_copy_state(trainer.state), batch)
+        out.append((m["loss"].item(), tree_leaves(state.params)))
+        torch.cuda.synchronize()
+    (l1, p1), (l2, p2) = out
+    return abs(l1 - l2), max((a - b).abs().max().item()
+                             for a, b in zip(p1, p2))
+
+
+def _time_steps(trainer, batch, steps: int = 5) -> float:
+    """Device ms of one train step (CUDA events around ``steps``)."""
+    import torch
+    state = trainer.state
+    state, _ = trainer.step_fn(state, batch)  # warm
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(steps):
+        state, _ = trainer.step_fn(state, batch)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / steps
+
+
+def _profile_train_step(trainer, batch, wall_ms: float,
+                        steps: int = 3) -> dict:
+    """``torch.profiler`` over ``steps`` train steps: device time by
+    class (GEMMs, the attention kernels K1-lse/K2/K3/K4, every other
+    kernel) and the idle share 1 - busy / wall, with the wall the
+    unprofiled CUDA-event step time (one stream: kernels do not
+    overlap)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state = trainer.state
+        for _ in range(steps):
+            state, _ = trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+    by_class = {"gemm": 0.0, "attention": 0.0, "other": 0.0}
+    launches = 0
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        cls = ("attention" if any(k in name for k in (
+                   "flash_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel",
+                   "bwd_fused_kernel")) else
+               "gemm" if any(k in name for k in ("gemm", "gemv", "xmma",
+                                                 "cutlass", "nvjet"))
+               else "other")
+        by_class[cls] += us / 1e3 / steps
+        launches += e.count
+        top.append((us / 1e3 / steps, e.key[:60]))
+    busy = sum(by_class.values())
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy if busy > 0 else "not measured",
+            "device_idle_share": 1 - busy / wall_ms if busy > 0
+            else "not measured",
+            "busy_ms_by_class": by_class,
+            "kernels_per_step": launches / steps,
+            "top_kernels_ms": [[round(t, 3), k] for t, k in
+                               sorted(top, reverse=True)[:8]]}
+
+
+def phase_train(tmp: str) -> dict:
+    import torch
+
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.models.convert import params_to_reference
+    from distributedmnist_tpu_torch.train import checkpoint as ckpt
+    trainer = _build_trainer(tmp, "train")
+    check(trainer.device.type == DEVICE, f"trainer on {trainer.device}")
+    B, S = TRAIN["data"]["batch_size"], MODEL["seq_len"]
+    tr = trainer.datasets.train
+    batch = to_device({"image": tr.images[:B], "label": tr.labels[:B]},
+                      trainer.device)
+    loss_diff, param_diff = _step_vs_plain(trainer, batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    reset_counts()
+    t0 = time.time()
+    summary = trainer.run(
+        step_callback=lambda step, rec: losses.append(rec["loss"]))
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers = MODEL["num_layers"]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for k in ("K1-lse", "K2", "K3"):
+        check(counts[k] == layers * TRAIN_STEPS,
+              f"{k} launched {counts[k]} times in {TRAIN_STEPS} steps")
+    check(counts["K4"] == counts["K1"] == counts["K5"] == 0,
+          f"unexpected launches {counts}")
+    saved, _, step = ckpt.restore_state(trainer.train_dir)
+    check(step == TRAIN_STEPS and ckpt.params_digest(saved["params"])
+          == summary["params_digest"]
+          == ckpt.params_digest(params_to_reference(trainer.state.params)),
+          "the checkpoint read back is not the trained params")
+    reset_counts()
+    ev = trainer.evaluate("test")
+    eval_counts = read_counts()
+    n_eval = -(-trainer.datasets.test.num_examples
+               // TRAIN["eval"]["eval_batch_size"])
+    check(eval_counts["K1"] == layers * n_eval
+          and eval_counts["K1-lse"] == 0 and math.isfinite(ev["loss"]),
+          f"eval: {ev}, launches {eval_counts}")
+    ms = _time_steps(trainer, batch)
+    profile = _profile_train_step(trainer, batch, ms)
+    d, V = MODEL["model_dim"], MODEL["vocab_size"]
+    # bench.py's count: fwd matmul FLOPs per token, x3 for fwd + bwd
+    flops = 3 * (layers * (24 * d * d + 2 * S * d) + 2 * d * V) * B * S
+    rec = {"phase": "train", "steps": TRAIN_STEPS, "batch": B, "seq": S,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "launches": counts, "per_step": {
+               k: counts[k] / TRAIN_STEPS for k in ("K1-lse", "K2", "K3")},
+           "step_vs_plain": {"loss_abs_diff": loss_diff,
+                             "loss_tol": STEP_LOSS_TOL,
+                             "param_max_abs_diff": param_diff,
+                             "param_tol": STEP_PARAM_TOL},
+           "checkpoint_step": step, "eval": ev, "eval_launches": eval_counts,
+           "run_s": run_s, "ms_per_step": ms,
+           "tokens_per_s": B * S / (ms / 1e3),
+           "model_tflops_per_s": flops / (ms / 1e3) / 1e12,
+           "peak_mem_gb": peak_gb, "profile": profile,
+           "train_dir": str(trainer.train_dir)}
+    emit(rec)
+    check(loss_diff <= STEP_LOSS_TOL and param_diff <= STEP_PARAM_TOL,
+          f"kernel step vs plain step: loss diff {loss_diff}, param diff "
+          f"{param_diff}")
+    return rec
+
+
+def phase_train_k4(tmp: str) -> dict:
+    import torch
+
+    from distributedmnist_tpu_torch.ops.flash_attention import backward_route
+    check(backward_route(K4_SEQ) == "fused", f"seq {K4_SEQ} is not one tile")
+    trainer = _build_trainer(tmp, "train_k4", f"model.seq_len={K4_SEQ}",
+                             f"data.batch_size={K4_BATCH}",
+                             f"train.max_steps={K4_STEPS}")
+    losses = []
+    reset_counts()
+    trainer.run(step_callback=lambda step, rec: losses.append(rec["loss"]))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    layers = MODEL["num_layers"]
+    rec = {"phase": "train_k4", "steps": K4_STEPS, "seq": K4_SEQ,
+           "batch": K4_BATCH, "losses": losses, "launches": counts,
+           "per_step": {k: counts[k] / K4_STEPS for k in ("K1-lse", "K4")}}
+    emit(rec)
+    check(len(losses) == K4_STEPS and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    check(counts["K4"] == counts["K1-lse"] == layers * K4_STEPS
+          and counts["K2"] == counts["K3"] == 0,
+          f"launches {counts}")
+    return rec
+
+
+def phase_e2e(train_dir: str, tmp: str) -> dict:
+    """Serve the checkpoint the training phase published."""
     import numpy as np
     import torch
 
-    from distributedmnist_tpu_torch.core.config import ExperimentConfig
     from distributedmnist_tpu_torch.launch.__main__ import \
         build_decode_replica
-    from distributedmnist_tpu_torch.ops.flash_attention import \
-        flash_attention_bshd
-    from distributedmnist_tpu_torch.ops.paged_attention import \
-        paged_attention
+    from distributedmnist_tpu_torch.train.checkpoint import \
+        latest_checkpoint_step
 
-    cfg = ExperimentConfig.from_dict({
-        "model": MODEL, "decode": DECODE,
-        "serve": {"default_deadline_ms": 300000.0}})
     rng = np.random.default_rng(SEED)
     prompts = [(rng.integers(0, MODEL["vocab_size"], p).tolist(), m)
                for p, m in REQUESTS]
-    with tempfile.TemporaryDirectory(prefix="dmt_smoke_") as tmp:
-        publish_s = _publish(f"{tmp}/train", cfg)
-        torch.cuda.empty_cache()
-        t0 = time.time()
-        rep = build_decode_replica(["serve", "--decode", "--train-dir",
-                                    f"{tmp}/train", "--serve-dir",
-                                    f"{tmp}/serve", "--device", DEVICE])
-        rep.start()
-        boot_s = time.time() - t0
-        try:
-            check(rep.device.type == DEVICE, f"replica on {rep.device}")
-            # warm-up: every prompt bucket once (cuBLAS picks its
-            # kernels per shape on first use), so the measured run is
-            # the replica's steady state
-            _drive(rep.bound_port, prompts, "warmup")
-            flash_attention_bshd.launches = 0
-            paged_attention.launches = 0
-            pre0, it0 = rep.prefills, rep.decode_iterations
-            outs, times, wall = _drive(rep.bound_port, prompts, "smoke")
-            k1, k5 = flash_attention_bshd.launches, paged_attention.launches
-            prefills = rep.prefills - pre0
-            iters = rep.decode_iterations - it0
-            for (prompt, m), out in zip(prompts, outs):
-                check(out is not None and out.get("status") == "ok",
-                      f"request did not end ok: {out}")
-                check(out["finish_reason"] == "max_tokens"
-                      and len(out["tokens"]) == m,
-                      f"expected {m} tokens, got {len(out['tokens'])} "
-                      f"({out['finish_reason']})")
-            layers = MODEL["num_layers"]
-            check(prefills == len(prompts) and iters > 0,
-                  f"{prefills} prefills, {iters} decode iterations")
-            check(k1 == layers * prefills,
-                  f"K1 launched {k1} times for {prefills} prefills")
-            check(k5 == layers * iters,
-                  f"K5 launched {k5} times for {iters} decode iterations")
-            firsts = []
-            for (prompt, _), out in zip(prompts, outs):
-                bucket = rep._bucket(len(prompt), DECODE["max_prompt_len"])
-                toks = torch.zeros(1, bucket, dtype=torch.int64,
-                                   device=DEVICE)
-                toks[0, :len(prompt)] = torch.tensor(prompt)
-                logits, _, _ = rep.model.decode_prefill(rep._params, toks)
-                firsts.append(int(torch.argmax(logits[0, len(prompt) - 1])))
-            check(firsts == [o["tokens"][0] for o in outs],
-                  f"first tokens {[o['tokens'][0] for o in outs]} != "
-                  f"offline prefill argmax {firsts}")
-            logit_err = _kernels_vs_plain(rep, prompts[2][0])
-            profile = _profile_decode_step(rep)
-        finally:
-            rep.stop()
+    served_step = latest_checkpoint_step(train_dir)
+    check(served_step == TRAIN_STEPS,
+          f"the training checkpoint is at step {served_step}")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    rep = build_decode_replica(["serve", "--decode", "--train-dir",
+                                train_dir, "--serve-dir",
+                                f"{tmp}/serve", "--device", DEVICE])
+    rep.start()
+    boot_s = time.time() - t0
+    try:
+        check(rep.device.type == DEVICE, f"replica on {rep.device}")
+        # warm-up: every prompt bucket once (cuBLAS picks its
+        # kernels per shape on first use), so the measured run is
+        # the replica's steady state
+        _drive(rep.bound_port, prompts, "warmup")
+        reset_counts()
+        pre0, it0 = rep.prefills, rep.decode_iterations
+        outs, times, wall = _drive(rep.bound_port, prompts, "smoke")
+        counts = read_counts()
+        k1, k5 = counts["K1"], counts["K5"]
+        prefills = rep.prefills - pre0
+        iters = rep.decode_iterations - it0
+        for (prompt, m), out in zip(prompts, outs):
+            check(out is not None and out.get("status") == "ok",
+                  f"request did not end ok: {out}")
+            check(out["finish_reason"] == "max_tokens"
+                  and len(out["tokens"]) == m,
+                  f"expected {m} tokens, got {len(out['tokens'])} "
+                  f"({out['finish_reason']})")
+        layers = MODEL["num_layers"]
+        check(prefills == len(prompts) and iters > 0,
+              f"{prefills} prefills, {iters} decode iterations")
+        check(k1 == layers * prefills,
+              f"K1 launched {k1} times for {prefills} prefills")
+        check(k5 == layers * iters,
+              f"K5 launched {k5} times for {iters} decode iterations")
+        check(counts["K1-lse"] == counts["K2"] == counts["K3"]
+              == counts["K4"] == 0, f"training kernels ran: {counts}")
+        firsts = []
+        for (prompt, _), out in zip(prompts, outs):
+            bucket = rep._bucket(len(prompt), DECODE["max_prompt_len"])
+            toks = torch.zeros(1, bucket, dtype=torch.int64,
+                               device=DEVICE)
+            toks[0, :len(prompt)] = torch.tensor(prompt)
+            logits, _, _ = rep.model.decode_prefill(rep._params, toks)
+            firsts.append(int(torch.argmax(logits[0, len(prompt) - 1])))
+        check(firsts == [o["tokens"][0] for o in outs],
+              f"first tokens {[o['tokens'][0] for o in outs]} != "
+              f"offline prefill argmax {firsts}")
+        logit_err = _kernels_vs_plain(rep, prompts[2][0])
+        profile = _profile_decode_step(rep)
+    finally:
+        rep.stop()
     check(logit_err <= E2E_LOGIT_TOL,
           f"kernels vs plain logits differ by {logit_err} > "
           f"{E2E_LOGIT_TOL}")
@@ -507,7 +933,7 @@ def phase_e2e() -> dict:
            "ttft_p50_ms": statistics.median(o["ttft_ms"] for o in outs),
            "itl_p50_ms": statistics.median(gaps) * 1e3,
            "logits_max_abs_diff_kernels_vs_plain": logit_err,
-           "logits_tol": E2E_LOGIT_TOL, "publish_s": publish_s,
+           "logits_tol": E2E_LOGIT_TOL, "served_step": served_step,
            "boot_s": boot_s,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "decode_step_profile": profile}
@@ -515,35 +941,54 @@ def phase_e2e() -> dict:
     return rec
 
 
+# (kernel, name, source, replaces, the phase whose launches it reports)
+KERNELS = (
+    ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "54", "e2e"),
+    ("K1-lse", "flash_attention_fwd_lse", "flash_attention_fwd.cu", "54",
+     "train"),
+    ("K2", "flash_attention_bwd_dq", "flash_attention_bwd.cu", "296",
+     "train"),
+    ("K3", "flash_attention_bwd_dkv", "flash_attention_bwd.cu", "327",
+     "train"),
+    ("K4", "flash_attention_bwd_fused", "flash_attention_bwd.cu", "368",
+     "train_k4"),
+    ("K5", "paged_attention", "paged_attention.cu", None, "e2e"))
+
+
 def main() -> int:
     phase = "env"
+    runs = {}
     try:
         env = phase_env()
         phase = "build"
         phase_build()
         phase = "kernels"
         timed = phase_kernels()
-        phase = "e2e"
-        e2e = phase_e2e()
+        with tempfile.TemporaryDirectory(prefix="dmt_smoke_") as tmp:
+            phase = "train"
+            train = runs["train"] = phase_train(tmp)
+            phase = "train_k4"
+            runs["train_k4"] = phase_train_k4(tmp)
+            phase = "e2e"
+            e2e = runs["e2e"] = phase_e2e(train["train_dir"], tmp)
     except Exception as e:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}",
               "traceback": traceback.format_exc()[-4000:]})
         return 1
     import torch
+    launches = {"e2e": {"K1": e2e["k1_launches"], "K5": e2e["k5_launches"]},
+                "train": runs["train"]["launches"],
+                "train_k4": runs["train_k4"]["launches"]}
     rows = []
-    for key, name, source, replaces, launches in (
-            ("K1", "flash_attention_fwd",
-             "distributedmnist_tpu_torch/csrc/flash_attention_fwd.cu",
-             "distributedmnist_tpu/ops/pallas_attention.py:54",
-             e2e["k1_launches"]),
-            ("K5", "paged_attention",
-             "distributedmnist_tpu_torch/csrc/paged_attention.cu",
-             "distributedmnist_tpu/ops/pallas_paged_attention.py:62",
-             e2e["k5_launches"])):
+    for key, name, src, line, path in KERNELS:
         c = timed[key]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches,
+        replaces = ("distributedmnist_tpu/ops/pallas_paged_attention.py:62"
+                    if line is None else
+                    f"distributedmnist_tpu/ops/pallas_attention.py:{line}")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"distributedmnist_tpu_torch/csrc/{src}",
+                     "replaces": replaces, "launches": launches[path][key],
                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"],

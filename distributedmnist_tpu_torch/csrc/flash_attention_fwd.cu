@@ -1,8 +1,14 @@
 // K1: flash-attention forward for Hopper (sm_90a), plain CUDA C++.
 //
-// Replaces: distributedmnist_tpu/ops/pallas_attention.py _attn_kernel
-// (the forward, save_lse=False), launched there by _forward through the
-// entry flash_attention_bshd. It computes exact softmax(q.k^T * scale).v
+// Replaces: distributedmnist_tpu/ops/pallas_attention.py _attn_kernel,
+// launched there by _forward through the entry flash_attention_bshd:
+// the inference forward (save_lse=False, entry dmt_flash_attention_fwd)
+// and the training forward of the custom VJP (save_lse=True, entry
+// dmt_flash_attention_fwd_lse, "K1-lse"), which also writes each query
+// row's log-sum-exp m + log(l) for the backward kernels
+// (csrc/flash_attention_bwd.cu). The TPU kernel broadcasts lse over 128
+// lanes, a TPU tiling artefact; here it is one float32 per row, laid
+// out [batch, heads, seq]. It computes exact softmax(q.k^T * scale).v
 // over the model layout [batch, seq, heads, head_dim] with a float32
 // online softmax, causal key tiles above the diagonal skipped, and keys
 // past the sequence end masked with the finite -1e30.
@@ -80,7 +86,7 @@ __global__ void __launch_bounds__(kWarps * 32)
                      int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                      int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                      int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                     float scale, int causal) {
+                     float scale, int causal, float* __restrict__ lse) {
   constexpr int DPL = D / 32;  // output columns per lane
   extern __shared__ float smem[];
   float* qs = smem;                         // [kBlockM][D]
@@ -190,6 +196,11 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
       for (int i = 0; i < DPL; ++i)
         ob[row * o_ss + lane + 32 * i] = from_f32<T>(acc[r][i] * inv);
+      // K1-lse: m and l are warp-uniform after the reductions, so lane 0
+      // writes the row's log-sum-exp
+      if (lse != nullptr && lane == 0)
+        lse[(static_cast<int64_t>(batch) * gridDim.y + head) * s + row] =
+            m[r] + logf(fmaxf(l[r], 1e-30f));
     }
   }
 }
@@ -197,7 +208,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int s, int h, const int64_t* st, int causal, float scale,
-           cudaStream_t stream) {
+           float* lse, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -208,21 +219,36 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), s, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
-      causal);
+      causal, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
                int s, int h, int d, const int64_t* st, int causal,
-               float scale, cudaStream_t stream) {
+               float scale, float* lse, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, b, s, h, st, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, s, h, st, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, s, h, st, causal, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, b, s, h, st, causal, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, b, s, h, st, causal, scale, lse, stream);
+    case 64: return launch<T, 64>(q, k, v, o, b, s, h, st, causal, scale, lse, stream);
+    case 128: return launch<T, 128>(q, k, v, o, b, s, h, st, causal, scale, lse, stream);
+    case 256: return launch<T, 256>(q, k, v, o, b, s, h, st, causal, scale, lse, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+int forward(const void* q, const void* k, const void* v, void* o, int dtype,
+            int b, int s, int h, int d, const int64_t* strides, int causal,
+            float scale, float* lse, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || s <= 0 || h <= 0) return 0;  // nothing to compute
+  if (h > 65535 || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return dispatch_d<float>(q, k, v, o, b, s, h, d, strides, causal, scale,
+                             lse, st);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16>(q, k, v, o, b, s, h, d, strides, causal,
+                                     scale, lse, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -235,13 +261,19 @@ extern "C" int dmt_flash_attention_fwd(const void* q, const void* k,
                                        int b, int s, int h, int d,
                                        const int64_t* strides, int causal,
                                        float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || s <= 0 || h <= 0) return 0;  // nothing to compute
-  if (h > 65535 || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, b, s, h, d, strides, causal, scale, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, b, s, h, d, strides, causal,
-                                     scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return forward(q, k, v, o, dtype, b, s, h, d, strides, causal, scale,
+                 nullptr, stream);
+}
+
+// K1-lse: the same forward, also writing lse [b, h, s] float32
+// (contiguous) for the backward kernels.
+extern "C" int dmt_flash_attention_fwd_lse(const void* q, const void* k,
+                                           const void* v, void* o,
+                                           float* lse, int dtype, int b,
+                                           int s, int h, int d,
+                                           const int64_t* strides,
+                                           int causal, float scale,
+                                           void* stream) {
+  return forward(q, k, v, o, dtype, b, s, h, d, strides, causal, scale, lse,
+                 stream);
 }

@@ -1,0 +1,181 @@
+"""Batching (≙ ``distributedmnist_tpu/data/pipeline.py``): the seeded,
+epoch-reshuffling train stream with a resumable cursor, fixed-order
+weight-padded eval batches, and the hop of a host batch onto the card.
+
+The shuffle is the reference's numpy code, so batch order is bitwise
+the reference's for the same seed, and a cursor saved by either
+package resumes the same stream in the other. The native C++
+prefetcher and the device-side prefetch thread are not ported: batches
+are assembled inline and copied to the card from pinned memory
+(:func:`to_device`).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from ..core.config import DataConfig
+from .datasets import ArrayDataset
+
+
+class BatchIterator:
+    """Infinite epoch-reshuffling batch stream over an ArrayDataset.
+
+    Yields numpy dicts {"image": [b, ...], "label": [b, ...]} where
+    ``b`` is the host-local batch (global batch / num_hosts)."""
+
+    def __init__(self, data: ArrayDataset, batch_size: int, seed: int,
+                 host_id: int = 0, num_hosts: int = 1,
+                 shard_mode: str = "sharded"):
+        if batch_size % num_hosts != 0:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{num_hosts} hosts")
+        self.local_batch = batch_size // num_hosts
+        self.host_id = host_id
+        self.num_hosts = num_hosts
+        self.global_batch = batch_size
+        if shard_mode == "sharded":
+            self.data = data.shard(host_id, num_hosts) if num_hosts > 1 else data
+            self.seed = seed  # same shuffle stream, disjoint data
+        elif shard_mode == "independent":
+            self.data = data  # full copy per host, host-distinct stream
+            self.seed = seed * 1_000_003 + host_id
+        else:
+            raise ValueError(f"unknown shard_mode {shard_mode!r}")
+        if self.data.num_examples < self.local_batch:
+            raise ValueError(
+                f"host-local dataset ({self.data.num_examples}) smaller than "
+                f"host-local batch ({self.local_batch})")
+        self._epoch = 0
+        self._pos = 0
+        self._order = self._epoch_order(0)
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, epoch))
+        return rng.permutation(self.data.num_examples)
+
+    @property
+    def epoch(self) -> int:
+        return self._epoch
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        if self._pos + self.local_batch > self.data.num_examples:
+            # drop the ragged tail and reshuffle
+            self._epoch += 1
+            self._order = self._epoch_order(self._epoch)
+            self._pos = 0
+        idx = self._order[self._pos:self._pos + self.local_batch]
+        self._pos += self.local_batch
+        return {"image": self.data.images[idx], "label": self.data.labels[idx]}
+
+    @property
+    def batches_per_epoch(self) -> int:
+        return self.data.num_examples // self.local_batch
+
+    @property
+    def batches_consumed(self) -> int:
+        """Lockstep global-batch count: the world-size-independent
+        coordinate of the cursor."""
+        return (self._epoch * self.batches_per_epoch
+                + self._pos // self.local_batch)
+
+    def state(self) -> dict:
+        """Checkpointable position, in the reference's layout."""
+        return {"impl": "numpy", "epoch": self._epoch, "pos": self._pos,
+                "batches": self.batches_consumed,
+                "world": {"num_hosts": self.num_hosts,
+                          "host_id": self.host_id,
+                          "batch_size": self.global_batch}}
+
+    def seek_batches(self, batches: int) -> None:
+        """Position the stream exactly ``batches`` global batches in."""
+        if batches < 0:
+            raise ValueError(f"batches must be >= 0, got {batches}")
+        bpe = self.batches_per_epoch
+        self._epoch = batches // bpe
+        self._order = self._epoch_order(self._epoch)
+        self._pos = (batches % bpe) * self.local_batch
+
+    def restore(self, state: dict) -> None:
+        impl = state.get("impl", "numpy")
+        if impl != "numpy":
+            raise ValueError(
+                f"data-iterator state was produced by the {impl!r} pipeline; "
+                "restoring it into the numpy shuffle stream would replay a "
+                "different permutation")
+        world = state.get("world")
+        if world is not None and (
+                world.get("num_hosts") != self.num_hosts
+                or world.get("host_id") != self.host_id
+                or world.get("batch_size") != self.global_batch):
+            # a cursor from another world indexes another shard's
+            # permutation: reassign through the lockstep coordinate
+            batches = state.get("batches")
+            if batches is None:
+                raise ValueError(
+                    f"data-iterator state from world {world} has no "
+                    "'batches' coordinate; cannot reassign it")
+            self.seek_batches(int(batches))
+            return
+        self._epoch = int(state["epoch"])
+        self._order = self._epoch_order(self._epoch)
+        self._pos = int(state["pos"])
+
+
+def eval_batches(data: ArrayDataset, batch_size: int, pad_multiple: int = 1,
+                 host_id: int = 0, num_hosts: int = 1) -> Iterator[dict]:
+    """Fixed-order eval batches with 0/1 weights, zero-padded to full
+    size (so every batch has one shape)."""
+    global_n = data.num_examples
+    if batch_size <= 0:
+        batch_size = global_n
+    if batch_size % num_hosts != 0:
+        batch_size += num_hosts - batch_size % num_hosts
+    local_bs = batch_size // num_hosts
+    if local_bs % pad_multiple != 0:
+        local_bs += pad_multiple - local_bs % pad_multiple
+    stripe = data.shard(host_id, num_hosts) if num_hosts > 1 else data
+    max_stripe = -(-global_n // num_hosts)
+    num_batches = max(1, -(-max_stripe // local_bs))
+    for b in range(num_batches):
+        start = b * local_bs
+        stop = min(start + local_bs, stripe.num_examples)
+        take = max(stop - start, 0)
+        x = stripe.images[start:start + take]
+        y = stripe.labels[start:start + take]
+        w = np.ones(take, np.float32)
+        pad = local_bs - take
+        if pad:
+            x = np.concatenate([x, np.zeros((pad,) + data.images.shape[1:],
+                                            data.images.dtype)])
+            y = np.concatenate([y, np.zeros((pad,) + data.labels.shape[1:],
+                                            data.labels.dtype)])
+            w = np.concatenate([w, np.zeros(pad, np.float32)])
+        yield {"image": x, "label": y, "weight": w}
+
+
+def make_train_iterator(data: ArrayDataset, cfg: DataConfig, seed: int,
+                        host_id: int = 0, num_hosts: int = 1) -> BatchIterator:
+    """The train stream (``data.use_native_pipeline`` is read by the
+    reference only: the port always batches inline, in the same
+    order)."""
+    return BatchIterator(data, cfg.batch_size, seed=seed, host_id=host_id,
+                         num_hosts=num_hosts, shard_mode=cfg.shard_mode)
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """A host batch as tensors on ``device``: on a CUDA device each
+    array goes through a pinned host buffer and a non-blocking copy."""
+    out = {}
+    for key, a in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[key] = t
+    return out

@@ -1,10 +1,17 @@
 """The port's CLI (≙ ``distributedmnist_tpu/launch/__main__.py``), the
-``serve --decode`` verb:
+``train`` and ``serve --decode`` verbs:
 
+  python -m distributedmnist_tpu_torch.launch train --config C.json \\
+      [section.key=value ...] [--device cpu]
   python -m distributedmnist_tpu_torch.launch serve --decode \\
       --train-dir D --serve-dir S [--device cpu] [decode/serve flags]
 
-It boots a :class:`~..servesvc.decode.DecodeReplica` on the newest
+``train`` builds the single-device :class:`~..train.loop.Trainer` from
+the config and its dotted overrides, runs it, evaluates the test split
+and prints the reference's last line ``{"summary": ..., "test": ...}``
+(a SIGTERM/SIGINT mid-run flushes a checkpoint, prints the summary
+alone and exits with ``train.resumable_exit_code``). ``serve --decode``
+boots a :class:`~..servesvc.decode.DecodeReplica` on the newest
 loadable checkpoint in ``D`` (adopting the run config saved in it),
 serves until SIGTERM/SIGINT, and drains. The flag names are the
 reference CLI's. The device is ``cuda:0`` unless ``--device`` names
@@ -17,6 +24,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import sys
 
 _SERVE_FLAGS = ("host", "port", "queue_depth", "default_deadline_ms",
                 "compute_dtype")
@@ -27,6 +36,13 @@ _DECODE_FLAGS = ("decode_slots", "max_new_tokens", "max_prompt_len",
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="distributedmnist_tpu_torch.launch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    pt = sub.add_parser("train", help="run a training experiment on one "
+                                      "device")
+    pt.add_argument("--config", default=None)
+    pt.add_argument("--device", default=None,
+                    help="torch device (default cuda:0; 'cpu' runs the "
+                         "plain versions of the kernels)")
+    pt.add_argument("overrides", nargs="*", help="dotted overrides k=v")
     pv = sub.add_parser(
         "serve", help="decode replica: serve a published causal-LM "
                       "checkpoint as streaming generations over a local "
@@ -78,6 +94,35 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def build_trainer(argv: list[str]):
+    """Parse ``train`` arguments and construct (not run) the Trainer —
+    the object ``train`` runs, for callers that drive it in process."""
+    args = build_parser().parse_args(argv)
+    if args.cmd != "train":
+        raise SystemExit(f"build_trainer wants the train verb, got "
+                         f"{args.cmd!r}")
+    from ..core.config import ExperimentConfig, parse_cli_overrides
+    from ..train.loop import Trainer
+
+    cfg = (ExperimentConfig.from_file(args.config) if args.config
+           else ExperimentConfig())
+    cfg = cfg.override(parse_cli_overrides(args.overrides))
+    return Trainer(cfg, device=args.device)
+
+
+def train(argv: list[str]) -> None:
+    """``launch train``: run, evaluate, print the summary line."""
+    trainer = build_trainer(argv)
+    summary = trainer.run()
+    shown = {k: v for k, v in summary.items() if k != "timing"}
+    if summary.get("preempted"):
+        print(json.dumps({"summary": shown}, default=str), flush=True)
+        sys.exit(trainer.cfg.train.resumable_exit_code)
+    result = trainer.evaluate("test")
+    print(json.dumps({"summary": shown, "test": result}, default=str),
+          flush=True)
+
+
 def build_decode_replica(argv: list[str]):
     """Parse ``serve`` arguments and construct (not start) the replica —
     the same object ``serve`` runs, for callers that drive it in
@@ -102,9 +147,11 @@ def build_decode_replica(argv: list[str]):
 
 
 def main(argv: list[str] | None = None) -> None:
-    import sys
-    build_decode_replica(sys.argv[1:] if argv is None else argv
-                         ).serve_forever()
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "train":
+        train(argv)
+        return
+    build_decode_replica(argv).serve_forever()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Carry weights between the reference's param tree and the port's.
+"""Carry weights and training state between the reference's trees and
+the port's.
 
 The reference keeps a transformer's params as a pytree of arrays:
 ``{"embed", "pos", "blocks", "final_norm"}`` with ``blocks`` a list of
@@ -6,16 +7,25 @@ per-layer dicts — or, in a checkpoint's flax state-dict form, a dict
 keyed ``"0"``, ``"1"``, ... The port keeps the same layout as torch
 tensors with ``blocks`` a list. Both directions copy leaf for leaf; no
 array is transposed or renamed.
+
+:func:`state_from_reference` / :func:`state_to_reference` carry a whole
+``TrainState`` (params, momentum slots and counters) the same way.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
+
+# The reference TrainState's fields, in its order (parallel/api.py).
+STATE_FIELDS = ("params", "momentum", "step", "updates_applied",
+                "root_key", "window_acc", "window_rounds", "wall_ms",
+                "next_apply_ms")
 
 
 def _blocks_list(blocks: Any) -> list:
@@ -60,3 +70,59 @@ def params_to_reference(params: dict) -> dict:
         return t.numpy()
 
     return conv(params)
+
+
+def _state_dict(state: Any) -> dict:
+    if dataclasses.is_dataclass(state):  # the reference's TrainState
+        return {f: getattr(state, f) for f in STATE_FIELDS}
+    return dict(state)
+
+
+def state_from_reference(state: Any, *, device=None):
+    """A reference ``TrainState`` (its leaves as numpy, e.g. after
+    ``jax.device_get``) or a checkpoint's state dict → the port's
+    :class:`~..parallel.api.TrainState` on ``device`` (default
+    ``cuda:0``). Params and momentum slots keep their dtypes (float32);
+    the counters become Python numbers, ``root_key`` the raw
+    ``uint32[2]``.
+
+    Raises ``NotImplementedError`` for state the port cannot run: LAMB's
+    ``{"m", "v"}`` slots and interval mode's ``window_acc``."""
+    from ..parallel.api import TrainState
+    d = _state_dict(state)
+    dev = resolve_device(device)
+    mom = d.get("momentum")
+    if isinstance(mom, dict) and set(mom) == {"m", "v"}:
+        raise NotImplementedError("LAMB optimizer state is not ported yet")
+    if d.get("window_acc") is not None:
+        raise NotImplementedError("interval-mode state (window_acc) is not "
+                                  "ported yet")
+    f32 = lambda k, default: float(np.float32(d.get(k, default)))
+    return TrainState(
+        params=params_from_reference(d["params"], device=dev),
+        momentum=(None if mom is None
+                  else params_from_reference(mom, device=dev)),
+        step=int(d.get("step", 0)),
+        updates_applied=int(d.get("updates_applied", d.get("step", 0))),
+        root_key=np.array(d.get("root_key", (0, 0)), np.uint32),
+        window_rounds=f32("window_rounds", 0.0),
+        wall_ms=f32("wall_ms", 0.0),
+        next_apply_ms=f32("next_apply_ms", 1000.0))
+
+
+def state_to_reference(state) -> dict:
+    """The port's TrainState → the reference's state dict as numpy (the
+    layout a checkpoint stores: 0-d int32/float32 counters, ``blocks``
+    a list that the writer keys by index)."""
+    return {
+        "params": params_to_reference(state.params),
+        "momentum": (None if state.momentum is None
+                     else params_to_reference(state.momentum)),
+        "step": np.asarray(state.step, np.int32),
+        "updates_applied": np.asarray(state.updates_applied, np.int32),
+        "root_key": np.asarray(state.root_key, np.uint32),
+        "window_acc": None,
+        "window_rounds": np.asarray(state.window_rounds, np.float32),
+        "wall_ms": np.asarray(state.wall_ms, np.float32),
+        "next_apply_ms": np.asarray(state.next_apply_ms, np.float32),
+    }

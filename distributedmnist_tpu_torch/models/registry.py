@@ -1,7 +1,9 @@
 """Model registry (≙ ``distributedmnist_tpu/models/registry.py``): the
-``transformer`` entry, with the decode exports the serving replica
-builds on. The other families (``mnist_cnn``, ``resnet20``) and the
-transformer's mixture-of-experts FFNs raise "not ported yet".
+``transformer`` entry — its train-mode apply, loss, accuracy and
+token-level eval sums for the train step and the evaluator, and the
+decode exports the serving replica builds on. The other families
+(``mnist_cnn``, ``resnet20``) and the transformer's mixture-of-experts
+FFNs raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -59,12 +61,33 @@ def sample_token(logits: torch.Tensor,
     return draw.reshape(logits.shape[:-1]).to(logits.device)
 
 
+def lm_eval_metrics(logits: torch.Tensor, labels: torch.Tensor,
+                    weight: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Token-level eval sums for a [batch, seq, vocab] causal LM
+    (``weight`` is per sequence; counts are per predicted token):
+    ``(correct_sum, loss_sum, weight_sum)``."""
+    w = weight.float()[:, None]
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = labels[:, 1:].long()
+    correct = (torch.argmax(logp, dim=-1) == tgt).float()
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    return ((correct * w).sum(), (nll * w).sum(),
+            (w * torch.ones_like(correct)).sum())
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     """A model family instance.
 
     * ``init(generator) -> params`` on the generator's device;
-    * ``apply(params, tokens) -> logits``;
+    * ``apply(params, tokens, *, train=False, positions=None) -> logits``
+      (the transformer has no dropout, so ``train`` changes nothing;
+      gradients flow when autograd is on);
+    * ``loss(logits, labels) -> scalar``; ``accuracy(logits, labels)
+      -> scalar``;
+    * ``eval_metrics(logits, labels, weight) -> (correct_sum,
+      loss_sum, weight_sum)``;
     * ``decode_prefill(params, tokens [b, s]) -> (logits [b, s, V],
       k [L, b, s, h, hd], v [L, b, s, h, hd])`` through the configured
       attention (``attention_impl``);
@@ -78,6 +101,9 @@ class Model:
     init: Callable[[torch.Generator], Any]
     apply: Callable[..., torch.Tensor]
     compute_dtype: torch.dtype
+    loss: Callable[..., torch.Tensor] | None = None
+    accuracy: Callable[..., torch.Tensor] | None = None
+    eval_metrics: Callable[..., tuple] | None = None
     decode_prefill: Callable[..., tuple] | None = None
     decode_step: Callable[..., tuple] | None = None
     decode_cache_shape: tuple[int, int, int] | None = None
@@ -113,7 +139,8 @@ def _transformer(cfg: ModelConfig) -> Model:
             num_heads=cfg.num_heads, num_layers=cfg.num_layers,
             max_seq_len=cfg.seq_len)
 
-    def apply(params, tokens, positions=None):
+    def apply(params, tokens, positions=None, *, train=False):
+        del train  # no dropout (the reference's transformer has none)
         return transformer.apply(params, tokens, num_heads=cfg.num_heads,
                                  attention_fn=attention_fn,
                                  positions=positions,
@@ -134,7 +161,9 @@ def _transformer(cfg: ModelConfig) -> Model:
             compute_dtype=compute_dtype, attention_kernel=attention_kernel)
 
     return Model(name=cfg.name, init=init, apply=apply,
-                 compute_dtype=compute_dtype,
+                 compute_dtype=compute_dtype, loss=transformer.loss_fn,
+                 accuracy=transformer.accuracy,
+                 eval_metrics=lm_eval_metrics,
                  decode_prefill=decode_prefill, decode_step=decode_step,
                  decode_cache_shape=(cfg.num_layers, cfg.num_heads,
                                      cfg.model_dim // cfg.num_heads))

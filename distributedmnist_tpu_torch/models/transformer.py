@@ -1,7 +1,8 @@
 """A compact causal-LM transformer (≙ ``distributedmnist_tpu/models/
-transformer.py``) — the decode-serving slice: ``init``, ``apply`` (dense
-FFN), the prompt prefill with K/V export, and the one-token decode step
-over a paged KV cache.
+transformer.py``): ``init``, ``apply`` (dense FFN; differentiable, so
+the train step runs it under autograd), the next-token ``loss_fn`` and
+``accuracy``, the prompt prefill with K/V export, and the one-token
+decode step over a paged KV cache.
 
 Params are a plain dict in the reference's layout, so a reference
 checkpoint converts leaf for leaf (``models/convert.py``):
@@ -11,12 +12,14 @@ checkpoint converts leaf for leaf (``models/convert.py``):
 
 Dtypes follow the reference at the same points: every param is cast to
 the compute dtype on entry (a no-op when the caller already holds them
-in it), ``_rms_norm`` computes in float32 and casts back, attention
-runs in float32 inside the kernels, and the decode attention's float32
-output is cast to the compute dtype before ``wo``.
+in it; a differentiable cast, so gradients reach float32 params in
+float32, as the cast's transpose does in the reference), ``_rms_norm``
+computes in float32 and casts back, attention runs in float32 inside
+the kernels, and the decode attention's float32 output is cast to the
+compute dtype before ``wo``.
 
-Tensor/sequence/pipeline parallelism and mixture-of-experts FFNs are
-not ported yet.
+Tensor/sequence/pipeline parallelism, remat and mixture-of-experts FFNs
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -135,6 +138,21 @@ def apply(params: Params, tokens: torch.Tensor, *, num_heads: int = 4,
         x = _attn_sublayer(x, blk, num_heads=num_heads, attn=attn)
         x = _ffn_sublayer(x, blk)
     return _head(x, p)
+
+
+def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Next-token mean cross-entropy. ``labels`` are the input tokens;
+    targets are labels shifted left (last position dropped)."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = labels[:, 1:].long()
+    return -logp.gather(-1, tgt[..., None])[..., 0].mean()
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Next-token top-1 accuracy over the same positions as
+    :func:`loss_fn`."""
+    pred = torch.argmax(logits[:, :-1], dim=-1)
+    return (pred == labels[:, 1:].long()).float().mean()
 
 
 def prefill_with_kv(params: Params, tokens: torch.Tensor, *,

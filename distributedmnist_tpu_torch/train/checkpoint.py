@@ -20,13 +20,16 @@ view and widened to float32, which is exact.
 Reading verifies the sha256 sidecar (a mismatch or a torn payload is a
 :class:`CheckpointCorruptError`) and, when no step is named, falls back
 from an unusable newest step to the previous loadable one. The writer
-publishes a ``{"params", "step"}`` state in the same layout and order
-as the reference — data to a tmp file and ``os.replace``, then the
-sidecar, then the pointer — so a reader never sees a torn artifact
-under the pointer.
+publishes a whole TrainState state dict (:func:`save_state`, what the
+Trainer saves) or a weights-only ``{"params", "step"}`` one
+(:func:`save_checkpoint`) in the same layout and order as the reference
+— data to a tmp file and ``os.replace``, then the sidecar, then the
+pointer, then keep-N garbage collection — so a reader never sees a torn
+artifact under the pointer, and either package resumes the other's
+checkpoints. :func:`checkpoint_params_digest` is the reference's digest.
 
 Not ported yet: the per-host sharded layout (manifests), quantized
-sidecars, the async writer, garbage collection and the hot-follow
+sidecars, the async writer, the storage fault shim and the hot-follow
 ``CheckpointFollower``.
 """
 
@@ -259,11 +262,27 @@ def artifact_digest(train_dir: str | Path, step: int) -> str | None:
 _FALLBACK_ERRORS = (FileNotFoundError, CheckpointCorruptError, OSError)
 
 
-def restore_params(train_dir: str | Path, step: int | None = None,
-                   on_event: Callable[[dict], None] | None = None
-                   ) -> tuple[dict, dict, int] | None:
-    """(params, extra, step) of a checkpoint — params as the saved
-    state dict of numpy arrays — or None when nothing is loadable.
+def loadable_steps(train_dir: str | Path) -> list[int]:
+    """The steps with a single-file artifact in ``train_dir``,
+    ascending (what a rollback walks)."""
+    return _loadable_steps(Path(train_dir))
+
+
+def _read_state(train_dir: Path, step: int) -> tuple[dict, dict]:
+    payload = _read_payload(_single_file(train_dir, step))
+    state = payload["state"]
+    if not isinstance(state, dict) or state.get("params") is None:
+        raise CheckpointCorruptError(
+            f"ckpt-{step:08d}.msgpack: payload has no state/params entry")
+    return state, _extra_of(payload)
+
+
+def restore_state(train_dir: str | Path, step: int | None = None,
+                  on_event: Callable[[dict], None] | None = None
+                  ) -> tuple[dict, dict, int] | None:
+    """(state, extra, step) of a checkpoint — ``state`` the saved state
+    dict of numpy arrays (``models.convert.state_from_reference`` makes
+    it a TrainState) — or None when nothing is loadable.
 
     With no ``step``, an unusable newest step (torn, digest mismatch,
     vanished) falls back to the next older loadable one; each skip is
@@ -271,8 +290,8 @@ def restore_params(train_dir: str | Path, step: int | None = None,
     (``corrupt_checkpoint_fallback``, then ``fallback_restore``)."""
     train_dir = Path(train_dir)
     if step is not None:
-        payload = _read_payload(_single_file(train_dir, step))
-        return payload["state"]["params"], _extra_of(payload), step
+        state, extra = _read_state(train_dir, step)
+        return state, extra, step
     candidates = set(_loadable_steps(train_dir))
     latest = latest_checkpoint_step(train_dir)
     if latest is not None:
@@ -280,8 +299,7 @@ def restore_params(train_dir: str | Path, step: int | None = None,
     fell_back = False
     for s in sorted(candidates, reverse=True):
         try:
-            payload = _read_payload(_single_file(train_dir, s))
-            params = payload["state"]["params"]
+            state, extra = _read_state(train_dir, s)
         except (*_FALLBACK_ERRORS, KeyError, TypeError) as e:
             fell_back = True
             logger.warning("checkpoint step=%d is unusable (%s: %s); "
@@ -294,8 +312,63 @@ def restore_params(train_dir: str | Path, step: int | None = None,
             continue
         if fell_back and on_event is not None:
             on_event({"action": "fallback_restore", "step": s})
-        return params, _extra_of(payload), s
+        return state, extra, s
     return None
+
+
+def restore_params(train_dir: str | Path, step: int | None = None,
+                   on_event: Callable[[dict], None] | None = None
+                   ) -> tuple[dict, dict, int] | None:
+    """(params, extra, step): :func:`restore_state`'s params alone."""
+    got = restore_state(train_dir, step, on_event)
+    return None if got is None else (got[0]["params"], got[1], got[2])
+
+
+# -- digests ----------------------------------------------------------------
+
+def _digest_tree(tree: Any, h) -> None:
+    """The reference's canonical fold of a nested state dict: sorted
+    key paths, then dtype, shape and bytes per leaf, NUL-delimited."""
+    if isinstance(tree, dict):
+        h.update(b"{\x00")
+        for key in sorted(tree):
+            h.update(str(key).encode() + b"\x00")
+            _digest_tree(tree[key], h)
+        h.update(b"}\x00")
+        return
+    if tree is None:
+        h.update(b"<none>\x00")
+        return
+    a = np.ascontiguousarray(np.asarray(tree))
+    h.update(str(a.dtype).encode() + b"\x00")
+    h.update(str(a.shape).encode() + b"\x00")
+    h.update(a.tobytes())
+    h.update(b"\x00")
+
+
+def params_digest(params: dict) -> str:
+    """sha256 of params in the reference layout as numpy
+    (``models.convert.params_to_reference``) — equal to the reference's
+    ``state_params_digest`` of the same values."""
+    h = hashlib.sha256()
+    _digest_tree(to_state_dict(params), h)
+    return h.hexdigest()
+
+
+def checkpoint_params_digest(train_dir: str | Path, step: int | None = None
+                             ) -> tuple[str, int] | None:
+    """(sha256 of the saved params, step) from the artifact alone (≙ the
+    reference's ``checkpoint_params_digest``); None when nothing was
+    published."""
+    train_dir = Path(train_dir)
+    if step is None:
+        step = latest_checkpoint_step(train_dir)
+        if step is None:
+            return None
+    state, _ = _read_state(train_dir, step)
+    h = hashlib.sha256()
+    _digest_tree(state["params"], h)
+    return h.hexdigest(), step
 
 
 # -- writing ----------------------------------------------------------------
@@ -313,17 +386,33 @@ def _write_atomic(path: Path, data: bytes) -> None:
     os.replace(dtmp, dpath)
 
 
-def save_checkpoint(train_dir: str | Path, params: dict, step: int,
-                    extra: dict | None = None) -> Path:
-    """Publish ``{"params": params, "step": step}`` at ``step``:
-    artifact, sha256 sidecar, then the pointer. ``params`` is the
-    reference layout as numpy arrays (``models.convert.
-    params_to_reference``); ``extra`` is JSON-serializable (put the run
-    config under ``"config"`` so a replica can boot from it)."""
+def _garbage_collect(train_dir: Path, keep: int) -> None:
+    """Keep the newest ``keep`` steps' artifacts (and their sidecars);
+    ``keep <= 0`` keeps everything."""
+    if keep <= 0:
+        return
+    by_step: dict[int, list[Path]] = {}
+    for f in train_dir.glob("ckpt-*"):
+        m = re.match(r"^ckpt-(\d+)\.", f.name)
+        if m and not f.name.endswith(".tmp"):
+            by_step.setdefault(int(m.group(1)), []).append(f)
+    for s in sorted(by_step)[:-keep]:
+        for old in by_step[s]:
+            old.unlink(missing_ok=True)
+
+
+def save_state(train_dir: str | Path, state: dict, step: int,
+               extra: dict | None = None, keep: int = 0) -> Path:
+    """Publish a state dict at ``step``: artifact, sha256 sidecar, then
+    the pointer, then drop all but the newest ``keep`` steps. ``state``
+    holds numpy leaves in the reference layout — a whole TrainState
+    from ``models.convert.state_to_reference``, or any subset with
+    ``params``; ``extra`` is JSON-serializable (the Trainer stores the
+    run config, the world and the data cursor there, as the reference
+    does)."""
     train_dir = Path(train_dir)
     train_dir.mkdir(parents=True, exist_ok=True)
-    state = {"params": to_state_dict(params), "step": np.int32(step)}
-    data = msgpack_serialize({"state": state,
+    data = msgpack_serialize({"state": to_state_dict(state),
                               "extra": json.dumps(extra or {})})
     path = _ckpt_path(train_dir, step)
     _write_atomic(path, data)
@@ -332,5 +421,17 @@ def save_checkpoint(train_dir: str | Path, params: dict, step: int,
     ptmp = train_dir / (_POINTER + ".tmp")
     ptmp.write_text(json.dumps(pointer))
     os.replace(ptmp, train_dir / _POINTER)
+    _garbage_collect(train_dir, keep)
     logger.info("saved checkpoint step=%d → %s", step, path.name)
     return path
+
+
+def save_checkpoint(train_dir: str | Path, params: dict, step: int,
+                    extra: dict | None = None) -> Path:
+    """Publish ``{"params": params, "step": step}`` at ``step`` (a
+    weights-only artifact, what a serving replica needs). ``params`` is
+    the reference layout as numpy arrays (``models.convert.
+    params_to_reference``); put the run config under ``extra["config"]``
+    so a replica can boot from it."""
+    return save_state(train_dir, {"params": params, "step": np.int32(step)},
+                      step, extra)

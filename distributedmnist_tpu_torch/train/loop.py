@@ -1,0 +1,409 @@
+"""The training loop (≙ ``distributedmnist_tpu/train/loop.py``
+``Trainer``) on one device.
+
+Build the model, datasets, schedule, train and eval steps and the state
+from one ``ExperimentConfig``; then feed batches, log on a cadence,
+checkpoint on a cadence, resume from the newest loadable checkpoint.
+The records written to ``train_dir/train_log.jsonl`` (``step``,
+``save``, ``eval``) and ``recovery_journal.jsonl`` follow the
+reference's event schema (``obsv/schema.py``), and a checkpoint is the
+reference's whole-TrainState artifact, so either package resumes the
+other's run.
+
+Kept from the reference: the log cadence (metrics are read back only at
+flush points, so the host does not wait on the device between them),
+the step and wall-clock save cadences with keep-N garbage collection,
+resume with the data cursor, the NaN/Inf guard that rolls back to the
+newest finite checkpoint, the SIGTERM/SIGINT flush (``summary
+["preempted"]``; the CLI exits with ``train.resumable_exit_code``), and
+the ``time_acc.npy`` / ``step_times.npy`` dumps.
+
+Not ported yet (each knob is refused or ignored as noted): the
+asynchronous checkpoint writer and device snapshot (saves are
+synchronous; ``train.async_checkpoint`` is ignored), TensorBoard
+scalars (``train.summary_every_steps`` is ignored), profiler windows
+(``train.profile_steps`` / ``trace_every_steps`` raise), quantized
+publish (``quant.publish_tiers`` raises), fsync policies other than
+``none``, the adaptive discipline controller, warm standby, and the
+AOT precompile (PyTorch runs eagerly: there is no ``compile`` record).
+"""
+
+from __future__ import annotations
+
+import math
+import signal
+import threading
+import time
+from pathlib import Path
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..core.config import ExperimentConfig, effective_model_config
+from ..core.device import resolve_device
+from ..core.log import JsonlSink, get_logger
+from ..data.datasets import Datasets, load_datasets
+from ..data.pipeline import make_train_iterator, to_device
+from ..models.convert import (params_to_reference, state_from_reference,
+                              state_to_reference)
+from ..models.registry import Model, get_model
+from ..parallel.api import (TrainState, build_eval_step, build_train_step,
+                            init_train_state, tree_leaves, world_signature)
+from . import checkpoint as ckpt
+from .evaluation import run_full_eval
+from .lr_schedule import (constant, decay_steps_for, exponential_decay,
+                          warmup_polynomial_decay)
+
+logger = get_logger("train")
+
+
+def step_line(step: int, loss: float, train_acc: float,
+              examples_per_sec: float, sec_per_batch: float) -> str:
+    """The reference's canonical per-step log line (replica 0)."""
+    return ("Worker 0: step %d, loss = %.6f, train_acc = %.6f "
+            "(%.1f examples/sec; %.3f sec/batch)"
+            % (step, loss, train_acc, examples_per_sec, sec_per_batch))
+
+
+class _NonFiniteLoss(Exception):
+    def __init__(self, step: int, loss: float):
+        super().__init__(f"nonfinite loss {loss!r} at step {step}")
+        self.step = step
+        self.loss = loss
+
+
+def make_schedule(cfg: ExperimentConfig, num_train_examples: int):
+    """The reference Trainer's schedule choice, keyed to applied
+    updates (the aggregation quorum k is 1 on one replica)."""
+    o = cfg.optim
+    if o.schedule == "polynomial":
+        return warmup_polynomial_decay(
+            o.initial_learning_rate, o.warmup_steps,
+            o.decay_total_steps or cfg.train.max_steps,
+            o.end_learning_rate, o.poly_power)
+    if o.learning_rate_decay_factor == 1.0:
+        return constant(o.initial_learning_rate)
+    steps = decay_steps_for(num_train_examples, cfg.data.batch_size,
+                            o.num_epochs_per_decay, 1)
+    return exponential_decay(o.initial_learning_rate, steps,
+                             o.learning_rate_decay_factor, o.staircase)
+
+
+def _check_loop_knobs(cfg: ExperimentConfig) -> None:
+    t = cfg.train
+    if t.profile_steps[1] > t.profile_steps[0] or t.trace_every_steps:
+        raise NotImplementedError("train.profile_steps / trace_every_steps "
+                                  "are not ported yet")
+    if cfg.quant.resolved_publish_tiers():
+        raise NotImplementedError("quant.publish_tiers is not ported yet")
+    if t.durability != "none":
+        raise NotImplementedError(f"train.durability={t.durability!r} is "
+                                  "not ported yet (the port writes with "
+                                  "rename-only atomicity, 'none')")
+
+
+class Trainer:
+    """Builds the single-device training stack from one config.
+
+    ``device`` defaults to ``cuda:0`` (an error without CUDA); the tests
+    pass ``"cpu"``, where the attention kernels run their plain
+    versions."""
+
+    def __init__(self, cfg: ExperimentConfig,
+                 datasets: Datasets | None = None,
+                 device: str | torch.device | None = None):
+        _check_loop_knobs(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model: Model = get_model(effective_model_config(cfg))
+        self.datasets = datasets if datasets is not None else load_datasets(
+            cfg.data, cfg.model.image_size, cfg.model.num_channels,
+            cfg.model.num_classes, cfg.model.seq_len, cfg.model.vocab_size)
+        self.schedule = make_schedule(cfg, self.datasets.train.num_examples)
+        self.step_fn = build_train_step(self.model, cfg, self.schedule)
+        self.eval_fn = build_eval_step(self.model, cfg)
+        self.state: TrainState = init_train_state(self.model, cfg,
+                                                  self.device)
+        self.train_iter = make_train_iterator(self.datasets.train, cfg.data,
+                                              seed=cfg.train.seed)
+        self.train_dir = Path(cfg.train.train_dir)
+        self._sink: JsonlSink | None = None
+        self._recovery_sink: JsonlSink | None = None
+        self._preempt_requested: str | None = None
+        self._series: list[tuple[float, int, float, float]] = []
+        self._step_ms: list[float] = []
+        self._last_save_time = time.time()
+        self._start_step = 0
+        self._log_opened = False
+        if cfg.train.resume:
+            self._maybe_resume()
+
+    # -- journals --------------------------------------------------------
+
+    def _sink_write(self, record: dict) -> None:
+        if self._sink is None:
+            log_path = self.train_dir / "train_log.jsonl"
+            if not self._log_opened and self._start_step == 0:
+                # a fresh run into a reused train_dir starts a new series
+                log_path.unlink(missing_ok=True)
+            self._log_opened = True
+            self._sink = JsonlSink(log_path)
+        self._sink.write(record)
+
+    def _recovery_event(self, record: dict) -> None:
+        if self._recovery_sink is None:
+            self._recovery_sink = JsonlSink(
+                self.train_dir / "recovery_journal.jsonl")
+        self._recovery_sink.write({"event": "recovery", "time": time.time(),
+                                   **record})
+
+    def _close_sinks(self) -> None:
+        for attr in ("_sink", "_recovery_sink"):
+            sink = getattr(self, attr)
+            if sink is not None:
+                sink.close()
+                setattr(self, attr, None)
+
+    # -- checkpoints -----------------------------------------------------
+
+    def _adopt(self, saved: dict, extra: dict) -> None:
+        state = state_from_reference(saved, device=self.device)
+        if (state.momentum is None) != (self.state.momentum is None):
+            raise ValueError(
+                "checkpoint optimizer state does not match optim "
+                f"{self.cfg.optim.name!r} (momentum={self.cfg.optim.momentum})"
+                f": saved slots {'absent' if state.momentum is None else 'present'}")
+        self.state = state
+        if "data_iter" in extra:
+            try:
+                self.train_iter.restore(extra["data_iter"])
+            except (KeyError, ValueError):
+                logger.warning("could not restore data-iterator state; "
+                               "restarting stream")
+
+    def _maybe_resume(self) -> None:
+        restored = ckpt.restore_state(
+            self.train_dir,
+            on_event=lambda r: self._recovery_event({"layer": "checkpoint",
+                                                     **r}))
+        if restored is None:
+            return
+        saved, extra, step = restored
+        self._adopt(saved, extra)
+        self._start_step = self.state.step
+        logger.info("resumed from checkpoint step=%d (loop step %d)", step,
+                    self._start_step)
+
+    def _save(self) -> None:
+        t0 = time.perf_counter()
+        at_step = self.state.step
+        extra = {"config": self.cfg.to_dict(), "world": world_signature(),
+                 "data_iter": self.train_iter.state()}
+        ckpt.save_state(self.train_dir, state_to_reference(self.state),
+                        at_step, extra=extra,
+                        keep=self.cfg.train.keep_checkpoints)
+        stall_ms = (time.perf_counter() - t0) * 1e3
+        # "at_step", not "step": progress watchers read "step" records
+        self._sink_write({"event": "save", "time": time.time(),
+                          "at_step": at_step,
+                          "save_stall_ms": round(stall_ms, 3),
+                          "async_snapshot": False})
+        self._last_save_time = time.time()
+
+    def _rollback_to_last_good(self, err: _NonFiniteLoss) -> int:
+        """Restore the newest checkpoint whose params are finite; return
+        the loop step to continue from."""
+        for s in sorted(ckpt.loadable_steps(self.train_dir), reverse=True):
+            try:
+                saved, extra, _ = ckpt.restore_state(self.train_dir, step=s)
+            except (*ckpt._FALLBACK_ERRORS, KeyError, TypeError) as e:
+                self._recovery_event({"layer": "train",
+                                      "action": "rollback_candidate_unusable",
+                                      "step": s, "error": str(e)})
+                continue
+            leaves = [np.asarray(x) for x in tree_leaves(saved["params"])]
+            if not all(np.isfinite(a).all() for a in leaves
+                       if np.issubdtype(a.dtype, np.floating)):
+                self._recovery_event({"layer": "train",
+                                      "action": "rollback_candidate_poisoned",
+                                      "step": s})
+                continue
+            self._adopt(saved, extra)
+            logger.warning("nonfinite loss at step %d — rolled back to "
+                           "checkpoint step=%d", err.step, self.state.step)
+            self._recovery_event({"layer": "train", "action": "nan_rollback",
+                                  "from_step": err.step,
+                                  "to_step": self.state.step,
+                                  "loss": repr(err.loss)})
+            return self.state.step
+        raise RuntimeError(f"nonfinite loss at step {err.step} and no finite "
+                           "checkpoint to roll back to") from err
+
+    def _install_preempt_handlers(self) -> dict | None:
+        """SIGTERM/SIGINT → finish the current step, flush a checkpoint,
+        stop. Main thread only."""
+        if (not self.cfg.train.handle_preemption
+                or threading.current_thread() is not threading.main_thread()):
+            return None
+
+        def handler(signum, frame):
+            self._preempt_requested = signal.Signals(signum).name
+            logger.warning("received %s — will flush a checkpoint and stop "
+                           "(resumable)", self._preempt_requested)
+
+        return {sig: signal.signal(sig, handler)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+
+    def _dump_series(self) -> None:
+        """``time_acc.npy`` rows (time, step, loss, acc) and the
+        [steps, 1] host step-time matrix ``step_times.npy``."""
+        if self._series:
+            self.train_dir.mkdir(parents=True, exist_ok=True)
+            np.save(self.train_dir / "time_acc.npy", np.asarray(self._series))
+            np.save(self.train_dir / "step_times.npy",
+                    np.asarray(self._step_ms, np.float32)[:, None])
+
+    # -- eval and run ----------------------------------------------------
+
+    def evaluate(self, split: str = "test") -> dict[str, float]:
+        """One full-split eval pass; also journals an ``eval`` record."""
+        res = run_full_eval(self.eval_fn, self.state.params,
+                            getattr(self.datasets, split),
+                            self.cfg.eval.eval_batch_size,
+                            device=self.device)
+        self._sink_write({"event": "eval", "time": time.time(),
+                          "step": self.state.step,
+                          "num_examples": res["num_examples"],
+                          "precision_at_1": res["accuracy"],
+                          "loss": res["loss"], "seconds": res["seconds"]})
+        self._close_sinks()
+        return res
+
+    def timing(self) -> dict[str, Any]:
+        """Host step-time percentiles. On a GPU a step's host time is
+        its enqueue time except where the host waits for the device (a
+        flush reading the losses, a save)."""
+        if not self._step_ms:
+            return {"steps": 0}
+        ms = np.asarray(self._step_ms)
+        return {"steps": len(ms), "host_step_ms_mean": float(ms.mean()),
+                "host_step_ms_p50": float(np.percentile(ms, 50)),
+                "host_step_ms_p99": float(np.percentile(ms, 99))}
+
+    def run(self, max_steps: int | None = None,
+            step_callback: Callable[[int, dict], None] | None = None
+            ) -> dict[str, Any]:
+        """Run the loop to ``max_steps`` (default ``train.max_steps``);
+        returns the reference's summary dict."""
+        cfg = self.cfg.train
+        total = max_steps if max_steps is not None else cfg.max_steps
+        log_every = max(1, cfg.log_every_steps)
+        batch = self.cfg.data.batch_size
+        last_log_t = time.time()
+        last_log_step = self._start_step
+        pending: list[tuple[int, dict, float]] = []
+        final_metrics: dict[str, Any] = {}
+
+        def flush(now: float) -> None:
+            nonlocal final_metrics, last_log_t, last_log_step
+            if not pending:
+                return
+            upto = pending[-1][0]
+            rate = (upto - last_log_step) * batch / max(now - last_log_t,
+                                                        1e-9)
+            rows = [(s, float(m["loss"]), float(m["train_acc"]), m, t)
+                    for s, m, t in pending]
+            if cfg.nan_guard:
+                # scan the whole window before writing any of it
+                for s, loss, acc, _, _ in rows:
+                    if not (math.isfinite(loss) and math.isfinite(acc)):
+                        self._recovery_event(
+                            {"layer": "train",
+                             "action": "nonfinite_loss_detected",
+                             "step": s, "loss": repr(loss)})
+                        raise _NonFiniteLoss(s, loss)
+            for s, loss, acc, m, t in rows:
+                self._series.append((t, s, loss, acc))
+                record = {
+                    "event": "step", "step": s, "time": t, "loss": loss,
+                    "train_acc": acc, "lr": float(m["lr"]),
+                    "updates_applied": int(m["updates_applied"]),
+                    "num_contributors": float(m["num_contributors"]),
+                    "examples_per_sec": rate,
+                    "flags": [int(f) for f in m["flags"]]}
+                self._sink_write(record)
+                final_metrics = record
+                if step_callback:
+                    step_callback(s, record)
+            logger.info(step_line(upto, final_metrics["loss"],
+                                  final_metrics["train_acc"], rate,
+                                  (now - last_log_t)
+                                  / max(upto - last_log_step, 1)))
+            pending.clear()
+            last_log_t, last_log_step = now, upto
+
+        self.train_dir.mkdir(parents=True, exist_ok=True)
+        step = self._start_step
+        rollbacks = 0
+        self._preempt_requested = None
+        saved_handlers = self._install_preempt_handlers()
+        try:
+            while True:
+                try:
+                    while step < total and self._preempt_requested is None:
+                        t0 = time.perf_counter()
+                        b = to_device(next(self.train_iter), self.device)
+                        self.state, metrics = self.step_fn(self.state, b)
+                        self._step_ms.append((time.perf_counter() - t0) * 1e3)
+                        step += 1
+                        pending.append((step, metrics, time.time()))
+                        if cfg.step_pace_ms > 0:
+                            time.sleep(cfg.step_pace_ms / 1e3)
+                        if step % log_every == 0:
+                            flush(time.time())
+                        if cfg.save_interval_secs > 0:
+                            if (time.time() - self._last_save_time
+                                    >= cfg.save_interval_secs):
+                                self._save()
+                        elif (cfg.save_interval_steps > 0
+                              and step % cfg.save_interval_steps == 0):
+                            self._save()
+                        if (cfg.save_results_period > 0
+                                and step % cfg.save_results_period == 0):
+                            self._dump_series()
+                    flush(time.time())
+                    break
+                except _NonFiniteLoss as e:
+                    pending.clear()
+                    rollbacks += 1
+                    if rollbacks > cfg.nan_guard_max_rollbacks:
+                        raise RuntimeError(
+                            f"nonfinite loss recurred after {rollbacks - 1} "
+                            "rollback(s) — deterministic divergence, giving "
+                            "up") from e
+                    step = self._rollback_to_last_good(e)
+                    last_log_step, last_log_t = step, time.time()
+        finally:
+            if saved_handlers is not None:
+                for sig, old in saved_handlers.items():
+                    signal.signal(sig, old)
+        if self._preempt_requested:
+            self._recovery_event({"layer": "train", "action": "preempt_flush",
+                                  "signal": self._preempt_requested,
+                                  "step": step})
+        self._save()  # the final save
+        self._dump_series()
+        self._close_sinks()
+        return {
+            "final_step": step,
+            "updates_applied": self.state.updates_applied,
+            "last_metrics": final_metrics,
+            "params_digest": ckpt.params_digest(
+                params_to_reference(self.state.params)),
+            "timing": self.timing(),
+            "preempted": self._preempt_requested,
+            "nan_rollbacks": rollbacks,
+            "compile": None,
+        }
+

@@ -27,7 +27,16 @@ bad = sorted(k for k in sys.modules
 print("LOADED", len([k for k in sys.modules
                      if k.startswith("distributedmnist_tpu_torch")]))
 print("BAD", bad)
+print("HAVE", sorted(k for k in sys.modules
+                     if k.startswith("distributedmnist_tpu_torch.")))
 """
+
+# the training path's modules (the walk above imports every module; these
+# are named so that a module dropped from the package fails loudly)
+TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
+              "train.optim", "train.lr_schedule", "train.evaluation",
+              "train.loop", "train.checkpoint", "ops.flash_attention",
+              "models.convert", "launch.__main__")
 
 
 def test_port_modules_load_no_jax():
@@ -37,6 +46,9 @@ def test_port_modules_load_no_jax():
     lines = p.stdout.splitlines()
     assert "BAD []" in lines, p.stdout
     assert int(lines[0].split()[1]) >= 20
+    have = next(line for line in lines if line.startswith("HAVE"))
+    for m in TRAIN_PATH:
+        assert f"'distributedmnist_tpu_torch.{m}'" in have, m
 
 
 def test_no_import_statement_names_the_reference():
