@@ -24,7 +24,14 @@ One JSON line per phase:
 1. ``env``      — the card, torch and CUDA versions; fails without CUDA
                 or without the port package beside this script.
 2. ``build``    — seconds to compile every kernel (one nvcc per source,
-                all at once).
+                all at once); per kernel instantiation its registers,
+                stack and spill bytes (``ptxas -v``) and its count of
+                ``HGMMA`` (wgmma) instructions in the SASS (``cuobjdump``):
+                the bf16 K1 and K3 kernels at head_dim 128 must have them;
+                per kernel on the main path, at its main-path shape, the
+                bf16 variant it launches with its registers, dynamic
+                shared memory, spill bytes and blocks per SM (CUDA
+                runtime).
 3. ``kernels``  — each kernel against its plain PyTorch version on the
                 card at the main paths' shapes, float32 and bfloat16:
                 K1 flash-attention forward and K5 paged attention at
@@ -57,7 +64,12 @@ One JSON line per phase:
                 kernels within a stated tolerance of the plain versions.
                 Prints tokens/s, TTFT p50 and inter-token p50.
 
-Then a ``kernels`` summary line, the card's name and power limit as
+Then a ``kernels`` summary line (per kernel also its ``variant`` —
+``wgmma`` or ``cuda_cores``, the compiled kernel the bf16 call takes —
+its registers, shared memory and blocks per SM at the timed shape, and
+for the kernels redesigned for the tensor cores, K1, K1-lse and K3,
+their times before the redesign, ``ms_before``), the card's name and
+power limit as
 ``nvidia-smi`` reports them, and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failure prints the failing
 phase and exits nonzero before the result line.
@@ -202,14 +214,82 @@ def phase_env() -> dict:
 
 # -- phase 2 ----------------------------------------------------------------
 
-def phase_build() -> None:
+def _hgmma_counts(lib_path) -> dict | None:
+    """HGMMA instructions per kernel instantiation in a built library's
+    SASS, or None where the toolkit has no ``cuobjdump``."""
+    from distributedmnist_tpu_torch.ops import _build
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", str(lib_path)],
+                             capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = _build.kernel_name(line.split("Function :")[1].strip())
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+# the tensor-core instantiations the main paths launch (head_dim 128)
+TC_KERNELS = ("flash_fwd_tc_kernel<128, 1>", "flash_fwd_tc_kernel<128, 2>",
+              "bwd_dkv_tc_kernel<128>")
+
+
+def _resources(key: str, shape) -> dict:
+    """The bf16 kernel ``key`` takes at ``shape``: its variant, and the
+    registers, shared memory and blocks per SM the runtime reports."""
+    import torch
+
+    from distributedmnist_tpu_torch.ops import flash_attention as fa
+    from distributedmnist_tpu_torch.ops import paged_attention as pa
+    if key == "K5":
+        return {"variant": pa.kernel_route(torch.bfloat16, shape[-1])}
+    occ = fa.kernel_occupancy(key, torch.bfloat16, tuple(shape))
+    return {"variant": fa.kernel_route(key, torch.bfloat16, shape[-1]),
+            "registers": occ["registers"], "smem_bytes": occ["smem_bytes"],
+            "spill_bytes": occ["local_bytes"],
+            "blocks_per_sm": occ["blocks_per_sm"],
+            "warps_per_sm": occ["blocks_per_sm"] * occ["threads"] // 32}
+
+
+def _main_path_shapes() -> dict:
+    """Each kernel's [b, s, h, d] on the main paths: the largest prefill
+    bucket (K1), the training step (K1-lse, K2, K3), the seq-64 run
+    (K4), one decode iteration (K5: slots, 1, heads, d)."""
+    h, d = MODEL["num_heads"], MODEL["model_dim"] // MODEL["num_heads"]
+    train = [TRAIN["data"]["batch_size"], MODEL["seq_len"], h, d]
+    return {"K1": [1, DECODE["max_prompt_len"], h, d], "K1-lse": train,
+            "K2": train, "K3": train, "K4": [K4_BATCH, K4_SEQ, h, d],
+            "K5": [DECODE["decode_slots"], 1, h, d]}
+
+
+def phase_build() -> dict:
     from distributedmnist_tpu_torch.ops import _build
     t0 = time.time()
     compiled = _build.build()
     for name in _build.SOURCES:
         _build.load_library(name)
-    emit({"phase": "build", "seconds": round(time.time() - t0, 3),
-          "compiled": compiled})
+    seconds = round(time.time() - t0, 3)
+    ptxas, hgmma = {}, {}
+    for name in _build.SOURCES:
+        ptxas[name] = _build.ptxas_report(name)
+        hgmma[name] = _hgmma_counts(_build.library_path(name))
+    resources = {key: _resources(key, shape)
+                 for key, shape in _main_path_shapes().items()}
+    emit({"phase": "build", "seconds": seconds, "compiled": compiled,
+          "ptxas": ptxas, "hgmma": hgmma, "main_path": resources})
+    counts = {}
+    for per_lib in hgmma.values():
+        counts.update(per_lib or {})
+    if counts:
+        for kernel in TC_KERNELS:
+            check(counts.get(kernel, 0) > 0,
+                  f"{kernel} has no HGMMA instruction in its SASS")
+    return resources
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -736,7 +816,8 @@ def _profile_train_step(trainer, batch, wall_ms: float,
             us = e.self_cuda_time_total
         name = e.key.lower()
         cls = ("attention" if any(k in name for k in (
-                   "flash_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel",
+                   "flash_fwd_kernel", "flash_fwd_tc_kernel",
+                   "bwd_dq_kernel", "bwd_dkv_kernel", "bwd_dkv_tc_kernel",
                    "bwd_fused_kernel")) else
                "gemm" if any(k in name for k in ("gemm", "gemv", "xmma",
                                                  "cutlass", "nvjet"))
@@ -941,6 +1022,12 @@ def phase_e2e(train_dir: str, tmp: str) -> dict:
     return rec
 
 
+# Times of the CUDA-core kernels that the tensor-core K1, K1-lse and K3
+# replaced (NVIDIA H100 80GB HBM3, 700 W, this script's kernels phase,
+# bf16), reported beside the new times
+MS_BEFORE = {"K1": 0.1639, "K1-lse": 4.0601, "K3": 11.2512}
+
+
 # (kernel, name, source, replaces, the phase whose launches it reports)
 KERNELS = (
     ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "54", "e2e"),
@@ -961,7 +1048,7 @@ def main() -> int:
     try:
         env = phase_env()
         phase = "build"
-        phase_build()
+        resources = phase_build()
         phase = "kernels"
         timed = phase_kernels()
         with tempfile.TemporaryDirectory(prefix="dmt_smoke_") as tmp:
@@ -992,7 +1079,8 @@ def main() -> int:
                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"],
-                     "library_ms": c["library_ms"]})
+                     "library_ms": c["library_ms"],
+                     "ms_before": MS_BEFORE.get(key), **resources[key]})
     emit({"kernels": rows})
     print(env["nvidia_smi"] or "nvidia-smi: not available", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

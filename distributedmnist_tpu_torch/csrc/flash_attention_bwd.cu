@@ -1,9 +1,10 @@
-// K2, K3, K4: flash-attention backward for Hopper (sm_90a), plain CUDA C++.
+// K2, K3, K4: flash-attention backward for Hopper (sm_90a), CUDA C++.
 //
 // Replaces, in distributedmnist_tpu/ops/pallas_attention.py (the custom
 // VJP's _backward):
 //   K2 _bwd_dq_kernel    -> bwd_dq_kernel    (entry dmt_flash_attention_bwd_dq)
-//   K3 _bwd_dkv_kernel   -> bwd_dkv_kernel   (entry dmt_flash_attention_bwd_dkv)
+//   K3 _bwd_dkv_kernel   -> bwd_dkv_tc_kernel (bf16), bwd_dkv_kernel (f32)
+//                           (entry dmt_flash_attention_bwd_dkv)
 //   K4 _bwd_fused_kernel -> bwd_fused_kernel (entry dmt_flash_attention_bwd_fused)
 //
 // The FlashAttention-2 backward from the forward's per-row log-sum-exp
@@ -17,42 +18,65 @@
 // probability matrices never reach device memory.
 //
 // What bounds it on this card: at the training shape (seq 1024, 16
-// heads of 128, batch 16) a layer's backward recomputes the scores and
-// does four more score-sized products, ~0.17 TFLOP in all for ~0.2 GB
-// of q/k/v/o/do/dq/dk/dv traffic, so it is bound by arithmetic. These
-// first kernels use the CUDA cores in float32 (no tensor cores yet), so
-// the float32 CUDA-core rate is their ceiling; wgmma/TMA are later work.
-// Like the TPU kernels, each kernel reads every operand tile once per
-// visit, keeps its accumulators on chip, and skips tiles wholly above
-// the causal diagonal.
+// heads of 128, batch 16, causal) one K3 call moves 0.47 GB (0.141 ms
+// at 3.35 TB/s) and does 4 score-sized products, 137 GFLOP (0.139 ms at
+// 989 TFLOP/s bf16); K2 moves 0.40 GB (0.121 ms) for 103 GFLOP (0.104
+// ms). Bytes and operations are about equal, so no CUDA-core kernel can
+// come near either bound (the float32 CUDA-core peak is 15x below the
+// bf16 tensor-core peak): the tensor cores are the lever. Like the TPU
+// kernels, each kernel reads every operand tile once per visit, keeps
+// its accumulators on chip, and skips tiles wholly above the causal
+// diagonal.
 //
 // Translation from the TPU: there, dq and dk/dv accumulate in VMEM
 // scratch across a sequential ("arbitrary") grid axis. Here a thread
-// block owns its output tile and loops over the other axis itself:
-//   K2: one block per (64-query tile, head, batch); the loop walks the
-//       32-key tiles up to the diagonal; dq stays in registers.
-//   K3: one block per (64-key tile, head, batch); the loop walks the
-//       32-query tiles from the diagonal on; dk and dv stay in
-//       registers while q, do, o stream past. No atomics anywhere, so
-//       every result is deterministic.
-//   K4: the whole (padded) sequence fits one 64 x 64 tile: one block per
-//       (head, batch) computes p and do.v^T once and feeds dq, dk and dv
-//       from them (5 score-sized products instead of K2+K3's 7).
-// Rounding: p and ds stay float32 for every product. The TPU kernels
-// round them to the input dtype first (bf16 on the bf16 path), so in
-// bf16 these kernels sit a little closer to the float32 oracle.
+// block owns its output tile and loops over the other axis itself, so
+// nothing is reduced across blocks: no atomics, and every result is
+// deterministic.
+//   K3, bfloat16 (bwd_dkv_tc_kernel, on the tensor cores): one
+//       warpgroup per (64-key tile, head, batch), key tile 0 (the
+//       heaviest under the causal mask) launched first. k and v stay in
+//       shared memory and dk, dv (64 x d each) in f32 registers while
+//       64-query tiles of q and do stream through a 2-stage cp.async
+//       ring, from the first tile that meets the diagonal. Per tile:
+//       delta = rowsum(do * o) from o (its loads issued before the
+//       wait for the q/do tile); s^T = k.q^T and dp^T = v.do^T (SS
+//       wgmma, both K-major); p^T = exp(s^T scale - lse), zeroed by
+//       selection; ds^T = p^T * (dp^T - delta); dv += bf16(p^T).do and
+//       dk += bf16(ds^T).q (RS wgmma, do and q MN-major). p and ds are
+//       rounded to bf16 before those products, as the TPU kernel rounds
+//       them to the input dtype. 255 registers a thread without spills
+//       (delta is done before the score products, whose accumulators
+//       it would otherwise share the register file with), 2 blocks of
+//       4 warps per SM (~100 KB of shared memory each).
+//   K3, float32 (bwd_dkv_kernel, CUDA cores): one 8-warp block per
+//       64-key tile, walking 32-query tiles from the diagonal on.
+//   K2 (bwd_dq_kernel, CUDA cores, both dtypes): one block per 64-query
+//       tile; the loop walks the 32-key tiles up to the diagonal; dq
+//       stays in registers.
+//   K4 (bwd_fused_kernel, CUDA cores, both dtypes): the whole (padded)
+//       sequence fits one 64 x 64 tile: one block per (head, batch)
+//       computes p and do.v^T once and feeds dq, dk and dv from them (5
+//       score-sized products instead of K2+K3's 7).
+// Rounding: the CUDA-core kernels keep p and ds in float32 for every
+// product, so in bf16 K2 and K4 sit a little closer to the float32
+// oracle than the reference kernels are.
 //
 // Layout: q, k, v, o, do and dq, dk, dv are [batch, seq, heads,
 // head_dim], read and written through element strides (the model hands
 // strided qkv[:, :, i] views); the last dimension must be contiguous.
-// lse is float32 [batch, heads, seq], contiguous. Warps own 8 rows each
-// and lanes own either one key/query of a 32-wide streamed tile (score
-// phase) or the column slice {lane + 32 i} (accumulation phase), the
-// same scheme as K1.
+// lse is float32 [batch, heads, seq], contiguous. In the CUDA-core
+// kernels warps own 8 rows each and lanes own either one key/query of a
+// 32-wide streamed tile (score phase) or the column slice {lane + 32 i}
+// (accumulation phase), the same scheme as the float32 K1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -247,14 +271,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------------------ K3: dk, dv
-template <typename T, int D>
+// ------------------------------------------------ K3, float32: dk, dv
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ o,
-                   const T* __restrict__ dout, const float* __restrict__ lse,
-                   T* __restrict__ dk, T* __restrict__ dv, int s, Strides st,
-                   float scale, int causal) {
+    bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ o,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ dk,
+                   float* __restrict__ dv, int s, Strides st, float scale,
+                   int causal) {
   constexpr int DPL = D / 32;
   extern __shared__ float smem[];
   float* ks = smem;                          // [64][D]
@@ -267,17 +292,17 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.x * kTileRows;
   const int head = blockIdx.y, batch = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* qb = head_base(q, st, kQ, batch, head);
-  const T* kb = head_base(k, st, kK, batch, head);
-  const T* vb = head_base(v, st, kV, batch, head);
-  const T* ob = head_base(o, st, kO, batch, head);
-  const T* dob = head_base(dout, st, kDO, batch, head);
-  T* dkb = head_base(dk, st, kDK, batch, head);
-  T* dvb = head_base(dv, st, kDV, batch, head);
+  const float* qb = head_base(q, st, kQ, batch, head);
+  const float* kb = head_base(k, st, kK, batch, head);
+  const float* vb = head_base(v, st, kV, batch, head);
+  const float* ob = head_base(o, st, kO, batch, head);
+  const float* dob = head_base(dout, st, kDO, batch, head);
+  float* dkb = head_base(dk, st, kDK, batch, head);
+  float* dvb = head_base(dv, st, kDV, batch, head);
   const float* lseb = lse + (static_cast<int64_t>(batch) * gridDim.y + head) * s;
 
-  load_rows<T, D>(ks, D, kb, st.v[kK + 1], k0, kTileRows, s);
-  load_rows<T, D>(vs, D, vb, st.v[kV + 1], k0, kTileRows, s);
+  load_rows<float, D>(ks, D, kb, st.v[kK + 1], k0, kTileRows, s);
+  load_rows<float, D>(vs, D, vb, st.v[kV + 1], k0, kTileRows, s);
 
   float dk_acc[kRowsPerWarp][DPL], dv_acc[kRowsPerWarp][DPL];
 #pragma unroll
@@ -290,8 +315,8 @@ __global__ void __launch_bounds__(kThreads)
   const int q_begin = causal ? (k0 / kTileStream) * kTileStream : 0;
   for (int q0 = q_begin; q0 < s; q0 += kTileStream) {
     __syncthreads();  // the previous q/do tile is consumed (k/v written)
-    load_rows<T, D>(qs, D + 1, qb, st.v[kQ + 1], q0, kTileStream, s);
-    load_rows<T, D>(dos, D + 1, dob, st.v[kDO + 1], q0, kTileStream, s);
+    load_rows<float, D>(qs, D + 1, qb, st.v[kQ + 1], q0, kTileStream, s);
+    load_rows<float, D>(dos, D + 1, dob, st.v[kDO + 1], q0, kTileStream, s);
     __syncthreads();
     // delta and lse of the tile's 32 queries, 4 per warp
 #pragma unroll
@@ -303,7 +328,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int c = 0; c < DPL; ++c)
           part += dos[i * (D + 1) + lane + 32 * c] *
-                  to_f32(ob[qi * st.v[kO + 1] + lane + 32 * c]);
+                  ob[qi * st.v[kO + 1] + lane + 32 * c];
       }
       part = warp_sum(part);
       if (lane == 0) {
@@ -377,9 +402,197 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < DPL; ++c) {
         dkb[key * st.v[kDK + 1] + lane + 32 * c] =
-            from_f32<T>(dk_acc[r][c] * scale);
-        dvb[key * st.v[kDV + 1] + lane + 32 * c] = from_f32<T>(dv_acc[r][c]);
+            dk_acc[r][c] * scale;
+        dvb[key * st.v[kDV + 1] + lane + 32 * c] = dv_acc[r][c];
       }
+    }
+  }
+}
+
+// ------------------------------------ K3, bfloat16: dk, dv on tensor cores
+namespace wg = dmt_wgmma;
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcKeys = 64;     // keys a block owns (one warpgroup)
+constexpr int kTcQueries = 64;  // queries a streamed q/do tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {
+  // k and v tiles, two stages of q and do tiles, lse [2][64], delta
+  // [64], and room to align the base
+  return 2 * wg::tile_bytes<kTcKeys, D>() +
+         4 * wg::tile_bytes<kTcQueries, D>() + 3 * kTcQueries * 4 + 1024;
+}
+
+// Grid: one block per (64-key tile, head, batch), the key tile slowest,
+// so causal calls start with key tile 0, which walks every query tile.
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+    bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ o,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int s, int h, int n_bh,
+                      Strides st, float scale, int causal) {
+  constexpr int BK = kTcKeys, BQ = kTcQueries;
+  constexpr int NACC = wg::padded_cols<D>() / 2;  // dk, dv registers each
+  constexpr uint32_t kTile = wg::tile_bytes<BQ, D>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ks = (wg::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t vs = ks + wg::tile_bytes<BK, D>();
+  const uint32_t qs = vs + wg::tile_bytes<BK, D>();  // stage i: qs + 2i kTile
+  const uint32_t dos = qs + kTile;                   // stage i: dos + 2i kTile
+  float* lse_s = reinterpret_cast<float*>(
+      smem_raw + (qs + 4 * kTile - wg::smem_u32(smem_raw)));  // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                            // [BQ]
+
+  const int k0 = (blockIdx.x / n_bh) * BK;
+  const int head = blockIdx.x % n_bh % h, batch = blockIdx.x % n_bh / h;
+  const bf16* qb = head_base(q, st, kQ, batch, head);
+  const bf16* kb = head_base(k, st, kK, batch, head);
+  const bf16* vb = head_base(v, st, kV, batch, head);
+  const bf16* ob = head_base(o, st, kO, batch, head);
+  const bf16* dob = head_base(dout, st, kDO, batch, head);
+  const float* lseb = lse + (static_cast<int64_t>(batch) * h + head) * s;
+
+  // causal: query tiles wholly before this key tile see none of it
+  const int q_begin = causal ? k0 : 0;
+  const int n_q = (s - q_begin + BQ - 1) / BQ;
+  auto load_stage = [&](int stage, int q0) {
+    wg::load_tile<BQ, D, 128>(qs + 2 * stage * kTile, qb, st.v[kQ + 1], q0, s);
+    wg::load_tile<BQ, D, 128>(dos + 2 * stage * kTile, dob, st.v[kDO + 1],
+                              q0, s);
+    if (threadIdx.x < BQ) {
+      const int qi = q0 + threadIdx.x;
+      wg::cp_async4(wg::smem_u32(lse_s + stage * BQ + threadIdx.x),
+                    lseb + (qi < s ? qi : 0), qi < s);
+    }
+  };
+  wg::load_tile<BK, D, 128>(ks, kb, st.v[kK + 1], k0, s);
+  wg::load_tile<BK, D, 128>(vs, vb, st.v[kV + 1], k0, s);
+  load_stage(0, q_begin);
+  wg::cp_async_commit();
+
+  float dk_acc[NACC], dv_acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const int key_lo = k0 + wg::frag_row(0);  // this thread's keys: key_lo,
+                                            // key_lo + 8
+  const float scale_log2 = scale * kLog2e;
+
+  // delta = rowsum(do * o): two threads a query, half the columns each
+  const int d_row = threadIdx.x >> 1, d_col0 = (threadIdx.x & 1) * (D / 2);
+  for (int it = 0; it < n_q; ++it) {
+    const int q0 = q_begin + it * BQ;
+    if (it + 1 < n_q) {  // prefetch the next q/do tile into the other stage
+      load_stage((it + 1) & 1, q0 + BQ);
+      wg::cp_async_commit();
+    }
+    // this thread's half row of o, loaded while the q/do tile lands
+    uint4 o_part[D / 16];
+    const bool d_live = q0 + d_row < s;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      o_part[j] = d_live ? *reinterpret_cast<const uint4*>(
+                               ob + (q0 + d_row) * st.v[kO + 1] + d_col0 +
+                               8 * j)
+                         : make_uint4(0, 0, 0, 0);
+    if (it + 1 < n_q)
+      wg::cp_async_wait<1>();
+    else
+      wg::cp_async_wait<0>();
+    wg::fence_async_smem();
+    __syncthreads();
+    const uint32_t qst = qs + 2 * (it & 1) * kTile;
+    const uint32_t dost = dos + 2 * (it & 1) * kTile;
+    const float* lse_t = lse_s + (it & 1) * BQ;
+    {
+      const uint8_t* dos_p = smem_raw + (dost - wg::smem_u32(smem_raw));
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        const uint4 dv4 = *reinterpret_cast<const uint4*>(
+            dos_p + wg::tile_offset(d_row, d_col0 + 8 * j, BQ));
+        const __nv_bfloat162* o2 =
+            reinterpret_cast<const __nv_bfloat162*>(&o_part[j]);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = __bfloat1622float2(d2[e]);
+          part = fmaf(of.x, df.x, fmaf(of.y, df.y, part));
+        }
+      }
+      part += __shfl_xor_sync(kFull, part, 1);
+      if ((threadIdx.x & 1) == 0) delta_s[d_row] = part;
+    }
+
+    // s^T = k.q^T and dp^T = v.do^T (keys x queries)
+    float st_acc[BQ / 2], dp_acc[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) st_acc[i] = dp_acc[i] = 0.f;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::mma_ss<BQ>(st_acc, wg::desc_k_major(ks, BK, 0, kk),
+                     wg::desc_k_major(qst, BQ, 0, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::mma_ss<BQ>(dp_acc, wg::desc_k_major(vs, BK, 0, kk),
+                     wg::desc_k_major(dost, BQ, 0, kk), 1);
+    wg::commit();
+    __syncthreads();  // delta is written
+    wg::wait<0>();
+    wg::fence_regs(st_acc);
+    wg::fence_regs(dp_acc);
+
+    // p^T = exp(s^T scale - lse), zero by selection where masked or
+    // padded (a padded query's lse is not a number to trust)
+    const bool edge = q0 + BQ > s || k0 + BK > s || (causal && q0 < k0 + BK);
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int qc = wg::frag_col(i);
+      float p = exp2f(fmaf(st_acc[i], scale_log2, -lse_t[qc] * kLog2e));
+      if (edge) {
+        const int qi = q0 + qc, key = key_lo + ((i >> 1) & 1) * 8;
+        p = qi < s && key < s && (!causal || key <= qi) ? p : 0.f;
+      }
+      st_acc[i] = p;
+    }
+    // ds^T = p^T * (dp^T - delta), before either product is issued, so
+    // that p and ds live as f32 only until they are packed to bf16
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i)
+      dp_acc[i] = st_acc[i] * (dp_acc[i] - delta_s[wg::frag_col(i)]);
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+    wg::to_a_frags<BQ>(st_acc, pa);
+    wg::to_a_frags<BQ>(dp_acc, da);
+    // dv += bf16(p^T).do; dk += bf16(ds^T).q
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wg::mma_rs<2 * NACC>(dv_acc, pa[kk], wg::desc_mn_major(dost, BQ, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wg::mma_rs<2 * NACC>(dk_acc, da[kk], wg::desc_mn_major(qst, BQ, kk), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(dv_acc);
+    wg::fence_regs(dk_acc);
+    __syncthreads();  // the stage and delta are consumed before reuse
+  }
+
+  bf16* dkb = head_base(dk, st, kDK, batch, head);
+  bf16* dvb = head_base(dv, st, kDV, batch, head);
+#pragma unroll
+  for (int i = 0; i < NACC; i += 2) {
+    const int key = key_lo + ((i >> 1) & 1) * 8, col = wg::frag_col(i);
+    if (key < s && col < D) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + key * st.v[kDK + 1] + col) =
+          __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + key * st.v[kDV + 1] + col) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
@@ -504,45 +717,47 @@ template <typename T, int D>
 int launch(Which which, const void* q, const void* k, const void* v,
            const void* o, const void* dout, const float* lse, void* dq,
            void* dk, void* dv, int b, int s, int h, const Strides& st,
-           int causal, float scale, cudaStream_t stream) {
+           int causal, float scale, cudaStream_t stream, int* info) {
   const T* Q = static_cast<const T*>(q);
   const T* K = static_cast<const T*>(k);
   const T* V = static_cast<const T*>(v);
   const T* O = static_cast<const T*>(o);
   const T* DO = static_cast<const T*>(dout);
-  cudaError_t err;
-  if (which == kDq) {
-    const size_t smem = dq_smem_bytes<D>();
-    err = cudaFuncSetAttribute(bwd_dq_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((s + kTileRows - 1) / kTileRows, h, b);
-    bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        Q, K, V, O, DO, lse, static_cast<T*>(dq), s, st, scale, causal);
-  } else if (which == kDkv) {
-    const size_t smem = dkv_smem_bytes<D>();
-    err = cudaFuncSetAttribute(bwd_dkv_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((s + kTileRows - 1) / kTileRows, h, b);
-    bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        Q, K, V, O, DO, lse, static_cast<T*>(dk), static_cast<T*>(dv), s, st,
-        scale, causal);
-  } else {
-    if (s > kFusedSeq) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = fused_smem_bytes<D>();
-    err = cudaFuncSetAttribute(bwd_fused_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid(1, h, b);
-    bwd_fused_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        Q, K, V, O, DO, lse, static_cast<T*>(dq), static_cast<T*>(dk),
-        static_cast<T*>(dv), s, st, scale, causal);
+  const dim3 tiles((s + kTileRows - 1) / kTileRows, h, b);
+  if (which == kDq)
+    return wg::run(bwd_dq_kernel<T, D>, tiles, kThreads, dq_smem_bytes<D>(),
+                   stream, info, Q, K, V, O, DO, lse, static_cast<T*>(dq), s,
+                   st, scale, causal);
+  if (which == kDkv) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      const int64_t blocks =
+          static_cast<int64_t>((s + kTcKeys - 1) / kTcKeys) * b * h;
+      if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+      return wg::run(bwd_dkv_tc_kernel<D>,
+                     dim3(static_cast<unsigned>(blocks)), 128,
+                     dkv_tc_smem_bytes<D>(), stream, info, Q, K, V, O, DO,
+                     lse, static_cast<T*>(dk), static_cast<T*>(dv), s, h,
+                     b * h, st, scale, causal);
+    } else {
+      return wg::run(bwd_dkv_kernel<D>, tiles, kThreads, dkv_smem_bytes<D>(),
+                     stream, info, Q, K, V, O, DO, lse, static_cast<T*>(dk),
+                     static_cast<T*>(dv), s, st, scale, causal);
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  if (s > kFusedSeq) return static_cast<int>(cudaErrorInvalidValue);
+  return wg::run(bwd_fused_kernel<T, D>, dim3(1, h, b), kThreads,
+                 fused_smem_bytes<D>(), stream, info, Q, K, V, O, DO, lse,
+                 static_cast<T*>(dq), static_cast<T*>(dk),
+                 static_cast<T*>(dv), s, st, scale, causal);
+}
+
+// 1: tensor-core kernel, 0: CUDA-core kernel, -1: no kernel for (dtype, d).
+// K3 takes the tensor cores in bfloat16; K2, K4 and every float32 call
+// run on the CUDA cores.
+int route(Which which, int dtype, int d) {
+  if ((d != 32 && d != 64 && d != 128) || (dtype != 0 && dtype != 1))
+    return -1;
+  return which == kDkv && dtype == 1 ? 1 : 0;
 }
 
 template <typename T>
@@ -550,17 +765,17 @@ int dispatch_d(Which which, const void* q, const void* k, const void* v,
                const void* o, const void* dout, const float* lse, void* dq,
                void* dk, void* dv, int b, int s, int h, int d,
                const Strides& st, int causal, float scale,
-               cudaStream_t stream) {
+               cudaStream_t stream, int* info) {
   switch (d) {
     case 32:
       return launch<T, 32>(which, q, k, v, o, dout, lse, dq, dk, dv, b, s, h,
-                           st, causal, scale, stream);
+                           st, causal, scale, stream, info);
     case 64:
       return launch<T, 64>(which, q, k, v, o, dout, lse, dq, dk, dv, b, s, h,
-                           st, causal, scale, stream);
+                           st, causal, scale, stream, info);
     case 128:
       return launch<T, 128>(which, q, k, v, o, dout, lse, dq, dk, dv, b, s,
-                            h, st, causal, scale, stream);
+                            h, st, causal, scale, stream, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -569,19 +784,24 @@ int dispatch_d(Which which, const void* q, const void* k, const void* v,
 int backward(Which which, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse, void* dq,
              void* dk, void* dv, int dtype, int b, int s, int h, int d,
-             const int64_t* strides, int causal, float scale, void* stream) {
+             const int64_t* strides, int causal, float scale, void* stream,
+             int* info = nullptr) {
   if (b <= 0 || s <= 0 || h <= 0) return 0;  // nothing to compute
   if (h > 65535 || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int r = route(which, dtype, d);
+  if (r < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // the tensor-core kernel reads q, k, v, o, do 16 bytes at a time
+  const void* const ptrs[5] = {q, k, v, o, dout};
+  if (r == 1 && !wg::aligned16(ptrs, 5, strides, 15))
+    return static_cast<int>(cudaErrorInvalidValue);
   Strides st;
   for (int i = 0; i < 24; ++i) st.v[i] = strides[i];
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_d<float>(which, q, k, v, o, dout, lse, dq, dk, dv, b, s,
-                             h, d, st, causal, scale, cs);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(which, q, k, v, o, dout, lse, dq, dk, dv,
-                                     b, s, h, d, st, causal, scale, cs);
-  return static_cast<int>(cudaErrorInvalidValue);
+                             h, d, st, causal, scale, cs, info);
+  return dispatch_d<bf16>(which, q, k, v, o, dout, lse, dq, dk, dv, b, s, h,
+                          d, st, causal, scale, cs, info);
 }
 
 }  // namespace
@@ -612,4 +832,27 @@ extern "C" int dmt_flash_attention_bwd_dkv(DMT_BWD_ARGS) {
 // K4: dq, dk and dv in one visit; s must be at most 64.
 extern "C" int dmt_flash_attention_bwd_fused(DMT_BWD_ARGS) {
   return backward(kFused, DMT_BWD_PASS);
+}
+
+// Which kernel an entry launches for (dtype, d): 1 the tensor-core
+// kernel, 0 the CUDA-core kernel, -1 none. which: 0 = K2, 1 = K3, 2 = K4.
+extern "C" int dmt_flash_attention_bwd_route(int which, int dtype, int d) {
+  return which >= kDq && which <= kFused
+             ? route(static_cast<Which>(which), dtype, d)
+             : -1;
+}
+
+// What a [b, s, h, d] call of kernel `which` would launch, without
+// launching it: info[0..4] = blocks resident per SM, threads a block,
+// dynamic shared memory bytes, registers a thread, local (spill) bytes
+// a thread. Returns a CUDA error code (0 on success).
+extern "C" int dmt_flash_attention_bwd_occupancy(int which, int dtype, int b,
+                                                 int s, int h, int d,
+                                                 int* info) {
+  if (which < kDq || which > kFused) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t strides[24] = {};  // aligned; not read
+  return backward(static_cast<Which>(which), nullptr, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, dtype,
+                  b, which == kFused ? (s < kFusedSeq ? s : kFusedSeq) : s, h,
+                  d, strides, 1, 1.f, nullptr, info);
 }

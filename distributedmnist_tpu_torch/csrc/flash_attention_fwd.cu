@@ -1,4 +1,4 @@
-// K1: flash-attention forward for Hopper (sm_90a), plain CUDA C++.
+// K1: flash-attention forward for Hopper (sm_90a), CUDA C++.
 //
 // Replaces: distributedmnist_tpu/ops/pallas_attention.py _attn_kernel,
 // launched there by _forward through the entry flash_attention_bshd:
@@ -11,34 +11,46 @@
 // out [batch, heads, seq]. It computes exact softmax(q.k^T * scale).v
 // over the model layout [batch, seq, heads, head_dim] with a float32
 // online softmax, causal key tiles above the diagonal skipped, and keys
-// past the sequence end masked with the finite -1e30.
+// past the sequence end masked with the finite -1e30. Inputs are read
+// through their strides (the model passes q = qkv[:, :, 0], a strided
+// view), so no copy is made before the call; the last dimension must be
+// contiguous.
 //
-// What bounds it on this card: at the decode-serving prefill shapes
-// (s <= 512, 16 heads of 128, one prompt) the whole call moves only a
-// few MB and does ~1 GFLOP, so it is bound by device-memory traffic and
-// launch cost, not by arithmetic. The design reads each Q row once and
-// each K/V tile once per 64-row query tile (one HBM pass over K/V per
-// query tile, the flash-attention traffic shape), keeps the running
-// max / denominator / accumulator in registers so the [s, s] score
-// matrix never leaves the SM, and walks only the key tiles at or below
-// the causal diagonal. It uses the CUDA cores in float32 (no tensor
-// cores yet): simple and exact first; wgmma/TMA are later work.
+// Two kernels, chosen by dtype alone (dmt_flash_attention_fwd_route):
 //
-// Layout: one thread block per (query tile of 64 rows, head, batch);
-// 8 warps, 8 query rows per warp. The sequential "arbitrary" grid axis
-// of the TPU kernel, whose accumulator carried across grid steps,
-// becomes the loop over key tiles inside the block. Key tiles are 32
-// wide: lane j of a warp owns key j of the tile for the scores and
-// column slice {lane + 32 i} of the output for the P.V product.
-// Inputs are read through their strides (the model passes q = qkv[:, :,
-// 0], a strided view), so no copy is made before the call; the last
-// dimension must be contiguous.
+// bfloat16 -> flash_fwd_tc_kernel, on the tensor cores (wgmma). What
+// bounds it: at the training shape [16, 1024, 16, 128] one call moves
+// 0.27 GB (0.080 ms at 3.35 TB/s) and does 68.8 GFLOP of causal
+// q.k^T and p.v (0.070 ms at 989 TFLOP/s): bytes and operations are
+// about equal, so only the tensor cores can come near either bound.
+// Design: a block owns 64 or 128 query rows (one or two consumer
+// warpgroups of 64); the q tile is loaded once, k/v tiles of 64 keys
+// stream through a 2-stage cp.async ring in the 128-byte-swizzled
+// layout wgmma reads (csrc/wgmma.cuh). s = q.k^T is an SS wgmma
+// (m64n64k16, both operands K-major); the online softmax runs on the
+// accumulator fragment in registers (row max and sum across the 4
+// lanes that share a row, exp2f with scale*log2(e) folded in); p is
+// rounded to bf16 in registers, as the reference rounds it to the input
+// dtype before p.v, and is the A operand of o += p.v (RS wgmma, v
+// MN-major). Causal blocks walk only the key tiles at or below their
+// diagonal and launch heaviest first; a call with fewer 128-row tiles
+// than the card has SMs uses 64-row tiles. Two blocks share an SM (up
+// to head_dim 128), so one block's softmax overlaps the other's wgmma.
+//
+// float32 -> flash_fwd_kernel, on the CUDA cores in float32 (tensor
+// cores would mean TF32 and miss the float32 agreement at 1e-4): one
+// block per 64-row query tile, 8 warps of 8 rows; 32-key tiles, lane j
+// owns key j for the scores and column slice {lane + 32 i} for p.v.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
+
+namespace wg = dmt_wgmma;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kBlockM = 64;  // query rows per thread block
@@ -46,19 +58,6 @@ constexpr int kBlockN = 32;  // keys per shared-memory tile (one per lane)
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = kBlockM / kWarps;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -79,10 +78,10 @@ constexpr size_t smem_bytes() {
          (kBlockM * D + kBlockN * (D + 1) + kBlockN * D);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int s,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int s,
                      int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                      int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                      int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
@@ -100,15 +99,15 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  const T* qb = q + batch * q_sb + head * q_sh;
-  const T* kb = k + batch * k_sb + head * k_sh;
-  const T* vb = v + batch * v_sb + head * v_sh;
-  T* ob = o + batch * o_sb + head * o_sh;
+  const float* qb = q + batch * q_sb + head * q_sh;
+  const float* kb = k + batch * k_sb + head * k_sh;
+  const float* vb = v + batch * v_sb + head * v_sh;
+  float* ob = o + batch * o_sb + head * o_sh;
 
   for (int idx = tid; idx < kBlockM * D; idx += kWarps * 32) {
     const int r = idx / D, c = idx - (idx / D) * D;
     const int row = q0 + r;
-    qs[idx] = row < s ? to_f32(qb[row * q_ss + c]) : 0.f;
+    qs[idx] = row < s ? qb[row * q_ss + c] : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
@@ -130,8 +129,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       const int j = idx / D, c = idx - (idx / D) * D;
       const int key = kv0 + j;
       const bool ok = key < s;  // keys past the end load as zeros
-      ks[j * (D + 1) + c] = ok ? to_f32(kb[key * k_ss + c]) : 0.f;
-      vs[j * D + c] = ok ? to_f32(vb[key * v_ss + c]) : 0.f;
+      ks[j * (D + 1) + c] = ok ? kb[key * k_ss + c] : 0.f;
+      vs[j * D + c] = ok ? vb[key * v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -195,7 +194,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
       for (int i = 0; i < DPL; ++i)
-        ob[row * o_ss + lane + 32 * i] = from_f32<T>(acc[r][i] * inv);
+        ob[row * o_ss + lane + 32 * i] = acc[r][i] * inv;
       // K1-lse: m and l are warp-uniform after the reductions, so lane 0
       // writes the row's log-sum-exp
       if (lse != nullptr && lane == 0)
@@ -205,64 +204,259 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int s, int h, const int64_t* st, int causal, float scale,
-           float* lse, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((s + kBlockM - 1) / kBlockM, h, b);
-  flash_fwd_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
-      causal, lse);
-  return static_cast<int>(cudaGetLastError());
+           float* lse, cudaStream_t stream, int* info) {
+  return wg::run(flash_fwd_kernel<D>, dim3((s + kBlockM - 1) / kBlockM, h, b),
+                 kWarps * 32, smem_bytes<D>(), stream, info,
+                 static_cast<const float*>(q), static_cast<const float*>(k),
+                 static_cast<const float*>(v), static_cast<float*>(o), s,
+                 st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+                 st[9], st[10], st[11], scale, causal, lse);
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
-               int s, int h, int d, const int64_t* st, int causal,
-               float scale, float* lse, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, b, s, h, st, causal, scale, lse, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, s, h, st, causal, scale, lse, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, s, h, st, causal, scale, lse, stream);
-    case 256: return launch<T, 256>(q, k, v, o, b, s, h, st, causal, scale, lse, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// ------------------------------------------------ bfloat16: tensor cores
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcBlockN = 64;  // keys a k/v tile
+// Below this many 128-row tiles a call (e.g. one 512-token prefill:
+// 64) would leave SMs of an H100 SXM idle, so it takes 64-row tiles.
+constexpr int kNumSMs = 132;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Element strides (batch, seq, head) of q, k, v, o.
+struct Strides {
+  int64_t v[12];
+};
+
+template <int D, int WG>
+constexpr size_t tc_smem_bytes() {
+  // the q tile, two stages of k and v tiles, and room to align the base
+  return wg::tile_bytes<64 * WG, D>() + 4 * wg::tile_bytes<kTcBlockN, D>() +
+         1024;
+}
+
+// WG consumer warpgroups, 64 query rows each. Grid: one block per
+// (query tile, head, batch), the query tile slowest. Up to head_dim 128
+// the 2-warpgroup kernel is held to 128 registers a thread, so that two
+// blocks share an SM and one's softmax overlaps the other's products.
+template <int D, int WG>
+__global__ void __launch_bounds__(WG * 128, D <= 128 && WG == 2 ? 2 : 1)
+    flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o,
+                        int s, int h, int n_bh, int n_tiles, Strides st,
+                        float scale_log2, int causal, float* __restrict__ lse) {
+  constexpr int BM = 64 * WG, BN = kTcBlockN, T = WG * 128;
+  constexpr int NACC = wg::padded_cols<D>() / 2;  // o accumulator registers
+  constexpr uint32_t kStage = wg::tile_bytes<BN, D>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = (wg::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t ks = qs + wg::tile_bytes<BM, D>();  // 2 stages
+  const uint32_t vs = ks + 2 * kStage;               // 2 stages
+
+  // causal calls take the heaviest query tiles (the last rows) first
+  const int tile = blockIdx.x / n_bh;
+  const int qt = causal ? n_tiles - 1 - tile : tile;
+  const int head = blockIdx.x % n_bh % h, batch = blockIdx.x % n_bh / h;
+  const bf16* qb = q + batch * st.v[0] + head * st.v[2];
+  const bf16* kb = k + batch * st.v[3] + head * st.v[5];
+  const bf16* vb = v + batch * st.v[6] + head * st.v[8];
+  bf16* ob = o + batch * st.v[9] + head * st.v[11];
+
+  const int q0 = qt * BM;
+  const int wgi = threadIdx.x >> 7;       // this thread's warpgroup
+  const int wg_row0 = q0 + wgi * 64;      // its first query row
+  const int row_lo = wg_row0 + wg::frag_row(0);  // this thread's rows:
+                                                 // row_lo, row_lo + 8
+  const int kv_end = causal ? min(s, q0 + BM) : s;
+  const int n_kv = (kv_end + BN - 1) / BN;
+
+  wg::load_tile<BM, D, T>(qs, qb, st.v[1], q0, s);
+  wg::load_tile<BN, D, T>(ks, kb, st.v[4], 0, s);
+  wg::load_tile<BN, D, T>(vs, vb, st.v[7], 0, s);
+  wg::cp_async_commit();
+
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int kv0 = t * BN;
+    if (t + 1 < n_kv) {  // prefetch the next k/v tile into the other stage
+      const uint32_t nxt = ((t + 1) & 1) * kStage;
+      wg::load_tile<BN, D, T>(ks + nxt, kb, st.v[4], kv0 + BN, s);
+      wg::load_tile<BN, D, T>(vs + nxt, vb, st.v[7], kv0 + BN, s);
+      wg::cp_async_commit();
+      wg::cp_async_wait<1>();
+    } else {
+      wg::cp_async_wait<0>();
+    }
+    wg::fence_async_smem();
+    __syncthreads();
+    const uint32_t kst = ks + (t & 1) * kStage, vst = vs + (t & 1) * kStage;
+    // causal: a key tile wholly above this warpgroup's rows adds nothing
+    if (!causal || kv0 <= wg_row0 + 63) {
+      float sc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss<BN>(sc, wg::desc_k_major(qs, BM, wgi * 64, kk),
+                       wg::desc_k_major(kst, BN, 0, kk), 1);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(sc);
+
+      // online softmax on the fragment, in the log2 domain
+      const bool edge = kv0 + BN > s || (causal && kv0 + BN - 1 > wg_row0);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        float x = sc[i] * scale_log2;
+        if (edge) {
+          const int key = kv0 + wg::frag_col(i);
+          const int row = row_lo + ((i >> 1) & 1) * 8;
+          x = key < s && (!causal || key <= row) ? x : kNegInf;
+        }
+        sc[i] = x;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // the 4 lanes holding a row
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        corr[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= corr[r];  // this thread's share of the row sum
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const float p = exp2f(sc[i] - m[(i >> 1) & 1]);
+        l[(i >> 1) & 1] += p;
+        sc[i] = p;
+      }
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+      // o += bf16(p).v
+      uint32_t pa[BN / 16][4];
+      wg::to_a_frags<BN>(sc, pa);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wg::mma_rs<2 * NACC>(acc, pa[kk], wg::desc_mn_major(vst, BN, kk), 1);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(acc);
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
   }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < NACC; i += 2) {
+    const int row = row_lo + ((i >> 1) & 1) * 8, col = wg::frag_col(i);
+    if (row < s && col < D) {
+      const float inv = 1.f / fmaxf(l[(i >> 1) & 1], 1e-30f);
+      *reinterpret_cast<__nv_bfloat162*>(ob + row * st.v[10] + col) =
+          __floats2bfloat162_rn(acc[i] * inv, acc[i + 1] * inv);
+    }
+  }
+  if (lse != nullptr && (threadIdx.x & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_lo + 8 * r;
+      if (row < s)
+        lse[(static_cast<int64_t>(batch) * h + head) * s + row] =
+            (m[r] + log2f(fmaxf(l[r], 1e-30f))) * kLn2;
+    }
+  }
+}
+
+template <int D, int WG>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
+              int s, int h, const Strides& st, int causal, float scale,
+              float* lse, cudaStream_t stream, int* info) {
+  const int n_tiles = (s + 64 * WG - 1) / (64 * WG);
+  const int64_t blocks = static_cast<int64_t>(n_tiles) * b * h;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  return wg::run(flash_fwd_tc_kernel<D, WG>,
+                 dim3(static_cast<unsigned>(blocks)), WG * 128,
+                 tc_smem_bytes<D, WG>(), stream, info,
+                 static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                 static_cast<const bf16*>(v), static_cast<bf16*>(o), s, h,
+                 b * h, n_tiles, st, scale * kLog2e, causal, lse);
+}
+
+template <int D>
+int launch_tc_d(const void* q, const void* k, const void* v, void* o, int b,
+                int s, int h, const Strides& st, int causal, float scale,
+                float* lse, cudaStream_t stream, int* info) {
+  const int64_t tiles128 = static_cast<int64_t>((s + 127) / 128) * b * h;
+  return tiles128 >= kNumSMs
+             ? launch_tc<D, 2>(q, k, v, o, b, s, h, st, causal, scale, lse,
+                               stream, info)
+             : launch_tc<D, 1>(q, k, v, o, b, s, h, st, causal, scale, lse,
+                               stream, info);
+}
+
+// 1: tensor-core kernel (bfloat16), 0: CUDA-core kernel (float32),
+// -1: no kernel for (dtype, d).
+int route(int dtype, int d) {
+  if (d != 32 && d != 64 && d != 128 && d != 256) return -1;
+  return dtype == 1 ? 1 : dtype == 0 ? 0 : -1;
 }
 
 int forward(const void* q, const void* k, const void* v, void* o, int dtype,
             int b, int s, int h, int d, const int64_t* strides, int causal,
-            float scale, float* lse, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+            float scale, float* lse, void* stream, int* info) {
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (b <= 0 || s <= 0 || h <= 0) return 0;  // nothing to compute
   if (h > 65535 || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, b, s, h, d, strides, causal, scale,
-                             lse, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, b, s, h, d, strides, causal,
-                                     scale, lse, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int r = route(dtype, d);
+  if (r == 0) {
+    switch (d) {
+      case 32: return launch<32>(q, k, v, o, b, s, h, strides, causal, scale, lse, cs, info);
+      case 64: return launch<64>(q, k, v, o, b, s, h, strides, causal, scale, lse, cs, info);
+      case 128: return launch<128>(q, k, v, o, b, s, h, strides, causal, scale, lse, cs, info);
+      case 256: return launch<256>(q, k, v, o, b, s, h, strides, causal, scale, lse, cs, info);
+    }
+  }
+  const void* const ptrs[3] = {q, k, v};
+  if (r != 1 || !wg::aligned16(ptrs, 3, strides, 9))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Strides st;
+  for (int i = 0; i < 12; ++i) st.v[i] = strides[i];
+  switch (d) {
+    case 32: return launch_tc_d<32>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
+    case 64: return launch_tc_d<64>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
+    case 128: return launch_tc_d<128>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
+    default: return launch_tc_d<256>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
+  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, in the
-// order (batch, seq, head) for q, k, v, o. Returns cudaGetLastError()
-// after the launch (0 on success).
+// order (batch, seq, head) for q, k, v, o; bfloat16 calls need 16-byte
+// aligned q, k, v and strides that are multiples of 8. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int dmt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, int dtype,
                                        int b, int s, int h, int d,
                                        const int64_t* strides, int causal,
                                        float scale, void* stream) {
   return forward(q, k, v, o, dtype, b, s, h, d, strides, causal, scale,
-                 nullptr, stream);
+                 nullptr, stream, nullptr);
 }
 
 // K1-lse: the same forward, also writing lse [b, h, s] float32
@@ -275,5 +469,22 @@ extern "C" int dmt_flash_attention_fwd_lse(const void* q, const void* k,
                                            int causal, float scale,
                                            void* stream) {
   return forward(q, k, v, o, dtype, b, s, h, d, strides, causal, scale, lse,
-                 stream);
+                 stream, nullptr);
+}
+
+// Which kernel the two entries launch for (dtype, d): 1 the tensor-core
+// kernel, 0 the CUDA-core kernel, -1 none.
+extern "C" int dmt_flash_attention_fwd_route(int dtype, int d) {
+  return route(dtype, d);
+}
+
+// What a [b, s, h, d] call would launch, without launching it: info[0..4]
+// = blocks resident per SM, threads a block, dynamic shared memory
+// bytes, registers a thread, local (spill) bytes a thread. Returns a
+// CUDA error code (0 on success).
+extern "C" int dmt_flash_attention_fwd_occupancy(int dtype, int b, int s,
+                                                 int h, int d, int* info) {
+  const int64_t strides[12] = {};  // aligned; not read
+  return forward(nullptr, nullptr, nullptr, nullptr, dtype, b, s, h, d,
+                 strides, 1, 1.f, nullptr, nullptr, info);
 }

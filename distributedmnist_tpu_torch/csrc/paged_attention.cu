@@ -220,3 +220,10 @@ extern "C" int dmt_paged_attention(const void* q, const void* k_pages,
                                       q_sh, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Which kernel dmt_paged_attention launches for (q dtype, d): 0 the
+// CUDA-core kernel (every supported pair), -1 none.
+extern "C" int dmt_paged_attention_route(int dtype, int d) {
+  const bool ok_d = d == 32 || d == 64 || d == 128 || d == 256;
+  return ok_d && (dtype == 0 || dtype == 1) ? 0 : -1;
+}

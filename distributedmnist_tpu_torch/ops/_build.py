@@ -5,14 +5,18 @@ interface, which is loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds, not minutes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
-         -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so
+         csrc/<name>.cu
 
 Libraries land in ``distributedmnist_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. Building happens
-at first use — importing this module compiles nothing — and
-:func:`build` compiles every stale source at once, one ``nvcc`` process
-per source, all started together.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``, which every source may include) and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.
+Building happens at first use — importing this module compiles nothing
+— and :func:`build` compiles every stale source at once, one ``nvcc``
+process per source, all started together. The compiler's output
+(``-Xptxas -v``: each kernel's registers, stack and spill bytes) is kept
+beside each library as ``.log``; :func:`ptxas_report` reads it.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,7 +36,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -51,6 +56,9 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -82,10 +90,12 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, float]:
             failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
-        for stale in BUILD_DIR.glob(f"lib{name}-*.so"):
-            if stale != out:
-                stale.unlink(missing_ok=True)
+        for suffix in (".so", ".log"):  # an older build's library and log
+            for stale in BUILD_DIR.glob(f"lib{name}-*{suffix}"):
+                if stale.stem != out.stem:
+                    stale.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return took
@@ -102,3 +112,52 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_TEMPLATE_ARG = re.compile(r"Li(\d+)E|13__nv_bfloat16|f|S\d*_")
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_tc_kernel<128, 2>`` from its mangled name: the nested
+    name's parts are read by their length prefixes up to the one that
+    ends in ``_kernel`` (the kernels here are templates over int
+    constants, float and bf16)."""
+    i = mangled.find("_ZN") + 3
+    while 2 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        i = j + int(mangled[i:j])
+        name = mangled[j:i]
+        if name.endswith("_kernel") and mangled[i:i + 1] == "I":
+            args: list[str] = []
+            for a in _TEMPLATE_ARG.finditer(
+                    mangled[i + 1:mangled.find("EE", i) + 1]):
+                tok = a.group(0)
+                args.append(a.group(1) or ("float" if tok == "f" else
+                                           args[-1] if tok[0] == "S"
+                                           else "bf16"))
+            return f"{name}<{', '.join(args)}>"
+    return mangled
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Per kernel instantiation of the built ``csrc/<name>.cu``: its
+    registers a thread, stack frame and spill bytes, as ``ptxas -v``
+    printed them when the library was built."""
+    log = library_path(name).with_suffix(".log")
+    rows: list[dict] = []
+    for line in log.read_text().splitlines():
+        if (m := _ENTRY.search(line)):
+            rows.append({"kernel": kernel_name(m.group(1))})
+        elif rows and (m := _FRAME.search(line)):
+            rows[-1].update(stack_bytes=int(m.group(1)),
+                            spill_store_bytes=int(m.group(2)),
+                            spill_load_bytes=int(m.group(3)))
+        elif rows and (m := _USED.search(line)):
+            rows[-1]["registers"] = int(m.group(1))
+    return rows

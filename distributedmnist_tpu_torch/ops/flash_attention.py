@@ -29,10 +29,14 @@ scale ``1/sqrt(head_dim)`` unless given, causal mask with the finite
 ``-1e30`` (the backward zeroes masked and padded entries by selection),
 outputs in the inputs' dtype, lse in float32 laid out ``[b, h, s]``
 (the reference's is lane-broadcast ``[b, s_pad, h·128]``, a TPU
-tiling; its lane 0 is this). The kernels keep P and dS in float32
-for every product, where the TPU kernels round them to the input dtype
-first, so in bfloat16 they are a little closer to the float32 oracle
-than the reference kernels are.
+tiling; its lane 0 is this). In bfloat16, K1/K1-lse and K3 run on the
+tensor cores and round p (and K3 ds) to bfloat16 before the products
+p·v, pᵀ·do and dsᵀ·q, as the TPU kernels round them to the input dtype;
+K2, K4 and every float32 call run on the CUDA cores and keep p and ds in
+float32 for every product. :func:`kernel_route` says which kernel a call
+takes. bfloat16 calls need 16-byte aligned q, k, v, o and do, with
+(batch, seq, head) strides that are multiples of 8 elements — the
+model's ``qkv[:, :, i]`` views are.
 """
 
 from __future__ import annotations
@@ -174,6 +178,16 @@ def _check_kernel(q: torch.Tensor, head_dims: tuple[int, ...],
     if any(x.stride(-1) != 1 for x in (q, *tensors)):
         raise ValueError("flash kernel needs a contiguous last (head_dim) "
                          "dimension; other dims may be strided")
+    if q.dtype == torch.bfloat16 and not all(
+            _aligned16(x) for x in (q, *tensors)):
+        raise ValueError("the bfloat16 flash kernels read 16-byte rows: "
+                         "each tensor's address must be 16-byte aligned and "
+                         "its batch, seq and head strides multiples of 8")
+
+
+def _aligned16(x: torch.Tensor) -> bool:
+    return (x.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in x.stride()[:-1]))
 
 
 def _strides(*tensors: torch.Tensor):
@@ -287,8 +301,9 @@ def _bwd_args(q, k, v, o, lse, do, scale):
     _check(q, k, v)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    if do.stride(-1) != 1:  # e.g. an expanded ones cotangent
-        do = do.contiguous()
+    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+                              and not _aligned16(do)):
+        do = do.contiguous()  # e.g. an expanded ones cotangent
     return do, float(scale)
 
 
@@ -366,6 +381,60 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     dk, dv = flash_attention_bwd_dkv(q, k, v, o, lse, do, causal=causal,
                                      scale=scale)
     return dq, dk, dv
+
+
+# -- which kernel a call takes --------------------------------------------
+
+_ROUTES = {1: "wgmma", 0: "cuda_cores"}
+_BWD_WHICH = {"K2": 0, "K3": 1, "K4": 2}
+
+
+def _query(kernel: str, what: str):
+    """The library query ``dmt_flash_attention_{fwd,bwd}_{what}`` for
+    ``kernel``, and the leading arguments that name the kernel (the
+    backward library serves K2, K3 and K4)."""
+    fwd = kernel in ("K1", "K1-lse")
+    lib = load_library("flash_attention_fwd" if fwd else "flash_attention_bwd")
+    fn = getattr(lib, f"dmt_flash_attention_{'fwd' if fwd else 'bwd'}_{what}")
+    lead = () if fwd else (_BWD_WHICH[kernel],)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * (len(lead) + (2 if what == "route"
+                                                      else 5))
+                       + ([] if what == "route"
+                          else [ctypes.POINTER(ctypes.c_int)]))
+        fn.restype = ctypes.c_int
+    return fn, lead
+
+
+def kernel_route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
+    """Which compiled kernel ``kernel`` ("K1", "K1-lse", "K2", "K3" or
+    "K4") launches for ``dtype`` and ``head_dim``: ``"wgmma"`` (the
+    tensor-core kernel) or ``"cuda_cores"``; raises ``ValueError`` for a
+    pair no kernel takes. Asks the built library (on a machine with
+    ``nvcc``)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"no flash kernel takes {dtype}")
+    fn, lead = _query(kernel, "route")
+    r = fn(*lead, _DTYPES[dtype], head_dim)
+    if r not in _ROUTES:
+        raise ValueError(f"{kernel} has no kernel for {dtype}, head_dim "
+                         f"{head_dim}")
+    return _ROUTES[r]
+
+
+def kernel_occupancy(kernel: str, dtype: torch.dtype,
+                     shape: tuple[int, int, int, int]) -> dict:
+    """What ``kernel`` would launch for inputs of ``shape`` ``[b, s, h,
+    d]``, from the CUDA runtime, without launching it: blocks resident
+    per SM, threads a block, dynamic shared memory bytes, registers and
+    local (spill) bytes a thread. Needs a CUDA device."""
+    info = (ctypes.c_int * 5)()
+    fn, lead = _query(kernel, "occupancy")
+    _raise_on(fn(*lead, _DTYPES[dtype], *shape, info),
+              f"{kernel} occupancy query")
+    keys = ("blocks_per_sm", "threads", "smem_bytes", "registers",
+            "local_bytes")
+    return dict(zip(keys, info))
 
 
 # -- the autograd binding and the model's entry ---------------------------

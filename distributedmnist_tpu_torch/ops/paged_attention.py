@@ -109,6 +109,18 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 paged_attention.launches = 0  # kernel launches (CUDA calls only)
 
 
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which compiled kernel K5 launches for ``dtype`` and ``head_dim``:
+    ``"cuda_cores"`` (the only one); raises ``ValueError`` for a pair it
+    does not take. Asks the built library."""
+    fn = load_library("paged_attention").dmt_paged_attention_route
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    r = fn(_DTYPES.get(dtype, -1), head_dim)
+    if r != 0:
+        raise ValueError(f"K5 has no kernel for {dtype}, head_dim {head_dim}")
+    return "cuda_cores"
+
+
 def _lib():
     lib = load_library("paged_attention")
     fn = lib.dmt_paged_attention

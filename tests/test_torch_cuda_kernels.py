@@ -11,8 +11,14 @@ runs where the reference is not installed:
 
 Tolerances: float32 1e-4 (summation order only); bfloat16 outputs of
 K1-K4 atol 3e-2 / rtol 1e-2 (one bf16 ulp where the two versions round
-differently); K5 outputs and every lse are float32 computed from the
-same inputs, 1e-4.
+differently; the tensor-core K1 and K3 also round p and ds to bf16
+before their second products, as the TPU kernels do, which moves an
+output by well under that); K5 outputs and every lse are float32
+computed from the same inputs, 1e-4.
+
+``EDGES`` walks the tensor-core kernels' tile edges: sequence lengths
+around the 64-row tiles (and the 128-row forward tile), every head_dim,
+causal and not, always through strided ``qkv[:, :, i]`` views.
 """
 
 import numpy as np
@@ -29,6 +35,11 @@ F32 = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=3e-2, rtol=1e-2)
 
 pytestmark = pytest.mark.cuda
+
+# (s, head_dim, causal) at the tiles' edges; K2-K4 take head_dim <= 128
+EDGES = [(s, d, c) for s in (1, 63, 64, 65, 127, 128, 129, 1000)
+         for d in (32, 64, 128, 256) for c in (True, False)]
+BWD_EDGES = [e for e in EDGES if e[1] <= 128]
 
 
 @pytest.fixture
@@ -47,7 +58,8 @@ def _close(got, want, tol):
                                        (torch.bfloat16, BF16)])
 @pytest.mark.parametrize("s,d,causal", [(1, 128, True), (37, 64, True),
                                         (64, 32, True), (130, 128, True),
-                                        (100, 256, True), (77, 64, False)])
+                                        (100, 256, True), (77, 64, False)]
+                         + EDGES)
 def test_flash_kernel_matches_plain(dev, dtype, tol, s, d, causal):
     b, h = 2, 4
     g = torch.Generator(device=dev).manual_seed(s * d)
@@ -133,7 +145,7 @@ def _strided_qkv(dev, dtype, b, s, h, d, seed):
                                        (torch.bfloat16, BF16)])
 @pytest.mark.parametrize("s,d,causal", [(1, 128, True), (37, 64, True),
                                         (130, 128, True), (100, 256, True),
-                                        (77, 32, False)])
+                                        (77, 32, False)] + EDGES)
 def test_flash_lse_kernel_matches_plain(dev, dtype, tol, s, d, causal):
     _, (q, k, v) = _strided_qkv(dev, dtype, 2, s, 4, d, s + d)
     before = fa.flash_attention_fwd_lse.launches
@@ -173,6 +185,64 @@ def test_flash_backward_kernels_match_plain(dev, dtype, tol, s, d, causal):
     for g_, w_, x in zip(got, want, (q, k, v)):
         assert g_.dtype == x.dtype and g_.shape == x.shape
         _close(g_, w_, tol)
+
+
+def _dkv_inputs(dev, dtype, s, d, causal):
+    """Strided q, k, v, the plain forward's o and lse, and a cotangent."""
+    _, (q, k, v) = _strided_qkv(dev, dtype, 2, s, 4, d, 3 * s + d)
+    o, lse = fa.flash_attention_fwd_lse_plain(q, k, v, causal=causal)
+    do = torch.randn(o.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(d)
+                     ).to(dtype)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32),
+                                       (torch.bfloat16, BF16)])
+@pytest.mark.parametrize("s,d,causal", BWD_EDGES)
+def test_flash_dkv_kernel_matches_plain(dev, dtype, tol, s, d, causal):
+    """K3 alone at every tile edge, against the plain backward."""
+    q, k, v, o, lse, do = _dkv_inputs(dev, dtype, s, d, causal)
+    before = fa.flash_attention_bwd_dkv.launches
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dkv.launches == before + 1
+    _, want_dk, want_dv = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                       causal=causal)
+    _close(dk, want_dk, tol)
+    _close(dv, want_dv, tol)
+
+
+def test_flash_dkv_kernel_is_deterministic(dev):
+    """The same bf16 K3 call twice gives bitwise equal dk and dv: each
+    block owns its key tile, no atomics."""
+    args = _dkv_inputs(dev, torch.bfloat16, 1000, 128, True)
+    first = fa.flash_attention_bwd_dkv(*args)
+    second = fa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bf16_calls_take_the_tensor_cores(dev):
+    """At head_dim 128, bf16 K1/K1-lse and K3 launch the wgmma kernels;
+    float32, K2 and K4 the CUDA-core kernels."""
+    for kernel in ("K1", "K1-lse", "K3"):
+        assert fa.kernel_route(kernel, torch.bfloat16, 128) == "wgmma"
+        assert fa.kernel_route(kernel, torch.float32, 128) == "cuda_cores"
+    for kernel in ("K2", "K4"):
+        assert fa.kernel_route(kernel, torch.bfloat16, 128) == "cuda_cores"
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.kernel_route("K3", torch.bfloat16, 256)
+
+
+def test_bf16_kernels_refuse_misaligned_rows(dev):
+    """The tensor-core kernels read 16-byte rows; a bf16 view whose rows
+    are not 16-byte aligned is refused, not copied."""
+    x = torch.zeros(1, 8, 2 * 32 + 4, device=dev, dtype=torch.bfloat16)
+    q = x[:, :, 4:].view(1, 8, 2, 32)  # 8-byte offset
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bshd(q, q, q)
 
 
 @pytest.mark.parametrize("s", [48, 300])
