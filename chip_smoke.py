@@ -26,20 +26,24 @@ One JSON line per phase:
 2. ``build``    — seconds to compile every kernel (one nvcc per source,
                 all at once); per kernel instantiation its registers,
                 stack and spill bytes (``ptxas -v``) and its count of
-                ``HGMMA`` (wgmma) instructions in the SASS (``cuobjdump``):
-                the bf16 K1 and K3 kernels at head_dim 128 must have them;
-                per kernel on the main path, at its main-path shape, the
-                bf16 variant it launches with its registers, dynamic
-                shared memory, spill bytes and blocks per SM (CUDA
-                runtime).
+                ``HGMMA`` (wgmma) instructions in the SASS (the toolkit's
+                ``cuobjdump``, names through its ``cu++filt``): the bf16
+                K1, K1-lse and K3 instantiations of the main paths must
+                have them, and the phase fails if the count cannot be
+                made; per kernel on the main path, at its main-path
+                shape, the bf16 instantiation it launches with its
+                registers and spills (``ptxas``), dynamic shared memory
+                and blocks per SM (CUDA runtime).
 3. ``kernels``  — each kernel against its plain PyTorch version on the
                 card at the main paths' shapes, float32 and bfloat16:
                 K1 flash-attention forward and K5 paged attention at
                 the decode shapes; K1-lse (forward with log-sum-exp),
                 K2 (dq), K3 (dk, dv) at the training shape and K4
                 (fused backward) at the short run's; max abs error
-                beside the stated tolerance, kernel / plain / library
-                times (CUDA events), and the bound.
+                beside the stated tolerance, the relative error of the
+                whole output beside its own, the mean |plain output|,
+                kernel / plain / library times (CUDA events, device
+                time: see ``time_ms``), and the bound.
 4. ``train``    — one step through the kernels against one step through
                 their plain versions from the same params and batch;
                 then 20 steps of the Trainer with every launch counter
@@ -66,11 +70,9 @@ One JSON line per phase:
 
 Then a ``kernels`` summary line (per kernel also its ``variant`` —
 ``wgmma`` or ``cuda_cores``, the compiled kernel the bf16 call takes —
-its registers, shared memory and blocks per SM at the timed shape, and
-for the kernels redesigned for the tensor cores, K1, K1-lse and K3,
-their times before the redesign, ``ms_before``), the card's name and
-power limit as
-``nvidia-smi`` reports them, and, last, the result line
+and the build phase's instantiation, registers, spills, shared memory
+and blocks per SM at the timed shape), the card's name and power limit
+as ``nvidia-smi`` reports them, and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failure prints the failing
 phase and exits nonzero before the result line.
 """
@@ -78,6 +80,7 @@ phase and exits nonzero before the result line.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -118,6 +121,15 @@ TOL = {("K1", "float32"): 1e-4, ("K1", "bfloat16"): 3e-2,
 # 2^-4, hence the relative term); lse is float32 from the same inputs
 BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 1e-2),
            "lse": (1e-4, 1e-4)}
+# every output as a whole, ||kernel - plain|| / ||plain||, by the dtype
+# of the output. Where attention averages over hundreds of keys the
+# outputs are a few hundredths (each case prints its mean |plain|), the
+# order of the elementwise atol, which alone would pass one key tile
+# weighted 10% off; this would not. float32 differs by summation order;
+# bfloat16 by one rounding of each output and of p and ds (below 3e-3
+# in every case here; the inputs are seeded and the kernels
+# deterministic, so it repeats run to run)
+REL_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 
 # the training path (bench.py bench_transformer_flash's model and batch)
 TRAIN_STEPS = 20
@@ -172,20 +184,50 @@ def nvidia_smi() -> str | None:
     return p.stdout.strip().splitlines()[0] if p.returncode == 0 else None
 
 
+@functools.cache
+def _sleep_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on the card."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    b.synchronize()
+    return 1e7 / a.elapsed_time(b)
+
+
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Mean device time of one call, by CUDA events over ``iters``."""
+    """Mean device time of one call, by CUDA events around ``iters``
+    calls. The calls are queued behind a device-side sleep, so a call
+    shorter than its own host-side launch cost is timed by the device,
+    not by the host. The reading counts only if the start event is still
+    pending once the host has issued every call; otherwise it is taken
+    again behind a four times longer sleep."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
+    sleep_ms = 2 * (time.perf_counter() - t0) * 1e3 + 1
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for _ in range(6):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(_sleep_cycles_per_ms() * sleep_ms))
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        queued = not a.query()
+        b.synchronize()
+        if queued:
+            return a.elapsed_time(b) / iters
+        sleep_ms *= 4
+    raise PhaseError(f"the host could not queue {iters} calls within a "
+                     f"{sleep_ms / 4:.0f} ms device sleep")
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -214,44 +256,57 @@ def phase_env() -> dict:
 
 # -- phase 2 ----------------------------------------------------------------
 
-def _hgmma_counts(lib_path) -> dict | None:
+def _hgmma_counts(lib_path) -> dict:
     """HGMMA instructions per kernel instantiation in a built library's
-    SASS, or None where the toolkit has no ``cuobjdump``."""
+    SASS (the toolkit's ``cuobjdump``)."""
     from distributedmnist_tpu_torch.ops import _build
-    tool = "/usr/local/cuda/bin/cuobjdump"
-    try:
-        out = subprocess.run([tool, "-sass", str(lib_path)],
-                             capture_output=True, text=True, timeout=300)
-    except (OSError, subprocess.TimeoutExpired):
-        return None
-    counts, fn = {}, None
+    out = subprocess.run([_build.toolkit_tool("cuobjdump"), "-sass",
+                          str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib_path} failed (rc "
+          f"{out.returncode}): {out.stderr.strip()[-1000:]}")
+    mangled, counts = [], []
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            fn = _build.kernel_name(line.split("Function :")[1].strip())
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
-    return counts
+            mangled.append(line.split("Function :")[1].strip())
+            counts.append(0)
+        elif counts and "HGMMA" in line:
+            counts[-1] += 1
+    check(bool(mangled), f"cuobjdump found no kernel in {lib_path}")
+    return dict(zip(_build.demangle(mangled), counts))
 
 
-# the tensor-core instantiations the main paths launch (head_dim 128)
-TC_KERNELS = ("flash_fwd_tc_kernel<128, 1>", "flash_fwd_tc_kernel<128, 2>",
-              "bwd_dkv_tc_kernel<128>")
+# the bf16 kernel instantiation each kernel launches on the main paths
+# (head_dim 128; K5 with bf16 pages)
+MAIN_PATH_KERNEL = {
+    "K1": "flash_fwd_tc_kernel<128>", "K1-lse": "flash_fwd_tc_kernel<128>",
+    "K2": "bwd_dq_kernel<__nv_bfloat16, 128>",
+    "K3": "bwd_dkv_tc_kernel<128>",
+    "K4": "bwd_fused_kernel<__nv_bfloat16, 128>",
+    "K5": "paged_kernel<__nv_bfloat16, __nv_bfloat16, 4>"}
+# those that run on the tensor cores: their SASS must hold HGMMA
+TC_KEYS = ("K1", "K1-lse", "K3")
 
 
-def _resources(key: str, shape) -> dict:
-    """The bf16 kernel ``key`` takes at ``shape``: its variant, and the
-    registers, shared memory and blocks per SM the runtime reports."""
+def _resources(key: str, shape, ptxas: dict) -> dict:
+    """The bf16 kernel ``key`` takes at ``shape``: its variant, its
+    registers and spill bytes (``ptxas -v``), and the dynamic shared
+    memory and blocks per SM the CUDA runtime gives its launch."""
     import torch
 
     from distributedmnist_tpu_torch.ops import flash_attention as fa
     from distributedmnist_tpu_torch.ops import paged_attention as pa
+    kernel = MAIN_PATH_KERNEL[key]
+    row = ptxas.get(kernel)
+    check(row is not None, f"{key}: {kernel} is not in the ptxas report")
+    rec = {"instantiation": kernel, "registers": row["registers"],
+           "spill_store_bytes": row["spill_store_bytes"],
+           "spill_load_bytes": row["spill_load_bytes"]}
     if key == "K5":
-        return {"variant": pa.kernel_route(torch.bfloat16, shape[-1])}
+        return {"variant": pa.kernel_route(torch.bfloat16, shape[-1]), **rec}
     occ = fa.kernel_occupancy(key, torch.bfloat16, tuple(shape))
     return {"variant": fa.kernel_route(key, torch.bfloat16, shape[-1]),
-            "registers": occ["registers"], "smem_bytes": occ["smem_bytes"],
-            "spill_bytes": occ["local_bytes"],
+            **rec, "smem_bytes": occ["smem_bytes"],
             "blocks_per_sm": occ["blocks_per_sm"],
             "warps_per_sm": occ["blocks_per_sm"] * occ["threads"] // 32}
 
@@ -278,17 +333,17 @@ def phase_build() -> dict:
     for name in _build.SOURCES:
         ptxas[name] = _build.ptxas_report(name)
         hgmma[name] = _hgmma_counts(_build.library_path(name))
-    resources = {key: _resources(key, shape)
+    by_kernel = {row["kernel"]: row for rows in ptxas.values()
+                 for row in rows}
+    resources = {key: _resources(key, shape, by_kernel)
                  for key, shape in _main_path_shapes().items()}
     emit({"phase": "build", "seconds": seconds, "compiled": compiled,
           "ptxas": ptxas, "hgmma": hgmma, "main_path": resources})
-    counts = {}
-    for per_lib in hgmma.values():
-        counts.update(per_lib or {})
-    if counts:
-        for kernel in TC_KERNELS:
-            check(counts.get(kernel, 0) > 0,
-                  f"{kernel} has no HGMMA instruction in its SASS")
+    counts = {k: n for per_lib in hgmma.values() for k, n in per_lib.items()}
+    for key in TC_KEYS:
+        kernel = MAIN_PATH_KERNEL[key]
+        check(counts.get(kernel, 0) > 0,
+              f"{key}: {kernel} has no HGMMA instruction in its SASS")
     return resources
 
 
@@ -308,9 +363,11 @@ def _k1_case(s: int, dtype, gen, timed: bool) -> dict:
     torch.cuda.synchronize()
     want = flash_attention_bshd_plain(q, k, v)
     name = str(dtype).split(".")[-1]
+    agree = _agreement(got, want, (TOL[("K1", name)], 0.0))
     rec = {"kernel": "K1", "dtype": name, "shape": [b, s, h, d],
-           "max_abs_err": (got.float() - want.float()).abs().max().item(),
-           "tol": TOL[("K1", name)]}
+           "max_abs_err": agree["max_abs_err"], "tol": TOL[("K1", name)],
+           "rel_err": agree["rel_err"], "rel_tol": REL_TOL[name],
+           "mean_abs_plain": agree["mean_abs_plain"]}
     if timed:
         item = qkv.element_size()
         nbytes = 4 * b * s * h * d * item
@@ -364,10 +421,13 @@ def _k5_case(dtype, gen, timed: bool) -> dict:
     idle = lengths == 0
     check(torch.count_nonzero(got[idle]).item() == 0,
           "K5: an idle slot's output is not exactly zero")
+    agree = _agreement(got, want, (TOL[("K5", name)], 0.0))
     rec = {"kernel": "K5", "dtype": name, "slots": q.shape[0],
            "lengths": lengths.tolist(), "pages": list(kp.shape),
-           "max_abs_err": (got - want).abs().max().item(),
-           "tol": TOL[("K5", name)]}
+           "max_abs_err": agree["max_abs_err"], "tol": TOL[("K5", name)],
+           # K5 outputs float32 for either input dtype
+           "rel_err": agree["rel_err"], "rel_tol": REL_TOL["float32"],
+           "mean_abs_plain": agree["mean_abs_plain"]}
     if timed:
         S, H, D = q.shape
         ctx = int(lengths.sum().item())
@@ -384,12 +444,18 @@ def _k5_case(dtype, gen, timed: bool) -> dict:
     return rec
 
 
-def _allclose_err(got, want, tol) -> tuple[float, float]:
-    """(max abs error, max of |got - want| / (atol + rtol |want|))."""
+def _agreement(got, want, tol) -> dict:
+    """``got`` against ``want``: the max abs error, its largest share of
+    ``atol + rtol |want|``, the relative error of the whole tensor
+    ``||got - want|| / ||want||``, and the mean ``|want|`` that atol is
+    held against."""
     atol, rtol = tol
-    diff = (got.float() - want.float()).abs()
-    return (diff.max().item(),
-            (diff / (atol + rtol * want.float().abs())).max().item())
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return {"max_abs_err": diff.max().item(),
+            "tol_ratio": (diff / (atol + rtol * w.abs())).max().item(),
+            "rel_err": (diff.norm() / w.norm().clamp_min(1e-30)).item(),
+            "mean_abs_plain": w.abs().mean().item()}
 
 
 def _train_attn_inputs(b: int, s: int, dtype, gen):
@@ -433,12 +499,15 @@ def _k1_lse_case(b: int, s: int, dtype, gen, timed: bool) -> dict:
     torch.cuda.synchronize()
     want_o, want_lse = fa.flash_attention_fwd_lse_plain(q, k, v)
     name = str(dtype).split(".")[-1]
-    err, ratio = _allclose_err(o, want_o, BWD_TOL[name])
-    lse_err, lse_ratio = _allclose_err(lse, want_lse, BWD_TOL["lse"])
+    agree = _agreement(o, want_o, BWD_TOL[name])
+    lse_agree = _agreement(lse, want_lse, BWD_TOL["lse"])
     rec = {"kernel": "K1-lse", "dtype": name, "shape": list(q.shape),
-           "max_abs_err": err, "lse_max_abs_err": lse_err,
-           "tol_ratio": max(ratio, lse_ratio),
-           "tol": {"o": BWD_TOL[name], "lse": BWD_TOL["lse"]}}
+           "max_abs_err": agree["max_abs_err"],
+           "lse_max_abs_err": lse_agree["max_abs_err"],
+           "tol_ratio": max(agree["tol_ratio"], lse_agree["tol_ratio"]),
+           "tol": {"o": BWD_TOL[name], "lse": BWD_TOL["lse"]},
+           "rel_err": agree["rel_err"], "rel_tol": REL_TOL[name],
+           "mean_abs_plain": agree["mean_abs_plain"]}
     if timed:
         bb, ss, h, d = q.shape
         nbytes = 4 * bb * ss * h * d * q.element_size() + bb * h * ss * 4
@@ -476,12 +545,15 @@ def _bwd_case(kernel: str, b: int, s: int, dtype, gen,
     torch.cuda.synchronize()
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     name = str(dtype).split(".")[-1]
-    errs = [_allclose_err(g, want[i], BWD_TOL[name])
-            for g, i in zip(got, outs)]
+    agree = [_agreement(g, want[i], BWD_TOL[name])
+             for g, i in zip(got, outs)]
+    worst = lambda key: max(a[key] for a in agree)
     rec = {"kernel": kernel, "dtype": name, "shape": list(q.shape),
            "route": fa.backward_route(s),
-           "max_abs_err": max(e for e, _ in errs),
-           "tol_ratio": max(r for _, r in errs), "tol": BWD_TOL[name]}
+           "max_abs_err": worst("max_abs_err"),
+           "tol_ratio": worst("tol_ratio"), "tol": BWD_TOL[name],
+           "rel_err": worst("rel_err"), "rel_tol": REL_TOL[name],
+           "mean_abs_plain": min(a["mean_abs_plain"] for a in agree)}
     if timed:
         bb, ss, h, d = q.shape
         nbytes = ((n_in + n_out) * bb * ss * h * d * q.element_size()
@@ -530,6 +602,10 @@ def phase_kernels() -> dict:
               f"{c['kernel']} {c['dtype']} disagrees with its plain "
               f"version beyond atol + rtol |plain| {c['tol']}: "
               f"max abs err {c['max_abs_err']}")
+    for c in cases + train_cases:
+        check(c["rel_err"] <= c["rel_tol"],
+              f"{c['kernel']} {c['dtype']} disagrees with its plain "
+              f"version: relative error {c['rel_err']} > {c['rel_tol']}")
     timed = {c["kernel"]: c for c in cases + train_cases if "ms" in c}
     return timed
 
@@ -1022,12 +1098,6 @@ def phase_e2e(train_dir: str, tmp: str) -> dict:
     return rec
 
 
-# Times of the CUDA-core kernels that the tensor-core K1, K1-lse and K3
-# replaced (NVIDIA H100 80GB HBM3, 700 W, this script's kernels phase,
-# bf16), reported beside the new times
-MS_BEFORE = {"K1": 0.1639, "K1-lse": 4.0601, "K3": 11.2512}
-
-
 # (kernel, name, source, replaces, the phase whose launches it reports)
 KERNELS = (
     ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "54", "e2e"),
@@ -1079,8 +1149,7 @@ def main() -> int:
                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"],
-                     "library_ms": c["library_ms"],
-                     "ms_before": MS_BEFORE.get(key), **resources[key]})
+                     "library_ms": c["library_ms"], **resources[key]})
     emit({"kernels": rows})
     print(env["nvidia_smi"] or "nvidia-smi: not available", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

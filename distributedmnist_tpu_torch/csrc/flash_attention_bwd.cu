@@ -843,9 +843,8 @@ extern "C" int dmt_flash_attention_bwd_route(int which, int dtype, int d) {
 }
 
 // What a [b, s, h, d] call of kernel `which` would launch, without
-// launching it: info[0..4] = blocks resident per SM, threads a block,
-// dynamic shared memory bytes, registers a thread, local (spill) bytes
-// a thread. Returns a CUDA error code (0 on success).
+// launching it: info[0..2] = blocks resident per SM, threads a block,
+// dynamic shared memory bytes. Returns a CUDA error code (0 on success).
 extern "C" int dmt_flash_attention_bwd_occupancy(int which, int dtype, int b,
                                                  int s, int h, int d,
                                                  int* info) {

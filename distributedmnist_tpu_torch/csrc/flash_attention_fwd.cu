@@ -23,19 +23,18 @@
 // 0.27 GB (0.080 ms at 3.35 TB/s) and does 68.8 GFLOP of causal
 // q.k^T and p.v (0.070 ms at 989 TFLOP/s): bytes and operations are
 // about equal, so only the tensor cores can come near either bound.
-// Design: a block owns 64 or 128 query rows (one or two consumer
-// warpgroups of 64); the q tile is loaded once, k/v tiles of 64 keys
-// stream through a 2-stage cp.async ring in the 128-byte-swizzled
-// layout wgmma reads (csrc/wgmma.cuh). s = q.k^T is an SS wgmma
+// Design: a block owns 128 query rows (two consumer warpgroups of 64);
+// the q tile is loaded once, k/v tiles of 64 keys stream through a
+// 2-stage cp.async ring in the 128-byte-swizzled layout wgmma reads
+// (csrc/wgmma.cuh). s = q.k^T is an SS wgmma
 // (m64n64k16, both operands K-major); the online softmax runs on the
 // accumulator fragment in registers (row max and sum across the 4
 // lanes that share a row, exp2f with scale*log2(e) folded in); p is
 // rounded to bf16 in registers, as the reference rounds it to the input
 // dtype before p.v, and is the A operand of o += p.v (RS wgmma, v
 // MN-major). Causal blocks walk only the key tiles at or below their
-// diagonal and launch heaviest first; a call with fewer 128-row tiles
-// than the card has SMs uses 64-row tiles. Two blocks share an SM (up
-// to head_dim 128), so one block's softmax overlaps the other's wgmma.
+// diagonal and launch heaviest first. Two blocks share an SM (up to
+// head_dim 128), so one block's softmax overlaps the other's wgmma.
 //
 // float32 -> flash_fwd_kernel, on the CUDA cores in float32 (tensor
 // cores would mean TF32 and miss the float32 agreement at 1e-4): one
@@ -219,10 +218,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 // ------------------------------------------------ bfloat16: tensor cores
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcBlockN = 64;  // keys a k/v tile
-// Below this many 128-row tiles a call (e.g. one 512-token prefill:
-// 64) would leave SMs of an H100 SXM idle, so it takes 64-row tiles.
-constexpr int kNumSMs = 132;
+constexpr int kTcBlockM = 128;  // query rows a block: 2 warpgroups of 64
+constexpr int kTcBlockN = 64;   // keys a k/v tile
+constexpr int kTcThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -231,24 +229,24 @@ struct Strides {
   int64_t v[12];
 };
 
-template <int D, int WG>
+template <int D>
 constexpr size_t tc_smem_bytes() {
   // the q tile, two stages of k and v tiles, and room to align the base
-  return wg::tile_bytes<64 * WG, D>() + 4 * wg::tile_bytes<kTcBlockN, D>() +
+  return wg::tile_bytes<kTcBlockM, D>() + 4 * wg::tile_bytes<kTcBlockN, D>() +
          1024;
 }
 
-// WG consumer warpgroups, 64 query rows each. Grid: one block per
+// Two consumer warpgroups, 64 query rows each. Grid: one block per
 // (query tile, head, batch), the query tile slowest. Up to head_dim 128
-// the 2-warpgroup kernel is held to 128 registers a thread, so that two
-// blocks share an SM and one's softmax overlaps the other's products.
-template <int D, int WG>
-__global__ void __launch_bounds__(WG * 128, D <= 128 && WG == 2 ? 2 : 1)
+// the kernel is held to 128 registers a thread, so that two blocks share
+// an SM and one's softmax overlaps the other's products.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 128 ? 2 : 1)
     flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ o,
                         int s, int h, int n_bh, int n_tiles, Strides st,
                         float scale_log2, int causal, float* __restrict__ lse) {
-  constexpr int BM = 64 * WG, BN = kTcBlockN, T = WG * 128;
+  constexpr int BM = kTcBlockM, BN = kTcBlockN, T = kTcThreads;
   constexpr int NACC = wg::padded_cols<D>() / 2;  // o accumulator registers
   constexpr uint32_t kStage = wg::tile_bytes<BN, D>();
   extern __shared__ uint8_t smem_raw[];
@@ -382,31 +380,18 @@ __global__ void __launch_bounds__(WG * 128, D <= 128 && WG == 2 ? 2 : 1)
   }
 }
 
-template <int D, int WG>
+template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
               int s, int h, const Strides& st, int causal, float scale,
               float* lse, cudaStream_t stream, int* info) {
-  const int n_tiles = (s + 64 * WG - 1) / (64 * WG);
+  const int n_tiles = (s + kTcBlockM - 1) / kTcBlockM;
   const int64_t blocks = static_cast<int64_t>(n_tiles) * b * h;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  return wg::run(flash_fwd_tc_kernel<D, WG>,
-                 dim3(static_cast<unsigned>(blocks)), WG * 128,
-                 tc_smem_bytes<D, WG>(), stream, info,
+  return wg::run(flash_fwd_tc_kernel<D>, dim3(static_cast<unsigned>(blocks)),
+                 kTcThreads, tc_smem_bytes<D>(), stream, info,
                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                  static_cast<const bf16*>(v), static_cast<bf16*>(o), s, h,
                  b * h, n_tiles, st, scale * kLog2e, causal, lse);
-}
-
-template <int D>
-int launch_tc_d(const void* q, const void* k, const void* v, void* o, int b,
-                int s, int h, const Strides& st, int causal, float scale,
-                float* lse, cudaStream_t stream, int* info) {
-  const int64_t tiles128 = static_cast<int64_t>((s + 127) / 128) * b * h;
-  return tiles128 >= kNumSMs
-             ? launch_tc<D, 2>(q, k, v, o, b, s, h, st, causal, scale, lse,
-                               stream, info)
-             : launch_tc<D, 1>(q, k, v, o, b, s, h, st, causal, scale, lse,
-                               stream, info);
 }
 
 // 1: tensor-core kernel (bfloat16), 0: CUDA-core kernel (float32),
@@ -437,10 +422,10 @@ int forward(const void* q, const void* k, const void* v, void* o, int dtype,
   Strides st;
   for (int i = 0; i < 12; ++i) st.v[i] = strides[i];
   switch (d) {
-    case 32: return launch_tc_d<32>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
-    case 64: return launch_tc_d<64>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
-    case 128: return launch_tc_d<128>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
-    default: return launch_tc_d<256>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
+    case 32: return launch_tc<32>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
+    case 64: return launch_tc<64>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
+    case 128: return launch_tc<128>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
+    default: return launch_tc<256>(q, k, v, o, b, s, h, st, causal, scale, lse, cs, info);
   }
 }
 
@@ -478,10 +463,9 @@ extern "C" int dmt_flash_attention_fwd_route(int dtype, int d) {
   return route(dtype, d);
 }
 
-// What a [b, s, h, d] call would launch, without launching it: info[0..4]
+// What a [b, s, h, d] call would launch, without launching it: info[0..2]
 // = blocks resident per SM, threads a block, dynamic shared memory
-// bytes, registers a thread, local (spill) bytes a thread. Returns a
-// CUDA error code (0 on success).
+// bytes. Returns a CUDA error code (0 on success).
 extern "C" int dmt_flash_attention_fwd_occupancy(int dtype, int b, int s,
                                                  int h, int d, int* info) {
   const int64_t strides[12] = {};  // aligned; not read

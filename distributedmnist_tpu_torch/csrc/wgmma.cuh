@@ -335,9 +335,9 @@ __device__ __forceinline__ void mma_rs<256>(float (&d)[128], const uint32_t (&a)
 // ------------------------------------------------------------- host side
 // Launch `kernel` on `grid` x `threads` with `smem` bytes of dynamic
 // shared memory; or, when info is not null, only say what that launch
-// would get, for the libraries' *_occupancy queries: info[0..4] = blocks
-// resident per SM, threads a block, dynamic shared memory bytes,
-// registers a thread, local (spill) bytes a thread. Returns a CUDA error
+// would get, for the libraries' *_occupancy queries: info[0..2] = blocks
+// resident per SM, threads a block, dynamic shared memory bytes
+// (registers and spills are ptxas's to report). Returns a CUDA error
 // code (cudaGetLastError() after a launch).
 template <typename Kernel, typename... Args>
 int run(Kernel kernel, dim3 grid, int threads, size_t smem,
@@ -350,19 +350,10 @@ int run(Kernel kernel, dim3 grid, int threads, size_t smem,
     kernel<<<grid, threads, smem, stream>>>(args...);
     return static_cast<int>(cudaGetLastError());
   }
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = blocks;
   info[1] = threads;
   info[2] = static_cast<int>(smem);
-  info[3] = attr.numRegs;
-  info[4] = static_cast<int>(attr.localSizeBytes);
-  return 0;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[0], kernel, threads, smem));
 }
 
 // 16-byte cp.async and vector loads need 16-byte aligned rows: every

@@ -16,7 +16,8 @@ Building happens at first use — importing this module compiles nothing
 — and :func:`build` compiles every stale source at once, one ``nvcc``
 process per source, all started together. The compiler's output
 (``-Xptxas -v``: each kernel's registers, stack and spill bytes) is kept
-beside each library as ``.log``; :func:`ptxas_report` reads it.
+beside each library as ``.log``; :func:`ptxas_report` reads it and names
+each kernel instantiation through the toolkit's ``cu++filt``.
 """
 
 from __future__ import annotations
@@ -114,35 +115,47 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def toolkit_tool(tool: str) -> str:
+    """The CUDA toolkit's ``tool`` (``cuobjdump``, ``cu++filt``) from the
+    toolkit whose ``nvcc`` builds the kernels."""
+    path = Path(_nvcc()).resolve().parent / tool
+    if not path.exists():
+        raise RuntimeError(f"{tool} not found beside nvcc in {path.parent}")
+    return str(path)
+
+
+def demangle(mangled: list[str]) -> list[str]:
+    """Kernel names as ``bwd_dq_kernel<__nv_bfloat16, 128>``: the
+    toolkit's ``cu++filt``, without the return type, the namespace, the
+    ``(int)`` casts and the parameter list."""
+    if not mangled:
+        return []
+    p = subprocess.run([toolkit_tool("cu++filt"), *mangled],
+                       capture_output=True, text=True, timeout=60)
+    lines = p.stdout.splitlines()
+    if p.returncode != 0 or len(lines) != len(mangled):
+        raise RuntimeError(f"cu++filt failed (rc {p.returncode}): "
+                           f"{p.stderr.strip()}")
+    names = []
+    for line in lines:
+        s = line.replace("(int)", "").removeprefix("void ").replace(
+            "(anonymous namespace)", "<unnamed>")
+        start, end, depth = 0, len(s), 0
+        for i, ch in enumerate(s):
+            depth += (ch == "<") - (ch == ">")
+            if depth == 0 and s.startswith("::", i):  # a namespace ends
+                start = i + 2
+            elif depth == 0 and ch == "(":  # the parameter list begins
+                end = i
+                break
+        names.append(re.sub(r"\s*,\s*", ", ", s[start:end].strip()))
+    return names
+
+
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers")
-_TEMPLATE_ARG = re.compile(r"Li(\d+)E|13__nv_bfloat16|f|S\d*_")
-
-
-def kernel_name(mangled: str) -> str:
-    """``flash_fwd_tc_kernel<128, 2>`` from its mangled name: the nested
-    name's parts are read by their length prefixes up to the one that
-    ends in ``_kernel`` (the kernels here are templates over int
-    constants, float and bf16)."""
-    i = mangled.find("_ZN") + 3
-    while 2 < i < len(mangled) and mangled[i].isdigit():
-        j = i
-        while mangled[j].isdigit():
-            j += 1
-        i = j + int(mangled[i:j])
-        name = mangled[j:i]
-        if name.endswith("_kernel") and mangled[i:i + 1] == "I":
-            args: list[str] = []
-            for a in _TEMPLATE_ARG.finditer(
-                    mangled[i + 1:mangled.find("EE", i) + 1]):
-                tok = a.group(0)
-                args.append(a.group(1) or ("float" if tok == "f" else
-                                           args[-1] if tok[0] == "S"
-                                           else "bf16"))
-            return f"{name}<{', '.join(args)}>"
-    return mangled
 
 
 def ptxas_report(name: str) -> list[dict]:
@@ -153,11 +166,13 @@ def ptxas_report(name: str) -> list[dict]:
     rows: list[dict] = []
     for line in log.read_text().splitlines():
         if (m := _ENTRY.search(line)):
-            rows.append({"kernel": kernel_name(m.group(1))})
+            rows.append({"kernel": m.group(1)})
         elif rows and (m := _FRAME.search(line)):
             rows[-1].update(stack_bytes=int(m.group(1)),
                             spill_store_bytes=int(m.group(2)),
                             spill_load_bytes=int(m.group(3)))
         elif rows and (m := _USED.search(line)):
             rows[-1]["registers"] = int(m.group(1))
+    for row, kernel in zip(rows, demangle([r["kernel"] for r in rows])):
+        row["kernel"] = kernel
     return rows

@@ -426,15 +426,13 @@ def kernel_occupancy(kernel: str, dtype: torch.dtype,
                      shape: tuple[int, int, int, int]) -> dict:
     """What ``kernel`` would launch for inputs of ``shape`` ``[b, s, h,
     d]``, from the CUDA runtime, without launching it: blocks resident
-    per SM, threads a block, dynamic shared memory bytes, registers and
-    local (spill) bytes a thread. Needs a CUDA device."""
-    info = (ctypes.c_int * 5)()
+    per SM, threads a block and dynamic shared memory bytes (registers
+    and spills: ``_build.ptxas_report``). Needs a CUDA device."""
+    info = (ctypes.c_int * 3)()
     fn, lead = _query(kernel, "occupancy")
     _raise_on(fn(*lead, _DTYPES[dtype], *shape, info),
               f"{kernel} occupancy query")
-    keys = ("blocks_per_sm", "threads", "smem_bytes", "registers",
-            "local_bytes")
-    return dict(zip(keys, info))
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes"), info))
 
 
 # -- the autograd binding and the model's entry ---------------------------
