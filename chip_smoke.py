@@ -28,9 +28,9 @@ One JSON line per phase:
                 stack and spill bytes (``ptxas -v``) and its count of
                 ``HGMMA`` (wgmma) instructions in the SASS (the toolkit's
                 ``cuobjdump``, names through its ``cu++filt``): the bf16
-                K1, K1-lse and K3 instantiations of the main paths must
-                have them, and the phase fails if the count cannot be
-                made; per kernel on the main path, at its main-path
+                K1, K1-lse, K2, K3 and K4 instantiations of the main
+                paths must have them, and the phase fails if the count
+                cannot be made; per kernel on the main path, at its main-path
                 shape, the bf16 instantiation it launches with its
                 registers and spills (``ptxas``), dynamic shared memory
                 and blocks per SM (CUDA runtime).
@@ -54,8 +54,10 @@ One JSON line per phase:
                 tokens/s, peak memory and a ``torch.profiler`` split of
                 one step into GEMMs, attention kernels, other kernels
                 and device idle.
-5. ``train_k4`` — 5 steps at seq_len 64 (one tile): K4 launched 4 times
-                a step, K2 and K3 never.
+5. ``train_k4`` — at seq_len 64 (one tile): one step through the
+                kernels against one through their plain versions, as in
+                ``train``; 5 steps of the Trainer with K4 launched 4 times
+                a step, K2 and K3 never; ms per step and tokens/s.
 6. ``e2e``      — boots the decode replica on the training phase's
                 checkpoint through the CLI's ``build_decode_replica``,
                 streams 8 concurrent greedy requests over its socket,
@@ -83,6 +85,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -280,12 +283,13 @@ def _hgmma_counts(lib_path) -> dict:
 # (head_dim 128; K5 with bf16 pages)
 MAIN_PATH_KERNEL = {
     "K1": "flash_fwd_tc_kernel<128>", "K1-lse": "flash_fwd_tc_kernel<128>",
-    "K2": "bwd_dq_kernel<__nv_bfloat16, 128>",
+    "K2": "bwd_dq_tc_kernel<128, %d>" % (
+        2 if os.environ.get("DMT_DQ_TILE_ROWS") == "128" else 1),
     "K3": "bwd_dkv_tc_kernel<128>",
-    "K4": "bwd_fused_kernel<__nv_bfloat16, 128>",
+    "K4": "bwd_fused_tc_kernel<128>",
     "K5": "paged_kernel<__nv_bfloat16, __nv_bfloat16, 4>"}
 # those that run on the tensor cores: their SASS must hold HGMMA
-TC_KEYS = ("K1", "K1-lse", "K3")
+TC_KEYS = ("K1", "K1-lse", "K2", "K3", "K4")
 
 
 def _resources(key: str, shape, ptxas: dict) -> dict:
@@ -868,8 +872,8 @@ def _time_steps(trainer, batch, steps: int = 5) -> float:
 def _profile_train_step(trainer, batch, wall_ms: float,
                         steps: int = 3) -> dict:
     """``torch.profiler`` over ``steps`` train steps: device time by
-    class (GEMMs, the attention kernels K1-lse/K2/K3/K4, every other
-    kernel) and the idle share 1 - busy / wall, with the wall the
+    class (GEMMs, the attention kernels K1-lse/K2/K3/K4 in either
+    variant, every other kernel) and the idle share 1 - busy / wall, with the wall the
     unprofiled CUDA-event step time (one stream: kernels do not
     overlap)."""
     import torch
@@ -893,8 +897,9 @@ def _profile_train_step(trainer, batch, wall_ms: float,
         name = e.key.lower()
         cls = ("attention" if any(k in name for k in (
                    "flash_fwd_kernel", "flash_fwd_tc_kernel",
-                   "bwd_dq_kernel", "bwd_dkv_kernel", "bwd_dkv_tc_kernel",
-                   "bwd_fused_kernel")) else
+                   "bwd_dq_kernel", "bwd_dq_tc_kernel", "bwd_dkv_kernel",
+                   "bwd_dkv_tc_kernel", "bwd_fused_kernel",
+                   "bwd_fused_tc_kernel")) else
                "gemm" if any(k in name for k in ("gemm", "gemv", "xmma",
                                                  "cutlass", "nvjet"))
                else "other")
@@ -987,26 +992,40 @@ def phase_train(tmp: str) -> dict:
 def phase_train_k4(tmp: str) -> dict:
     import torch
 
+    from distributedmnist_tpu_torch.data.pipeline import to_device
     from distributedmnist_tpu_torch.ops.flash_attention import backward_route
     check(backward_route(K4_SEQ) == "fused", f"seq {K4_SEQ} is not one tile")
     trainer = _build_trainer(tmp, "train_k4", f"model.seq_len={K4_SEQ}",
                              f"data.batch_size={K4_BATCH}",
                              f"train.max_steps={K4_STEPS}")
+    tr = trainer.datasets.train
+    batch = to_device({"image": tr.images[:K4_BATCH],
+                       "label": tr.labels[:K4_BATCH]}, trainer.device)
+    loss_diff, param_diff = _step_vs_plain(trainer, batch)
     losses = []
     reset_counts()
     trainer.run(step_callback=lambda step, rec: losses.append(rec["loss"]))
     torch.cuda.synchronize()
     counts = read_counts()
+    ms = _time_steps(trainer, batch)
     layers = MODEL["num_layers"]
     rec = {"phase": "train_k4", "steps": K4_STEPS, "seq": K4_SEQ,
            "batch": K4_BATCH, "losses": losses, "launches": counts,
-           "per_step": {k: counts[k] / K4_STEPS for k in ("K1-lse", "K4")}}
+           "per_step": {k: counts[k] / K4_STEPS for k in ("K1-lse", "K4")},
+           "step_vs_plain": {"loss_abs_diff": loss_diff,
+                             "loss_tol": STEP_LOSS_TOL,
+                             "param_max_abs_diff": param_diff,
+                             "param_tol": STEP_PARAM_TOL},
+           "ms_per_step": ms, "tokens_per_s": K4_BATCH * K4_SEQ / (ms / 1e3)}
     emit(rec)
     check(len(losses) == K4_STEPS and all(map(math.isfinite, losses)),
           f"losses {losses}")
     check(counts["K4"] == counts["K1-lse"] == layers * K4_STEPS
           and counts["K2"] == counts["K3"] == 0,
           f"launches {counts}")
+    check(loss_diff <= STEP_LOSS_TOL and param_diff <= STEP_PARAM_TOL,
+          f"kernel step vs plain step at seq {K4_SEQ}: loss diff "
+          f"{loss_diff}, param diff {param_diff}")
     return rec
 
 

@@ -2,7 +2,8 @@
 // tensor-core attention kernels (csrc/flash_attention_fwd.cu,
 // csrc/flash_attention_bwd.cu): the shared-memory tile layout and the
 // cp.async loader that fills it, the wgmma matrix descriptor, the
-// fence / commit / wait trio, the two product forms and the accumulator
+// fence / commit / wait trio, the three product forms (SS with both
+// operands K-major, RS, SS with B MN-major) and the accumulator
 // fragment's row and column map.
 //
 // Tile layout. A tile is R rows of bf16, at most 256 columns, stored as
@@ -16,8 +17,8 @@
 //   * K-major (rows are M or N, columns are the reduction dim K):
 //     q / k tiles in q.k^T, k / v / q / do tiles in the K3 score
 //     products. One k16 step is 32 bytes inside a row's chunk.
-//   * MN-major B (rows are K, columns are N): v in p.v, do and q in
-//     K3's p^T.do and ds^T.q. One k16 step is 16 rows (2048 bytes);
+//   * MN-major B (rows are K, columns are N): v in p.v, k in ds.k, do
+//     and q in p^T.do and ds^T.q. One k16 step is 16 rows (2048 bytes);
 //     N walks the column chunks at the leading-byte offset R * 128.
 //
 // Accumulator fragment of an m64nN product (f32, N/2 registers a
@@ -192,6 +193,12 @@ template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t b,
                                        int scale_d);
+// d += A.B for one k16 step, A K-major and B MN-major, both in shared
+// memory: the RS product's B with an A tile the kernel stored itself
+// (e.g. the transpose of a score fragment).
+template <int N>
+__device__ __forceinline__ void mma_ss_mn(float (&d)[N / 2], uint64_t a,
+                                          uint64_t b, int scale_d);
 
 #define DMT_D8(d, i)                                                      \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
@@ -273,6 +280,42 @@ __device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : DMT_D64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss_mn<64>(float (&d)[32], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : DMT_D32(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss_mn<128>(float (&d)[64], uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : DMT_D64(d)
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 template <>

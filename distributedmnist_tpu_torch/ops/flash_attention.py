@@ -29,10 +29,10 @@ scale ``1/sqrt(head_dim)`` unless given, causal mask with the finite
 ``-1e30`` (the backward zeroes masked and padded entries by selection),
 outputs in the inputs' dtype, lse in float32 laid out ``[b, h, s]``
 (the reference's is lane-broadcast ``[b, s_pad, h·128]``, a TPU
-tiling; its lane 0 is this). In bfloat16, K1/K1-lse and K3 run on the
-tensor cores and round p (and K3 ds) to bfloat16 before the products
-p·v, pᵀ·do and dsᵀ·q, as the TPU kernels round them to the input dtype;
-K2, K4 and every float32 call run on the CUDA cores and keep p and ds in
+tiling; its lane 0 is this). In bfloat16 every kernel runs on the
+tensor cores and rounds p and ds to bfloat16 before the products p·v,
+ds·k, pᵀ·do and dsᵀ·q, as the TPU kernels round them to the input
+dtype; every float32 call runs on the CUDA cores and keeps p and ds in
 float32 for every product. :func:`kernel_route` says which kernel a call
 takes. bfloat16 calls need 16-byte aligned q, k, v, o and do, with
 (batch, seq, head) strides that are multiples of 8 elements — the

@@ -97,8 +97,8 @@ class PagedKVCache:
 
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
                  num_heads: int, head_dim: int, max_blocks_per_seq: int,
-                 *, dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 *, device: torch.device | str,
+                 dtype: torch.dtype = torch.float32):
         self.block_size = block_size
         self.max_blocks_per_seq = max_blocks_per_seq
         self.allocator = BlockAllocator(num_blocks)

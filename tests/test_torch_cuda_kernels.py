@@ -11,14 +11,15 @@ runs where the reference is not installed:
 
 Tolerances: float32 1e-4 (summation order only); bfloat16 outputs of
 K1-K4 atol 3e-2 / rtol 1e-2 (one bf16 ulp where the two versions round
-differently; the tensor-core K1 and K3 also round p and ds to bf16
+differently; the tensor-core kernels also round p and ds to bf16
 before their second products, as the TPU kernels do, which moves an
 output by well under that); K5 outputs and every lse are float32
 computed from the same inputs, 1e-4.
 
 ``EDGES`` walks the tensor-core kernels' tile edges: sequence lengths
 around the 64-row tiles (and the 128-row forward tile), every head_dim,
-causal and not, always through strided ``qkv[:, :, i]`` views.
+causal and not, always through strided ``qkv[:, :, i]`` views;
+``FUSED_EDGES`` does the same inside K4's one 64-row tile.
 """
 
 import numpy as np
@@ -40,6 +41,8 @@ pytestmark = pytest.mark.cuda
 EDGES = [(s, d, c) for s in (1, 63, 64, 65, 127, 128, 129, 1000)
          for d in (32, 64, 128, 256) for c in (True, False)]
 BWD_EDGES = [e for e in EDGES if e[1] <= 128]
+FUSED_EDGES = [(s, d, c) for s in (1, 17, 33, 63, 64) for d in (32, 64, 128)
+               for c in (True, False)]
 
 
 @pytest.fixture
@@ -187,7 +190,7 @@ def test_flash_backward_kernels_match_plain(dev, dtype, tol, s, d, causal):
         _close(g_, w_, tol)
 
 
-def _dkv_inputs(dev, dtype, s, d, causal):
+def _bwd_inputs(dev, dtype, s, d, causal):
     """Strided q, k, v, the plain forward's o and lse, and a cotangent."""
     _, (q, k, v) = _strided_qkv(dev, dtype, 2, s, 4, d, 3 * s + d)
     o, lse = fa.flash_attention_fwd_lse_plain(q, k, v, causal=causal)
@@ -200,9 +203,25 @@ def _dkv_inputs(dev, dtype, s, d, causal):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32),
                                        (torch.bfloat16, BF16)])
 @pytest.mark.parametrize("s,d,causal", BWD_EDGES)
+def test_flash_dq_kernel_matches_plain(dev, dtype, tol, s, d, causal):
+    """K2 alone at every tile edge, against the plain backward's dq."""
+    q, k, v, o, lse, do = _bwd_inputs(dev, dtype, s, d, causal)
+    before = fa.flash_attention_bwd_dq.launches
+    dq = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dq.launches == before + 1
+    assert dq.dtype == dtype and dq.shape == q.shape
+    want_dq, _, _ = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                 causal=causal)
+    _close(dq, want_dq, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32),
+                                       (torch.bfloat16, BF16)])
+@pytest.mark.parametrize("s,d,causal", BWD_EDGES)
 def test_flash_dkv_kernel_matches_plain(dev, dtype, tol, s, d, causal):
     """K3 alone at every tile edge, against the plain backward."""
-    q, k, v, o, lse, do = _dkv_inputs(dev, dtype, s, d, causal)
+    q, k, v, o, lse, do = _bwd_inputs(dev, dtype, s, d, causal)
     before = fa.flash_attention_bwd_dkv.launches
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
@@ -213,25 +232,43 @@ def test_flash_dkv_kernel_matches_plain(dev, dtype, tol, s, d, causal):
     _close(dv, want_dv, tol)
 
 
-def test_flash_dkv_kernel_is_deterministic(dev):
-    """The same bf16 K3 call twice gives bitwise equal dk and dv: each
-    block owns its key tile, no atomics."""
-    args = _dkv_inputs(dev, torch.bfloat16, 1000, 128, True)
-    first = fa.flash_attention_bwd_dkv(*args)
-    second = fa.flash_attention_bwd_dkv(*args)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32),
+                                       (torch.bfloat16, BF16)])
+@pytest.mark.parametrize("s,d,causal", FUSED_EDGES)
+def test_flash_fused_kernel_matches_plain(dev, dtype, tol, s, d, causal):
+    """K4 alone inside its one tile, against the plain backward."""
+    q, k, v, o, lse, do = _bwd_inputs(dev, dtype, s, d, causal)
+    before = fa.flash_attention_bwd_fused.launches
+    got = fa.flash_attention_bwd_fused(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_fused.launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, tol)
+
+
+@pytest.mark.parametrize("kernel,s", [("K2", 1000), ("K3", 1000),
+                                      ("K4", 63)])
+def test_flash_dkv_kernel_is_deterministic(dev, kernel, s):
+    """The same bf16 call of K2, K3 or K4 twice gives bitwise equal
+    gradients: each block owns its output tile, no atomics."""
+    fn = {"K2": fa.flash_attention_bwd_dq, "K3": fa.flash_attention_bwd_dkv,
+          "K4": fa.flash_attention_bwd_fused}[kernel]
+    args = _bwd_inputs(dev, torch.bfloat16, s, 128, True)
+    first, second = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    if kernel == "K2":
+        first, second = (first,), (second,)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
 
 def test_bf16_calls_take_the_tensor_cores(dev):
-    """At head_dim 128, bf16 K1/K1-lse and K3 launch the wgmma kernels;
-    float32, K2 and K4 the CUDA-core kernels."""
-    for kernel in ("K1", "K1-lse", "K3"):
+    """At head_dim 128, every bf16 flash kernel (K1, K1-lse, K2, K3, K4)
+    launches its wgmma kernel; float32 calls the CUDA-core kernels."""
+    for kernel in ("K1", "K1-lse", "K2", "K3", "K4"):
         assert fa.kernel_route(kernel, torch.bfloat16, 128) == "wgmma"
         assert fa.kernel_route(kernel, torch.float32, 128) == "cuda_cores"
-    for kernel in ("K2", "K4"):
-        assert fa.kernel_route(kernel, torch.bfloat16, 128) == "cuda_cores"
     with pytest.raises(ValueError, match="no kernel"):
         fa.kernel_route("K3", torch.bfloat16, 256)
 

@@ -135,10 +135,10 @@ def test_grads_land_in_strided_qkv():
 def test_bf16_backward_close_to_reference():
     """bfloat16 inputs against the float32 reference gradient: the
     inputs and the gradients are rounded to bf16. On the CPU the plain
-    versions keep p and ds in float32; on the card the tensor-core K1
-    and K3 round them to bf16 first, like the reference's kernels, and
-    K2 and K4 keep them in float32. atol 3e-2 / rtol 1e-2 is about one
-    bf16 ulp at the gradients' magnitude (up to ~4 here)."""
+    versions keep p and ds in float32; on the card the tensor-core K1,
+    K2, K3 and K4 round them to bf16 before their second products, like
+    the reference's kernels. atol 3e-2 / rtol 1e-2 is about one bf16
+    ulp at the gradients' magnitude (up to ~4 here)."""
     q, k, v, w = _inputs(64, 32, seed=9)
     _, want = _ref_grads(q, k, v, w, True, 32, 32)  # float32 reference
     ts = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)

@@ -80,7 +80,7 @@ def test_paged_parity_survives_block_free_and_reuse():
     shorter successor: stale K/V past the new length stay invisible."""
     rng = np.random.default_rng(1)
     L, heads, hd, bs = 1, 4, 16, 8
-    cache = PagedKVCache(L, 8, bs, heads, hd, 4)
+    cache = PagedKVCache(L, 8, bs, heads, hd, 4, device="cpu")
     ta = cache.alloc_sequence(16)
     ka = torch.from_numpy(rng.standard_normal((L, 16, heads, hd)).astype(
         np.float32))

@@ -93,7 +93,7 @@ def test_paged_decode_steps_match_reference(models):
     L, H, HD, bs, slots = 2, 4, 16, 8, 3
     rc = RefPagedKVCache(L, 16, bs, H, HD, max_blocks_per_seq=4,
                          dtype=jnp.float32)
-    pc = PagedKVCache(L, 16, bs, H, HD, 4)
+    pc = PagedKVCache(L, 16, bs, H, HD, 4, device="cpu")
     tables = np.zeros((slots, 4), np.int32)
     length = np.zeros(slots, np.int64)
     last = np.zeros(slots, np.int64)
@@ -139,7 +139,7 @@ def test_greedy_paged_decode_matches_full_context_argmax(models):
     ref, ref_params, port, params = models
     prompt, n_new, bs = [3, 7, 1, 9, 2, 11, 4], 9, 8
     L, H, HD = port.decode_cache_shape
-    cache = PagedKVCache(L, 32, bs, H, HD, 16)
+    cache = PagedKVCache(L, 32, bs, H, HD, 16, device="cpu")
     toks = np.zeros((1, 16), np.int64)
     toks[0, :len(prompt)] = prompt
     logits, ks, vs = port.decode_prefill(params, torch.from_numpy(toks))
