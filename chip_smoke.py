@@ -30,8 +30,8 @@ One JSON line per phase:
                 ``cuobjdump``, names through its ``cu++filt``): the bf16
                 K1, K1-lse, K2, K3 and K4 instantiations of the main
                 paths must have them, and the phase fails if the count
-                cannot be made; per kernel on the main path, at its main-path
-                shape, the bf16 instantiation it launches with its
+                cannot be made; per kernel on the main path, at its
+                main-path shape, the bf16 instantiation it launches with its
                 registers and spills (``ptxas``), dynamic shared memory
                 and blocks per SM (CUDA runtime).
 3. ``kernels``  — each kernel against its plain PyTorch version on the
@@ -85,7 +85,6 @@ import dataclasses
 import functools
 import json
 import math
-import os
 import statistics
 import subprocess
 import sys
@@ -283,8 +282,7 @@ def _hgmma_counts(lib_path) -> dict:
 # (head_dim 128; K5 with bf16 pages)
 MAIN_PATH_KERNEL = {
     "K1": "flash_fwd_tc_kernel<128>", "K1-lse": "flash_fwd_tc_kernel<128>",
-    "K2": "bwd_dq_tc_kernel<128, %d>" % (
-        2 if os.environ.get("DMT_DQ_TILE_ROWS") == "128" else 1),
+    "K2": "bwd_dq_tc_kernel<128>",
     "K3": "bwd_dkv_tc_kernel<128>",
     "K4": "bwd_fused_tc_kernel<128>",
     "K5": "paged_kernel<__nv_bfloat16, __nv_bfloat16, 4>"}
@@ -873,9 +871,9 @@ def _profile_train_step(trainer, batch, wall_ms: float,
                         steps: int = 3) -> dict:
     """``torch.profiler`` over ``steps`` train steps: device time by
     class (GEMMs, the attention kernels K1-lse/K2/K3/K4 in either
-    variant, every other kernel) and the idle share 1 - busy / wall, with the wall the
-    unprofiled CUDA-event step time (one stream: kernels do not
-    overlap)."""
+    variant, every other kernel) and the idle share 1 - busy / wall,
+    with the wall the unprofiled CUDA-event step time (one stream:
+    kernels do not overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -896,10 +894,7 @@ def _profile_train_step(trainer, batch, wall_ms: float,
             us = e.self_cuda_time_total
         name = e.key.lower()
         cls = ("attention" if any(k in name for k in (
-                   "flash_fwd_kernel", "flash_fwd_tc_kernel",
-                   "bwd_dq_kernel", "bwd_dq_tc_kernel", "bwd_dkv_kernel",
-                   "bwd_dkv_tc_kernel", "bwd_fused_kernel",
-                   "bwd_fused_tc_kernel")) else
+                   "flash_fwd_", "bwd_dq_", "bwd_dkv_", "bwd_fused_")) else
                "gemm" if any(k in name for k in ("gemm", "gemv", "xmma",
                                                  "cutlass", "nvjet"))
                else "other")

@@ -42,18 +42,21 @@
 // block owns its output tile and loops over the other axis itself, so
 // nothing is reduced across blocks: no atomics, and every result is
 // deterministic.
-//   K2, bfloat16 (bwd_dq_tc_kernel, on the tensor cores): one
-//       warpgroup per (64-query tile, head, batch), the last query tile
-//       (the heaviest under the causal mask) launched first. q and do
-//       are loaded once (K-major), lse with them, and delta = rowsum(do
-//       * o) is computed once a block; 64-key tiles of k and v stream
-//       through a 2-stage cp.async ring from key 0 up to the tile that
-//       holds the diagonal. Per tile: s = q.k^T and dp = do.v^T (SS
-//       wgmma, both K-major); p = exp(s scale - lse), zeroed by
-//       selection; ds = p * (dp - delta), rounded to bf16 as the TPU
-//       kernel rounds it to k's dtype, is the A operand of dq += ds.k
-//       (RS wgmma, k MN-major). dq stays in f32 registers; ~98 KB of
-//       shared memory, 2 blocks per SM.
+//   K2, bfloat16 (bwd_dq_tc_kernel, on the tensor cores): one block of
+//       two warpgroups per (128-query tile, head, batch), 64 queries a
+//       warpgroup, the last query tile (the heaviest under the causal
+//       mask) launched first. q and do are loaded once (K-major), lse
+//       with them, and delta = rowsum(do * o) is computed once a block;
+//       64-key tiles of k and v stream through a 2-stage cp.async ring
+//       from key 0 up to the tile that holds the diagonal, each read by
+//       both warpgroups. Per tile: s = q.k^T and dp = do.v^T (SS wgmma,
+//       both K-major); p = exp(s scale - lse), zeroed by selection; ds
+//       = p * (dp - delta), rounded to bf16 as the TPU kernel rounds it
+//       to k's dtype, is the A operand of dq += ds.k (RS wgmma, k
+//       MN-major). dq stays in f32 registers. 181 registers, ~130 KB of
+//       shared memory, 1 block of 8 warps per SM; 13% faster at the
+//       training shape than one warpgroup per 64 queries (2 blocks of 4
+//       warps), which streams every k/v tile twice as often.
 //   K3, bfloat16 (bwd_dkv_tc_kernel, on the tensor cores): one
 //       warpgroup per (64-key tile, head, batch), key tile 0 (the
 //       heaviest under the causal mask) launched first. k and v stay in
@@ -99,7 +102,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <stdlib.h>
 
 #include "wgmma.cuh"
 
@@ -539,7 +541,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------ bfloat16: tensor cores
 constexpr int kTcKeys = 64;     // a key tile: K3's own, K2's streamed
-constexpr int kTcQueries = 64;  // a query tile: K3's streamed, K2's own
+constexpr int kTcQueries = 64;  // K3's streamed query tile
+constexpr int kDqQueries = 128;  // K2's query tile: two warpgroups
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint8_t* smem_ptr(uint8_t* smem_raw,
@@ -603,26 +606,26 @@ __device__ __forceinline__ void store_acc(bf16* dst, int64_t ld,
 }
 
 // ------------------------------------- K2, bfloat16: dq on tensor cores
-template <int D, int WG>
+template <int D>
 constexpr size_t dq_tc_smem_bytes() {
-  // q and do tiles (64 WG queries), two stages of k and v tiles, lse and
-  // delta of the queries, and room to align the base
-  return 2 * wg::tile_bytes<kTcQueries * WG, D>() +
-         4 * wg::tile_bytes<kTcKeys, D>() + 2 * kTcQueries * WG * 4 + 1024;
+  // q and do tiles, two stages of k and v tiles, lse and delta of the
+  // queries, and room to align the base
+  return 2 * wg::tile_bytes<kDqQueries, D>() +
+         4 * wg::tile_bytes<kTcKeys, D>() + 2 * kDqQueries * 4 + 1024;
 }
 
-// WG warpgroups of 64 queries each share every k/v tile. Grid: one block
-// per (query tile, head, batch), the query tile slowest; causal calls
-// take the last query tile, which walks the most key tiles, first.
-template <int D, int WG>
-__global__ void __launch_bounds__(128 * WG, 1)
+// Two warpgroups of 64 queries each share every k/v tile. Grid: one
+// block per (query tile, head, batch), the query tile slowest; causal
+// calls take the last query tile, which walks the most key tiles, first.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
     bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ o,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse, bf16* __restrict__ dq,
                      int s, int h, int n_bh, int n_tiles, Strides st,
                      float scale, int causal) {
-  constexpr int BM = kTcQueries * WG, BN = kTcKeys, T = 128 * WG;
+  constexpr int BM = kDqQueries, BN = kTcKeys, T = 256;
   constexpr int NACC = wg::padded_cols<D>() / 2;  // dq registers
   constexpr uint32_t kStage = wg::tile_bytes<BN, D>();
   extern __shared__ uint8_t smem_raw[];
@@ -1090,13 +1093,6 @@ int launch_f32(Which which, const Call& c) {
                  c.lse, dq, dk, dv, c.s, c.st, c.scale, c.causal);
 }
 
-// Warpgroups a K2 block: 64 queries each. Read from DMT_DQ_TILE_ROWS (64
-// or 128) while the two tile sizes are measured against each other.
-int dq_warpgroups() {
-  const char* rows = getenv("DMT_DQ_TILE_ROWS");
-  return rows != nullptr && atoi(rows) == 128 ? 2 : 1;
-}
-
 // bfloat16: the tensor-core kernels, a 1-D grid each.
 template <int D>
 int launch_tc(Which which, const Call& c) {
@@ -1109,8 +1105,8 @@ int launch_tc(Which which, const Call& c) {
   bf16* dk = static_cast<bf16*>(c.dk);
   bf16* dv = static_cast<bf16*>(c.dv);
   const int64_t bh = static_cast<int64_t>(c.b) * c.h;
-  const int wgs = which == kDq ? dq_warpgroups() : 1;
-  const int rows = which == kFused ? c.s : 64 * wgs;
+  const int rows =
+      which == kFused ? c.s : which == kDq ? kDqQueries : kTcKeys;
   const int n_tiles = (c.s + rows - 1) / rows;
   const int64_t blocks = n_tiles * bh;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
@@ -1123,12 +1119,7 @@ int launch_tc(Which which, const Call& c) {
     return wg::run(bwd_dkv_tc_kernel<D>, grid, 128, dkv_tc_smem_bytes<D>(),
                    c.stream, c.info, Q, K, V, O, DO, c.lse, dk, dv, c.s, c.h,
                    static_cast<int>(bh), c.st, c.scale, c.causal);
-  if (wgs == 2)
-    return wg::run(bwd_dq_tc_kernel<D, 2>, grid, 256,
-                   dq_tc_smem_bytes<D, 2>(), c.stream, c.info, Q, K, V, O, DO,
-                   c.lse, dq, c.s, c.h, static_cast<int>(bh), n_tiles, c.st,
-                   c.scale, c.causal);
-  return wg::run(bwd_dq_tc_kernel<D, 1>, grid, 128, dq_tc_smem_bytes<D, 1>(),
+  return wg::run(bwd_dq_tc_kernel<D>, grid, 256, dq_tc_smem_bytes<D>(),
                  c.stream, c.info, Q, K, V, O, DO, c.lse, dq, c.s, c.h,
                  static_cast<int>(bh), n_tiles, c.st, c.scale, c.causal);
 }

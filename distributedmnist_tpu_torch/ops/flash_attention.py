@@ -51,8 +51,9 @@ from .attention import NEG_INF, local_self_attention
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)   # K1, K1-lse
 _BWD_HEAD_DIMS = (32, 64, 128)    # K2, K3, K4
-# The port's tiles (csrc/flash_attention_bwd.cu): K2 owns 64 query rows
-# a block, K3 64 keys; K4 takes the whole sequence when it fits one pair.
+# The port's 64-row tiles (csrc/flash_attention_bwd.cu): K3 owns 64 keys
+# and streams 64-query tiles, K2 gives each warpgroup 64 queries; K4
+# takes the whole sequence when it fits one (BLOCK_Q, BLOCK_K) pair.
 BLOCK_Q = 64
 BLOCK_K = 64
 
