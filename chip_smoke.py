@@ -33,7 +33,8 @@ One JSON line per phase:
                 cannot be made; per kernel on the main path, at its
                 main-path shape, the bf16 instantiation it launches with its
                 registers and spills (``ptxas``), dynamic shared memory
-                and blocks per SM (CUDA runtime).
+                and blocks per SM (CUDA runtime; for K5 also its
+                cluster size and the clusters resident at once).
 3. ``kernels``  — each kernel against its plain PyTorch version on the
                 card at the main paths' shapes, float32 and bfloat16:
                 K1 flash-attention forward and K5 paged attention at
@@ -43,7 +44,10 @@ One JSON line per phase:
                 beside the stated tolerance, the relative error of the
                 whole output beside its own, the mean |plain output|,
                 kernel / plain / library times (CUDA events, device
-                time: see ``time_ms``), and the bound.
+                time: see ``time_ms``), and the bound; K5 also
+                bitwise equal over two calls, and its time over a
+                rotation of input sets whose live K/V exceed twice the
+                L2 (``ms_cold``).
 4. ``train``    — one step through the kernels against one step through
                 their plain versions from the same params and batch;
                 then 20 steps of the Trainer with every launch counter
@@ -71,9 +75,12 @@ One JSON line per phase:
                 Prints tokens/s, TTFT p50 and inter-token p50.
 
 Then a ``kernels`` summary line (per kernel also its ``variant`` —
-``wgmma`` or ``cuda_cores``, the compiled kernel the bf16 call takes —
-and the build phase's instantiation, registers, spills, shared memory
-and blocks per SM at the timed shape), the card's name and power limit
+``wgmma``, ``cuda_cores`` or ``cluster_split``, the compiled kernel the
+bf16 call takes — and the build phase's instantiation, registers,
+spills, shared memory and blocks per SM at the timed shape; for K5 also
+``ms_cold``, and ``ms_in_place``, its share of the decode-step profile
+a launch, beside ``bound_ms_in_place`` for the profile's lengths), the
+card's name and power limit
 as ``nvidia-smi`` reports them, and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failure prints the failing
 phase and exits nonzero before the result line.
@@ -285,7 +292,7 @@ MAIN_PATH_KERNEL = {
     "K2": "bwd_dq_tc_kernel<128>",
     "K3": "bwd_dkv_tc_kernel<128>",
     "K4": "bwd_fused_tc_kernel<128>",
-    "K5": "paged_kernel<__nv_bfloat16, __nv_bfloat16, 4>"}
+    "K5": "paged_split_kernel<__nv_bfloat16, __nv_bfloat16, 128>"}
 # those that run on the tensor cores: their SASS must hold HGMMA
 TC_KEYS = ("K1", "K1-lse", "K2", "K3", "K4")
 
@@ -305,7 +312,15 @@ def _resources(key: str, shape, ptxas: dict) -> dict:
            "spill_store_bytes": row["spill_store_bytes"],
            "spill_load_bytes": row["spill_load_bytes"]}
     if key == "K5":
-        return {"variant": pa.kernel_route(torch.bfloat16, shape[-1]), **rec}
+        slots, _, heads, d = shape
+        occ = pa.kernel_occupancy(torch.bfloat16, torch.bfloat16, slots,
+                                  heads, d, DECODE["block_size"], _k5_width())
+        return {"variant": pa.kernel_route(torch.bfloat16, d), **rec,
+                "smem_bytes": occ["smem_bytes"], "threads": occ["threads"],
+                "blocks_per_sm": occ["blocks_per_sm"],
+                "warps_per_sm": occ["blocks_per_sm"] * occ["threads"] // 32,
+                "cluster_size": occ["cluster_size"],
+                "clusters_resident": occ["clusters_resident"]}
     occ = fa.kernel_occupancy(key, torch.bfloat16, tuple(shape))
     return {"variant": fa.kernel_route(key, torch.bfloat16, shape[-1]),
             **rec, "smem_bytes": occ["smem_bytes"],
@@ -385,17 +400,88 @@ def _k1_case(s: int, dtype, gen, timed: bool) -> dict:
     return rec
 
 
+def _k5_width() -> int:
+    """Table entries a slot has on the decode path."""
+    return -(-(DECODE["max_prompt_len"] + DECODE["max_new_tokens"])
+             // DECODE["block_size"])
+
+
+def _k5_bound(lengths, q_item: int, kv_item: int) -> tuple[float, str]:
+    """K5's least time for one call over ``lengths``: q, the live K/V
+    rows, the tables and lengths read once, the float32 output written
+    once; 4 FLOP per live K/V element."""
+    S, H = len(lengths), MODEL["num_heads"]
+    D = MODEL["model_dim"] // H
+    ctx = sum(lengths)
+    nbytes = (S * H * D * q_item + 2 * ctx * H * D * kv_item
+              + S * _k5_width() * 4 + S * 4 + S * H * D * 4)
+    return bound(nbytes, 4 * ctx * H * D, "bfloat16" if kv_item == 2
+                 else "float32")
+
+
+def _k5_lengths() -> list:
+    """Mid-generation contexts of the e2e requests, one slot idle."""
+    S = DECODE["decode_slots"]
+    return [p + m // 2 for p, m in REQUESTS[:S - 1]] + [0]
+
+
+def _k5_tables(lengths, first_block: int):
+    """Block tables giving each slot its own blocks, in order from
+    ``first_block``."""
+    import torch
+    B = DECODE["block_size"]
+    tables = torch.zeros(len(lengths), _k5_width(), dtype=torch.int32)
+    used = first_block
+    for i, n in enumerate(lengths):
+        nb = -(-n // B)
+        tables[i, :nb] = torch.arange(used, used + nb, dtype=torch.int32)
+        used += nb
+    return tables, used
+
+
+def _k5_cold_ms(dtype, gen, l2_bytes: float = 50e6) -> tuple[float, float]:
+    """K5's device ms over a rotation of input sets, each with its own
+    live blocks of one page pool, whose live K/V together exceed twice
+    the L2: each call finds its pages in device memory. Returns (ms, the
+    live K/V bytes of the rotation)."""
+    import itertools
+
+    import torch
+
+    from distributedmnist_tpu_torch.ops.paged_attention import \
+        paged_attention
+    S, H = DECODE["decode_slots"], MODEL["num_heads"]
+    D, B = MODEL["model_dim"] // H, DECODE["block_size"]
+    lengths = _k5_lengths()
+    live = 2 * sum(lengths) * H * D * torch.tensor([], dtype=dtype
+                                                   ).element_size()
+    n_sets = 16
+    check(n_sets * live > 2 * l2_bytes, "the rotation fits the L2")
+    tabs, used = [], 1
+    for _ in range(n_sets):
+        t, used = _k5_tables(lengths, used)
+        tabs.append(t.to(DEVICE))
+    kp = torch.randn(used, B, H, D, device=DEVICE, generator=gen).to(dtype)
+    vp = torch.randn(used, B, H, D, device=DEVICE, generator=gen).to(dtype)
+    qkv = torch.randn(S, 3, H * D, device=DEVICE, generator=gen).to(dtype)
+    q = qkv[:, 0].view(S, H, D)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    turn = itertools.cycle(tabs)
+    ms = time_ms(lambda: paged_attention(q, kp, vp, next(turn), lens),
+                 iters=2 * n_sets)
+    return ms, n_sets * live
+
+
 def _k5_inputs(dtype, gen):
     import torch
     S, H = DECODE["decode_slots"], MODEL["num_heads"]
     D = MODEL["model_dim"] // H
     B, N = DECODE["block_size"], DECODE["num_blocks"]
-    P = -(-(DECODE["max_prompt_len"] + DECODE["max_new_tokens"]) // B)
+    P = _k5_width()
     kp = torch.randn(N, B, H, D, device=DEVICE, generator=gen).to(dtype)
     vp = torch.randn(N, B, H, D, device=DEVICE, generator=gen).to(dtype)
     kp[0], vp[0] = 37.0, -53.0   # poisoned null block: never read
-    # mid-generation contexts of the e2e requests, one idle slot
-    lengths = [p + m // 2 for p, m in REQUESTS[:S - 1]] + [0]
+    lengths = _k5_lengths()
     tables = torch.zeros(S, P, dtype=torch.int32)
     order = torch.randperm(N - 1, generator=torch.Generator().manual_seed(
         SEED)) + 1
@@ -417,12 +503,14 @@ def _k5_case(dtype, gen, timed: bool) -> dict:
         paged_attention, paged_attention_dense)
     q, kp, vp, tables, lengths = _k5_inputs(dtype, gen)
     got = paged_attention(q, kp, vp, tables, lengths)
+    again = paged_attention(q, kp, vp, tables, lengths)
     torch.cuda.synchronize()
     want = paged_attention_dense(q, kp, vp, tables, lengths)
     name = str(dtype).split(".")[-1]
     idle = lengths == 0
     check(torch.count_nonzero(got[idle]).item() == 0,
           "K5: an idle slot's output is not exactly zero")
+    check(torch.equal(got, again), "K5: two calls differ")
     agree = _agreement(got, want, (TOL[("K5", name)], 0.0))
     rec = {"kernel": "K5", "dtype": name, "slots": q.shape[0],
            "lengths": lengths.tolist(), "pages": list(kp.shape),
@@ -431,15 +519,12 @@ def _k5_case(dtype, gen, timed: bool) -> dict:
            "rel_err": agree["rel_err"], "rel_tol": REL_TOL["float32"],
            "mean_abs_plain": agree["mean_abs_plain"]}
     if timed:
-        S, H, D = q.shape
-        ctx = int(lengths.sum().item())
-        item = kp.element_size()
-        nbytes = (S * H * D * q.element_size() + 2 * ctx * H * D * item
-                  + tables.numel() * 4 + S * 4 + S * H * D * 4)
-        flops = 4 * ctx * H * D
-        t, by = bound(nbytes, flops, name)
+        t, by = _k5_bound(lengths.tolist(), q.element_size(),
+                          kp.element_size())
+        ms_cold, rotation_bytes = _k5_cold_ms(dtype, gen)
         rec.update(
             ms=time_ms(lambda: paged_attention(q, kp, vp, tables, lengths)),
+            ms_cold=ms_cold, cold_rotation_bytes=rotation_bytes,
             plain_ms=time_ms(lambda: paged_attention_dense(
                 q, kp, vp, tables, lengths)),
             library_ms=None, bound_ms=t * 1e3, bound_by=by)
@@ -739,14 +824,15 @@ def _profile_decode_step(rep, steps: int = 10) -> dict:
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        cls = ("paged_attention" if "paged_kernel" in name else
+        cls = ("paged_attention" if "paged_split_kernel" in name else
                "gemm" if any(k in name for k in ("gemm", "gemv", "xmma",
                                                  "cutlass", "nvjet"))
                else "other")
         by_class[cls] += us / 1e3 / steps
         launches += e.count
     busy = sum(by_class.values())
-    return {"wall_ms": wall_ms, "wall_ms_under_profiler": profiled_ms,
+    return {"lengths": lengths,
+            "wall_ms": wall_ms, "wall_ms_under_profiler": profiled_ms,
             "device_busy_ms": busy if busy > 0 else "not measured",
             "device_idle_share": 1 - busy / wall_ms if busy > 0
             else "not measured",
@@ -1126,6 +1212,15 @@ KERNELS = (
     ("K5", "paged_attention", "paged_attention.cu", None, "e2e"))
 
 
+def _k5_in_place(profile: dict) -> dict:
+    """K5's device ms a launch inside the decode-step profile, beside its
+    bound for the profile's lengths (all slots live)."""
+    t, _ = _k5_bound(profile["lengths"], 2, 2)
+    busy = profile["busy_ms_by_class"]["paged_attention"]
+    return {"ms_in_place": busy / MODEL["num_layers"] if busy > 0
+            else "not measured", "bound_ms_in_place": t * 1e3}
+
+
 def main() -> int:
     phase = "env"
     runs = {}
@@ -1152,8 +1247,11 @@ def main() -> int:
                 "train": runs["train"]["launches"],
                 "train_k4": runs["train_k4"]["launches"]}
     rows = []
+    k5_in_place = _k5_in_place(e2e["decode_step_profile"])
     for key, name, src, line, path in KERNELS:
         c = timed[key]
+        extra = ({**k5_in_place, "ms_cold": c["ms_cold"]} if key == "K5"
+                 else {})
         replaces = ("distributedmnist_tpu/ops/pallas_paged_attention.py:62"
                     if line is None else
                     f"distributedmnist_tpu/ops/pallas_attention.py:{line}")
@@ -1163,7 +1261,8 @@ def main() -> int:
                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"],
-                     "library_ms": c["library_ms"], **resources[key]})
+                     "library_ms": c["library_ms"], **extra,
+                     **resources[key]})
     emit({"kernels": rows})
     print(env["nvidia_smi"] or "nvidia-smi: not available", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

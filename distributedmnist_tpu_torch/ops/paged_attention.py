@@ -6,10 +6,12 @@ its whole context, which lives in a paged KV cache
 (:mod:`..servesvc.kv_cache`: one layer is ``[num_blocks, block_size,
 heads, head_dim]``) and is found through the slot's block table. On a
 CUDA tensor :func:`paged_attention` launches the hand-written kernel
-``csrc/paged_attention.cu``, which walks each table in-kernel and reads
-only the live positions; on a CPU tensor it runs the plain version
-:func:`paged_attention_dense`, the full-table gather. There is no
-fallback between the two: a CUDA call the kernel cannot take raises.
+``csrc/paged_attention.cu``, which splits each slot's table over a
+thread-block cluster whose blocks load their live pages with the TMA,
+all at once, and merge their partial softmax states in a fixed order;
+on a CPU tensor it runs the plain version :func:`paged_attention_dense`,
+the full-table gather. There is no fallback between the two: a CUDA call
+the kernel cannot take raises.
 
 Numerics (shared by both versions): scores and softmax in float32,
 scale ``1/sqrt(head_dim)`` unless given, positions at or past ``length``
@@ -111,21 +113,42 @@ paged_attention.launches = 0  # kernel launches (CUDA calls only)
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which compiled kernel K5 launches for ``dtype`` and ``head_dim``:
-    ``"cuda_cores"`` (the only one); raises ``ValueError`` for a pair it
-    does not take. Asks the built library."""
+    ``"cluster_split"`` (the only one: each slot's context split over a
+    cluster of blocks); raises ``ValueError`` for a pair it does not
+    take. Asks the built library."""
     fn = load_library("paged_attention").dmt_paged_attention_route
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     r = fn(_DTYPES.get(dtype, -1), head_dim)
     if r != 0:
         raise ValueError(f"K5 has no kernel for {dtype}, head_dim {head_dim}")
-    return "cuda_cores"
+    return "cluster_split"
+
+
+def kernel_occupancy(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                     slots: int, heads: int, head_dim: int, block_size: int,
+                     width: int) -> dict:
+    """What K5 would launch for such a call, from the CUDA runtime,
+    without launching it: blocks resident per SM, threads a block,
+    dynamic shared memory bytes, blocks a cluster and clusters resident
+    on the card at once. Needs a CUDA device."""
+    fn = load_library("paged_attention").dmt_paged_attention_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 5)()
+    rc = fn(_DTYPES[q_dtype], _DTYPES[kv_dtype], slots, heads, head_dim,
+            block_size, width, info)
+    if rc != 0:
+        raise RuntimeError(f"K5 occupancy query failed: CUDA error {rc}")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes",
+                     "cluster_size", "clusters_resident"), info))
 
 
 def _lib():
     lib = load_library("paged_attention")
     fn = lib.dmt_paged_attention
     if fn.argtypes is None:  # declared once; CDLL caches the function
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                        + [ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -135,7 +158,7 @@ def _lib():
 def _launch(q, k_pages, v_pages, block_tables, lengths,
             scale: float) -> torch.Tensor:
     num_slots, num_heads, hd = q.shape
-    _, block_size, _, _ = k_pages.shape
+    block_size = k_pages.shape[1]
     if q.dtype not in _DTYPES or k_pages.dtype not in _DTYPES:
         raise ValueError(f"paged kernel takes float32 or bfloat16, got q "
                          f"{q.dtype}, pages {k_pages.dtype}")
@@ -146,6 +169,8 @@ def _launch(q, k_pages, v_pages, block_tables, lengths,
         raise ValueError("paged kernel needs q's head_dim contiguous")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("paged kernel needs contiguous k/v pages")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged kernel needs 16-byte aligned k/v pages")
     if (block_tables.dtype != torch.int32 or lengths.dtype != torch.int32
             or not block_tables.is_contiguous()
             or not lengths.is_contiguous()):
@@ -159,8 +184,8 @@ def _launch(q, k_pages, v_pages, block_tables, lengths,
                     block_tables.data_ptr(), lengths.data_ptr(),
                     out.data_ptr(), _DTYPES[q.dtype], _DTYPES[k_pages.dtype],
                     num_slots, num_heads, hd, block_size,
-                    block_tables.shape[1], q.stride(0), q.stride(1), scale,
-                    stream)
+                    block_tables.shape[1], k_pages.shape[0], q.stride(0),
+                    q.stride(1), scale, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {rc}")
     paged_attention.launches += 1

@@ -19,7 +19,10 @@ computed from the same inputs, 1e-4.
 ``EDGES`` walks the tensor-core kernels' tile edges: sequence lengths
 around the 64-row tiles (and the 128-row forward tile), every head_dim,
 causal and not, always through strided ``qkv[:, :, i]`` views;
-``FUSED_EDGES`` does the same inside K4's one 64-row tile.
+``FUSED_EDGES`` does the same inside K4's one 64-row tile. K5 is held
+at the edges of its cluster splits (``_split_edges``), with a ring that
+wraps, 64 slots, every (q, page) dtype pair and head_dim, poisoned dead
+positions, and bitwise-equal repeated calls.
 """
 
 import numpy as np
@@ -27,6 +30,7 @@ import pytest
 import torch
 
 from distributedmnist_tpu_torch.ops import flash_attention as fa
+from distributedmnist_tpu_torch.ops import paged_attention as pa
 from distributedmnist_tpu_torch.ops.flash_attention import (
     flash_attention_bshd, flash_attention_bshd_plain)
 from distributedmnist_tpu_torch.ops.paged_attention import (
@@ -88,23 +92,49 @@ def test_flash_kernel_refuses_what_it_cannot_take(dev):
         flash_attention_bshd(q, q, q)
 
 
-def _paged_inputs(dev, q_dtype, kv_dtype, hd=128, bs=16, heads=4):
-    g = torch.Generator(device=dev).manual_seed(hd + bs)
-    nblocks, width = 40, 10
+# K5 splits each slot's table over a cluster of SPLITS blocks, block c
+# taking table entries [c * P, (c + 1) * P), P = ceil(width / SPLITS)
+SPLITS = 8
+PAGE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+def _split_edges(bs, width):
+    """Lengths at every edge of K5's splits: one position, a block, a
+    split (P blocks), all splits, the full table, and an idle slot."""
+    p = -(-width // SPLITS)
+    edges = [1, bs - 1, bs, bs + 1, p * bs - 1, p * bs, p * bs + 1,
+             SPLITS * p * bs, width * bs, 0]
+    return sorted({n for n in edges if 0 <= n <= width * bs}, reverse=True)
+
+
+def _paged_inputs(dev, q_dtype, kv_dtype, hd=128, bs=16, heads=4,
+                  width=10, lengths=None, seed=0):
+    """Strided q, pages and tables for ``lengths`` (by default the old
+    mix of fresh, partial, full-table and idle slots). The null block and
+    every position past a slot's length in its last block are poisoned,
+    so a read of either breaks the agreement."""
+    if lengths is None:
+        lengths = [1, bs - 1, bs, bs + 1, 3 * bs + 5, width * bs, 0]
+    g = torch.Generator(device=dev).manual_seed(hd + bs + seed)
+    nblocks = 1 + sum(-(-n // bs) for n in lengths) + 3
     kp = torch.randn(nblocks, bs, heads, hd, generator=g,
                      device=dev).to(kv_dtype)
     vp = torch.randn(nblocks, bs, heads, hd, generator=g,
                      device=dev).to(kv_dtype)
     kp[0], vp[0] = 37.0, -53.0  # poisoned null block
-    lengths = [1, bs - 1, bs, bs + 1, 3 * bs + 5, width * bs, 0]
     tables = torch.zeros(len(lengths), width, dtype=torch.int32)
     order = torch.randperm(nblocks - 1,
-                           generator=torch.Generator().manual_seed(0)) + 1
+                           generator=torch.Generator().manual_seed(seed)) + 1
     used = 0
     for i, n in enumerate(lengths):
         nb = -(-n // bs)
         tables[i, :nb] = order[used:used + nb].int()
         used += nb
+        if n % bs:  # the last block's dead tail
+            last = int(tables[i, nb - 1])
+            kp[last, n % bs:], vp[last, n % bs:] = 37.0, -53.0
     qkv = torch.randn(len(lengths), 3, heads * hd, generator=g,
                       device=dev).to(q_dtype)
     return (qkv[:, 0].view(len(lengths), heads, hd), kp, vp,
@@ -112,12 +142,8 @@ def _paged_inputs(dev, q_dtype, kv_dtype, hd=128, bs=16, heads=4):
                                          device=dev))
 
 
-@pytest.mark.parametrize("q_dtype,kv_dtype", [
-    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-    (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("hd,bs", [(128, 16), (64, 8), (32, 48)])
-def test_paged_kernel_matches_plain(dev, q_dtype, kv_dtype, hd, bs):
-    args = _paged_inputs(dev, q_dtype, kv_dtype, hd=hd, bs=bs)
+def _paged_check(args):
+    """One launch against the plain version; idle slots exactly zero."""
     before = paged_attention.launches
     got = paged_attention(*args)
     torch.cuda.synchronize()
@@ -126,6 +152,73 @@ def test_paged_kernel_matches_plain(dev, q_dtype, kv_dtype, hd, bs):
     _close(got, paged_attention_dense(*args), F32)
     idle = args[4] == 0
     assert torch.count_nonzero(got[idle]).item() == 0
+    return got
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", PAGE_PAIRS)
+@pytest.mark.parametrize("hd,bs", [(128, 16), (64, 8), (32, 48), (256, 16)])
+def test_paged_kernel_matches_plain(dev, q_dtype, kv_dtype, hd, bs):
+    _paged_check(_paged_inputs(dev, q_dtype, kv_dtype, hd=hd, bs=bs))
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", PAGE_PAIRS)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("bs,width", [(16, 24), (16, 20), (8, 36), (5, 13)])
+def test_paged_kernel_at_split_edges(dev, q_dtype, kv_dtype, hd, bs, width):
+    """Lengths at every split edge, for widths that split evenly and
+    not, block sizes that fill a shared-memory stage and not."""
+    _paged_check(_paged_inputs(dev, q_dtype, kv_dtype, hd=hd, bs=bs,
+                               heads=2, width=width,
+                               lengths=_split_edges(bs, width)))
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", PAGE_PAIRS)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_paged_kernel_wraps_its_ring(dev, q_dtype, kv_dtype, hd):
+    """A table of 160 blocks of 16: each block's 20 entries (320
+    positions) outrun its ring of at most 8 stages, which wraps."""
+    bs, width = 16, 160
+    _paged_check(_paged_inputs(dev, q_dtype, kv_dtype, hd=hd, bs=bs,
+                               heads=2, width=width,
+                               lengths=[width * bs, 1000, 321, 0]))
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", PAGE_PAIRS)
+@pytest.mark.parametrize("hd", (64, 128))
+def test_paged_kernel_with_64_slots(dev, q_dtype, kv_dtype, hd):
+    bs, width = 16, 36
+    rng = np.random.default_rng(hd)
+    lengths = rng.integers(0, width * bs + 1, 64).tolist()
+    lengths[:3] = [0, 1, width * bs]
+    _paged_check(_paged_inputs(dev, q_dtype, kv_dtype, hd=hd, bs=bs,
+                               width=width, lengths=lengths))
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", PAGE_PAIRS)
+def test_paged_kernel_is_deterministic(dev, q_dtype, kv_dtype):
+    """10 calls give bitwise-equal outputs: each cluster merges its
+    blocks' states in a fixed order, no atomics."""
+    args = _paged_inputs(dev, q_dtype, kv_dtype, bs=16, width=36,
+                         lengths=[544, 285, 124, 86, 51, 37, 21, 0])
+    first = paged_attention(*args)
+    for _ in range(9):
+        assert torch.equal(paged_attention(*args), first)
+
+
+def test_paged_kernel_route_and_occupancy(dev):
+    """Every supported pair takes the cluster-split kernel; the runtime
+    reports its launch at the decode path's shape."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in HEAD_DIMS:
+            assert pa.kernel_route(dtype, hd) == "cluster_split"
+    with pytest.raises(ValueError, match="no kernel"):
+        pa.kernel_route(torch.bfloat16, 96)
+    occ = pa.kernel_occupancy(torch.bfloat16, torch.bfloat16, 8, 16, 128,
+                              16, 36)
+    assert occ["cluster_size"] == SPLITS and occ["threads"] == 128
+    # 5 stages of 16 positions (8 KB each) and the block's 5 table entries
+    assert occ["smem_bytes"] == 5 * 8192 + 32
+    assert occ["clusters_resident"] > 0
 
 
 def test_paged_kernel_refuses_what_it_cannot_take(dev):
