@@ -62,7 +62,28 @@ One JSON line per phase:
                 kernels against one through their plain versions, as in
                 ``train``; 5 steps of the Trainer with K4 launched 4 times
                 a step, K2 and K3 never; ms per step and tokens/s.
-6. ``e2e``      — boots the decode replica on the training phase's
+6. ``cnn``      — the MNIST CNN sync-SGD path (the source paper's), no
+                flash or paged kernel in it (its convolutions and GEMMs
+                are cuDNN/cuBLAS calls, as the reference's are XLA ops;
+                the line carries the K1-K5 counters, all 0): the
+                Trainer's step at ``bench.py bench_cnn_sync``'s shape
+                (synthetic, global batch 4096, bf16, sync, 1 replica,
+                sgd, lr 8e-4), 20 timed steps by CUDA events, images/s,
+                model TFLOP/s, the bound (FLOP time against byte time,
+                bytes counted in ``_cnn_bytes``), a ``torch.profiler``
+                split (cuDNN convolution, GEMM, other kernels, idle)
+                and peak memory, with cuDNN's deterministic algorithms
+                on (the port's setting) and off; 8 simulated replicas
+                on ``cuda:0`` at global batch 1024, 10 steps each:
+                quorum k=4 (4 flags every step), timeout with the
+                deadline swapped to 0 on one step (params bitwise
+                unchanged there), interval (1000 ms window, lognormal
+                300 ms: ``applied`` exactly when the modeled clock
+                crosses the window); 3 float32 quorum steps on the card
+                against the same steps on the CPU (equal flags, params
+                within ``CNN_CARD_VS_CPU_TOL``); two seeded 5-step runs
+                bitwise equal.
+7. ``e2e``      — boots the decode replica on the training phase's
                 checkpoint through the CLI's ``build_decode_replica``,
                 streams 8 concurrent greedy requests over its socket,
                 and checks:
@@ -168,6 +189,26 @@ STEP_PARAM_TOL = 1e-3
 # and there) compound through 4 layers and the 2048-wide projections;
 # 0.1 is ~3 bf16 ulps at the logits' magnitude
 E2E_LOGIT_TOL = 0.1
+# the CNN path (bench.py bench_cnn_sync's shape: one replica, batch 4096)
+CNN_BATCH, CNN_TIMED, CNN_DISC_BATCH, CNN_DISC_STEPS = 4096, 20, 1024, 10
+CNN = {"name": "chip_smoke_cnn",
+       "data": {"dataset": "synthetic", "batch_size": CNN_BATCH,
+                "synthetic_train_size": CNN_BATCH,
+                "synthetic_test_size": 256, "use_native_pipeline": False},
+       "model": {"name": "mnist_cnn", "compute_dtype": "bfloat16"},
+       "optim": {"name": "sgd", "initial_learning_rate": 8e-4,
+                 "learning_rate_decay_factor": 1.0},
+       "sync": {"mode": "sync"}, "mesh": {"num_replicas": 1},
+       "eval": {"eval_batch_size": 256},
+       "train": {"max_steps": CNN_TIMED, "log_every_steps": 10,
+                 "save_interval_steps": 0, "save_results_period": 0,
+                 "summary_every_steps": 0, "seed": SEED}}
+# card against CPU, 3 float32 quorum steps: ||Δ|| / ||cpu|| per param
+# leaf. Both sum in float32 in other orders (~1e-7 a step); a max-pool
+# window whose top two values lie closer than that routes one gradient
+# entry elsewhere, up to ~2e-4 of the smallest leaf's norm on the CPU
+# (tests/test_torch_sync_modes.py)
+CNN_CARD_VS_CPU_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -920,7 +961,8 @@ def _step_vs_plain(trainer, batch) -> tuple[float, float]:
     attn = _plain_attention()
     cfg = trainer.model
 
-    def plain_apply(params, tokens, positions=None, *, train=False):
+    def plain_apply(params, tokens, positions=None, *, train=False,
+                    dropout_key=None):
         return transformer.apply(params, tokens, num_heads=MODEL["num_heads"],
                                  attention_fn=attn, positions=positions,
                                  compute_dtype=cfg.compute_dtype)
@@ -1110,6 +1152,292 @@ def phase_train_k4(tmp: str) -> dict:
     return rec
 
 
+def _cnn_trainer(tmp: str, name: str, *overrides: str, device=DEVICE):
+    """The CNN Trainer ``launch train`` runs, from its
+    ``build_trainer``."""
+    from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+    path = f"{tmp}/{name}.json"
+    with open(path, "w") as f:
+        json.dump(CNN, f)
+    return build_trainer(["train", "--config", path,
+                          f"train.train_dir={tmp}/{name}", *overrides,
+                          "--device", device])
+
+
+def _cnn_flops(batch: int, size: int = 28) -> float:
+    """Model FLOPs of one step: 3 × the forward's multiply-adds × 2
+    (conv1 5x5x1x32 and conv2 5x5x32x64 at full and half resolution,
+    fc1 (size/4)²·64 x 512, fc2 512 x 10): 24.55 MFLOP an image at 28."""
+    h = size // 2
+    fwd = 2 * (size * size * 32 * 25 + h * h * 64 * 25 * 32
+               + (size // 4) ** 2 * 64 * 512 + 512 * 10)
+    return 3.0 * fwd * batch
+
+
+def _cnn_bytes(batch: int, size: int = 28) -> float:
+    """The least bytes a step moves: the bf16 input, every activation
+    tensor (conv1 and conv2 outputs, both pooled maps, fc1, logits)
+    written once and read once forward and its gradient written once and
+    read once backward (4 × 2 bytes an element), and the float32 params
+    read, their gradients written and read, and the params written by
+    the update (4 × 4 bytes)."""
+    h, q = size // 2, size // 4
+    act = size * size * 32 + h * h * 32 + h * h * 64 + q * q * 64 + 512 + 10
+    params = 25 * 32 + 32 + 25 * 32 * 64 + 64 + q * q * 64 * 512 + 512 \
+        + 512 * 10 + 10
+    return batch * (size * size * 2 + act * 4 * 2) + params * 4 * 4
+
+
+def _cnn_profile(step, batch, wall_ms: float, steps: int = 3) -> dict:
+    """``torch.profiler`` over ``steps`` CNN steps: device ms by class
+    (cuDNN convolutions, GEMMs, every other kernel) and the idle share
+    1 - busy / wall (one stream)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(batch)
+        torch.cuda.synchronize()
+    by_class = {"conv": 0.0, "gemm": 0.0, "other": 0.0}
+    top, launches = [], 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        cls = ("conv" if any(k in name for k in (
+                   "conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit"))
+               else "gemm" if any(k in name for k in (
+                   "gemm", "gemv", "xmma", "cutlass", "nvjet"))
+               else "other")
+        by_class[cls] += us / 1e3 / steps
+        launches += e.count
+        top.append((us / 1e3 / steps, e.key[:60]))
+    busy = sum(by_class.values())
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy if busy > 0 else "not measured",
+            "device_idle_share": 1 - busy / wall_ms if busy > 0
+            else "not measured",
+            "busy_ms_by_class": by_class,
+            "kernels_per_step": launches / steps,
+            "top_kernels_ms": [[round(t, 4), k] for t, k in
+                               sorted(top, reverse=True)[:10]]}
+
+
+def _cnn_throughput(trainer, batch) -> dict:
+    """Device ms of one step over ``CNN_TIMED`` steps after 3 warm-up
+    steps (CUDA events; the batch stays on the card, as bench.py's
+    scanned chunks do), the host's ms to issue a step (its clock around
+    the same steps, before the final wait: equal to the device ms when
+    the host waits on the card every step), images/s, model TFLOP/s,
+    peak memory and the profile."""
+    import torch
+    state = trainer.state
+
+    def step(b):
+        nonlocal state
+        state, _ = trainer.step_fn(state, b)
+
+    for _ in range(3):
+        step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(CNN_TIMED):
+        step(batch)
+    host_ms = (time.perf_counter() - t0) * 1e3 / CNN_TIMED
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / CNN_TIMED
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = _cnn_flops(CNN_BATCH)
+    return {"ms_per_step": ms, "host_issue_ms_per_step": host_ms,
+            "images_per_s": CNN_BATCH / (ms / 1e3),
+            "model_tflops_per_s": flops / (ms / 1e3) / 1e12,
+            "peak_mem_gb": peak,
+            "profile": _cnn_profile(step, batch, ms)}
+
+
+def _cnn_disciplines(tmp: str) -> dict:
+    """8 simulated replicas on the card, global batch 1024, 10 steps of
+    quorum (k=4), timeout (deadline 0 on step 5) and interval."""
+    import numpy as np
+    import torch
+
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.parallel.api import (
+        _f32_sum, make_discipline_vector, tree_leaves)
+    common = ("mesh.num_replicas=8", f"data.batch_size={CNN_DISC_BATCH}",
+              f"data.synthetic_train_size={2 * CNN_DISC_BATCH}",
+              f"train.max_steps={CNN_DISC_STEPS}")
+    out = {}
+    tr = _cnn_trainer(tmp, "cnn_quorum", *common, "sync.mode=quorum",
+                      "sync.num_replicas_to_aggregate=4",
+                      "sync.straggler_profile=lognormal",
+                      "sync.straggler_mean_ms=50")
+    recs = []
+    tr.run(step_callback=lambda s, r: recs.append(r))
+    sums = [sum(r["flags"]) for r in recs]
+    out["quorum"] = {"flag_sums": sums,
+                     "updates_applied": tr.state.updates_applied}
+    check(len(recs) == CNN_DISC_STEPS and all(x == 4 for x in sums)
+          and tr.state.updates_applied == CNN_DISC_STEPS,
+          f"quorum k=4 on the card: {out['quorum']}")
+    # timeout: the step function driven by hand, deadline 0 on step 5
+    tr = _cnn_trainer(tmp, "cnn_timeout", *common, "sync.mode=timeout",
+                      "sync.timeout_ms=60", "optim.momentum=0.9",
+                      "sync.straggler_profile=lognormal",
+                      "sync.straggler_mean_ms=50")
+    state, applied, unchanged = tr.state, [], None
+    for i in range(CNN_DISC_STEPS):
+        b = to_device(next(tr.train_iter), tr.device)
+        disc = make_discipline_vector(8, 0.0 if i == 5 else 60.0, 1000.0)
+        before = [p.clone() for p in tree_leaves(state.params)
+                  + tree_leaves(state.momentum)]
+        state, m = tr.step_fn(state, b, None, disc)
+        applied.append(m["applied"])
+        if i == 5:
+            unchanged = all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(state.params) + tree_leaves(state.momentum),
+                before))
+    out["timeout"] = {"applied": applied, "masked_step_bitwise": unchanged}
+    check(applied[5] == 0 and unchanged and sum(applied) >= 1,
+          f"timeout on the card: {out['timeout']}")
+    # interval: applied exactly when the modeled clock crosses the window
+    tr = _cnn_trainer(tmp, "cnn_interval", *common, "sync.mode=interval",
+                      "sync.interval_ms=1000",
+                      "sync.straggler_profile=lognormal",
+                      "sync.straggler_mean_ms=300")
+    state = tr.state
+    wall, nxt, expect, got = np.float32(0), np.float32(1000), [], []
+    for i in range(CNN_DISC_STEPS):
+        b = to_device(next(tr.train_iter), tr.device)
+        state, m = tr.step_fn(state, b)
+        wall = np.float32(wall + np.float32(_f32_sum(m["step_times_ms"])
+                                            / np.float32(8)))
+        fire = bool(wall >= nxt)
+        if fire:
+            nxt = np.float32(wall + np.float32(1000))
+        expect.append(int(fire))
+        got.append(m["applied"])
+    out["interval"] = {"applied": got, "modeled": expect,
+                       "wall_ms": float(wall)}
+    check(got == expect and sum(got) >= 2, f"interval: {out['interval']}")
+    return out
+
+
+def _cnn_card_vs_cpu(tmp: str) -> dict:
+    """3 float32 quorum steps from one seed on the card and on the CPU."""
+    import torch
+
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    args = ("mesh.num_replicas=8", f"data.batch_size={CNN_DISC_BATCH}",
+            f"data.synthetic_train_size={2 * CNN_DISC_BATCH}",
+            "model.compute_dtype=float32", "sync.mode=quorum",
+            "sync.num_replicas_to_aggregate=4",
+            "sync.straggler_profile=lognormal", "sync.straggler_mean_ms=50")
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        tr = _cnn_trainer(tmp, f"cnn_f32_{dev}", *args, device=dev)
+        init = [p.detach().cpu().clone() for p in tree_leaves(tr.state.params)]
+        state, flags = tr.state, []
+        for _ in range(3):
+            state, m = tr.step_fn(state, to_device(next(tr.train_iter),
+                                                   tr.device))
+            flags.append(m["flags"].tolist())
+        runs[dev] = (init, flags, [p.detach().cpu()
+                                   for p in tree_leaves(state.params)])
+    (i_gpu, f_gpu, p_gpu), (i_cpu, f_cpu, p_cpu) = runs[DEVICE], runs["cpu"]
+    init_bitwise = all(torch.equal(a, b) for a, b in zip(i_gpu, i_cpu))
+    rel = max(float((a - b).norm() / b.norm()) for a, b in zip(p_gpu, p_cpu))
+    rec = {"init_params_bitwise": init_bitwise, "flags_equal": f_gpu == f_cpu,
+           "param_rel_err": rel, "tol": CNN_CARD_VS_CPU_TOL}
+    check(f_gpu == f_cpu and rel <= CNN_CARD_VS_CPU_TOL,
+          f"card vs CPU: {rec}")
+    return rec
+
+
+def _cnn_determinism(tmp: str, batch, tag: str) -> bool:
+    """Two seeded 5-step runs at the throughput shape: bitwise params."""
+    import torch
+
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    finals = []
+    for i in range(2):
+        tr = _cnn_trainer(tmp, f"cnn_det_{tag}_{i}")
+        state = tr.state
+        for _ in range(5):
+            state, _ = tr.step_fn(state, batch)
+        finals.append(tree_leaves(state.params))
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(*finals))
+
+
+def phase_cnn(tmp: str) -> dict:
+    import torch
+
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    trainer = _cnn_trainer(tmp, "cnn")
+    check(trainer.device.type == DEVICE, f"trainer on {trainer.device}")
+    check(torch.backends.cudnn.deterministic,
+          "the CNN path did not select cuDNN's deterministic algorithms")
+    tr = trainer.datasets.train
+    batch = to_device({"image": tr.images[:CNN_BATCH],
+                       "label": tr.labels[:CNN_BATCH]}, trainer.device)
+    reset_counts()
+    throughput = {"deterministic": _cnn_throughput(trainer, batch)}
+    det = {"deterministic": _cnn_determinism(tmp, batch, "on")}
+    torch.backends.cudnn.deterministic = False
+    try:
+        throughput["nondeterministic"] = _cnn_throughput(trainer, batch)
+        det["nondeterministic"] = _cnn_determinism(tmp, batch, "off")
+    finally:
+        torch.backends.cudnn.deterministic = True
+    counts = read_counts()
+    losses = []
+    summary = trainer.run(
+        step_callback=lambda step, rec: losses.append(rec["loss"]))
+    flops, nbytes = _cnn_flops(CNN_BATCH), _cnn_bytes(CNN_BATCH)
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    disciplines = _cnn_disciplines(tmp)
+    card_vs_cpu = _cnn_card_vs_cpu(tmp)
+    rec = {"phase": "cnn", "batch": CNN_BATCH, "dtype": "bfloat16",
+           **throughput["deterministic"],
+           "nondeterministic_cudnn": {
+               k: throughput["nondeterministic"][k]
+               for k in ("ms_per_step", "host_issue_ms_per_step",
+                         "images_per_s", "model_tflops_per_s")},
+           "flops_per_step": flops, "bytes_per_step": nbytes,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "flop_ms": t_ops, "byte_ms": t_bytes,
+           "run": {"steps": len(losses), "first_loss": losses[0],
+                   "last_loss": losses[-1],
+                   "updates_applied": summary["updates_applied"]},
+           "disciplines": disciplines, "card_vs_cpu": card_vs_cpu,
+           "seeded_runs_bitwise": det,
+           "flash_paged_kernel_launches": counts,
+           "kernel_note": "no flash or paged kernel runs in the CNN path: "
+                          "its convolutions and GEMMs are cuDNN and "
+                          "cuBLAS calls"}
+    emit(rec)
+    check(all(v == 0 for v in counts.values()), f"launches {counts}")
+    check(len(losses) == CNN_TIMED and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    check(det["deterministic"], "two seeded runs differ with cuDNN's "
+                                "deterministic algorithms")
+    return rec
+
+
 def phase_e2e(train_dir: str, tmp: str) -> dict:
     """Serve the checkpoint the training phase published."""
     import numpy as np
@@ -1235,6 +1563,8 @@ def main() -> int:
             train = runs["train"] = phase_train(tmp)
             phase = "train_k4"
             runs["train_k4"] = phase_train_k4(tmp)
+            phase = "cnn"
+            runs["cnn"] = phase_cnn(tmp)
             phase = "e2e"
             e2e = runs["e2e"] = phase_e2e(train["train_dir"], tmp)
     except Exception as e:  # report the failing phase, then fail

@@ -1,20 +1,27 @@
 """In-memory datasets (≙ ``distributedmnist_tpu/data/datasets.py``): the
-split containers and the deterministic synthetic token sequences the
-causal-LM training path reads.
+split containers, the MNIST-format idx reader and writer, and the
+deterministic synthetic images and token sequences.
 
-``make_synthetic_lm`` is the reference's numpy code, so the same seed
-gives bitwise the same tokens. The image datasets (``mnist``,
-``fashion_mnist``, ``cifar10``, ``synthetic``) are not ported yet and
-raise.
+``make_synthetic`` and ``make_synthetic_lm`` are the reference's numpy
+code, so the same seed gives bitwise the same arrays; the idx reader
+decodes and normalizes exactly as the reference's does. Not ported:
+``maybe_download`` (neither machine has a network — a missing
+``data_dir`` raises) and ``load_cifar10`` (``dataset="cifar10"``
+raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip
+import struct
+from pathlib import Path
 
 import numpy as np
 
 from ..core.config import DataConfig
+
+PIXEL_DEPTH = 255
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +61,130 @@ class Datasets:
     test: ArrayDataset
 
 
+# -- idx format (MNIST / Fashion-MNIST) ----------------------------------
+
+def _open_maybe_gz(path: Path):
+    return gzip.open(path, "rb") if path.suffix == ".gz" else open(path, "rb")
+
+
+def _read_idx_ubyte(path: Path, expect_ndim: int) -> np.ndarray:
+    """Raw idx(.gz) ubyte payload."""
+    with _open_maybe_gz(path) as f:
+        magic = struct.unpack(">HBB", f.read(4))
+        if magic[0] != 0 or magic[1] != 0x08:
+            raise ValueError(f"{path}: bad idx magic {magic}")
+        dims = struct.unpack(f">{magic[2]}I", f.read(4 * magic[2]))
+        buf = f.read(int(np.prod(dims)))
+    arr = np.frombuffer(buf, dtype=np.uint8).reshape(dims)
+    if arr.ndim != expect_ndim:
+        raise ValueError(f"{path}: expected {expect_ndim}-d idx, got "
+                         f"{arr.ndim}-d")
+    return arr
+
+
+def read_idx_images(path: Path) -> np.ndarray:
+    """An idx3-ubyte image file → float32 [N, H, W, 1] in [-0.5, 0.5]."""
+    data = _read_idx_ubyte(Path(path), 3).astype(np.float32)
+    data = (data - PIXEL_DEPTH / 2.0) / PIXEL_DEPTH
+    return data[..., np.newaxis]
+
+
+def read_idx_labels(path: Path) -> np.ndarray:
+    """An idx1-ubyte label file → int32 [N]."""
+    return _read_idx_ubyte(Path(path), 1).astype(np.int32)
+
+
+def write_idx_ubyte(path: Path, arr: np.ndarray) -> Path:
+    """Write a uint8 array as an idx(.gz) file, the inverse of the
+    reader (gzip when the suffix is ``.gz``)."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    header = struct.pack(">HBB", 0, 0x08, arr.ndim)
+    header += struct.pack(f">{arr.ndim}I", *arr.shape)
+    opener = gzip.open if path.suffix == ".gz" else open
+    with opener(path, "wb") as f:
+        f.write(header)
+        f.write(arr.tobytes())
+    return path
+
+
+_IDX_FILES = {
+    "train_images": ["train-images-idx3-ubyte", "train-images.idx3-ubyte"],
+    "train_labels": ["train-labels-idx1-ubyte", "train-labels.idx1-ubyte"],
+    "test_images": ["t10k-images-idx3-ubyte", "t10k-images.idx3-ubyte"],
+    "test_labels": ["t10k-labels-idx1-ubyte", "t10k-labels.idx1-ubyte"],
+}
+
+
+def _find_idx(root: Path, names: list[str]) -> Path | None:
+    for name in names:
+        for cand in (root / name, root / (name + ".gz")):
+            if cand.exists():
+                return cand
+    return None
+
+
+def load_idx_dataset(data_dir: str | Path,
+                     validation_size: int = 5000) -> Datasets:
+    """MNIST-format idx files from ``data_dir`` (MNIST and Fashion-MNIST
+    share the format); validation is the first rows of train."""
+    root = Path(data_dir)
+    paths = {k: _find_idx(root, v) for k, v in _IDX_FILES.items()}
+    missing = [k for k, v in paths.items() if v is None]
+    if missing:
+        raise FileNotFoundError(
+            f"idx files missing under {root}: {missing}. The port does not "
+            "download: place the files there (the reference's "
+            "data/fixtures.py materialize_idx_fixture writes a "
+            "deterministic set), or use data.dataset=synthetic")
+    train_x = read_idx_images(paths["train_images"])
+    train_y = read_idx_labels(paths["train_labels"])
+    test_x = read_idx_images(paths["test_images"])
+    test_y = read_idx_labels(paths["test_labels"])
+    v = min(validation_size, len(train_y) // 10)
+    return Datasets(train=ArrayDataset(train_x[v:], train_y[v:]),
+                    validation=ArrayDataset(train_x[:v], train_y[:v]),
+                    test=ArrayDataset(test_x, test_y))
+
+
+# -- deterministic synthetic data ----------------------------------------
+
+def make_synthetic(num_train: int, num_test: int, image_size: int = 28,
+                   num_channels: int = 1, num_classes: int = 10,
+                   seed: int = 12345, noise: float = 0.08) -> Datasets:
+    """Class-conditional smooth templates plus Gaussian noise: separable
+    (a CNN reaches ≈100%) and fully determined by ``seed``."""
+    rng = np.random.default_rng(seed)
+    low = max(4, image_size // 4)
+    templates = rng.standard_normal(
+        (num_classes, low, low, num_channels)).astype(np.float32)
+    # bilinear-upsample templates to full resolution → smooth shapes
+    up = np.empty((num_classes, image_size, image_size, num_channels),
+                  np.float32)
+    xs = np.linspace(0, low - 1, image_size)
+    x0 = np.clip(np.floor(xs).astype(int), 0, low - 2)
+    fx = (xs - x0).astype(np.float32)
+    for c in range(num_classes):
+        t = templates[c]
+        rows = (t[x0] * (1 - fx)[:, None, None]
+                + t[x0 + 1] * fx[:, None, None])
+        up[c] = (rows[:, x0] * (1 - fx)[None, :, None]
+                 + rows[:, x0 + 1] * fx[None, :, None])
+    up = up / (np.abs(up).max() + 1e-6) * 0.45  # keep within [-0.5, 0.5]
+
+    def sample(n: int) -> ArrayDataset:
+        labels = rng.integers(0, num_classes, size=n).astype(np.int32)
+        images = up[labels] + rng.standard_normal(
+            (n, image_size, image_size, num_channels)).astype(
+                np.float32) * noise
+        return ArrayDataset(np.clip(images, -0.5, 0.5), labels)
+
+    return Datasets(train=sample(num_train),
+                    validation=sample(max(num_test // 2, 256)),
+                    test=sample(num_test))
+
+
 def make_synthetic_lm(num_train: int, num_test: int, seq_len: int = 128,
                       vocab_size: int = 256, seed: int = 12345,
                       peak: float = 3.0) -> Datasets:
@@ -83,12 +214,23 @@ def make_synthetic_lm(num_train: int, num_test: int, seq_len: int = 128,
 def load_datasets(cfg: DataConfig, image_size: int = 28, num_channels: int = 1,
                   num_classes: int = 10, seq_len: int = 128,
                   vocab_size: int = 256) -> Datasets:
-    """The configured dataset; only ``synthetic_lm`` is ported."""
-    del image_size, num_channels, num_classes  # the image datasets
-    if cfg.dataset == "synthetic_lm":
+    """The configured dataset: ``mnist`` / ``fashion_mnist`` (idx files
+    under ``data_dir`` or its per-dataset subdirectory), ``synthetic``
+    or ``synthetic_lm``. Where the reference falls back to synthetic
+    data when idx files are missing, the port raises: a run never
+    trains on other data than it names."""
+    name = cfg.dataset
+    if name in ("mnist", "fashion_mnist"):
+        sub = Path(cfg.data_dir) / name
+        return load_idx_dataset(sub if sub.exists() else Path(cfg.data_dir))
+    if name == "synthetic":
+        return make_synthetic(cfg.synthetic_train_size,
+                              cfg.synthetic_test_size, image_size,
+                              num_channels, num_classes)
+    if name == "synthetic_lm":
         return make_synthetic_lm(cfg.synthetic_train_size,
                                  cfg.synthetic_test_size, seq_len,
                                  vocab_size)
-    raise NotImplementedError(
-        f"dataset {cfg.dataset!r} is not ported yet (the port has "
-        "'synthetic_lm' only)")
+    if name == "cifar10":
+        raise NotImplementedError("dataset 'cifar10' is not ported yet")
+    raise ValueError(f"unknown dataset {name!r}")

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.config import DataConfig
+from ..core.log import get_logger
 from .datasets import ArrayDataset
 
 
@@ -162,9 +163,12 @@ def eval_batches(data: ArrayDataset, batch_size: int, pad_multiple: int = 1,
 
 def make_train_iterator(data: ArrayDataset, cfg: DataConfig, seed: int,
                         host_id: int = 0, num_hosts: int = 1) -> BatchIterator:
-    """The train stream (``data.use_native_pipeline`` is read by the
-    reference only: the port always batches inline, in the same
-    order)."""
+    """The train stream. ``data.use_native_pipeline`` selects the
+    reference's C++ prefetcher, which is not ported: the port always
+    batches inline, in the same order, and says so."""
+    if cfg.use_native_pipeline:
+        get_logger("data").info("data.use_native_pipeline is a no-op in "
+                                "the port: batching inline")
     return BatchIterator(data, cfg.batch_size, seed=seed, host_id=host_id,
                          num_hosts=num_hosts, shard_mode=cfg.shard_mode)
 

@@ -4,9 +4,11 @@ the port's.
 The reference keeps a transformer's params as a pytree of arrays:
 ``{"embed", "pos", "blocks", "final_norm"}`` with ``blocks`` a list of
 per-layer dicts — or, in a checkpoint's flax state-dict form, a dict
-keyed ``"0"``, ``"1"``, ... The port keeps the same layout as torch
-tensors with ``blocks`` a list. Both directions copy leaf for leaf; no
-array is transposed or renamed.
+keyed ``"0"``, ``"1"``, ... The CNN's is ``{"conv1", "conv2", "fc1",
+"fc2"}`` of ``{"w", "b"}`` (HWIO kernels, ``[in, out]`` dense), which
+the port keeps as is. The port keeps each layout as torch tensors with
+``blocks`` a list. Both directions copy leaf for leaf; no array is
+transposed or renamed.
 
 :func:`state_from_reference` / :func:`state_to_reference` carry a whole
 ``TrainState`` (params, momentum slots and counters) the same way.
@@ -51,7 +53,8 @@ def params_from_reference(tree: dict, *, device=None,
         return t.to(device=dev, dtype=dtype or t.dtype)
 
     out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [conv(b) for b in _blocks_list(tree["blocks"])]
+    if "blocks" in tree:
+        out["blocks"] = [conv(b) for b in _blocks_list(tree["blocks"])]
     return out
 
 
@@ -87,16 +90,14 @@ def state_from_reference(state: Any, *, device=None):
     ``uint32[2]``.
 
     Raises ``NotImplementedError`` for state the port cannot run: LAMB's
-    ``{"m", "v"}`` slots and interval mode's ``window_acc``."""
+    ``{"m", "v"}`` slots."""
     from ..parallel.api import TrainState
     d = _state_dict(state)
     dev = resolve_device(device)
     mom = d.get("momentum")
     if isinstance(mom, dict) and set(mom) == {"m", "v"}:
         raise NotImplementedError("LAMB optimizer state is not ported yet")
-    if d.get("window_acc") is not None:
-        raise NotImplementedError("interval-mode state (window_acc) is not "
-                                  "ported yet")
+    acc = d.get("window_acc")
     f32 = lambda k, default: float(np.float32(d.get(k, default)))
     return TrainState(
         params=params_from_reference(d["params"], device=dev),
@@ -105,6 +106,8 @@ def state_from_reference(state: Any, *, device=None):
         step=int(d.get("step", 0)),
         updates_applied=int(d.get("updates_applied", d.get("step", 0))),
         root_key=np.array(d.get("root_key", (0, 0)), np.uint32),
+        window_acc=(None if acc is None
+                    else params_from_reference(acc, device=dev)),
         window_rounds=f32("window_rounds", 0.0),
         wall_ms=f32("wall_ms", 0.0),
         next_apply_ms=f32("next_apply_ms", 1000.0))
@@ -121,7 +124,8 @@ def state_to_reference(state) -> dict:
         "step": np.asarray(state.step, np.int32),
         "updates_applied": np.asarray(state.updates_applied, np.int32),
         "root_key": np.asarray(state.root_key, np.uint32),
-        "window_acc": None,
+        "window_acc": (None if state.window_acc is None
+                       else params_to_reference(state.window_acc)),
         "window_rounds": np.asarray(state.window_rounds, np.float32),
         "wall_ms": np.asarray(state.wall_ms, np.float32),
         "next_apply_ms": np.asarray(state.next_apply_ms, np.float32),

@@ -1,9 +1,9 @@
 """Model registry (≙ ``distributedmnist_tpu/models/registry.py``): the
-``transformer`` entry — its train-mode apply, loss, accuracy and
-token-level eval sums for the train step and the evaluator, and the
-decode exports the serving replica builds on. The other families
-(``mnist_cnn``, ``resnet20``) and the transformer's mixture-of-experts
-FFNs raise "not ported yet".
+``mnist_cnn`` entry (train-mode apply with dropout, loss, accuracy,
+classification eval sums and the softmax export) and the
+``transformer`` entry (the same for a causal LM, plus the decode
+exports the serving replica builds on). ``resnet20`` and the
+transformer's mixture-of-experts FFNs raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..core import prng
 from ..core.config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -34,31 +35,46 @@ def lm_last_logits(logits: torch.Tensor) -> torch.Tensor:
     return logits[:, -1]
 
 
-def sample_token(logits: torch.Tensor,
-                 generator: torch.Generator | None = None,
+def sample_token(logits: torch.Tensor, key=None,
                  temperature: float = 0.0, top_k: int = 0) -> torch.Tensor:
-    """Sample next-token ids [...] (int64) from logits [..., vocab].
+    """Sample next-token ids [...] (int64) from logits [..., vocab], as
+    the reference's ``sample_token`` does.
 
-    ``temperature <= 0`` is greedy argmax — deterministic, no generator
-    needed, and bit-comparable with the reference. ``temperature > 0``
-    divides the logits and draws from ``generator`` (the decode replica
-    seeds one per sequence, where the reference folds a seed into a JAX
-    key; the two draw different numbers from the same seed);
-    ``top_k > 0`` first masks everything below the k-th highest
-    logit."""
+    ``temperature <= 0`` is greedy argmax — deterministic, no key
+    needed. ``temperature > 0`` divides the float32 logits and draws
+    ``categorical`` with ``key`` (a ``uint32[2]`` key of
+    :mod:`..core.prng`): the argmax of the scaled logits plus Gumbel
+    noise from the key's bits, the reference's draw on the same key;
+    ``top_k > 0`` first masks everything below the k-th highest logit
+    with ``-1e30``."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    if generator is None:
+    if key is None:
         raise ValueError("sample_token with temperature > 0 needs a "
-                         "torch.Generator")
+                         "PRNG key")
     scaled = logits.float() / temperature
     if top_k and top_k > 0:
         kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
         scaled = scaled.masked_fill(scaled < kth, -1e30)
-    probs = torch.softmax(scaled, dim=-1).reshape(-1, scaled.shape[-1])
-    draw = torch.multinomial(probs.to(generator.device), 1,
-                             generator=generator)
-    return draw.reshape(logits.shape[:-1]).to(logits.device)
+    return prng.categorical(key, scaled, axis=-1)
+
+
+def classification_eval_metrics(logits: torch.Tensor, labels: torch.Tensor,
+                                weight: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """Weighted eval sums for a [batch, classes] classifier:
+    ``(correct_sum, loss_sum, weight_sum)``; pad rows carry weight 0."""
+    w = weight.float()
+    correct = (torch.argmax(logits, dim=-1) == labels.long()).float()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
+    return (correct * w).sum(), (nll * w).sum(), w.sum()
+
+
+def classification_predictions(logits: torch.Tensor) -> torch.Tensor:
+    """Softmax class probabilities [batch, classes]."""
+    return torch.softmax(logits, dim=-1)
 
 
 def lm_eval_metrics(logits: torch.Tensor, labels: torch.Tensor,
@@ -80,9 +96,12 @@ def lm_eval_metrics(logits: torch.Tensor, labels: torch.Tensor,
 class Model:
     """A model family instance.
 
-    * ``init(generator) -> params`` on the generator's device;
-    * ``apply(params, tokens, *, train=False, positions=None) -> logits``
-      (the transformer has no dropout, so ``train`` changes nothing;
+    * ``init(key_or_generator) -> params`` — the CNN takes a
+      ``uint32[2]`` key (and a ``device``), the transformer a torch
+      generator; ``init_params(seed, device)`` is the one spelling the
+      train state uses (``model.init_seed``);
+    * ``apply(params, inputs, *, train=False, dropout_key=None) ->
+      logits`` (the transformer has no dropout and ignores the key;
       gradients flow when autograd is on);
     * ``loss(logits, labels) -> scalar``; ``accuracy(logits, labels)
       -> scalar``;
@@ -98,9 +117,12 @@ class Model:
     """
 
     name: str
-    init: Callable[[torch.Generator], Any]
+    init: Callable[..., Any]
+    init_params: Callable[[int, torch.device], Any]
     apply: Callable[..., torch.Tensor]
     compute_dtype: torch.dtype
+    uses_dropout: bool = False
+    predictions: Callable[..., torch.Tensor] | None = None
     loss: Callable[..., torch.Tensor] | None = None
     accuracy: Callable[..., torch.Tensor] | None = None
     eval_metrics: Callable[..., tuple] | None = None
@@ -110,11 +132,44 @@ class Model:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.name != "transformer":
-        raise NotImplementedError(
-            f"model {cfg.name!r} is not ported yet (the port has the "
-            "'transformer' family only)")
-    return _transformer(cfg)
+    if cfg.name == "mnist_cnn":
+        return _mnist_cnn(cfg)
+    if cfg.name == "transformer":
+        return _transformer(cfg)
+    raise NotImplementedError(
+        f"model {cfg.name!r} is not ported yet (the port has the "
+        "'mnist_cnn' and 'transformer' families)")
+
+
+def _mnist_cnn(cfg: ModelConfig) -> Model:
+    from . import cnn
+    compute_dtype = torch_dtype(cfg.compute_dtype)
+    # cuDNN settings of the CNN path (process-wide): only deterministic
+    # convolution algorithms, so a seeded run repeats bit for bit as the
+    # reference's does; and float32 convolutions in float32, where
+    # cuDNN's default would round their inputs to TF32.
+    torch.backends.cudnn.deterministic = True
+    if compute_dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+
+    def init(key, device=None):
+        return cnn.init(key, image_size=cfg.image_size,
+                        num_channels=cfg.num_channels,
+                        num_classes=cfg.num_classes, device=device)
+
+    def apply(params, x, *, train=False, dropout_key=None):
+        return cnn.apply(params, x, train=train, dropout_key=dropout_key,
+                         dropout_rate=cfg.dropout_rate,
+                         compute_dtype=compute_dtype)
+
+    return Model(name=cfg.name, init=init,
+                 init_params=lambda seed, device: init(prng.PRNGKey(seed),
+                                                       device),
+                 apply=apply, compute_dtype=compute_dtype,
+                 uses_dropout=cfg.dropout_rate > 0.0,
+                 predictions=cnn.predictions, loss=cnn.loss_fn,
+                 accuracy=cnn.accuracy,
+                 eval_metrics=classification_eval_metrics)
 
 
 def _transformer(cfg: ModelConfig) -> Model:
@@ -139,8 +194,9 @@ def _transformer(cfg: ModelConfig) -> Model:
             num_heads=cfg.num_heads, num_layers=cfg.num_layers,
             max_seq_len=cfg.seq_len)
 
-    def apply(params, tokens, positions=None, *, train=False):
-        del train  # no dropout (the reference's transformer has none)
+    def apply(params, tokens, positions=None, *, train=False,
+              dropout_key=None):
+        del train, dropout_key  # no dropout (the reference's has none)
         return transformer.apply(params, tokens, num_heads=cfg.num_heads,
                                  attention_fn=attention_fn,
                                  positions=positions,
@@ -160,8 +216,15 @@ def _transformer(cfg: ModelConfig) -> Model:
             lengths, num_heads=cfg.num_heads, block_size=block_size,
             compute_dtype=compute_dtype, attention_kernel=attention_kernel)
 
-    return Model(name=cfg.name, init=init, apply=apply,
-                 compute_dtype=compute_dtype, loss=transformer.loss_fn,
+    def init_params(seed, device):
+        # a torch generator: other numbers than the reference's JAX key
+        return init(torch.Generator(device=device).manual_seed(seed))
+
+    return Model(name=cfg.name, init=init, init_params=init_params,
+                 apply=apply, compute_dtype=compute_dtype,
+                 predictions=lambda logits: torch.softmax(
+                     lm_last_logits(logits), dim=-1),
+                 loss=transformer.loss_fn,
                  accuracy=transformer.accuracy,
                  eval_metrics=lm_eval_metrics,
                  decode_prefill=decode_prefill, decode_step=decode_step,

@@ -12,8 +12,29 @@ against (``ops/flash_attention.py``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30  # finite mask value: keeps softmax algebra NaN-free
+
+
+def padded_head_dim(d: int, compiled: tuple[int, ...]) -> int:
+    """The smallest compiled head_dim that holds ``d`` (≙ the reference
+    kernels padding head_dim to the lane tile,
+    ``pallas_attention.py _prep``); raises when none does."""
+    for size in compiled:
+        if d <= size:
+            return size
+    raise ValueError(f"head_dim {d} is larger than the largest compiled "
+                     f"size {max(compiled)}")
+
+
+def pad_head_dim(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``x`` zero-padded along its last (head_dim) axis to ``size`` — a
+    copy, as the reference's pad is. Zero columns add nothing to q·kᵀ,
+    and give zero columns in p·v, δ and every gradient, so the first
+    ``d`` columns of a padded call are the unpadded call's."""
+    d = x.shape[-1]
+    return x if d == size else F.pad(x, (0, size - d))
 
 
 def local_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

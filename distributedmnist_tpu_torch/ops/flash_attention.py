@@ -46,9 +46,14 @@ import ctypes
 import torch
 
 from ._build import load_library
-from .attention import NEG_INF, local_self_attention
+from .attention import (NEG_INF, local_self_attention, pad_head_dim,
+                        padded_head_dim)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The compiled head_dims; any smaller head_dim is zero-padded to the
+# next one on the way in and sliced back on the way out (the scale stays
+# the caller's, 1/sqrt of the true head_dim). K2-K4 have no 256
+# instantiation, so training with head_dim > 128 raises.
 _HEAD_DIMS = (32, 64, 128, 256)   # K1, K1-lse
 _BWD_HEAD_DIMS = (32, 64, 128)    # K2, K3, K4
 # The port's 64-row tiles (csrc/flash_attention_bwd.cu): K3 owns 64 keys
@@ -165,17 +170,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"tensors, got {q.device}")
 
 
-def _check_kernel(q: torch.Tensor, head_dims: tuple[int, ...],
-                  *tensors: torch.Tensor) -> None:
-    """What every kernel takes: float32/bfloat16, a head_dim it was
-    compiled for, and a contiguous last dimension (the rest may be
+def _check_kernel(q: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """What every kernel takes (after head_dim padding): float32/
+    bfloat16 and a contiguous last dimension (the rest may be
     strided)."""
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash kernel takes float32 or bfloat16, got "
                          f"{q.dtype}")
-    if q.shape[-1] not in head_dims:
-        raise ValueError(f"flash kernel takes head_dim in {head_dims}, "
-                         f"got {q.shape[-1]}")
     if any(x.stride(-1) != 1 for x in (q, *tensors)):
         raise ValueError("flash kernel needs a contiguous last (head_dim) "
                          "dimension; other dims may be strided")
@@ -221,7 +222,11 @@ def _fwd_fn(name: str, with_lse: bool):
 
 
 def _launch_fwd(q, k, v, causal: bool, scale: float, with_lse: bool):
-    _check_kernel(q, _HEAD_DIMS, k, v)
+    d_true = q.shape[-1]
+    size = padded_head_dim(d_true, _HEAD_DIMS)
+    if size != d_true:
+        q, k, v = (pad_head_dim(x, size) for x in (q, k, v))
+    _check_kernel(q, k, v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -240,6 +245,8 @@ def _launch_fwd(q, k, v, causal: bool, scale: float, with_lse: bool):
                 int(causal), scale, _stream(q))
     _raise_on(rc, "flash_attention_fwd_lse" if with_lse
               else "flash_attention_fwd")
+    if size != d_true:
+        out = out[..., :d_true].contiguous()
     return out, lse
 
 
@@ -274,9 +281,17 @@ def _bwd_fn(name: str):
     return fn
 
 
-def _launch_bwd(name: str, q, k, v, o, lse, do, dq, dk, dv, causal: bool,
-                scale: float) -> None:
-    _check_kernel(q, _BWD_HEAD_DIMS, k, v, o, do)
+def _launch_bwd(name: str, q, k, v, o, lse, do, want: tuple[bool, ...],
+                causal: bool, scale: float) -> tuple:
+    """Launch one backward kernel; ``want`` says which of (dq, dk, dv)
+    it writes. Returns those gradients, padded head_dims sliced back."""
+    d_true = q.shape[-1]
+    size = padded_head_dim(d_true, _BWD_HEAD_DIMS)
+    if size != d_true:
+        q, k, v, o, do = (pad_head_dim(x, size) for x in (q, k, v, o, do))
+    _check_kernel(q, k, v, o, do)
+    dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                  if w else None for x, w in zip((q, k, v), want))
     b, s, h, d = q.shape
     if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
@@ -296,6 +311,8 @@ def _launch_bwd(name: str, q, k, v, o, lse, do, dq, dk, dv, causal: bool,
             _DTYPES[q.dtype], b, s, h, d, ctypes.addressof(strides),
             int(causal), scale, _stream(q))
     _raise_on(rc, name)
+    return tuple(x if size == d_true else x[..., :d_true].contiguous()
+                 for x in (dq, dk, dv) if x is not None)
 
 
 def _bwd_args(q, k, v, o, lse, do, scale):
@@ -315,9 +332,8 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale)[0]
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("dmt_flash_attention_bwd_dq", q, k, v, o, lse, do, dq, None,
-                None, causal, scale)
+    (dq,) = _launch_bwd("dmt_flash_attention_bwd_dq", q, k, v, o, lse, do,
+                        (True, False, False), causal, scale)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -333,10 +349,8 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale)[1:]
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("dmt_flash_attention_bwd_dkv", q, k, v, o, lse, do, None, dk,
-                dv, causal, scale)
+    dk, dv = _launch_bwd("dmt_flash_attention_bwd_dkv", q, k, v, o, lse, do,
+                         (False, True, True), causal, scale)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -355,10 +369,8 @@ def flash_attention_bwd_fused(q, k, v, o, lse, do, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale)
-    dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device)
-                  for x in (q, k, v))
-    _launch_bwd("dmt_flash_attention_bwd_fused", q, k, v, o, lse, do, dq, dk,
-                dv, causal, scale)
+    dq, dk, dv = _launch_bwd("dmt_flash_attention_bwd_fused", q, k, v, o,
+                             lse, do, (True, True, True), causal, scale)
     flash_attention_bwd_fused.launches += 1
     return dq, dk, dv
 
@@ -444,9 +456,12 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        if q.device.type == "cuda":
+        if q.device.type == "cuda" and q.shape[-1] > max(_BWD_HEAD_DIMS):
             # refuse before the forward runs, not in the backward
-            _check_kernel(q, _BWD_HEAD_DIMS, k, v)
+            raise ValueError(
+                f"training through the flash kernels takes head_dim up to "
+                f"{max(_BWD_HEAD_DIMS)}: the backward (K2-K4) has no "
+                f"{_HEAD_DIMS[-1]} instantiation; got {q.shape[-1]}")
         o, lse = flash_attention_fwd_lse(q, k, v, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale

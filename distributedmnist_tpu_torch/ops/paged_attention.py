@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from ._build import load_library
-from .attention import NEG_INF
+from .attention import NEG_INF, pad_head_dim, padded_head_dim
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
@@ -157,14 +157,17 @@ def _lib():
 
 def _launch(q, k_pages, v_pages, block_tables, lengths,
             scale: float) -> torch.Tensor:
-    num_slots, num_heads, hd = q.shape
-    block_size = k_pages.shape[1]
     if q.dtype not in _DTYPES or k_pages.dtype not in _DTYPES:
         raise ValueError(f"paged kernel takes float32 or bfloat16, got q "
                          f"{q.dtype}, pages {k_pages.dtype}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"paged kernel takes head_dim in {_HEAD_DIMS}, "
-                         f"got {hd}")
+    hd_true = q.shape[-1]
+    size = padded_head_dim(hd_true, _HEAD_DIMS)
+    if size != hd_true:
+        # ≙ pallas_paged_attention.py's per-call pad of q and the pages
+        q, k_pages, v_pages = (pad_head_dim(x, size)
+                               for x in (q, k_pages, v_pages))
+    num_slots, num_heads, hd = q.shape
+    block_size = k_pages.shape[1]
     if q.stride(-1) != 1:
         raise ValueError("paged kernel needs q's head_dim contiguous")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
@@ -189,4 +192,4 @@ def _launch(q, k_pages, v_pages, block_tables, lengths,
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {rc}")
     paged_attention.launches += 1
-    return out
+    return out if size == hd_true else out[..., :hd_true].contiguous()

@@ -1,47 +1,86 @@
 """The train and eval steps (≙ ``distributedmnist_tpu/parallel/api.py``)
-for one device in ``sync`` mode.
+for ``n`` data-parallel replicas in every ``sync.mode``.
 
 The reference's step is one SPMD program over a replica mesh: each
-replica differentiates its local loss, a masked-mean psum aggregates
-what the sync discipline admits, and every replica applies the same
-update. On one device with ``sync.mode="sync"`` the mask is 1, the
-mean over one replica is that replica's gradient, and the step reduces
-to: forward and backward under autograd (the attention through the
-flash kernels' ``torch.autograd.Function``), then the optimizer's
-per-leaf float32 update. The metrics keep the reference's keys.
+replica differentiates its local loss (with its own dropout key),
+drop-connect masks its gradient, a step-time model and the sync
+discipline decide which replicas contribute, a masked-mean psum
+aggregates them, and every replica applies the same update. The port
+runs the same step for ``n`` simulated replicas on one device
+(:mod:`..core.mesh`):
 
-Not ported yet (each raises): the quorum/timeout/interval/cdf modes,
-more than one replica, drop-connect, gradient accumulation, low-
-precision params, ZeRO-1 and the tensor/sequence/pipeline/expert
+* each replica's forward and backward runs on its row block of the
+  global batch, and its gradient leaves are flattened into one bucket
+  row;
+* the modeled step times and the flags depend only on keys, the step
+  and the measured base, so the host computes them while the device
+  runs the backward: ``applied`` is a host number and the step never
+  waits on the device for it;
+* each bucket row is scaled by ``flag / max(Σflag, 1)`` and one sum
+  over replicas gives the masked mean (:mod:`..ops.masked_psum`);
+* stateless sgd applies ``lr·applied`` (a no-op at 0, as the
+  reference's); an optimizer with slots skips the update when nothing
+  was applied — the reference's ``where(applied, new, old)``;
+* interval mode accumulates the masked means into ``window_acc`` and
+  applies their average when the modeled wall clock crosses the window
+  (``_interval_apply``).
+
+The ``[3]`` discipline vector ``(k, timeout_ms, interval_ms)`` and the
+``[n]`` measured base times are step inputs, read every call, so either
+can change between steps with no rebuild. Metrics keep the reference's
+keys and shapes.
+
+Not ported yet (each raises): gradient accumulation, low-precision
+params, ZeRO-1, remat, and the tensor/sequence/pipeline/expert
 parallel applies.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from ..core import prng
 from ..core.config import ExperimentConfig
 from ..core.log import get_logger
+from ..core.mesh import Topology, make_topology
 from ..models.registry import Model
+from ..ops import masked_psum
+from ..ops.drop_connect import drop_connect_grads
 from ..train import optim as optim_lib
+from . import policies
 
 logger = get_logger("parallel")
 
 Schedule = Callable[[int], float]
 
+# the discipline vector's slots (≙ the reference's DISC_* indices)
+DISC_K = 0
+DISC_TIMEOUT_MS = 1
+DISC_INTERVAL_MS = 2
+
+_F32 = np.float32
+
+
+def make_discipline_vector(k: float, timeout_ms: float,
+                           interval_ms: float) -> torch.Tensor:
+    """The ``[3]`` float32 step input ``(k, timeout_ms, interval_ms)``
+    (host tensor)."""
+    return torch.tensor([float(k), float(timeout_ms), float(interval_ms)],
+                        dtype=torch.float32)
+
 
 def tree_leaves(tree: Any) -> list:
-    """Leaves of a nest of dicts and lists, in a fixed order (dict
-    insertion order, list order); ``None`` has none."""
+    """Leaves of a nest of dicts and lists in ``jax.tree.leaves`` order
+    (dict keys sorted, list order); ``None`` has none. Per-leaf draws
+    (drop-connect's ``split(key, n_leaves)``) follow this order."""
     if tree is None:
         return []
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
@@ -57,24 +96,20 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
-def root_key(seed: int) -> np.ndarray:
-    """The raw ``uint32[2]`` key ``jax.random.PRNGKey(seed)`` builds
-    (threefry: high word, low word of the seed) — kept so a checkpoint
-    carries the reference's ``root_key`` leaf. Nothing in the sync step
-    draws from it."""
-    return np.array([0, seed & 0xFFFFFFFF], np.uint32)
-
-
 @dataclasses.dataclass
 class TrainState:
     """Training state, with the reference's field names (so a
     checkpoint's state dict is the reference's).
 
     ``params`` and ``momentum`` are trees of tensors on the device
-    (``momentum`` is None for stateless sgd); ``step`` counts loop
-    iterations and ``updates_applied`` applied updates (equal in sync
-    mode). The interval-mode fields keep the values the reference
-    stores outside interval mode."""
+    (``momentum`` is None for stateless sgd), the same for every
+    replica; ``step`` counts loop iterations and ``updates_applied``
+    applied updates (the reference's global_step; they differ when a
+    step is masked out or an interval window has not fired). Interval
+    mode keeps its float32 window accumulator (``window_acc``, a
+    params-shaped tree, None in the other modes), the rounds in it, the
+    modeled wall clock and the next firing time; the clock fields are
+    Python floats holding float32 values."""
 
     params: Any
     momentum: Any
@@ -88,21 +123,11 @@ class TrainState:
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
-    """Raise for what the single-device sync port does not run."""
-    sync, mesh = cfg.sync, cfg.mesh
-    if sync.mode != "sync":
-        raise NotImplementedError(f"sync.mode={sync.mode!r} is not ported "
-                                  "yet (the port runs 'sync')")
-    if mesh.num_replicas not in (-1, 1):
-        raise NotImplementedError(
-            f"mesh.num_replicas={mesh.num_replicas}: more than one replica "
-            "is not ported yet (the port trains on one device)")
+    """Raise for what the port does not run."""
     for name in ("model_parallelism", "seq_parallelism",
                  "pipeline_parallelism", "expert_parallelism"):
-        if getattr(mesh, name) != 1:
+        if getattr(cfg.mesh, name) != 1:
             raise NotImplementedError(f"mesh.{name} > 1 is not ported yet")
-    if sync.drop_connect:
-        raise NotImplementedError("sync.drop_connect is not ported yet")
     if cfg.train.grad_accum_steps != 1:
         raise NotImplementedError("train.grad_accum_steps > 1 is not "
                                   "ported yet")
@@ -112,79 +137,221 @@ def _check_ported(cfg: ExperimentConfig) -> None:
             "ported yet (params are float32)")
     if cfg.model.remat:
         raise NotImplementedError("model.remat is not ported yet")
+    if cfg.sync.adaptive:
+        raise NotImplementedError("sync.adaptive (the discipline "
+                                  "controller) is not ported yet")
 
 
 def init_train_state(model: Model, cfg: ExperimentConfig,
                      device: torch.device) -> TrainState:
-    """Fresh float32 params from ``model.init_seed`` (a torch generator:
-    other numbers than the reference's JAX key) and zero slots."""
+    """Fresh float32 params from ``model.init_seed`` (the CNN: the
+    reference's key; the transformer: a torch generator, other numbers
+    than the reference's), zero slots, and interval mode's zero
+    window."""
     opt = optim_lib.make_optimizer(cfg.optim)
-    gen = torch.Generator(device=device).manual_seed(cfg.model.init_seed)
-    params = model.init(gen)
-    momentum = (tree_map(torch.zeros_like, params) if opt.num_slots
-                else None)
-    return TrainState(params=params, momentum=momentum, step=0,
-                      updates_applied=0, root_key=root_key(cfg.train.seed),
-                      next_apply_ms=float(np.float32(cfg.sync.interval_ms)))
+    params = model.init_params(cfg.model.init_seed, device)
+    zeros = lambda: tree_map(torch.zeros_like, params)
+    return TrainState(
+        params=params, momentum=zeros() if opt.num_slots else None,
+        step=0, updates_applied=0, root_key=prng.root_key(cfg.train.seed),
+        window_acc=zeros() if cfg.sync.mode == "interval" else None,
+        next_apply_ms=float(_F32(cfg.sync.interval_ms)))
 
 
-def world_signature() -> dict:
+def world_signature(topo: Topology) -> dict:
     """The world a checkpoint is saved under (≙ the reference's
-    ``world_signature`` of a one-replica, one-process mesh)."""
-    return {"num_replicas": 1, "process_count": 1, "mesh": {}}
+    ``world_signature``: only axes > 1 enter the mesh record)."""
+    n = int(topo.num_replicas)
+    return {"num_replicas": n, "process_count": 1,
+            "mesh": {"replica": n} if n > 1 else {}}
 
 
 # -- the steps -------------------------------------------------------------
 
-def build_train_step(model: Model, cfg: ExperimentConfig,
-                     schedule: Schedule
-                     ) -> Callable[[TrainState, dict],
-                                   tuple[TrainState, dict]]:
-    """``step_fn(state, batch) -> (state, metrics)`` for one device in
-    sync mode. ``batch = {"image": tokens [B, S], "label": [B, S]}`` on
-    the state's device. The state is updated IN PLACE (params and
-    slots) and returned.
+def _f32_sum(values) -> _F32:
+    """Left-to-right float32 sum (the order of an all-reduce over
+    replicas 0..n-1)."""
+    acc = _F32(0.0)
+    for v in values:
+        acc = _F32(acc + _F32(v))
+    return acc
 
-    Metrics carry the reference's keys. ``loss`` and ``train_acc`` are
-    0-d device tensors (reading them waits for the step);
-    ``step_times_ms`` is this step's measured host time — the reference
-    reports a modeled time there, whose sub-µs tie-break jitter only
-    quorum ranking uses; ``flags`` is the one replica's 1."""
+
+def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
+                     topo: Topology | None = None
+                     ) -> Callable[..., tuple[TrainState, dict]]:
+    """``step_fn(state, batch, measured_ms=None, discipline=None) ->
+    (state, metrics)``. ``batch = {"image", "label"}`` is the global
+    batch on the state's device; replica r takes rows ``[r·B/n,
+    (r+1)·B/n)``. ``measured_ms`` is the ``[n]`` host-measured base of
+    the modeled step times (zeros when None); ``discipline`` the ``[3]``
+    vector of :func:`make_discipline_vector` (the config's values when
+    None). The state is updated IN PLACE (params, slots, window) and
+    returned.
+
+    Metrics carry the reference's keys: ``loss`` and ``train_acc`` (the
+    mean over replicas) are 0-d device tensors — reading them waits for
+    the step; ``lr``, ``num_contributors``, ``updates_applied`` and
+    ``applied`` are host numbers; ``step_times_ms`` (the modeled times)
+    and ``flags`` are ``[n]`` float32 numpy arrays."""
     _check_ported(cfg)
+    topo = topo or make_topology(cfg.mesh)
+    n = topo.num_replicas
+    sync = cfg.sync
+    sync.validate(num_replicas=n)
+    mode = sync.mode
+    if mode not in ("sync", "quorum", "timeout", "interval", "cdf"):
+        raise ValueError(f"unknown sync mode {mode!r}")
+    k = policies.resolve_aggregate_k(sync, n)
     if cfg.parallel.shard_weight_update:
         logger.warning("parallel.shard_weight_update=true is a no-op here "
-                       "(replica axis is 1); running the replicated update")
+                       "(ZeRO-1 is not ported); running the replicated "
+                       "update")
     if model.loss is None or model.accuracy is None:
         raise ValueError(f"model {model.name!r} has no loss/accuracy")
     opt = optim_lib.make_optimizer(cfg.optim)
+    default_disc = make_discipline_vector(k, sync.timeout_ms,
+                                          sync.interval_ms)
+    zeros_ms = torch.zeros(n, dtype=torch.float32)
 
-    def step_fn(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        t0 = time.perf_counter()
-        leaves = tree_leaves(state.params)
+    def flags_for(t_ms: torch.Tensor, disc: torch.Tensor) -> torch.Tensor:
+        if mode in ("sync", "cdf"):
+            return torch.ones(n, dtype=torch.float32)
+        if mode == "quorum":
+            return policies.quorum_flag(t_ms, disc[DISC_K])
+        if mode == "timeout":
+            return policies.timeout_flag(t_ms, disc[DISC_TIMEOUT_MS])
+        # interval: stale if slower than a whole window
+        return policies.timeout_flag(t_ms, disc[DISC_INTERVAL_MS])
+
+    def replica_grads(state: TrainState, batch: dict, leaves: list):
+        """Forward and backward of every replica: the per-replica losses
+        and accuracies, and the gradients — over several replicas one
+        flat bucket ``[n, P]`` (a row each), for a lone replica its
+        gradient leaves."""
+        rows_total = batch["image"].shape[0]
+        dkeys = (prng.replica_keys(state.root_key, "dropout", state.step, n)
+                 if model.uses_dropout else [None] * n)
+        dckeys = (prng.replica_keys(state.root_key, "drop_connect",
+                                    state.step, n)
+                  if sync.drop_connect else None)
+        bucket = (torch.empty((n, sum(p.numel() for p in leaves)),
+                              dtype=torch.float32, device=leaves[0].device)
+                  if n > 1 else None)
+        losses, accs, grads = [], [], None
         for p in leaves:
             p.requires_grad_(True)
         try:
-            logits = model.apply(state.params, batch["image"], train=True)
-            loss = model.loss(logits, batch["label"])
-            grads = torch.autograd.grad(loss, leaves)
+            for r in topo.local_replicas:
+                rows = topo.replica_rows(rows_total, r)
+                logits = model.apply(state.params, batch["image"][rows],
+                                     train=True, dropout_key=dkeys[r])
+                loss = model.loss(logits, batch["label"][rows])
+                grads = torch.autograd.grad(loss, leaves)
+                with torch.no_grad():
+                    if dckeys is not None:
+                        grads = drop_connect_grads(
+                            list(grads), dckeys[r],
+                            sync.drop_connect_probability)
+                    if bucket is not None:
+                        masked_psum.flatten_leaves(grads, out=bucket[r])
+                    losses.append(loss.detach())
+                    accs.append(model.accuracy(logits.detach(),
+                                               batch["label"][rows]))
         finally:
             for p in leaves:
                 p.requires_grad_(False)
+        return losses, accs, (bucket if bucket is not None
+                              else [g.float() for g in grads])
+
+    def apply_update(state: TrainState, leaves: list, grads: list,
+                     lr: float) -> None:
+        t = float(state.updates_applied + 1)
+        slots = (tree_leaves(state.momentum) if opt.num_slots
+                 else [None] * len(leaves))
+        for p, g, b in zip(leaves, grads, slots):
+            opt.update_leaf(p, g, () if b is None else (b,), lr, t,
+                            lambda x: x, p.dim() > 1)
+
+    def interval_apply(state: TrainState, leaves: list, mean: list,
+                       t_ms: np.ndarray, interval_ms: _F32,
+                       lr: float) -> int:
+        """≙ ``_interval_apply``: join the window, advance the modeled
+        wall clock by the mean replica pace, and on crossing the window
+        apply the window's average and re-arm relative to now."""
+        acc = tree_leaves(state.window_acc)
+        for a, g in zip(acc, mean):
+            a.add_(g)
+        rounds = _F32(_F32(state.window_rounds) + _F32(1.0))
+        wall = _F32(_F32(state.wall_ms) + _F32(_f32_sum(t_ms) / _F32(n)))
+        fire = bool(wall >= _F32(state.next_apply_ms))
+        if fire:
+            apply_update(state, leaves, [a / rounds for a in acc], lr)
+            for a in acc:
+                a.zero_()
+            state.next_apply_ms = float(_F32(wall + interval_ms))
+            rounds = _F32(0.0)
+        state.window_rounds = float(rounds)
+        state.wall_ms = float(wall)
+        return int(fire)
+
+    def step_fn(state: TrainState, batch: dict,
+                measured_ms=None, discipline=None
+                ) -> tuple[TrainState, dict]:
+        disc = (default_disc if discipline is None
+                else torch.as_tensor(discipline, dtype=torch.float32).cpu())
+        meas = (zeros_ms if measured_ms is None
+                else torch.as_tensor(measured_ms, dtype=torch.float32).cpu())
+        if meas.shape != (n,):
+            raise ValueError(f"measured_ms must be [{n}], got "
+                             f"{tuple(meas.shape)}")
+        # -- per-replica gradients (queued on the device first) ---------
+        leaves = tree_leaves(state.params)
+        losses, accs, grads = replica_grads(state, batch, leaves)
+        # -- modeled times and flags, on the host while the device runs
+        # the backward (they need no gradient) --------------------------
+        t_ms = policies.sample_step_time_ms(sync, state.root_key,
+                                            state.step, meas)
+        flags = flags_for(t_ms, disc)
+        scale, num = masked_psum.contribution_scale(flags)
+        # -- the masked mean: each replica scaled by its share, one sum
+        # over replicas (a lone replica's scaled gradient is the sum, and
+        # at scale 1 the gradient itself, with no copy) ------------------
         lr = schedule(state.updates_applied)
         with torch.no_grad():
-            train_acc = model.accuracy(logits.detach(), batch["label"])
-            slots = (tree_leaves(state.momentum) if opt.num_slots
-                     else [None] * len(leaves))
-            for p, g, b in zip(leaves, grads, slots):
-                opt.update_leaf(p, g, () if b is None else (b,), lr)
+            if n > 1:
+                mean = masked_psum.unflatten_like(
+                    masked_psum.masked_mean(grads, scale.numpy(), topo),
+                    leaves)
+            else:
+                s = float(scale[0])
+                mean = grads if s == 1.0 else [g * s for g in grads]
+            if mode == "interval":
+                applied = interval_apply(
+                    state, leaves, mean, t_ms.numpy(),
+                    _F32(disc[DISC_INTERVAL_MS].item()), lr)
+            else:
+                applied = int(float(num) > 0)
+                if opt.num_slots == 0:
+                    # stateless sgd: lr·0 is exact, so scaling the lr
+                    # by the applied flag IS the no-op
+                    apply_update(state, leaves, mean,
+                                 float(_F32(lr) * _F32(applied)))
+                elif applied:
+                    # moment slots decay even on zero gradients: a true
+                    # no-op keeps params and slots as they were
+                    apply_update(state, leaves, mean, lr)
+            loss = losses[0] if n == 1 else torch.stack(losses).mean()
+            train_acc = accs[0] if n == 1 else torch.stack(accs).mean()
+        state.updates_applied += applied
         state.step += 1
-        state.updates_applied += 1
         metrics = {
-            "loss": loss.detach(), "train_acc": train_acc, "lr": lr,
-            "num_contributors": 1.0,
+            "loss": loss, "train_acc": train_acc, "lr": lr,
+            "num_contributors": float(num),
             "updates_applied": state.updates_applied,
-            "step_times_ms": [(time.perf_counter() - t0) * 1e3],
-            "flags": [1.0], "applied": 1,
+            "step_times_ms": topo.gather_scalars(t_ms).numpy(),
+            "flags": topo.gather_scalars(flags).numpy(),
+            "applied": applied,
         }
         return state, metrics
 

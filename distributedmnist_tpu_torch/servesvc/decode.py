@@ -44,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from ..core import prng
 from ..core.config import ConfigError
 from ..models.registry import sample_token
 from .kv_cache import PagedKVCache
@@ -55,7 +56,7 @@ class _DecodeSeq(_Pending):
 
     __slots__ = ("max_tokens", "temperature", "top_k", "block_table",
                  "length", "tokens", "params_step", "started_step",
-                 "first_token_at", "conn_dead", "generator")
+                 "first_token_at", "conn_dead", "sample_seed", "restarts")
 
     def __init__(self, req_id, prompt, conn, admitted_at, deadline_at):
         super().__init__(req_id, prompt, conn, admitted_at, deadline_at)
@@ -69,7 +70,8 @@ class _DecodeSeq(_Pending):
         self.started_step = -1
         self.first_token_at: float | None = None
         self.conn_dead = False
-        self.generator: torch.Generator | None = None
+        self.sample_seed = 0
+        self.restarts = 0          # mid-generation restarts (none yet)
 
 
 class DecodeReplica(ServingReplica):
@@ -224,7 +226,7 @@ class DecodeReplica(ServingReplica):
             self._waiting.popleft()
             s.block_table = table
             s.params_step = s.started_step = self.model_step
-            s.generator = torch.Generator().manual_seed(self._seq_counter)
+            s.sample_seed = self._seq_counter
             self._seq_counter += 1
             self._slots[free] = s
             self._tables_epoch += 1
@@ -306,8 +308,14 @@ class DecodeReplica(ServingReplica):
             self._maybe_finish(i, s)
 
     def _sample(self, s: _DecodeSeq, logits_row: torch.Tensor) -> int:
-        return int(sample_token(logits_row, s.generator,
-                                temperature=s.temperature, top_k=s.top_k))
+        """≙ the reference's ``_sample``: the key for this token is
+        ``fold_in(PRNGKey(sample_seed), len(tokens) + 1000·restarts)``."""
+        if s.temperature <= 0.0:
+            return int(sample_token(logits_row))
+        key = prng.fold_in(prng.PRNGKey(s.sample_seed),
+                           len(s.tokens) + 1000 * s.restarts)
+        return int(sample_token(logits_row, key, temperature=s.temperature,
+                                top_k=s.top_k))
 
     # -- streaming + termination ----------------------------------------
 

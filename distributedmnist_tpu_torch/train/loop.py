@@ -1,5 +1,5 @@
 """The training loop (≙ ``distributedmnist_tpu/train/loop.py``
-``Trainer``) on one device.
+``Trainer``) for ``n`` simulated data-parallel replicas on one device.
 
 Build the model, datasets, schedule, train and eval steps and the state
 from one ``ExperimentConfig``; then feed batches, log on a cadence,
@@ -16,7 +16,10 @@ the step and wall-clock save cadences with keep-N garbage collection,
 resume with the data cursor, the NaN/Inf guard that rolls back to the
 newest finite checkpoint, the SIGTERM/SIGINT flush (``summary
 ["preempted"]``; the CLI exits with ``train.resumable_exit_code``), and
-the ``time_acc.npy`` / ``step_times.npy`` dumps.
+the ``time_acc.npy`` / ``step_times.npy`` dumps, the effective batch,
+and the measured ``[n]`` base times: with ``sync.straggler_profile=
+"none"`` in a non-sync mode each step's policies rank on the previous
+step's host time (the reference's rule), else the base is zero.
 
 Not ported yet (each knob is refused or ignored as noted): the
 asynchronous checkpoint writer and device snapshot (saves are
@@ -24,8 +27,10 @@ synchronous; ``train.async_checkpoint`` is ignored), TensorBoard
 scalars (``train.summary_every_steps`` is ignored), profiler windows
 (``train.profile_steps`` / ``trace_every_steps`` raise), quantized
 publish (``quant.publish_tiers`` raises), fsync policies other than
-``none``, the adaptive discipline controller, warm standby, and the
-AOT precompile (PyTorch runs eagerly: there is no ``compile`` record).
+``none``, the adaptive discipline controller (``sync.adaptive`` raises)
+and its step-time collector, per-device skew probes, warm standby, and
+the AOT precompile (PyTorch runs eagerly: there is no ``compile``
+record).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 from ..core.config import ExperimentConfig, effective_model_config
 from ..core.device import resolve_device
 from ..core.log import JsonlSink, get_logger
+from ..core.mesh import make_topology
 from ..data.datasets import Datasets, load_datasets
 from ..data.pipeline import make_train_iterator, to_device
 from ..models.convert import (params_to_reference, state_from_reference,
@@ -50,6 +56,7 @@ from ..models.convert import (params_to_reference, state_from_reference,
 from ..models.registry import Model, get_model
 from ..parallel.api import (TrainState, build_eval_step, build_train_step,
                             init_train_state, tree_leaves, world_signature)
+from ..parallel.policies import resolve_aggregate_k
 from . import checkpoint as ckpt
 from .evaluation import run_full_eval
 from .lr_schedule import (constant, decay_steps_for, exponential_decay,
@@ -73,9 +80,10 @@ class _NonFiniteLoss(Exception):
         self.loss = loss
 
 
-def make_schedule(cfg: ExperimentConfig, num_train_examples: int):
+def make_schedule(cfg: ExperimentConfig, num_train_examples: int,
+                  effective_batch: int, aggregate_k: int):
     """The reference Trainer's schedule choice, keyed to applied
-    updates (the aggregation quorum k is 1 on one replica)."""
+    updates; the staircase decays every ``decay_steps ÷ k`` updates."""
     o = cfg.optim
     if o.schedule == "polynomial":
         return warmup_polynomial_decay(
@@ -84,8 +92,8 @@ def make_schedule(cfg: ExperimentConfig, num_train_examples: int):
             o.end_learning_rate, o.poly_power)
     if o.learning_rate_decay_factor == 1.0:
         return constant(o.initial_learning_rate)
-    steps = decay_steps_for(num_train_examples, cfg.data.batch_size,
-                            o.num_epochs_per_decay, 1)
+    steps = decay_steps_for(num_train_examples, effective_batch,
+                            o.num_epochs_per_decay, aggregate_k)
     return exponential_decay(o.initial_learning_rate, steps,
                              o.learning_rate_decay_factor, o.staircase)
 
@@ -97,6 +105,9 @@ def _check_loop_knobs(cfg: ExperimentConfig) -> None:
                                   "are not ported yet")
     if cfg.quant.resolved_publish_tiers():
         raise NotImplementedError("quant.publish_tiers is not ported yet")
+    if cfg.sync.measure_device_skew:
+        raise NotImplementedError("sync.measure_device_skew is not ported "
+                                  "yet")
     if t.durability != "none":
         raise NotImplementedError(f"train.durability={t.durability!r} is "
                                   "not ported yet (the port writes with "
@@ -104,7 +115,8 @@ def _check_loop_knobs(cfg: ExperimentConfig) -> None:
 
 
 class Trainer:
-    """Builds the single-device training stack from one config.
+    """Builds the training stack from one config: ``n`` replicas
+    (:func:`..core.mesh.make_topology`) simulated on one device.
 
     ``device`` defaults to ``cuda:0`` (an error without CUDA); the tests
     pass ``"cpu"``, where the attention kernels run their plain
@@ -116,12 +128,23 @@ class Trainer:
         _check_loop_knobs(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.topo = make_topology(cfg.mesh)
+        n = self.topo.num_replicas
+        if cfg.data.batch_size % n != 0:
+            raise ValueError(f"global batch {cfg.data.batch_size} not "
+                             f"divisible by {n} replicas")
+        # images/sec and the epoch-based decay key off the effective
+        # batch (one optimizer application; no accumulation yet)
+        self.effective_batch = cfg.data.batch_size
         self.model: Model = get_model(effective_model_config(cfg))
         self.datasets = datasets if datasets is not None else load_datasets(
             cfg.data, cfg.model.image_size, cfg.model.num_channels,
             cfg.model.num_classes, cfg.model.seq_len, cfg.model.vocab_size)
-        self.schedule = make_schedule(cfg, self.datasets.train.num_examples)
-        self.step_fn = build_train_step(self.model, cfg, self.schedule)
+        self.schedule = make_schedule(cfg, self.datasets.train.num_examples,
+                                      self.effective_batch,
+                                      resolve_aggregate_k(cfg.sync, n))
+        self.step_fn = build_train_step(self.model, cfg, self.schedule,
+                                        self.topo)
         self.eval_fn = build_eval_step(self.model, cfg)
         self.state: TrainState = init_train_state(self.model, cfg,
                                                   self.device)
@@ -198,7 +221,8 @@ class Trainer:
     def _save(self) -> None:
         t0 = time.perf_counter()
         at_step = self.state.step
-        extra = {"config": self.cfg.to_dict(), "world": world_signature(),
+        extra = {"config": self.cfg.to_dict(),
+                 "world": world_signature(self.topo),
                  "data_iter": self.train_iter.state()}
         ckpt.save_state(self.train_dir, state_to_reference(self.state),
                         at_step, extra=extra,
@@ -299,11 +323,18 @@ class Trainer:
         cfg = self.cfg.train
         total = max_steps if max_steps is not None else cfg.max_steps
         log_every = max(1, cfg.log_every_steps)
-        batch = self.cfg.data.batch_size
+        batch = self.effective_batch
         last_log_t = time.time()
         last_log_step = self._start_step
         pending: list[tuple[int, dict, float]] = []
         final_metrics: dict[str, Any] = {}
+        # the reference's rule (train/loop.py:757-759): with no synthetic
+        # straggler model, the policies rank on the measured host time
+        inject_measured = (self.cfg.sync.straggler_profile == "none"
+                           and self.cfg.sync.mode in ("interval", "timeout",
+                                                      "quorum", "cdf"))
+        measured = np.zeros(self.topo.num_replicas, np.float32)
+        host_dt = 0.0
 
         def flush(now: float) -> None:
             nonlocal final_metrics, last_log_t, last_log_step
@@ -354,8 +385,14 @@ class Trainer:
                     while step < total and self._preempt_requested is None:
                         t0 = time.perf_counter()
                         b = to_device(next(self.train_iter), self.device)
-                        self.state, metrics = self.step_fn(self.state, b)
-                        self._step_ms.append((time.perf_counter() - t0) * 1e3)
+                        if inject_measured:
+                            measured[:] = host_dt * 1000.0
+                            self.state, metrics = self.step_fn(
+                                self.state, b, measured)
+                        else:
+                            self.state, metrics = self.step_fn(self.state, b)
+                        host_dt = time.perf_counter() - t0
+                        self._step_ms.append(host_dt * 1e3)
                         step += 1
                         pending.append((step, metrics, time.time()))
                         if cfg.step_pace_ms > 0:

@@ -21,8 +21,13 @@ from ..core.config import ConfigError, OptimConfig
 
 OPTIMIZER_NAMES = ("sgd", "momentum", "lars", "lamb")
 
-# update_leaf(p, g, slots, lr) -> new slots; writes the new p into p.
-# ``lr`` is a Python float holding a float32 value (the schedule's), so
+# update_leaf(p, g, slots, lr, t, norm_reduce, adapt) -> new slots;
+# writes the new p into p. The arguments are the reference's
+# (train/optim.py:194-207): ``t`` the 1-based update count (for bias
+# corrections), ``norm_reduce`` completing a norm's partial sum over a
+# sharded leaf, ``adapt`` whether a trust ratio applies to the leaf —
+# sgd and momentum read none of the three; LARS and LAMB will. ``lr`` is
+# a Python float holding a float32 value (the schedule's), so
 # ``lr * g`` rounds as the reference's float32 product does, and the
 # step enqueues no host-to-device copy for it.
 UpdateLeaf = Callable[..., tuple]
@@ -75,9 +80,9 @@ def saved_opt_state_kind(optim_dict: dict | None) -> str | None:
     return str(name)
 
 
-def _sgd_leaf(p: torch.Tensor, g: torch.Tensor, slots: tuple,
-              lr: float) -> tuple:
-    del slots
+def _sgd_leaf(p: torch.Tensor, g: torch.Tensor, slots: tuple, lr: float,
+              t: float, norm_reduce, adapt: bool) -> tuple:
+    del slots, t, norm_reduce, adapt
     p.copy_(p.float() - lr * g.float())
     return ()
 
@@ -85,7 +90,8 @@ def _sgd_leaf(p: torch.Tensor, g: torch.Tensor, slots: tuple,
 def _make_momentum_leaf(mu: float) -> UpdateLeaf:
     mu = float(np.float32(mu))  # the reference's weakly typed f32 scalar
 
-    def update(p, g, slots, lr):
+    def update(p, g, slots, lr, t, norm_reduce, adapt):
+        del t, norm_reduce, adapt
         (b,) = slots
         nb = mu * b.float() + g.float()
         p.copy_(p.float() - lr * nb)

@@ -19,7 +19,9 @@ computed from the same inputs, 1e-4.
 ``EDGES`` walks the tensor-core kernels' tile edges: sequence lengths
 around the 64-row tiles (and the 128-row forward tile), every head_dim,
 causal and not, always through strided ``qkv[:, :, i]`` views;
-``FUSED_EDGES`` does the same inside K4's one 64-row tile. K5 is held
+``FUSED_EDGES`` does the same inside K4's one 64-row tile. Head sizes with no
+instantiation (8, 16, 96; 256 in the backward is refused) run
+zero-padded to the next compiled size. K5 is held
 at the edges of its cluster splits (``_split_edges``), with a ring that
 wraps, 64 slots, every (q, page) dtype pair and head_dim, poisoned dead
 positions, and bitwise-equal repeated calls.
@@ -80,10 +82,41 @@ def test_flash_kernel_matches_plain(dev, dtype, tol, s, d, causal):
     _close(got, flash_attention_bshd_plain(q, k, v, causal=causal), tol)
 
 
-def test_flash_kernel_refuses_what_it_cannot_take(dev):
-    q = torch.zeros(1, 8, 2, 16, device=dev)  # head_dim 16: no kernel
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_bshd(q, q, q)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32),
+                                       (torch.bfloat16, BF16)])
+@pytest.mark.parametrize("d", [8, 16, 96, 256])
+def test_flash_kernel_refuses_what_it_cannot_take(dev, dtype, tol, d):
+    """Head sizes with no instantiation are zero-padded to the next
+    compiled one and sliced back (forward at 8, 16, 96 and 256; the
+    backward, which stops at 128, at 8, 16 and 96) and match the plain
+    versions; a dtype no kernel takes and a strided head_dim are still
+    refused."""
+    s, causal = 70, True
+    _, (q, k, v) = _strided_qkv(dev, dtype, 2, s, 4, d, 11 * d)
+    before = flash_attention_bshd.launches
+    got = flash_attention_bshd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bshd.launches == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    _close(got, flash_attention_bshd_plain(q, k, v, causal=causal), tol)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    want_o, want_lse = fa.flash_attention_fwd_lse_plain(q, k, v,
+                                                        causal=causal)
+    _close(o, want_o, tol)
+    _close(lse, want_lse, F32)
+    if d <= 128:
+        do = torch.randn(o.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(d)).to(dtype)
+        for seq in (s, 40):  # K2 + K3, then K4
+            qs, ks_, vs = (x[:, :seq] for x in (q, k, v))
+            o2, lse2 = fa.flash_attention_fwd_lse_plain(qs, ks_, vs)
+            got_g = fa.flash_attention_backward(qs, ks_, vs, o2, lse2,
+                                                do[:, :seq])
+            want_g = fa.flash_attention_bwd_plain(qs, ks_, vs, o2, lse2,
+                                                  do[:, :seq])
+            for g_, w_ in zip(got_g, want_g):
+                assert g_.shape == qs.shape
+                _close(g_, w_, tol)
     q = torch.zeros(1, 8, 2, 32, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention_bshd(q, q, q)
@@ -221,7 +254,15 @@ def test_paged_kernel_route_and_occupancy(dev):
     assert occ["clusters_resident"] > 0
 
 
-def test_paged_kernel_refuses_what_it_cannot_take(dev):
+@pytest.mark.parametrize("q_dtype,kv_dtype", PAGE_PAIRS)
+@pytest.mark.parametrize("hd", [8, 16, 96, 256])
+def test_paged_kernel_refuses_what_it_cannot_take(dev, q_dtype, kv_dtype,
+                                                   hd):
+    """Head sizes with no instantiation are zero-padded (q and the
+    pages) to the next compiled one and match the plain version; int64
+    tables and strided pages are still refused."""
+    _paged_check(_paged_inputs(dev, q_dtype, kv_dtype, hd=hd, bs=16,
+                               heads=2))
     q, kp, vp, tables, lengths = _paged_inputs(dev, torch.float32,
                                                torch.float32)
     with pytest.raises(ValueError, match="int32"):

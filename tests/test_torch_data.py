@@ -102,8 +102,12 @@ def test_make_train_iterator_and_device_copy():
     np.testing.assert_array_equal(b["image"].numpy(), want["image"])
 
 
-def test_unported_datasets_raise():
+def test_unported_datasets_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        datasets.load_datasets(DataConfig(dataset="mnist"))
+        datasets.load_datasets(DataConfig(dataset="cifar10"))
+    # no download, no silent synthetic fallback: missing idx files raise
+    with pytest.raises(FileNotFoundError, match="materialize_idx_fixture"):
+        datasets.load_datasets(DataConfig(dataset="mnist",
+                                          data_dir=str(tmp_path)))
     with pytest.raises(ValueError, match="smaller than"):
         pipeline.BatchIterator(_lm()[0].test, 64, seed=0)

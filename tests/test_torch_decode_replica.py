@@ -4,6 +4,10 @@ checkpoint the REFERENCE trainer layer wrote, over a real socket.
 * 3 concurrent greedy requests stream exactly the tokens the
   reference's own greedy decode of the same params produces (the
   reference's full-context forward, argmax per step).
+* 3 sampled requests (temperature 0.8) stream the tokens the
+  reference's sampler draws: request i is the i-th admitted, so its
+  sample seed is i, and token t draws ``categorical`` with
+  ``fold_in(PRNGKey(i), t)`` in both packages.
 * Every ``serve_log.jsonl`` / heartbeat record passes the reference
   ``obsv/schema.py validate_event``, with exactly one terminal per
   request id.
@@ -20,6 +24,7 @@ import pytest
 
 from distributedmnist_tpu.core.config import ExperimentConfig
 from distributedmnist_tpu.models.registry import get_model as ref_get_model
+from distributedmnist_tpu.models.registry import sample_token as ref_sample
 from distributedmnist_tpu.obsv.schema import validate_event
 from distributedmnist_tpu.parallel.api import init_train_state
 from distributedmnist_tpu.train.checkpoint import save_checkpoint
@@ -35,6 +40,7 @@ RUN = {"model": {"name": "transformer", "seq_len": 64, "model_dim": 64,
 PROMPTS = {"a": [3, 7, 1], "b": [5, 2, 9, 14, 30, 0, 8, 8, 1, 2, 3],
            "c": [31]}
 N_NEW = 6
+TEMPERATURE = 0.8
 
 
 @pytest.fixture(scope="module")
@@ -48,21 +54,28 @@ def published(tmp_path_factory):
     dense = ref_get_model(ExperimentConfig.from_dict(
         {"model": {**RUN["model"], "attention_impl": "dense"}}).model)
     apply = jax.jit(dense.apply)
-    want = {}
-    for rid, prompt in PROMPTS.items():
-        seq = list(prompt)
-        for _ in range(N_NEW):
-            padded = np.zeros((1, 32), np.int32)
-            padded[0, :len(seq)] = seq
-            logits = np.asarray(apply(state.params, jnp.asarray(padded)))
-            seq.append(int(np.argmax(logits[0, len(seq) - 1])))
-        want[rid] = seq[len(prompt):]
-    return train_dir, want
+    want, sampled = {}, {}
+    for i, (rid, prompt) in enumerate(PROMPTS.items()):
+        for temperature, out in ((0.0, want), (TEMPERATURE, sampled)):
+            seq = list(prompt)
+            for t in range(N_NEW):
+                padded = np.zeros((1, 32), np.int32)
+                padded[0, :len(seq)] = seq
+                row = apply(state.params, jnp.asarray(padded))[0,
+                                                               len(seq) - 1]
+                if temperature > 0:
+                    key = jax.random.fold_in(jax.random.PRNGKey(i), t)
+                    seq.append(int(ref_sample(row, key,
+                                              temperature=temperature)))
+                else:
+                    seq.append(int(np.argmax(np.asarray(row))))
+            out[rid] = seq[len(prompt):]
+    return train_dir, want, sampled
 
 
 @pytest.fixture
 def replica(published, tmp_path):
-    train_dir, _ = published
+    train_dir = published[0]
     rep = build_decode_replica(["serve", "--decode", "--train-dir",
                                 str(train_dir), "--serve-dir",
                                 str(tmp_path / "serve"), "--device", "cpu"])
@@ -76,7 +89,7 @@ def _records(path):
 
 
 def test_replica_streams_reference_greedy_tokens(published, replica):
-    _, want = published
+    want = published[1]
     assert isinstance(replica, DecodeReplica)
     client = ServeClient([("127.0.0.1", replica.bound_port)],
                          deadline_s=60.0)
@@ -102,6 +115,20 @@ def test_replica_streams_reference_greedy_tokens(published, replica):
     # count is final once its first token streamed; the finish count
     # is bumped after the terminal is sent, so it may still lag here)
     assert replica.prefills == 3
+
+
+def test_replica_streams_reference_sampled_tokens(published, replica):
+    """Admitted one after another (sample seeds 0, 1, 2), at
+    temperature 0.8."""
+    sampled = published[2]
+    client = ServeClient([("127.0.0.1", replica.bound_port)],
+                         deadline_s=60.0)
+    for rid, prompt in PROMPTS.items():
+        out = client.generate(prompt, request_id=rid, max_tokens=N_NEW,
+                              temperature=TEMPERATURE)
+        assert out["status"] == "ok", out
+        assert out["tokens"] == sampled[rid], rid
+    assert sampled != published[1]  # the draws are not the greedy path
 
 
 @pytest.mark.parametrize("prompt", [[], list(range(17)), [32], [-1],

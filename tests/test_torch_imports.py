@@ -36,7 +36,10 @@ print("HAVE", sorted(k for k in sys.modules
 TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               "train.optim", "train.lr_schedule", "train.evaluation",
               "train.loop", "train.checkpoint", "ops.flash_attention",
-              "models.convert", "launch.__main__")
+              "models.convert", "launch.__main__",
+              # the CNN sync-SGD path over N replicas
+              "core.prng", "core.mesh", "models.cnn", "models.registry",
+              "ops.masked_psum", "ops.drop_connect", "parallel.policies")
 
 
 def test_port_modules_load_no_jax():

@@ -31,6 +31,8 @@ from distributedmnist_tpu_torch.models.registry import get_model
 from distributedmnist_tpu_torch.parallel import api
 from distributedmnist_tpu_torch.train import lr_schedule, optim
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RUN = {"model": {"name": "transformer", "seq_len": 16, "model_dim": 32,
                  "num_heads": 2, "num_layers": 2, "vocab_size": 16,
                  "compute_dtype": "float32", "attention_impl": "flash"},
@@ -148,8 +150,8 @@ def test_unported_optimizers_and_modes_raise():
     with pytest.raises(port_config.ConfigError, match="unknown optimizer"):
         optim.make_optimizer(port_config.OptimConfig(name="adamw"))
     model = get_model(port_config.ExperimentConfig.from_dict(RUN).model)
-    for over in ({"sync": {"mode": "quorum"}},
-                 {"mesh": {"num_replicas": 8}},
+    for over in ({"sync": {"adaptive": True, "mode": "quorum"}},
+                 {"mesh": {"model_parallelism": 2}},
                  {"train": {"grad_accum_steps": 2}},
                  {"precision": {"param_dtype": "bfloat16"}}):
         cfg = port_config.ExperimentConfig.from_dict(dict(RUN, **over))

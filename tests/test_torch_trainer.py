@@ -13,6 +13,15 @@ checkpoints against the reference Trainer's.
   reference's ``obsv/schema.py``.
 * ``launch train`` prints the reference's summary line; without
   ``--device`` it wants ``cuda:0`` and raises on a machine without one.
+* The MNIST CNN over 8 simulated replicas: ``launch train --config
+  configs/quorum_k4_of_8.json mesh.simulate_devices=8
+  data.dataset=synthetic`` takes 40 steps with 4 contributors each
+  (every step applied, loss falling); a CNN run's interval-mode
+  checkpoint (window, clock, 8-replica world) restores in the
+  reference's Trainer bitwise on params and window, and the reference's
+  restores in the port's; ``configs/basic.json`` (synthetic, float32)
+  reaches ``tests/test_train_smoke.py``'s band at its step count: the
+  loss falls over 40 steps, as the reference's does.
 """
 
 import json
@@ -33,6 +42,8 @@ from distributedmnist_tpu_torch.launch.__main__ import main
 from distributedmnist_tpu_torch.models.convert import params_to_reference
 from distributedmnist_tpu_torch.train import checkpoint as ckpt
 from distributedmnist_tpu_torch.train.loop import Trainer
+
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_transformer_train.py lm_config, one replica
 LM = {"data": {"dataset": "synthetic_lm", "batch_size": 32,
@@ -204,3 +215,81 @@ def test_unported_loop_knobs_raise(tmp_path):
     for over in ({"profile_steps": [1, 3]}, {"durability": "full"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Trainer(_cfg(SMALL, tmp_path, **over), device="cpu")
+
+
+# tests/conftest.py base_config for the CNN, as the reference's smoke
+# tests run it (8 replicas on the forced CPU mesh)
+CNN = {"data": {"dataset": "synthetic", "batch_size": 64,
+                "synthetic_train_size": 1024, "synthetic_test_size": 256,
+                "use_native_pipeline": False},
+       "model": {"compute_dtype": "float32"}}
+
+
+def test_cnn_quorum_run_through_launch(tmp_path, capsys):
+    main(["train", "--config", "configs/quorum_k4_of_8.json",
+          "mesh.simulate_devices=8", "data.dataset=synthetic",
+          "data.synthetic_train_size=2048", "data.synthetic_test_size=256",
+          "train.max_steps=40", f"train.train_dir={tmp_path}",
+          "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["summary"]["final_step"] == 40
+    assert line["summary"]["updates_applied"] == 40
+    recs = _assert_schema(tmp_path / "train_log.jsonl")
+    steps = [r for r in recs if r["event"] == "step"]
+    assert len(steps) == 40
+    assert all(r["num_contributors"] == 4.0 and sum(r["flags"]) == 4
+               and len(r["flags"]) == 8 for r in steps)
+    first, last = (np.mean([r["loss"] for r in steps[i:i + 10]])
+                   for i in (0, 30))
+    assert last < first, (first, last)
+    _, extra, _ = ckpt.restore_state(tmp_path)
+    assert extra["world"] == {"num_replicas": 8, "process_count": 1,
+                              "mesh": {"replica": 8}}
+
+
+def test_cnn_checkpoints_cross_both_ways(tmp_path, topo8):
+    over = {"sync": {"mode": "interval", "interval_ms": 120.0,
+                     "straggler_profile": "lognormal",
+                     "straggler_mean_ms": 50.0},
+            "optim": {"momentum": 0.9}}
+    base = {**CNN, **over}
+    port_dir, ref_dir = tmp_path / "p", tmp_path / "r"
+    pt = Trainer(_cfg(base, port_dir, max_steps=5), device="cpu")
+    assert pt.topo.num_replicas == 1
+    base8 = {**base, "mesh": {"num_replicas": 8}}
+    pt = Trainer(_cfg(base8, port_dir, max_steps=5), device="cpu")
+    pt.run()
+    assert pt.state.window_acc is not None and pt.state.wall_ms > 0
+    # the reference resumes the port's run: params, slots, window, clock
+    rt = RefTrainer(_cfg(base8, port_dir, RefConfig, max_steps=5), topo8)
+    assert int(rt.state.step) == 5
+    for got, want in ((rt.state.params, pt.state.params),
+                      (rt.state.momentum, pt.state.momentum),
+                      (rt.state.window_acc, pt.state.window_acc)):
+        for a, b in zip(jax.tree.leaves(jax.device_get(got)),
+                        jax.tree.leaves(params_to_reference(want))):
+            np.testing.assert_array_equal(np.asarray(a), b)
+    for f in ("window_rounds", "wall_ms", "next_apply_ms"):
+        assert float(getattr(rt.state, f)) == getattr(pt.state, f)
+    # the port resumes the reference's run
+    RefTrainer(_cfg(base8, ref_dir, RefConfig, max_steps=3), topo8).run()
+    digest, step = ref_ckpt.checkpoint_params_digest(ref_dir)
+    back = Trainer(_cfg(base8, ref_dir, max_steps=3), device="cpu")
+    assert back.state.step == step == 3
+    assert ckpt.params_digest(params_to_reference(back.state.params)) \
+        == digest
+
+
+def test_cnn_basic_config_trains_like_the_reference_smoke(tmp_path):
+    """``configs/basic.json`` on synthetic data in float32, at
+    ``test_sync_training_reduces_loss``'s 40 steps and 10-step log."""
+    t = Trainer(_cfg(json.loads(open("configs/basic.json").read())
+                     | {"data": CNN["data"], "model": CNN["model"]},
+                     tmp_path, max_steps=40, log_every_steps=10),
+                device="cpu")
+    losses = []
+    s = t.run(step_callback=lambda step, rec: losses.append(rec["loss"]))
+    assert s["final_step"] == 40 and s["updates_applied"] == 40
+    assert losses[-1] < losses[0]
+    ev = t.evaluate("test")
+    assert ev["num_examples"] == 256 and 0.0 < ev["accuracy"] <= 1.0

@@ -27,6 +27,7 @@ from distributedmnist_tpu.servesvc.kv_cache import \
 from distributedmnist_tpu_torch.core.config import ModelConfig
 from distributedmnist_tpu_torch.models.convert import (
     params_from_reference, params_to_reference)
+from distributedmnist_tpu_torch.core import prng
 from distributedmnist_tpu_torch.models.registry import (get_model,
                                                        lm_last_logits,
                                                        sample_token)
@@ -192,9 +193,27 @@ def test_decode_step_rejects_unknown_kernel(models):
 
 def test_registry_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_model(ModelConfig(name="mnist_cnn"))
+        get_model(ModelConfig(name="resnet20"))
     with pytest.raises(NotImplementedError, match="not ported"):
         get_model(ModelConfig(**{**LM_MODEL, "num_experts": 2}))
+
+
+@pytest.mark.parametrize("temperature", [0.7, 1.3])
+@pytest.mark.parametrize("top_k", [0, 5])
+def test_sample_token_matches_reference(temperature, top_k):
+    """The port's sampled tokens are the reference's, key for key (256
+    keys over rows of seeded logits)."""
+    from distributedmnist_tpu.models.registry import sample_token as ref
+    rows = np.random.default_rng(7).normal(size=(256, 40)).astype(
+        np.float32) * 3.0
+    for i, row in enumerate(rows):
+        key = jax.random.fold_in(jax.random.PRNGKey(i // 16), i)
+        want = int(ref(jnp.asarray(row), key, temperature=temperature,
+                       top_k=top_k))
+        got = int(sample_token(torch.from_numpy(row),
+                               prng.fold_in(prng.PRNGKey(i // 16), i),
+                               temperature=temperature, top_k=top_k))
+        assert got == want, i
 
 
 def test_sample_token():
@@ -202,7 +221,7 @@ def test_sample_token():
         np.random.default_rng(3).normal(size=(5, 32)).astype(np.float32))
     np.testing.assert_array_equal(sample_token(logits).numpy(),
                                   np.argmax(logits.numpy(), axis=-1))
-    g = torch.Generator().manual_seed(0)
+    g = prng.PRNGKey(0)
     # top_k=1 is greedy at any temperature; a tiny temperature samples
     # the mode
     np.testing.assert_array_equal(
@@ -212,8 +231,8 @@ def test_sample_token():
         sample_token(logits, g, temperature=1e-6).numpy(),
         np.argmax(logits.numpy(), axis=-1))
     top3 = set(np.argsort(logits[0].numpy())[-3:].tolist())
-    for _ in range(16):
-        assert int(sample_token(logits[0], g, temperature=2.0,
-                                top_k=3)) in top3
-    with pytest.raises(ValueError, match="Generator"):
+    for i in range(16):
+        assert int(sample_token(logits[0], prng.fold_in(g, i),
+                                temperature=2.0, top_k=3)) in top3
+    with pytest.raises(ValueError, match="PRNG key"):
         sample_token(logits, temperature=1.0)
