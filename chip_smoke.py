@@ -1365,6 +1365,85 @@ def _cnn_card_vs_cpu(tmp: str) -> dict:
     return rec
 
 
+def _cnn_replica_grads(tmp: str, device=DEVICE) -> dict:
+    """The per-replica gradients of 8 replicas at global batch 1024, two
+    ways on the same params, batch and dropout masks: the train step's
+    loop over replicas (one forward and backward each) and one
+    ``torch.func.vmap`` of ``grad`` over the replica axis. Device ms of
+    each by CUDA events over 10 calls, and their largest difference
+    relative to the loop's gradient norm."""
+    import torch
+    from torch.func import grad, vmap
+
+    from distributedmnist_tpu_torch.core import prng
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.models import cnn
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    n = 8
+    tr = _cnn_trainer(tmp, "cnn_vmap", f"mesh.num_replicas={n}",
+                      f"data.batch_size={CNN_DISC_BATCH}",
+                      f"data.synthetic_train_size={2 * CNN_DISC_BATCH}",
+                      device=device)
+    b = to_device(next(tr.train_iter), tr.device)
+    rows = CNN_DISC_BATCH // n
+    x = b["image"].view(n, rows, *b["image"].shape[1:])
+    y = b["label"].view(n, rows)
+    keep = torch.stack([cnn.dropout_mask(k, (rows, 512), 0.5, tr.device)
+                        for k in prng.replica_keys(tr.state.root_key,
+                                                   "dropout", 0, n)])
+    dt = tr.model.compute_dtype
+
+    def loss(params, xi, yi, ki):
+        # cnn.apply with the replica's dropout mask given, not drawn
+        p = {k: {m: t.to(dt) for m, t in v.items()}
+             for k, v in params.items()}
+        h = cnn._conv_relu_pool(xi.to(dt).permute(0, 3, 1, 2),
+                                p["conv1"]["w"], p["conv1"]["b"])
+        h = cnn._conv_relu_pool(h, p["conv2"]["w"], p["conv2"]["b"])
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        h = torch.relu(h @ p["fc1"]["w"] + p["fc1"]["b"])
+        h = torch.where(ki, h / 0.5, torch.zeros((), dtype=h.dtype,
+                                                   device=h.device))
+        return cnn.loss_fn((h @ p["fc2"]["w"] + p["fc2"]["b"]).float(), yi)
+
+    params = tr.state.params
+    leaves = tree_leaves(params)
+    batched = vmap(grad(loss), in_dims=(None, 0, 0, 0))
+
+    def by_loop():
+        out = []
+        for r in range(n):
+            for t in leaves:
+                t.requires_grad_(True)
+            g = torch.autograd.grad(loss(params, x[r], y[r], keep[r]),
+                                    leaves)
+            for t in leaves:
+                t.requires_grad_(False)
+            out.append(torch.cat([t.reshape(-1) for t in g]))
+        return torch.stack(out)
+
+    def by_vmap():
+        g = batched(params, x, y, keep)
+        return torch.cat([t.reshape(n, -1) for t in tree_leaves(g)], 1)
+
+    rec = {}
+    for name, fn in (("loop", by_loop), ("vmap", by_vmap)):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(10):
+            fn()
+        e.record()
+        e.synchronize()
+        rec[f"{name}_ms"] = a.elapsed_time(e) / 10
+    g_loop, g_vmap = by_loop(), by_vmap()
+    rec["max_rel_diff"] = float((g_loop - g_vmap).norm(dim=1).max()
+                                / g_loop.norm(dim=1).min())
+    return rec
+
+
 def _cnn_determinism(tmp: str, batch, tag: str) -> bool:
     """Two seeded 5-step runs at the throughput shape: bitwise params."""
     import torch
@@ -1410,6 +1489,7 @@ def phase_cnn(tmp: str) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     disciplines = _cnn_disciplines(tmp)
     card_vs_cpu = _cnn_card_vs_cpu(tmp)
+    replica_grads = _cnn_replica_grads(tmp)
     rec = {"phase": "cnn", "batch": CNN_BATCH, "dtype": "bfloat16",
            **throughput["deterministic"],
            "nondeterministic_cudnn": {
@@ -1424,6 +1504,7 @@ def phase_cnn(tmp: str) -> dict:
                    "last_loss": losses[-1],
                    "updates_applied": summary["updates_applied"]},
            "disciplines": disciplines, "card_vs_cpu": card_vs_cpu,
+           "replica_grads_loop_vs_vmap": replica_grads,
            "seeded_runs_bitwise": det,
            "flash_paged_kernel_launches": counts,
            "kernel_note": "no flash or paged kernel runs in the CNN path: "
