@@ -962,7 +962,7 @@ def _step_vs_plain(trainer, batch) -> tuple[float, float]:
     cfg = trainer.model
 
     def plain_apply(params, tokens, positions=None, *, train=False,
-                    dropout_key=None):
+                    dropout_key=None, dropout_keep=None):
         return transformer.apply(params, tokens, num_heads=MODEL["num_heads"],
                                  attention_fn=attn, positions=positions,
                                  compute_dtype=cfg.compute_dtype)

@@ -33,19 +33,13 @@ class Topology:
 
     num_replicas: int
 
-    @property
-    def local_replicas(self) -> range:
-        """The replica ids this process computes."""
-        return range(self.num_replicas)
-
-    def replica_rows(self, global_batch: int, r: int) -> slice:
-        """Replica ``r``'s rows of a global batch: the reference's
-        ``P(replica)`` block ``[r·B/n, (r+1)·B/n)``."""
-        if global_batch % self.num_replicas:
-            raise ValueError(f"global batch {global_batch} not divisible "
-                             f"by {self.num_replicas} replicas")
-        b = global_batch // self.num_replicas
-        return slice(r * b, (r + 1) * b)
+    def split_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """``[B, ...]`` → ``[n, B/n, ...]``: replica r takes rows
+        ``[r·B/n, (r+1)·B/n)``, the reference's ``P(replica)`` block."""
+        if x.shape[0] % self.num_replicas:
+            raise ValueError(f"global batch {x.shape[0]} not divisible by "
+                             f"{self.num_replicas} replicas")
+        return x.view(self.num_replicas, -1, *x.shape[1:])
 
     def sum_replicas(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over replicas of a ``[local replicas, ...]`` tensor (≙ the

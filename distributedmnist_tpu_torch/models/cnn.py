@@ -15,8 +15,7 @@ dropout is inverted dropout drawn from an explicit key: the same
 ``bernoulli`` bits as the reference's on the same key
 (:mod:`..core.prng`). ``init`` draws the reference's truncated normals
 from ``PRNGKey(init_seed)`` split four ways, so a fresh run starts from
-the reference's params (to the few-ulp distance of the float32
-inverse error function, ``core/prng.py``).
+the reference's params bit for bit.
 """
 
 from __future__ import annotations
@@ -30,6 +29,8 @@ import torch.nn.functional as F
 from ..core import prng
 
 Params = dict[str, Any]
+
+HIDDEN = 512  # fc1's width: dropout's keep mask is [batch, HIDDEN]
 
 
 def truncated_normal_init(key, shape, stddev: float = 0.1,
@@ -52,9 +53,10 @@ def init(key, image_size: int = 28, num_channels: int = 1,
         "conv2": {"w": truncated_normal_init(k2, (5, 5, 32, 64),
                                              device=device),
                   "b": full(64, 0.1)},
-        "fc1": {"w": truncated_normal_init(k3, (fc_in, 512), device=device),
-                "b": full(512, 0.1)},
-        "fc2": {"w": truncated_normal_init(k4, (512, num_classes),
+        "fc1": {"w": truncated_normal_init(k3, (fc_in, HIDDEN),
+                                           device=device),
+                "b": full(HIDDEN, 0.1)},
+        "fc2": {"w": truncated_normal_init(k4, (HIDDEN, num_classes),
                                            device=device),
                 "b": full(num_classes, 0.1)},
     }
@@ -71,15 +73,19 @@ def _conv_relu_pool(x: torch.Tensor, w: torch.Tensor,
 
 def dropout_mask(key, shape, rate: float, device=None) -> torch.Tensor:
     """The keep mask the reference draws: ``bernoulli(key, 1 - rate,
-    shape)``."""
+    shape)`` (a batch of keys ``[n, 2]`` gives ``[n, *shape]``)."""
     return prng.bernoulli(key, 1.0 - rate, shape, device)
 
 
 def apply(params: Params, images: torch.Tensor, *, train: bool = False,
-          dropout_key=None, dropout_rate: float = 0.5,
+          dropout_key=None, dropout_keep: torch.Tensor | None = None,
+          dropout_rate: float = 0.5,
           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Forward pass → float32 logits [batch, num_classes] from images
-    [batch, H, W, C] in [-0.5, 0.5]."""
+    [batch, H, W, C] in [-0.5, 0.5]. In training, dropout keeps
+    ``dropout_keep`` when given (``[batch, HIDDEN]``, drawn beforehand,
+    as the train step does for all replicas at once), else the mask
+    ``dropout_key`` draws."""
     p = {k: {n: t.to(compute_dtype) for n, t in v.items()}
          for k, v in params.items()}
     x = images.to(compute_dtype).permute(0, 3, 1, 2)
@@ -88,9 +94,12 @@ def apply(params: Params, images: torch.Tensor, *, train: bool = False,
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
     x = torch.relu(x @ p["fc1"]["w"] + p["fc1"]["b"])
     if train and dropout_rate > 0.0:
-        if dropout_key is None:
-            raise ValueError("train=True dropout requires dropout_key")
-        keep = dropout_mask(dropout_key, x.shape, dropout_rate, x.device)
+        keep = dropout_keep
+        if keep is None:
+            if dropout_key is None:
+                raise ValueError("train=True dropout requires dropout_key "
+                                 "or dropout_keep")
+            keep = dropout_mask(dropout_key, x.shape, dropout_rate, x.device)
         scale = float(np.float32(1.0 - dropout_rate))
         x = torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
                                                      device=x.device))

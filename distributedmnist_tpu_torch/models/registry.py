@@ -100,9 +100,15 @@ class Model:
       ``uint32[2]`` key (and a ``device``), the transformer a torch
       generator; ``init_params(seed, device)`` is the one spelling the
       train state uses (``model.init_seed``);
-    * ``apply(params, inputs, *, train=False, dropout_key=None) ->
-      logits`` (the transformer has no dropout and ignores the key;
-      gradients flow when autograd is on);
+    * ``apply(params, inputs, *, train=False, dropout_key=None,
+      dropout_keep=None) -> logits`` (the transformer has no dropout
+      and ignores both; gradients flow when autograd is on);
+    * ``dropout_masks(keys, rows, device)`` — the keep masks for
+      ``rows`` examples a key (``[2]`` or ``[n, 2]``), None without
+      dropout;
+    * ``vmap_replicas`` — whether the train step may ``torch.func.vmap``
+      the apply over replicas (the transformer's flash-attention
+      ``autograd.Function`` cannot be);
     * ``loss(logits, labels) -> scalar``; ``accuracy(logits, labels)
       -> scalar``;
     * ``eval_metrics(logits, labels, weight) -> (correct_sum,
@@ -121,7 +127,8 @@ class Model:
     init_params: Callable[[int, torch.device], Any]
     apply: Callable[..., torch.Tensor]
     compute_dtype: torch.dtype
-    uses_dropout: bool = False
+    dropout_masks: Callable[..., torch.Tensor] | None = None
+    vmap_replicas: bool = False
     predictions: Callable[..., torch.Tensor] | None = None
     loss: Callable[..., torch.Tensor] | None = None
     accuracy: Callable[..., torch.Tensor] | None = None
@@ -157,16 +164,24 @@ def _mnist_cnn(cfg: ModelConfig) -> Model:
                         num_channels=cfg.num_channels,
                         num_classes=cfg.num_classes, device=device)
 
-    def apply(params, x, *, train=False, dropout_key=None):
+    def apply(params, x, *, train=False, dropout_key=None,
+              dropout_keep=None):
         return cnn.apply(params, x, train=train, dropout_key=dropout_key,
+                         dropout_keep=dropout_keep,
                          dropout_rate=cfg.dropout_rate,
                          compute_dtype=compute_dtype)
+
+    def dropout_masks(keys, rows, device):
+        return cnn.dropout_mask(keys, (rows, cnn.HIDDEN), cfg.dropout_rate,
+                                device)
 
     return Model(name=cfg.name, init=init,
                  init_params=lambda seed, device: init(prng.PRNGKey(seed),
                                                        device),
                  apply=apply, compute_dtype=compute_dtype,
-                 uses_dropout=cfg.dropout_rate > 0.0,
+                 dropout_masks=(dropout_masks if cfg.dropout_rate > 0.0
+                                else None),
+                 vmap_replicas=True,
                  predictions=cnn.predictions, loss=cnn.loss_fn,
                  accuracy=cnn.accuracy,
                  eval_metrics=classification_eval_metrics)
@@ -195,8 +210,8 @@ def _transformer(cfg: ModelConfig) -> Model:
             max_seq_len=cfg.seq_len)
 
     def apply(params, tokens, positions=None, *, train=False,
-              dropout_key=None):
-        del train, dropout_key  # no dropout (the reference's has none)
+              dropout_key=None, dropout_keep=None):
+        del train, dropout_key, dropout_keep  # the reference's has none
         return transformer.apply(params, tokens, num_heads=cfg.num_heads,
                                  attention_fn=attention_fn,
                                  positions=positions,

@@ -2,9 +2,9 @@
 masked_psum.py``) — the aggregation every sync discipline shares.
 
 Each replica contributes ``grad · flag / max(Σflag, 1)``; one sum over
-replicas of those pre-scaled contributions is the masked mean. The
-port flattens every gradient leaf of a replica into one bucket row, so
-the sum is a single reduction over ``[replicas, P]``
+replicas of those scaled contributions is the masked mean. The port
+flattens every gradient leaf of a replica into one bucket row, so the
+sum is a single reduction over ``[replicas, P]``
 (:meth:`..core.mesh.Topology.sum_replicas`). When no replica
 contributes, every scale is 0 and the mean is exact zeros.
 """
@@ -25,11 +25,11 @@ def contribution_scale(flags: torch.Tensor) -> tuple[torch.Tensor,
     return flags / torch.clamp(num, min=1.0), num
 
 
-def flatten_leaves(leaves: list[torch.Tensor],
-                   out: torch.Tensor | None = None) -> torch.Tensor:
-    """One float32 bucket ``[P]`` of a replica's gradient leaves
-    (written into ``out`` when given: a row of the replicas' bucket)."""
-    return torch.cat([g.reshape(-1).float() for g in leaves], out=out)
+def flatten_replicas(leaves: list[torch.Tensor]) -> torch.Tensor:
+    """One float32 bucket ``[n, P]`` of the replicas' gradient leaves
+    (each ``[n, ...]``): replica r's leaves, flattened, are row r."""
+    n = leaves[0].shape[0]
+    return torch.cat([g.reshape(n, -1).float() for g in leaves], dim=1)
 
 
 def unflatten_like(flat: torch.Tensor,

@@ -10,8 +10,9 @@ runs the same step for ``n`` simulated replicas on one device
 (:mod:`..core.mesh`):
 
 * each replica's forward and backward runs on its row block of the
-  global batch, and its gradient leaves are flattened into one bucket
-  row;
+  global batch with its own dropout mask — all replicas at once, as one
+  ``torch.func.vmap`` of ``grad`` — and its gradient leaves are
+  flattened into one bucket row;
 * the modeled step times and the flags depend only on keys, the step
   and the measured base, so the host computes them while the device
   runs the backward: ``applied`` is a host number and the step never
@@ -42,6 +43,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.func import grad, vmap
 
 from ..core import prng
 from ..core.config import ExperimentConfig
@@ -209,6 +211,10 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                        "update")
     if model.loss is None or model.accuracy is None:
         raise ValueError(f"model {model.name!r} has no loss/accuracy")
+    if n > 1 and not model.vmap_replicas:
+        raise NotImplementedError(
+            f"{n} replicas of model {model.name!r} are not ported yet (its "
+            "apply cannot be vmapped over replicas)")
     opt = optim_lib.make_optimizer(cfg.optim)
     default_disc = make_discipline_vector(k, sync.timeout_ms,
                                           sync.interval_ms)
@@ -225,44 +231,66 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
         return policies.timeout_flag(t_ms, disc[DISC_INTERVAL_MS])
 
     def replica_grads(state: TrainState, batch: dict, leaves: list):
-        """Forward and backward of every replica: the per-replica losses
-        and accuracies, and the gradients — over several replicas one
-        flat bucket ``[n, P]`` (a row each), for a lone replica its
-        gradient leaves."""
-        rows_total = batch["image"].shape[0]
-        dkeys = (prng.replica_keys(state.root_key, "dropout", state.step, n)
-                 if model.uses_dropout else [None] * n)
-        dckeys = (prng.replica_keys(state.root_key, "drop_connect",
-                                    state.step, n)
-                  if sync.drop_connect else None)
-        bucket = (torch.empty((n, sum(p.numel() for p in leaves)),
-                              dtype=torch.float32, device=leaves[0].device)
-                  if n > 1 else None)
-        losses, accs, grads = [], [], None
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            for r in topo.local_replicas:
-                rows = topo.replica_rows(rows_total, r)
-                logits = model.apply(state.params, batch["image"][rows],
-                                     train=True, dropout_key=dkeys[r])
-                loss = model.loss(logits, batch["label"][rows])
-                grads = torch.autograd.grad(loss, leaves)
-                with torch.no_grad():
-                    if dckeys is not None:
-                        grads = drop_connect_grads(
-                            list(grads), dckeys[r],
-                            sync.drop_connect_probability)
-                    if bucket is not None:
-                        masked_psum.flatten_leaves(grads, out=bucket[r])
-                    losses.append(loss.detach())
-                    accs.append(model.accuracy(logits.detach(),
-                                               batch["label"][rows]))
-        finally:
+        """Forward and backward of every replica, each on its row block
+        with its own dropout mask: ``(loss, train_acc, grads)`` with the
+        loss and accuracy means over replicas and the gradients as one
+        flat bucket ``[n, P]`` (a row a replica) — or, for a lone
+        replica, its gradient leaves. Several replicas run as one
+        ``torch.func.vmap`` of ``grad`` over the replica axis (3.2× the
+        speed of a loop over replicas at 8 × 128 CNN rows on an H100,
+        ``chip_smoke.py`` cnn phase); a lone replica runs autograd
+        directly, as the flash-attention ``autograd.Function`` needs."""
+        xs, ys = topo.split_batch(batch["image"]), topo.split_batch(
+            batch["label"])
+        keep = None
+        if model.dropout_masks is not None:
+            keys = prng.replica_keys(state.root_key, "dropout", state.step,
+                                     n)
+            keep = model.dropout_masks(keys if n > 1 else keys[0],
+                                       xs.shape[1], xs.device)
+        if n == 1:
             for p in leaves:
-                p.requires_grad_(False)
-        return losses, accs, (bucket if bucket is not None
-                              else [g.float() for g in grads])
+                p.requires_grad_(True)
+            try:
+                logits = model.apply(state.params, xs[0], train=True,
+                                     dropout_keep=keep)
+                loss = model.loss(logits, ys[0])
+                grads = [g.float() for g in
+                         torch.autograd.grad(loss, leaves)]
+            finally:
+                for p in leaves:
+                    p.requires_grad_(False)
+            with torch.no_grad():
+                if sync.drop_connect:
+                    grads = drop_connect_grads(
+                        grads, prng.replica_key(state.root_key,
+                                                "drop_connect", state.step,
+                                                0),
+                        sync.drop_connect_probability)
+                return (loss.detach(),
+                        model.accuracy(logits.detach(), ys[0]), grads)
+
+        def replica_loss(params, x, y, k):
+            logits = model.apply(params, x, train=True, dropout_keep=k)
+            loss = model.loss(logits, y)
+            return loss, (loss, model.accuracy(logits, y))
+
+        grads, (losses, accs) = vmap(
+            grad(replica_loss, has_aux=True),
+            in_dims=(None, 0, 0, None if keep is None else 0))(
+                state.params, xs, ys, keep)
+        with torch.no_grad():
+            grads = [g.float() for g in tree_leaves(grads)]  # [n, ...]
+            if sync.drop_connect:
+                dckeys = prng.replica_keys(state.root_key, "drop_connect",
+                                           state.step, n)
+                for r in range(n):
+                    for g, m in zip(grads, drop_connect_grads(
+                            [g[r] for g in grads], dckeys[r],
+                            sync.drop_connect_probability)):
+                        g[r] = m
+            return (losses.mean(), accs.mean(),
+                    masked_psum.flatten_replicas(grads))
 
     def apply_update(state: TrainState, leaves: list, grads: list,
                      lr: float) -> None:
@@ -307,7 +335,7 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                              f"{tuple(meas.shape)}")
         # -- per-replica gradients (queued on the device first) ---------
         leaves = tree_leaves(state.params)
-        losses, accs, grads = replica_grads(state, batch, leaves)
+        loss, train_acc, grads = replica_grads(state, batch, leaves)
         # -- modeled times and flags, on the host while the device runs
         # the backward (they need no gradient) --------------------------
         t_ms = policies.sample_step_time_ms(sync, state.root_key,
@@ -341,8 +369,6 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                     # moment slots decay even on zero gradients: a true
                     # no-op keeps params and slots as they were
                     apply_update(state, leaves, mean, lr)
-            loss = losses[0] if n == 1 else torch.stack(losses).mean()
-            train_acc = accs[0] if n == 1 else torch.stack(accs).mean()
         state.updates_applied += applied
         state.step += 1
         metrics = {

@@ -149,7 +149,8 @@ def test_registry_entry_matches_reference():
                dropout_rate=0.25)
     port = get_model(ModelConfig(**cfg))
     ref = ref_registry.get_model(RefModelConfig(**cfg))
-    assert port.uses_dropout and port.predictions is not None
+    assert port.dropout_masks is not None and port.vmap_replicas
+    assert port.predictions is not None
     params = ref.init(jax.random.PRNGKey(1))
     x, y = _batch(n=4, size=12, seed=3)
     want = ref.apply(params, jnp.asarray(x), train=True,

@@ -130,11 +130,14 @@ def test_masked_mean_matches(flags):
 
 
 def test_flatten_round_trip():
-    leaves = [torch.arange(6.0).view(2, 3), torch.tensor([7.0])]
-    flat = masked_psum.flatten_leaves(leaves)
-    back = masked_psum.unflatten_like(flat, leaves)
-    for a, b in zip(back, leaves):
-        assert torch.equal(a, b)
+    """Replica r's leaves are row r of the bucket, in leaf order."""
+    leaves = [torch.arange(12.0).view(2, 2, 3), torch.tensor([[7.0], [8.0]])]
+    flat = masked_psum.flatten_replicas(leaves)
+    assert flat.shape == (2, 7)
+    for r in range(2):
+        back = masked_psum.unflatten_like(flat[r], [x[r] for x in leaves])
+        for a, b in zip(back, leaves):
+            assert torch.equal(a, b[r])
 
 
 def test_drop_connect_masks_are_the_references():
