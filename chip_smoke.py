@@ -80,9 +80,14 @@ One JSON line per phase:
                 unchanged there), interval (1000 ms window, lognormal
                 300 ms: ``applied`` exactly when the modeled clock
                 crosses the window); 3 float32 quorum steps on the card
-                against the same steps on the CPU (equal flags, params
-                within ``CNN_CARD_VS_CPU_TOL``); two seeded 5-step runs
-                bitwise equal.
+                against the same steps on the CPU (params within
+                ``CNN_CARD_VS_CPU_TOL``; the flags, drawn on the host
+                from the same keys on both sides, equal); two seeded
+                5-step runs bitwise equal with cuDNN's deterministic
+                algorithms (checked) and reported without them, each
+                convolution's setting read as it runs; cuDNN's
+                process-wide settings the same after the phase as
+                before it.
 7. ``e2e``      — boots the decode replica on the training phase's
                 checkpoint through the CLI's ``build_decode_replica``,
                 streams 8 concurrent greedy requests over its socket,
@@ -962,7 +967,7 @@ def _step_vs_plain(trainer, batch) -> tuple[float, float]:
     cfg = trainer.model
 
     def plain_apply(params, tokens, positions=None, *, train=False,
-                    dropout_key=None, dropout_keep=None):
+                    dropout_keep=None):
         return transformer.apply(params, tokens, num_heads=MODEL["num_heads"],
                                  attention_fn=attn, positions=positions,
                                  compute_dtype=cfg.compute_dtype)
@@ -1152,7 +1157,8 @@ def phase_train_k4(tmp: str) -> dict:
     return rec
 
 
-def _cnn_trainer(tmp: str, name: str, *overrides: str, device=DEVICE):
+def _cnn_trainer(tmp: str, name: str, *overrides: str, device=DEVICE,
+                 **trainer_kwargs):
     """The CNN Trainer ``launch train`` runs, from its
     ``build_trainer``."""
     from distributedmnist_tpu_torch.launch.__main__ import build_trainer
@@ -1161,7 +1167,7 @@ def _cnn_trainer(tmp: str, name: str, *overrides: str, device=DEVICE):
         json.dump(CNN, f)
     return build_trainer(["train", "--config", path,
                           f"train.train_dir={tmp}/{name}", *overrides,
-                          "--device", device])
+                          "--device", device], **trainer_kwargs)
 
 
 def _cnn_flops(batch: int, size: int = 28) -> float:
@@ -1358,128 +1364,80 @@ def _cnn_card_vs_cpu(tmp: str) -> dict:
     (i_gpu, f_gpu, p_gpu), (i_cpu, f_cpu, p_cpu) = runs[DEVICE], runs["cpu"]
     init_bitwise = all(torch.equal(a, b) for a, b in zip(i_gpu, i_cpu))
     rel = max(float((a - b).norm() / b.norm()) for a, b in zip(p_gpu, p_cpu))
-    rec = {"init_params_bitwise": init_bitwise, "flags_equal": f_gpu == f_cpu,
+    # the flags are drawn on the host from the same keys on both sides:
+    # their equality is a host-side check of the device-independent path
+    rec = {"init_params_bitwise": init_bitwise,
+           "flags_equal_host_side": f_gpu == f_cpu,
            "param_rel_err": rel, "tol": CNN_CARD_VS_CPU_TOL}
     check(f_gpu == f_cpu and rel <= CNN_CARD_VS_CPU_TOL,
           f"card vs CPU: {rec}")
     return rec
 
 
-def _cnn_replica_grads(tmp: str, device=DEVICE) -> dict:
-    """The per-replica gradients of 8 replicas at global batch 1024, two
-    ways on the same params, batch and dropout masks: the train step's
-    loop over replicas (one forward and backward each) and one
-    ``torch.func.vmap`` of ``grad`` over the replica axis. Device ms of
-    each by CUDA events over 10 calls, and their largest difference
-    relative to the loop's gradient norm."""
+def _cudnn_flags_at_conv(step, batch) -> list:
+    """Run ``step(batch)`` and return cuDNN's (deterministic, allow_tf32)
+    as each convolution of the step saw them."""
     import torch
-    from torch.func import grad, vmap
+    cudnn, conv2d, seen = torch.backends.cudnn, torch.nn.functional.conv2d, []
 
-    from distributedmnist_tpu_torch.core import prng
-    from distributedmnist_tpu_torch.data.pipeline import to_device
-    from distributedmnist_tpu_torch.models import cnn
-    from distributedmnist_tpu_torch.parallel.api import tree_leaves
-    n = 8
-    tr = _cnn_trainer(tmp, "cnn_vmap", f"mesh.num_replicas={n}",
-                      f"data.batch_size={CNN_DISC_BATCH}",
-                      f"data.synthetic_train_size={2 * CNN_DISC_BATCH}",
-                      device=device)
-    b = to_device(next(tr.train_iter), tr.device)
-    rows = CNN_DISC_BATCH // n
-    x = b["image"].view(n, rows, *b["image"].shape[1:])
-    y = b["label"].view(n, rows)
-    keep = torch.stack([cnn.dropout_mask(k, (rows, 512), 0.5, tr.device)
-                        for k in prng.replica_keys(tr.state.root_key,
-                                                   "dropout", 0, n)])
-    dt = tr.model.compute_dtype
+    def probe(*args, **kwargs):
+        seen.append([cudnn.deterministic, cudnn.allow_tf32])
+        return conv2d(*args, **kwargs)
 
-    def loss(params, xi, yi, ki):
-        # cnn.apply with the replica's dropout mask given, not drawn
-        p = {k: {m: t.to(dt) for m, t in v.items()}
-             for k, v in params.items()}
-        h = cnn._conv_relu_pool(xi.to(dt).permute(0, 3, 1, 2),
-                                p["conv1"]["w"], p["conv1"]["b"])
-        h = cnn._conv_relu_pool(h, p["conv2"]["w"], p["conv2"]["b"])
-        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
-        h = torch.relu(h @ p["fc1"]["w"] + p["fc1"]["b"])
-        h = torch.where(ki, h / 0.5, torch.zeros((), dtype=h.dtype,
-                                                   device=h.device))
-        return cnn.loss_fn((h @ p["fc2"]["w"] + p["fc2"]["b"]).float(), yi)
-
-    params = tr.state.params
-    leaves = tree_leaves(params)
-    batched = vmap(grad(loss), in_dims=(None, 0, 0, 0))
-
-    def by_loop():
-        out = []
-        for r in range(n):
-            for t in leaves:
-                t.requires_grad_(True)
-            g = torch.autograd.grad(loss(params, x[r], y[r], keep[r]),
-                                    leaves)
-            for t in leaves:
-                t.requires_grad_(False)
-            out.append(torch.cat([t.reshape(-1) for t in g]))
-        return torch.stack(out)
-
-    def by_vmap():
-        g = batched(params, x, y, keep)
-        return torch.cat([t.reshape(n, -1) for t in tree_leaves(g)], 1)
-
-    rec = {}
-    for name, fn in (("loop", by_loop), ("vmap", by_vmap)):
-        fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(10):
-            fn()
-        e.record()
-        e.synchronize()
-        rec[f"{name}_ms"] = a.elapsed_time(e) / 10
-    g_loop, g_vmap = by_loop(), by_vmap()
-    rec["max_rel_diff"] = float((g_loop - g_vmap).norm(dim=1).max()
-                                / g_loop.norm(dim=1).min())
-    return rec
+    torch.nn.functional.conv2d = probe
+    try:
+        step(batch)
+    finally:
+        torch.nn.functional.conv2d = conv2d
+    return seen
 
 
-def _cnn_determinism(tmp: str, batch, tag: str) -> bool:
-    """Two seeded 5-step runs at the throughput shape: bitwise params."""
+def _cnn_determinism(tmp: str, batch, deterministic: bool) -> dict:
+    """Two seeded 5-step runs at the throughput shape, with cuDNN's
+    deterministic algorithms or without: bitwise params, and the
+    setting each convolution of the first step ran under."""
     import torch
 
     from distributedmnist_tpu_torch.parallel.api import tree_leaves
-    finals = []
+    finals, seen = [], []
     for i in range(2):
-        tr = _cnn_trainer(tmp, f"cnn_det_{tag}_{i}")
+        tr = _cnn_trainer(tmp, f"cnn_det_{int(deterministic)}_{i}",
+                          cudnn_deterministic=deterministic)
         state = tr.state
-        for _ in range(5):
-            state, _ = tr.step_fn(state, batch)
+
+        def step(b):
+            nonlocal state
+            state, _ = tr.step_fn(state, b)
+
+        seen += _cudnn_flags_at_conv(step, batch)
+        for _ in range(4):
+            step(batch)
         finals.append(tree_leaves(state.params))
     torch.cuda.synchronize()
-    return all(torch.equal(a, b) for a, b in zip(*finals))
+    check(seen and all(d == deterministic for d, _ in seen),
+          f"cudnn_deterministic={deterministic} but the convolutions ran "
+          f"under {seen}")
+    return {"bitwise": all(torch.equal(a, b) for a, b in zip(*finals)),
+            "deterministic_at_conv": seen[0][0]}
 
 
 def phase_cnn(tmp: str) -> dict:
     import torch
 
     from distributedmnist_tpu_torch.data.pipeline import to_device
+    cudnn_before = (torch.backends.cudnn.deterministic,
+                    torch.backends.cudnn.allow_tf32)
     trainer = _cnn_trainer(tmp, "cnn")
     check(trainer.device.type == DEVICE, f"trainer on {trainer.device}")
-    check(torch.backends.cudnn.deterministic,
-          "the CNN path did not select cuDNN's deterministic algorithms")
     tr = trainer.datasets.train
     batch = to_device({"image": tr.images[:CNN_BATCH],
                        "label": tr.labels[:CNN_BATCH]}, trainer.device)
     reset_counts()
     throughput = {"deterministic": _cnn_throughput(trainer, batch)}
-    det = {"deterministic": _cnn_determinism(tmp, batch, "on")}
-    torch.backends.cudnn.deterministic = False
-    try:
-        throughput["nondeterministic"] = _cnn_throughput(trainer, batch)
-        det["nondeterministic"] = _cnn_determinism(tmp, batch, "off")
-    finally:
-        torch.backends.cudnn.deterministic = True
+    throughput["nondeterministic"] = _cnn_throughput(
+        _cnn_trainer(tmp, "cnn_nondet", cudnn_deterministic=False), batch)
+    det = {"deterministic": _cnn_determinism(tmp, batch, True),
+           "nondeterministic": _cnn_determinism(tmp, batch, False)}
     counts = read_counts()
     losses = []
     summary = trainer.run(
@@ -1489,7 +1447,8 @@ def phase_cnn(tmp: str) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     disciplines = _cnn_disciplines(tmp)
     card_vs_cpu = _cnn_card_vs_cpu(tmp)
-    replica_grads = _cnn_replica_grads(tmp)
+    cudnn_after = (torch.backends.cudnn.deterministic,
+                   torch.backends.cudnn.allow_tf32)
     rec = {"phase": "cnn", "batch": CNN_BATCH, "dtype": "bfloat16",
            **throughput["deterministic"],
            "nondeterministic_cudnn": {
@@ -1504,8 +1463,9 @@ def phase_cnn(tmp: str) -> dict:
                    "last_loss": losses[-1],
                    "updates_applied": summary["updates_applied"]},
            "disciplines": disciplines, "card_vs_cpu": card_vs_cpu,
-           "replica_grads_loop_vs_vmap": replica_grads,
            "seeded_runs_bitwise": det,
+           "cudnn_flags_outside_steps": {"before": cudnn_before,
+                                         "after": cudnn_after},
            "flash_paged_kernel_launches": counts,
            "kernel_note": "no flash or paged kernel runs in the CNN path: "
                           "its convolutions and GEMMs are cuDNN and "
@@ -1514,8 +1474,11 @@ def phase_cnn(tmp: str) -> dict:
     check(all(v == 0 for v in counts.values()), f"launches {counts}")
     check(len(losses) == CNN_TIMED and all(map(math.isfinite, losses)),
           f"losses {losses}")
-    check(det["deterministic"], "two seeded runs differ with cuDNN's "
-                                "deterministic algorithms")
+    check(det["deterministic"]["bitwise"], "two seeded runs differ with "
+                                           "cuDNN's deterministic algorithms")
+    check(cudnn_after == cudnn_before, "the CNN path left cuDNN's settings "
+                                       f"changed: {cudnn_before} -> "
+                                       f"{cudnn_after}")
     return rec
 
 

@@ -5,10 +5,14 @@ single-device placement that joins no collective).
 The port runs on the GPU. An entry point that is handed no device
 takes ``cuda:0``; on a machine without CUDA that is an error, never a
 silent fall back to the CPU — a CPU run is only ever one the caller
-asked for (``device="cpu"``, as the tests do).
+asked for (``device="cpu"``, as the tests do). The train and eval steps
+set cuDNN's policy for the span of each call (:func:`cudnn_policy`),
+so building a model or a step changes no process-wide setting.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -30,3 +34,20 @@ def resolve_device(requested: str | torch.device | None = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
+
+
+@contextlib.contextmanager
+def cudnn_policy(deterministic: bool, allow_tf32: bool | None = None):
+    """cuDNN's settings for one step, restored on exit: only its
+    deterministic algorithms when ``deterministic`` (a seeded run then
+    repeats bit for bit, as the reference's does), and TF32 rounding of
+    float32 convolutions as ``allow_tf32`` says (None leaves it)."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.allow_tf32
+    cudnn.deterministic = deterministic
+    if allow_tf32 is not None:
+        cudnn.allow_tf32 = allow_tf32
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.allow_tf32 = saved

@@ -84,14 +84,6 @@ def _t_add(a, b):
     return (a + b) & _M32
 
 
-def _np_rotl(v: np.ndarray, r: int) -> np.ndarray:
-    return (v << np.uint32(r)) | (v >> np.uint32(32 - r))
-
-
-def _np_add(a, b):
-    return a + b  # uint32 arrays wrap
-
-
 def threefry2x32(key: Sequence[int], x0: int, x1: int) -> tuple[int, int]:
     """The hash of one counter pair under one key, on the host."""
     return _rounds(int(x0), int(x1), int(key[0]), int(key[1]),
@@ -169,24 +161,14 @@ def replica_keys(root, name: str, step: int, n: int) -> np.ndarray:
 def random_bits(key, shape: Sequence[int], device=None) -> torch.Tensor:
     """32 random bits per element of ``shape`` (int64 holding uint32
     values). ``key`` is one key ``[2]`` or a batch ``[..., 2]``; a batch
-    gives ``[..., *shape]`` (each key its own ``shape``). One key enters
-    the rounds as two Python integers, so drawing on the card copies
+    gives ``[..., *shape]`` (each key its own ``shape``). The rounds run
+    in torch int64 on ``device``, the CPU and the card alike. One key
+    enters them as two Python integers, so drawing on the card copies
     nothing to it (a copy from pageable memory would make the host wait
-    for the card's queue); a batch of keys goes through pinned memory.
-    On the CPU the rounds run in numpy."""
+    for the card's queue); a batch of keys goes through pinned memory."""
     shape = tuple(int(s) for s in shape)
     keys = np.asarray(key, np.uint32)
     batch = keys.shape[:-1]
-    size = math.prod(shape)
-    if torch.device(device or "cpu").type == "cpu":
-        # on the host: numpy's uint32 arithmetic wraps as threefry does
-        k = keys.reshape(-1, 2)
-        counts = np.arange(size, dtype=np.uint64)[None, :]
-        b0, b1 = _rounds((counts >> np.uint64(32)).astype(np.uint32),
-                         counts.astype(np.uint32), k[:, 0:1], k[:, 1:2],
-                         _np_rotl, _np_add)
-        return torch.from_numpy((b0 ^ b1).astype(np.int64).reshape(
-            tuple(batch) + shape))
     if keys.size == 2:
         k0, k1 = (int(w) for w in keys.reshape(2))
     else:
@@ -194,10 +176,10 @@ def random_bits(key, shape: Sequence[int], device=None) -> torch.Tensor:
         if torch.device(device or "cpu").type == "cuda":
             k = k.pin_memory().to(device, non_blocking=True)
         k0, k1 = k[:, 0:1], k[:, 1:2]
-    counts = torch.arange(size, dtype=torch.int64, device=device)[None, :]
-    hi = (counts >> 32) & _M32
-    lo = counts & _M32
-    b0, b1 = _rounds(hi, lo, k0, k1, _t_rotl, _t_add)
+    counts = torch.arange(math.prod(shape), dtype=torch.int64,
+                          device=device)[None, :]
+    b0, b1 = _rounds((counts >> 32) & _M32, counts & _M32, k0, k1,
+                     _t_rotl, _t_add)
     return (b0 ^ b1).reshape(tuple(batch) + shape)
 
 

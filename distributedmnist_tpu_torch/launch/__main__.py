@@ -94,9 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def build_trainer(argv: list[str]):
+def build_trainer(argv: list[str], **trainer_kwargs):
     """Parse ``train`` arguments and construct (not run) the Trainer —
-    the object ``train`` runs, for callers that drive it in process."""
+    the object ``train`` runs, for callers that drive it in process
+    (``trainer_kwargs`` go to ``Trainer``)."""
     args = build_parser().parse_args(argv)
     if args.cmd != "train":
         raise SystemExit(f"build_trainer wants the train verb, got "
@@ -107,7 +108,7 @@ def build_trainer(argv: list[str]):
     cfg = (ExperimentConfig.from_file(args.config) if args.config
            else ExperimentConfig())
     cfg = cfg.override(parse_cli_overrides(args.overrides))
-    return Trainer(cfg, device=args.device)
+    return Trainer(cfg, device=args.device, **trainer_kwargs)
 
 
 def train(argv: list[str]) -> None:

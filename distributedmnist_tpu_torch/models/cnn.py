@@ -78,14 +78,14 @@ def dropout_mask(key, shape, rate: float, device=None) -> torch.Tensor:
 
 
 def apply(params: Params, images: torch.Tensor, *, train: bool = False,
-          dropout_key=None, dropout_keep: torch.Tensor | None = None,
+          dropout_keep: torch.Tensor | None = None,
           dropout_rate: float = 0.5,
           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Forward pass → float32 logits [batch, num_classes] from images
     [batch, H, W, C] in [-0.5, 0.5]. In training, dropout keeps
-    ``dropout_keep`` when given (``[batch, HIDDEN]``, drawn beforehand,
-    as the train step does for all replicas at once), else the mask
-    ``dropout_key`` draws."""
+    ``dropout_keep`` (``[batch, HIDDEN]`` bool, :func:`dropout_mask`
+    of the replica's key, drawn beforehand as the train step does for
+    all replicas at once)."""
     p = {k: {n: t.to(compute_dtype) for n, t in v.items()}
          for k, v in params.items()}
     x = images.to(compute_dtype).permute(0, 3, 1, 2)
@@ -94,14 +94,10 @@ def apply(params: Params, images: torch.Tensor, *, train: bool = False,
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
     x = torch.relu(x @ p["fc1"]["w"] + p["fc1"]["b"])
     if train and dropout_rate > 0.0:
-        keep = dropout_keep
-        if keep is None:
-            if dropout_key is None:
-                raise ValueError("train=True dropout requires dropout_key "
-                                 "or dropout_keep")
-            keep = dropout_mask(dropout_key, x.shape, dropout_rate, x.device)
+        if dropout_keep is None:
+            raise ValueError("train=True dropout requires dropout_keep")
         scale = float(np.float32(1.0 - dropout_rate))
-        x = torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
+        x = torch.where(dropout_keep, x / scale, torch.zeros((), dtype=x.dtype,
                                                      device=x.device))
     logits = x @ p["fc2"]["w"] + p["fc2"]["b"]
     return logits.float()

@@ -1,6 +1,6 @@
 """Model registry (≙ ``distributedmnist_tpu/models/registry.py``): the
-``mnist_cnn`` entry (train-mode apply with dropout, loss, accuracy,
-classification eval sums and the softmax export) and the
+``mnist_cnn`` entry (train-mode apply with dropout, loss, accuracy and
+classification eval sums) and the
 ``transformer`` entry (the same for a causal LM, plus the decode
 exports the serving replica builds on). ``resnet20`` and the
 transformer's mixture-of-experts FFNs raise "not ported yet".
@@ -72,11 +72,6 @@ def classification_eval_metrics(logits: torch.Tensor, labels: torch.Tensor,
     return (correct * w).sum(), (nll * w).sum(), w.sum()
 
 
-def classification_predictions(logits: torch.Tensor) -> torch.Tensor:
-    """Softmax class probabilities [batch, classes]."""
-    return torch.softmax(logits, dim=-1)
-
-
 def lm_eval_metrics(logits: torch.Tensor, labels: torch.Tensor,
                     weight: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -100,9 +95,9 @@ class Model:
       ``uint32[2]`` key (and a ``device``), the transformer a torch
       generator; ``init_params(seed, device)`` is the one spelling the
       train state uses (``model.init_seed``);
-    * ``apply(params, inputs, *, train=False, dropout_key=None,
-      dropout_keep=None) -> logits`` (the transformer has no dropout
-      and ignores both; gradients flow when autograd is on);
+    * ``apply(params, inputs, *, train=False, dropout_keep=None) ->
+      logits`` with the keep mask drawn beforehand (the transformer has
+      no dropout and ignores it; gradients flow when autograd is on);
     * ``dropout_masks(keys, rows, device)`` — the keep masks for
       ``rows`` examples a key (``[2]`` or ``[n, 2]``), None without
       dropout;
@@ -129,7 +124,6 @@ class Model:
     compute_dtype: torch.dtype
     dropout_masks: Callable[..., torch.Tensor] | None = None
     vmap_replicas: bool = False
-    predictions: Callable[..., torch.Tensor] | None = None
     loss: Callable[..., torch.Tensor] | None = None
     accuracy: Callable[..., torch.Tensor] | None = None
     eval_metrics: Callable[..., tuple] | None = None
@@ -151,23 +145,14 @@ def get_model(cfg: ModelConfig) -> Model:
 def _mnist_cnn(cfg: ModelConfig) -> Model:
     from . import cnn
     compute_dtype = torch_dtype(cfg.compute_dtype)
-    # cuDNN settings of the CNN path (process-wide): only deterministic
-    # convolution algorithms, so a seeded run repeats bit for bit as the
-    # reference's does; and float32 convolutions in float32, where
-    # cuDNN's default would round their inputs to TF32.
-    torch.backends.cudnn.deterministic = True
-    if compute_dtype == torch.float32:
-        torch.backends.cudnn.allow_tf32 = False
 
     def init(key, device=None):
         return cnn.init(key, image_size=cfg.image_size,
                         num_channels=cfg.num_channels,
                         num_classes=cfg.num_classes, device=device)
 
-    def apply(params, x, *, train=False, dropout_key=None,
-              dropout_keep=None):
-        return cnn.apply(params, x, train=train, dropout_key=dropout_key,
-                         dropout_keep=dropout_keep,
+    def apply(params, x, *, train=False, dropout_keep=None):
+        return cnn.apply(params, x, train=train, dropout_keep=dropout_keep,
                          dropout_rate=cfg.dropout_rate,
                          compute_dtype=compute_dtype)
 
@@ -182,7 +167,7 @@ def _mnist_cnn(cfg: ModelConfig) -> Model:
                  dropout_masks=(dropout_masks if cfg.dropout_rate > 0.0
                                 else None),
                  vmap_replicas=True,
-                 predictions=cnn.predictions, loss=cnn.loss_fn,
+                 loss=cnn.loss_fn,
                  accuracy=cnn.accuracy,
                  eval_metrics=classification_eval_metrics)
 
@@ -210,8 +195,8 @@ def _transformer(cfg: ModelConfig) -> Model:
             max_seq_len=cfg.seq_len)
 
     def apply(params, tokens, positions=None, *, train=False,
-              dropout_key=None, dropout_keep=None):
-        del train, dropout_key, dropout_keep  # the reference's has none
+              dropout_keep=None):
+        del train, dropout_keep  # the reference's has no dropout
         return transformer.apply(params, tokens, num_heads=cfg.num_heads,
                                  attention_fn=attention_fn,
                                  positions=positions,
@@ -237,8 +222,6 @@ def _transformer(cfg: ModelConfig) -> Model:
 
     return Model(name=cfg.name, init=init, init_params=init_params,
                  apply=apply, compute_dtype=compute_dtype,
-                 predictions=lambda logits: torch.softmax(
-                     lm_last_logits(logits), dim=-1),
                  loss=transformer.loss_fn,
                  accuracy=transformer.accuracy,
                  eval_metrics=lm_eval_metrics,

@@ -47,6 +47,7 @@ from torch.func import grad, vmap
 
 from ..core import prng
 from ..core.config import ExperimentConfig
+from ..core.device import cudnn_policy
 from ..core.log import get_logger
 from ..core.mesh import Topology, make_topology
 from ..models.registry import Model
@@ -180,7 +181,8 @@ def _f32_sum(values) -> _F32:
 
 
 def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
-                     topo: Topology | None = None
+                     topo: Topology | None = None, *,
+                     cudnn_deterministic: bool = True
                      ) -> Callable[..., tuple[TrainState, dict]]:
     """``step_fn(state, batch, measured_ms=None, discipline=None) ->
     (state, metrics)``. ``batch = {"image", "label"}`` is the global
@@ -189,7 +191,9 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
     the modeled step times (zeros when None); ``discipline`` the ``[3]``
     vector of :func:`make_discipline_vector` (the config's values when
     None). The state is updated IN PLACE (params, slots, window) and
-    returned.
+    returned. Each call runs under :func:`..core.device.cudnn_policy`:
+    cuDNN's deterministic algorithms unless ``cudnn_deterministic`` is
+    False, and no TF32 rounding when the model computes in float32.
 
     Metrics carry the reference's keys: ``loss`` and ``train_acc`` (the
     mean over replicas) are 0-d device tensors — reading them waits for
@@ -218,6 +222,7 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
     opt = optim_lib.make_optimizer(cfg.optim)
     default_disc = make_discipline_vector(k, sync.timeout_ms,
                                           sync.interval_ms)
+    tf32 = False if model.compute_dtype == torch.float32 else None
     zeros_ms = torch.zeros(n, dtype=torch.float32)
 
     def flags_for(t_ms: torch.Tensor, disc: torch.Tensor) -> torch.Tensor:
@@ -233,13 +238,12 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
     def replica_grads(state: TrainState, batch: dict, leaves: list):
         """Forward and backward of every replica, each on its row block
         with its own dropout mask: ``(loss, train_acc, grads)`` with the
-        loss and accuracy means over replicas and the gradients as one
-        flat bucket ``[n, P]`` (a row a replica) — or, for a lone
-        replica, its gradient leaves. Several replicas run as one
+        loss and accuracy means over replicas and the gradient leaves,
+        each ``[n, ...]`` (a row a replica). Several replicas run as one
         ``torch.func.vmap`` of ``grad`` over the replica axis (3.2× the
         speed of a loop over replicas at 8 × 128 CNN rows on an H100,
-        ``chip_smoke.py`` cnn phase); a lone replica runs autograd
-        directly, as the flash-attention ``autograd.Function`` needs."""
+        PERF.md); a lone replica runs autograd directly, as the
+        flash-attention ``autograd.Function`` needs."""
         xs, ys = topo.split_batch(batch["image"]), topo.split_batch(
             batch["label"])
         keep = None
@@ -255,20 +259,13 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                 logits = model.apply(state.params, xs[0], train=True,
                                      dropout_keep=keep)
                 loss = model.loss(logits, ys[0])
-                grads = [g.float() for g in
+                grads = [g.float()[None] for g in
                          torch.autograd.grad(loss, leaves)]
             finally:
                 for p in leaves:
                     p.requires_grad_(False)
-            with torch.no_grad():
-                if sync.drop_connect:
-                    grads = drop_connect_grads(
-                        grads, prng.replica_key(state.root_key,
-                                                "drop_connect", state.step,
-                                                0),
-                        sync.drop_connect_probability)
-                return (loss.detach(),
-                        model.accuracy(logits.detach(), ys[0]), grads)
+            return (loss.detach(), model.accuracy(logits.detach(), ys[0]),
+                    grads)
 
         def replica_loss(params, x, y, k):
             logits = model.apply(params, x, train=True, dropout_keep=k)
@@ -279,18 +276,19 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
             grad(replica_loss, has_aux=True),
             in_dims=(None, 0, 0, None if keep is None else 0))(
                 state.params, xs, ys, keep)
-        with torch.no_grad():
-            grads = [g.float() for g in tree_leaves(grads)]  # [n, ...]
-            if sync.drop_connect:
-                dckeys = prng.replica_keys(state.root_key, "drop_connect",
-                                           state.step, n)
-                for r in range(n):
-                    for g, m in zip(grads, drop_connect_grads(
-                            [g[r] for g in grads], dckeys[r],
-                            sync.drop_connect_probability)):
-                        g[r] = m
-            return (losses.mean(), accs.mean(),
-                    masked_psum.flatten_replicas(grads))
+        return (losses.mean(), accs.mean(),
+                [g.float() for g in tree_leaves(grads)])
+
+    def drop_connect(state: TrainState, grads: list) -> None:
+        """Mask each replica's gradient leaves in place with its
+        ``replica_key(root, "drop_connect", step, r)``."""
+        keys = prng.replica_keys(state.root_key, "drop_connect", state.step,
+                                 n)
+        for r in range(n):
+            for g, m in zip(grads, drop_connect_grads(
+                    [g[r] for g in grads], keys[r],
+                    sync.drop_connect_probability)):
+                g[r] = m
 
     def apply_update(state: TrainState, leaves: list, grads: list,
                      lr: float) -> None:
@@ -326,6 +324,11 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
     def step_fn(state: TrainState, batch: dict,
                 measured_ms=None, discipline=None
                 ) -> tuple[TrainState, dict]:
+        with cudnn_policy(cudnn_deterministic, tf32):
+            return step(state, batch, measured_ms, discipline)
+
+    def step(state: TrainState, batch: dict, measured_ms, discipline
+             ) -> tuple[TrainState, dict]:
         disc = (default_disc if discipline is None
                 else torch.as_tensor(discipline, dtype=torch.float32).cpu())
         meas = (zeros_ms if measured_ms is None
@@ -336,6 +339,11 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
         # -- per-replica gradients (queued on the device first) ---------
         leaves = tree_leaves(state.params)
         loss, train_acc, grads = replica_grads(state, batch, leaves)
+        with torch.no_grad():
+            if sync.drop_connect:
+                drop_connect(state, grads)
+            if n > 1:
+                bucket = masked_psum.flatten_replicas(grads)
         # -- modeled times and flags, on the host while the device runs
         # the backward (they need no gradient) --------------------------
         t_ms = policies.sample_step_time_ms(sync, state.root_key,
@@ -349,11 +357,11 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
         with torch.no_grad():
             if n > 1:
                 mean = masked_psum.unflatten_like(
-                    masked_psum.masked_mean(grads, scale.numpy(), topo),
+                    masked_psum.masked_mean(bucket, scale.numpy(), topo),
                     leaves)
             else:
                 s = float(scale[0])
-                mean = grads if s == 1.0 else [g * s for g in grads]
+                mean = [g[0] if s == 1.0 else g[0] * s for g in grads]
             if mode == "interval":
                 applied = interval_apply(
                     state, leaves, mean, t_ms.numpy(),
@@ -384,17 +392,22 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
     return step_fn
 
 
-def build_eval_step(model: Model, cfg: ExperimentConfig) -> Callable:
+def build_eval_step(model: Model, cfg: ExperimentConfig, *,
+                    cudnn_deterministic: bool = True) -> Callable:
     """``eval_fn(params, batch) -> (correct_sum, loss_sum, weight_sum)``
     over ``batch = {"image", "label", "weight"}`` (padded rows carry
-    weight 0); no autograd, so attention runs the forward kernel K1."""
+    weight 0); no autograd, so attention runs the forward kernel K1.
+    cuDNN runs under the train step's policy."""
     del cfg
     if model.eval_metrics is None:
         raise ValueError(f"model {model.name!r} has no eval_metrics")
+    tf32 = False if model.compute_dtype == torch.float32 else None
 
     @torch.no_grad()
     def eval_fn(params, batch):
-        logits = model.apply(params, batch["image"])
-        return model.eval_metrics(logits, batch["label"], batch["weight"])
+        with cudnn_policy(cudnn_deterministic, tf32):
+            logits = model.apply(params, batch["image"])
+            return model.eval_metrics(logits, batch["label"],
+                                      batch["weight"])
 
     return eval_fn

@@ -120,11 +120,14 @@ class Trainer:
 
     ``device`` defaults to ``cuda:0`` (an error without CUDA); the tests
     pass ``"cpu"``, where the attention kernels run their plain
-    versions."""
+    versions. Its steps run cuDNN's deterministic algorithms unless
+    ``cudnn_deterministic`` is False (set for each step and restored
+    after it, :func:`..core.device.cudnn_policy`)."""
 
     def __init__(self, cfg: ExperimentConfig,
                  datasets: Datasets | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, *,
+                 cudnn_deterministic: bool = True):
         _check_loop_knobs(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -143,9 +146,11 @@ class Trainer:
         self.schedule = make_schedule(cfg, self.datasets.train.num_examples,
                                       self.effective_batch,
                                       resolve_aggregate_k(cfg.sync, n))
-        self.step_fn = build_train_step(self.model, cfg, self.schedule,
-                                        self.topo)
-        self.eval_fn = build_eval_step(self.model, cfg)
+        self.step_fn = build_train_step(
+            self.model, cfg, self.schedule, self.topo,
+            cudnn_deterministic=cudnn_deterministic)
+        self.eval_fn = build_eval_step(
+            self.model, cfg, cudnn_deterministic=cudnn_deterministic)
         self.state: TrainState = init_train_state(self.model, cfg,
                                                   self.device)
         self.train_iter = make_train_iterator(self.datasets.train, cfg.data,

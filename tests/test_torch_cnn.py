@@ -87,8 +87,9 @@ def _both(params, x, y, dtype, train):
     leaves = [pp[k][n] for k in sorted(pp) for n in sorted(pp[k])]
     for t in leaves:
         t.requires_grad_(True)
+    keep = cnn.dropout_mask(prng.PRNGKey(9), (x.shape[0], cnn.HIDDEN), 0.5)
     logits = cnn.apply(pp, torch.from_numpy(x), train=train,
-                       dropout_key=prng.PRNGKey(9) if train else None,
+                       dropout_keep=keep if train else None,
                        compute_dtype=tdt)
     loss = cnn.loss_fn(logits, torch.from_numpy(y))
     grads = torch.autograd.grad(loss, leaves)
@@ -150,7 +151,6 @@ def test_registry_entry_matches_reference():
     port = get_model(ModelConfig(**cfg))
     ref = ref_registry.get_model(RefModelConfig(**cfg))
     assert port.dropout_masks is not None and port.vmap_replicas
-    assert port.predictions is not None
     params = ref.init(jax.random.PRNGKey(1))
     x, y = _batch(n=4, size=12, seed=3)
     want = ref.apply(params, jnp.asarray(x), train=True,
@@ -158,8 +158,55 @@ def test_registry_entry_matches_reference():
     got = port.apply(params_from_reference(jax.device_get(params),
                                            device="cpu"),
                      torch.from_numpy(x), train=True,
-                     dropout_key=prng.PRNGKey(2))
+                     dropout_keep=port.dropout_masks(prng.PRNGKey(2), 4,
+                                                     "cpu"))
     _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("dtype,deterministic",
+                         [("float32", True), ("bfloat16", False)])
+def test_cudnn_policy_is_scoped_to_each_step(monkeypatch, dtype,
+                                             deterministic):
+    """Building the model and the steps changes no cuDNN setting; each
+    train and eval step runs its convolutions under the step's policy
+    (deterministic algorithms as asked; no TF32 in float32) and restores
+    the settings after it."""
+    from distributedmnist_tpu_torch.core.config import ExperimentConfig
+    from distributedmnist_tpu_torch.parallel import api
+    from distributedmnist_tpu_torch.train import lr_schedule
+    cudnn = torch.backends.cudnn
+    monkeypatch.setattr(cudnn, "deterministic", not deterministic)
+    monkeypatch.setattr(cudnn, "allow_tf32", True)
+    cfg = ExperimentConfig.from_dict(
+        {"model": {"name": "mnist_cnn", "image_size": 12,
+                   "compute_dtype": dtype},
+         "data": {"dataset": "synthetic", "batch_size": 4},
+         "mesh": {"num_replicas": 2}, "sync": {"mode": "sync"}})
+    model = get_model(cfg.model)
+    step = api.build_train_step(model, cfg, lr_schedule.constant(0.1),
+                                cudnn_deterministic=deterministic)
+    evaluate = api.build_eval_step(model, cfg,
+                                   cudnn_deterministic=deterministic)
+    assert (cudnn.deterministic, cudnn.allow_tf32) == (not deterministic,
+                                                       True)
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def probe(*args, **kwargs):
+        seen.append((cudnn.deterministic, cudnn.allow_tf32))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", probe)
+    x, y = _batch(n=4, size=12, seed=5)
+    state = api.init_train_state(model, cfg, torch.device("cpu"))
+    step(state, {"image": torch.from_numpy(x), "label": torch.from_numpy(y)})
+    evaluate(state.params, {"image": torch.from_numpy(x),
+                            "label": torch.from_numpy(y),
+                            "weight": torch.ones(4)})
+    want = (deterministic, dtype != "float32")
+    assert len(seen) == 4 and all(s == want for s in seen)
+    assert (cudnn.deterministic, cudnn.allow_tf32) == (not deterministic,
+                                                       True)
 
 
 def test_odd_sizes_pool_like_same_padding():

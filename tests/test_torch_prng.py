@@ -9,6 +9,10 @@ the scale and shift into one rounding), ``bernoulli``, ``gumbel``,
 ``categorical``, ``normal`` and ``truncated_normal``. The last four rest
 on XLA's own float32 ``log``, ``log1p`` and ``erf_inv``, which the port
 writes out; those are also held bitwise on 400k inputs each.
+
+Random bits come from one implementation, the torch int64 threefry
+rounds, on the CPU and on the card alike; so these CPU tests hold the
+code the card runs, batches of keys (one per replica) included.
 """
 
 import jax
@@ -81,6 +85,29 @@ def test_batched_keys_draw_each_keys_bits():
             got[r].numpy(),
             np.asarray(jax.random.bernoulli(jnp.asarray(keys[r]), 0.5,
                                             (4, 6))))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_batched_keys_are_bitwise(shape):
+    """A batch of replica keys (the per-replica dropout, straggler and
+    drop-connect draws) gives, key by key, jax's bits, uniforms and
+    normals."""
+    for step in range(4):
+        keys = prng.replica_keys(prng.PRNGKey(step), "straggler", step, 8)
+        bits = prng.random_bits(keys, shape, "cpu")
+        u = prng.uniform(keys, shape, 0.0, 1e-3, "cpu")
+        z = prng.normal(keys, shape, "cpu")
+        assert bits.shape == (8,) + shape
+        for r in range(8):
+            jk = jnp.asarray(keys[r])
+            np.testing.assert_array_equal(
+                np.asarray(jax.random.bits(jk, shape)),
+                bits[r].numpy().astype(np.uint32))
+            np.testing.assert_array_equal(
+                _bits(jax.random.uniform(jk, shape, jnp.float32, 0.0, 1e-3)),
+                _bits(u[r].numpy()))
+            np.testing.assert_array_equal(_bits(jax.random.normal(jk, shape)),
+                                          _bits(z[r].numpy()))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
