@@ -17,7 +17,10 @@ random weights from a seed:
   run at seq_len 64, where the backward takes the fused kernel K4;
 * decode serving — ``launch serve --decode``'s replica (8 decode slots,
   16-token blocks, 320 blocks, prompts up to 512, up to 64 new tokens)
-  serving the checkpoint the training phase wrote.
+  serving the checkpoint the training phase wrote;
+
+and the MNIST CNN's sync SGD (the source paper's path) at its published
+widths, on one process and across worker processes.
 
 One JSON line per phase:
 
@@ -88,7 +91,33 @@ One JSON line per phase:
                 convolution's setting read as it runs; cuDNN's
                 process-wide settings the same after the phase as
                 before it.
-7. ``e2e``      — boots the decode replica on the training phase's
+7. ``dist``     — the CNN's sync SGD across worker processes, each a
+                ``python -c`` child with ``torchrun``'s environment
+                (free localhost port) that imports only the port, builds
+                the Trainer through the CLI's ``build_trainer`` and is
+                killed when a sibling fails or the group outlives
+                ``DIST_CHILD_TIMEOUT_S``: one NCCL process with 8
+                replicas at global batch 4096, bf16, sync, 5 steps —
+                params digest equal to the same run on the simulated
+                topology in a fresh process with no group, and
+                ``step_fn``'s ms a step both ways (host clock around 5
+                steps on one batch, ending in a synchronize); two gloo processes on ``cuda:0`` — quorum
+                k=4 over the measured host times with rank 1 sleeping
+                250 ms a batch (flags ``[1,1,1,1,0,0,0,0]`` from step 2
+                on both ranks, digests equal), ms a step at batch 4096
+                (gloo stages through host memory: not an NCCL number),
+                and 3 float32 full-batch steps within ``DIST_F32_TOL``
+                of each leaf's norm of the simulated 8-replica run; two
+                NCCL ranks on one card refused; two NCCL processes on two
+                cards where there are two (else null with the card
+                count); in this process, the adaptive discipline
+                (tests/test_discipline.py's spike case, 14 steps) on the
+                card against the CPU (equal records and flags, a change
+                at least) and the device-skew probe (a float32
+                ``a@a@a`` on [640, 640] queued for replica 3 after every
+                step: quorum k=7 leaves it out); the K1-K5 counters 0 in
+                this process and every child.
+8. ``e2e``      — boots the decode replica on the training phase's
                 checkpoint through the CLI's ``build_decode_replica``,
                 streams 8 concurrent greedy requests over its socket,
                 and checks:
@@ -118,6 +147,9 @@ import dataclasses
 import functools
 import json
 import math
+import os
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -214,6 +246,13 @@ CNN = {"name": "chip_smoke_cnn",
 # entry elsewhere, up to ~2e-4 of the smallest leaf's norm on the CPU
 # (tests/test_torch_sync_modes.py)
 CNN_CARD_VS_CPU_TOL = 1e-3
+# the dist phase: worker processes in a process group (torchrun's
+# environment), each killed if the group outlives DIST_CHILD_TIMEOUT_S
+DIST_STEPS, DIST_TIMED, DIST_SLEEP_MS = 5, 5, 250.0
+DIST_CHILD_TIMEOUT_S = 150
+# two ranks against the simulated run, 3 float32 full-batch steps:
+# ||Δ|| / ||simulated|| per param leaf (the replicas' sums reassociate)
+DIST_F32_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -1482,6 +1521,335 @@ def phase_cnn(tmp: str) -> dict:
     return rec
 
 
+# -- phase 7: sync SGD across worker processes --------------------------------
+
+_DIST_CHILD = r"""
+import json, os, sys, time
+import torch
+from distributedmnist_tpu_torch.core.mesh import (initialize_distributed,
+                                                  shutdown_distributed)
+spec = json.loads(os.environ["DMT_SPEC"])
+rank = int(os.environ.get("RANK", 0))
+if spec["backend"]:
+    initialize_distributed(spec["backend"], spec["device"], timeout_s=120)
+try:
+    import torch.distributed as dist
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+    from distributedmnist_tpu_torch.ops import flash_attention as fa
+    from distributedmnist_tpu_torch.ops.paged_attention import paged_attention
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    grouped = dist.is_initialized()
+    out = {"backend": dist.get_backend() if grouped else None,
+           "world": dist.get_world_size() if grouped else 1, "runs": {}}
+    for run in spec["runs"]:
+        t = build_trainer(["train", "--config", spec["config"],
+                           *run["overrides"], "--device", spec["device"]])
+        if run.get("sleep_ms") and rank == 1:
+            # a real slowdown of this process's host loop
+            base, secs = t.train_iter, run["sleep_ms"] / 1e3
+            def slow(base=base, secs=secs):
+                while True:
+                    time.sleep(secs)
+                    yield next(base)
+            t.train_iter = slow()
+        flags = []
+        summary = t.run(step_callback=lambda s, r: flags.append(r["flags"]))
+        res = {"flags": flags, "digest": summary["params_digest"],
+               "device": str(t.device), "times": t.collector.matrix().tolist()}
+        if run.get("timed"):
+            b = to_device(next(t.train_iter), t.device)
+            state = t.state
+            for _ in range(2):
+                state, _ = t.step_fn(state, b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(run["timed"]):
+                state, m = t.step_fn(state, b)
+            torch.cuda.synchronize()
+            res["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / run["timed"]
+        if run.get("save_params"):
+            torch.save([p.detach().cpu() for p in tree_leaves(t.state.params)],
+                       f"{run['save_params']}.{rank}.pt")
+        out["runs"][run["name"]] = res
+    out["kernel_launches"] = sum(
+        f.launches for f in (fa.flash_attention_bshd,
+                             fa.flash_attention_fwd_lse,
+                             fa.flash_attention_bwd_dq,
+                             fa.flash_attention_bwd_dkv,
+                             fa.flash_attention_bwd_fused, paged_attention))
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(out, f)
+finally:
+    shutdown_distributed()
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_launch(tmp: str, name: str, backend: str, devices: list,
+                 runs: list, kill_on_failure: bool = True
+                 ) -> tuple[list, list, list]:
+    """Start one worker process a device in ``devices`` (torchrun's
+    environment, a free port on localhost; no group and no such
+    environment when ``backend`` is None), each in its own session;
+    wait for all of them, killing every one when one fails (unless
+    ``kill_on_failure`` is False) or the group outlives
+    ``DIST_CHILD_TIMEOUT_S``. Returns (exit codes, results, log
+    tails)."""
+    with open(f"{tmp}/dist_cnn.json", "w") as f:
+        json.dump(CNN, f)
+    port, world, procs = _free_port(), len(devices), []
+    for rank, dev in enumerate(devices):
+        spec = {"backend": backend, "device": dev, "runs": runs,
+                "config": f"{tmp}/dist_cnn.json", "out": f"{tmp}/{name}"}
+        env = dict(os.environ, DMT_SPEC=json.dumps(spec))
+        if backend:
+            env.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                       WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        with open(f"{tmp}/{name}.{rank}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _DIST_CHILD], env=env,
+                stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True))
+    deadline = time.monotonic() + DIST_CHILD_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = any(p.poll() not in (None, 0) for p in procs)
+            if (failed and kill_on_failure) or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    results, tails = [], []
+    for rank, p in enumerate(procs):
+        path = f"{tmp}/{name}.{rank}.json"
+        if p.returncode == 0 and os.path.exists(path):
+            with open(path) as f:
+                results.append(json.load(f))
+        else:
+            results.append(None)
+        with open(f"{tmp}/{name}.{rank}.log") as f:
+            tails.append(f.read()[-2000:])
+    return [p.returncode for p in procs], results, tails
+
+
+def _dist_group(tmp: str, name: str, backend: str, devices: list,
+                runs: list) -> list:
+    """:func:`_dist_launch` that must succeed, on the backend (None: no
+    group) and devices asked for."""
+    rcs, results, tails = _dist_launch(tmp, name, backend, devices, runs)
+    check(all(rc == 0 for rc in rcs), f"{name}: exit codes {rcs}, logs "
+                                      f"{tails}")
+    for res, dev in zip(results, devices):
+        check(res["backend"] == backend and res["world"] == len(devices)
+              and all(r["device"] == dev for r in res["runs"].values()),
+              f"{name}: ran on {res['backend']}, world {res['world']}, "
+              f"devices {[r['device'] for r in res['runs'].values()]}")
+    return results
+
+
+def _discipline_records(train_dir: str) -> tuple[list, list]:
+    """The discipline records of a train log without the clock's fields,
+    and its step records' flags."""
+    with open(f"{train_dir}/train_log.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    disc = [{k: v for k, v in r.items()
+             if k not in ("time", "reaction_s", "ts")}
+            for r in log if r.get("event") == "discipline"]
+    return disc, [r["flags"] for r in log if r.get("event") == "step"]
+
+
+def _dist_adaptive(tmp: str) -> dict:
+    """tests/test_discipline.py's end-to-end case (quorum, adaptive,
+    window 4, cooldown 4, spike p=0.25 ×8, 14 steps, 8 simulated
+    replicas) on the card and on the CPU."""
+    args = ("mesh.num_replicas=8", "data.batch_size=64",
+            "data.synthetic_train_size=1024", "model.compute_dtype=float32",
+            "sync.mode=quorum", "sync.adaptive=true",
+            "sync.adaptive_window_steps=4", "sync.adaptive_cooldown_steps=4",
+            "sync.straggler_profile=spike", "sync.straggler_spike_prob=0.25",
+            "sync.straggler_spike_scale=8.0", "train.max_steps=14",
+            "train.log_every_steps=1")
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        tr = _cnn_trainer(tmp, f"adaptive_{dev}", *args, device=dev)
+        summary = tr.run()
+        out[dev] = (summary["discipline"],
+                    *_discipline_records(f"{tmp}/adaptive_{dev}"))
+    (s_gpu, d_gpu, f_gpu), (s_cpu, d_cpu, f_cpu) = out[DEVICE], out["cpu"]
+    rec = {"changes": s_gpu["changes"], "trace": s_gpu["trace"],
+           "records_equal_cpu": d_gpu == d_cpu,
+           "flags_equal_cpu": f_gpu == f_cpu}
+    check(s_gpu["changes"] >= 1 and d_gpu == d_cpu and f_gpu == f_cpu
+          and s_gpu == s_cpu, f"adaptive on the card: {rec}")
+    return rec
+
+
+def _dist_device_skew(tmp: str) -> dict:
+    """tests/test_train_smoke.py's injection: a float32 a@a@a on
+    [640, 640] queued for replica 3 after every step, quorum k=7,
+    sync.measure_device_skew."""
+    import torch
+    tr = _cnn_trainer(tmp, "device_skew", "mesh.num_replicas=8",
+                      f"data.batch_size={CNN_DISC_BATCH}",
+                      f"data.synthetic_train_size={2 * CNN_DISC_BATCH}",
+                      "sync.mode=quorum", "sync.num_replicas_to_aggregate=7",
+                      "sync.straggler_profile=none",
+                      "sync.measure_device_skew=true", "train.max_steps=6")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    a = torch.randn(640, 640, device=tr.device, generator=gen)
+    tr.device_work_injection = {3: (lambda x: x @ x @ x, a)}
+    flags = tr.run()["last_metrics"]["flags"]
+    rec = {"flags": flags, "last_skew_ms": tr._last_device_skew.tolist()}
+    check(flags[3] == 0 and sum(flags) == 7, f"device skew: {rec}")
+    return rec
+
+
+# the dist phase's runs: bench_cnn_sync's shape over 8 replicas; a
+# quorum over measured host times; float32 full-batch steps, dropout 0
+DIST_BIG = ["mesh.num_replicas=8", f"train.max_steps={DIST_STEPS}"]
+DIST_QUORUM = ["mesh.num_replicas=8", f"data.batch_size={CNN_DISC_BATCH}",
+               f"data.synthetic_train_size={2 * CNN_DISC_BATCH}",
+               "sync.mode=quorum", "sync.num_replicas_to_aggregate=4",
+               "sync.straggler_profile=none", f"train.max_steps={DIST_STEPS}"]
+DIST_F32 = ["mesh.num_replicas=8", f"data.batch_size={CNN_DISC_BATCH}",
+            f"data.synthetic_train_size={CNN_DISC_BATCH}",
+            "model.compute_dtype=float32", "model.dropout_rate=0.0",
+            "train.max_steps=3"]
+# from step 2 on (the first ranked on a measured time) rank 1's
+# replicas, slowed by its sleep, are out of the k=4 quorum
+DIST_QUORUM_FLAGS = [1, 1, 1, 1, 0, 0, 0, 0]
+
+
+def _dist_world1(tmp: str) -> tuple[dict, int]:
+    """One NCCL process against the simulated topology (a fresh process
+    with no group, timed the same way): the same sums, so the same
+    params. Returns (record, the children's K1-K5 launches)."""
+    w1, sim = (_dist_group(tmp, name, backend, ["cuda:0"], [
+        {"name": "sync", "timed": DIST_TIMED,
+         "overrides": DIST_BIG + [f"train.train_dir={tmp}/{name}"]}])[0]
+        for name, backend in (("nccl_world1", "nccl"), ("simulated", None)))
+    rec = {"digest_equal": w1["runs"]["sync"]["digest"]
+           == sim["runs"]["sync"]["digest"],
+           "ms_per_step": w1["runs"]["sync"]["ms_per_step"],
+           "simulated_ms_per_step": sim["runs"]["sync"]["ms_per_step"]}
+    rec["process_group_ms_per_step"] = (rec["ms_per_step"]
+                                        - rec["simulated_ms_per_step"])
+    check(rec["digest_equal"], f"nccl world 1 vs simulated: {rec}")
+    return rec, w1["kernel_launches"] + sim["kernel_launches"]
+
+
+def _dist_gloo_one_card(tmp: str) -> tuple[dict, int]:
+    """Two gloo processes on ``cuda:0``: the measured-time quorum with
+    rank 1 sleeping, ms a step at batch 4096, and 3 float32 steps
+    against the simulated 8-replica run in this process."""
+    import torch
+
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    two = _dist_group(tmp, "gloo_one_card", "gloo", ["cuda:0", "cuda:0"], [
+        {"name": "quorum", "sleep_ms": DIST_SLEEP_MS,
+         "overrides": DIST_QUORUM + [f"train.train_dir={tmp}/g_q"]},
+        {"name": "sync", "timed": DIST_TIMED,
+         "overrides": DIST_BIG + [f"train.train_dir={tmp}/g_s"]},
+        {"name": "f32", "save_params": f"{tmp}/g_f32",
+         "overrides": DIST_F32 + [f"train.train_dir={tmp}/g_f"]}])
+    q0, q1 = two[0]["runs"]["quorum"], two[1]["runs"]["quorum"]
+    sim = _cnn_trainer(tmp, "dist_sim_f32", *DIST_F32)
+    sim.run()
+    ref = [p.detach().cpu() for p in tree_leaves(sim.state.params)]
+    f32_err = max(
+        max(float((a - b).norm() / b.norm()) for a, b in zip(
+            torch.load(f"{tmp}/g_f32.{r}.pt"), ref)) for r in range(2))
+    rec = {"quorum_flags": q0["flags"],
+           "quorum_flags_equal_ranks": q0["flags"] == q1["flags"],
+           "quorum_digests_equal": q0["digest"] == q1["digest"],
+           "measured_ms_last_step": q0["times"][-1],
+           "sync_digests_equal": two[0]["runs"]["sync"]["digest"]
+           == two[1]["runs"]["sync"]["digest"],
+           "ms_per_step_gloo_through_host":
+               two[0]["runs"]["sync"]["ms_per_step"],
+           "f32_param_rel_err": f32_err, "f32_tol": DIST_F32_TOL}
+    check(all(f == DIST_QUORUM_FLAGS for f in q0["flags"][1:])
+          and rec["quorum_flags_equal_ranks"]
+          and rec["quorum_digests_equal"] and rec["sync_digests_equal"],
+          f"gloo two ranks on one card: {rec}")
+    check(f32_err <= DIST_F32_TOL, f"two ranks vs simulated, float32: "
+                                   f"{f32_err} > {DIST_F32_TOL}")
+    return rec, sum(r["kernel_launches"] for r in two)
+
+
+def _dist_nccl_shared_refused(tmp: str) -> bool:
+    """Two NCCL ranks on one card are refused before the group is
+    made."""
+    rcs, _, tails = _dist_launch(tmp, "nccl_shared", "nccl",
+                                 ["cuda:0", "cuda:0"], [],
+                                 kill_on_failure=False)
+    refused = all(rc != 0 for rc in rcs) and all(
+        "one card per rank" in t for t in tails)
+    check(refused, f"two NCCL ranks on one card: exit codes {rcs}, {tails}")
+    return refused
+
+
+def _dist_nccl_two(tmp: str) -> tuple[dict, int]:
+    """Two NCCL processes, one card each, where there are two cards (the
+    gloo quorum case and ms a step at batch 4096); null with one."""
+    import torch
+    cards = torch.cuda.device_count()
+    rec = {"cards": cards, "ms_per_step": None}
+    if cards < 2:
+        return rec, 0
+    pair = _dist_group(tmp, "nccl_two", "nccl", ["cuda:0", "cuda:1"], [
+        {"name": "quorum", "sleep_ms": DIST_SLEEP_MS,
+         "overrides": DIST_QUORUM + [f"train.train_dir={tmp}/n_q"]},
+        {"name": "sync", "timed": DIST_TIMED,
+         "overrides": DIST_BIG + [f"train.train_dir={tmp}/n_s"]}])
+    n0, n1 = pair[0]["runs"]["quorum"], pair[1]["runs"]["quorum"]
+    rec.update(quorum_flags=n0["flags"],
+               measured_ms_last_step=n0["times"][-1],
+               ms_per_step=pair[0]["runs"]["sync"]["ms_per_step"])
+    check(all(f == DIST_QUORUM_FLAGS for f in n0["flags"][1:])
+          and n0["flags"] == n1["flags"] and n0["digest"] == n1["digest"]
+          and pair[0]["runs"]["sync"]["digest"]
+          == pair[1]["runs"]["sync"]["digest"], f"nccl two ranks: {rec}")
+    return rec, sum(r["kernel_launches"] for r in pair)
+
+
+def phase_dist(tmp: str) -> dict:
+    """The CNN's sync SGD across worker processes, at its published
+    widths: one NCCL process against the simulated replicas, two gloo
+    processes on one card, two NCCL processes when there are two cards;
+    then the adaptive discipline and the device-skew probe in process."""
+    t_phase = time.time()
+    reset_counts()
+    world1, l1 = _dist_world1(tmp)
+    gloo, l2 = _dist_gloo_one_card(tmp)
+    refused = _dist_nccl_shared_refused(tmp)
+    nccl2, l3 = _dist_nccl_two(tmp)
+    adaptive = _dist_adaptive(tmp)
+    skew = _dist_device_skew(tmp)
+    counts = read_counts()
+    rec = {"phase": "dist", "batch": CNN_BATCH, "dtype": "bfloat16",
+           "nccl_world1": world1, "gloo_two_ranks_one_card": gloo,
+           "nccl_shared_card_refused": refused, "nccl_two_ranks": nccl2,
+           "adaptive": adaptive, "device_skew": skew,
+           "flash_paged_kernel_launches": counts,
+           "child_flash_paged_kernel_launches": l1 + l2 + l3,
+           "seconds": time.time() - t_phase}
+    emit(rec)
+    check(all(v == 0 for v in counts.values()) and l1 + l2 + l3 == 0,
+          f"launches {counts}, children {l1 + l2 + l3}")
+    return rec
+
+
 def phase_e2e(train_dir: str, tmp: str) -> dict:
     """Serve the checkpoint the training phase published."""
     import numpy as np
@@ -1609,6 +1977,8 @@ def main() -> int:
             runs["train_k4"] = phase_train_k4(tmp)
             phase = "cnn"
             runs["cnn"] = phase_cnn(tmp)
+            phase = "dist"
+            runs["dist"] = phase_dist(tmp)
             phase = "e2e"
             e2e = runs["e2e"] = phase_e2e(train["train_dir"], tmp)
     except Exception as e:  # report the failing phase, then fail

@@ -3,9 +3,11 @@
 single-device placement that joins no collective).
 
 The port runs on the GPU. An entry point that is handed no device
-takes ``cuda:0``; on a machine without CUDA that is an error, never a
-silent fall back to the CPU — a CPU run is only ever one the caller
-asked for (``device="cpu"``, as the tests do). The train and eval steps
+takes ``cuda:0`` — or ``cuda:$LOCAL_RANK`` in a process that
+``torchrun`` started, one card per process; on a machine without CUDA
+that is an error, never a silent fall back to the CPU — a CPU run is
+only ever one the caller asked for (``device="cpu"``, as the tests
+do). The train and eval steps
 set cuDNN's policy for the span of each call (:func:`cudnn_policy`),
 so building a model or a step changes no process-wide setting.
 """
@@ -13,17 +15,21 @@ so building a model or a step changes no process-wide setting.
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
 
 def resolve_device(requested: str | torch.device | None = None
                    ) -> torch.device:
-    """``None`` → ``cuda:0``; an explicit device is taken as given.
+    """``None`` → ``cuda:$LOCAL_RANK`` (``cuda:0`` when unset); an
+    explicit device is taken as given.
 
     Raises ``RuntimeError`` when a CUDA device is wanted (by default or
     by name) and CUDA is not available."""
-    dev = torch.device("cuda:0" if requested is None else requested)
+    if requested is None:
+        requested = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    dev = torch.device(requested)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

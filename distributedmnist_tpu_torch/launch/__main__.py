@@ -3,14 +3,22 @@
 
   python -m distributedmnist_tpu_torch.launch train --config C.json \\
       [section.key=value ...] [--device cpu]
+  torchrun --nproc-per-node P -m distributedmnist_tpu_torch.launch train \\
+      --config C.json mesh.num_replicas=N ... [--dist-backend nccl|gloo]
   python -m distributedmnist_tpu_torch.launch serve --decode \\
       --train-dir D --serve-dir S [--device cpu] [decode/serve flags]
 
-``train`` builds the single-device :class:`~..train.loop.Trainer` from
-the config and its dotted overrides, runs it, evaluates the test split
-and prints the reference's last line ``{"summary": ..., "test": ...}``
-(a SIGTERM/SIGINT mid-run flushes a checkpoint, prints the summary
-alone and exits with ``train.resumable_exit_code``). ``serve --decode``
+``train`` builds the :class:`~..train.loop.Trainer` from the config and
+its dotted overrides, runs it, evaluates the test split and prints the
+reference's last line ``{"summary": ..., "test": ...}`` (a SIGTERM/
+SIGINT mid-run flushes a checkpoint, prints the summary alone and exits
+with ``train.resumable_exit_code``). Under ``torchrun`` (``WORLD_SIZE``
+set) it first joins the process group
+(:func:`~..core.mesh.initialize_distributed`): the replicas split
+evenly over the processes, one device each (``cuda:$LOCAL_RANK``, or
+``--device``), ``--dist-backend`` ``nccl`` on the card and ``gloo`` on
+the CPU by default; every rank prints the last line, and the group is
+torn down on every exit. ``serve --decode``
 boots a :class:`~..servesvc.decode.DecodeReplica` on the newest
 loadable checkpoint in ``D`` (adopting the run config saved in it),
 serves until SIGTERM/SIGINT, and drains. The flag names are the
@@ -36,12 +44,18 @@ _DECODE_FLAGS = ("decode_slots", "max_new_tokens", "max_prompt_len",
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="distributedmnist_tpu_torch.launch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    pt = sub.add_parser("train", help="run a training experiment on one "
-                                      "device")
+    pt = sub.add_parser("train", help="run a training experiment (one "
+                                      "process, or one a device under "
+                                      "torchrun)")
     pt.add_argument("--config", default=None)
     pt.add_argument("--device", default=None,
-                    help="torch device (default cuda:0; 'cpu' runs the "
-                         "plain versions of the kernels)")
+                    help="torch device (default cuda:$LOCAL_RANK, else "
+                         "cuda:0; 'cpu' runs the plain versions of the "
+                         "kernels)")
+    pt.add_argument("--dist-backend", dest="dist_backend", default=None,
+                    choices=("nccl", "gloo"),
+                    help="process-group backend under torchrun (default "
+                         "nccl on a CUDA device, gloo on the CPU)")
     pt.add_argument("overrides", nargs="*", help="dotted overrides k=v")
     pv = sub.add_parser(
         "serve", help="decode replica: serve a published causal-LM "
@@ -112,16 +126,25 @@ def build_trainer(argv: list[str], **trainer_kwargs):
 
 
 def train(argv: list[str]) -> None:
-    """``launch train``: run, evaluate, print the summary line."""
-    trainer = build_trainer(argv)
-    summary = trainer.run()
-    shown = {k: v for k, v in summary.items() if k != "timing"}
-    if summary.get("preempted"):
-        print(json.dumps({"summary": shown}, default=str), flush=True)
-        sys.exit(trainer.cfg.train.resumable_exit_code)
-    result = trainer.evaluate("test")
-    print(json.dumps({"summary": shown, "test": result}, default=str),
-          flush=True)
+    """``launch train``: join the process group ``torchrun`` describes
+    (if any), run, evaluate, print the summary line; leave the group on
+    every exit."""
+    from ..core.mesh import initialize_distributed, shutdown_distributed
+
+    args = build_parser().parse_args(argv)
+    initialize_distributed(args.dist_backend, args.device)
+    try:
+        trainer = build_trainer(argv)
+        summary = trainer.run()
+        shown = {k: v for k, v in summary.items() if k != "timing"}
+        if summary.get("preempted"):
+            print(json.dumps({"summary": shown}, default=str), flush=True)
+            sys.exit(trainer.cfg.train.resumable_exit_code)
+        result = trainer.evaluate("test")
+        print(json.dumps({"summary": shown, "test": result}, default=str),
+              flush=True)
+    finally:
+        shutdown_distributed()
 
 
 def build_decode_replica(argv: list[str]):

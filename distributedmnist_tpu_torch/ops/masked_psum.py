@@ -4,9 +4,12 @@ masked_psum.py``) — the aggregation every sync discipline shares.
 Each replica contributes ``grad · flag / max(Σflag, 1)``; one sum over
 replicas of those scaled contributions is the masked mean. The port
 flattens every gradient leaf of a replica into one bucket row, so the
-sum is a single reduction over ``[replicas, P]``
-(:meth:`..core.mesh.Topology.sum_replicas`). When no replica
-contributes, every scale is 0 and the mean is exact zeros.
+sum is a single reduction over ``[local replicas, P]``
+(:meth:`..core.mesh.Topology.sum_replicas`: the local sum, then one
+all-reduce across processes). Trailing columns may carry per-replica
+statistics (the loss and accuracy) that ride the same reduction
+unscaled. When no replica contributes, every scale is 0 and the mean is
+exact zeros.
 """
 
 from __future__ import annotations
@@ -25,11 +28,15 @@ def contribution_scale(flags: torch.Tensor) -> tuple[torch.Tensor,
     return flags / torch.clamp(num, min=1.0), num
 
 
-def flatten_replicas(leaves: list[torch.Tensor]) -> torch.Tensor:
-    """One float32 bucket ``[n, P]`` of the replicas' gradient leaves
-    (each ``[n, ...]``): replica r's leaves, flattened, are row r."""
+def flatten_replicas(leaves: list[torch.Tensor],
+                     stats: tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
+    """One float32 bucket ``[L, P (+ len(stats))]`` of the replicas'
+    gradient leaves (each ``[L, ...]``): replica j's leaves, flattened,
+    are row j, followed by its entry of each ``[L]`` tensor in
+    ``stats``."""
     n = leaves[0].shape[0]
-    return torch.cat([g.reshape(n, -1).float() for g in leaves], dim=1)
+    return torch.cat([g.reshape(n, -1).float() for g in leaves]
+                     + [s.reshape(n, 1).float() for s in stats], dim=1)
 
 
 def unflatten_like(flat: torch.Tensor,
@@ -42,12 +49,16 @@ def unflatten_like(flat: torch.Tensor,
     return out
 
 
-def masked_mean(buckets: torch.Tensor, scale, topo: Topology
-                ) -> torch.Tensor:
-    """The masked mean ``[P]`` of per-replica gradient buckets
-    ``[replicas, P]``: each row is scaled in place by its replica's
-    share (``scale``, host numbers: nothing is copied to the device),
-    then one sum over replicas."""
-    for r, s in enumerate(scale):
-        buckets[r].mul_(float(s))
+def masked_mean(buckets: torch.Tensor, scale, topo: Topology,
+                width: int | None = None) -> torch.Tensor:
+    """The masked mean of this process's per-replica buckets ``[L, W]``
+    over all ``n`` replicas: each local row's first ``width`` columns
+    (all of them when None) are scaled in place by the replica's entry
+    of the ``[n]`` ``scale`` (``scale[first_replica + j]``; host numbers:
+    nothing is copied to the device), then one sum over replicas. The
+    columns past ``width`` are summed as they are."""
+    first = topo.first_replica
+    cols = buckets if width is None else buckets[:, :width]
+    for j in range(topo.local_replica_count):
+        cols[j].mul_(float(scale[first + j]))
     return topo.sum_replicas(buckets)

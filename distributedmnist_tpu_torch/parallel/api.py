@@ -6,19 +6,23 @@ replica differentiates its local loss (with its own dropout key),
 drop-connect masks its gradient, a step-time model and the sync
 discipline decide which replicas contribute, a masked-mean psum
 aggregates them, and every replica applies the same update. The port
-runs the same step for ``n`` simulated replicas on one device
-(:mod:`..core.mesh`):
+runs the same step for the ``L`` replicas of each process, ``n`` over
+all processes (:mod:`..core.mesh`):
 
-* each replica's forward and backward runs on its row block of the
-  global batch with its own dropout mask — all replicas at once, as one
-  ``torch.func.vmap`` of ``grad`` — and its gradient leaves are
-  flattened into one bucket row;
-* the modeled step times and the flags depend only on keys, the step
-  and the measured base, so the host computes them while the device
-  runs the backward: ``applied`` is a host number and the step never
-  waits on the device for it;
-* each bucket row is scaled by ``flag / max(Σflag, 1)`` and one sum
-  over replicas gives the masked mean (:mod:`..ops.masked_psum`);
+* each local replica's forward and backward runs on its row block of
+  the process's batch with its own dropout mask (keyed by its global
+  index) — all local replicas at once, as one ``torch.func.vmap`` of
+  ``grad`` — and its gradient leaves, loss and accuracy are flattened
+  into one bucket row;
+* the modeled step times and the flags of all ``n`` replicas depend
+  only on keys, the step and the measured ``[n]`` base, which every
+  process holds alike, so each host computes the same ones while its
+  device runs the backward: ``applied`` is a host number and the step
+  never waits on the device for it;
+* each bucket row's gradient is scaled by ``flag / max(Σflag, 1)`` and
+  one sum over replicas — the local sum, then one all-reduce across
+  processes — gives the masked mean and the loss and accuracy sums
+  (:mod:`..ops.masked_psum`): one collective a step;
 * stateless sgd applies ``lr·applied`` (a no-op at 0, as the
   reference's); an optimizer with slots skips the update when nothing
   was applied — the reference's ``where(applied, new, old)``;
@@ -140,9 +144,6 @@ def _check_ported(cfg: ExperimentConfig) -> None:
             "ported yet (params are float32)")
     if cfg.model.remat:
         raise NotImplementedError("model.remat is not ported yet")
-    if cfg.sync.adaptive:
-        raise NotImplementedError("sync.adaptive (the discipline "
-                                  "controller) is not ported yet")
 
 
 def init_train_state(model: Model, cfg: ExperimentConfig,
@@ -165,7 +166,7 @@ def world_signature(topo: Topology) -> dict:
     """The world a checkpoint is saved under (≙ the reference's
     ``world_signature``: only axes > 1 enter the mesh record)."""
     n = int(topo.num_replicas)
-    return {"num_replicas": n, "process_count": 1,
+    return {"num_replicas": n, "process_count": int(topo.process_count),
             "mesh": {"replica": n} if n > 1 else {}}
 
 
@@ -185,9 +186,10 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                      cudnn_deterministic: bool = True
                      ) -> Callable[..., tuple[TrainState, dict]]:
     """``step_fn(state, batch, measured_ms=None, discipline=None) ->
-    (state, metrics)``. ``batch = {"image", "label"}`` is the global
-    batch on the state's device; replica r takes rows ``[r·B/n,
-    (r+1)·B/n)``. ``measured_ms`` is the ``[n]`` host-measured base of
+    (state, metrics)``. ``batch = {"image", "label"}`` is this process's
+    batch on the state's device (the global batch with one process);
+    local replica j takes rows ``[j·B/n, (j+1)·B/n)`` of it.
+    ``measured_ms`` is the ``[n]`` host-measured base of
     the modeled step times (zeros when None); ``discipline`` the ``[3]``
     vector of :func:`make_discipline_vector` (the config's values when
     None). The state is updated IN PLACE (params, slots, window) and
@@ -196,13 +198,17 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
     False, and no TF32 rounding when the model computes in float32.
 
     Metrics carry the reference's keys: ``loss`` and ``train_acc`` (the
-    mean over replicas) are 0-d device tensors — reading them waits for
+    mean over all replicas) are 0-d device tensors — reading them waits for
     the step; ``lr``, ``num_contributors``, ``updates_applied`` and
     ``applied`` are host numbers; ``step_times_ms`` (the modeled times)
     and ``flags`` are ``[n]`` float32 numpy arrays."""
     _check_ported(cfg)
     topo = topo or make_topology(cfg.mesh)
-    n = topo.num_replicas
+    n, L, first = (topo.num_replicas, topo.local_replica_count,
+                   topo.first_replica)
+    # one bucket and one sum over replicas whenever there is more than
+    # one replica or a process group to reduce over
+    bucketed = n > 1 or topo.distributed
     sync = cfg.sync
     sync.validate(num_replicas=n)
     mode = sync.mode
@@ -215,7 +221,7 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                        "update")
     if model.loss is None or model.accuracy is None:
         raise ValueError(f"model {model.name!r} has no loss/accuracy")
-    if n > 1 and not model.vmap_replicas:
+    if L > 1 and not model.vmap_replicas:
         raise NotImplementedError(
             f"{n} replicas of model {model.name!r} are not ported yet (its "
             "apply cannot be vmapped over replicas)")
@@ -236,23 +242,24 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
         return policies.timeout_flag(t_ms, disc[DISC_INTERVAL_MS])
 
     def replica_grads(state: TrainState, batch: dict, leaves: list):
-        """Forward and backward of every replica, each on its row block
-        with its own dropout mask: ``(loss, train_acc, grads)`` with the
-        loss and accuracy means over replicas and the gradient leaves,
-        each ``[n, ...]`` (a row a replica). Several replicas run as one
-        ``torch.func.vmap`` of ``grad`` over the replica axis (3.2× the
-        speed of a loop over replicas at 8 × 128 CNN rows on an H100,
-        PERF.md); a lone replica runs autograd directly, as the
-        flash-attention ``autograd.Function`` needs."""
+        """Forward and backward of every local replica, each on its row
+        block with its own dropout mask (replica ``first + j`` draws
+        ``replica_keys(...)[first + j]``): ``(losses, accs, grads)``,
+        the per-replica losses and accuracies ``[L]`` and the gradient
+        leaves, each ``[L, ...]`` (a row a replica). Several replicas run
+        as one ``torch.func.vmap`` of ``grad`` over the replica axis
+        (3.2× the speed of a loop over replicas at 8 × 128 CNN rows on
+        an H100, PERF.md); a lone local replica runs autograd directly,
+        as the flash-attention ``autograd.Function`` needs."""
         xs, ys = topo.split_batch(batch["image"]), topo.split_batch(
             batch["label"])
         keep = None
         if model.dropout_masks is not None:
             keys = prng.replica_keys(state.root_key, "dropout", state.step,
-                                     n)
-            keep = model.dropout_masks(keys if n > 1 else keys[0],
+                                     n)[first:first + L]
+            keep = model.dropout_masks(keys if L > 1 else keys[0],
                                        xs.shape[1], xs.device)
-        if n == 1:
+        if L == 1:
             for p in leaves:
                 p.requires_grad_(True)
             try:
@@ -264,8 +271,8 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
             finally:
                 for p in leaves:
                     p.requires_grad_(False)
-            return (loss.detach(), model.accuracy(logits.detach(), ys[0]),
-                    grads)
+            return (loss.detach()[None],
+                    model.accuracy(logits.detach(), ys[0])[None], grads)
 
         def replica_loss(params, x, y, k):
             logits = model.apply(params, x, train=True, dropout_keep=k)
@@ -276,19 +283,18 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
             grad(replica_loss, has_aux=True),
             in_dims=(None, 0, 0, None if keep is None else 0))(
                 state.params, xs, ys, keep)
-        return (losses.mean(), accs.mean(),
-                [g.float() for g in tree_leaves(grads)])
+        return losses, accs, [g.float() for g in tree_leaves(grads)]
 
     def drop_connect(state: TrainState, grads: list) -> None:
-        """Mask each replica's gradient leaves in place with its
-        ``replica_key(root, "drop_connect", step, r)``."""
+        """Mask each local replica's gradient leaves in place with its
+        ``replica_key(root, "drop_connect", step, first + j)``."""
         keys = prng.replica_keys(state.root_key, "drop_connect", state.step,
                                  n)
-        for r in range(n):
+        for j in range(L):
             for g, m in zip(grads, drop_connect_grads(
-                    [g[r] for g in grads], keys[r],
+                    [g[j] for g in grads], keys[first + j],
                     sync.drop_connect_probability)):
-                g[r] = m
+                g[j] = m
 
     def apply_update(state: TrainState, leaves: list, grads: list,
                      lr: float) -> None:
@@ -338,12 +344,13 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                              f"{tuple(meas.shape)}")
         # -- per-replica gradients (queued on the device first) ---------
         leaves = tree_leaves(state.params)
-        loss, train_acc, grads = replica_grads(state, batch, leaves)
+        losses, accs, grads = replica_grads(state, batch, leaves)
         with torch.no_grad():
             if sync.drop_connect:
                 drop_connect(state, grads)
-            if n > 1:
-                bucket = masked_psum.flatten_replicas(grads)
+            if bucketed:
+                # the loss and accuracy ride the gradients' reduction
+                bucket = masked_psum.flatten_replicas(grads, (losses, accs))
         # -- modeled times and flags, on the host while the device runs
         # the backward (they need no gradient) --------------------------
         t_ms = policies.sample_step_time_ms(sync, state.root_key,
@@ -355,13 +362,16 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
         # at scale 1 the gradient itself, with no copy) ------------------
         lr = schedule(state.updates_applied)
         with torch.no_grad():
-            if n > 1:
-                mean = masked_psum.unflatten_like(
-                    masked_psum.masked_mean(bucket, scale.numpy(), topo),
-                    leaves)
+            if bucketed:
+                width = bucket.shape[1] - 2
+                total = masked_psum.masked_mean(bucket, scale.numpy(), topo,
+                                                width)
+                mean = masked_psum.unflatten_like(total[:width], leaves)
+                loss, train_acc = total[width] / n, total[width + 1] / n
             else:
                 s = float(scale[0])
                 mean = [g[0] if s == 1.0 else g[0] * s for g in grads]
+                loss, train_acc = losses[0], accs[0]
             if mode == "interval":
                 applied = interval_apply(
                     state, leaves, mean, t_ms.numpy(),
@@ -383,8 +393,8 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
             "loss": loss, "train_acc": train_acc, "lr": lr,
             "num_contributors": float(num),
             "updates_applied": state.updates_applied,
-            "step_times_ms": topo.gather_scalars(t_ms).numpy(),
-            "flags": topo.gather_scalars(flags).numpy(),
+            "step_times_ms": t_ms.numpy(),
+            "flags": flags.numpy(),
             "applied": applied,
         }
         return state, metrics

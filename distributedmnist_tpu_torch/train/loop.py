@@ -1,5 +1,6 @@
 """The training loop (≙ ``distributedmnist_tpu/train/loop.py``
-``Trainer``) for ``n`` simulated data-parallel replicas on one device.
+``Trainer``) for ``n`` data-parallel replicas over ``P`` processes (one
+device each; ``P = 1`` without a process group).
 
 Build the model, datasets, schedule, train and eval steps and the state
 from one ``ExperimentConfig``; then feed batches, log on a cadence,
@@ -17,9 +18,22 @@ resume with the data cursor, the NaN/Inf guard that rolls back to the
 newest finite checkpoint, the SIGTERM/SIGINT flush (``summary
 ["preempted"]``; the CLI exits with ``train.resumable_exit_code``), and
 the ``time_acc.npy`` / ``step_times.npy`` dumps, the effective batch,
+the step-time collector (``summary["timing"]``, the reference's keys)
 and the measured ``[n]`` base times: with ``sync.straggler_profile=
-"none"`` in a non-sync mode each step's policies rank on the previous
-step's host time (the reference's rule), else the base is zero.
+"none"`` in a non-sync mode each process writes the previous step's
+host time into its own replicas' rows (plus each replica's device drain
+under ``sync.measure_device_skew``), else the base is zero.
+``sync.adaptive`` runs the discipline controller on the collector's
+rolling CDF after each flush.
+
+Over several processes (the reference's multi-host run): each process
+reads its shard of the data (``host_id``/``num_hosts``), the measured
+rows are summed over the processes before the step's flags are drawn —
+one small host all-reduce a step, which also carries each process's
+SIGTERM/SIGINT request, so every process stops after the same step —
+and only process 0 writes the journals, checkpoints and series dumps;
+every process resumes from the newest loadable checkpoint. The step's
+host time excludes the time spent waiting in collectives.
 
 Not ported yet (each knob is refused or ignored as noted): the
 asynchronous checkpoint writer and device snapshot (saves are
@@ -27,10 +41,8 @@ synchronous; ``train.async_checkpoint`` is ignored), TensorBoard
 scalars (``train.summary_every_steps`` is ignored), profiler windows
 (``train.profile_steps`` / ``trace_every_steps`` raise), quantized
 publish (``quant.publish_tiers`` raises), fsync policies other than
-``none``, the adaptive discipline controller (``sync.adaptive`` raises)
-and its step-time collector, per-device skew probes, warm standby, and
-the AOT precompile (PyTorch runs eagerly: there is no ``compile``
-record).
+``none``, warm standby, and the AOT precompile (PyTorch runs eagerly:
+there is no ``compile`` record).
 """
 
 from __future__ import annotations
@@ -54,10 +66,13 @@ from ..data.pipeline import make_train_iterator, to_device
 from ..models.convert import (params_to_reference, state_from_reference,
                               state_to_reference)
 from ..models.registry import Model, get_model
+from ..obsv.timing import ReplicaDeviceProbe, StepTimeCollector
 from ..parallel.api import (TrainState, build_eval_step, build_train_step,
-                            init_train_state, tree_leaves, world_signature)
+                            init_train_state, make_discipline_vector,
+                            tree_leaves, world_signature)
 from ..parallel.policies import resolve_aggregate_k
 from . import checkpoint as ckpt
+from .discipline import DisciplineController, WindowStats
 from .evaluation import run_full_eval
 from .lr_schedule import (constant, decay_steps_for, exponential_decay,
                           warmup_polynomial_decay)
@@ -65,12 +80,13 @@ from .lr_schedule import (constant, decay_steps_for, exponential_decay,
 logger = get_logger("train")
 
 
-def step_line(step: int, loss: float, train_acc: float,
+def step_line(worker: int, step: int, loss: float, train_acc: float,
               examples_per_sec: float, sec_per_batch: float) -> str:
-    """The reference's canonical per-step log line (replica 0)."""
-    return ("Worker 0: step %d, loss = %.6f, train_acc = %.6f "
+    """The reference's canonical per-step log line."""
+    return ("Worker %d: step %d, loss = %.6f, train_acc = %.6f "
             "(%.1f examples/sec; %.3f sec/batch)"
-            % (step, loss, train_acc, examples_per_sec, sec_per_batch))
+            % (worker, step, loss, train_acc, examples_per_sec,
+               sec_per_batch))
 
 
 class _NonFiniteLoss(Exception):
@@ -105,9 +121,6 @@ def _check_loop_knobs(cfg: ExperimentConfig) -> None:
                                   "are not ported yet")
     if cfg.quant.resolved_publish_tiers():
         raise NotImplementedError("quant.publish_tiers is not ported yet")
-    if cfg.sync.measure_device_skew:
-        raise NotImplementedError("sync.measure_device_skew is not ported "
-                                  "yet")
     if t.durability != "none":
         raise NotImplementedError(f"train.durability={t.durability!r} is "
                                   "not ported yet (the port writes with "
@@ -116,11 +129,13 @@ def _check_loop_knobs(cfg: ExperimentConfig) -> None:
 
 class Trainer:
     """Builds the training stack from one config: ``n`` replicas
-    (:func:`..core.mesh.make_topology`) simulated on one device.
+    (:func:`..core.mesh.make_topology`), this process's ``L`` of them on
+    its one device. Call :func:`..core.mesh.initialize_distributed`
+    first to run over a process group.
 
-    ``device`` defaults to ``cuda:0`` (an error without CUDA); the tests
-    pass ``"cpu"``, where the attention kernels run their plain
-    versions. Its steps run cuDNN's deterministic algorithms unless
+    ``device`` defaults to ``cuda:$LOCAL_RANK`` (``cuda:0``; an error
+    without CUDA); the tests pass ``"cpu"``, where the attention kernels
+    run their plain versions. Its steps run cuDNN's deterministic algorithms unless
     ``cudnn_deterministic`` is False (set for each step and restored
     after it, :func:`..core.device.cudnn_policy`)."""
 
@@ -153,14 +168,32 @@ class Trainer:
             self.model, cfg, cudnn_deterministic=cudnn_deterministic)
         self.state: TrainState = init_train_state(self.model, cfg,
                                                   self.device)
-        self.train_iter = make_train_iterator(self.datasets.train, cfg.data,
-                                              seed=cfg.train.seed)
+        self.train_iter = make_train_iterator(
+            self.datasets.train, cfg.data, seed=cfg.train.seed,
+            host_id=self.topo.process_index,
+            num_hosts=self.topo.process_count)
+        self.is_writer = self.topo.process_index == 0
+        self.collector = StepTimeCollector(num_replicas=n)
+        # every process runs the same controller on the same [n] times,
+        # so all swap alike; only the writer journals (_sink_write)
+        self._discipline: DisciplineController | None = None
+        if cfg.sync.adaptive:
+            self._discipline = DisciplineController(
+                cfg.sync, n, self._sink_write, make_discipline_vector)
+            self.collector.enable_rolling_cdf(cfg.sync.adaptive_window_steps)
+        self._device_probe = (ReplicaDeviceProbe(self.topo, self.device)
+                              if cfg.sync.measure_device_skew else None)
+        self._last_device_skew: np.ndarray | None = None
+        # fault-injection seam: {global replica: (fn, arg)}, fn(arg)
+        # dispatched after each step onto this process's device and
+        # noted for that replica, so its device drains later and the
+        # probe sees it
+        self.device_work_injection: dict[int, tuple] | None = None
         self.train_dir = Path(cfg.train.train_dir)
         self._sink: JsonlSink | None = None
         self._recovery_sink: JsonlSink | None = None
         self._preempt_requested: str | None = None
         self._series: list[tuple[float, int, float, float]] = []
-        self._step_ms: list[float] = []
         self._last_save_time = time.time()
         self._start_step = 0
         self._log_opened = False
@@ -170,6 +203,8 @@ class Trainer:
     # -- journals --------------------------------------------------------
 
     def _sink_write(self, record: dict) -> None:
+        if not self.is_writer:
+            return
         if self._sink is None:
             log_path = self.train_dir / "train_log.jsonl"
             if not self._log_opened and self._start_step == 0:
@@ -180,6 +215,8 @@ class Trainer:
         self._sink.write(record)
 
     def _recovery_event(self, record: dict) -> None:
+        if not self.is_writer:
+            return
         if self._recovery_sink is None:
             self._recovery_sink = JsonlSink(
                 self.train_dir / "recovery_journal.jsonl")
@@ -224,6 +261,10 @@ class Trainer:
                     self._start_step)
 
     def _save(self) -> None:
+        """Process 0 writes; the others go on (no barrier: nothing waits
+        on a save, as in the reference)."""
+        if not self.is_writer:
+            return
         t0 = time.perf_counter()
         at_step = self.state.step
         extra = {"config": self.cfg.to_dict(),
@@ -233,6 +274,7 @@ class Trainer:
                         at_step, extra=extra,
                         keep=self.cfg.train.keep_checkpoints)
         stall_ms = (time.perf_counter() - t0) * 1e3
+        self.collector.add_snapshot_stall_ms(stall_ms)
         # "at_step", not "step": progress watchers read "step" records
         self._sink_write({"event": "save", "time": time.time(),
                           "at_step": at_step,
@@ -286,12 +328,14 @@ class Trainer:
 
     def _dump_series(self) -> None:
         """``time_acc.npy`` rows (time, step, loss, acc) and the
-        [steps, 1] host step-time matrix ``step_times.npy``."""
-        if self._series:
+        ``[steps, n]`` modeled step-time matrix ``step_times.npy``
+        (process 0 only)."""
+        if self.is_writer and self._series:
             self.train_dir.mkdir(parents=True, exist_ok=True)
             np.save(self.train_dir / "time_acc.npy", np.asarray(self._series))
-            np.save(self.train_dir / "step_times.npy",
-                    np.asarray(self._step_ms, np.float32)[:, None])
+            m = self.collector.matrix()
+            if m.size:
+                np.save(self.train_dir / "step_times.npy", m)
 
     # -- eval and run ----------------------------------------------------
 
@@ -300,7 +344,7 @@ class Trainer:
         res = run_full_eval(self.eval_fn, self.state.params,
                             getattr(self.datasets, split),
                             self.cfg.eval.eval_batch_size,
-                            device=self.device)
+                            device=self.device, topo=self.topo)
         self._sink_write({"event": "eval", "time": time.time(),
                           "step": self.state.step,
                           "num_examples": res["num_examples"],
@@ -309,16 +353,31 @@ class Trainer:
         self._close_sinks()
         return res
 
-    def timing(self) -> dict[str, Any]:
-        """Host step-time percentiles. On a GPU a step's host time is
-        its enqueue time except where the host waits for the device (a
-        flush reading the losses, a save)."""
-        if not self._step_ms:
-            return {"steps": 0}
-        ms = np.asarray(self._step_ms)
-        return {"steps": len(ms), "host_step_ms_mean": float(ms.mean()),
-                "host_step_ms_p50": float(np.percentile(ms, 50)),
-                "host_step_ms_p99": float(np.percentile(ms, 99))}
+    def _step_inputs(self, inject_measured: bool, host_dt: float
+                     ) -> tuple[torch.Tensor | None, bool]:
+        """This step's measured ``[n]`` base (None when the policies
+        rank on the synthetic model alone) and whether any process asked
+        to stop. Each process writes its previous step's host time (and
+        its replicas' device drain) into its own rows and its signal
+        number beside them; over a process group one host all-reduce of
+        the ``[n, 2]`` rows gives every process the same vector and the
+        same stop (≙ the reference's ``MeasuredStage``)."""
+        topo = self.topo
+        if not (inject_measured or topo.distributed):
+            return None, self._preempt_requested is not None
+        rows = torch.zeros(topo.local_replica_count, 2, dtype=torch.float32)
+        if inject_measured:
+            rows[:, 0] = host_dt * 1000.0
+            if self._last_device_skew is not None:
+                rows[:, 0] += torch.from_numpy(self._last_device_skew)
+        if self._preempt_requested is not None:
+            rows[:, 1] = signal.Signals[self._preempt_requested].value
+        rows = topo.gather_scalars(rows)
+        signums = [int(x) for x in rows[:, 1].tolist() if x > 0]
+        if signums and self._preempt_requested is None:
+            self._preempt_requested = signal.Signals(signums[0]).name
+        return (rows[:, 0].contiguous() if inject_measured else None,
+                bool(signums))
 
     def run(self, max_steps: int | None = None,
             step_callback: Callable[[int, dict], None] | None = None
@@ -338,7 +397,6 @@ class Trainer:
         inject_measured = (self.cfg.sync.straggler_profile == "none"
                            and self.cfg.sync.mode in ("interval", "timeout",
                                                       "quorum", "cdf"))
-        measured = np.zeros(self.topo.num_replicas, np.float32)
         host_dt = 0.0
 
         def flush(now: float) -> None:
@@ -367,17 +425,32 @@ class Trainer:
                     "updates_applied": int(m["updates_applied"]),
                     "num_contributors": float(m["num_contributors"]),
                     "examples_per_sec": rate,
-                    "flags": [int(f) for f in m["flags"]]}
+                    "flags": [int(f) for f in m["flags"]],
+                    # adaptive: the [k, timeout_ms] every pending step
+                    # ran under (changes happen after the flush)
+                    **({"discipline": self._discipline.params_list()}
+                       if self._discipline is not None else {})}
                 self._sink_write(record)
                 final_metrics = record
                 if step_callback:
                     step_callback(s, record)
-            logger.info(step_line(upto, final_metrics["loss"],
+            logger.info(step_line(self.topo.process_index, upto,
+                                  final_metrics["loss"],
                                   final_metrics["train_acc"], rate,
                                   (now - last_log_t)
                                   / max(upto - last_log_step, 1)))
             pending.clear()
             last_log_t, last_log_step = now, upto
+            # a change licensed here governs from the next step, so the
+            # records above carry the pair in force when they ran
+            if self._discipline is not None:
+                rolling = self.collector.rolling_cdf()
+                if rolling is not None:
+                    self._discipline.maybe_adapt(upto, WindowStats(
+                        p50_ms=rolling["p50_ms"], p90_ms=rolling["p90_ms"],
+                        p99_ms=rolling["p99_ms"],
+                        n_samples=rolling["window_steps"],
+                        fast_p50_ms=rolling["fast_p50_ms"]))
 
         self.train_dir.mkdir(parents=True, exist_ok=True)
         step = self._start_step
@@ -387,18 +460,33 @@ class Trainer:
         try:
             while True:
                 try:
-                    while step < total and self._preempt_requested is None:
+                    while step < total:
                         t0 = time.perf_counter()
+                        blocked0 = self.topo.blocked_s
+                        measured, stop = self._step_inputs(inject_measured,
+                                                           host_dt)
+                        if stop:
+                            break
                         b = to_device(next(self.train_iter), self.device)
-                        if inject_measured:
-                            measured[:] = host_dt * 1000.0
-                            self.state, metrics = self.step_fn(
-                                self.state, b, measured)
-                        else:
-                            self.state, metrics = self.step_fn(self.state, b)
-                        host_dt = time.perf_counter() - t0
-                        self._step_ms.append(host_dt * 1e3)
+                        disc = (None if self._discipline is None
+                                else self._discipline.vector)
+                        inputs = (() if measured is None and disc is None
+                                  else (measured, disc))
+                        self.state, metrics = self.step_fn(self.state, b,
+                                                           *inputs)
+                        # this process's own time: waits for peers in
+                        # collectives are not its work
+                        host_dt = (time.perf_counter() - t0
+                                   - (self.topo.blocked_s - blocked0))
+                        if self._device_probe is not None:
+                            for r, (fn, arg) in (self.device_work_injection
+                                                 or {}).items():
+                                at = time.perf_counter()
+                                self._device_probe.note(r, fn(arg), at)
+                            self._last_device_skew = (
+                                self._device_probe.measure_skew_ms())
                         step += 1
+                        self.collector.add(metrics["step_times_ms"], host_dt)
                         pending.append((step, metrics, time.time()))
                         if cfg.step_pace_ms > 0:
                             time.sleep(cfg.step_pace_ms / 1e3)
@@ -437,15 +525,18 @@ class Trainer:
         self._save()  # the final save
         self._dump_series()
         self._close_sinks()
-        return {
+        summary = {
             "final_step": step,
             "updates_applied": self.state.updates_applied,
             "last_metrics": final_metrics,
             "params_digest": ckpt.params_digest(
                 params_to_reference(self.state.params)),
-            "timing": self.timing(),
+            "timing": self.collector.report(),
             "preempted": self._preempt_requested,
             "nan_rollbacks": rollbacks,
             "compile": None,
         }
+        if self._discipline is not None:
+            summary["discipline"] = self._discipline.summary()
+        return summary
 

@@ -39,7 +39,10 @@ TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               "models.convert", "launch.__main__",
               # the CNN sync-SGD path over N replicas
               "core.prng", "core.mesh", "models.cnn", "models.registry",
-              "ops.masked_psum", "ops.drop_connect", "parallel.policies")
+              "ops.masked_psum", "ops.drop_connect", "parallel.policies",
+              # the process-group path, the step-time collector and the
+              # adaptive discipline controller
+              "obsv.timing", "train.discipline")
 
 
 def test_port_modules_load_no_jax():

@@ -150,8 +150,7 @@ def test_unported_optimizers_and_modes_raise():
     with pytest.raises(port_config.ConfigError, match="unknown optimizer"):
         optim.make_optimizer(port_config.OptimConfig(name="adamw"))
     model = get_model(port_config.ExperimentConfig.from_dict(RUN).model)
-    for over in ({"sync": {"adaptive": True, "mode": "quorum"}},
-                 {"mesh": {"model_parallelism": 2}},
+    for over in ({"mesh": {"model_parallelism": 2}},
                  {"train": {"grad_accum_steps": 2}},
                  {"precision": {"param_dtype": "bfloat16"}}):
         cfg = port_config.ExperimentConfig.from_dict(dict(RUN, **over))
