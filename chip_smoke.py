@@ -20,7 +20,9 @@ random weights from a seed:
   serving the checkpoint the training phase wrote;
 
 and the MNIST CNN's sync SGD (the source paper's path) at its published
-widths, on one process and across worker processes.
+widths, on one process and across worker processes; then the training
+path's durable checkpoints and the continuous evaluator that follows
+them.
 
 One JSON line per phase:
 
@@ -41,7 +43,8 @@ One JSON line per phase:
 3. ``kernels``  — each kernel against its plain PyTorch version on the
                 card at the main paths' shapes, float32 and bfloat16:
                 K1 flash-attention forward and K5 paged attention at
-                the decode shapes; K1-lse (forward with log-sum-exp),
+                the decode shapes, K1 also at the evaluator's batch
+                (``eval``'s shape); K1-lse (forward with log-sum-exp),
                 K2 (dq), K3 (dk, dv) at the training shape and K4
                 (fused backward) at the short run's; max abs error
                 beside the stated tolerance, the relative error of the
@@ -128,11 +131,50 @@ One JSON line per phase:
                 iteration; one prefill plus 3 decode steps through the
                 kernels within a stated tolerance of the plain versions.
                 Prints tokens/s, TTFT p50 and inter-token p50.
+9. ``ckpt``     — the training configuration, 15 steps with a save every
+                5 (keep 2) in three arms: saves on the step loop
+                (``train.async_checkpoint=false``), the host fetch on
+                the loop and the write on the writer thread
+                (``async_snapshot=false``), and the device snapshot. Per
+                arm the journaled ``save_stall_ms`` (each and the
+                median), ms a step (each step timed to the end of its
+                compute stream) with a write in flight and with none,
+                per save the loop's cost (its stall plus the excess,
+                over the quiet steps' medians, of each following step's
+                host issue, stream wait and gap) and the overlap of
+                those steps with each writer stage (``CKPT_STAGES``,
+                timed on the writer thread), the run's total with the
+                final drain and per write made,
+                ``max_memory_allocated``, the pinned host allocator's
+                peak and the final drain's wall; checked: the snapshot
+                arm's median stall at most ``CKPT_STALL_GATE`` × the host
+                fetch's (``bench.py bench_save_stall``'s gate); a race
+                probe (a snapshot, then at once an in-place add of 1.0
+                on every param: the artifact holds the values from
+                before the add); the CNN's saved digests equal across
+                the three arms (the transformer's reported). Then
+                ``bench_checkpoint_durability``'s save (24 [256, 256]
+                float32 arrays, 5 interleaved repeats × 3 saves) under
+                ``none``, ``data`` and ``full``: median walls printed,
+                fsyncs a save checked against the reference's count.
+10. ``eval``    — ``launch eval``'s Evaluator in process on the ``ckpt``
+                phase's transformer checkpoint: K1 launched 4 times a
+                batch, precision equal to and loss within
+                ``EVAL_LOSS_TOL`` of the Trainer's ``evaluate`` of the
+                same state; then co-located, a ``launch train``
+                subprocess on ``configs/quorum_k4_of_8.json`` (paced,
+                a save every 5 steps) and a ``launch eval
+                --single_device`` subprocess following it on the same
+                card: at least 2 increasing steps evaluated, every
+                printed line the source paper's format, each result
+                equal to an in-process eval of that step (loss within
+                ``COLOC_LOSS_RTOL``), ``follow_skip`` records printed.
 
 Then a ``kernels`` summary line (per kernel also its ``variant`` —
 ``wgmma``, ``cuda_cores`` or ``cluster_split``, the compiled kernel the
 bf16 call takes — and the build phase's instantiation, registers,
-spills, shared memory and blocks per SM at the timed shape; for K5 also
+spills, shared memory and blocks per SM at the timed shape; for K1 also
+``launches_eval``, the eval phase's count; for K5 also
 ``ms_cold``, and ``ms_in_place``, its share of the decode-step profile
 a launch, beside ``bound_ms_in_place`` for the profile's lengths), the
 card's name and power limit
@@ -148,6 +190,7 @@ import functools
 import json
 import math
 import os
+import re
 import signal
 import socket
 import statistics
@@ -253,6 +296,36 @@ DIST_CHILD_TIMEOUT_S = 150
 # two ranks against the simulated run, 3 float32 full-batch steps:
 # ||Δ|| / ||simulated|| per param leaf (the replicas' sums reassociate)
 DIST_F32_TOL = 1e-4
+# the ckpt phase: the training configuration, 15 steps with a save every
+# 5 (keep 2) in three arms — saves on the step loop, the host fetch on
+# the loop and the write on the writer thread, and the device snapshot
+CKPT_STEPS, CKPT_EVERY, CKPT_KEEP = 15, 5, 2
+CKPT_ARMS = {"sync": ("train.async_checkpoint=false",),
+             "host_fetch": ("train.async_checkpoint=true",
+                            "train.async_snapshot=false"),
+             "snapshot": ("train.async_checkpoint=true",
+                          "train.async_snapshot=true")}
+# the reference's accelerator gate (bench.py bench_save_stall): the
+# snapshot arm's median save stall at most half the host fetch's
+CKPT_STALL_GATE = 0.5
+# bench.py bench_checkpoint_durability: 5 interleaved repeats x 3 saves
+DUR_POLICIES, DUR_REPEATS, DUR_SAVES = ("none", "data", "full"), 5, 3
+# fsyncs of one save by policy (the reference's count, pinned against it
+# in tests/test_torch_storage.py): data = the payload; full = payload,
+# sidecar and pointer, each with its directory after the rename
+FSYNCS_PER_SAVE = {"none": 0, "data": 1, "full": 6}
+# the eval phase: the evaluator against the Trainer's evaluate on the
+# same checkpoint, same batches and kernels (bf16 forward): equal up to
+# the order the two sum the batches in
+EVAL_LOSS_TOL = 1e-5
+# co-located: launch train on configs/quorum_k4_of_8.json (8 simulated
+# replicas) paced so the evaluator sees several saves, and launch eval
+# --single_device following it
+COLOC_STEPS, COLOC_EVERY, COLOC_PACE_MS, COLOC_TEST = 40, 5, 150.0, 1000
+COLOC_MAX_EVALS, COLOC_TIMEOUT_S, COLOC_EVAL_GRACE_S = 3, 240, 30
+# an eval of the same checkpoint in another process: the same kernels
+# on the same inputs
+COLOC_LOSS_RTOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -451,13 +524,13 @@ def phase_build() -> dict:
 
 # -- phase 3 ----------------------------------------------------------------
 
-def _k1_case(s: int, dtype, gen, timed: bool) -> dict:
+def _k1_case(b: int, s: int, dtype, gen, timed: bool) -> dict:
     import torch
     import torch.nn.functional as F
 
     from distributedmnist_tpu_torch.ops.flash_attention import (
         flash_attention_bshd, flash_attention_bshd_plain)
-    b, h, d = 1, MODEL["num_heads"], MODEL["model_dim"] // MODEL["num_heads"]
+    h, d = MODEL["num_heads"], MODEL["model_dim"] // MODEL["num_heads"]
     # the model's inputs: strided q/k/v views of one [b, s, 3, d] product
     qkv = torch.randn(b, s, 3, h * d, device=DEVICE, generator=gen).to(dtype)
     q, k, v = (qkv[:, :, i].view(b, s, h, d) for i in range(3))
@@ -747,10 +820,13 @@ def phase_kernels() -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         # the prefill buckets the e2e prompts fall into
         for s in (8, 32, 64, 128, 256, 512):
-            cases.append(_k1_case(s, dtype, gen,
+            cases.append(_k1_case(1, s, dtype, gen,
                                   timed=(dtype == torch.bfloat16
                                          and s == 512)))
         cases.append(_k5_case(dtype, gen, timed=dtype == torch.bfloat16))
+    # the evaluator's shape (launch eval on the training configuration)
+    cases.append(_k1_case(TRAIN["eval"]["eval_batch_size"], MODEL["seq_len"],
+                          torch.bfloat16, gen, timed=False))
     emit({"phase": "kernels", "cases": cases})
     for c in cases:
         check(c["max_abs_err"] <= c["tol"],
@@ -1938,6 +2014,491 @@ def phase_e2e(train_dir: str, tmp: str) -> dict:
     return rec
 
 
+def _sync() -> None:
+    """Wait for the compute stream alone: a checkpoint writer's copy on
+    its own stream is not the step's work."""
+    import torch
+    if DEVICE.startswith("cuda"):
+        torch.cuda.current_stream().synchronize()
+
+
+def _save_records(train_dir: str, kind: str = "save") -> list:
+    path = os.path.join(train_dir, "train_log.jsonl")
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    return [r for r in recs if r.get("event") == kind]
+
+
+def _pinned_host_peak():
+    """The peak bytes of PyTorch's pinned host allocator, where this
+    torch reports them."""
+    import torch
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None or not DEVICE.startswith("cuda"):
+        return "not measured"
+    got = {k: v for k, v in stats().items() if "bytes" in k and "peak" in k}
+    return got or "not measured"
+
+
+# the writer's stages, timed on whichever thread runs them (module,
+# function, label): ``fetch`` is the snapshot's copy to pinned memory and
+# its ``convert``; ``pack`` is msgpack with each leaf's ``tobytes``;
+# ``write`` is the hash, the file writes and the renames
+CKPT_STAGES = (("loop", "snapshot_to_host", "fetch"),
+               ("loop", "state_to_reference", "convert"),
+               ("ckpt", "to_state_dict", "to_state_dict"),
+               ("ckpt", "msgpack_serialize", "pack"),
+               ("ckpt", "_write_atomic", "write"))
+
+
+def _overlap_ms(a0: float, a1: float, b0: float, b1: float) -> float:
+    return max(0.0, min(a1, b1) - max(a0, b0)) * 1e3
+
+
+def _ckpt_run(trainer) -> dict:
+    """Run ``trainer`` with each step timed (host clock: the host's issue
+    and the wait for the compute stream apart), marked by whether a
+    checkpoint write was queued or running around it, and each writer
+    stage timed on its thread. Per save, the loop's cost: its journaled
+    stall plus the excess, over the medians with no write, of every
+    step's issue, stream wait and gap before it until the next save (or
+    the run's end), with the writer stages' overlap of that window. Also
+    peak device memory and the wall time of the writer's final drain."""
+    import threading
+
+    import torch
+
+    from distributedmnist_tpu_torch.train import checkpoint as ckpt
+    from distributedmnist_tpu_torch.train import loop
+    modules = {"loop": loop, "ckpt": ckpt}
+    steps, saves, stages, drain = [], [], [], {}
+    inner, close, save = trainer.step_fn, trainer._close_writer, trainer._save
+    originals = [(modules[m], f, getattr(modules[m], f))
+                 for m, f, _ in CKPT_STAGES]
+
+    def in_flight() -> bool:
+        cp = trainer._checkpointer
+        return cp is not None and (cp._busy or cp._pending is not None)
+
+    def timed_step(state, batch, *args):
+        busy = in_flight()
+        t0 = time.perf_counter()
+        out = inner(state, batch, *args)
+        t_issued = time.perf_counter()
+        _sync()
+        steps.append({"busy": busy or in_flight(), "t0": t0,
+                      "t_issued": t_issued, "t1": time.perf_counter()})
+        return out
+
+    def timed_save():
+        t0 = time.perf_counter()
+        save()
+        saves.append((t0, time.perf_counter()))
+
+    def timed_close():
+        t0 = time.perf_counter()
+        close()
+        drain["ms"] = (time.perf_counter() - t0) * 1e3
+
+    depth = threading.local()  # the outermost call of a recursive stage
+
+    def timed_stage(fn, label):
+        def wrapped(*args, **kwargs):
+            outer = not getattr(depth, label, 0)
+            setattr(depth, label, getattr(depth, label, 0) + 1)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                setattr(depth, label, getattr(depth, label) - 1)
+                if outer:
+                    stages.append((label, threading.current_thread().name,
+                                   t0, time.perf_counter()))
+        return wrapped
+
+    trainer.step_fn, trainer._close_writer = timed_step, timed_close
+    trainer._save = timed_save
+    for (mod, f, fn), (_, _, label) in zip(originals, CKPT_STAGES):
+        setattr(mod, f, timed_stage(fn, label))
+    if DEVICE.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_host = getattr(torch.cuda, "reset_peak_host_memory_stats",
+                             None)
+        if reset_host is not None:
+            reset_host()
+    t0 = time.time()
+    try:
+        summary = trainer.run()
+    finally:
+        for mod, f, fn in originals:
+            setattr(mod, f, fn)
+        trainer.step_fn, trainer._close_writer = inner, close
+        trainer._save = save
+    run_s = time.time() - t0
+    records = _save_records(str(trainer.train_dir))
+    stalls = [r["save_stall_ms"] for r in records]
+    ms = lambda a, b: (b - a) * 1e3  # noqa: E731
+    median = lambda v: statistics.median(v) if v else None  # noqa: E731
+    for j, st in enumerate(steps):
+        st["ms"] = ms(st["t0"], st["t1"])
+        st["issue"] = ms(st["t0"], st["t_issued"])
+        st["wait"] = ms(st["t_issued"], st["t1"])
+        # from the previous step's end, less the saves made in between
+        if j:
+            prev = steps[j - 1]["t1"]
+            st["gap"] = ms(prev, st["t0"]) - sum(
+                ms(s0, s1) for s0, s1 in saves if prev <= s0 < st["t0"])
+        else:
+            st["gap"] = None
+    with_write = [st["ms"] for st in steps if st["busy"]]
+    without = [st["ms"] for st in steps if not st["busy"]]
+    quiet = [st for st in steps[1:] if not st["busy"]]
+    base = {part: median([st[part] for st in quiet])
+            for part in ("issue", "wait", "gap")}
+    writer = [x for x in stages if x[1] == "ckpt-writer"]
+    per_save = []
+    for i, (rec, (s0, s1)) in enumerate(zip(records, saves)):
+        nxt = saves[i + 1][0] if i + 1 < len(saves) else float("inf")
+        mine = [st for st in steps if s1 <= st["t0"] < nxt]
+        excess = {part: sum(st[part] - base[part] for st in mine)
+                  for part in base} if mine and quiet else {}
+        row = {"at_step": rec["at_step"], "stall_ms": rec["save_stall_ms"],
+               "steps_after": len(mine),
+               "steps_in_flight": sum(st["busy"] for st in mine),
+               "excess_ms": excess,
+               "loop_cost_ms": rec["save_stall_ms"] + sum(excess.values())}
+        if mine:
+            w1 = mine[-1]["t1"]
+            overlap = {}
+            for label, _, a0, a1 in writer:
+                overlap[label] = overlap.get(label, 0.0) + _overlap_ms(
+                    s1, w1, a0, a1)
+            row["window_ms"] = ms(s1, w1)
+            row["writer_overlap_ms"] = overlap
+        per_save.append(row)
+    writes = sum(label == "write" for label, *_ in stages)
+    total = sum(r["loop_cost_ms"] for r in per_save) + drain.get("ms", 0.0)
+    stage_ms = {}
+    for label, thread, a0, a1 in stages:
+        where = "writer" if thread == "ckpt-writer" else "loop"
+        stage_ms.setdefault(f"{where}.{label}", []).append(
+            round((a1 - a0) * 1e3, 3))
+    return {"save_stall_ms": stalls, "save_stall_ms_median": median(stalls),
+            "ms_per_step_write_in_flight": median(with_write),
+            "ms_per_step_no_write": median(without),
+            "quiet_step_medians_ms": base,
+            "steps_write_in_flight": len(with_write),
+            "steps_no_write": len(without),
+            # [in flight, ms, issue ms, gap ms before it]
+            "step_ms": [[int(st["busy"]), round(st["ms"], 3),
+                         round(st["issue"], 3),
+                         None if st["gap"] is None else round(st["gap"], 3)]
+                        for st in steps],
+            "per_save": per_save,
+            # latest wins: a save queued behind a running write can be
+            # replaced, so the run's cost is set against the writes made
+            "loop_cost_total_ms": total, "writes": writes,
+            "loop_cost_per_write_ms": total / writes if writes else None,
+            "stage_ms": stage_ms,
+            "final_drain_ms": drain.get("ms"),
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if DEVICE.startswith("cuda") else None),
+            "pinned_host_peak": _pinned_host_peak(),
+            "run_s": run_s, "final_step": summary["final_step"],
+            "params_digest": summary["params_digest"]}
+
+
+def _race_probe(trainer, tmp: str) -> dict:
+    """Snapshot a copy of the trained state, then at once add 1.0 in
+    place to every param on the compute stream; the writer's artifact
+    must hold the values from before the add."""
+    from distributedmnist_tpu_torch.models.convert import params_to_reference
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    from distributedmnist_tpu_torch.train import checkpoint as ckpt
+    from distributedmnist_tpu_torch.train import loop
+    state = _copy_state(trainer.state)
+    before = ckpt.params_digest(params_to_reference(state.params))
+    writer = ckpt.AsyncCheckpointer()
+    snap = loop.device_snapshot(state)
+    for p in tree_leaves(state.params):
+        p.add_(1.0)
+    writer.save(f"{tmp}/race_probe", snap, state.step, keep=0,
+                prepare=loop.snapshot_to_host)
+    del snap
+    writer.close()
+    written, _ = ckpt.checkpoint_params_digest(f"{tmp}/race_probe")
+    after = ckpt.params_digest(params_to_reference(state.params))
+    return {"digest_before_add": before, "digest_written": written,
+            "digest_after_add": after}
+
+
+def _durability(tmp: str) -> dict:
+    """``bench.py bench_checkpoint_durability``'s save (24 [256, 256]
+    float32 arrays) under each policy: save wall medians over interleaved
+    repeats, and the fsyncs each save makes."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.train import checkpoint as ckpt
+    from distributedmnist_tpu_torch.train import storage
+    rng = np.random.default_rng(SEED)
+    state = {"params": {f"layer{i}": rng.standard_normal(
+                 (256, 256)).astype(np.float32) for i in range(12)},
+             "momentum": {f"layer{i}": rng.standard_normal(
+                 (256, 256)).astype(np.float32) for i in range(12)},
+             "step": np.int32(0)}
+    fsyncs = [0]
+    real = os.fsync
+
+    def counting_fsync(fd):
+        fsyncs[0] += 1
+        return real(fd)
+
+    wall = {p: [] for p in DUR_POLICIES}
+    per_save = {p: set() for p in DUR_POLICIES}
+    step = 0
+    os.fsync = counting_fsync
+    try:
+        for _ in range(DUR_REPEATS):
+            for policy in DUR_POLICIES:
+                storage.set_durability(policy)
+                for _ in range(DUR_SAVES):
+                    step += 1
+                    n0, t0 = fsyncs[0], time.perf_counter()
+                    ckpt.save_state(f"{tmp}/durability_{policy}", state,
+                                    step, keep=5)
+                    wall[policy].append((time.perf_counter() - t0) * 1e3)
+                    per_save[policy].add(fsyncs[0] - n0)
+    finally:
+        os.fsync = real
+        storage.set_durability("none")
+    med = {p: statistics.median(v) for p, v in wall.items()}
+    return {"state_bytes": 24 * 256 * 256 * 4,
+            "save_wall_ms_median": med,
+            "full_over_none": med["full"] / med["none"],
+            "fsyncs_per_save": {p: sorted(v) for p, v in per_save.items()},
+            "fsyncs_per_save_expected": FSYNCS_PER_SAVE}
+
+
+def _cnn_arm_digests(tmp: str) -> dict:
+    """The CNN (bitwise repeatable on the card) in the three arms: the
+    params digest of every step each arm saved."""
+    from distributedmnist_tpu_torch.train import checkpoint as ckpt
+    out = {}
+    for arm, over in CKPT_ARMS.items():
+        tr = _cnn_trainer(tmp, f"ckpt_cnn_{arm}", *over,
+                          f"train.max_steps={CKPT_STEPS}",
+                          f"train.save_interval_steps={CKPT_EVERY}",
+                          "train.keep_checkpoints=0", device=DEVICE)
+        tr.run()
+        out[arm] = {s: ckpt.checkpoint_params_digest(tr.train_dir, s)[0]
+                    for s in ckpt.loadable_steps(tr.train_dir)}
+    return out
+
+
+def phase_ckpt(tmp: str) -> dict:
+    """Durable checkpoints on the training configuration: the three save
+    arms, the race probe, the CNN's digests across arms, durability."""
+    import gc
+
+    import torch
+    t_phase = time.time()
+    arms, transformer_digests = {}, {}
+    trainer = None
+    for arm, over in CKPT_ARMS.items():
+        trainer = None
+        gc.collect()
+        trainer = _build_trainer(tmp, f"ckpt_{arm}", *over,
+                                 f"train.max_steps={CKPT_STEPS}",
+                                 f"train.save_interval_steps={CKPT_EVERY}",
+                                 f"train.keep_checkpoints={CKPT_KEEP}")
+        arms[arm] = _ckpt_run(trainer)
+        check(arms[arm]["final_step"] == CKPT_STEPS,
+              f"{arm}: ended at {arms[arm]['final_step']}")
+        transformer_digests[arm] = arms[arm].pop("params_digest")
+    # the snapshot arm's trainer stays: its state is its final checkpoint
+    race = _race_probe(trainer, tmp)
+    trainer_eval = trainer.evaluate("test")
+    train_dir = str(trainer.train_dir)
+    trainer = None
+    gc.collect()
+    if DEVICE.startswith("cuda"):
+        torch.cuda.empty_cache()
+    cnn = _cnn_arm_digests(tmp)
+    durability = _durability(tmp)
+    fetch_med = arms["host_fetch"]["save_stall_ms_median"]
+    snap_med = arms["snapshot"]["save_stall_ms_median"]
+    peak = {a: arms[a]["peak_mem_gb"] for a in arms}
+    rec = {"phase": "ckpt", "steps": CKPT_STEPS, "save_every": CKPT_EVERY,
+           "keep": CKPT_KEEP, "arms": arms,
+           "snapshot_extra_device_gb": (
+               peak["snapshot"] - peak["sync"]
+               if peak["sync"] is not None else None),
+           "stall_ratio_snapshot_over_host_fetch": snap_med / fetch_med,
+           "stall_gate": CKPT_STALL_GATE, "race_probe": race,
+           "transformer_final_digests": transformer_digests,
+           "cnn_digests": cnn, "durability": durability,
+           "trainer_eval": trainer_eval, "train_dir": train_dir,
+           "seconds": time.time() - t_phase}
+    emit(rec)
+    check(snap_med <= CKPT_STALL_GATE * fetch_med,
+          f"snapshot stall median {snap_med} ms > {CKPT_STALL_GATE} x the "
+          f"host fetch's {fetch_med} ms")
+    check(race["digest_written"] == race["digest_before_add"]
+          != race["digest_after_add"],
+          f"race probe: the writer saw the add ({race})")
+    common = set.intersection(*(set(d) for d in cnn.values()))
+    check(CKPT_STEPS in common, f"CNN arms saved steps "
+                                f"{ {a: sorted(d) for a, d in cnn.items()} }")
+    for s in sorted(set().union(*cnn.values())):
+        got = {cnn[a][s] for a in cnn if s in cnn[a]}
+        check(len(got) == 1, f"CNN step {s}: digests differ across arms")
+    for policy, counts in durability["fsyncs_per_save"].items():
+        check(counts == [FSYNCS_PER_SAVE[policy]],
+              f"durability {policy}: {counts} fsyncs a save, expected "
+              f"{FSYNCS_PER_SAVE[policy]}")
+    return rec
+
+
+EVAL_LINE = re.compile(r"^Num examples: (\d+) Precision @ 1: ([0-9.]+) "
+                       r"Loss: ([0-9.]+) Time: ([0-9.]+)$")
+
+
+def _colocated(tmp: str) -> dict:
+    """``launch train`` on the quorum CNN config and ``launch eval
+    --single_device`` following it, two processes on the same card."""
+    from distributedmnist_tpu_torch.core.config import EvalConfig
+    from distributedmnist_tpu_torch.evalsvc import Evaluator
+    train_dir, eval_dir = f"{tmp}/coloc_train", f"{tmp}/coloc_eval"
+    train = [sys.executable, "-m", "distributedmnist_tpu_torch.launch",
+             "train", "--config", "configs/quorum_k4_of_8.json",
+             "mesh.simulate_devices=8", "data.dataset=synthetic",
+             "data.synthetic_train_size=4096",
+             f"data.synthetic_test_size={COLOC_TEST}",
+             f"train.max_steps={COLOC_STEPS}",
+             f"train.save_interval_steps={COLOC_EVERY}",
+             "train.keep_checkpoints=0",
+             f"train.step_pace_ms={COLOC_PACE_MS}",
+             f"train.train_dir={train_dir}", "--device", DEVICE]
+    evaluate = [sys.executable, "-m", "distributedmnist_tpu_torch.launch",
+                "eval", "--train_dir", train_dir, "--eval_dir", eval_dir,
+                "--single_device", "--max_evals", str(COLOC_MAX_EVALS),
+                "--eval_interval_secs", "0.2"]
+    if DEVICE != "cuda":
+        evaluate += ["--device", DEVICE]
+    t0 = time.time()
+    procs = {}
+    logs = {name: open(f"{tmp}/coloc_{name}.err", "w")
+            for name in ("train", "eval")}
+    try:
+        for name, cmd in (("train", train), ("eval", evaluate)):
+            procs[name] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=logs[name], text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                start_new_session=True)
+        outs = {}
+        outs["train"] = procs["train"].communicate(
+            timeout=COLOC_TIMEOUT_S)[0]
+        try:
+            outs["eval"] = procs["eval"].communicate(
+                timeout=COLOC_EVAL_GRACE_S)[0]
+        except subprocess.TimeoutExpired:
+            # fewer than max_evals new steps before the trainer ended
+            os.killpg(procs["eval"].pid, signal.SIGKILL)
+            outs["eval"] = procs["eval"].communicate()[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        for f in logs.values():
+            f.close()
+    wall = time.time() - t0
+    tails = {}
+    for name in logs:
+        with open(f"{tmp}/coloc_{name}.err") as f:
+            tails[name] = f.read()[-2000:]
+    check(procs["train"].returncode == 0,
+          f"launch train exited {procs['train'].returncode}: "
+          f"{tails['train']}")
+    check(procs["eval"].returncode in (0, -signal.SIGKILL),
+          f"launch eval exited {procs['eval'].returncode}: {tails['eval']}")
+    printed = [x for x in outs["eval"].splitlines() if x.strip()]
+    bad = [x for x in printed if not EVAL_LINE.match(x)]
+    check(printed and not bad, f"eval printed {printed}")
+    with open(f"{eval_dir}/eval_log.jsonl") as f:
+        results = [json.loads(line) for line in f]
+    steps = [r["step"] for r in results]
+    check(len(results) == len(printed) and len(set(steps)) >= 2
+          and steps == sorted(set(steps)),
+          f"evaluated steps {steps} ({len(printed)} lines printed)")
+    checker = Evaluator(train_dir, EvalConfig(eval_dir=f"{tmp}/coloc_check"),
+                        single_device=True, device=DEVICE)
+    agree = []
+    for r in results:
+        want = checker.evaluate_checkpoint(r["step"])
+        agree.append({"step": r["step"],
+                      "precision_at_1": r["precision_at_1"],
+                      "loss": r["loss"],
+                      "in_process_precision_at_1": want["precision_at_1"],
+                      "in_process_loss": want["loss"],
+                      "seconds": r["seconds"]})
+    skips = []
+    path = f"{eval_dir}/recovery_journal.jsonl"
+    if os.path.exists(path):
+        with open(path) as f:
+            skips = [json.loads(line) for line in f]
+    return {"steps_evaluated": steps, "lines": len(printed),
+            "agreement": agree, "follow_skip": skips, "wall_s": wall,
+            "eval_exit": procs["eval"].returncode,
+            "train_summary": json.loads(
+                outs["train"].strip().splitlines()[-1])["test"]}
+
+
+def phase_eval(tmp: str, ckpt_rec: dict) -> dict:
+    """The continuous evaluator: in process on the ``ckpt`` phase's
+    transformer checkpoint (K1 on every layer of every batch), then
+    co-located with a live CNN trainer on the same card."""
+    from distributedmnist_tpu_torch.core.config import EvalConfig
+    from distributedmnist_tpu_torch.evalsvc import Evaluator
+    t_phase = time.time()
+    batch = TRAIN["eval"]["eval_batch_size"]
+    reset_counts()
+    t0 = time.time()
+    ev = Evaluator(ckpt_rec["train_dir"],
+                   EvalConfig(eval_dir=f"{tmp}/eval_inproc",
+                              eval_batch_size=batch), device=DEVICE)
+    res = ev.evaluate_checkpoint()
+    eval_s = time.time() - t0
+    counts = read_counts()
+    n_batches = -(-ev.datasets.test.num_examples // batch)
+    want = ckpt_rec["trainer_eval"]
+    coloc = _colocated(tmp)
+    rec = {"phase": "eval", "step": res["step"],
+           "num_examples": res["num_examples"],
+           "precision_at_1": res["precision_at_1"], "loss": res["loss"],
+           "trainer_precision_at_1": want["accuracy"],
+           "trainer_loss": want["loss"], "loss_tol": EVAL_LOSS_TOL,
+           "eval_batches": n_batches, "launches": counts,
+           "k1_launches": counts["K1"], "eval_s": eval_s,
+           "eval_step_s": res["seconds"], "colocated": coloc,
+           "seconds": time.time() - t_phase}
+    emit(rec)
+    check(res["step"] == CKPT_STEPS, f"evaluated step {res['step']}")
+    check(counts["K1"] == MODEL["num_layers"] * n_batches
+          and all(counts[k] == 0 for k in counts if k != "K1"),
+          f"launches {counts} for {n_batches} eval batches")
+    check(res["precision_at_1"] == want["accuracy"]
+          and abs(res["loss"] - want["loss"]) <= EVAL_LOSS_TOL,
+          f"evaluator {res} against the Trainer's evaluate {want}")
+    for a in coloc["agreement"]:
+        check(a["precision_at_1"] == a["in_process_precision_at_1"]
+              and abs(a["loss"] - a["in_process_loss"])
+              <= COLOC_LOSS_RTOL * abs(a["in_process_loss"]),
+              f"co-located eval of step {a['step']}: {a}")
+    return rec
+
+
 # (kernel, name, source, replaces, the phase whose launches it reports)
 KERNELS = (
     ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "54", "e2e"),
@@ -1981,6 +2542,10 @@ def main() -> int:
             runs["dist"] = phase_dist(tmp)
             phase = "e2e"
             e2e = runs["e2e"] = phase_e2e(train["train_dir"], tmp)
+            phase = "ckpt"
+            runs["ckpt"] = phase_ckpt(tmp)
+            phase = "eval"
+            runs["eval"] = phase_eval(tmp, runs["ckpt"])
     except Exception as e:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}",
@@ -1995,7 +2560,8 @@ def main() -> int:
     for key, name, src, line, path in KERNELS:
         c = timed[key]
         extra = ({**k5_in_place, "ms_cold": c["ms_cold"]} if key == "K5"
-                 else {})
+                 else {"launches_eval": runs["eval"]["k1_launches"]}
+                 if key == "K1" else {})
         replaces = ("distributedmnist_tpu/ops/pallas_paged_attention.py:62"
                     if line is None else
                     f"distributedmnist_tpu/ops/pallas_attention.py:{line}")

@@ -5,7 +5,9 @@ machine-readable journals (``serve_log.jsonl``, heartbeats). The
 reference's sink can also validate every record against its event
 schema (``obsv/schema.py``, a test-time switch); the port writes the
 same records and its tests validate them with that schema from the
-outside.
+outside. Under ``train.durability=full`` each append is fsynced
+(``train/storage.py`` owns the policy). :func:`eval_line` is the
+evaluator's parseable line.
 """
 
 from __future__ import annotations
@@ -16,6 +18,11 @@ import sys
 import time
 from pathlib import Path
 from typing import IO, Any
+
+# the storage shim owns the fsync policy for journal appends; looked up
+# through sys.modules, since a process that never loaded it can never
+# have set a policy other than the default
+_STORAGE_MODULE = __package__.rsplit(".", 1)[0] + ".train.storage"
 
 _LOGGER = logging.getLogger("distributedmnist_tpu_torch")
 if not _LOGGER.handlers:
@@ -42,6 +49,9 @@ class JsonlSink:
     def write(self, record: dict[str, Any]) -> None:
         record.setdefault("ts", time.time())
         self._fh.write(json.dumps(record, default=_default) + "\n")
+        storage = sys.modules.get(_STORAGE_MODULE)
+        if storage is not None and storage.journal_sync_enabled():
+            storage.fsync_journal(self._fh)
 
     def close(self) -> None:
         self._fh.close()
@@ -60,3 +70,11 @@ def _default(o: Any):
     if isinstance(o, np.ndarray):
         return o.tolist()
     return str(o)
+
+
+def eval_line(num_examples: int, precision: float, loss: float,
+              seconds: float) -> str:
+    """The evaluator's line, in the exact format of the source paper's
+    evaluator (``src/nn_eval.py``), so its log parsers still apply."""
+    return ("Num examples: %d Precision @ 1: %f Loss: %f Time: %f"
+            % (num_examples, precision, loss, seconds))

@@ -1,10 +1,12 @@
 """The port's CLI (≙ ``distributedmnist_tpu/launch/__main__.py``), the
-``train`` and ``serve --decode`` verbs:
+``train``, ``eval`` and ``serve --decode`` verbs:
 
   python -m distributedmnist_tpu_torch.launch train --config C.json \\
       [section.key=value ...] [--device cpu]
   torchrun --nproc-per-node P -m distributedmnist_tpu_torch.launch train \\
       --config C.json mesh.num_replicas=N ... [--dist-backend nccl|gloo]
+  python -m distributedmnist_tpu_torch.launch eval --train_dir D \\
+      [--eval_dir E] [--single_device] [--max_evals N] [--device cpu]
   python -m distributedmnist_tpu_torch.launch serve --decode \\
       --train-dir D --serve-dir S [--device cpu] [decode/serve flags]
 
@@ -18,7 +20,10 @@ set) it first joins the process group
 evenly over the processes, one device each (``cuda:$LOCAL_RANK``, or
 ``--device``), ``--dist-backend`` ``nccl`` on the card and ``gloo`` on
 the CPU by default; every rank prints the last line, and the group is
-torn down on every exit. ``serve --decode``
+torn down on every exit. ``eval`` runs the continuous evaluator
+(:class:`~..evalsvc.evaluator.Evaluator`) on ``D``: each new checkpoint
+once, the source paper's ``Num examples: ... Precision @ 1: ...`` line
+for each. ``serve --decode``
 boots a :class:`~..servesvc.decode.DecodeReplica` on the newest
 loadable checkpoint in ``D`` (adopting the run config saved in it),
 serves until SIGTERM/SIGINT, and drains. The flag names are the
@@ -57,6 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="process-group backend under torchrun (default "
                          "nccl on a CUDA device, gloo on the CPU)")
     pt.add_argument("overrides", nargs="*", help="dotted overrides k=v")
+    pe = sub.add_parser("eval", help="continuous evaluator: evaluate "
+                                     "each new checkpoint of a train_dir "
+                                     "once")
+    from ..evalsvc.__main__ import add_eval_arguments
+    add_eval_arguments(pe)
     pv = sub.add_parser(
         "serve", help="decode replica: serve a published causal-LM "
                       "checkpoint as streaming generations over a local "
@@ -174,6 +184,10 @@ def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "train":
         train(argv)
+        return
+    if argv and argv[0] == "eval":
+        from ..evalsvc.__main__ import evaluator_from_args
+        evaluator_from_args(build_parser().parse_args(argv)).run()
         return
     build_decode_replica(argv).serve_forever()
 

@@ -28,17 +28,24 @@ pointer, then keep-N garbage collection — so a reader never sees a torn
 artifact under the pointer, and either package resumes the other's
 checkpoints. :func:`checkpoint_params_digest` is the reference's digest.
 
-Not ported yet: the per-host sharded layout (manifests), quantized
-sidecars, the async writer, the storage fault shim and the hot-follow
-``CheckpointFollower``.
+Every durable write and read goes through the storage shim
+(``train/storage.py``: the fsync policy and the injectable disk faults)
+inside the reference's bounded I/O retries (:func:`_io_retries`; a
+missing file is not retried). :class:`AsyncCheckpointer` writes on a
+background thread, latest wins; :class:`CheckpointFollower` is the
+hot-follow loop of the evaluator: pointer read, step-advanced check,
+skip-and-retry on an unreadable artifact.
+
+Not ported yet: the per-host sharded layout (manifests; the reader
+refuses one with a clear error) and quantized sidecars.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
-import os
 import re
+import threading
 import time
 from pathlib import Path
 from typing import Any, Callable
@@ -47,6 +54,7 @@ import msgpack
 import numpy as np
 
 from ..core.log import get_logger
+from . import storage
 
 logger = get_logger("checkpoint")
 
@@ -62,6 +70,32 @@ class CheckpointCorruptError(ValueError):
     (unparseable msgpack) or a sha256 mismatch. Distinct from
     ``FileNotFoundError`` (an incomplete publish); both fall back to
     the previous loadable step on restore."""
+
+
+# -- I/O retries ------------------------------------------------------------
+#
+# A transient EIO on a network filesystem must not look like corruption
+# (which would discard a good step); a missing file is a fact of the
+# publish order, not a flake, and is not retried.
+
+_IO_ATTEMPTS = 3
+_IO_BACKOFF_S = 0.05
+
+
+def _io_retries(fn: Callable[[], Any], what: str) -> Any:
+    for attempt in range(1, _IO_ATTEMPTS + 1):
+        try:
+            return fn()
+        except FileNotFoundError:
+            raise
+        except OSError as e:
+            if attempt == _IO_ATTEMPTS:
+                raise
+            delay = _IO_BACKOFF_S * 2 ** (attempt - 1)
+            logger.warning("I/O error on %s (%s) — attempt %d/%d, "
+                           "retrying in %.2fs", what, e, attempt,
+                           _IO_ATTEMPTS, delay)
+            time.sleep(delay)
 
 
 def _ckpt_path(train_dir: Path, step: int) -> Path:
@@ -135,30 +169,43 @@ def msgpack_serialize(tree: Any) -> bytes:
 
 
 def to_state_dict(tree: Any) -> Any:
-    """Lists become dicts keyed by index, as flax's state dicts store
-    them (a transformer's ``blocks``)."""
+    """The tree as the reference's writer hands it to msgpack: lists
+    become dicts keyed by index, as flax's state dicts store them (a
+    transformer's ``blocks``); every dict's keys sorted and numpy
+    scalars 0-d arrays, as jax's tree map and ``device_get`` leave
+    them. The same state then packs to the reference's bytes."""
     if isinstance(tree, dict):
-        return {k: to_state_dict(v) for k, v in tree.items()}
+        return {k: to_state_dict(tree[k]) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return {str(i): to_state_dict(v) for i, v in enumerate(tree)}
+        return to_state_dict({str(i): v for i, v in enumerate(tree)})
+    if isinstance(tree, np.generic):
+        return np.asarray(tree)
     return tree
 
 
 # -- reading ----------------------------------------------------------------
 
 def _verified_read(path: Path) -> bytes:
-    """Read ``path`` and check it against its sha256 sidecar when one
-    exists (a file without one is accepted, as the reference does)."""
-    data = path.read_bytes()
+    """Read ``path`` (with I/O retries) and check it against its sha256
+    sidecar when one exists (a file without one is accepted, as the
+    reference does: a crash between the data and digest writes)."""
+    data = _io_retries(lambda: storage.read_bytes(path), path.name)
     dpath = _digest_path(path)
     if dpath.exists():
-        want = dpath.read_text().strip()
+        want = _io_retries(lambda: storage.read_text(dpath),
+                           dpath.name).strip()
         got = hashlib.sha256(data).hexdigest()
         if want and got != want:
             raise CheckpointCorruptError(
                 f"{path.name}: sha256 mismatch (file {got[:12]}… != "
                 f"recorded {want[:12]}…)")
     return data
+
+
+def verify_artifact(path: str | Path) -> None:
+    """Raise :class:`CheckpointCorruptError` when ``path`` fails its
+    sha256 sidecar (a file without a sidecar is accepted)."""
+    _verified_read(Path(path))
 
 
 def _read_payload(path: Path) -> dict:
@@ -198,7 +245,7 @@ def latest_checkpoint_step(train_dir: str | Path) -> int | None:
     ptr = train_dir / _POINTER
     if ptr.exists():
         try:
-            d = json.loads(ptr.read_text())
+            d = json.loads(storage.read_text(ptr))
             if (train_dir / d["latest_path"]).exists():
                 return int(d["latest_step"])
         except (json.JSONDecodeError, KeyError, ValueError, OSError):
@@ -253,7 +300,8 @@ def wait_for_run_config(train_dir: str | Path, timeout_s: float = 600.0):
 def artifact_digest(train_dir: str | Path, step: int) -> str | None:
     """The recorded sha256 of a step's artifact (its sidecar), or None."""
     try:
-        text = _digest_path(_ckpt_path(Path(train_dir), step)).read_text()
+        text = storage.read_text(_digest_path(_ckpt_path(Path(train_dir),
+                                                          step)))
     except OSError:
         return None
     return text.strip() or None
@@ -374,21 +422,35 @@ def checkpoint_params_digest(train_dir: str | Path, step: int | None = None
 # -- writing ----------------------------------------------------------------
 
 def _write_atomic(path: Path, data: bytes) -> None:
-    tmp = path.with_name(path.name + ".tmp")
-    tmp.write_bytes(data)
-    dpath = _digest_path(path)
-    # a re-save of the same step must never leave the old digest over
-    # the new bytes: drop it before the data lands
-    dpath.unlink(missing_ok=True)
-    os.replace(tmp, path)
-    dtmp = dpath.with_name(dpath.name + ".tmp")
-    dtmp.write_text(hashlib.sha256(data).hexdigest())
-    os.replace(dtmp, dpath)
+    """tmp write, rename, then the digest sidecar (tmp + rename), as one
+    retried unit."""
+    def write() -> None:
+        tmp = path.with_name(path.name + ".tmp")
+        storage.write_bytes(tmp, data, role="data")
+        dpath = _digest_path(path)
+        # a re-save of the same step must never leave the old digest
+        # over the new bytes: drop it before the data lands (a crash in
+        # between leaves a digest-less file, which is accepted)
+        dpath.unlink(missing_ok=True)
+        storage.replace(tmp, path, role="data")
+        dtmp = dpath.with_name(dpath.name + ".tmp")
+        storage.write_text(dtmp, hashlib.sha256(data).hexdigest(),
+                           role="sidecar")
+        storage.replace(dtmp, dpath, role="sidecar")
+    _io_retries(write, path.name)
+
+
+def _write_pointer(train_dir: Path, step: int, latest_name: str) -> None:
+    pointer = {"latest_step": step, "latest_path": latest_name,
+               "written_at": time.time()}
+    ptmp = train_dir / (_POINTER + ".tmp")
+    storage.write_text(ptmp, json.dumps(pointer), role="pointer")
+    storage.replace(ptmp, train_dir / _POINTER, role="pointer")
 
 
 def _garbage_collect(train_dir: Path, keep: int) -> None:
     """Keep the newest ``keep`` steps' artifacts (and their sidecars);
-    ``keep <= 0`` keeps everything."""
+    ``keep <= 0`` keeps everything. An unlink that fails is skipped."""
     if keep <= 0:
         return
     by_step: dict[int, list[Path]] = {}
@@ -398,7 +460,10 @@ def _garbage_collect(train_dir: Path, keep: int) -> None:
             by_step.setdefault(int(m.group(1)), []).append(f)
     for s in sorted(by_step)[:-keep]:
         for old in by_step[s]:
-            old.unlink(missing_ok=True)
+            try:
+                old.unlink()
+            except OSError:
+                pass
 
 
 def save_state(train_dir: str | Path, state: dict, step: int,
@@ -412,15 +477,11 @@ def save_state(train_dir: str | Path, state: dict, step: int,
     does)."""
     train_dir = Path(train_dir)
     train_dir.mkdir(parents=True, exist_ok=True)
-    data = msgpack_serialize({"state": to_state_dict(state),
-                              "extra": json.dumps(extra or {})})
+    data = msgpack_serialize(to_state_dict(
+        {"state": state, "extra": json.dumps(extra or {})}))
     path = _ckpt_path(train_dir, step)
     _write_atomic(path, data)
-    pointer = {"latest_step": step, "latest_path": path.name,
-               "written_at": time.time()}
-    ptmp = train_dir / (_POINTER + ".tmp")
-    ptmp.write_text(json.dumps(pointer))
-    os.replace(ptmp, train_dir / _POINTER)
+    _write_pointer(train_dir, step, path.name)
     _garbage_collect(train_dir, keep)
     logger.info("saved checkpoint step=%d → %s", step, path.name)
     return path
@@ -435,3 +496,172 @@ def save_checkpoint(train_dir: str | Path, params: dict, step: int,
     so a replica can boot from it."""
     return save_state(train_dir, {"params": params, "step": np.int32(step)},
                       step, extra)
+
+
+# -- the asynchronous writer ------------------------------------------------
+
+class AsyncCheckpointer:
+    """A background thread that writes checkpoints (≙ the reference's
+    ``AsyncCheckpointer``), so that packing, hashing and file I/O leave
+    the step loop.
+
+    :meth:`save` queues ``(train_dir, state, step, extra, keep)``:
+    ``state`` is a host state dict (numpy leaves, the reference layout)
+    or, with ``prepare``, anything ``prepare`` turns into one on the
+    worker thread — the device snapshot's path, where ``prepare`` copies
+    fresh device buffers to the host. A ``prepare`` failure counts as a
+    failed write.
+
+    Latest wins: a save queued while another is pending replaces it
+    (checkpoints are snapshots, not a journal). A failed write is
+    logged, reported to ``on_error(step, exc)`` and raised by the next
+    :meth:`wait`; after ``max_consecutive_failures`` failures in a row,
+    :meth:`save` raises instead of letting checkpoints go stale."""
+
+    def __init__(self, max_consecutive_failures: int = 3,
+                 on_error: Callable[[int, Exception], None] | None = None):
+        self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        self._pending: tuple | None = None
+        self._busy = False
+        self._error: Exception | None = None  # the last write's outcome
+        self._last_failure: Exception | None = None  # kept across wait()
+        self._consecutive_failures = 0
+        self.max_consecutive_failures = max_consecutive_failures
+        self._on_error = on_error
+        self._stop = False
+        self.closed = False
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="ckpt-writer")
+        self._thread.start()
+
+    def _worker(self) -> None:
+        while True:
+            with self._wake:
+                while self._pending is None and not self._stop:
+                    self._wake.wait()
+                if self._stop and self._pending is None:
+                    return
+                job = self._pending
+                self._pending = None
+                self._busy = True
+            train_dir, state, step, extra, keep, prepare = job
+            del job  # a prepared snapshot's device buffers go with it
+            try:
+                if prepare is not None:
+                    state = prepare(state)
+                save_state(train_dir, state, step, extra=extra, keep=keep)
+            except Exception as e:  # a failed write must not end the thread
+                logger.error("async checkpoint write for step=%d failed: %s",
+                             step, e)
+                with self._lock:
+                    self._error = e
+                    self._last_failure = e
+                    self._consecutive_failures += 1
+                if self._on_error is not None:
+                    try:
+                        self._on_error(step, e)
+                    except Exception:
+                        logger.exception("checkpoint on_error hook failed")
+            else:
+                with self._lock:
+                    self._error = None  # a later success supersedes
+                    self._consecutive_failures = 0
+            finally:
+                state = None
+                with self._wake:
+                    self._busy = False
+                    self._wake.notify_all()
+
+    def save(self, train_dir: str | Path, state: Any, step: int,
+             extra: dict | None = None, keep: int = 5,
+             prepare: Callable[[Any], dict] | None = None) -> None:
+        """Queue a write (replacing a pending one). Raises only after
+        ``max_consecutive_failures`` failed writes in a row, or when
+        closed."""
+        with self._lock:
+            if self._consecutive_failures >= self.max_consecutive_failures:
+                raise RuntimeError(
+                    f"{self._consecutive_failures} consecutive async "
+                    "checkpoint writes failed; giving up"
+                ) from self._last_failure
+        with self._wake:
+            if self.closed:
+                raise RuntimeError("AsyncCheckpointer is closed")
+            if self._pending is not None:
+                logger.warning("checkpoint writer lagging; replacing queued "
+                               "step=%d with step=%d", self._pending[2], step)
+            self._pending = (train_dir, state, step, extra, keep, prepare)
+            self._wake.notify_all()
+
+    def wait(self) -> None:
+        """Drain the queued and running writes; raise if the last one
+        failed (the error is then consumed)."""
+        with self._wake:
+            while self._pending is not None or self._busy:
+                self._wake.wait()
+            err, self._error = self._error, None
+        if err is not None:
+            raise RuntimeError("async checkpoint write failed") from err
+
+    def close(self) -> None:
+        """Drain (raising as :meth:`wait` does), then join the thread."""
+        try:
+            self.wait()
+        finally:
+            with self._wake:
+                self._stop = True
+                self.closed = True
+                self._wake.notify_all()
+            self._thread.join(timeout=60)
+
+
+# -- following a run's checkpoints ------------------------------------------
+
+class CheckpointFollower:
+    """The hot-follow loop of a checkpoint consumer (≙ the reference's
+    ``CheckpointFollower``): :meth:`poll` reads the pointer and, when
+    its step advanced past the last one consumed, returns
+    ``read(step)``. ``read`` raising ``OSError``, ``ValueError`` (which
+    covers :class:`CheckpointCorruptError`) or ``KeyError`` — the
+    trainer's GC unlinking the step between the pointer read and the
+    read, a torn file, a failed digest — is a skip: remembered in
+    ``last_error``, reported to ``on_event`` as a ``follow_skip``
+    record, and retried on the next poll. ``read`` returning None
+    leaves the cursor where it was."""
+
+    def __init__(self, train_dir: str | Path,
+                 on_event: Callable[[dict], None] | None = None):
+        self.train_dir = Path(train_dir)
+        self.last_step = -1          # the last step consumed
+        self.last_error: tuple[int, str] | None = None  # (step, error)
+        self.skips = 0
+        self._on_event = on_event
+
+    def newest_step(self) -> int | None:
+        """The pointer's step (None before the first publish)."""
+        return latest_checkpoint_step(self.train_dir)
+
+    def poll(self, read: Callable[[int], Any]) -> Any | None:
+        """One tick: ``read(step)``'s result for a newly advanced step,
+        else None (nothing new, or the read failed and will be
+        retried)."""
+        step = self.newest_step()
+        if step is None or step == self.last_step:
+            return None
+        try:
+            out = read(step)
+        except (OSError, ValueError, KeyError) as e:
+            self.skips += 1
+            self.last_error = (step, f"{type(e).__name__}: {e}")
+            logger.warning("checkpoint step=%s unreadable (%s); "
+                           "skip-and-retry", step, e)
+            if self._on_event is not None:
+                self._on_event({"layer": "checkpoint",
+                                "action": "follow_skip", "step": step,
+                                "error": self.last_error[1]})
+            return None
+        if out is None:
+            return None
+        self.last_step = step
+        return out

@@ -35,18 +35,34 @@ and only process 0 writes the journals, checkpoints and series dumps;
 every process resumes from the newest loadable checkpoint. The step's
 host time excludes the time spent waiting in collectives.
 
-Not ported yet (each knob is refused or ignored as noted): the
-asynchronous checkpoint writer and device snapshot (saves are
-synchronous; ``train.async_checkpoint`` is ignored), TensorBoard
-scalars (``train.summary_every_steps`` is ignored), profiler windows
+Checkpoints are written as the reference writes them: the fsync
+policy ``train.durability`` is installed before any durable write, a
+cadence save that fails after the I/O retries is journaled as a
+``save_failed`` recovery record and the run goes on (a failed
+asynchronous write reports through the writer's ``on_error``; three in
+a row stop the run), and with ``train.async_checkpoint`` process 0
+writes on a background thread (:class:`..train.checkpoint.
+AsyncCheckpointer`). With ``train.async_snapshot`` too the step loop
+only enqueues a copy of every state tensor on the compute stream (the
+optimizer updates params and slots in place, so the next step must not
+be enqueued before the copy) and records an event; the writer's thread
+waits on the event on a stream of its own, copies to pinned host
+memory, converts, packs and writes. Without it the loop fetches the
+state to the host and the thread packs and writes. The ``save`` record's
+``save_stall_ms`` is what the loop paid. The writer is drained before
+the final save returns, before a NaN rollback reads the directory and
+when ``run`` ends, on every exit. TensorBoard scalars go to
+``train_dir/tb`` every ``train.summary_every_steps`` steps.
+
+Not ported yet (each knob is refused as noted): profiler windows
 (``train.profile_steps`` / ``trace_every_steps`` raise), quantized
-publish (``quant.publish_tiers`` raises), fsync policies other than
-``none``, warm standby, and the AOT precompile (PyTorch runs eagerly:
-there is no ``compile`` record).
+publish (``quant.publish_tiers`` raises), warm standby, and the AOT
+precompile (PyTorch runs eagerly: there is no ``compile`` record).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import signal
 import threading
@@ -66,12 +82,14 @@ from ..data.pipeline import make_train_iterator, to_device
 from ..models.convert import (params_to_reference, state_from_reference,
                               state_to_reference)
 from ..models.registry import Model, get_model
+from ..obsv.tb import SummaryWriter
 from ..obsv.timing import ReplicaDeviceProbe, StepTimeCollector
 from ..parallel.api import (TrainState, build_eval_step, build_train_step,
                             init_train_state, make_discipline_vector,
-                            tree_leaves, world_signature)
+                            tree_leaves, tree_map, world_signature)
 from ..parallel.policies import resolve_aggregate_k
 from . import checkpoint as ckpt
+from . import storage
 from .discipline import DisciplineController, WindowStats
 from .evaluation import run_full_eval
 from .lr_schedule import (constant, decay_steps_for, exponential_decay,
@@ -121,10 +139,53 @@ def _check_loop_knobs(cfg: ExperimentConfig) -> None:
                                   "are not ported yet")
     if cfg.quant.resolved_publish_tiers():
         raise NotImplementedError("quant.publish_tiers is not ported yet")
-    if t.durability != "none":
-        raise NotImplementedError(f"train.durability={t.durability!r} is "
-                                  "not ported yet (the port writes with "
-                                  "rename-only atomicity, 'none')")
+
+
+def device_snapshot(state: TrainState
+                    ) -> tuple[TrainState, torch.cuda.Event | None]:
+    """Fresh copies of every tensor of ``state`` (params, slots, the
+    interval window), enqueued on the current stream, and on the card
+    an event recorded after them. The optimizer updates the live
+    tensors in place, so the copies must be enqueued before the next
+    step is; the counters are Python numbers and are read now."""
+    clone = lambda t: t.clone()  # noqa: E731
+    snap = dataclasses.replace(
+        state, params=tree_map(clone, state.params),
+        momentum=tree_map(clone, state.momentum),
+        window_acc=tree_map(clone, state.window_acc),
+        root_key=np.array(state.root_key))
+    event = None
+    device = tree_leaves(state.params)[0].device
+    if device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+    return snap, event
+
+
+def snapshot_to_host(snapshot: tuple[TrainState, torch.cuda.Event | None]
+                     ) -> dict:
+    """The writer thread's half of :func:`device_snapshot`: the state
+    dict in the reference layout. On the card: wait on the event on a
+    stream of the snapshot's own device, copy into pinned host memory,
+    synchronize that stream (the device copies are dropped only after
+    it), then convert."""
+    snap, event = snapshot
+    if event is not None:
+        device = tree_leaves(snap.params)[0].device
+        with torch.cuda.device(device):
+            stream = torch.cuda.Stream(device=device)
+            stream.wait_event(event)
+            with torch.cuda.stream(stream):
+                def fetch(t):
+                    host = torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=True)
+                    return host.copy_(t, non_blocking=True)
+                snap = dataclasses.replace(
+                    snap, params=tree_map(fetch, snap.params),
+                    momentum=tree_map(fetch, snap.momentum),
+                    window_acc=tree_map(fetch, snap.window_acc))
+            stream.synchronize()
+    return state_to_reference(snap)
 
 
 class Trainer:
@@ -190,6 +251,17 @@ class Trainer:
         # probe sees it
         self.device_work_injection: dict[int, tuple] | None = None
         self.train_dir = Path(cfg.train.train_dir)
+        # the fsync policy, installed before any durable write (the
+        # resume below included); an unknown one is a ConfigError
+        storage.set_durability(cfg.train.durability)
+        # only the writer owns a checkpointer, built at its first save
+        self._use_async_ckpt = cfg.train.async_checkpoint and self.is_writer
+        self._async_snapshot = (self._use_async_ckpt
+                                and cfg.train.async_snapshot)
+        self._checkpointer: ckpt.AsyncCheckpointer | None = None
+        self._tb: SummaryWriter | None = None
+        if self.is_writer and cfg.train.summary_every_steps > 0:
+            self._tb = SummaryWriter(self.train_dir / "tb")
         self._sink: JsonlSink | None = None
         self._recovery_sink: JsonlSink | None = None
         self._preempt_requested: str | None = None
@@ -262,7 +334,8 @@ class Trainer:
 
     def _save(self) -> None:
         """Process 0 writes; the others go on (no barrier: nothing waits
-        on a save, as in the reference)."""
+        on a save, as in the reference). A save that fails after the
+        I/O retries is journaled as ``save_failed`` and skipped."""
         if not self.is_writer:
             return
         t0 = time.perf_counter()
@@ -270,21 +343,87 @@ class Trainer:
         extra = {"config": self.cfg.to_dict(),
                  "world": world_signature(self.topo),
                  "data_iter": self.train_iter.state()}
-        ckpt.save_state(self.train_dir, state_to_reference(self.state),
-                        at_step, extra=extra,
-                        keep=self.cfg.train.keep_checkpoints)
+        # arms the at_step-gated disk fault scripts for this save
+        storage.note_step(at_step)
+        try:
+            self._save_inner(at_step, extra)
+        except OSError as e:
+            logger.error("checkpoint save for step=%d failed (%s) — "
+                         "skipping this cadence", at_step, e)
+            self._recovery_event({"layer": "train", "action": "save_failed",
+                                  "step": at_step,
+                                  "error": f"{type(e).__name__}: {e}",
+                                  "errno": getattr(e, "errno", None),
+                                  "where": "sync"})
+            self._last_save_time = time.time()
+            return
         stall_ms = (time.perf_counter() - t0) * 1e3
         self.collector.add_snapshot_stall_ms(stall_ms)
         # "at_step", not "step": progress watchers read "step" records
         self._sink_write({"event": "save", "time": time.time(),
                           "at_step": at_step,
                           "save_stall_ms": round(stall_ms, 3),
-                          "async_snapshot": False})
+                          "async_snapshot": self._async_snapshot})
         self._last_save_time = time.time()
+
+    def _ckpt_save_failed(self, step: int, e: Exception) -> None:
+        """The writer's ``on_error`` hook (its thread): a failed
+        background write is journaled as ``save_failed``."""
+        self._recovery_event({"layer": "train", "action": "save_failed",
+                              "step": step,
+                              "error": f"{type(e).__name__}: {e}",
+                              "errno": getattr(e, "errno", None),
+                              "where": "async"})
+
+    def _save_inner(self, at_step: int, extra: dict) -> None:
+        keep = self.cfg.train.keep_checkpoints
+        if not self._use_async_ckpt:
+            ckpt.save_state(self.train_dir, state_to_reference(self.state),
+                            at_step, extra=extra, keep=keep)
+            return
+        if self._checkpointer is None or self._checkpointer.closed:
+            self._checkpointer = ckpt.AsyncCheckpointer(
+                on_error=self._ckpt_save_failed)
+        if not self._async_snapshot:
+            # the host fetch on the loop; the writer packs and writes
+            self._checkpointer.save(self.train_dir,
+                                    state_to_reference(self.state), at_step,
+                                    extra=extra, keep=keep)
+            return
+        try:
+            snap, prepare = device_snapshot(self.state), snapshot_to_host
+        except Exception as e:  # reported as a failed write, below
+            # no fallback to the synchronous path: a snapshot that
+            # cannot be taken is a failed write (save_failed, and wait
+            # raises), reported through the writer like any other
+            def prepare(_snap, e=e):
+                raise e
+            snap = None
+        self._checkpointer.save(self.train_dir, snap, at_step, extra=extra,
+                                keep=keep, prepare=prepare)
+
+    def _drain_writer(self) -> None:
+        """Wait for the writer's queued and running writes before the
+        directory is read. A failure there was journaled through
+        ``on_error`` already and does not stop the caller."""
+        if self._checkpointer is None:
+            return
+        try:
+            self._checkpointer.wait()
+        except RuntimeError as e:
+            logger.warning("draining the checkpoint writer: %s (%s)", e,
+                           e.__cause__)
+
+    def _close_writer(self) -> None:
+        """Drain and join the writer; raises if the last write failed."""
+        if self._checkpointer is not None:
+            cp, self._checkpointer = self._checkpointer, None
+            cp.close()
 
     def _rollback_to_last_good(self, err: _NonFiniteLoss) -> int:
         """Restore the newest checkpoint whose params are finite; return
         the loop step to continue from."""
+        self._drain_writer()
         for s in sorted(ckpt.loadable_steps(self.train_dir), reverse=True):
             try:
                 saved, extra, _ = ckpt.restore_state(self.train_dir, step=s)
@@ -432,6 +571,16 @@ class Trainer:
                        if self._discipline is not None else {})}
                 self._sink_write(record)
                 final_metrics = record
+                if (self._tb is not None
+                        and s % self.cfg.train.summary_every_steps == 0):
+                    self._tb.add_scalars(
+                        {"train/loss": loss, "train/accuracy": acc,
+                         "train/learning_rate": record["lr"],
+                         "train/examples_per_sec": rate,
+                         "train/num_contributors":
+                             record["num_contributors"]},
+                        step=s, wall_time=t)
+                    self._tb.flush()
                 if step_callback:
                     step_callback(s, record)
             logger.info(step_line(self.topo.process_index, upto,
@@ -514,16 +663,29 @@ class Trainer:
                             "up") from e
                     step = self._rollback_to_last_good(e)
                     last_log_step, last_log_t = step, time.time()
+            if self._preempt_requested:
+                self._recovery_event({"layer": "train",
+                                      "action": "preempt_flush",
+                                      "signal": self._preempt_requested,
+                                      "step": step})
+            self._save()  # the final save
+        except BaseException:
+            # leave no writer thread behind an escaping error; a failed
+            # last write was journaled and must not mask this one
+            try:
+                self._close_writer()
+            except RuntimeError as e:
+                logger.warning("closing the checkpoint writer: %s", e)
+            raise
         finally:
             if saved_handlers is not None:
                 for sig, old in saved_handlers.items():
                     signal.signal(sig, old)
-        if self._preempt_requested:
-            self._recovery_event({"layer": "train", "action": "preempt_flush",
-                                  "signal": self._preempt_requested,
-                                  "step": step})
-        self._save()  # the final save
+        # drained before run returns; raises if the final write failed
+        self._close_writer()
         self._dump_series()
+        if self._tb is not None:
+            self._tb.flush()
         self._close_sinks()
         summary = {
             "final_step": step,

@@ -42,7 +42,11 @@ TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               "ops.masked_psum", "ops.drop_connect", "parallel.policies",
               # the process-group path, the step-time collector and the
               # adaptive discipline controller
-              "obsv.timing", "train.discipline")
+              "obsv.timing", "train.discipline",
+              # durable checkpoints, TensorBoard scalars and the
+              # continuous evaluator
+              "train.storage", "obsv.tb", "evalsvc", "evalsvc.evaluator",
+              "evalsvc.__main__")
 
 
 def test_port_modules_load_no_jax():

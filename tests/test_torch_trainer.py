@@ -212,9 +212,20 @@ def test_launch_train_prints_summary_and_wants_cuda(tmp_path, capsys):
 
 
 def test_unported_loop_knobs_raise(tmp_path):
-    for over in ({"profile_steps": [1, 3]}, {"durability": "full"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Trainer(_cfg(SMALL, tmp_path, **over), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        Trainer(_cfg(SMALL, tmp_path, profile_steps=[1, 3]), device="cpu")
+    # train.durability is ported: a known policy builds, an unknown one
+    # is the reference's ConfigError
+    from distributedmnist_tpu_torch.core.config import ConfigError
+    from distributedmnist_tpu_torch.train import storage
+    try:
+        Trainer(_cfg(SMALL, tmp_path, durability="full"), device="cpu")
+        assert storage.durability() == "full"
+        with pytest.raises(ConfigError, match="valid policies"):
+            Trainer(_cfg(SMALL, tmp_path, durability="paranoid"),
+                    device="cpu")
+    finally:
+        storage.set_durability("none")
 
 
 # tests/conftest.py base_config for the CNN, as the reference's smoke
