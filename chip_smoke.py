@@ -21,8 +21,8 @@ random weights from a seed:
 
 and the MNIST CNN's sync SGD (the source paper's path) at its published
 widths, on one process and across worker processes; then the training
-path's durable checkpoints and the continuous evaluator that follows
-them.
+path's durable checkpoints, the continuous evaluator that follows them,
+and the serving tier that hot-follows training (``launch serve``).
 
 One JSON line per phase:
 
@@ -121,7 +121,7 @@ One JSON line per phase:
                 step: quorum k=7 leaves it out); the K1-K5 counters 0 in
                 this process and every child.
 8. ``e2e``      — boots the decode replica on the training phase's
-                checkpoint through the CLI's ``build_decode_replica``,
+                checkpoint through the CLI's ``build_replica``,
                 streams 8 concurrent greedy requests over its socket,
                 and checks:
                 an ``ok`` terminal with exactly ``max_tokens`` tokens
@@ -169,12 +169,54 @@ One JSON line per phase:
                 printed line the source paper's format, each result
                 equal to an in-process eval of that step (loss within
                 ``COLOC_LOSS_RTOL``), ``follow_skip`` records printed.
+11. ``serve``   — one line a part, then the phase's seconds. ``cnn``:
+                ``launch train`` on the MNIST CNN at its published widths
+                (``SERVE_CNN``: float32, 60 steps, a save every 10,
+                ``quant.publish_tiers=int8,bf16``, 128 calibration
+                examples; every sidecar's source digest the artifact's,
+                calibrated on the card), published in the trainer's write
+                order into a dir that ``launch serve``'s replica follows
+                (``poll_secs`` 0.1); every bucket warmed untimed; 200
+                one-image requests at concurrency 4 (deadline 5 s)
+                steady, and again with a publish every 300 ms: no drop
+                or error, at least 2 steps served, swap p99 within
+                max(5 ×, + 250 ms) of steady's; p50/p99, requests/s, the
+                batch-size histogram, swaps and ``swap_ms``; every
+                answer of the swap sweep and 64 fixed images against the
+                port's CPU forward of the step that served them (within
+                ``SERVE_CARD_VS_CPU_TOL``); int8 and bf16 replicas on the
+                newest step: int8 resident weight bytes ≤ 0.35 × fp32,
+                top-1 agreement ≥ 0.98 with fp32 on the 1,000 test
+                images, rates and p99 over 2 interleaved sweep pairs of
+                120 (reported, and the reference's accelerator gate
+                beside them); a torn int8 sidecar journaled once as
+                ``follow_quant_sidecar_fallback``, that step served fp32
+                and the next int8. ``decode_pin`` / ``decode_restart``:
+                the ``ckpt`` phase's two kept steps at full width, 8
+                clients generating 64 greedy tokens a request back to
+                back while the newer is published: every request ok; one
+                swap mid-generation; the journal replayed (no pinned
+                sequence changes step, every ``seq_restart`` follows its
+                ``weight_swap``); K1 = 4 × (prefills + restarts), K5 = 4
+                × the decode steps (one a live version an iteration);
+                under ``pin`` two versions live at once, peak memory,
+                and the first pinned step with a masked slot against the
+                plain paged attention: live rows' logits within
+                ``E2E_LOGIT_TOL``, masked rows bitwise, and K5's output
+                for every masked slot exactly zero; under
+                ``restart`` one ``seq_restart`` a sequence in flight.
+                ``lm_one_shot``: 4 requests of 1,024 tokens through the
+                classification replica on the transformer: K1 = 4 a
+                batch, each served answer's probabilities against the
+                plain path's softmax for its prompt at batch 1, within
+                ``LM_PREDICT_PROB_REL`` × p + ``LM_PREDICT_PROB_ABS``.
 
 Then a ``kernels`` summary line (per kernel also its ``variant`` —
 ``wgmma``, ``cuda_cores`` or ``cluster_split``, the compiled kernel the
 bf16 call takes — and the build phase's instantiation, registers,
 spills, shared memory and blocks per SM at the timed shape; for K1 also
-``launches_eval``, the eval phase's count; for K5 also
+``launches_eval``, the eval phase's count, and ``launches_serve``, the
+serve phase's by path; for K5 also ``launches_serve`` and
 ``ms_cold``, and ``ms_in_place``, its share of the decode-step profile
 a launch, beside ``bound_ms_in_place`` for the profile's lengths), the
 card's name and power limit
@@ -1932,7 +1974,7 @@ def phase_e2e(train_dir: str, tmp: str) -> dict:
     import torch
 
     from distributedmnist_tpu_torch.launch.__main__ import \
-        build_decode_replica
+        build_replica
     from distributedmnist_tpu_torch.train.checkpoint import \
         latest_checkpoint_step
 
@@ -1944,7 +1986,7 @@ def phase_e2e(train_dir: str, tmp: str) -> dict:
           f"the training checkpoint is at step {served_step}")
     torch.cuda.empty_cache()
     t0 = time.time()
-    rep = build_decode_replica(["serve", "--decode", "--train-dir",
+    rep = build_replica(["serve", "--decode", "--train-dir",
                                 train_dir, "--serve-dir",
                                 f"{tmp}/serve", "--device", DEVICE])
     rep.start()
@@ -2499,6 +2541,712 @@ def phase_eval(tmp: str, ckpt_rec: dict) -> dict:
     return rec
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+# the serving tier (bench.py bench_serving_latency and
+# bench_quantized_serving): the MNIST CNN at its published widths, float32
+# compute, 60 steps with a save every 10 and the int8 and bf16 sidecars
+SERVE_CNN = {"name": "chip_smoke_serve",
+             "data": {"dataset": "synthetic", "batch_size": 32,
+                      "synthetic_train_size": 2048,
+                      "synthetic_test_size": 1000,
+                      "use_native_pipeline": False},
+             "model": {"name": "mnist_cnn", "compute_dtype": "float32"},
+             "mesh": {"num_replicas": 1},
+             "quant": {"publish_tiers": "int8,bf16",
+                       "calibration_examples": 128},
+             "train": {"max_steps": 60, "log_every_steps": 20,
+                       "save_interval_steps": 10, "save_results_period": 0,
+                       "summary_every_steps": 0, "keep_checkpoints": 0,
+                       "seed": SEED}}
+SERVE_POLL_S, SERVE_CONC, SERVE_REQS, SERVE_DEADLINE_S = 0.1, 4, 200, 5.0
+SERVE_PUBLISH_EVERY_S = 0.3
+# the reference's gate (bench_serving_latency): p99 across swaps at most
+# max(5 x, + 250 ms) of the steady sweep's
+SERVE_P99_FACTOR, SERVE_P99_SLACK_MS = 5.0, 250.0
+# bench_quantized_serving: int8 resident weight bytes at most 0.35 x
+# fp32; top-1 agreement of each tier with fp32 at least 1 - 0.02 on the
+# test split; 2 interleaved sweep pairs of 120 requests a tier
+TIER_BYTES_GATE, TIER_AGREEMENT_GATE = 0.35, 0.98
+TIER_REQS, TIER_PAIRS = 120, 2
+# the replica on the card against the port's CPU forward of the same
+# checkpoint, float32 with TF32 off: the two sum in other orders (~1e-6
+# of logits up to ~20, through a softmax) and the replica rounds its wire
+# probabilities to 6 decimals
+SERVE_CARD_VS_CPU_TOL = 1e-4
+# decode swaps: 8 clients generating 64 greedy tokens a request back to
+# back while the ckpt phase's newest step follows the one it kept before
+SWAP_NEW_TOKENS, SWAP_TIMEOUT_S = 64, 300
+# one-shot LM predict through the classification replica, kernels vs
+# plain, bf16, each served answer against the plain softmax of its
+# prompt: log-probabilities differ by the logits' difference and the
+# log-sum-exp's, each within E2E_LOGIT_TOL, so |dp| <= p (e^0.2 - 1);
+# the wire rounds each probability to 6 decimals (5e-7)
+LM_PREDICT_PROB_REL = math.expm1(2 * E2E_LOGIT_TOL)
+LM_PREDICT_PROB_ABS = 5e-7
+
+
+def _publish(src: str, dst: str, step: int, sidecar: bool = False,
+             tear_sidecar: bool = False) -> None:
+    """Publish a staged step in the trainer's write order: the quant
+    sidecar (torn after the copy when asked: its digest kept), the
+    artifact and its digest, then the pointer."""
+    import shutil
+    os.makedirs(dst, exist_ok=True)
+    names = ([f"ckpt-{step:08d}.quant.msgpack"] if sidecar else []) + \
+        [f"ckpt-{step:08d}.msgpack"]
+    for name in names:
+        for sfx in ("", ".sha256"):
+            shutil.copy2(os.path.join(src, name + sfx),
+                         os.path.join(dst, name + sfx))
+    if tear_sidecar:
+        path = os.path.join(dst, names[0])
+        with open(path, "rb") as f:
+            data = f.read()
+        with open(path, "wb") as f:
+            f.write(data[:len(data) // 2])
+    tmp = os.path.join(dst, "checkpoint.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump({"latest_step": step, "latest_path": names[-1],
+                   "written_at": time.time()}, f)
+    os.replace(tmp, os.path.join(dst, "checkpoint.json"))
+
+
+def _serve_records(serve_dir: str) -> list:
+    with open(os.path.join(serve_dir, "serve_log.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _warm_buckets(rep) -> None:
+    """The untimed sweep: every power-of-2 bucket up to serve.max_batch
+    once through the replica's predict (cuDNN's first call at a shape
+    takes ~1 s), then synchronize."""
+    import numpy as np
+    import torch
+    b = 1
+    while b <= rep.scfg.max_batch:
+        rep._predict(rep._params, np.zeros((b, *rep.model.input_shape),
+                                           np.dtype(rep.model.input_dtype)))
+        b *= 2
+    torch.cuda.synchronize()
+
+
+class _Sweep:
+    """A ServeClient for one sweep: request ids carry the sweep's tag
+    (``run_load`` numbers every sweep from 0, and a repeated id is a
+    dedup hit, answered from the replica's cache), and each ok answer's
+    inputs, step and probabilities are kept for the card-against-CPU
+    check of every served step."""
+
+    def __init__(self, client, tag: str):
+        self.client, self.tag, self.answers = client, tag, []
+        self._lock = threading.Lock()
+
+    def request(self, inputs, request_id=None, deadline_s=None):
+        out = self.client.request(inputs,
+                                  request_id=f"{self.tag}-{request_id}",
+                                  deadline_s=deadline_s)
+        if out.get("status") == "ok":
+            with self._lock:
+                self.answers.append((inputs, out["model_step"],
+                                     out["probs"]))
+        return out
+
+
+class _GcPauses:
+    """The interpreter's generation-2 collections inside a ``with``
+    block: how many, and each one's milliseconds (the host pauses every
+    thread of the process, the replica's too)."""
+
+    def __enter__(self):
+        import gc
+        self.ms, self._t0 = [], None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms.append((time.perf_counter() - self._t0) * 1e3)
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._note)
+
+
+def _cpu_probs(publish: str, step: int, images) -> "np.ndarray":
+    """The port's CPU forward of ``step``'s checkpoint: probabilities."""
+    from distributedmnist_tpu_torch.models.convert import \
+        params_from_reference
+    from distributedmnist_tpu_torch.models.registry import get_model
+    from distributedmnist_tpu_torch.core.config import ExperimentConfig
+    from distributedmnist_tpu_torch.quant.ptq import build_tier_predict
+    from distributedmnist_tpu_torch.train.checkpoint import restore_params
+    tree, extra, _ = restore_params(publish, step)
+    model = get_model(ExperimentConfig.from_dict(extra["config"]).model)
+    params = params_from_reference(tree, device="cpu")
+    return build_tier_predict(model, "fp32", "cpu")(params, images).numpy()
+
+
+def _serve_cnn(tmp: str) -> dict:
+    """Publish the CNN with its tiers, then the steady and swap sweeps,
+    the card against the CPU, the tiers and the torn sidecar."""
+    import numpy as np
+    import torch
+
+    from distributedmnist_tpu_torch.launch.__main__ import build_replica
+    from distributedmnist_tpu_torch.quant.ptq import (parity_report,
+                                                      tier_param_bytes)
+    from distributedmnist_tpu_torch.servesvc import ServeClient
+    from distributedmnist_tpu_torch.servesvc.loadgen import (make_input_fn,
+                                                             run_load)
+    from distributedmnist_tpu_torch.train import checkpoint as ckpt
+    root = f"{tmp}/serve_cnn"
+    os.makedirs(root, exist_ok=True)
+    cudnn = torch.backends.cudnn
+    flags_before = (cudnn.deterministic, cudnn.allow_tf32)
+    path = f"{root}/config.json"
+    with open(path, "w") as f:
+        json.dump(SERVE_CNN, f)
+    from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+    t0 = time.time()
+    trainer = build_trainer(["train", "--config", path,
+                             f"train.train_dir={root}/staging",
+                             "--device", DEVICE])
+    trainer.run()
+    train_s = time.time() - t0
+    staging = str(trainer.train_dir)
+    steps = ckpt.loadable_steps(staging)
+    check(steps == list(range(10, 61, 10)), f"staged steps {steps}")
+    sidecars = {}
+    for s in steps:
+        meta = ckpt.read_quant_sidecar(staging, s)["meta"]
+        digest, _ = ckpt.checkpoint_params_digest(staging, s)
+        check(meta["source_params_digest"] == digest,
+              f"step {s}: the sidecar's source digest is not the "
+              "artifact's")
+        sidecars[s] = {"tiers": meta["tiers"],
+                       "publish_ms": meta["publish_ms"],
+                       "agreement": {t: meta["calibration"][t]["agreement"]
+                                     for t in ("int8", "bf16")}}
+    check(trainer._quant_publisher.device.type == DEVICE,
+          "calibration ran off the card")
+    test = trainer.datasets.test
+    trainer = None
+
+    publish = f"{root}/publish"
+    _publish(staging, publish, steps[0], sidecar=True)
+    replicas: list = []  # every replica booted, stopped on every exit
+
+    def boot(tier: str, src: str = publish):
+        rep = build_replica(["serve", "--train-dir", src, "--serve-dir",
+                             f"{root}/replica_{len(replicas)}_{tier}",
+                             "--device", DEVICE, "--poll-secs",
+                             str(SERVE_POLL_S), "--precision-tier", tier])
+        replicas.append(rep)
+        rep.start()
+        return rep, ServeClient([("127.0.0.1", rep.bound_port)],
+                                deadline_s=SERVE_DEADLINE_S)
+
+    try:
+        rep, client = boot("fp32")
+        check(rep.device.type == DEVICE, f"replica on {rep.device}")
+        make_input = make_input_fn(list(rep.model.input_shape),
+                                   str(np.dtype(rep.model.input_dtype)))
+        _warm_buckets(rep)
+        run_load(_Sweep(client, "warm"), 8 * SERVE_CONC, SERVE_CONC,
+                 make_input)
+        rep.batch_sizes.clear()
+        with _GcPauses() as gc_steady:
+            steady = run_load(_Sweep(client, "steady"), SERVE_REQS,
+                              SERVE_CONC, make_input,
+                              journal_path=f"{root}/loadgen_steady.jsonl")
+        steady_batches = dict(sorted(rep.batch_sizes.items()))
+        rep.batch_sizes.clear()
+        stop_pub = threading.Event()
+
+        def publisher():
+            # the first publish as the sweep starts, then every 300 ms:
+            # the sweep may take well under a second on the card
+            for s in steps[1:]:
+                _publish(staging, publish, s, sidecar=True)
+                if stop_pub.wait(SERVE_PUBLISH_EVERY_S):
+                    return
+
+        recorder = _Sweep(client, "swap")
+        swaps0 = rep.swaps
+        pub = threading.Thread(target=publisher, daemon=True)
+        pub.start()
+        with _GcPauses() as gc_swap:
+            swap = run_load(recorder, SERVE_REQS, SERVE_CONC, make_input,
+                            journal_path=f"{root}/loadgen_swap.jsonl")
+        stop_pub.set()
+        pub.join(timeout=30)
+        swap_batches = dict(sorted(rep.batch_sizes.items()))
+        swaps = rep.swaps - swaps0
+        # the newest step, for the tiers below
+        _publish(staging, publish, steps[-1], sidecar=True)
+        deadline = time.time() + 60
+        while rep.model_step < steps[-1] and time.time() < deadline:
+            time.sleep(0.02)
+        # every served step's answers against that step's CPU forward
+        by_step: dict = {}
+        for inputs, s, probs in recorder.answers:
+            by_step.setdefault(s, []).append((inputs, probs))
+        swap_err = 0.0
+        for s, got in by_step.items():
+            x = np.asarray([g[0] for g in got], np.float32)
+            want = _cpu_probs(publish, s, x)
+            swap_err = max(swap_err, float(np.abs(
+                np.asarray([g[1] for g in got]) - want).max()))
+        # 64 fixed images on the replica's step, card against CPU
+        x64 = test.images[:64]
+        card = rep._predict(rep._params, x64).cpu().numpy()
+        card_err = float(np.abs(card - _cpu_probs(
+            publish, rep.model_step, x64)).max())
+        recs = _serve_records(str(rep.serve_dir))
+        swap_ms = [r["swap_ms"] for r in recs
+                   if r["action"] == "weight_swap" and not r.get("initial")]
+        # the replica's own admit-to-respond latency, beside the client's
+        server_ms = {}
+        for tag in ("steady", "swap"):
+            lat = sorted(r["latency_ms"] for r in recs
+                         if r["action"] == "respond"
+                         and str(r["id"]).startswith(f"{tag}-"))
+            server_ms[tag] = {"p50": lat[len(lat) // 2],
+                              "p99": lat[int(0.99 * (len(lat) - 1))]}
+        # the tiers, on the newest step
+        tier_reps, tier_clients = {"fp32": rep}, {"fp32": client}
+        for tier in ("int8", "bf16"):
+            trep, tier_clients[tier] = boot(tier)
+            tier_reps[tier] = trep
+            check(trep.model_tier == tier and trep.model_step == steps[-1],
+                  f"{tier} replica installed {trep.model_tier} at step "
+                  f"{trep.model_step}")
+            _warm_buckets(trep)
+            run_load(_Sweep(tier_clients[tier], "warm"), 8 * SERVE_CONC,
+                     SERVE_CONC, make_input)
+        resident = {t: tier_param_bytes(r._params)
+                    for t, r in tier_reps.items()}
+        probs = {t: r._predict(r._params, test.images).cpu().numpy()
+                 for t, r in tier_reps.items()}
+        parity = {t: parity_report(probs["fp32"], probs[t], test.labels)
+                  for t in ("int8", "bf16")}
+        sweeps = {t: [] for t in tier_clients}
+        for i in range(TIER_PAIRS):
+            for t, c in tier_clients.items():
+                sweeps[t].append(run_load(_Sweep(c, f"pair{i}"), TIER_REQS,
+                                          SERVE_CONC, make_input))
+        tiers = {t: {"rps": statistics.median(s["throughput_rps"]
+                                               for s in v),
+                     "p99_ms": statistics.median(s["latency_ms"]["p99"]
+                                                 for s in v),
+                     "p50_ms": statistics.median(s["latency_ms"]["p50"]
+                                                 for s in v),
+                     "tiers_served": sorted({x for s in v
+                                             for x in s["tiers_served"]}),
+                     "dropped_or_errors": sum(s["dropped"] + s["errors"]
+                                              for s in v)}
+                 for t, v in sweeps.items()}
+        for r in tier_reps.values():
+            r.stop()
+        # a torn int8 sidecar: that step serves fp32, the next int8
+        torn_pub = f"{root}/publish_torn"
+        _publish(staging, torn_pub, steps[-2], sidecar=True,
+                 tear_sidecar=True)
+        trep, tclient = boot("int8", torn_pub)
+        torn_first = tclient.request(make_input(0), request_id="torn-0")
+        time.sleep(5 * SERVE_POLL_S)  # several polls at the torn step
+        _publish(staging, torn_pub, steps[-1], sidecar=True)
+        deadline = time.time() + 60
+        while trep.model_step < steps[-1] and time.time() < deadline:
+            time.sleep(0.05)
+        torn_next = tclient.request(make_input(1), request_id="torn-1")
+        trep.stop()
+        torn_recs = _serve_records(str(trep.serve_dir))
+    finally:
+        for r in replicas:
+            r.stop()  # a second stop is a no-op
+    fallbacks = [r for r in torn_recs
+                 if r["action"] == "follow_quant_sidecar_fallback"]
+    torn = {"fallbacks": [(r["step"], r["reason"].split(":")[0])
+                          for r in fallbacks],
+            "first": (torn_first.get("model_step"), torn_first.get("tier")),
+            "next": (torn_next.get("model_step"), torn_next.get("tier"))}
+    p99_steady = steady["latency_ms"]["p99"]
+    p99_bound = max(SERVE_P99_FACTOR * p99_steady,
+                    p99_steady + SERVE_P99_SLACK_MS)
+    bytes_ratio = resident["int8"] / resident["fp32"]
+    rec = {"train_s": train_s, "staged_steps": steps,
+           "sidecars": sidecars,
+           "steady": {k: steady[k] for k in ("latency_ms", "throughput_rps",
+                                             "dropped", "errors",
+                                             "model_steps_served")},
+           "swap": {k: swap[k] for k in ("latency_ms", "throughput_rps",
+                                         "dropped", "errors",
+                                         "model_steps_served")},
+           "batch_sizes_steady": steady_batches,
+           "batch_sizes_swap": swap_batches, "swaps": swaps,
+           "swap_ms": swap_ms, "p99_bound_ms": p99_bound,
+           "server_latency_ms": server_ms,
+           "gc_gen2_pauses_ms": {"steady": gc_steady.ms,
+                                 "swap": gc_swap.ms},
+           "swap_answers_vs_cpu_max_abs": swap_err,
+           "card_vs_cpu_max_abs": card_err,
+           "card_vs_cpu_tol": SERVE_CARD_VS_CPU_TOL,
+           "resident_weight_bytes": resident,
+           "int8_bytes_ratio": bytes_ratio, "parity": parity,
+           "tiers": tiers,
+           "reference_accelerator_gate_int8_ge_fp32": (
+               tiers["int8"]["rps"] >= tiers["fp32"]["rps"]
+               and tiers["int8"]["p99_ms"] <= tiers["fp32"]["p99_ms"]),
+           "torn_sidecar": torn,
+           "cudnn_flags_before_after": [flags_before, (
+               cudnn.deterministic, cudnn.allow_tf32)]}
+    emit({"phase": "serve", "part": "cnn", **rec})
+    for name, sweep in (("steady", steady), ("swap", swap)):
+        check(sweep["dropped"] == 0 and sweep["errors"] == 0
+              and sweep["responses"] == SERVE_REQS,
+              f"{name} sweep: {sweep}")
+    check(len(swap["model_steps_served"]) >= 2 and swaps >= 1,
+          f"the swap sweep served steps {swap['model_steps_served']} "
+          f"({swaps} swaps)")
+    check(swap["latency_ms"]["p99"] <= p99_bound,
+          f"swap p99 {swap['latency_ms']['p99']} ms > {p99_bound} ms")
+    check(swap_err <= SERVE_CARD_VS_CPU_TOL and card_err
+          <= SERVE_CARD_VS_CPU_TOL,
+          f"card against CPU: {swap_err} (served answers), {card_err} "
+          f"(64 images) > {SERVE_CARD_VS_CPU_TOL}")
+    check(bytes_ratio <= TIER_BYTES_GATE,
+          f"int8 resident bytes {bytes_ratio} x fp32 > {TIER_BYTES_GATE}")
+    for t in ("int8", "bf16"):
+        check(parity[t]["agreement"] >= TIER_AGREEMENT_GATE,
+              f"{t} top-1 agreement {parity[t]['agreement']}")
+        check(tiers[t]["tiers_served"] == [t]
+              and tiers[t]["dropped_or_errors"] == 0,
+              f"{t} sweeps: {tiers[t]}")
+    check(flags_before == (cudnn.deterministic, cudnn.allow_tf32),
+          "cuDNN's process-wide settings changed")
+    check(torn["fallbacks"] == [(steps[-2], "CheckpointCorruptError")]
+          and torn["first"] == (steps[-2], "fp32")
+          and torn["next"] == (steps[-1], "int8"),
+          f"torn sidecar: {torn}")
+    return rec
+
+
+def _swap_journal_ok(recs: list, policy: str) -> str | None:
+    """The decode_swap invariant, replayed here: under pin no sequence
+    changes step; every seq_restart follows a weight_swap to its step,
+    and a sequence that changed step holds one."""
+    swapped_to, licensed = set(), {}
+    for r in recs:
+        if r["action"] == "weight_swap":
+            swapped_to.add(r["step"])
+        elif r["action"] == "seq_restart":
+            if r["to_step"] not in swapped_to:
+                return f"seq_restart before its weight_swap: {r}"
+            licensed[r["id"]] = r["to_step"]
+        elif r["action"] == "decode_finish":
+            if r["model_step"] != r["started_step"]:
+                if policy == "pin":
+                    return f"pinned sequence changed step: {r}"
+                if licensed.get(r["id"]) != r["model_step"]:
+                    return f"unlicensed step change: {r}"
+    return None
+
+
+def _decode_swap(tmp: str, ckpt_dir: str, policy: str) -> dict:
+    """8 clients generating 64-token greedy requests back to back while
+    the ckpt phase's newest step is published behind its older kept one:
+    the follower restores it, the loop swaps under ``policy``
+    mid-generation."""
+    import numpy as np
+    import torch
+
+    from distributedmnist_tpu_torch.launch.__main__ import build_replica
+    from distributedmnist_tpu_torch.models import transformer
+    from distributedmnist_tpu_torch.servesvc import ServeClient
+    root = f"{tmp}/serve_decode_{policy}"
+    old, new = ckpt_dir_steps(ckpt_dir)
+    _publish(ckpt_dir, f"{root}/publish", old)
+    rep = build_replica(["serve", "--decode", "--train-dir",
+                         f"{root}/publish", "--serve-dir", f"{root}/replica",
+                         "--device", DEVICE, "--swap-policy", policy,
+                         "--poll-secs", str(SERVE_POLL_S)])
+    rep.start()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, MODEL["vocab_size"], p).tolist()
+               for p, _ in REQUESTS]
+    captured: dict = {}
+    try:
+        _drive(rep.bound_port, [(p, m) for p, (_, m) in
+                                zip(prompts, REQUESTS)], f"{policy}-warm")
+        real = rep.model.decode_step
+
+        def compared(params, tokens, positions, k, v, tables, lengths,
+                     **kw):
+            """The first decode step while an older version is pinned
+            and some slot is masked (another version's, or idle: null
+            table, length 0), also through the plain paged attention on
+            copies of the caches (the plain run launches no kernel)."""
+            if ("max_abs" in captured or not rep._versions
+                    or not bool((lengths == 0).any())):
+                return real(params, tokens, positions, k, v, tables,
+                            lengths, **kw)
+            k5 = transformer.paged_attention
+            try:
+                live = lengths > 0
+                # the peak before the comparison's own copies; the stats
+                # restart after them, so peak_mem_gb is pin's alone
+                torch.cuda.synchronize()
+                captured["peak_before_compare_gb"] = (
+                    torch.cuda.max_memory_allocated() / 1e9)
+                kc, vc = k.clone(), v.clone()
+                nonzero = []
+
+                def watched(q, *a, **kw5):
+                    o = k5(q, *a, **kw5)
+                    nonzero.append(int(torch.count_nonzero(o[~live])))
+                    return o
+                transformer.paged_attention = watched
+                try:
+                    out = real(params, tokens, positions, k, v, tables,
+                               lengths, **kw)
+                finally:
+                    transformer.paged_attention = k5
+                plain, _, _ = real(params, tokens, positions, kc, vc,
+                                   tables, lengths,
+                                   block_size=kw["block_size"],
+                                   attention_kernel="dense")
+                captured["max_abs"] = float((out[0][live]
+                                             - plain[live]).abs().max())
+                captured["live_slots"] = int(live.sum())
+                captured["masked_slots"] = int((~live).sum())
+                captured["masked_rows_equal_plain"] = bool(
+                    (out[0][~live] == plain[~live]).all())
+                captured["masked_k5_nonzero"] = nonzero
+                del kc, vc, plain
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            except Exception as e:  # fail the phase, not the loop
+                captured["error"] = f"{type(e).__name__}: {e}"
+                captured.setdefault("max_abs", math.inf)
+                transformer.paged_attention = k5
+                # the step again: it rewrites the same K/V entries
+                return real(params, tokens, positions, k, v, tables,
+                            lengths, **kw)
+            return out
+
+        rep.model = dataclasses.replace(rep.model, decode_step=compared)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = (rep.prefills, rep.restarts, rep.version_steps,
+                  rep.decode_iterations, rep.swaps)
+        streamed = [threading.Event() for _ in prompts]
+        stop = threading.Event()
+        outs: list = [[] for _ in prompts]
+
+        def client_loop(i):
+            c = ServeClient([("127.0.0.1", rep.bound_port)],
+                            deadline_s=SWAP_TIMEOUT_S)
+            j = 0
+            while not stop.is_set():
+                outs[i].append(c.generate(
+                    prompts[i], request_id=f"{policy}-{i}-{j}",
+                    max_tokens=SWAP_NEW_TOKENS,
+                    on_token=lambda rec: streamed[i].set()))
+                j += 1
+
+        reset_counts()
+        t0 = time.time()
+        threads = [threading.Thread(target=client_loop, args=(i,),
+                                    daemon=True) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for e in streamed:
+            e.wait(timeout=SWAP_TIMEOUT_S)
+        _publish(ckpt_dir, f"{root}/publish", new)
+        deadline = t0 + SWAP_TIMEOUT_S
+        # every client ends one request that started on the new step
+        while time.time() < deadline and not all(
+                any(o.get("started_step") == new for o in outs[i])
+                for i in range(len(prompts))):
+            time.sleep(0.05)
+        stop.set()
+        for t in threads:
+            t.join(timeout=SWAP_TIMEOUT_S)
+        wall = time.time() - t0
+        counts = read_counts()
+        peak_gb = max(torch.cuda.max_memory_allocated() / 1e9,
+                      captured.get("peak_before_compare_gb", 0.0))
+        after = (rep.prefills, rep.restarts, rep.version_steps,
+                 rep.decode_iterations, rep.swaps)
+    finally:
+        rep.stop()
+    prefills, restarts, version_steps, iters, swaps = (
+        a - b for a, b in zip(after, before))
+    recs = _serve_records(f"{root}/replica")
+    swap_rec = next((r for r in recs if r["action"] == "weight_swap"
+                     and r["step"] == new), None)
+    restart_recs = [r for r in recs if r["action"] == "seq_restart"]
+    done = [o for os_ in outs for o in os_]
+    layers = MODEL["num_layers"]
+    rec = {"policy": policy, "from_step": old, "to_step": new,
+           "requests": len(done), "ok": sum(o.get("status") == "ok"
+                                            for o in done),
+           "swaps": swaps, "swap_record": swap_rec,
+           "seq_restarts": len(restart_recs), "prefills": prefills,
+           "restarts": restarts, "decode_iterations": iters,
+           "version_steps": version_steps, "launches": counts,
+           "k1_launches": counts["K1"], "k5_launches": counts["K5"],
+           "wall_s": wall, "peak_mem_gb": peak_gb,
+           "pinned_step_vs_plain": captured or None}
+    emit({"phase": "serve", "part": f"decode_{policy}", **rec})
+    check(all(t is not None and not t.is_alive() for t in threads),
+          "a client never finished")
+    check(all(o.get("status") == "ok" and len(o["tokens"])
+              == SWAP_NEW_TOKENS for o in done),
+          f"{policy}: a request did not end ok with {SWAP_NEW_TOKENS} "
+          f"tokens: {[o for o in done if o.get('status') != 'ok'][:2]}")
+    check(swaps == 1 and swap_rec is not None,
+          f"{policy}: {swaps} swaps to step {new}")
+    bad = _swap_journal_ok(recs, policy)
+    check(bad is None, f"{policy}: {bad}")
+    check(counts["K1"] == layers * (prefills + restarts)
+          and counts["K5"] == layers * version_steps
+          and counts["K1-lse"] == counts["K2"] == counts["K3"]
+          == counts["K4"] == 0,
+          f"{policy}: launches {counts} for {prefills} prefills, "
+          f"{restarts} restarts, {version_steps} version steps")
+    if policy == "pin":
+        check(swap_rec["sequences_pinned"] >= 1
+              and swap_rec["sequences_restarted"] == 0 and not restart_recs,
+              f"pin: swap record {swap_rec}, {len(restart_recs)} restarts")
+        check(all(o["model_step"] == o["started_step"] for o in done),
+              "pin: a sequence finished on another step")
+        check(version_steps > iters, "pin: never two live versions")
+        check(captured.get("max_abs", math.inf) <= E2E_LOGIT_TOL
+              and "error" not in captured
+              and captured["masked_rows_equal_plain"]
+              and len(captured["masked_k5_nonzero"]) == layers
+              and not any(captured["masked_k5_nonzero"]),
+              f"pinned step against plain: {captured}")
+    else:
+        check(swap_rec["sequences_restarted"] >= 1
+              and swap_rec["sequences_restarted"] == len(restart_recs)
+              == restarts
+              and all(r["from_step"] == old and r["to_step"] == new
+                      for r in restart_recs),
+              f"restart: swap record {swap_rec}, {len(restart_recs)} "
+              f"seq_restart records, {restarts} re-prefills")
+    return rec
+
+
+def ckpt_dir_steps(ckpt_dir: str) -> tuple[int, int]:
+    """The two newest steps of the ckpt phase's run (keep 2)."""
+    from distributedmnist_tpu_torch.train.checkpoint import loadable_steps
+    steps = loadable_steps(ckpt_dir)
+    check(len(steps) >= 2, f"the ckpt phase kept steps {steps}")
+    return steps[-2], steps[-1]
+
+
+def _lm_one_shot(tmp: str, ckpt_dir: str) -> dict:
+    """4 one-shot requests of a full 1024-token context through the
+    classification replica (the transformer's next-token distribution,
+    K1 on every layer), each answer then held against the plain path's
+    softmax for its prompt at batch 1."""
+    import numpy as np
+    import torch
+
+    from distributedmnist_tpu_torch.launch.__main__ import build_replica
+    from distributedmnist_tpu_torch.models import transformer
+    from distributedmnist_tpu_torch.ops.flash_attention import \
+        flash_attention_bshd_plain
+    from distributedmnist_tpu_torch.servesvc import ServeClient
+    root = f"{tmp}/serve_lm"
+    _, step = ckpt_dir_steps(ckpt_dir)
+    _publish(ckpt_dir, f"{root}/publish", step)
+    rep = build_replica(["serve", "--train-dir", f"{root}/publish",
+                         "--serve-dir", f"{root}/replica", "--device",
+                         DEVICE])
+    rep.start()
+    rng = np.random.default_rng(SEED + 1)
+    toks = rng.integers(0, MODEL["vocab_size"],
+                        (4, MODEL["seq_len"])).astype(np.int32)
+    try:
+        client = ServeClient([("127.0.0.1", rep.bound_port)],
+                             deadline_s=120.0)
+        check(client.request(toks[0].tolist(), request_id="warm")
+              ["status"] == "ok", "the warm-up request failed")
+        reset_counts()
+        b0 = rep.batches
+        outs = [client.request(t.tolist(), request_id=i)
+                for i, t in enumerate(toks)]
+        counts = read_counts()
+        batches = rep.batches - b0
+        check(all(o["status"] == "ok"
+                  and len(o["probs"]) == MODEL["vocab_size"] for o in outs),
+              f"one-shot LM requests: {[o['status'] for o in outs]}")
+        # each served answer against the plain path's softmax for the
+        # same prompt at batch 1, the shape the serve path gave K1
+        served = np.asarray([o["probs"] for o in outs], np.float64)
+        want = []
+        with torch.no_grad():
+            for t in toks:
+                logits = transformer.apply(
+                    rep._params,
+                    torch.from_numpy(t[None]).long().to(DEVICE),
+                    num_heads=MODEL["num_heads"],
+                    attention_fn=flash_attention_bshd_plain,
+                    compute_dtype=torch.bfloat16)
+                want.append(torch.softmax(logits[0, -1].float(), dim=-1)
+                            .double().cpu().numpy())
+        want = np.stack(want)
+    finally:
+        rep.stop()
+    delta = np.abs(served - want)
+    limit = want * LM_PREDICT_PROB_REL + LM_PREDICT_PROB_ABS
+    rec = {"requests": len(outs),
+           "ok": sum(o["status"] == "ok" for o in outs),
+           "batches": batches, "launches": counts,
+           "k1_launches": counts["K1"],
+           "prob_max_abs_vs_plain": float(delta.max()),
+           "prob_max_over_limit": float((delta / limit).max()),
+           "prob_tol": {"rel": LM_PREDICT_PROB_REL,
+                        "abs": LM_PREDICT_PROB_ABS}}
+    emit({"phase": "serve", "part": "lm_one_shot", **rec})
+    check(counts["K1"] == MODEL["num_layers"] * batches
+          and all(counts[k] == 0 for k in counts if k != "K1"),
+          f"one-shot LM: launches {counts} for {batches} batches")
+    check(bool((delta <= limit).all()),
+          f"one-shot LM against plain: |dp| reaches "
+          f"{rec['prob_max_over_limit']:.3f} x its limit")
+    return rec
+
+
+def phase_serve(tmp: str, ckpt_rec: dict) -> dict:
+    """The serving tier on the card: classification that hot-follows
+    training, its quantized tiers, decode swaps under both policies and
+    the one-shot LM predict."""
+    import gc
+
+    import torch
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": "serve", "cnn": _serve_cnn(tmp)}
+    ckpt_dir = ckpt_rec["train_dir"]
+    rec["decode_swaps"] = {p: _decode_swap(tmp, ckpt_dir, p)
+                           for p in ("pin", "restart")}
+    rec["lm_one_shot"] = _lm_one_shot(tmp, ckpt_dir)
+    rec["seconds"] = time.time() - t_phase
+    emit({"phase": "serve", "seconds": rec["seconds"]})
+    return rec
+
+
 # (kernel, name, source, replaces, the phase whose launches it reports)
 KERNELS = (
     ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "54", "e2e"),
@@ -2546,6 +3294,8 @@ def main() -> int:
             runs["ckpt"] = phase_ckpt(tmp)
             phase = "eval"
             runs["eval"] = phase_eval(tmp, runs["ckpt"])
+            phase = "serve"
+            runs["serve"] = phase_serve(tmp, runs["ckpt"])
     except Exception as e:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}",
@@ -2557,10 +3307,18 @@ def main() -> int:
                 "train_k4": runs["train_k4"]["launches"]}
     rows = []
     k5_in_place = _k5_in_place(e2e["decode_step_profile"])
+    serve = runs["serve"]
+    serve_launches = {key: {f"decode_{p}": serve["decode_swaps"][p][k]
+                            for p in ("pin", "restart")}
+                      for key, k in (("K1", "k1_launches"),
+                                     ("K5", "k5_launches"))}
+    serve_launches["K1"]["lm_one_shot"] = serve["lm_one_shot"]["k1_launches"]
     for key, name, src, line, path in KERNELS:
         c = timed[key]
-        extra = ({**k5_in_place, "ms_cold": c["ms_cold"]} if key == "K5"
-                 else {"launches_eval": runs["eval"]["k1_launches"]}
+        extra = ({**k5_in_place, "ms_cold": c["ms_cold"],
+                  "launches_serve": serve_launches["K5"]} if key == "K5"
+                 else {"launches_eval": runs["eval"]["k1_launches"],
+                       "launches_serve": serve_launches["K1"]}
                  if key == "K1" else {})
         replaces = ("distributedmnist_tpu/ops/pallas_paged_attention.py:62"
                     if line is None else

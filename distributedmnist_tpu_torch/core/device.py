@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 
 import torch
 
@@ -42,18 +43,27 @@ def resolve_device(requested: str | torch.device | None = None
     return dev
 
 
+# cuDNN's flags are process-wide: two threads (a train step and the
+# checkpoint writer's calibration predict, or a serving batcher) must not
+# interleave their set-and-restore, or the later restore leaves the
+# earlier thread's setting behind
+_CUDNN_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def cudnn_policy(deterministic: bool, allow_tf32: bool | None = None):
     """cuDNN's settings for one step, restored on exit: only its
     deterministic algorithms when ``deterministic`` (a seeded run then
     repeats bit for bit, as the reference's does), and TF32 rounding of
-    float32 convolutions as ``allow_tf32`` says (None leaves it)."""
+    float32 convolutions as ``allow_tf32`` says (None leaves it). One
+    thread at a time holds a policy."""
     cudnn = torch.backends.cudnn
-    saved = cudnn.deterministic, cudnn.allow_tf32
-    cudnn.deterministic = deterministic
-    if allow_tf32 is not None:
-        cudnn.allow_tf32 = allow_tf32
-    try:
-        yield
-    finally:
-        cudnn.deterministic, cudnn.allow_tf32 = saved
+    with _CUDNN_LOCK:
+        saved = cudnn.deterministic, cudnn.allow_tf32
+        cudnn.deterministic = deterministic
+        if allow_tf32 is not None:
+            cudnn.allow_tf32 = allow_tf32
+        try:
+            yield
+        finally:
+            cudnn.deterministic, cudnn.allow_tf32 = saved

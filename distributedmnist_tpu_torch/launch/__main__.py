@@ -1,5 +1,5 @@
 """The port's CLI (≙ ``distributedmnist_tpu/launch/__main__.py``), the
-``train``, ``eval`` and ``serve --decode`` verbs:
+``train``, ``eval``, ``serve`` and ``serve-load`` verbs:
 
   python -m distributedmnist_tpu_torch.launch train --config C.json \\
       [section.key=value ...] [--device cpu]
@@ -7,8 +7,12 @@
       --config C.json mesh.num_replicas=N ... [--dist-backend nccl|gloo]
   python -m distributedmnist_tpu_torch.launch eval --train_dir D \\
       [--eval_dir E] [--single_device] [--max_evals N] [--device cpu]
+  python -m distributedmnist_tpu_torch.launch serve --train-dir D \\
+      --serve-dir S [--precision-tier fp32|bf16|int8] [--device cpu]
   python -m distributedmnist_tpu_torch.launch serve --decode \\
       --train-dir D --serve-dir S [--device cpu] [decode/serve flags]
+  python -m distributedmnist_tpu_torch.launch serve-load \\
+      --endpoints HOST:PORT[,...] | --cluster-root R [--requests N]
 
 ``train`` builds the :class:`~..train.loop.Trainer` from the config and
 its dotted overrides, runs it, evaluates the test split and prints the
@@ -23,14 +27,17 @@ the CPU by default; every rank prints the last line, and the group is
 torn down on every exit. ``eval`` runs the continuous evaluator
 (:class:`~..evalsvc.evaluator.Evaluator`) on ``D``: each new checkpoint
 once, the source paper's ``Num examples: ... Precision @ 1: ...`` line
-for each. ``serve --decode``
-boots a :class:`~..servesvc.decode.DecodeReplica` on the newest
-loadable checkpoint in ``D`` (adopting the run config saved in it),
-serves until SIGTERM/SIGINT, and drains. The flag names are the
-reference CLI's. The device is ``cuda:0`` unless ``--device`` names
-another; without CUDA the default is an error, not a CPU run.
-Classification serving (``serve`` without ``--decode``) and the other
-verbs are not ported yet.
+for each. ``serve`` boots a :class:`~..servesvc.server.ServingReplica`
+(one-shot classification, preferring the ``--precision-tier`` sidecar)
+or, with ``--decode``, a :class:`~..servesvc.decode.DecodeReplica` on
+the newest loadable checkpoint in ``D`` (adopting the run config saved
+in it), follows ``D``'s publishes, serves until SIGTERM/SIGINT, and
+drains. ``serve-load`` drives replicas closed-loop through the failover
+client, journals every request to ``--out`` and prints the summary. The
+flag names are the reference CLI's. The device is ``cuda:0`` unless
+``--device`` names another; without CUDA the default is an error, not
+a CPU run. The reference's other verbs (sweep, cluster, report, ...)
+and ``serve --tp-ranks`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,9 +46,11 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
 
-_SERVE_FLAGS = ("host", "port", "queue_depth", "default_deadline_ms",
-                "compute_dtype")
+_SERVE_FLAGS = ("host", "port", "max_batch", "queue_depth",
+                "batch_window_ms", "poll_secs", "default_deadline_ms",
+                "precision_tier", "compute_dtype")
 _DECODE_FLAGS = ("decode_slots", "max_new_tokens", "max_prompt_len",
                  "swap_policy", "attention_kernel")
 
@@ -68,11 +77,13 @@ def build_parser() -> argparse.ArgumentParser:
     from ..evalsvc.__main__ import add_eval_arguments
     add_eval_arguments(pe)
     pv = sub.add_parser(
-        "serve", help="decode replica: serve a published causal-LM "
-                      "checkpoint as streaming generations over a local "
-                      "socket (continuous batching, paged KV cache)")
+        "serve", help="serving replica: hot-follow a train_dir's "
+                      "published checkpoints (digest-verified, torn "
+                      "publishes skipped) and serve inference over a "
+                      "local socket with admission control and "
+                      "zero-drop weight hot-swap")
     pv.add_argument("--train-dir", "--train_dir", dest="train_dir",
-                    required=True, help="the publish dir to serve from")
+                    required=True, help="the publish dir to follow")
     pv.add_argument("--serve-dir", dest="serve_dir", default=".",
                     help="where serve.json / serve_log.jsonl / "
                          "heartbeats land")
@@ -80,18 +91,30 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device (default cuda:0; 'cpu' runs the "
                          "plain versions of the kernels)")
     pv.add_argument("--decode", action="store_true",
-                    help="serve autoregressive decode (the only serving "
-                         "workload ported so far)")
+                    help="serve continuous-batching autoregressive "
+                         "decode (streaming tokens over a paged KV "
+                         "cache) instead of one-shot classification")
     pv.add_argument("--host", default=None)
     pv.add_argument("--port", type=int, default=None,
                     help="0 = ephemeral (the bound port is published in "
                          "serve.json)")
+    pv.add_argument("--max-batch", type=int, default=None, dest="max_batch")
     pv.add_argument("--queue-depth", type=int, default=None,
                     dest="queue_depth",
                     help="admission bound; a full queue sheds with a "
                          "typed reject")
+    pv.add_argument("--batch-window-ms", type=float, default=None,
+                    dest="batch_window_ms")
+    pv.add_argument("--poll-secs", type=float, default=None,
+                    dest="poll_secs", help="checkpoint-follow cadence")
     pv.add_argument("--default-deadline-ms", type=float, default=None,
                     dest="default_deadline_ms")
+    pv.add_argument("--precision-tier", default=None,
+                    dest="precision_tier",
+                    help="fp32 | bf16 | int8 — prefer the named "
+                         "quantized sidecar tier (quant.publish_tiers) "
+                         "over the full-precision artifact; absent or "
+                         "torn sidecars fall back to fp32, journaled")
     pv.add_argument("--compute-dtype", default=None, dest="compute_dtype",
                     help="serving-side compute dtype override "
                          "(serve.compute_dtype)")
@@ -108,13 +131,34 @@ def build_parser() -> argparse.ArgumentParser:
                     help="longest admissible prompt "
                          "(decode.max_prompt_len)")
     pv.add_argument("--swap-policy", default=None, dest="swap_policy",
-                    help="pin | restart (decode.swap_policy; validated — "
-                         "this replica serves its boot checkpoint)")
+                    help="pin | restart — what a weight hot-swap does "
+                         "to sequences mid-generation "
+                         "(decode.swap_policy)")
     pv.add_argument("--attention-kernel", default=None,
                     dest="attention_kernel",
                     help="dense | paged — decode attention "
                          "(decode.attention_kernel); paged runs the "
                          "paged-attention kernel")
+    pl = sub.add_parser(
+        "serve-load", help="closed-loop load generator over serving "
+                           "replicas (failover client, per-request "
+                           "journal, p50/p99 summary)")
+    pl.add_argument("--cluster-root", default=None,
+                    help="a root to discover worker*/serve.json "
+                         "endpoints from")
+    pl.add_argument("--endpoints", default=None,
+                    help="comma-separated host:port list (overrides "
+                         "--cluster-root)")
+    pl.add_argument("--requests", type=int, default=200)
+    pl.add_argument("--concurrency", type=int, default=2)
+    pl.add_argument("--deadline-s", type=float, default=5.0,
+                    dest="deadline_s")
+    pl.add_argument("--max-attempts", type=int, default=6,
+                    dest="max_attempts")
+    pl.add_argument("--ready-timeout-s", type=float, default=120.0,
+                    dest="ready_timeout_s")
+    pl.add_argument("--out", default="loadgen.jsonl",
+                    help="per-request journal path")
     return p
 
 
@@ -157,27 +201,67 @@ def train(argv: list[str]) -> None:
         shutdown_distributed()
 
 
-def build_decode_replica(argv: list[str]):
-    """Parse ``serve`` arguments and construct (not start) the replica —
-    the same object ``serve`` runs, for callers that drive it in
+def build_replica(argv: list[str]):
+    """Parse ``serve`` arguments and construct (not start) the replica
+    ``serve`` runs — a ``DecodeReplica`` with ``--decode``, else the
+    classification ``ServingReplica`` — for callers that drive it in
     process."""
     args = build_parser().parse_args(argv)
-    if args.cmd != "serve" or not args.decode:
-        raise SystemExit("only `serve --decode` is ported so far "
-                         "(classification serving is not)")
-    from ..servesvc.decode import DecodeReplica
-    from ..servesvc.server import wait_for_run_config
+    if args.cmd != "serve":
+        raise SystemExit(f"build_replica wants the serve verb, got "
+                         f"{args.cmd!r}")
+    from ..servesvc.server import ServingReplica, wait_for_run_config
 
     cfg = wait_for_run_config(args.train_dir)
     scfg = dataclasses.replace(
         cfg.serve, **{k: getattr(args, k) for k in _SERVE_FLAGS
                       if getattr(args, k) is not None})
+    if not args.decode:
+        cfg = cfg.replace(serve=scfg)
+        return ServingReplica(args.train_dir, serve_dir=args.serve_dir,
+                              scfg=scfg, cfg=cfg, device=args.device)
+    from ..servesvc.decode import DecodeReplica
     dcfg = dataclasses.replace(
         cfg.decode, **{k: getattr(args, k) for k in _DECODE_FLAGS
                        if getattr(args, k) is not None})
     cfg = cfg.replace(serve=scfg, decode=dcfg)
     return DecodeReplica(args.train_dir, serve_dir=args.serve_dir,
                          scfg=scfg, dcfg=dcfg, cfg=cfg, device=args.device)
+
+
+def serve_load(argv: list[str]) -> dict:
+    """``launch serve-load``: wait for a replica's meta, drive the
+    replicas closed-loop through the failover client, journal every
+    request's outcome to ``--out``; prints and returns the summary."""
+    from ..servesvc.client import ServeClient, discover_endpoints
+    from ..servesvc.loadgen import make_input_fn, run_load
+
+    args = build_parser().parse_args(argv)
+    if args.endpoints:
+        eps = [(h, int(p)) for h, p in
+               (e.rsplit(":", 1) for e in args.endpoints.split(","))]
+        endpoints_fn = lambda: eps  # noqa: E731
+    elif args.cluster_root:
+        root = args.cluster_root
+        endpoints_fn = lambda: discover_endpoints(root)  # noqa: E731
+    else:
+        raise SystemExit("serve-load needs --endpoints or --cluster-root")
+    client = ServeClient(endpoints_fn, deadline_s=args.deadline_s,
+                         max_attempts=args.max_attempts)
+    deadline = time.time() + args.ready_timeout_s
+    meta = None
+    while meta is None and time.time() < deadline:
+        meta = client.meta(deadline_s=2.0)
+        if meta is None:
+            time.sleep(0.5)
+    if meta is None:
+        raise SystemExit(f"no serving replica became ready within "
+                         f"{args.ready_timeout_s:.0f}s")
+    make_input = make_input_fn(meta["input_shape"], meta["input_dtype"])
+    summary = run_load(client, args.requests, args.concurrency,
+                       make_input, journal_path=args.out)
+    print(json.dumps(summary), flush=True)
+    return summary
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -189,7 +273,10 @@ def main(argv: list[str] | None = None) -> None:
         from ..evalsvc.__main__ import evaluator_from_args
         evaluator_from_args(build_parser().parse_args(argv)).run()
         return
-    build_decode_replica(argv).serve_forever()
+    if argv and argv[0] == "serve-load":
+        serve_load(argv)
+        return
+    build_replica(argv).serve_forever()
 
 
 if __name__ == "__main__":

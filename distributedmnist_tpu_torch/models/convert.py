@@ -40,12 +40,15 @@ def params_from_reference(tree: dict, *, device=None,
                           dtype: torch.dtype | None = None) -> dict:
     """Reference params (numpy, or anything ``np.asarray`` takes) → the
     port's params on ``device`` (default ``cuda:0``), cast to ``dtype``
-    when given."""
+    when given. Torch leaves (a bf16 tier's words) are moved as they
+    are, so a quant tier's tree converts the same way."""
     dev = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=dtype or x.dtype)
         a = np.asarray(x)
         # a checkpoint's leaves are read-only views of the file bytes
         a = np.array(a) if not a.flags.writeable else np.ascontiguousarray(a)

@@ -1,7 +1,8 @@
 """Model registry (≙ ``distributedmnist_tpu/models/registry.py``): the
-``mnist_cnn`` entry (train-mode apply with dropout, loss, accuracy and
-classification eval sums) and the
-``transformer`` entry (the same for a causal LM, plus the decode
+``mnist_cnn`` entry (train-mode apply with dropout, loss, accuracy,
+classification eval sums and the softmax ``predictions`` export) and
+the ``transformer`` entry (the same for a causal LM — its
+``predictions`` is the next-token distribution — plus the decode
 exports the serving replica builds on). ``resnet20`` and the
 transformer's mixture-of-experts FFNs raise "not ported yet".
 """
@@ -33,6 +34,12 @@ def lm_last_logits(logits: torch.Tensor) -> torch.Tensor:
     """Last-position logits [batch, vocab] of a [batch, seq, vocab]
     causal-LM forward."""
     return logits[:, -1]
+
+
+def lm_predictions(logits: torch.Tensor) -> torch.Tensor:
+    """Next-token distribution [batch, vocab] of a causal LM: softmax
+    over the last position's logits — the one-shot inference export."""
+    return torch.softmax(lm_last_logits(logits).float(), dim=-1)
 
 
 def sample_token(logits: torch.Tensor, key=None,
@@ -108,6 +115,10 @@ class Model:
       -> scalar``;
     * ``eval_metrics(logits, labels, weight) -> (correct_sum,
       loss_sum, weight_sum)``;
+    * ``predictions(logits) -> [batch, classes]`` — the per-example
+      distribution the serving replica answers with; ``input_shape``
+      (no batch dim) and ``input_dtype`` (a numpy dtype name) describe
+      one request's inputs;
     * ``decode_prefill(params, tokens [b, s]) -> (logits [b, s, V],
       k [L, b, s, h, hd], v [L, b, s, h, hd])`` through the configured
       attention (``attention_impl``);
@@ -127,6 +138,9 @@ class Model:
     loss: Callable[..., torch.Tensor] | None = None
     accuracy: Callable[..., torch.Tensor] | None = None
     eval_metrics: Callable[..., tuple] | None = None
+    predictions: Callable[[torch.Tensor], torch.Tensor] | None = None
+    input_shape: tuple[int, ...] = ()
+    input_dtype: str = "float32"
     decode_prefill: Callable[..., tuple] | None = None
     decode_step: Callable[..., tuple] | None = None
     decode_cache_shape: tuple[int, int, int] | None = None
@@ -169,7 +183,10 @@ def _mnist_cnn(cfg: ModelConfig) -> Model:
                  vmap_replicas=True,
                  loss=cnn.loss_fn,
                  accuracy=cnn.accuracy,
-                 eval_metrics=classification_eval_metrics)
+                 eval_metrics=classification_eval_metrics,
+                 predictions=cnn.predictions,
+                 input_shape=(cfg.image_size, cfg.image_size,
+                              cfg.num_channels))
 
 
 def _transformer(cfg: ModelConfig) -> Model:
@@ -225,6 +242,8 @@ def _transformer(cfg: ModelConfig) -> Model:
                  loss=transformer.loss_fn,
                  accuracy=transformer.accuracy,
                  eval_metrics=lm_eval_metrics,
+                 predictions=lm_predictions,
+                 input_shape=(cfg.seq_len,), input_dtype="int32",
                  decode_prefill=decode_prefill, decode_step=decode_step,
                  decode_cache_shape=(cfg.num_layers, cfg.num_heads,
                                      cfg.model_dim // cfg.num_heads))

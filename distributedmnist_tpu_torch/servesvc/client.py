@@ -1,12 +1,12 @@
-"""Round-robin failover client for decode replicas (≙
-``distributedmnist_tpu/servesvc/client.py ServeClient``: ``meta`` and
-``generate``).
+"""Round-robin failover client for the serving replicas (≙
+``distributedmnist_tpu/servesvc/client.py``).
 
-N interchangeable replicas behind one client: each request gets a
-deadline and a bounded retry budget with backoff; a dead, restarting
-or load-shedding replica costs one attempt and the next attempt goes
-to the next replica. Every request ends in exactly one terminal
-outcome:
+N interchangeable replicas behind one client, and a request never
+depends on any single replica staying alive. Each request gets a
+**deadline** and a **bounded retry budget with backoff**; a dead, hung,
+restarting or load-shedding replica costs one attempt and the next
+attempt goes to the next replica (round-robin). Every request ends in
+exactly one terminal outcome:
 
 * ``{"status": "ok", ...}`` — a replica answered;
 * ``{"status": "rejected", ...}`` — a non-retryable typed reject
@@ -15,8 +15,14 @@ outcome:
   — the budget or the deadline ran out first.
 
 ``overloaded`` and ``shutting_down`` rejects are retried (that replica
-shed load; a sibling may have room). The reference's endpoint
-quarantine and one-shot classification ``request`` are not ported yet.
+shed load; a sibling may have room). An endpoint whose attempt failed
+at the transport (refused, reset, timed out) is quarantined for a
+jittered, exponentially growing window, cleared by any success; when
+every endpoint is benched the rotation ignores the bench.
+
+Endpoints come from a list or a zero-argument callable returning one,
+re-read every attempt, so a replica restarted onto a fresh port (its
+``serve.json`` rewritten) is picked up without a client restart.
 """
 
 from __future__ import annotations
@@ -27,26 +33,63 @@ import random
 import socket
 import threading
 import time
+from pathlib import Path
 from typing import Any, Callable
+
+from ..core.log import get_logger
+
+logger = get_logger("serveclient")
 
 RETRYABLE_REJECTS = ("overloaded", "shutting_down")
 
 
-class ServeClient:
-    """Thread-safe round-robin client over N decode replicas.
-    ``endpoints``: ``[(host, port), ...]``, ``[{"host", "port"}, ...]``
-    or a zero-argument callable returning either (re-read every
-    attempt)."""
+def discover_endpoints(cluster_root: str | Path) -> list[dict[str, Any]]:
+    """Scan a cluster root's ``worker*/serve.json`` ready files (one
+    replica a worker dir) → ``[{"worker", "host", "port"}, ...]``
+    (sorted by worker id). Torn or stale files are skipped — the client
+    treats a bad endpoint as one failed attempt anyway."""
+    out: list[dict[str, Any]] = []
+    root = Path(cluster_root)
+    for f in sorted(root.glob("worker*/serve.json")):
+        name = f.parent.name[len("worker"):]
+        try:
+            d = json.loads(f.read_text())
+            out.append({"worker": int(name) if name.isdigit() else name,
+                        "host": d["host"], "port": int(d["port"])})
+        except (OSError, ValueError, KeyError):
+            continue
+    return out
 
-    def __init__(self, endpoints: list | Callable[[], list],
+
+class ServeClient:
+    """Thread-safe round-robin client over N serving replicas.
+    ``endpoints``: ``[(host, port), ...]``, ``[{"host", "port"}, ...]``
+    or a zero-argument callable returning either."""
+
+    def __init__(self,
+                 endpoints: (list[dict] | list[tuple]
+                             | Callable[[], list[dict]]),
                  deadline_s: float = 2.0, max_attempts: int = 4,
-                 backoff_s: float = 0.05, seed: int = 0):
+                 backoff_s: float = 0.05,
+                 quarantine_s: float = 0.25,
+                 quarantine_max_s: float = 5.0, seed: int = 0):
         self._endpoints_fn = (endpoints if callable(endpoints)
                               else (lambda: endpoints))
         self.deadline_s = deadline_s
         self.max_attempts = max_attempts
         self.backoff_s = backoff_s
+        # partition-aware endpoint quarantine: an endpoint whose
+        # attempt failed at the TRANSPORT (refused, reset, timed out —
+        # a partitioned or half-open link) is benched for a jittered,
+        # exponentially-growing window so retries stop stampeding the
+        # dead link; any success clears it, and when EVERY endpoint is
+        # benched the rotation ignores the bench entirely (quarantine
+        # narrows the search, it never causes a total lockout).
+        self.quarantine_s = quarantine_s
+        self.quarantine_max_s = quarantine_max_s
         self._rng = random.Random(seed)
+        self._quarantined_until: dict[tuple[str, int], float] = {}
+        self._failures: dict[tuple[str, int], int] = {}
         self._rr = itertools.count()
         self._lock = threading.Lock()
 
@@ -60,15 +103,41 @@ class ServeClient:
         eps = self._endpoints_fn()
         if not eps:
             return None
+        now = time.monotonic()
         with self._lock:
+            live = [e for e in eps
+                    if self._quarantined_until.get(self._as_ep(e), 0.0)
+                    <= now]
+            pool = live or eps
             i = next(self._rr)
-        return self._as_ep(eps[i % len(eps)])
+        return self._as_ep(pool[i % len(pool)])
 
-    def _backoff(self, attempts: int, deadline: float) -> None:
+    def _jitter(self) -> float:
         with self._lock:
-            jitter = 1.0 + 0.25 * (2.0 * self._rng.random() - 1.0)
-        time.sleep(min(self.backoff_s * attempts * jitter,
-                       max(0.0, deadline - time.time())))
+            return 1.0 + 0.25 * (2.0 * self._rng.random() - 1.0)
+
+    def _note_failure(self, host: str, port: int) -> None:
+        ep = (host, port)
+        with self._lock:
+            n = self._failures.get(ep, 0) + 1
+            self._failures[ep] = n
+            hold = min(self.quarantine_max_s,
+                       self.quarantine_s * 2.0 ** (n - 1))
+            hold *= 1.0 + 0.25 * (2.0 * self._rng.random() - 1.0)
+            self._quarantined_until[ep] = time.monotonic() + hold
+
+    def _note_success(self, host: str, port: int) -> None:
+        ep = (host, port)
+        with self._lock:
+            self._failures.pop(ep, None)
+            self._quarantined_until.pop(ep, None)
+
+    def quarantined(self) -> list[tuple[str, int]]:
+        """Endpoints currently benched (for tests/introspection)."""
+        now = time.monotonic()
+        with self._lock:
+            return sorted(ep for ep, t in self._quarantined_until.items()
+                          if t > now)
 
     def _one_attempt(self, payload: bytes, host: str, port: int,
                      timeout_s: float) -> dict:
@@ -84,12 +153,18 @@ class ServeClient:
                 buf += chunk
             return json.loads(buf.decode())
 
-    def _failover_loop(self, request_id, deadline_s: float | None,
-                       attempt) -> dict:
-        """Rotate endpoints under the attempt budget and the deadline;
-        ``attempt(host, port, remaining)`` does one wire exchange and
-        returns the raw response (raising ``OSError``/``ValueError`` for
-        a dead or garbled replica)."""
+    def _failover_loop(self, request_id,
+                       deadline_s: float | None, attempt) -> dict:
+        """The ONE failover/retry engine both request shapes share:
+        rotate endpoints, bound attempts and the deadline, back off
+        between tries, and classify outcomes — ``attempt(host, port,
+        remaining, attempts, t0)`` performs one wire exchange and
+        returns the raw response dict (raising ``OSError``/
+        ``ValueError`` for a dead/garbled replica). A retryable typed
+        reject (``overloaded``/``shutting_down``: that replica shed
+        load, a sibling may have room) costs one attempt; anything
+        else terminal is returned enriched with ``attempts``/
+        ``endpoint``/``latency_ms``."""
         deadline_s = self.deadline_s if deadline_s is None else deadline_s
         t0 = time.time()
         deadline = t0 + deadline_s
@@ -101,32 +176,61 @@ class ServeClient:
                 last_reason = "deadline_exceeded"
                 break
             ep = self._next_endpoint()
-            attempts += 1
             if ep is None:
-                self._backoff(attempts, deadline)
+                attempts += 1
+                time.sleep(min(self.backoff_s * attempts, remaining))
                 continue
             host, port = ep
+            attempts += 1
             try:
-                resp = attempt(host, port, remaining)
-            except (OSError, ValueError):
-                self._backoff(attempts, deadline)
+                resp = attempt(host, port, remaining, attempts, t0)
+            except (OSError, ValueError) as e:
+                # transport-level failure: quarantine the endpoint
+                # (partition-aware — the next attempts rotate PAST the
+                # dead link) and back off with seeded jitter so N
+                # retrying clients don't re-stampede in lockstep
+                logger.debug("attempt %d via %s:%d failed: %s",
+                             attempts, host, port, e)
+                self._note_failure(host, port)
+                time.sleep(min(self.backoff_s * attempts * self._jitter(),
+                               max(0.0, deadline - time.time())))
                 continue
-            out = {**resp, "attempts": attempts, "retried": attempts > 1,
+            self._note_success(host, port)
+            status = resp.get("status")
+            out = {**resp, "attempts": attempts,
+                   "retried": attempts > 1,
                    "endpoint": f"{host}:{port}",
                    "latency_ms": round((time.time() - t0) * 1e3, 3)}
-            if (resp.get("status") == "rejected"
+            if (status == "rejected"
                     and resp.get("reason") in RETRYABLE_REJECTS):
-                self._backoff(attempts, deadline)
+                time.sleep(min(self.backoff_s * attempts * self._jitter(),
+                               max(0.0, deadline - time.time())))
                 continue
-            return out
+            return out  # ok / typed non-retryable / unknown: terminal
         return {"id": request_id, "status": "error", "reason": last_reason,
                 "attempts": attempts, "retried": attempts > 1,
                 "latency_ms": round((time.time() - t0) * 1e3, 3)}
 
+    def request(self, inputs, request_id=None,
+                deadline_s: float | None = None) -> dict:
+        """One request → one terminal outcome dict (never raises for
+        server/network trouble; see module docstring). The outcome
+        carries ``latency_ms``, ``attempts``, and the answering
+        replica's ``endpoint`` when one answered."""
+        def attempt(host, port, remaining, attempts, t0):
+            req = {"id": request_id, "inputs": inputs,
+                   "deadline_ms": round(remaining * 1e3, 1)}
+            return self._one_attempt(
+                (json.dumps(req) + "\n").encode(), host, port,
+                timeout_s=remaining)
+
+        return self._failover_loop(request_id, deadline_s, attempt)
+
     def _stream_attempt(self, payload: bytes, host: str, port: int,
-                        timeout_s: float, on_token
-                        ) -> tuple[dict, list[float], list]:
-        """Send, then read token lines until the terminal line."""
+                        timeout_s: float,
+                        on_token) -> tuple[dict, list[float], list]:
+        """One streaming attempt: send, then read token lines until
+        the terminal line. Returns (terminal, token_times, tokens)."""
         with socket.create_connection((host, port),
                                       timeout=timeout_s) as conn:
             conn.settimeout(timeout_s)
@@ -149,18 +253,32 @@ class ServeClient:
                     token_times.append(time.time())
                     if on_token is not None:
                         on_token(rec)
+                elif rec.get("stream") == "restart":
+                    # a server-side swap-policy restart: the replica
+                    # regenerates on new weights — reset accumulation
+                    tokens = []
+                    token_times = []
+                    if on_token is not None:
+                        on_token(rec)
 
     def generate(self, prompt, request_id=None,
                  deadline_s: float | None = None,
                  max_tokens: int | None = None,
                  temperature: float | None = None,
-                 top_k: int | None = None, on_token=None) -> dict:
-        """One generation → one terminal outcome, tokens streamed
-        through ``on_token``. An ``ok`` outcome carries ``tokens``,
-        ``ttft_ms`` (first-token latency of the answering attempt) and
-        ``itl_ms`` (mean inter-token gap) besides ``latency_ms``/
-        ``attempts``/``endpoint``."""
-        def attempt(host, port, remaining):
+                 top_k: int | None = None,
+                 on_token=None) -> dict:
+        """One generation request → one terminal outcome dict, with
+        tokens streamed through ``on_token`` as they arrive. Same
+        failover/retry/terminal semantics as :meth:`request` (the
+        shared :meth:`_failover_loop`); a connection lost MID-STREAM
+        costs one attempt and the whole generation retries on a
+        sibling — accumulated tokens reset, and ``on_token`` receives
+        the same ``{"stream": "restart"}`` signal a server-side
+        swap-restart sends, so a consumer never keeps a duplicated
+        prefix. The outcome carries ``ttft_ms`` (first token latency),
+        ``itl_ms`` (mean inter-token gap) and ``tokens`` alongside the
+        usual ``latency_ms``/``attempts``/``endpoint``."""
+        def attempt(host, port, remaining, attempts, t0):
             req: dict[str, Any] = {"id": request_id, "prompt": prompt,
                                    "deadline_ms": round(remaining * 1e3,
                                                         1)}
@@ -171,9 +289,28 @@ class ServeClient:
             if top_k is not None:
                 req["top_k"] = top_k
             attempt_t0 = time.time()
-            resp, token_times, tokens = self._stream_attempt(
-                (json.dumps(req) + "\n").encode(), host, port,
-                timeout_s=remaining, on_token=on_token)
+            streamed_any = False
+
+            def _tap(rec):
+                nonlocal streamed_any
+                streamed_any = True
+                if on_token is not None:
+                    on_token(rec)
+
+            try:
+                resp, token_times, tokens = self._stream_attempt(
+                    (json.dumps(req) + "\n").encode(), host, port,
+                    timeout_s=remaining, on_token=_tap)
+            except (OSError, ValueError):
+                if streamed_any and on_token is not None:
+                    # client-side failover mid-stream: the next
+                    # attempt regenerates from scratch on a sibling —
+                    # give the consumer the protocol's own reset
+                    # signal, or its accumulated prefix silently
+                    # duplicates
+                    on_token({"id": request_id, "stream": "restart",
+                              "reason": "failover"})
+                raise
             if resp.get("status") == "ok":
                 resp.setdefault("tokens", tokens)
                 resp["tokens_streamed"] = len(resp["tokens"] or [])
@@ -183,27 +320,30 @@ class ServeClient:
                 if len(token_times) > 1:
                     gaps = [b - a for a, b in zip(token_times,
                                                   token_times[1:])]
-                    resp["itl_ms"] = round(sum(gaps) / len(gaps) * 1e3, 3)
+                    resp["itl_ms"] = round(
+                        sum(gaps) / len(gaps) * 1e3, 3)
             return resp
 
         return self._failover_loop(request_id, deadline_s, attempt)
 
     def meta(self, deadline_s: float | None = None) -> dict | None:
-        """Model metadata from any live replica, or None."""
+        """Model metadata from any live replica (input shape/dtype —
+        what a load generator needs to fabricate requests), or None."""
         deadline_s = self.deadline_s if deadline_s is None else deadline_s
         deadline = time.time() + deadline_s
         payload = (json.dumps({"meta": True}) + "\n").encode()
-        for attempts in range(1, self.max_attempts + 1):
+        for _ in range(self.max_attempts):
             remaining = deadline - time.time()
             if remaining <= 0:
                 return None
             ep = self._next_endpoint()
             if ep is None:
-                self._backoff(attempts, deadline)
+                time.sleep(min(self.backoff_s, remaining))
                 continue
             try:
                 return self._one_attempt(payload, ep[0], ep[1],
                                          timeout_s=remaining)
             except (OSError, ValueError):
-                self._backoff(attempts, deadline)
+                time.sleep(min(self.backoff_s,
+                               max(0.0, deadline - time.time())))
         return None

@@ -16,7 +16,28 @@ refilled from the admission queue the same iteration.
 sequence's blocks and the first token samples off the prefill logits.
 
 **Decode.** ``decode_step`` with ``decode.attention_kernel="paged"``
-runs the paged-attention kernel K5 once per layer per iteration.
+runs the paged-attention kernel K5 once per layer per live params
+version per iteration.
+
+**Weight swaps mid-generation.** The follower stages digest-verified
+publishes as the classification replica's does; the flip happens at a
+decode-loop boundary under ``decode.swap_policy``:
+
+* ``pin`` — every sequence in flight keeps generating on the params it
+  started with; new admissions use the new ones. Each live version runs
+  its own decode step over the fixed slot shape, the other versions'
+  slots masked by an all-zero block table and length 0 (their writes
+  land in the null block, their rows are zeros), and a version is
+  dropped when its last sequence finishes.
+* ``restart`` — every sequence in flight is re-prefilled on the new
+  params (a ``seq_restart`` record; the stream carries a ``restart``
+  line so the client resets); its sampling key moves on by 1000 a
+  restart.
+
+The swap record carries ``sequences_pinned`` / ``sequences_restarted``:
+the reference's ``decode_swap`` replay invariant checks that a
+sequence finishing on another step than it started on holds a
+``seq_restart`` licensed by an earlier ``weight_swap``.
 
 Wire protocol (one connection per request, line-delimited JSON):
 
@@ -24,14 +45,11 @@ Wire protocol (one connection per request, line-delimited JSON):
              "temperature": t, "top_k": k, "deadline_ms": ...}
   stream:   {"id": ..., "stream": "token", "token": t, "index": i,
              "model_step": s}        (one line per generated token)
+            {"id": ..., "stream": "restart", "model_step": s}
   terminal: {"id": ..., "status": "ok", "tokens": [...],
              "finish_reason": "eos" | "max_tokens" | "deadline" |
              "client_gone", "model_step": s, "started_step": s0}
             {"id": ..., "status": "rejected", "reason": ...}
-
-The replica serves the checkpoint it booted with: hot-follow and the
-``pin``/``restart`` mid-generation swap policies are not ported yet
-(``swap_policy`` is validated and journaled, never exercised).
 """
 
 from __future__ import annotations
@@ -46,6 +64,7 @@ import torch
 
 from ..core import prng
 from ..core.config import ConfigError
+from ..models.convert import params_from_reference
 from ..models.registry import sample_token
 from .kv_cache import PagedKVCache
 from .server import ServingReplica, _Pending
@@ -71,12 +90,12 @@ class _DecodeSeq(_Pending):
         self.first_token_at: float | None = None
         self.conn_dead = False
         self.sample_seed = 0
-        self.restarts = 0          # mid-generation restarts (none yet)
+        self.restarts = 0          # mid-generation restarts
 
 
 class DecodeReplica(ServingReplica):
-    """Serve a published causal-LM checkpoint as streaming generations
-    with continuous batching over a paged KV cache."""
+    """Hot-follow published causal-LM checkpoints and stream
+    generations with continuous batching over a paged KV cache."""
 
     def __init__(self, train_dir, serve_dir=".", scfg=None, dcfg=None,
                  cfg=None, device=None):
@@ -108,15 +127,24 @@ class DecodeReplica(ServingReplica):
         self._slots: list[_DecodeSeq | None] = (
             [None] * self.dcfg.decode_slots)
         self._waiting: collections.deque[_DecodeSeq] = collections.deque()
+        self._versions: dict[int, object] = {}  # pinned older params
         self._seq_counter = 0
         self.sequences_finished = 0
-        self.prefills = 0
-        self.decode_iterations = 0
-        # block-table upload cache: the [slots, width] table tensor only
-        # changes on admit/finish, so it is rebuilt and uploaded once
-        # per table epoch, not once per generated token
+        self.prefills = 0            # first prefills (admissions)
+        self.restarts = 0            # re-prefills under ``restart``
+        self.decode_iterations = 0   # loop iterations with a slot live
+        self.version_steps = 0       # decode steps: one a live version
+        # block-table upload cache: a version's [slots, width] tables
+        # change only on admit/finish/restart, so they are rebuilt and
+        # uploaded once per (version, table epoch), not once per token
         self._tables_epoch = 0
-        self._tables_cache: tuple[int, torch.Tensor] | None = None
+        self._tables_cache: dict[tuple[int, int], torch.Tensor] = {}
+
+    def _params_on_device(self, tree: dict):
+        """Params in the model's compute dtype, cast once here so the
+        per-call casts inside the model are no-ops."""
+        return params_from_reference(tree, device=self.device,
+                                     dtype=self.model.compute_dtype)
 
     # -- admission ------------------------------------------------------
 
@@ -157,6 +185,72 @@ class DecodeReplica(ServingReplica):
         seq.top_k = top_k
         return seq
 
+    # -- weights: version registry + swap policies ----------------------
+
+    def _params_for(self, step: int):
+        return (self._params if step == self.model_step
+                else self._versions[step])
+
+    def _release_version(self, step: int) -> None:
+        if step == self.model_step or step not in self._versions:
+            return
+        if not any(s is not None and s.params_step == step
+                   for s in self._slots):
+            del self._versions[step]
+
+    def _maybe_swap(self) -> None:
+        """Decode-loop-boundary flip under ``decode.swap_policy``;
+        journals the swap with its per-sequence bookkeeping."""
+        with self._staged_lock:
+            staged, self._staged = self._staged, None
+        if staged is None:
+            return
+        install, t0 = staged
+        if install["step"] <= self.model_step:
+            return  # monotone: never swap backwards
+        in_flight = [s for s in self._slots if s is not None]
+        prev_step = self.model_step
+        pinned = restarted = 0
+        if in_flight:
+            if self.dcfg.swap_policy == "pin":
+                pinned = len(in_flight)
+                if any(s.params_step == prev_step for s in in_flight):
+                    # keep only a version something runs on: swaps back
+                    # to back must not leak the middle one
+                    self._versions[prev_step] = self._params
+            else:
+                restarted = len(in_flight)
+        self._install(install, t0,
+                      extra={"sequences_pinned": pinned,
+                             "sequences_restarted": restarted})
+        if restarted:
+            for s in in_flight:
+                self._restart_seq(s, prev_step)
+
+    def _restart_seq(self, s: _DecodeSeq, from_step: int) -> None:
+        """The restart policy's move for one sequence: discard what the
+        old params generated and re-prefill on the new, journaled as the
+        license the ``decode_swap`` invariant requires."""
+        self._journal({"action": "seq_restart", "id": s.req_id,
+                       "from_step": from_step,
+                       "to_step": self.model_step,
+                       "tokens_discarded": len(s.tokens)})
+        self._send_line(s, {"id": s.req_id, "stream": "restart",
+                            "model_step": self.model_step})
+        s.tokens = []
+        s.length = 0
+        s.restarts += 1
+        s.params_step = self.model_step
+        self._bump_tables_epoch()
+        # the time to first token is the kept stream's: the discarded
+        # first token does not count
+        s.first_token_at = None
+        self._prefill(s, restart=True)
+
+    def _bump_tables_epoch(self) -> None:
+        self._tables_epoch += 1
+        self._tables_cache.clear()
+
     def _pressure_fields(self) -> dict:
         alloc = self.cache.allocator
         return {**super()._pressure_fields(),
@@ -169,6 +263,7 @@ class DecodeReplica(ServingReplica):
 
     def _batch_loop(self) -> None:
         while not self._stop.is_set():
+            self._maybe_swap()
             self._admit_new()
             self._step_active()
             self._maybe_heartbeat()
@@ -229,53 +324,63 @@ class DecodeReplica(ServingReplica):
             s.sample_seed = self._seq_counter
             self._seq_counter += 1
             self._slots[free] = s
-            self._tables_epoch += 1
+            self._bump_tables_epoch()
             self._prefill(s)
 
-    def _prefill(self, s: _DecodeSeq) -> None:
-        """Run the prompt through the prefill export, seed the paged
-        cache, and sample + stream the first token."""
+    def _prefill(self, s: _DecodeSeq, restart: bool = False) -> None:
+        """Run the prompt through the prefill export on the sequence's
+        params version, seed the paged cache, and sample + stream the
+        first token."""
         t0 = time.time()
         plen = int(s.inputs.size)
         bucket = self._bucket(plen, self.dcfg.max_prompt_len)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :plen] = s.inputs
         logits, ks, vs = self.model.decode_prefill(
-            self._params, torch.from_numpy(toks).to(self.device))
+            self._params_for(s.params_step),
+            torch.from_numpy(toks).to(self.device))
         self.cache.write_prompt(s.block_table, ks[:, 0], vs[:, 0], plen)
-        self.prefills += 1
+        if restart:
+            self.restarts += 1
+        else:
+            self.prefills += 1
         s.length = plen
         tok = self._sample(s, logits[0, plen - 1].cpu())
         s.tokens.append(tok)
         self._stream_token(s, tok)
-        self._journal({"action": "prefill", "id": s.req_id,
-                       "prompt_len": plen, "bucket": bucket,
-                       "blocks": int(np.count_nonzero(s.block_table)),
-                       "model_step": s.params_step,
-                       "ttft_ms": round((time.time() - t0) * 1e3, 3)})
+        rec = {"action": "prefill", "id": s.req_id, "prompt_len": plen,
+               "bucket": bucket,
+               "blocks": int(np.count_nonzero(s.block_table)),
+               "model_step": s.params_step,
+               "ttft_ms": round((time.time() - t0) * 1e3, 3)}
+        if restart:
+            rec["restart"] = True
+        self._journal(rec)
         self._maybe_finish(self._slots.index(s), s)
 
-    def _tables(self) -> torch.Tensor:
-        """The device-resident [slots, width] block tables. Rows of idle
-        slots are zero (the null block) — load-bearing: the step writes
-        every slot's token K/V through its row, and zero routes idle
-        writes into the reserved null block."""
-        cached = self._tables_cache
-        if cached is not None and cached[0] == self._tables_epoch:
-            return cached[1]
+    def _tables_for(self, ver: int, mine) -> torch.Tensor:
+        """The device-resident [slots, width] block tables of one params
+        version's step. Rows of slots not on this version are zero (the
+        null block) — load-bearing: the step writes every slot's token
+        K/V through its row, and zero routes those writes into the
+        reserved null block instead of a live sequence's first block."""
+        key = (ver, self._tables_epoch)
+        cached = self._tables_cache.get(key)
+        if cached is not None:
+            return cached
         tables = np.zeros((self.dcfg.decode_slots,
                            self.cache.max_blocks_per_seq), np.int32)
-        for i, s in enumerate(self._slots):
-            if s is not None:
-                tables[i] = s.block_table
-        dev = torch.from_numpy(tables).to(self.device)
-        self._tables_cache = (self._tables_epoch, dev)
+        for i, s in mine:
+            tables[i] = s.block_table
+        dev = self._tables_cache[key] = torch.from_numpy(tables).to(
+            self.device)
         return dev
 
     def _step_active(self) -> None:
-        """One decode iteration over the fixed slot shape, then per-slot
-        sample / stream / finish — a finished slot is free for the next
-        iteration's refill."""
+        """One decode iteration: a decode step per live params version
+        over the fixed slot shape, then per-slot sample / stream /
+        finish — a finished slot is free for the next iteration's
+        refill."""
         now = time.time()
         for i, s in enumerate(self._slots):
             if s is not None and now >= s.deadline_at:
@@ -285,27 +390,32 @@ class DecodeReplica(ServingReplica):
         if not active:
             return
         n = self.dcfg.decode_slots
-        tokens = np.zeros((n,), np.int64)
-        positions = np.zeros((n,), np.int64)
-        lengths = np.zeros((n,), np.int32)
-        for i, s in active:
-            tokens[i] = s.tokens[-1]
-            positions[i] = s.length
-            lengths[i] = s.length + 1
         dev = lambda a: torch.from_numpy(a).to(self.device)
-        logits, _, _ = self.model.decode_step(
-            self._params, dev(tokens), dev(positions), self.cache.k,
-            self.cache.v, self._tables(), dev(lengths),
-            block_size=self.dcfg.block_size,
-            attention_kernel=self.dcfg.attention_kernel)
         self.decode_iterations += 1
-        logits = logits.cpu()
-        for i, s in active:
-            s.length += 1  # the fed token's K/V is now cached
-            tok = self._sample(s, logits[i])
-            s.tokens.append(tok)
-            self._stream_token(s, tok)
-            self._maybe_finish(i, s)
+        # pin: one step per live version (at most a handful); slots of
+        # other versions read length 0 through the null table
+        for ver in sorted({s.params_step for _, s in active}):
+            mine = [(i, s) for i, s in active if s.params_step == ver]
+            tokens = np.zeros((n,), np.int64)
+            positions = np.zeros((n,), np.int64)
+            lengths = np.zeros((n,), np.int32)
+            for i, s in mine:
+                tokens[i] = s.tokens[-1]
+                positions[i] = s.length
+                lengths[i] = s.length + 1
+            logits, _, _ = self.model.decode_step(
+                self._params_for(ver), dev(tokens), dev(positions),
+                self.cache.k, self.cache.v, self._tables_for(ver, mine),
+                dev(lengths), block_size=self.dcfg.block_size,
+                attention_kernel=self.dcfg.attention_kernel)
+            self.version_steps += 1
+            logits = logits.cpu()
+            for i, s in mine:
+                s.length += 1  # the fed token's K/V is now cached
+                tok = self._sample(s, logits[i])
+                s.tokens.append(tok)
+                self._stream_token(s, tok)
+                self._maybe_finish(i, s)
 
     def _sample(self, s: _DecodeSeq, logits_row: torch.Tensor) -> int:
         """≙ the reference's ``_sample``: the key for this token is
@@ -357,6 +467,8 @@ class DecodeReplica(ServingReplica):
         if s.first_token_at is not None:
             fields["ttft_ms"] = round(
                 (s.first_token_at - s.admitted_at) * 1e3, 3)
+        if s.restarts:
+            fields["restarts"] = s.restarts
         self._terminal("decode_finish", s.req_id, **fields)
         payload = {
             "id": s.req_id, "status": "ok",
@@ -367,7 +479,8 @@ class DecodeReplica(ServingReplica):
         self._respond(s.conn, payload)
         self._slots[i] = None
         self.cache.free_sequence(s.block_table)
-        self._tables_epoch += 1
+        self._bump_tables_epoch()
+        self._release_version(s.params_step)
         self.sequences_finished += 1
 
     # -- metadata / lifecycle -------------------------------------------

@@ -14,8 +14,12 @@ flax): a leaf array is ext type 1 packing ``[shape, dtype name, raw
 C-order bytes]``, a numpy scalar is ext type 3 (the same payload,
 0-d), an array over 1 GiB is split into ``{"__msgpack_chunked_array__",
 "shape", "chunks"}``, and a list of blocks was saved as a dict keyed
-``"0"``, ``"1"``, ... A ``bfloat16`` leaf is read through a ``uint16``
-view and widened to float32, which is exact.
+``"0"``, ``"1"``, ... numpy has no ``bfloat16``: a bf16 leaf is read
+through a ``uint16`` view and widened to float32, which is exact, or,
+for the quantized sidecar's bf16 tier, kept as its 2-byte words in a
+torch ``bfloat16`` tensor; a CPU torch ``bfloat16`` tensor is written
+as the reference writes an ml_dtypes one (dtype name ``"bfloat16"``,
+the raw words).
 
 Reading verifies the sha256 sidecar (a mismatch or a torn payload is a
 :class:`CheckpointCorruptError`) and, when no step is named, falls back
@@ -33,11 +37,19 @@ Every durable write and read goes through the storage shim
 inside the reference's bounded I/O retries (:func:`_io_retries`; a
 missing file is not retried). :class:`AsyncCheckpointer` writes on a
 background thread, latest wins; :class:`CheckpointFollower` is the
-hot-follow loop of the evaluator: pointer read, step-advanced check,
-skip-and-retry on an unreadable artifact.
+hot-follow loop of the evaluator and the serving replicas: pointer
+read, step-advanced check, skip-and-retry on an unreadable artifact.
+
+A step's quantized serving tiers (``quant/``) live in a sidecar
+``ckpt-%08d.quant.msgpack`` with its own ``.sha256``, written with the
+artifact's atomic-write contract (:func:`write_quant_sidecar`) and read
+digest-verified (:func:`read_quant_sidecar`); the sidecar never makes a
+step loadable and is garbage-collected with its step. The
+:class:`AsyncCheckpointer`'s ``publish`` hook writes it on the writer
+thread before the artifact and the pointer.
 
 Not ported yet: the per-host sharded layout (manifests; the reader
-refuses one with a clear error) and quantized sidecars.
+refuses one with a clear error).
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from typing import Any, Callable
 
 import msgpack
 import numpy as np
+import torch
 
 from ..core.log import get_logger
 from . import storage
@@ -112,25 +125,38 @@ def _digest_path(path: Path) -> Path:
 
 # -- flax msgpack encoding --------------------------------------------------
 
-def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+def _ndarray_from_bytes(data: bytes, keep_bfloat16: bool = False):
     shape, name, buf = msgpack.unpackb(data, raw=True)
     name = name.decode() if isinstance(name, bytes) else name
     if name == "bfloat16":
+        if keep_bfloat16:
+            words = np.frombuffer(buf, dtype=np.int16).reshape(shape)
+            return torch.from_numpy(words.copy()).view(torch.bfloat16)
         bits = np.frombuffer(buf, dtype=np.uint16).astype(np.uint32) << 16
         return bits.view(np.float32).reshape(shape)
     return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
 
 
-def _ext_unpack(code: int, data: bytes):
-    if code == _EXT_NDARRAY:
-        return _ndarray_from_bytes(data)
-    if code == _EXT_NPSCALAR:
-        return _ndarray_from_bytes(data)[()]
-    return msgpack.ExtType(code, data)
+def _ext_unpacker(keep_bfloat16: bool):
+    def unpack(code: int, data: bytes):
+        if code == _EXT_NDARRAY:
+            return _ndarray_from_bytes(data, keep_bfloat16)
+        if code == _EXT_NPSCALAR:
+            return _ndarray_from_bytes(data)[()]
+        return msgpack.ExtType(code, data)
+    return unpack
 
 
 def _ndarray_to_bytes(a: np.ndarray) -> bytes:
     return msgpack.packb((a.shape, a.dtype.name, a.tobytes("C")),
+                         use_bin_type=True)
+
+
+def _bfloat16_to_bytes(t: torch.Tensor) -> bytes:
+    """A CPU bf16 tensor as flax packs an ml_dtypes ``bfloat16`` array:
+    its shape, the name ``"bfloat16"`` and its raw 2-byte words."""
+    words = t.contiguous().view(torch.int16).numpy()
+    return msgpack.packb((tuple(t.shape), "bfloat16", words.tobytes("C")),
                          use_bin_type=True)
 
 
@@ -140,6 +166,8 @@ def _ext_pack(x):
     if isinstance(x, np.generic):
         return msgpack.ExtType(_EXT_NPSCALAR,
                                _ndarray_to_bytes(np.asarray(x)))
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return msgpack.ExtType(_EXT_NDARRAY, _bfloat16_to_bytes(x.cpu()))
     raise TypeError(f"cannot serialize {type(x).__name__}")
 
 
@@ -156,9 +184,12 @@ def _unchunk(tree: Any) -> Any:
     return tree
 
 
-def msgpack_restore(data: bytes) -> Any:
-    """flax ``serialization.msgpack_restore`` without flax."""
-    return _unchunk(msgpack.unpackb(data, ext_hook=_ext_unpack, raw=False))
+def msgpack_restore(data: bytes, keep_bfloat16: bool = False) -> Any:
+    """flax ``serialization.msgpack_restore`` without flax. A bf16 leaf
+    comes back widened to float32, or with ``keep_bfloat16`` as a CPU
+    torch ``bfloat16`` tensor of the same words."""
+    return _unchunk(msgpack.unpackb(
+        data, ext_hook=_ext_unpacker(keep_bfloat16), raw=False))
 
 
 def msgpack_serialize(tree: Any) -> bytes:
@@ -208,14 +239,18 @@ def verify_artifact(path: str | Path) -> None:
     _verified_read(Path(path))
 
 
-def _read_payload(path: Path) -> dict:
-    data = _verified_read(path)
+def _restore_checked(data: bytes, path: Path,
+                     keep_bfloat16: bool = False) -> Any:
     try:
-        payload = msgpack_restore(data)
+        return msgpack_restore(data, keep_bfloat16)
     except Exception as e:  # msgpack raises several unpack error types
         raise CheckpointCorruptError(
             f"{path.name}: torn or corrupt msgpack ({type(e).__name__}: "
             f"{e})") from e
+
+
+def _read_payload(path: Path) -> dict:
+    payload = _restore_checked(_verified_read(path), path)
     if not isinstance(payload, dict) or "state" not in payload:
         raise CheckpointCorruptError(
             f"{path.name}: payload has no 'state' entry")
@@ -297,14 +332,67 @@ def wait_for_run_config(train_dir: str | Path, timeout_s: float = 600.0):
         f"no checkpoint appeared in {train_dir} within {timeout_s:.0f}s")
 
 
-def artifact_digest(train_dir: str | Path, step: int) -> str | None:
-    """The recorded sha256 of a step's artifact (its sidecar), or None."""
+def _recorded_digest(path: Path) -> str | None:
     try:
-        text = storage.read_text(_digest_path(_ckpt_path(Path(train_dir),
-                                                          step)))
+        text = storage.read_text(_digest_path(path))
     except OSError:
         return None
     return text.strip() or None
+
+
+def artifact_digest(train_dir: str | Path, step: int) -> str | None:
+    """The recorded sha256 of a step's artifact (its sidecar), or None."""
+    return _recorded_digest(_ckpt_path(Path(train_dir), step))
+
+
+# -- quantized-tier sidecars ------------------------------------------------
+
+def quant_sidecar_path(train_dir: str | Path, step: int) -> Path:
+    """Where a step's quantized-tier sidecar lives. The ``ckpt-`` prefix
+    keeps it in the step-grouped GC; the suffix keeps it out of the
+    loadable steps."""
+    return Path(train_dir) / f"ckpt-{step:08d}.quant.msgpack"
+
+
+def write_quant_sidecar(train_dir: str | Path, step: int, tiers: dict,
+                        meta: dict) -> Path:
+    """Atomically publish ``step``'s quantized tiers (tmp + rename, then
+    the sha256 sidecar): ``tiers`` maps a tier name to its state-dict
+    tree (numpy leaves; the bf16 tier's are CPU bf16 tensors), ``meta``
+    is JSON. The bytes are the reference's for the same trees."""
+    path = quant_sidecar_path(train_dir, step)
+    _write_atomic(path, msgpack_serialize(to_state_dict(
+        {"tiers": tiers, "meta": json.dumps(meta)})))
+    return path
+
+
+def read_quant_sidecar(train_dir: str | Path, step: int) -> dict:
+    """Digest-verified read of a step's sidecar → ``{"tiers": {...},
+    "meta": dict}``, bf16 leaves kept as bf16 tensors. Raises
+    ``FileNotFoundError`` when none was published and
+    :class:`CheckpointCorruptError` on a torn payload or a sha256
+    mismatch — a serving replica then falls back to the full-precision
+    artifact."""
+    path = quant_sidecar_path(train_dir, step)
+    payload = _restore_checked(_verified_read(path), path,
+                               keep_bfloat16=True)
+    if not isinstance(payload, dict) or not isinstance(
+            payload.get("tiers"), dict):
+        raise CheckpointCorruptError(
+            f"{path.name}: payload has no 'tiers' entry")
+    meta = payload.get("meta", {})
+    if isinstance(meta, (str, bytes)):
+        try:
+            meta = json.loads(meta)
+        except json.JSONDecodeError as e:
+            raise CheckpointCorruptError(
+                f"{path.name}: torn meta payload ({e})") from e
+    return {"tiers": payload["tiers"], "meta": meta}
+
+
+def quant_sidecar_digest(train_dir: str | Path, step: int) -> str | None:
+    """The recorded sha256 of a step's quant sidecar, or None."""
+    return _recorded_digest(quant_sidecar_path(train_dir, step))
 
 
 _FALLBACK_ERRORS = (FileNotFoundError, CheckpointCorruptError, OSError)
@@ -510,7 +598,11 @@ class AsyncCheckpointer:
     or, with ``prepare``, anything ``prepare`` turns into one on the
     worker thread — the device snapshot's path, where ``prepare`` copies
     fresh device buffers to the host. A ``prepare`` failure counts as a
-    failed write.
+    failed write. ``publish(state_dict, step)`` (the quantized tiers'
+    pass) runs on the worker after ``prepare`` and before the artifact
+    and pointer writes, so a follower that sees the pointer name a step
+    finds its sidecar on disk; its failure is logged, never a failed
+    write.
 
     Latest wins: a save queued while another is pending replaces it
     (checkpoints are snapshots, not a journal). A failed write is
@@ -545,11 +637,17 @@ class AsyncCheckpointer:
                 job = self._pending
                 self._pending = None
                 self._busy = True
-            train_dir, state, step, extra, keep, prepare = job
+            train_dir, state, step, extra, keep, prepare, publish = job
             del job  # a prepared snapshot's device buffers go with it
             try:
                 if prepare is not None:
                     state = prepare(state)
+                if publish is not None:
+                    try:
+                        publish(state, step)
+                    except Exception as e:  # the sidecar is additive
+                        logger.warning("pre-save publish hook for step=%d "
+                                       "failed: %s", step, e)
                 save_state(train_dir, state, step, extra=extra, keep=keep)
             except Exception as e:  # a failed write must not end the thread
                 logger.error("async checkpoint write for step=%d failed: %s",
@@ -575,7 +673,8 @@ class AsyncCheckpointer:
 
     def save(self, train_dir: str | Path, state: Any, step: int,
              extra: dict | None = None, keep: int = 5,
-             prepare: Callable[[Any], dict] | None = None) -> None:
+             prepare: Callable[[Any], dict] | None = None,
+             publish: Callable[[dict, int], Any] | None = None) -> None:
         """Queue a write (replacing a pending one). Raises only after
         ``max_consecutive_failures`` failed writes in a row, or when
         closed."""
@@ -591,7 +690,8 @@ class AsyncCheckpointer:
             if self._pending is not None:
                 logger.warning("checkpoint writer lagging; replacing queued "
                                "step=%d with step=%d", self._pending[2], step)
-            self._pending = (train_dir, state, step, extra, keep, prepare)
+            self._pending = (train_dir, state, step, extra, keep, prepare,
+                             publish)
             self._wake.notify_all()
 
     def wait(self) -> None:

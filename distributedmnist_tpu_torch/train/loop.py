@@ -54,10 +54,17 @@ the final save returns, before a NaN rollback reads the directory and
 when ``run`` ends, on every exit. TensorBoard scalars go to
 ``train_dir/tb`` every ``train.summary_every_steps`` steps.
 
+With ``quant.publish_tiers`` the writer process builds a
+:class:`..quant.ptq.QuantPublisher` (calibrating on the first
+``quant.calibration_examples`` test examples, on the trainer's device):
+every save writes the step's int8/bf16 sidecar before its artifact and
+pointer — inline for a synchronous save, on the writer thread
+otherwise — and its ``save`` record lists the tiers (``quant_tiers``).
+
 Not ported yet (each knob is refused as noted): profiler windows
-(``train.profile_steps`` / ``trace_every_steps`` raise), quantized
-publish (``quant.publish_tiers`` raises), warm standby, and the AOT
-precompile (PyTorch runs eagerly: there is no ``compile`` record).
+(``train.profile_steps`` / ``trace_every_steps`` raise), warm standby,
+and the AOT precompile (PyTorch runs eagerly: there is no ``compile``
+record).
 """
 
 from __future__ import annotations
@@ -88,6 +95,7 @@ from ..parallel.api import (TrainState, build_eval_step, build_train_step,
                             init_train_state, make_discipline_vector,
                             tree_leaves, tree_map, world_signature)
 from ..parallel.policies import resolve_aggregate_k
+from ..quant.ptq import QuantPublisher
 from . import checkpoint as ckpt
 from . import storage
 from .discipline import DisciplineController, WindowStats
@@ -137,8 +145,6 @@ def _check_loop_knobs(cfg: ExperimentConfig) -> None:
     if t.profile_steps[1] > t.profile_steps[0] or t.trace_every_steps:
         raise NotImplementedError("train.profile_steps / trace_every_steps "
                                   "are not ported yet")
-    if cfg.quant.resolved_publish_tiers():
-        raise NotImplementedError("quant.publish_tiers is not ported yet")
 
 
 def device_snapshot(state: TrainState
@@ -259,6 +265,13 @@ class Trainer:
         self._async_snapshot = (self._use_async_ckpt
                                 and cfg.train.async_snapshot)
         self._checkpointer: ckpt.AsyncCheckpointer | None = None
+        # the quantized tiers' publish-time pass, on the writer only (a
+        # bad tier name is a ConfigError here, at build)
+        self._quant_publisher: QuantPublisher | None = None
+        if self.is_writer and cfg.quant.resolved_publish_tiers():
+            self._quant_publisher = QuantPublisher(
+                self.model, cfg, calib_inputs=self.datasets.test.images,
+                calib_labels=self.datasets.test.labels, device=self.device)
         self._tb: SummaryWriter | None = None
         if self.is_writer and cfg.train.summary_every_steps > 0:
             self._tb = SummaryWriter(self.train_dir / "tb")
@@ -343,10 +356,14 @@ class Trainer:
         extra = {"config": self.cfg.to_dict(),
                  "world": world_signature(self.topo),
                  "data_iter": self.train_iter.state()}
+        publish = None
+        if self._quant_publisher is not None:
+            pub, tdir = self._quant_publisher, self.train_dir
+            publish = lambda st, s: pub.publish(tdir, st, s)  # noqa: E731
         # arms the at_step-gated disk fault scripts for this save
         storage.note_step(at_step)
         try:
-            self._save_inner(at_step, extra)
+            self._save_inner(at_step, extra, publish)
         except OSError as e:
             logger.error("checkpoint save for step=%d failed (%s) — "
                          "skipping this cadence", at_step, e)
@@ -363,7 +380,10 @@ class Trainer:
         self._sink_write({"event": "save", "time": time.time(),
                           "at_step": at_step,
                           "save_stall_ms": round(stall_ms, 3),
-                          "async_snapshot": self._async_snapshot})
+                          "async_snapshot": self._async_snapshot,
+                          **({"quant_tiers":
+                              list(self._quant_publisher.tiers)}
+                             if publish is not None else {})})
         self._last_save_time = time.time()
 
     def _ckpt_save_failed(self, step: int, e: Exception) -> None:
@@ -375,20 +395,27 @@ class Trainer:
                               "errno": getattr(e, "errno", None),
                               "where": "async"})
 
-    def _save_inner(self, at_step: int, extra: dict) -> None:
+    def _save_inner(self, at_step: int, extra: dict, publish) -> None:
         keep = self.cfg.train.keep_checkpoints
         if not self._use_async_ckpt:
-            ckpt.save_state(self.train_dir, state_to_reference(self.state),
-                            at_step, extra=extra, keep=keep)
+            host = state_to_reference(self.state)
+            if publish is not None:
+                publish(host, at_step)  # the sidecar before the pointer
+            ckpt.save_state(self.train_dir, host, at_step, extra=extra,
+                            keep=keep)
             return
         if self._checkpointer is None or self._checkpointer.closed:
             self._checkpointer = ckpt.AsyncCheckpointer(
                 on_error=self._ckpt_save_failed)
         if not self._async_snapshot:
             # the host fetch on the loop; the writer packs and writes
-            self._checkpointer.save(self.train_dir,
-                                    state_to_reference(self.state), at_step,
-                                    extra=extra, keep=keep)
+            host = state_to_reference(self.state)
+            if self.device.type == "cpu":
+                # a CPU tensor's numpy view aliases the live state, which
+                # the next steps update in place while the writer works
+                host = tree_map(np.copy, host)
+            self._checkpointer.save(self.train_dir, host, at_step,
+                                    extra=extra, keep=keep, publish=publish)
             return
         try:
             snap, prepare = device_snapshot(self.state), snapshot_to_host
@@ -400,7 +427,7 @@ class Trainer:
                 raise e
             snap = None
         self._checkpointer.save(self.train_dir, snap, at_step, extra=extra,
-                                keep=keep, prepare=prepare)
+                                keep=keep, prepare=prepare, publish=publish)
 
     def _drain_writer(self) -> None:
         """Wait for the writer's queued and running writes before the

@@ -82,6 +82,9 @@ def test_every_write_path_gives_the_reference_bytes(tmp_path):
     ckpt.save_state(tmp_path / "sync", host, 7, extra=extra)
     ac = ckpt.AsyncCheckpointer()
     ac.save(tmp_path / "host", host, 7, extra=extra)
+    # latest wins: a save queued before the writer picks up the one
+    # before it replaces it, so drain between the two arms
+    ac.wait()
     ac.save(tmp_path / "snap", loop.device_snapshot(tr.state), 7,
             extra=extra, prepare=loop.snapshot_to_host)
     ac.close()

@@ -28,7 +28,7 @@ from distributedmnist_tpu.models.registry import sample_token as ref_sample
 from distributedmnist_tpu.obsv.schema import validate_event
 from distributedmnist_tpu.parallel.api import init_train_state
 from distributedmnist_tpu.train.checkpoint import save_checkpoint
-from distributedmnist_tpu_torch.launch.__main__ import build_decode_replica
+from distributedmnist_tpu_torch.launch.__main__ import build_replica
 from distributedmnist_tpu_torch.servesvc import DecodeReplica, ServeClient
 
 RUN = {"model": {"name": "transformer", "seq_len": 64, "model_dim": 64,
@@ -76,7 +76,7 @@ def published(tmp_path_factory):
 @pytest.fixture
 def replica(published, tmp_path):
     train_dir = published[0]
-    rep = build_decode_replica(["serve", "--decode", "--train-dir",
+    rep = build_replica(["serve", "--decode", "--train-dir",
                                 str(train_dir), "--serve-dir",
                                 str(tmp_path / "serve"), "--device", "cpu"])
     rep.start()

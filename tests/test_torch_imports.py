@@ -1,8 +1,8 @@
 """Import hygiene of the port: importing every module of
 ``distributedmnist_tpu_torch`` (and ``chip_smoke.py``) loads no ``jax``,
 no ``flax`` and nothing of ``distributedmnist_tpu`` — checked in a fresh
-interpreter, through ``sys.modules`` — and no source names them in an
-import statement. ``chip_smoke.py`` refuses to run without CUDA and
+interpreter, through ``sys.modules`` — and no source names them (or
+``ml_dtypes``, which the chip machine lacks) in an import statement. ``chip_smoke.py`` refuses to run without CUDA and
 without the rest of the repository."""
 
 import ast
@@ -13,7 +13,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "distributedmnist_tpu_torch"
-FORBIDDEN = ("jax", "flax", "distributedmnist_tpu")
+FORBIDDEN = ("jax", "flax", "ml_dtypes", "distributedmnist_tpu")
 
 _PROBE = """
 import importlib, pkgutil, runpy, sys
@@ -22,7 +22,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax",
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "ml_dtypes",
                                     "distributedmnist_tpu"))
 print("LOADED", len([k for k in sys.modules
                      if k.startswith("distributedmnist_tpu_torch")]))
@@ -46,7 +46,11 @@ TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               # durable checkpoints, TensorBoard scalars and the
               # continuous evaluator
               "train.storage", "obsv.tb", "evalsvc", "evalsvc.evaluator",
-              "evalsvc.__main__")
+              "evalsvc.__main__",
+              # the serving tier: classification, hot-follow and swaps,
+              # the quantized tiers, the client and the load generator
+              "quant", "quant.ptq", "servesvc.server", "servesvc.decode",
+              "servesvc.client", "servesvc.loadgen")
 
 
 def test_port_modules_load_no_jax():
