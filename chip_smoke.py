@@ -20,7 +20,11 @@ random weights from a seed:
   serving the checkpoint the training phase wrote;
 
 and the MNIST CNN's sync SGD (the source paper's path) at its published
-widths, on one process and across worker processes; then the training
+widths, on one process and across worker processes; ResNet-20 on
+CIFAR-10 (``configs/cifar10_resnet20_sync.json`` on a fixture written
+at the archive's size) with the rest of the data-parallel step's knobs
+— LARS/LAMB, gradient accumulation, bf16 params with and without
+float32 masters, ZeRO-1 and the cross-world restore; then the training
 path's durable checkpoints, the continuous evaluator that follows them,
 and the serving tier that hot-follows training (``launch serve``).
 
@@ -63,7 +67,10 @@ One JSON line per phase:
                 a test-split eval through K1; ms per step (CUDA events),
                 tokens/s, peak memory and a ``torch.profiler`` split of
                 one step into GEMMs, attention kernels, other kernels
-                and device idle.
+                and device idle. ``lamb_arm``: the same configuration
+                under LAMB with bf16 params over float32 masters, 5
+                steps: K1-lse, K2 and K3 4 times a step, ms a step,
+                peak memory, params and both slots float32.
 5. ``train_k4`` — at seq_len 64 (one tile): one step through the
                 kernels against one through their plain versions, as in
                 ``train``; 5 steps of the Trainer with K4 launched 4 times
@@ -118,9 +125,59 @@ One JSON line per phase:
                 card against the CPU (equal records and flags, a change
                 at least) and the device-skew probe (a float32
                 ``a@a@a`` on [640, 640] queued for replica 3 after every
-                step: quorum k=7 leaves it out); the K1-K5 counters 0 in
-                this process and every child.
-8. ``e2e``      — boots the decode replica on the training phase's
+                step: quorum k=7 leaves it out); ``zero1``: ZeRO-1 (4
+                buckets) at 8 replicas over two gloo processes on one
+                card, float32 full-batch steps under momentum (3) and
+                LAMB (1 and 3), against the one-process run fed the two
+                processes' batches concatenated: each leaf within
+                ``ZERO_DIST_TOL`` of its norm (momentum; LAMB after one
+                step within ``ZERO_DIST_LAMB_TOL``, its 3-step gap
+                printed), each rank's slot bytes half
+                the sharded slots' plus the fallback leaves, the
+                momentum run's per-host checkpoint (two shard files and
+                a manifest) resumed in one process to that run's params
+                and slots bit for bit; ``nccl_cards``: the momentum run
+                over one NCCL process a card on up to 4 cards (the
+                same bound and slot bytes; null with one card); the
+                K1-K5 counters 0 in this process and every child. The
+                multi-card case alone, on a host with 4 cards:
+                ``python3 -c "import json, tempfile, chip_smoke as cs;
+                d = tempfile.mkdtemp(); print(json.dumps(
+                cs._dist_zero1_nccl(d)))"``.
+8. ``resnet``   — the CIFAR-10 fixture written at the archive's size
+                (50,000 / 10,000) by the port's ``data/fixtures.py``;
+                ``launch train`` on ``configs/cifar10_resnet20_sync.json``
+                through ``build_trainer`` with only ``data.data_dir``
+                and ``train.train_dir`` overridden (ResNet-20, batch
+                1024, bf16, sync, the config's one replica): 10 steps of
+                ``run`` with the K1-K5 counters set to 0 before and read
+                after (all 0: convolutions and GroupNorm are cuDNN and
+                ATen calls, as the reference's are XLA ops), the test
+                split's eval, then 20 steps timed by CUDA events (ms,
+                host issue ms, images/s, model TFLOP/s from the layer
+                shapes' multiply-adds, the FLOP bound), peak memory and
+                a ``torch.profiler`` split (convolution, GroupNorm, GEMM,
+                other, idle); 3 float32 steps at batch 64 on the card
+                and on the CPU against the same steps in float64 on the
+                CPU (the card's error no more than
+                ``RESNET_CARD_VS_CPU_FACTOR`` × the CPU's; the two
+                float32 runs' gap printed); the knobs over 8 simulated
+                replicas at batch 1024, each arm on the same 5 batches
+                with its ms a step: momentum replicated against ZeRO-1
+                monolithic, 4 buckets and resident (params and slots
+                bitwise), LARS and LAMB replicated against ZeRO-1
+                (within ``KNOB_RTOL``/``KNOB_ATOL`` after one step, the
+                5-step gap printed), accumulation 2 × 512 against 1 ×
+                1024 (params' relative error), bf16 params with and
+                without masters (storage dtypes, loss beside float32's),
+                an all-masked timeout step under LAMB and ZeRO-1
+                (bitwise no-op); a ZeRO-1 LAMB run at 8 replicas saved
+                at step 5 and resumed at 4 (``cross_world_restore``
+                journaled with both worlds, slots equal to the saved
+                ones, the cursor at 5 batches, one more step) and a
+                resume under momentum refused with
+                ``OptimizerStateMismatchError``.
+9. ``e2e``      — boots the decode replica on the training phase's
                 checkpoint through the CLI's ``build_replica``,
                 streams 8 concurrent greedy requests over its socket,
                 and checks:
@@ -131,7 +188,7 @@ One JSON line per phase:
                 iteration; one prefill plus 3 decode steps through the
                 kernels within a stated tolerance of the plain versions.
                 Prints tokens/s, TTFT p50 and inter-token p50.
-9. ``ckpt``     — the training configuration, 15 steps with a save every
+10. ``ckpt``    — the training configuration, 15 steps with a save every
                 5 (keep 2) in three arms: saves on the step loop
                 (``train.async_checkpoint=false``), the host fetch on
                 the loop and the write on the writer thread
@@ -157,7 +214,7 @@ One JSON line per phase:
                 float32 arrays, 5 interleaved repeats × 3 saves) under
                 ``none``, ``data`` and ``full``: median walls printed,
                 fsyncs a save checked against the reference's count.
-10. ``eval``    — ``launch eval``'s Evaluator in process on the ``ckpt``
+11. ``eval``    — ``launch eval``'s Evaluator in process on the ``ckpt``
                 phase's transformer checkpoint: K1 launched 4 times a
                 batch, precision equal to and loss within
                 ``EVAL_LOSS_TOL`` of the Trainer's ``evaluate`` of the
@@ -169,7 +226,7 @@ One JSON line per phase:
                 printed line the source paper's format, each result
                 equal to an in-process eval of that step (loss within
                 ``COLOC_LOSS_RTOL``), ``follow_skip`` records printed.
-11. ``serve``   — one line a part, then the phase's seconds. ``cnn``:
+12. ``serve``   — one line a part, then the phase's seconds. ``cnn``:
                 ``launch train`` on the MNIST CNN at its published widths
                 (``SERVE_CNN``: float32, 60 steps, a save every 10,
                 ``quant.publish_tiers=int8,bf16``, 128 calibration
@@ -1202,6 +1259,47 @@ def _profile_train_step(trainer, batch, wall_ms: float,
                                sorted(top, reverse=True)[:8]]}
 
 
+LAMB_STEPS = 5
+
+
+def _train_lamb_arm(tmp: str, batch, layers: int) -> dict:
+    """The training configuration under LAMB with bf16 params over
+    float32 masters, ``LAMB_STEPS`` steps: K1-lse, K2 and K3 launched
+    ``layers`` times a step, ms a step, peak memory, the storage dtypes."""
+    import torch
+
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _build_trainer(tmp, "train_lamb", "optim.name=lamb",
+                        "precision.param_dtype=bfloat16",
+                        "precision.master_weights=true",
+                        f"train.max_steps={LAMB_STEPS}")
+    losses = []
+    reset_counts()
+    tr.run(step_callback=lambda step, rec: losses.append(rec["loss"]))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rec = {"steps": LAMB_STEPS, "launches": counts,
+           "per_step": {k: counts[k] / LAMB_STEPS
+                        for k in ("K1-lse", "K2", "K3")},
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "ms_per_step": _time_steps(tr, batch),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "param_dtypes": sorted({str(x.dtype)
+                                   for x in tree_leaves(tr.state.params)}),
+           "slot_dtypes": sorted({str(x.dtype)
+                                  for x in tree_leaves(tr.state.momentum)}),
+           "slot_trees": sorted(tr.state.momentum)}
+    check(all(rec["per_step"][k] == layers for k in rec["per_step"])
+          and counts["K4"] == counts["K1"] == counts["K5"] == 0
+          and all(map(math.isfinite, losses))
+          and rec["param_dtypes"] == ["torch.float32"]
+          and rec["slot_dtypes"] == ["torch.float32"]
+          and rec["slot_trees"] == ["m", "v"], f"LAMB arm: {rec}")
+    return rec
+
+
 def phase_train(tmp: str) -> dict:
     import torch
 
@@ -1250,6 +1348,7 @@ def phase_train(tmp: str) -> dict:
           f"eval: {ev}, launches {eval_counts}")
     ms = _time_steps(trainer, batch)
     profile = _profile_train_step(trainer, batch, ms)
+    lamb = _train_lamb_arm(tmp, batch, layers)
     d, V = MODEL["model_dim"], MODEL["vocab_size"]
     # bench.py's count: fwd matmul FLOPs per token, x3 for fwd + bwd
     flops = 3 * (layers * (24 * d * d + 2 * S * d) + 2 * d * V) * B * S
@@ -1265,7 +1364,7 @@ def phase_train(tmp: str) -> dict:
            "run_s": run_s, "ms_per_step": ms,
            "tokens_per_s": B * S / (ms / 1e3),
            "model_tflops_per_s": flops / (ms / 1e3) / 1e12,
-           "peak_mem_gb": peak_gb, "profile": profile,
+           "peak_mem_gb": peak_gb, "profile": profile, "lamb_arm": lamb,
            "train_dir": str(trainer.train_dir)}
     emit(rec)
     check(loss_diff <= STEP_LOSS_TOL and param_diff <= STEP_PARAM_TOL,
@@ -1674,7 +1773,10 @@ try:
         flags = []
         summary = t.run(step_callback=lambda s, r: flags.append(r["flags"]))
         res = {"flags": flags, "digest": summary["params_digest"],
-               "device": str(t.device), "times": t.collector.matrix().tolist()}
+               "device": str(t.device), "times": t.collector.matrix().tolist(),
+               "first_replica": t.topo.first_replica,
+               "slot_bytes": sum(x.numel() * x.element_size()
+                                 for x in tree_leaves(t.state.momentum))}
         if run.get("timed"):
             b = to_device(next(t.train_iter), t.device)
             state = t.state
@@ -1687,8 +1789,12 @@ try:
             torch.cuda.synchronize()
             res["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / run["timed"]
         if run.get("save_params"):
-            torch.save([p.detach().cpu() for p in tree_leaves(t.state.params)],
+            torch.save([p.detach().cpu() for p in
+                        tree_leaves(t.logical_params())],
                        f"{run['save_params']}.{rank}.pt")
+            torch.save([x.detach().cpu() for x in
+                        tree_leaves(t.state.momentum)],
+                       f"{run['save_params']}.slots.{rank}.pt")
         out["runs"][run["name"]] = res
     out["kernel_launches"] = sum(
         f.launches for f in (fa.flash_attention_bshd,
@@ -1941,6 +2047,171 @@ def _dist_nccl_two(tmp: str) -> tuple[dict, int]:
     return rec, sum(r["kernel_launches"] for r in pair)
 
 
+# ZeRO-1 over two gloo processes on one card: the float32 full-batch
+# steps with the weight update sharded (4 buckets); each one-process run
+# in this process is fed the two processes' batches concatenated, so the
+# replicas hold the same rows and only the collectives' sum order differs
+ZERO_DIST = DIST_F32 + ["parallel.shard_weight_update=true",
+                        "parallel.comm_buckets=4"]
+ZERO_DIST_OPTIM = {"momentum": ["optim.name=momentum", "optim.momentum=0.9"],
+                   "lamb": ["optim.name=lamb"]}
+ZERO_DIST_TOL = 3e-7
+# LAMB after one step: its update m̂/(sqrt(v̂) + eps) is sign-like where a
+# summed gradient is near eps, so the reassociated sums move whole
+# elements (tests/test_torch_zero1.py: 1.0e-6 on the CPU; 3.9e-6 on
+# conv2's kernel on an H100)
+ZERO_DIST_LAMB_TOL = 1e-5
+
+
+def _zero1_one_process(tmp: str, name: str, overrides: list,
+                       hosts: int = 2):
+    """The one-process run of a ``hosts``-process ZeRO-1 config (8
+    simulated replicas), fed each step the processes' batches
+    concatenated."""
+    import numpy as np
+    import torch
+
+    from distributedmnist_tpu_torch.data.pipeline import (BatchIterator,
+                                                          to_device)
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    tr = _cnn_trainer(tmp, name, *overrides)
+    its = [BatchIterator(tr.datasets.train, tr.cfg.data.batch_size,
+                         seed=tr.cfg.train.seed, host_id=p, num_hosts=hosts)
+           for p in range(hosts)]
+    state = tr.state
+    for _ in range(tr.cfg.train.max_steps):
+        parts = [next(it) for it in its]
+        state, _ = tr.step_fn(state, to_device(
+            {k: np.concatenate([b[k] for b in parts])
+             for k in ("image", "label")}, tr.device))
+    tr.state = state
+    return tr, [p.detach().cpu() for p in tree_leaves(tr.logical_params())]
+
+
+def _zero1_gap(got: list, want: list) -> list:
+    return [float((a - b).norm() / b.norm().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def _zero1_run(tmp: str, opt: str, steps: int) -> dict:
+    """A ``_DIST_CHILD`` run of ``ZERO_DIST`` under ``opt`` for ``steps``,
+    saving its logical params and local slots."""
+    name = f"{opt}_{steps}"
+    return {"name": name, "save_params": f"{tmp}/zd_{name}",
+            "overrides": ZERO_DIST + ZERO_DIST_OPTIM[opt] + [
+                f"train.max_steps={steps}", f"train.train_dir={tmp}/zd_{name}"]}
+
+
+def _dist_zero1_nccl(tmp: str) -> tuple[dict | None, int]:
+    """ZeRO-1 momentum (3 steps) over one NCCL process a card, on up to 4
+    cards where there are two or more (null with one): each rank within
+    ``ZERO_DIST_TOL`` of each leaf's norm of the one-process run fed the
+    processes' batches, its slot bytes the sharded slots' share plus the
+    fallback leaves. Returns (record, the children's K1-K5 launches)."""
+    import torch
+    cards = min(torch.cuda.device_count(), 4)
+    if cards < 2:
+        return None, 0
+    run = dict(_zero1_run(tmp, "momentum", 3), save_params=f"{tmp}/zn",
+               name="momentum_3")
+    group = _dist_group(tmp, "zero1_nccl", "nccl",
+                        [f"cuda:{i}" for i in range(cards)], [run])
+    sim, want = _zero1_one_process(
+        tmp, "zn_sim", run["overrides"][:-1]
+        + [f"train.train_dir={tmp}/zn_sim"], hosts=cards)
+    gaps = [_zero1_gap(torch.load(f"{tmp}/zn.{r}.pt"), want)
+            for r in range(cards)]
+    expected = sum(lp.pad * 4 // cards if lp.sharded else lp.size * 4
+                   for lp in sim._zero1_plan.leaves())
+    rec = {"processes": cards, "max_leaf_rel_gap": max(map(max, gaps)),
+           "slot_bytes_ranks": [r["runs"]["momentum_3"]["slot_bytes"]
+                                for r in group],
+           "slot_bytes_rank_expected": expected}
+    check(rec["max_leaf_rel_gap"] <= ZERO_DIST_TOL
+          and all(b == expected for b in rec["slot_bytes_ranks"]),
+          f"ZeRO-1 over {cards} NCCL processes vs one: {rec}")
+    return rec, sum(r["kernel_launches"] for r in group)
+
+
+def _dist_zero1(tmp: str) -> tuple[dict, int]:
+    """ZeRO-1 at 8 replicas over two gloo processes on one card, under
+    momentum (3 steps) and LAMB (1 and 3 steps), against the one-process
+    run; each rank's slot bytes; the per-host checkpoint (two shard files
+    and a manifest) resumed in one process to the run's logical state;
+    NCCL processes on up to 4 cards where there are two or more."""
+    import torch
+
+    from distributedmnist_tpu_torch.parallel.api import (tree_leaves,
+                                                         tree_unflatten)
+    from distributedmnist_tpu_torch.parallel.partition_rules import (
+        zero1_unpack)
+    runs = [_zero1_run(tmp, opt, steps)
+            for opt, steps in (("momentum", 3), ("lamb", 1), ("lamb", 3))]
+    two = _dist_group(tmp, "zero1_gloo", "gloo", ["cuda:0", "cuda:0"], runs)
+    rec = {}
+    for run in runs:
+        name = run["name"]
+        sim, want = _zero1_one_process(tmp, f"zd_sim_{name}",
+                                       run["overrides"][:-1] + [
+                                           f"train.train_dir={tmp}/zs_{name}"])
+        gaps = [_zero1_gap(torch.load(f"{run['save_params']}.{r}.pt"), want)
+                for r in range(2)]
+        lps = sim._zero1_plan.leaves()
+        slots = 2 if name.startswith("lamb") else 1
+        rec[name] = {"max_leaf_rel_gap": max(map(max, gaps)),
+                     "gap_by_leaf": gaps[0],
+                     "leaf_ndim": [len(lp.shape) for lp in lps],
+                     "slot_bytes_ranks": [r["runs"][name]["slot_bytes"]
+                                          for r in two],
+                     "slot_bytes_one_process": sum(
+                         x.numel() * x.element_size()
+                         for x in tree_leaves(sim.state.momentum)),
+                     # half the sharded slots, the fallback leaves whole
+                     "slot_bytes_rank_expected": slots * sum(
+                         lp.pad * 4 // 2 if lp.sharded else lp.size * 4
+                         for lp in lps),
+                     "sharded_leaves": sum(lp.sharded for lp in lps)}
+    # the per-host layout of the momentum run, resumed in one process
+    d = f"{tmp}/zd_momentum_3"
+    files = sorted(f for f in os.listdir(d) if f.startswith("ckpt-00000003"))
+    resumed = _cnn_trainer(tmp, "zd_resume", *ZERO_DIST,
+                           *ZERO_DIST_OPTIM["momentum"], "train.max_steps=3",
+                           f"train.train_dir={d}")
+    got_p, got_s = _canonical_leaves(resumed)
+    plan = resumed._zero1_plan
+    lps = plan.leaves()
+    ranks_s = [torch.load(f"{d}.slots.{r}.pt") for r in range(2)]
+    whole = [torch.cat([ranks_s[0][i], ranks_s[1][i]]) if lp.sharded
+             else ranks_s[0][i] for i, lp in enumerate(lps)]
+    want_s = tree_leaves(zero1_unpack(tree_unflatten(plan.leaf_plans, whole),
+                                      plan))
+    rec["per_host_checkpoint"] = {
+        "files": files,
+        "resumed_params_bitwise": _bitwise(got_p, torch.load(f"{d}.0.pt")),
+        "resumed_slots_bitwise": _bitwise(got_s, [x.float() for x in want_s])}
+    rec["nccl_cards"], nccl_launches = _dist_zero1_nccl(tmp)
+    launches = sum(r["kernel_launches"] for r in two) + nccl_launches
+    m, l1 = rec["momentum_3"], rec["lamb_1"]
+    check(m["max_leaf_rel_gap"] <= ZERO_DIST_TOL,
+          f"ZeRO-1 momentum, two processes vs one: {m}")
+    check(l1["max_leaf_rel_gap"] <= ZERO_DIST_LAMB_TOL,
+          f"ZeRO-1 LAMB after one step, two processes vs one: {l1}")
+    for name in ("momentum_3", "lamb_3"):
+        r = rec[name]
+        check(all(b == r["slot_bytes_rank_expected"]
+                  for b in r["slot_bytes_ranks"]),
+              f"ZeRO-1 slot bytes a rank: {r}")
+    ph = rec["per_host_checkpoint"]
+    check(ph["files"] == ["ckpt-00000003.manifest.json",
+                          "ckpt-00000003.shard000-of-002.msgpack",
+                          "ckpt-00000003.shard000-of-002.msgpack.sha256",
+                          "ckpt-00000003.shard001-of-002.msgpack",
+                          "ckpt-00000003.shard001-of-002.msgpack.sha256"]
+          and ph["resumed_params_bitwise"] and ph["resumed_slots_bitwise"],
+          f"per-host checkpoint: {ph}")
+    return rec, launches
+
+
 def phase_dist(tmp: str) -> dict:
     """The CNN's sync SGD across worker processes, at its published
     widths: one NCCL process against the simulated replicas, two gloo
@@ -1954,17 +2225,461 @@ def phase_dist(tmp: str) -> dict:
     nccl2, l3 = _dist_nccl_two(tmp)
     adaptive = _dist_adaptive(tmp)
     skew = _dist_device_skew(tmp)
+    zero1, l4 = _dist_zero1(tmp)
     counts = read_counts()
     rec = {"phase": "dist", "batch": CNN_BATCH, "dtype": "bfloat16",
            "nccl_world1": world1, "gloo_two_ranks_one_card": gloo,
            "nccl_shared_card_refused": refused, "nccl_two_ranks": nccl2,
-           "adaptive": adaptive, "device_skew": skew,
+           "adaptive": adaptive, "device_skew": skew, "zero1": zero1,
            "flash_paged_kernel_launches": counts,
-           "child_flash_paged_kernel_launches": l1 + l2 + l3,
+           "child_flash_paged_kernel_launches": l1 + l2 + l3 + l4,
            "seconds": time.time() - t_phase}
     emit(rec)
-    check(all(v == 0 for v in counts.values()) and l1 + l2 + l3 == 0,
-          f"launches {counts}, children {l1 + l2 + l3}")
+    check(all(v == 0 for v in counts.values()) and l1 + l2 + l3 + l4 == 0,
+          f"launches {counts}, children {l1 + l2 + l3 + l4}")
+    return rec
+
+
+# -- phase 8: the rest of the data-parallel step on ResNet-20 -----------------
+
+RESNET_CONFIG = "configs/cifar10_resnet20_sync.json"
+RESNET_RUN_STEPS, RESNET_TIMED = 10, 20
+# card against CPU: 3 float32 steps at batch 64 from one seed, each
+# leaf's ||Δ|| / ||·||, the card's and the CPU's against a float64 run
+# on the CPU. ResNet-20's float32 training is ill-conditioned there:
+# after 3 steps each float32 run is ~1e-2 of a leaf's norm from the
+# float64 one (the card's and the CPU's alike, as measured in PERF.md), so the
+# two float32 runs cannot agree to 1e-4; the check is that the card is
+# as close to float64 as the CPU is (within RESNET_CARD_VS_CPU_FACTOR of
+# the CPU's error)
+RESNET_CPU_BATCH, RESNET_CARD_VS_CPU_FACTOR = 64, 2.0
+# the knobs on 8 simulated replicas at the config's batch, 5 steps an arm
+KNOB_REPLICAS, KNOB_STEPS = 8, 5
+KNOB_RTOL, KNOB_ATOL = 1e-5, 1e-6
+ZERO_KNOBS = {"zero1": ("parallel.shard_weight_update=true",),
+              "zero1_buckets4": ("parallel.shard_weight_update=true",
+                                 "parallel.comm_buckets=4"),
+              "zero1_resident": ("parallel.shard_weight_update=true",
+                                 "parallel.comm_buckets=4",
+                                 "parallel.resident_sharded=true")}
+MOMENTUM_ARGS = ("optim.name=momentum", "optim.momentum=0.9")
+# cross-world restore: a ZeRO-1 LAMB run at 8 replicas saved at step
+# RESTORE_STEPS, resumed at 4
+RESTORE_STEPS, RESTORE_BATCH = 5, 256
+
+
+def _resnet_macs(size: int = 32, channels: int = 3,
+                 classes: int = 10) -> int:
+    """Multiply-adds of one image's forward, from the layer shapes: the
+    3x3 stem, each block's two 3x3 convolutions (the first of stages 2
+    and 3 at stride 2) and 1x1 projection, the head; 40.8 M at 32x32x3."""
+    from distributedmnist_tpu_torch.models import resnet
+    hw, cin = size, resnet.WIDTHS[0]
+    macs = hw * hw * channels * cin * 9
+    for si, w in enumerate(resnet.WIDTHS):
+        for bi in range(resnet.BLOCKS_PER_STAGE):
+            if si > 0 and bi == 0:
+                hw //= 2
+            macs += hw * hw * (cin + w) * w * 9
+            if cin != w:
+                macs += hw * hw * cin * w
+            cin = w
+    return macs + cin * classes
+
+
+def _resnet_flops(batch: int) -> float:
+    """Model FLOPs of a train step: 3 × 2 × the forward's multiply-adds."""
+    return 3.0 * 2 * _resnet_macs() * batch
+
+
+def _classify_resnet_kernel(name: str) -> str:
+    name = name.lower()
+    if any(k in name for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                               "implicit")):
+        return "conv"
+    if any(k in name for k in ("group_norm", "groupnorm", "rowwisemoments",
+                               "computefusedparams", "compute_internal",
+                               "gamma_beta", "gammabeta")):
+        return "groupnorm"
+    if any(k in name for k in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
+        return "gemm"
+    return "other"
+
+
+def _resnet_profile(step, batch, wall_ms: float, steps: int = 3) -> dict:
+    """``torch.profiler`` over ``steps`` steps: device ms by class
+    (cuDNN convolutions, GroupNorm, GEMMs, every other kernel) and the
+    idle share 1 - busy / wall (one stream)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(batch)
+        torch.cuda.synchronize()
+    by_class = {"conv": 0.0, "groupnorm": 0.0, "gemm": 0.0, "other": 0.0}
+    top, launches = [], 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        by_class[_classify_resnet_kernel(e.key)] += us / 1e3 / steps
+        launches += e.count
+        top.append((us / 1e3 / steps, e.key[:60]))
+    busy = sum(by_class.values())
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy if busy > 0 else "not measured",
+            "device_idle_share": 1 - busy / wall_ms if busy > 0
+            else "not measured",
+            "busy_ms_by_class": by_class,
+            "kernels_per_step": launches / steps,
+            "top_kernels_ms": [[round(t, 4), k] for t, k in
+                               sorted(top, reverse=True)[:10]]}
+
+
+def _timed_steps(trainer, feed: list, warm: int = 1) -> tuple:
+    """Run ``trainer.step_fn`` over ``feed`` (device batches); CUDA
+    events around all but the first ``warm`` steps and the host's clock
+    around the same issue. Returns (state, metrics list, device ms a
+    step, host issue ms a step)."""
+    import torch
+    state, hist = trainer.state, []
+    for b in feed[:warm]:
+        state, m = trainer.step_fn(state, b)
+        hist.append(m)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    for b in feed[warm:]:
+        state, m = trainer.step_fn(state, b)
+        hist.append(m)
+    host = (time.perf_counter() - t0) * 1e3 / max(len(feed) - warm, 1)
+    e.record()
+    e.synchronize()
+    return state, hist, a.elapsed_time(e) / max(len(feed) - warm, 1), host
+
+
+def _canonical_leaves(trainer, state=None) -> tuple[list, list]:
+    """(params, slots) of a trainer's state in logical shapes, as CPU
+    copies (LAMB's m then v)."""
+    from distributedmnist_tpu_torch.parallel.api import (
+        canonical_save_state, tree_leaves)
+    c = canonical_save_state(state or trainer.state, trainer._zero1_plan)
+    cpu = lambda tree: [x.detach().float().cpu().clone()  # noqa: E731
+                        for x in tree_leaves(tree)]
+    return cpu(c.params), cpu(c.momentum)
+
+
+def _leaf_gap(got: list, want: list) -> dict:
+    """The largest |Δ| and ||Δ|| / ||want|| over leaves, and whether
+    every element is within ``KNOB_RTOL``·|want| + ``KNOB_ATOL``."""
+    import torch
+    return {"max_abs": max(float((a - b).abs().max()) for a, b in
+                           zip(got, want)),
+            "max_leaf_rel": max(float((a - b).norm() / b.norm().clamp_min(
+                1e-30)) for a, b in zip(got, want)),
+            "within_tol": all(bool(torch.allclose(a, b, rtol=KNOB_RTOL,
+                                                  atol=KNOB_ATOL))
+                              for a, b in zip(got, want))}
+
+
+def _bitwise(a: list, b: list) -> bool:
+    import torch
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _resnet_main(tmp: str, data_dir: str) -> tuple[dict, "object"]:
+    """The slice's main path: ``launch train`` on the ResNet config, only
+    ``data.data_dir`` and ``train.train_dir`` overridden, built by the
+    CLI's ``build_trainer`` (the Trainer loads the fixture itself)."""
+    import torch
+
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    tr = build_trainer(["train", "--config", RESNET_CONFIG,
+                        f"data.data_dir={data_dir}",
+                        f"train.train_dir={tmp}/resnet", "--device", DEVICE])
+    cfg, n = tr.cfg, tr.topo.num_replicas
+    check(tr.device.type == DEVICE and cfg.model.name == "resnet20"
+          and cfg.data.dataset == "cifar10" and tr.model.compute_dtype
+          == torch.bfloat16 and tr.datasets.train.num_examples == 45000,
+          f"resnet trainer: {cfg.model.name} on {tr.device}, "
+          f"{tr.datasets.train.num_examples} train examples")
+    B = cfg.data.batch_size
+    losses = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    summary = tr.run(max_steps=RESNET_RUN_STEPS,
+                     step_callback=lambda s, r: losses.append(r["loss"]))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    run_s = time.time() - t0
+    ev = tr.evaluate("test")
+    feed = [to_device(next(tr.train_iter), tr.device)
+            for _ in range(RESNET_TIMED + 3)]
+    torch.cuda.reset_peak_memory_stats()
+    state, _, ms, host_ms = _timed_steps(tr, feed, warm=3)
+    tr.state = state
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def step(b):
+        tr.state, _ = tr.step_fn(tr.state, b)
+
+    profile = _resnet_profile(step, feed[0], ms)
+    flops = _resnet_flops(B)
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    rec = {"batch": B, "replicas": n, "dtype": "bfloat16",
+           "params": sum(p.numel() for p in tree_leaves(tr.state.params)),
+           "run": {"steps": len(losses), "first_loss": losses[0],
+                   "last_loss": losses[-1], "seconds": run_s,
+                   "updates_applied": summary["updates_applied"]},
+           "eval": ev, "ms_per_step": ms, "host_issue_ms_per_step": host_ms,
+           "images_per_s": B / (ms / 1e3),
+           "forward_macs_per_image": _resnet_macs(),
+           "flops_per_step": flops,
+           "model_tflops_per_s": flops / (ms / 1e3) / 1e12,
+           "flop_bound_ms": t_ops, "peak_mem_gb": peak, "profile": profile,
+           "flash_paged_kernel_launches": counts}
+    check(len(losses) == RESNET_RUN_STEPS and all(map(math.isfinite, losses))
+          and math.isfinite(ev["loss"]) and ev["num_examples"] == 10000,
+          f"resnet run: losses {losses}, eval {ev}")
+    check(all(v == 0 for v in counts.values()), f"launches {counts}")
+    return rec, tr
+
+
+def _resnet_card_vs_cpu(tmp: str, ds) -> dict:
+    """3 float32 steps at batch 64 from one seed on the card and on the
+    CPU, and the same steps computed in float64 on the CPU: each leaf's
+    relative error, card against CPU and each against float64."""
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    runs = {}
+    for name, dev, dtype in ((DEVICE, DEVICE, "float32"),
+                             ("cpu", "cpu", "float32"),
+                             ("cpu_f64", "cpu", "float64")):
+        tr = build_trainer(["train", "--config", RESNET_CONFIG,
+                            f"train.train_dir={tmp}/rn_{name}",
+                            f"data.batch_size={RESNET_CPU_BATCH}",
+                            f"model.compute_dtype={dtype}",
+                            f"precision.param_dtype={dtype}", "--device",
+                            dev], datasets=ds)
+        state = tr.state
+        for _ in range(3):
+            state, _ = tr.step_fn(state, to_device(next(tr.train_iter),
+                                                   tr.device))
+        runs[name] = [p.detach().cpu().double()
+                      for p in tree_leaves(state.params)]
+
+    def rel(a, b):
+        return max(float((x - y).norm() / y.norm()) for x, y in zip(a, b))
+
+    oracle = runs["cpu_f64"]
+    rec = {"batch": RESNET_CPU_BATCH, "steps": 3, "dtype": "float32",
+           "param_rel_err": rel(runs[DEVICE], runs["cpu"]),
+           "card_vs_float64": rel(runs[DEVICE], oracle),
+           "cpu_vs_float64": rel(runs["cpu"], oracle),
+           "factor": RESNET_CARD_VS_CPU_FACTOR}
+    check(rec["card_vs_float64"]
+          <= RESNET_CARD_VS_CPU_FACTOR * rec["cpu_vs_float64"] + 1e-6,
+          f"resnet card vs CPU: {rec}")
+    return rec
+
+
+def _resnet_knobs(tmp: str, ds) -> dict:
+    """The slice's knobs on ResNet-20 over 8 simulated replicas at the
+    config's batch, each arm fed the same 5 batches: ZeRO-1 against the
+    replicated update (momentum bitwise; LARS and LAMB within the
+    tolerance after one step, the 5-step gap printed), accumulation,
+    bf16 params with and without masters, and an all-masked LAMB step."""
+    import torch
+
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+
+    def arm(name, *over):
+        return build_trainer(["train", "--config", RESNET_CONFIG,
+                              f"train.train_dir={tmp}/knob_{name}",
+                              f"mesh.num_replicas={KNOB_REPLICAS}", *over,
+                              "--device", DEVICE], datasets=ds)
+
+    first = arm("feed")
+    feed = [to_device(next(first.train_iter), first.device)
+            for _ in range(KNOB_STEPS)]
+    del first
+    out, ms = {}, {}
+
+    def run(name, *over, steps=KNOB_STEPS):
+        tr = arm(name, *over)
+        state, hist, t, _ = _timed_steps(tr, feed[:steps])
+        if steps > 1:
+            ms[name] = t
+        return tr, state, hist
+
+    # momentum: the ZeRO-1 layouts bitwise with the replicated update
+    tr, st, hist = run("momentum_replicated", *MOMENTUM_ARGS)
+    want = _canonical_leaves(tr, st)
+    f32_loss = float(hist[-1]["loss"])
+    zero = {}
+    for knob, args in ZERO_KNOBS.items():
+        tz, sz, _ = run(f"momentum_{knob}", *MOMENTUM_ARGS, *args)
+        got = _canonical_leaves(tz, sz)
+        zero[knob] = {"params_bitwise": _bitwise(got[0], want[0]),
+                      "slots_bitwise": _bitwise(got[1], want[1]),
+                      "slot_layout": sorted({tuple(x.shape) == (lp.pad,)
+                                             for x, lp in zip(
+                                                 tree_leaves(sz.momentum),
+                                                 tz._zero1_plan.leaves())
+                                             if lp.sharded})}
+        zero[knob]["digest_equal"] = (zero[knob]["params_bitwise"]
+                                      and zero[knob]["slots_bitwise"])
+    out["momentum"] = zero
+    # LARS and LAMB: replicated against ZeRO-1 (4 buckets)
+    for opt in ("lars", "lamb"):
+        rec = {}
+        for steps in (1, KNOB_STEPS):
+            tr, st, _ = run(f"{opt}_replicated_{steps}", f"optim.name={opt}",
+                            steps=steps)
+            tz, sz, _ = run(f"{opt}_zero1_{steps}", f"optim.name={opt}",
+                            *ZERO_KNOBS["zero1_buckets4"], steps=steps)
+            w, g = _canonical_leaves(tr, st), _canonical_leaves(tz, sz)
+            rec[f"after_{steps}"] = {"params": _leaf_gap(g[0], w[0]),
+                                     "slots": _leaf_gap(g[1], w[1])}
+        out[opt] = rec
+    # accumulation: 2 × B/2 against 1 × B on the same rows
+    B = tr.cfg.data.batch_size
+    ta, sa, ha = run("accum2", *MOMENTUM_ARGS, "train.grad_accum_steps=2",
+                     f"data.batch_size={B // 2}")
+    got = _canonical_leaves(ta, sa)
+    out["grad_accum"] = {
+        "effective_batch": ta.effective_batch,
+        "param_rel_err": max(float((a - b).norm() / b.norm())
+                             for a, b in zip(got[0], want[0])),
+        "loss": float(ha[-1]["loss"]), "loss_accum1": f32_loss}
+    # bf16 params with and without float32 masters
+    prec = {}
+    for masters in ("true", "false"):
+        tp, sp, hp = run(f"bf16_masters_{masters}", *MOMENTUM_ARGS,
+                         "precision.param_dtype=bfloat16",
+                         f"precision.master_weights={masters}")
+        prec[f"master_weights_{masters}"] = {
+            "param_dtypes": sorted({str(x.dtype) for x in
+                                    tree_leaves(sp.params)}),
+            "slot_dtypes": sorted({str(x.dtype) for x in
+                                   tree_leaves(sp.momentum)}),
+            "loss": float(hp[-1]["loss"]), "loss_float32_params": f32_loss}
+    out["precision"] = prec
+    # an all-masked timeout step under LAMB with ZeRO-1: a bitwise no-op
+    tm = arm("masked", "optim.name=lamb", *ZERO_KNOBS["zero1_buckets4"],
+             "sync.mode=timeout", "sync.timeout_ms=0")
+    before = [x.clone() for x in tree_leaves((tm.state.params,
+                                              tm.state.momentum))]
+    sm, mm = tm.step_fn(tm.state, feed[0])
+    out["all_masked_lamb_zero1"] = {
+        "num_contributors": mm["num_contributors"],
+        "bitwise_noop": _bitwise([x for x in tree_leaves(
+            (sm.params, sm.momentum))], before)}
+    out["ms_per_step"] = ms
+    check(all(r["digest_equal"] and r["slot_layout"] == [True]
+              for r in zero.values()), f"momentum ZeRO-1 arms: {zero}")
+    for opt in ("lars", "lamb"):
+        a1 = out[opt]["after_1"]
+        check(a1["params"]["within_tol"] and a1["slots"]["within_tol"],
+              f"{opt} ZeRO-1 vs replicated after one step: {a1}")
+    check(prec["master_weights_true"]["param_dtypes"] == ["torch.float32"]
+          and prec["master_weights_false"]["param_dtypes"]
+          == ["torch.bfloat16"]
+          and all(p["slot_dtypes"] == ["torch.float32"]
+                  for p in prec.values())
+          and all(math.isfinite(p["loss"]) for p in prec.values()),
+          f"precision arms: {prec}")
+    check(out["grad_accum"]["effective_batch"] == B
+          and math.isfinite(out["grad_accum"]["param_rel_err"]),
+          f"accumulation arm: {out['grad_accum']}")
+    check(out["all_masked_lamb_zero1"]["num_contributors"] == 0.0
+          and out["all_masked_lamb_zero1"]["bitwise_noop"],
+          f"all-masked step: {out['all_masked_lamb_zero1']}")
+    return out
+
+
+def _resnet_restore(tmp: str, ds) -> dict:
+    """A ZeRO-1 LAMB run at 8 replicas saved at step 5 and resumed at 4:
+    the journaled world change, the restored slots against the saved
+    ones, the data cursor; a resume under momentum refused."""
+    from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+    from distributedmnist_tpu_torch.models.convert import params_from_reference
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    from distributedmnist_tpu_torch.train import checkpoint as ckpt
+    d = f"{tmp}/restore"
+
+    def trainer(n, *over):
+        return build_trainer(["train", "--config", RESNET_CONFIG,
+                              f"train.train_dir={d}", f"mesh.num_replicas={n}",
+                              f"data.batch_size={RESTORE_BATCH}",
+                              "optim.name=lamb",
+                              *ZERO_KNOBS["zero1_buckets4"],
+                              f"train.max_steps={RESTORE_STEPS}",
+                              f"train.save_interval_steps={RESTORE_STEPS}",
+                              *over, "--device", DEVICE], datasets=ds)
+
+    trainer(8).run()
+    saved, extra, step = ckpt.restore_state(d)
+    resumed = trainer(4)
+    with open(f"{d}/recovery_journal.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    cross = [r for r in records if r.get("action") == "cross_world_restore"]
+    _, slots = _canonical_leaves(resumed)
+    want = tree_leaves(params_from_reference(saved["momentum"], device="cpu"))
+    cursor = resumed.train_iter.state()["batches"]
+    more = resumed.run(max_steps=RESTORE_STEPS + 1)
+    refused = None
+    try:
+        trainer(4, "optim.name=momentum", "optim.momentum=0.9")
+    except ckpt.OptimizerStateMismatchError as e:
+        refused = f"{type(e).__name__}: {str(e)[:120]}"
+    rec = {"saved_step": step, "cross_world_restore": cross[-1] if cross
+           else None, "slots_equal_saved": _bitwise(slots, want),
+           "cursor_batches": cursor,
+           "continued_loss": more["last_metrics"]["loss"],
+           "momentum_resume_refused": refused}
+    check(step == RESTORE_STEPS and cross and cross[-1]["saved_world"][
+        "num_replicas"] == 8 and cross[-1]["new_world"]["num_replicas"] == 4
+          and rec["slots_equal_saved"] and cursor == RESTORE_STEPS
+          and math.isfinite(rec["continued_loss"]) and refused is not None,
+          f"cross-world restore: {rec}")
+    return rec
+
+
+def phase_resnet(tmp: str) -> dict:
+    """ResNet-20 on the CIFAR-10 fixture (50,000 / 10,000, written by the
+    port's ``data/fixtures.py``): the main path, card against CPU, the
+    slice's knobs and the cross-world restore."""
+    from distributedmnist_tpu_torch.data.datasets import load_cifar10
+    from distributedmnist_tpu_torch.data.fixtures import (
+        materialize_cifar10_fixture)
+    t_phase = time.time()
+    data_dir = str(materialize_cifar10_fixture(f"{tmp}/cifar10"))
+    fixture_s = time.time() - t_phase
+    main, _ = _resnet_main(tmp, data_dir)
+    ds = load_cifar10(data_dir)
+    reset_counts()
+    rec = {"phase": "resnet", "fixture_s": fixture_s, **main,
+           "card_vs_cpu": _resnet_card_vs_cpu(tmp, ds),
+           "knobs": _resnet_knobs(tmp, ds),
+           "restore": _resnet_restore(tmp, ds)}
+    counts = read_counts()
+    rec["knob_flash_paged_kernel_launches"] = counts
+    rec["seconds"] = time.time() - t_phase
+    emit(rec)
+    check(all(v == 0 for v in counts.values()), f"launches {counts}")
     return rec
 
 
@@ -3288,6 +4003,8 @@ def main() -> int:
             runs["cnn"] = phase_cnn(tmp)
             phase = "dist"
             runs["dist"] = phase_dist(tmp)
+            phase = "resnet"
+            runs["resnet"] = phase_resnet(tmp)
             phase = "e2e"
             e2e = runs["e2e"] = phase_e2e(train["train_dir"], tmp)
             phase = "ckpt"

@@ -12,13 +12,16 @@ batch, its own dropout and straggler keys (by global replica index),
 and its own gradient; only the cross-replica operations below combine
 them.
 
-Those operations are the only place replicas meet, and both take a
+Those operations are the only place replicas meet, and each takes a
 leading axis of this process's ``L`` replicas:
-:meth:`Topology.sum_replicas` (the masked mean's one all-reduce) and
+:meth:`Topology.sum_replicas` (the masked mean's one all-reduce),
 :meth:`Topology.gather_scalars` (per-replica rows into ``[n]``, the
-reference's one-hot psum). With a process group both end in one
-``all_reduce`` — NCCL on the card, gloo on the CPU — and nothing else,
-so a gloo group can run them on CUDA tensors too. Host tensors (the
+reference's one-hot psum), and the ZeRO-1 pair
+:meth:`Topology.reduce_scatter_replicas` (≙ ``lax.psum_scatter``) and
+:meth:`Topology.all_gather_replicas` (≙ ``gather_bucket_replicated``).
+With a process group each ends in one collective — NCCL on the card,
+gloo on the CPU — and nothing else, so a gloo group can run them on
+CUDA tensors too; a backend that lacks one raises. Host tensors (the
 measured ``[n]`` times, the eval sums) go through a second, gloo, group:
 an NCCL group cannot reduce CPU tensors.
 
@@ -48,6 +51,17 @@ from .device import resolve_device
 # the gloo group host tensors reduce over; None with a gloo default
 # group (the default group is gloo already) or without a group
 _host_group: Any = None
+
+
+def local_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over dim 0 left to right, one float add an element a
+    row: the same order for every element whatever the other dims (a
+    ``sum(0)`` reduction orders its adds by the tensor's width and the
+    backend), so two layouts of the same addends sum bitwise alike."""
+    out = x[0].clone()
+    for j in range(1, x.shape[0]):
+        out.add_(x[j])
+    return out
 
 
 @dataclasses.dataclass
@@ -108,9 +122,10 @@ class Topology:
 
     def sum_replicas(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over all ``n`` replicas of a ``[L, ...]`` tensor of this
-        process's replicas: the local sum, then one all-reduce (≙ the
-        reference's ``lax.psum`` over the replica axis)."""
-        out = x.sum(0)
+        process's replicas: the local sum (:func:`local_sum`), then one
+        all-reduce (≙ the reference's ``lax.psum`` over the replica
+        axis)."""
+        out = local_sum(x)
         return self._all_reduce(out) if self.distributed else out
 
     def gather_scalars(self, x: torch.Tensor) -> torch.Tensor:
@@ -126,10 +141,46 @@ class Topology:
         out[first:first + self.local_replica_count] = x
         return self._all_reduce(out)
 
+    def reduce_scatter_replicas(self, x: torch.Tensor) -> torch.Tensor:
+        """``[L, n, C]`` (each local replica's row for every replica) →
+        ``[L, C]``: row ``j`` summed over all ``n`` replicas' ``first + j``
+        rows. The local sum over the ``L`` replicas (:func:`local_sum`,
+        the order of :meth:`sum_replicas`), then, with a process group,
+        one ``reduce_scatter`` hands process ``p`` rows ``[p·L,
+        (p+1)·L)``."""
+        out = local_sum(x)
+        if not self.distributed:
+            return out
+        mine = out.new_empty((self.local_replica_count, out.shape[1]))
+        t0 = time.perf_counter()
+        _reduce_scatter(mine, out)
+        self.blocked_s += time.perf_counter() - t0
+        return mine
+
+    def all_gather_replicas(self, x: torch.Tensor) -> torch.Tensor:
+        """``[L, C]`` rows of this process's replicas → ``[n, C]`` in
+        replica order on every process (one ``all_gather``; ``x`` as is
+        with one process)."""
+        if not self.distributed:
+            return x
+        out = x.new_empty((self.num_replicas, x.shape[1]))
+        t0 = time.perf_counter()
+        _all_gather(out, x.contiguous())
+        self.blocked_s += time.perf_counter() - t0
+        return out
+
     def sum_processes(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the processes (one all-reduce; ``x`` as is
         with one process)."""
         return self._all_reduce(x) if self.distributed else x
+
+
+# the single-tensor collectives under their current names (older torch
+# spells them reduce_scatter_tensor / all_gather_into_tensor)
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or getattr(
+    dist, "reduce_scatter_tensor")
+_all_gather = getattr(dist, "all_gather_single", None) or getattr(
+    dist, "all_gather_into_tensor")
 
 
 def make_topology(cfg: MeshConfig) -> Topology:

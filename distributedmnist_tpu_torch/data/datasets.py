@@ -4,16 +4,18 @@ deterministic synthetic images and token sequences.
 
 ``make_synthetic`` and ``make_synthetic_lm`` are the reference's numpy
 code, so the same seed gives bitwise the same arrays; the idx reader
-decodes and normalizes exactly as the reference's does. Not ported:
+decodes and normalizes exactly as the reference's does, and so does
+the CIFAR-10 pickle-batch reader (:func:`load_cifar10`). Not ported:
 ``maybe_download`` (neither machine has a network — a missing
-``data_dir`` raises) and ``load_cifar10`` (``dataset="cifar10"``
-raises).
+``data_dir`` raises; :mod:`.fixtures` writes a deterministic set in
+either format).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gzip
+import pickle
 import struct
 from pathlib import Path
 
@@ -135,13 +137,50 @@ def load_idx_dataset(data_dir: str | Path,
     if missing:
         raise FileNotFoundError(
             f"idx files missing under {root}: {missing}. The port does not "
-            "download: place the files there (the reference's "
-            "data/fixtures.py materialize_idx_fixture writes a "
-            "deterministic set), or use data.dataset=synthetic")
+            "download: place the files there (data/fixtures.py "
+            "materialize_idx_fixture writes a deterministic set), or use "
+            "data.dataset=synthetic")
     train_x = read_idx_images(paths["train_images"])
     train_y = read_idx_labels(paths["train_labels"])
     test_x = read_idx_images(paths["test_images"])
     test_y = read_idx_labels(paths["test_labels"])
+    v = min(validation_size, len(train_y) // 10)
+    return Datasets(train=ArrayDataset(train_x[v:], train_y[v:]),
+                    validation=ArrayDataset(train_x[:v], train_y[:v]),
+                    test=ArrayDataset(test_x, test_y))
+
+
+# -- CIFAR-10 (python pickle batches) -------------------------------------
+
+def load_cifar10(data_dir: str | Path, validation_size: int = 5000) -> Datasets:
+    """The CIFAR-10 pickle batches under ``data_dir/cifar-10-batches-py``
+    (or ``data_dir`` itself): ``[N, 3072]`` uint8 channel-major rows →
+    NHWC float32 ``(u8 - 127.5) / 255``; validation is the first
+    ``min(validation_size, N // 10)`` train rows."""
+    root = Path(data_dir)
+    batch_dir = root / "cifar-10-batches-py"
+    if not batch_dir.exists():
+        batch_dir = root
+    train_files = sorted(batch_dir.glob("data_batch_*"))
+    test_file = batch_dir / "test_batch"
+    if not train_files or not test_file.exists():
+        raise FileNotFoundError(
+            f"CIFAR-10 pickle batches not found under {root}. The port does "
+            "not download: place cifar-10-batches-py there "
+            "(data/fixtures.py materialize_cifar10_fixture writes a "
+            "deterministic set)")
+
+    def load_batch(path: Path):
+        with open(path, "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        x = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).astype(
+            np.float32)
+        x = (x - PIXEL_DEPTH / 2.0) / PIXEL_DEPTH
+        return x, np.asarray(d[b"labels"], dtype=np.int32)
+
+    xs, ys = zip(*(load_batch(p) for p in train_files))
+    train_x, train_y = np.concatenate(xs), np.concatenate(ys)
+    test_x, test_y = load_batch(test_file)
     v = min(validation_size, len(train_y) // 10)
     return Datasets(train=ArrayDataset(train_x[v:], train_y[v:]),
                     validation=ArrayDataset(train_x[:v], train_y[:v]),
@@ -215,8 +254,9 @@ def load_datasets(cfg: DataConfig, image_size: int = 28, num_channels: int = 1,
                   num_classes: int = 10, seq_len: int = 128,
                   vocab_size: int = 256) -> Datasets:
     """The configured dataset: ``mnist`` / ``fashion_mnist`` (idx files
-    under ``data_dir`` or its per-dataset subdirectory), ``synthetic``
-    or ``synthetic_lm``. Where the reference falls back to synthetic
+    under ``data_dir`` or its per-dataset subdirectory), ``cifar10``
+    (pickle batches under ``data_dir``), ``synthetic`` or
+    ``synthetic_lm``. Where the reference falls back to synthetic
     data when idx files are missing, the port raises: a run never
     trains on other data than it names."""
     name = cfg.dataset
@@ -232,5 +272,5 @@ def load_datasets(cfg: DataConfig, image_size: int = 28, num_channels: int = 1,
                                  cfg.synthetic_test_size, seq_len,
                                  vocab_size)
     if name == "cifar10":
-        raise NotImplementedError("dataset 'cifar10' is not ported yet")
+        return load_cifar10(cfg.data_dir)
     raise ValueError(f"unknown dataset {name!r}")

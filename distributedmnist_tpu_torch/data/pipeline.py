@@ -1,6 +1,7 @@
 """Batching (≙ ``distributedmnist_tpu/data/pipeline.py``): the seeded,
-epoch-reshuffling train stream with a resumable cursor, fixed-order
-weight-padded eval batches, and the hop of a host batch onto the card.
+epoch-reshuffling train stream with a resumable cursor, the gradient
+accumulation feed, fixed-order weight-padded eval batches, and the hop
+of a host batch onto the card.
 
 The shuffle is the reference's numpy code, so batch order is bitwise
 the reference's for the same seed, and a cursor saved by either
@@ -127,6 +128,38 @@ class BatchIterator:
         self._epoch = int(state["epoch"])
         self._order = self._epoch_order(self._epoch)
         self._pos = int(state["pos"])
+
+
+class GradAccumFeed:
+    """The feed of gradient accumulation (``train.grad_accum_steps``):
+    each ``next()`` pulls ``accum`` consecutive batches of the inner
+    stream and concatenates them along dim 0 — the train step splits
+    each replica's rows of that into ``accum`` microbatches and applies
+    the optimizer once. The inner cursor just advances ``accum`` batches
+    a step, so ``state()`` / ``restore()`` (passed through) keep the
+    reference's lockstep ``batches`` coordinate."""
+
+    def __init__(self, inner: BatchIterator, accum: int):
+        if accum < 1:
+            raise ValueError(f"grad_accum_steps must be >= 1, got {accum}")
+        self.inner = inner
+        self.accum = accum
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        batches = [next(self.inner) for _ in range(self.accum)]
+        if self.accum == 1:
+            return batches[0]
+        return {k: np.concatenate([b[k] for b in batches])
+                for k in batches[0]}
+
+    def state(self) -> dict:
+        return self.inner.state()
+
+    def restore(self, state: dict) -> None:
+        self.inner.restore(state)
 
 
 def eval_batches(data: ArrayDataset, batch_size: int, pad_multiple: int = 1,

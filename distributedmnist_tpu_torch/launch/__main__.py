@@ -15,7 +15,13 @@
       --endpoints HOST:PORT[,...] | --cluster-root R [--requests N]
 
 ``train`` builds the :class:`~..train.loop.Trainer` from the config and
-its dotted overrides, runs it, evaluates the test split and prints the
+its dotted overrides — any model the port has (``mnist_cnn``,
+``resnet20`` on ``data.dataset=cifar10`` with a ``data.data_dir`` of
+pickle batches, ``transformer``), every optimizer (sgd, momentum, lars,
+lamb), ``train.grad_accum_steps``, ``precision.param_dtype`` with or
+without ``master_weights`` and ZeRO-1 (``parallel.shard_weight_update``,
+``comm_buckets``, ``resident_sharded``, ``shard_min_leaf_size``) —
+runs it, evaluates the test split and prints the
 reference's last line ``{"summary": ..., "test": ...}`` (a SIGTERM/
 SIGINT mid-run flushes a checkpoint, prints the summary alone and exits
 with ``train.resumable_exit_code``). Under ``torchrun`` (``WORLD_SIZE``
@@ -36,8 +42,10 @@ drains. ``serve-load`` drives replicas closed-loop through the failover
 client, journals every request to ``--out`` and prints the summary. The
 flag names are the reference CLI's. The device is ``cuda:0`` unless
 ``--device`` names another; without CUDA the default is an error, not
-a CPU run. The reference's other verbs (sweep, cluster, report, ...)
-and ``serve --tp-ranks`` are not ported yet.
+a CPU run. The reference's other verbs (sweep, cluster, report, ...),
+``serve --tp-ranks``, the model-parallel mesh axes, ``model.remat``,
+mixture-of-experts, the profiler windows, device prefetch and the
+native loader are not ported yet (each raises).
 """
 
 from __future__ import annotations

@@ -3,15 +3,17 @@ the port's.
 
 The reference keeps a transformer's params as a pytree of arrays:
 ``{"embed", "pos", "blocks", "final_norm"}`` with ``blocks`` a list of
-per-layer dicts — or, in a checkpoint's flax state-dict form, a dict
-keyed ``"0"``, ``"1"``, ... The CNN's is ``{"conv1", "conv2", "fc1",
-"fc2"}`` of ``{"w", "b"}`` (HWIO kernels, ``[in, out]`` dense), which
-the port keeps as is. The port keeps each layout as torch tensors with
-``blocks`` a list. Both directions copy leaf for leaf; no array is
-transposed or renamed.
+per-layer dicts. ResNet-20's ``stages`` is a list of stages, each a
+list of block dicts. In a checkpoint's flax state-dict form every list
+is a dict keyed ``"0"``, ``"1"``, ... The CNN's is ``{"conv1", "conv2",
+"fc1", "fc2"}`` of ``{"w", "b"}`` (HWIO kernels, ``[in, out]`` dense).
+The port keeps each layout as torch tensors with lists as lists. Both
+directions copy leaf for leaf; no array is transposed or renamed.
 
 :func:`state_from_reference` / :func:`state_to_reference` carry a whole
-``TrainState`` (params, momentum slots and counters) the same way.
+``TrainState`` (params, optimizer slots and counters) the same way; the
+slots are ``None``, one params-shaped tree, or LAMB's ``{"m": tree,
+"v": tree}``.
 """
 
 from __future__ import annotations
@@ -30,23 +32,41 @@ STATE_FIELDS = ("params", "momentum", "step", "updates_applied",
                 "next_apply_ms")
 
 
-def _blocks_list(blocks: Any) -> list:
-    if isinstance(blocks, dict):  # flax state-dict form {"0": ..., ...}
-        return [blocks[str(i)] for i in range(len(blocks))]
-    return list(blocks)
+def _is_list_dict(x: Any) -> bool:
+    """A list in flax state-dict form: a non-empty dict keyed "0".."k-1"
+    (no param tree of the port's models keys a dict that way)."""
+    return (isinstance(x, dict) and bool(x)
+            and set(x) == {str(i) for i in range(len(x))})
+
+
+def list_form(tree: Any) -> Any:
+    """A tree with its state-dict lists (index-keyed dicts) back as
+    lists; leaves untouched."""
+    if _is_list_dict(tree):
+        return [list_form(tree[str(i)]) for i in range(len(tree))]
+    if isinstance(tree, dict):
+        return {k: list_form(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [list_form(v) for v in tree]
+    return tree
 
 
 def params_from_reference(tree: dict, *, device=None,
                           dtype: torch.dtype | None = None) -> dict:
     """Reference params (numpy, or anything ``np.asarray`` takes) → the
     port's params on ``device`` (default ``cuda:0``), cast to ``dtype``
-    when given. Torch leaves (a bf16 tier's words) are moved as they
-    are, so a quant tier's tree converts the same way."""
+    when given; lists, or their state-dict form, become lists. Torch
+    leaves (a bf16 tier's words) are moved as they are, so a quant
+    tier's tree converts the same way."""
     dev = resolve_device(device)
 
     def conv(x):
+        if _is_list_dict(x):
+            return [conv(x[str(i)]) for i in range(len(x))]
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
         if isinstance(x, torch.Tensor):
             return x.to(device=dev, dtype=dtype or x.dtype)
         a = np.asarray(x)
@@ -55,16 +75,16 @@ def params_from_reference(tree: dict, *, device=None,
         t = torch.from_numpy(a)
         return t.to(device=dev, dtype=dtype or t.dtype)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    if "blocks" in tree:
-        out["blocks"] = [conv(b) for b in _blocks_list(tree["blocks"])]
-    return out
+    return conv(tree)
 
 
-def params_to_reference(params: dict) -> dict:
-    """The port's params → the reference's layout as numpy arrays
-    (``blocks`` a list, as the reference's ``init`` builds it). Floating
-    leaves in a dtype numpy lacks (bfloat16) come back as float32."""
+def params_to_reference(params: Any, keep_bfloat16: bool = False) -> Any:
+    """The port's params → the reference's layout as numpy arrays (lists
+    as lists, as the reference's ``init`` builds them). A bfloat16 leaf,
+    a dtype numpy lacks, comes back as float32 — or, with
+    ``keep_bfloat16``, as a CPU torch ``bfloat16`` tensor of the same
+    words, which the checkpoint writer packs as the reference packs its
+    bf16 arrays."""
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
@@ -72,7 +92,7 @@ def params_to_reference(params: dict) -> dict:
             return [conv(v) for v in x]
         t = x.detach().cpu()
         if t.dtype == torch.bfloat16:
-            t = t.float()
+            return t if keep_bfloat16 else t.float().numpy()
         return t.numpy()
 
     return conv(params)
@@ -88,18 +108,14 @@ def state_from_reference(state: Any, *, device=None):
     """A reference ``TrainState`` (its leaves as numpy, e.g. after
     ``jax.device_get``) or a checkpoint's state dict → the port's
     :class:`~..parallel.api.TrainState` on ``device`` (default
-    ``cuda:0``). Params and momentum slots keep their dtypes (float32);
-    the counters become Python numbers, ``root_key`` the raw
-    ``uint32[2]``.
-
-    Raises ``NotImplementedError`` for state the port cannot run: LAMB's
-    ``{"m", "v"}`` slots."""
+    ``cuda:0``). Params and slots keep their dtypes (a checkpoint's bf16
+    params arrive widened to float32, exactly); LAMB's ``{"m", "v"}``
+    slots stay a dict of two trees; the counters become Python numbers,
+    ``root_key`` the raw ``uint32[2]``."""
     from ..parallel.api import TrainState
     d = _state_dict(state)
     dev = resolve_device(device)
     mom = d.get("momentum")
-    if isinstance(mom, dict) and set(mom) == {"m", "v"}:
-        raise NotImplementedError("LAMB optimizer state is not ported yet")
     acc = d.get("window_acc")
     f32 = lambda k, default: float(np.float32(d.get(k, default)))
     return TrainState(
@@ -118,10 +134,10 @@ def state_from_reference(state: Any, *, device=None):
 
 def state_to_reference(state) -> dict:
     """The port's TrainState → the reference's state dict as numpy (the
-    layout a checkpoint stores: 0-d int32/float32 counters, ``blocks``
-    a list that the writer keys by index)."""
+    layout a checkpoint stores: 0-d int32/float32 counters, lists that
+    the writer keys by index, bf16 params as CPU bf16 tensors)."""
     return {
-        "params": params_to_reference(state.params),
+        "params": params_to_reference(state.params, keep_bfloat16=True),
         "momentum": (None if state.momentum is None
                      else params_to_reference(state.momentum)),
         "step": np.asarray(state.step, np.int32),

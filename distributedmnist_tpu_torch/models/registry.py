@@ -1,10 +1,12 @@
 """Model registry (≙ ``distributedmnist_tpu/models/registry.py``): the
 ``mnist_cnn`` entry (train-mode apply with dropout, loss, accuracy,
 classification eval sums and the softmax ``predictions`` export) and
-the ``transformer`` entry (the same for a causal LM — its
+the ``resnet20`` entry (CIFAR-10 ResNet-20: the CNN's loss, accuracy
+and eval sums, no dropout and, as in the reference, no ``predictions``)
+and the ``transformer`` entry (the same for a causal LM — its
 ``predictions`` is the next-token distribution — plus the decode
-exports the serving replica builds on). ``resnet20`` and the
-transformer's mixture-of-experts FFNs raise "not ported yet".
+exports the serving replica builds on). The transformer's
+mixture-of-experts FFNs raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -98,10 +100,11 @@ def lm_eval_metrics(logits: torch.Tensor, labels: torch.Tensor,
 class Model:
     """A model family instance.
 
-    * ``init(key_or_generator) -> params`` — the CNN takes a
-      ``uint32[2]`` key (and a ``device``), the transformer a torch
+    * ``init(key_or_generator) -> params`` — the CNN and ResNet-20 take
+      a ``uint32[2]`` key (and a ``device``), the transformer a torch
       generator; ``init_params(seed, device)`` is the one spelling the
-      train state uses (``model.init_seed``);
+      train state uses (``model.init_seed``), and on the ``meta`` device
+      gives the param shapes without data;
     * ``apply(params, inputs, *, train=False, dropout_keep=None) ->
       logits`` with the keep mask drawn beforehand (the transformer has
       no dropout and ignores it; gradients flow when autograd is on);
@@ -149,11 +152,13 @@ class Model:
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.name == "mnist_cnn":
         return _mnist_cnn(cfg)
+    if cfg.name == "resnet20":
+        return _resnet20(cfg)
     if cfg.name == "transformer":
         return _transformer(cfg)
     raise NotImplementedError(
         f"model {cfg.name!r} is not ported yet (the port has the "
-        "'mnist_cnn' and 'transformer' families)")
+        "'mnist_cnn', 'resnet20' and 'transformer' families)")
 
 
 def _mnist_cnn(cfg: ModelConfig) -> Model:
@@ -189,6 +194,30 @@ def _mnist_cnn(cfg: ModelConfig) -> Model:
                               cfg.num_channels))
 
 
+def _resnet20(cfg: ModelConfig) -> Model:
+    from . import cnn, resnet
+    compute_dtype = torch_dtype(cfg.compute_dtype)
+
+    def init(key, device=None):
+        return resnet.init(key, num_classes=cfg.num_classes,
+                           num_channels=cfg.num_channels, device=device)
+
+    def apply(params, x, *, train=False, dropout_keep=None):
+        del dropout_keep  # resnet20 has no dropout
+        return resnet.apply(params, x, train=train,
+                            compute_dtype=compute_dtype)
+
+    return Model(name=cfg.name, init=init,
+                 init_params=lambda seed, device: init(prng.PRNGKey(seed),
+                                                       device),
+                 apply=apply, compute_dtype=compute_dtype,
+                 vmap_replicas=True,
+                 loss=cnn.loss_fn, accuracy=cnn.accuracy,
+                 eval_metrics=classification_eval_metrics,
+                 input_shape=(cfg.image_size, cfg.image_size,
+                              cfg.num_channels))
+
+
 def _transformer(cfg: ModelConfig) -> Model:
     from . import transformer
     from ..ops.flash_attention import flash_attention_bshd
@@ -205,11 +234,11 @@ def _transformer(cfg: ModelConfig) -> Model:
     else:
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
 
-    def init(generator):
+    def init(generator, device=None):
         return transformer.init(
             generator, vocab_size=cfg.vocab_size, model_dim=cfg.model_dim,
             num_heads=cfg.num_heads, num_layers=cfg.num_layers,
-            max_seq_len=cfg.seq_len)
+            max_seq_len=cfg.seq_len, device=device)
 
     def apply(params, tokens, positions=None, *, train=False,
               dropout_keep=None):
@@ -235,6 +264,10 @@ def _transformer(cfg: ModelConfig) -> Model:
 
     def init_params(seed, device):
         # a torch generator: other numbers than the reference's JAX key
+        # (the meta device, which has none, takes the shapes alone)
+        device = torch.device(device)
+        if device.type == "meta":
+            return init(torch.Generator(), device)
         return init(torch.Generator(device=device).manual_seed(seed))
 
     return Model(name=cfg.name, init=init, init_params=init_params,

@@ -46,12 +46,13 @@ def _trunc_normal(shape, stddev, generator, device) -> torch.Tensor:
 
 def init(generator: torch.Generator, vocab_size: int = 256,
          model_dim: int = 128, num_heads: int = 4, num_layers: int = 2,
-         max_seq_len: int = 512) -> Params:
-    """Float32 params on the generator's device."""
+         max_seq_len: int = 512, device=None) -> Params:
+    """Float32 params on ``device`` (default: the generator's; ``meta``
+    gives the shapes alone)."""
     if model_dim % num_heads:
         raise ValueError(f"model_dim={model_dim} not divisible by "
                          f"num_heads={num_heads}")
-    dev = generator.device
+    dev = generator.device if device is None else device
     d, ff, scale = model_dim, 4 * model_dim, 0.02
     tn = lambda *shape: _trunc_normal(shape, scale, generator, dev)
     ones = lambda: {"scale": torch.ones(d, dtype=torch.float32, device=dev)}

@@ -34,7 +34,7 @@ def flatten_replicas(leaves: list[torch.Tensor],
     gradient leaves (each ``[L, ...]``): replica j's leaves, flattened,
     are row j, followed by its entry of each ``[L]`` tensor in
     ``stats``."""
-    n = leaves[0].shape[0]
+    n = (leaves or stats)[0].shape[0]
     return torch.cat([g.reshape(n, -1).float() for g in leaves]
                      + [s.reshape(n, 1).float() for s in stats], dim=1)
 

@@ -1,5 +1,6 @@
 """The train and eval steps (≙ ``distributedmnist_tpu/parallel/api.py``)
-for ``n`` data-parallel replicas in every ``sync.mode``.
+for ``n`` data-parallel replicas in every ``sync.mode``, and the state
+they update: its init, its ZeRO-1 layout and its mesh-portable restore.
 
 The reference's step is one SPMD program over a replica mesh: each
 replica differentiates its local loss (with its own dropout key),
@@ -14,6 +15,16 @@ all processes (:mod:`..core.mesh`):
   index) — all local replicas at once, as one ``torch.func.vmap`` of
   ``grad`` — and its gradient leaves, loss and accuracy are flattened
   into one bucket row;
+* with ``train.grad_accum_steps = a`` the process's batch holds ``a``
+  consecutive global batches (``data/pipeline.py GradAccumFeed``); each
+  replica splits its row block into ``a`` consecutive microbatches
+  (microbatch ``i`` draws its dropout from step ``step·a + i``), sums
+  their float32 gradients, losses and accuracies and divides by ``a``:
+  one optimizer application a step;
+* with ``precision.master_weights`` the params are float32 masters and
+  the forward sees their ``precision.param_dtype`` cast; without it a
+  low-precision ``param_dtype`` is the storage dtype itself. Either way
+  the update runs in float32 (``train/optim.py``);
 * the modeled step times and the flags of all ``n`` replicas depend
   only on keys, the step and the measured ``[n]`` base, which every
   process holds alike, so each host computes the same ones while its
@@ -30,14 +41,36 @@ all processes (:mod:`..core.mesh`):
   applies their average when the modeled wall clock crosses the window
   (``_interval_apply``).
 
+ZeRO-1 (``parallel.shard_weight_update``, arXiv:2004.13336) replaces
+the all-reduce and the replicated update for the leaves the plan shards
+(:mod:`.partition_rules`): per communication bucket the scaled
+gradients of its leaves, each padded to ``[n, chunk]``, are concatenated
+along columns and reduce-scattered (:meth:`..core.mesh.Topology.
+reduce_scatter_replicas`), so a process receives only its replicas'
+chunks of the mean; the optimizer updates those chunks and their slots,
+which live as flat ``[L·chunk]`` tensors; an all-gather per bucket
+brings the params back whole — or, under ``parallel.resident_sharded``,
+the params stay chunks too and the next forward gathers them
+(:func:`logical_params`). Leaves below the shard floor, and the loss
+and accuracy, take one all-reduce as before. On one process every
+chunk is local: the reduce-scatter is the local sum, in the same order
+as the replicated path's, the updates run on views of the leaves, and
+the result is bitwise the replicated update's under every optimizer.
+Across processes the trust-ratio norms complete over the processes
+(one all-reduce of a 0-d sum of squares) and the collectives sum in
+their own order: close to the one-process run, not bitwise.
+
 The ``[3]`` discipline vector ``(k, timeout_ms, interval_ms)`` and the
 ``[n]`` measured base times are step inputs, read every call, so either
 can change between steps with no rebuild. Metrics keep the reference's
 keys and shapes.
 
-Not ported yet (each raises): gradient accumulation, low-precision
-params, ZeRO-1, remat, and the tensor/sequence/pipeline/expert
-parallel applies.
+Checkpoints hold the logical layout whatever the live one
+(:func:`canonical_save_state`); :func:`restore_for_topology` reads one
+saved under any replica or process count, refuses another optimizer's
+state, repacks for this run's plan and storage dtype and journals a
+world change. Not ported yet (each raises): remat and the
+tensor/sequence/pipeline/expert parallel applies.
 """
 
 from __future__ import annotations
@@ -47,18 +80,23 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import grad, vmap
 
 from ..core import prng
-from ..core.config import ExperimentConfig
+from ..core.config import ConfigError, ExperimentConfig
 from ..core.device import cudnn_policy
 from ..core.log import get_logger
 from ..core.mesh import Topology, make_topology
-from ..models.registry import Model
+from ..models.registry import Model, torch_dtype
 from ..ops import masked_psum
 from ..ops.drop_connect import drop_connect_grads
 from ..train import optim as optim_lib
 from . import policies
+from .partition_rules import (LeafShardPlan, Zero1Plan,
+                              comm_bucket_assignment, make_zero1_plan,
+                              map_leaves, tree_leaves, zero1_init_state,
+                              zero1_logical, zero1_pack, zero1_unpack)
 
 logger = get_logger("parallel")
 
@@ -80,19 +118,6 @@ def make_discipline_vector(k: float, timeout_ms: float,
                         dtype=torch.float32)
 
 
-def tree_leaves(tree: Any) -> list:
-    """Leaves of a nest of dicts and lists in ``jax.tree.leaves`` order
-    (dict keys sorted, list order); ``None`` has none. Per-leaf draws
-    (drop-connect's ``split(key, n_leaves)``) follow this order."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
 def tree_map(fn: Callable, tree: Any) -> Any:
     if tree is None:
         return None
@@ -103,20 +128,41 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_unflatten(tree: Any, leaves: list) -> Any:
+    """``tree``'s structure with ``leaves`` (in :func:`tree_leaves`
+    order) in place of its leaves."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+    return build(tree)
+
+
 @dataclasses.dataclass
 class TrainState:
     """Training state, with the reference's field names (so a
     checkpoint's state dict is the reference's).
 
-    ``params`` and ``momentum`` are trees of tensors on the device
-    (``momentum`` is None for stateless sgd), the same for every
-    replica; ``step`` counts loop iterations and ``updates_applied``
-    applied updates (the reference's global_step; they differ when a
-    step is masked out or an interval window has not fired). Interval
-    mode keeps its float32 window accumulator (``window_acc``, a
-    params-shaped tree, None in the other modes), the rounds in it, the
-    modeled wall clock and the next firing time; the clock fields are
-    Python floats holding float32 values."""
+    ``params`` and ``momentum`` are trees of tensors on the device, the
+    same for every replica. ``momentum`` holds the optimizer's slots:
+    None (stateless sgd), one params-shaped float32 tree (momentum,
+    LARS) or ``{"m": tree, "v": tree}`` (LAMB). Under a ZeRO-1 plan a
+    sharded leaf's slots are flat ``[L·chunk]`` tensors holding this
+    process's replicas' chunks (``[pad]`` with one process), and under
+    ``resident_sharded`` its params too; ``params`` are stored in
+    :func:`resolved_param_dtype`. ``step`` counts loop iterations and
+    ``updates_applied`` applied updates (the reference's global_step;
+    they differ when a step is masked out or an interval window has
+    not fired). Interval mode keeps its float32 window accumulator
+    (``window_acc``, a params-shaped tree, None in the other modes), the
+    rounds in it, the modeled wall clock and the next firing time; the
+    clock fields are Python floats holding float32 values."""
 
     params: Any
     momentum: Any
@@ -135,30 +181,109 @@ def _check_ported(cfg: ExperimentConfig) -> None:
                  "pipeline_parallelism", "expert_parallelism"):
         if getattr(cfg.mesh, name) != 1:
             raise NotImplementedError(f"mesh.{name} > 1 is not ported yet")
-    if cfg.train.grad_accum_steps != 1:
-        raise NotImplementedError("train.grad_accum_steps > 1 is not "
-                                  "ported yet")
-    if cfg.precision.param_dtype != "float32":
-        raise NotImplementedError(
-            f"precision.param_dtype={cfg.precision.param_dtype!r} is not "
-            "ported yet (params are float32)")
     if cfg.model.remat:
         raise NotImplementedError("model.remat is not ported yet")
+    if cfg.train.grad_accum_steps < 1:
+        raise ValueError(f"train.grad_accum_steps must be >= 1, got "
+                         f"{cfg.train.grad_accum_steps}")
+    resolved_param_dtype(cfg)
+
+
+def resolved_param_dtype(cfg: ExperimentConfig) -> torch.dtype:
+    """The dtype ``TrainState.params`` is stored in: float32 masters
+    under ``precision.master_weights``, else ``precision.param_dtype``.
+    An unknown or non-floating dtype is a ConfigError naming the key."""
+    name = cfg.precision.param_dtype
+    try:
+        dt = torch_dtype(name)
+    except ValueError as e:
+        raise ConfigError(f"precision.param_dtype={name!r} is not a "
+                          f"recognized dtype ({e}); use e.g. 'float32' or "
+                          "'bfloat16'") from e
+    return torch.float32 if cfg.precision.master_weights else dt
+
+
+def zero1_plan_for(model: Model, cfg: ExperimentConfig, topo: Topology,
+                   params: Any = None) -> Zero1Plan | None:
+    """The ZeRO-1 plan when ``parallel.shard_weight_update`` is set and
+    applies, else None. It does not apply to one replica (nothing is
+    redundant) nor in interval mode (the window accumulates the whole
+    mean). ``params`` (logical shapes) default to the model's on the
+    ``meta`` device."""
+    par = cfg.parallel
+    par.validate()
+    if not par.shard_weight_update:
+        return None
+    if topo.num_replicas <= 1 or cfg.sync.mode == "interval":
+        return None
+    if params is None:
+        params = model.init_params(cfg.model.init_seed, torch.device("meta"))
+    return make_zero1_plan(params, topo.num_replicas,
+                           min_leaf_size=par.shard_min_leaf_size,
+                           comm_buckets=par.comm_buckets,
+                           params_sharded=par.resident_sharded)
+
+
+def _local_span(lp: LeafShardPlan, topo: Topology | None,
+                n: int) -> tuple[int, int]:
+    first, count = ((0, n) if topo is None
+                    else (topo.first_replica, topo.local_replica_count))
+    return first * lp.chunk, (first + count) * lp.chunk
+
+
+def _local_flat(x: torch.Tensor, lp: LeafShardPlan, lo: int,
+                hi: int) -> torch.Tensor:
+    """Elements ``[lo, hi)`` of ``x``'s flat zero-padded layout, as a
+    fresh tensor."""
+    flat = x.reshape(-1)
+    if hi <= lp.size:
+        return flat[lo:hi].clone()
+    out = flat.new_zeros(hi - lo)
+    if lo < lp.size:
+        out[:lp.size - lo] = flat[lo:]
+    return out
 
 
 def init_train_state(model: Model, cfg: ExperimentConfig,
-                     device: torch.device) -> TrainState:
-    """Fresh float32 params from ``model.init_seed`` (the CNN: the
+                     device: torch.device,
+                     topo: Topology | None = None) -> TrainState:
+    """Fresh params from ``model.init_seed`` (the CNN and ResNet-20: the
     reference's key; the transformer: a torch generator, other numbers
-    than the reference's), zero slots, and interval mode's zero
+    than the reference's) in the storage dtype, zero float32 slots — in
+    the ZeRO-1 layout of ``topo`` when a plan applies, with the params
+    packed too under ``resident_sharded`` — and interval mode's zero
     window."""
     opt = optim_lib.make_optimizer(cfg.optim)
     params = model.init_params(cfg.model.init_seed, device)
-    zeros = lambda: tree_map(torch.zeros_like, params)
+    store_dt = resolved_param_dtype(cfg)
+    if store_dt != torch.float32:
+        # no master copy: cast once, updated in this dtype from now on
+        params = tree_map(lambda p: p.to(store_dt) if p.is_floating_point() else p,
+                          params)
+    plan = (zero1_plan_for(model, cfg, topo, params)
+            if topo is not None else None)
+
+    def one_slot_tree():
+        if plan is not None:
+            return zero1_init_state(params, plan, optim_lib.slot_dtype,
+                                    topo.local_replica_count)
+        return tree_map(lambda p: torch.zeros(
+            p.shape, dtype=optim_lib.slot_dtype(p.dtype), device=p.device),
+            params)
+
+    momentum = optim_lib.init_slots(opt, one_slot_tree)
+    window = None
+    if cfg.sync.mode == "interval":
+        # float32 always: the window sums float32 masked means
+        window = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                device=p.device), params)
+    if plan is not None and plan.params_sharded:
+        params = map_leaves(lambda p, lp: (_local_flat(p, lp, *_local_span(
+            lp, topo, plan.n)) if lp.sharded else p), params,
+            plan.leaf_plans)
     return TrainState(
-        params=params, momentum=zeros() if opt.num_slots else None,
-        step=0, updates_applied=0, root_key=prng.root_key(cfg.train.seed),
-        window_acc=zeros() if cfg.sync.mode == "interval" else None,
+        params=params, momentum=momentum, step=0, updates_applied=0,
+        root_key=prng.root_key(cfg.train.seed), window_acc=window,
         next_apply_ms=float(_F32(cfg.sync.interval_ms)))
 
 
@@ -168,6 +293,147 @@ def world_signature(topo: Topology) -> dict:
     n = int(topo.num_replicas)
     return {"num_replicas": n, "process_count": int(topo.process_count),
             "mesh": {"replica": n} if n > 1 else {}}
+
+
+# -- the live layout and the canonical one ----------------------------------
+
+def logical_params(params: Any, plan: Zero1Plan | None,
+                   topo: Topology) -> Any:
+    """The logical-shape params of the live ones: ``params`` as they are
+    without a resident plan; else each sharded leaf's ``[pad]`` as a view
+    of its first ``size`` elements (one process), or gathered from every
+    process's chunks, one all-gather a communication bucket (≙
+    ``_gather_resident_params``; every process must call it)."""
+    if plan is None or not plan.params_sharded:
+        return params
+    leaves, lps = tree_leaves(params), plan.leaves()
+    out = list(leaves)
+    L = topo.local_replica_count
+    if L == plan.n:
+        for i, lp in enumerate(lps):
+            if lp.sharded:
+                out[i] = leaves[i][:lp.size].view(lp.shape)
+        return tree_unflatten(params, out)
+    for bucket in comm_bucket_assignment(plan):
+        full = topo.all_gather_replicas(torch.cat(
+            [leaves[i].view(L, lps[i].chunk) for i in bucket], dim=1))
+        off = 0
+        for i in bucket:
+            lp = lps[i]
+            out[i] = full[:, off:off + lp.chunk].reshape(-1)[
+                :lp.size].view(lp.shape)
+            off += lp.chunk
+    return tree_unflatten(params, out)
+
+
+def canonical_save_state(state: TrainState,
+                         plan: Zero1Plan | None) -> TrainState:
+    """The state as a single-file checkpoint stores it: slots (and
+    resident params) in their logical shapes whatever the live layout,
+    so the artifact and its digests are the same across
+    ``shard_weight_update``, ``comm_buckets`` and ``resident_sharded``
+    (views, no copies). Needs every chunk on this process: across
+    processes the per-host layout saves the live chunks instead."""
+    if plan is None:
+        return state
+    unpack = lambda tree: zero1_unpack(tree, plan)  # noqa: E731
+    return dataclasses.replace(
+        state, momentum=optim_lib.map_slots(unpack, state.momentum),
+        params=unpack(state.params) if plan.params_sharded else state.params)
+
+
+def pack_restored_state(saved: dict, plan: Zero1Plan | None,
+                        topo: Topology | None = None) -> dict:
+    """Inverse of :func:`canonical_save_state` on a restored state dict
+    (numpy leaves, the reference layout): every slot and param leaf in
+    its logical shape (a per-host checkpoint's are flat, padded for the
+    saver's replica count), then the slots — and, for a resident plan,
+    the params — of every sharded leaf packed for this plan and cut to
+    this process's chunks."""
+    if plan is None:
+        return saved
+    from ..models.convert import list_form
+
+    def local(tree):
+        packed = zero1_pack(zero1_logical(list_form(tree), plan), plan)
+        return map_leaves(lambda a, lp: (a[slice(*_local_span(lp, topo, plan.n))]
+                                   if lp.sharded else a),
+                    packed, plan.leaf_plans)
+
+    out = dict(saved)
+    if out.get("momentum") is not None:
+        out["momentum"] = optim_lib.map_slots(local, out["momentum"])
+    out["params"] = (local(out["params"]) if plan.params_sharded
+                     else zero1_logical(list_form(out["params"]), plan))
+    return out
+
+
+def restore_for_topology(model: Model, cfg: ExperimentConfig,
+                         topo: Topology, train_dir, template_state: TrainState,
+                         step: int | None = None,
+                         on_event: Callable[[dict], None] | None = None,
+                         ) -> tuple[TrainState, dict, int] | None:
+    """Mesh-portable restore (≙ the reference's): read a checkpoint saved
+    under any replica or process count — single file or per-host shards
+    — and rebuild the live state for THIS run on the template's device:
+    the ZeRO-1 plan is derived from this run's replica count, the slots
+    (and resident params) repacked for it, the params cast to this
+    run's storage dtype. A checkpoint whose saved optimizer names
+    another state kind raises ``OptimizerStateMismatchError`` before
+    anything is grafted; a world change is reported through
+    ``on_event`` as ``cross_world_restore`` naming both worlds. A
+    per-host checkpoint's flat leaves come back in their logical shapes
+    first, so it also restores onto a run without ZeRO-1 (a plan over
+    one replica, which shards nothing, does that). None when nothing is
+    loadable."""
+    from ..models.convert import state_from_reference
+    from ..train import checkpoint as ckpt
+    try:
+        extra_got = ckpt.read_checkpoint_extra(train_dir, step)
+    except (OSError, ValueError, KeyError):
+        # an unreadable newest artifact: restore_state owns the fallback
+        # (older steps carry the same optimizer config)
+        extra_got = None
+    if extra_got is not None:
+        saved_extra, probe_step = extra_got
+        saved_optim = ((saved_extra or {}).get("config") or {}).get("optim")
+        saved_kind = optim_lib.saved_opt_state_kind(saved_optim)
+        want_kind = optim_lib.opt_state_kind(cfg.optim)
+        if saved_kind is not None and saved_kind != want_kind:
+            raise ckpt.OptimizerStateMismatchError(
+                f"checkpoint step={probe_step} in {train_dir} holds "
+                f"{saved_kind!r} optimizer state (saved optim config "
+                f"{saved_optim!r}) but this run's optim.name="
+                f"{cfg.optim.name!r} needs {want_kind!r} state; refusing "
+                "to graft mismatched opt-state trees — restore under the "
+                "saving optimizer, or start the new optimizer fresh "
+                "(train.resume=false / a fresh train_dir)",
+                saved_kind=saved_kind, requested_kind=want_kind)
+    restored = ckpt.restore_state(train_dir, step=step, on_event=on_event)
+    if restored is None:
+        return None
+    saved, extra, got_step = restored
+    shapes = model.init_params(cfg.model.init_seed, torch.device("meta"))
+    plan = (zero1_plan_for(model, cfg, topo, shapes)
+            or make_zero1_plan(shapes, 1))
+    device = tree_leaves(template_state.params)[0].device
+    state = state_from_reference(pack_restored_state(saved, plan, topo),
+                                 device=device)
+    store_dt = resolved_param_dtype(cfg)
+    state.params = tree_map(
+        lambda p: p.to(store_dt) if p.is_floating_point() and p.dtype != store_dt
+        else p, state.params)
+    saved_world = (extra or {}).get("world")
+    current = world_signature(topo)
+    if isinstance(saved_world, dict) and saved_world != current:
+        logger.info("cross-world restore: checkpoint step=%d saved under "
+                    "world %s resharded onto %s", got_step, saved_world,
+                    current)
+        if on_event is not None:
+            on_event({"layer": "checkpoint",
+                      "action": "cross_world_restore", "step": got_step,
+                      "saved_world": saved_world, "new_world": current})
+    return state, extra, got_step
 
 
 # -- the steps -------------------------------------------------------------
@@ -181,18 +447,29 @@ def _f32_sum(values) -> _F32:
     return acc
 
 
+def _padded_rows(g: torch.Tensor, lp: LeafShardPlan) -> torch.Tensor:
+    """``[L, ...]`` replica gradients → ``[L, n, chunk]``, each replica's
+    leaf flattened and zero-padded to ``pad``."""
+    rows = g.reshape(g.shape[0], -1)
+    if lp.pad != lp.size:
+        rows = F.pad(rows, (0, lp.pad - lp.size))
+    return rows.view(g.shape[0], -1, lp.chunk)
+
+
 def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                      topo: Topology | None = None, *,
                      cudnn_deterministic: bool = True
                      ) -> Callable[..., tuple[TrainState, dict]]:
     """``step_fn(state, batch, measured_ms=None, discipline=None) ->
     (state, metrics)``. ``batch = {"image", "label"}`` is this process's
-    batch on the state's device (the global batch with one process);
-    local replica j takes rows ``[j·B/n, (j+1)·B/n)`` of it.
-    ``measured_ms`` is the ``[n]`` host-measured base of
-    the modeled step times (zeros when None); ``discipline`` the ``[3]``
-    vector of :func:`make_discipline_vector` (the config's values when
-    None). The state is updated IN PLACE (params, slots, window) and
+    batch on the state's device (the global batch with one process;
+    ``grad_accum_steps`` of them concatenated under accumulation); local
+    replica j takes rows ``[j·B/L, (j+1)·B/L)`` of it. ``measured_ms`` is
+    the ``[n]`` host-measured base of the modeled step times (zeros when
+    None); ``discipline`` the ``[3]`` vector of
+    :func:`make_discipline_vector` (the config's values when None). The
+    state must be in the layout :func:`init_train_state` gives for
+    ``topo``; it is updated IN PLACE (params, slots, window) and
     returned. Each call runs under :func:`..core.device.cudnn_policy`:
     cuDNN's deterministic algorithms unless ``cudnn_deterministic`` is
     False, and no TF32 rounding when the model computes in float32.
@@ -215,10 +492,16 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
     if mode not in ("sync", "quorum", "timeout", "interval", "cdf"):
         raise ValueError(f"unknown sync mode {mode!r}")
     k = policies.resolve_aggregate_k(sync, n)
-    if cfg.parallel.shard_weight_update:
-        logger.warning("parallel.shard_weight_update=true is a no-op here "
-                       "(ZeRO-1 is not ported); running the replicated "
-                       "update")
+    accum = int(cfg.train.grad_accum_steps)
+    param_dtype = torch_dtype(cfg.precision.param_dtype)
+    fwd_cast = cfg.precision.master_weights and param_dtype != torch.float32
+    plan = zero1_plan_for(model, cfg, topo)
+    if cfg.parallel.shard_weight_update and plan is None:
+        logger.warning(
+            "parallel.shard_weight_update=true is a no-op here (%s); "
+            "running the replicated update",
+            "replica axis is 1" if n <= 1 else
+            f"sync.mode={mode!r} keeps the full windowed accumulator")
     if model.loss is None or model.accuracy is None:
         raise ValueError(f"model {model.name!r} has no loss/accuracy")
     if L > 1 and not model.vmap_replicas:
@@ -230,6 +513,16 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                                           sync.interval_ms)
     tf32 = False if model.compute_dtype == torch.float32 else None
     zeros_ms = torch.zeros(n, dtype=torch.float32)
+    if plan is not None:
+        lps = plan.leaves()
+        sharded = [i for i, lp in enumerate(lps) if lp.sharded]
+        fallback = [i for i, lp in enumerate(lps) if not lp.sharded]
+        # the update's reduce-scatters: one a leaf (monolithic) or one a
+        # layer-ordered bucket; the same addends either way
+        scatter_groups = (comm_bucket_assignment(plan)
+                          if plan.comm_buckets > 1 else [[i] for i in sharded])
+        all_local = L == plan.n
+        resident = plan.params_sharded
 
     def flags_for(t_ms: torch.Tensor, disc: torch.Tensor) -> torch.Tensor:
         if mode in ("sync", "cdf"):
@@ -241,29 +534,39 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
         # interval: stale if slower than a whole window
         return policies.timeout_flag(t_ms, disc[DISC_INTERVAL_MS])
 
-    def replica_grads(state: TrainState, batch: dict, leaves: list):
-        """Forward and backward of every local replica, each on its row
-        block with its own dropout mask (replica ``first + j`` draws
-        ``replica_keys(...)[first + j]``): ``(losses, accs, grads)``,
-        the per-replica losses and accuracies ``[L]`` and the gradient
-        leaves, each ``[L, ...]`` (a row a replica). Several replicas run
-        as one ``torch.func.vmap`` of ``grad`` over the replica axis
-        (3.2× the speed of a loop over replicas at 8 × 128 CNN rows on
-        an H100, PERF.md); a lone local replica runs autograd directly,
-        as the flash-attention ``autograd.Function`` needs."""
-        xs, ys = topo.split_batch(batch["image"]), topo.split_batch(
-            batch["label"])
+    def forward_params(state: TrainState) -> Any:
+        """The params the forward sees: logical (gathered under a
+        resident plan), cast to ``param_dtype`` over float32 masters."""
+        params = logical_params(state.params, plan, topo)
+        if fwd_cast:
+            params = tree_map(lambda p: p.to(param_dtype) if p.is_floating_point()
+                              else p, params)
+        return params
+
+    def replica_grads(state: TrainState, params: Any, xs: torch.Tensor,
+                      ys: torch.Tensor, dropout_step: int):
+        """Forward and backward of every local replica on its rows
+        ``xs[j]``, each with its own dropout mask (replica ``first + j``
+        draws ``replica_keys(root, "dropout", dropout_step, n)[first +
+        j]``): ``(losses, accs, grads)``, the per-replica losses and
+        accuracies ``[L]`` and the float32 gradient leaves, each ``[L,
+        ...]`` (a row a replica). Several replicas run as one
+        ``torch.func.vmap`` of ``grad`` over the replica axis (3.2× the
+        speed of a loop over replicas at 8 × 128 CNN rows on an H100,
+        PERF.md); a lone local replica runs autograd directly, as the
+        flash-attention ``autograd.Function`` needs."""
         keep = None
         if model.dropout_masks is not None:
-            keys = prng.replica_keys(state.root_key, "dropout", state.step,
+            keys = prng.replica_keys(state.root_key, "dropout", dropout_step,
                                      n)[first:first + L]
             keep = model.dropout_masks(keys if L > 1 else keys[0],
                                        xs.shape[1], xs.device)
         if L == 1:
+            leaves = tree_leaves(params)
             for p in leaves:
                 p.requires_grad_(True)
             try:
-                logits = model.apply(state.params, xs[0], train=True,
+                logits = model.apply(params, xs[0], train=True,
                                      dropout_keep=keep)
                 loss = model.loss(logits, ys[0])
                 grads = [g.float()[None] for g in
@@ -282,8 +585,33 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
         grads, (losses, accs) = vmap(
             grad(replica_loss, has_aux=True),
             in_dims=(None, 0, 0, None if keep is None else 0))(
-                state.params, xs, ys, keep)
+                params, xs, ys, keep)
         return losses, accs, [g.float() for g in tree_leaves(grads)]
+
+    def accumulated_grads(state: TrainState, batch: dict):
+        """:func:`replica_grads` over the step's ``accum`` microbatches:
+        each replica's row block split into ``accum`` consecutive
+        microbatches, float32 sums over them divided by ``accum``."""
+        params = forward_params(state)
+        xs, ys = topo.split_batch(batch["image"]), topo.split_batch(
+            batch["label"])
+        if accum == 1:
+            return replica_grads(state, params, xs, ys, state.step)
+        xs = xs.view(L, accum, -1, *xs.shape[2:])
+        ys = ys.view(L, accum, -1, *ys.shape[2:])
+        losses = accs = grads = None
+        for idx in range(accum):
+            l, a, g = replica_grads(state, params, xs[:, idx], ys[:, idx],
+                                    state.step * accum + idx)
+            if grads is None:
+                losses, accs, grads = l.float(), a.float(), g
+            else:
+                losses, accs = losses + l, accs + a
+                for s, gi in zip(grads, g):
+                    s.add_(gi)
+        for s in grads:
+            s.div_(accum)
+        return losses / accum, accs / accum, grads
 
     def drop_connect(state: TrainState, grads: list) -> None:
         """Mask each local replica's gradient leaves in place with its
@@ -296,13 +624,16 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                     sync.drop_connect_probability)):
                 g[j] = m
 
+    def slot_leaves(state: TrainState) -> list[list]:
+        return [tree_leaves(t) for t in optim_lib.slot_trees(
+            opt, state.momentum)]
+
     def apply_update(state: TrainState, leaves: list, grads: list,
                      lr: float) -> None:
         t = float(state.updates_applied + 1)
-        slots = (tree_leaves(state.momentum) if opt.num_slots
-                 else [None] * len(leaves))
-        for p, g, b in zip(leaves, grads, slots):
-            opt.update_leaf(p, g, () if b is None else (b,), lr, t,
+        slots = slot_leaves(state)
+        for i, (p, g) in enumerate(zip(leaves, grads)):
+            opt.update_leaf(p, g, tuple(s[i] for s in slots), lr, t,
                             lambda x: x, p.dim() > 1)
 
     def interval_apply(state: TrainState, leaves: list, mean: list,
@@ -327,6 +658,76 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
         state.wall_ms = float(wall)
         return int(fire)
 
+    def zero1_apply(state: TrainState, grads: list, losses: torch.Tensor,
+                    accs: torch.Tensor, scale: np.ndarray, applied: int,
+                    lr: float) -> tuple[torch.Tensor, torch.Tensor]:
+        """≙ ``_zero1_update``: the fallback leaves and the loss and
+        accuracy through the masked-mean all-reduce, the sharded leaves
+        through one reduce-scatter a group, their chunks and slots
+        updated in place, the params made whole again by one all-gather
+        a bucket (none on one process, none under a resident plan).
+        Returns the mean loss and accuracy."""
+        bucket = masked_psum.flatten_replicas(
+            [grads[i] for i in fallback], (losses, accs))
+        width = bucket.shape[1] - 2
+        total = masked_psum.masked_mean(bucket, scale, topo, width)
+        mean = dict(zip(fallback, masked_psum.unflatten_like(
+            total[:width], [grads[i][0] for i in fallback])))
+        for group in scatter_groups:
+            rows = torch.cat([_padded_rows(grads[i], lps[i]) for i in group],
+                             dim=2)
+            for j in range(L):
+                rows[j].mul_(float(scale[first + j]))
+            out = topo.reduce_scatter_replicas(rows)
+            off = 0
+            for i in group:
+                mean[i] = out[:, off:off + lps[i].chunk].reshape(-1)
+                off += lps[i].chunk
+        stateless = opt.num_slots == 0
+        if stateless or applied:
+            # stateless sgd: lr·0 is exact, so scaling the lr by the
+            # applied flag IS the no-op; slots decay even on zero
+            # gradients, so a stateful optimizer skips the update
+            lr_eff = float(_F32(lr) * _F32(applied)) if stateless else lr
+            t = float(state.updates_applied + 1)
+            leaves, slots = tree_leaves(state.params), slot_leaves(state)
+            reduce = ((lambda x: x) if all_local
+                      else topo.sum_processes)
+            updated = {}
+            for i, (p, lp) in enumerate(zip(leaves, lps)):
+                sl = tuple(s[i] for s in slots)
+                adapt = len(lp.shape) > 1
+                if not lp.sharded:
+                    opt.update_leaf(p, mean[i], sl, lr_eff, t,
+                                    lambda x: x, adapt)
+                elif all_local:
+                    # every chunk is here: update the logical elements
+                    # in place (the padding stays zero)
+                    pv = p[:lp.size] if resident else p.view(-1)
+                    opt.update_leaf(pv, mean[i][:lp.size],
+                                    tuple(s[:lp.size] for s in sl), lr_eff,
+                                    t, reduce, adapt)
+                else:
+                    pl = p if resident else _local_flat(
+                        p, lp, *_local_span(lp, topo, n))
+                    opt.update_leaf(pl, mean[i], sl, lr_eff, t, reduce,
+                                    adapt)
+                    updated[i] = pl
+            if updated and not resident:
+                # the all-gather leg: each bucket's updated chunks
+                # reassemble its leaves whole on every process
+                for group in scatter_groups:
+                    full = topo.all_gather_replicas(torch.cat(
+                        [updated[i].view(L, lps[i].chunk) for i in group],
+                        dim=1))
+                    off = 0
+                    for i in group:
+                        lp = lps[i]
+                        leaves[i].copy_(full[:, off:off + lp.chunk].reshape(
+                            -1)[:lp.size].view(lp.shape))
+                        off += lp.chunk
+        return total[width] / n, total[width + 1] / n
+
     def step_fn(state: TrainState, batch: dict,
                 measured_ms=None, discipline=None
                 ) -> tuple[TrainState, dict]:
@@ -343,12 +744,11 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
             raise ValueError(f"measured_ms must be [{n}], got "
                              f"{tuple(meas.shape)}")
         # -- per-replica gradients (queued on the device first) ---------
-        leaves = tree_leaves(state.params)
-        losses, accs, grads = replica_grads(state, batch, leaves)
+        losses, accs, grads = accumulated_grads(state, batch)
         with torch.no_grad():
             if sync.drop_connect:
                 drop_connect(state, grads)
-            if bucketed:
+            if bucketed and plan is None:
                 # the loss and accuracy ride the gradients' reduction
                 bucket = masked_psum.flatten_replicas(grads, (losses, accs))
         # -- modeled times and flags, on the host while the device runs
@@ -362,6 +762,15 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
         # at scale 1 the gradient itself, with no copy) ------------------
         lr = schedule(state.updates_applied)
         with torch.no_grad():
+            if plan is not None:
+                applied = int(float(num) > 0)
+                loss, train_acc = zero1_apply(state, grads, losses, accs,
+                                              scale.numpy(), applied, lr)
+                state.updates_applied += applied
+                state.step += 1
+                return state, _metrics(loss, train_acc, lr, num, state,
+                                       t_ms, flags, applied)
+            leaves = tree_leaves(state.params)
             if bucketed:
                 width = bucket.shape[1] - 2
                 total = masked_psum.masked_mean(bucket, scale.numpy(), topo,
@@ -389,16 +798,18 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                     apply_update(state, leaves, mean, lr)
         state.updates_applied += applied
         state.step += 1
-        metrics = {
-            "loss": loss, "train_acc": train_acc, "lr": lr,
-            "num_contributors": float(num),
-            "updates_applied": state.updates_applied,
-            "step_times_ms": t_ms.numpy(),
-            "flags": flags.numpy(),
-            "applied": applied,
-        }
-        return state, metrics
+        return state, _metrics(loss, train_acc, lr, num, state, t_ms, flags,
+                               applied)
 
+    def _metrics(loss, train_acc, lr, num, state, t_ms, flags,
+                 applied) -> dict:
+        return {"loss": loss, "train_acc": train_acc, "lr": lr,
+                "num_contributors": float(num),
+                "updates_applied": state.updates_applied,
+                "step_times_ms": t_ms.numpy(), "flags": flags.numpy(),
+                "applied": applied}
+
+    step_fn.plan = plan
     return step_fn
 
 
@@ -406,8 +817,9 @@ def build_eval_step(model: Model, cfg: ExperimentConfig, *,
                     cudnn_deterministic: bool = True) -> Callable:
     """``eval_fn(params, batch) -> (correct_sum, loss_sum, weight_sum)``
     over ``batch = {"image", "label", "weight"}`` (padded rows carry
-    weight 0); no autograd, so attention runs the forward kernel K1.
-    cuDNN runs under the train step's policy."""
+    weight 0) with logical-shape ``params`` (:func:`logical_params`); no
+    autograd, so attention runs the forward kernel K1. cuDNN runs under
+    the train step's policy."""
     del cfg
     if model.eval_metrics is None:
         raise ValueError(f"model {model.name!r} has no eval_metrics")

@@ -48,8 +48,18 @@ step loadable and is garbage-collected with its step. The
 :class:`AsyncCheckpointer`'s ``publish`` hook writes it on the writer
 thread before the artifact and the pointer.
 
-Not ported yet: the per-host sharded layout (manifests; the reader
-refuses one with a clear error).
+Where a process holds only its replicas' chunks of some state (ZeRO-1
+over several processes), a save uses the reference's per-host layout
+instead (:func:`save_sharded_state`): every process writes
+``ckpt-%08d.shard%03d-of-%03d.msgpack`` (with its ``.sha256``) holding
+``{"leaves": {"a/b/c": array | {"indices", "datas"}}}`` — whole leaves
+from process 0 only, and each process's slabs of the split ones — and
+process 0 writes ``ckpt-%08d.manifest.json`` (each leaf's global shape
+and dtype, the ``extra`` payload and a checksum of its own) and then
+the pointer. Any process count reads it back (:func:`restore_state`
+reassembles the global arrays). :class:`OptimizerStateMismatchError`
+is the typed refusal of another optimizer's state
+(``parallel/api.py restore_for_topology``).
 """
 
 from __future__ import annotations
@@ -85,6 +95,21 @@ class CheckpointCorruptError(ValueError):
     the previous loadable step on restore."""
 
 
+class OptimizerStateMismatchError(ValueError):
+    """A checkpoint holds another optimizer-state kind (none, momentum,
+    lars, lamb — ``train/optim.opt_state_kind``) than the restoring run
+    needs. Not a :class:`CheckpointCorruptError`: it affects every step
+    alike, so a restore raises it (naming both kinds) instead of falling
+    back past the run or grafting one optimizer's slots into another's
+    (momentum and LARS slots even share a tree shape)."""
+
+    def __init__(self, msg: str, saved_kind: str | None = None,
+                 requested_kind: str | None = None):
+        super().__init__(msg)
+        self.saved_kind = saved_kind
+        self.requested_kind = requested_kind
+
+
 # -- I/O retries ------------------------------------------------------------
 #
 # A transient EIO on a network filesystem must not look like corruption
@@ -117,6 +142,10 @@ def _ckpt_path(train_dir: Path, step: int) -> Path:
 
 def _manifest_path(train_dir: Path, step: int) -> Path:
     return train_dir / f"ckpt-{step:08d}.manifest.json"
+
+
+def _shard_path(train_dir: Path, step: int, p: int, count: int) -> Path:
+    return train_dir / f"ckpt-{step:08d}.shard{p:03d}-of-{count:03d}.msgpack"
 
 
 def _digest_path(path: Path) -> Path:
@@ -264,11 +293,11 @@ def _extra_of(payload: dict) -> dict:
     return extra
 
 
-_STEP_RE = re.compile(r"^ckpt-(\d+)\.msgpack$")
+_STEP_RE = re.compile(r"^ckpt-(\d+)\.(?:msgpack|manifest\.json)$")
 
 
 def _loadable_steps(train_dir: Path) -> list[int]:
-    """Steps with a single-file artifact, ascending."""
+    """Steps with a single-file artifact or a manifest, ascending."""
     return sorted(int(m.group(1)) for f in train_dir.glob("ckpt-*")
                   if (m := _STEP_RE.match(f.name)))
 
@@ -289,25 +318,39 @@ def latest_checkpoint_step(train_dir: str | Path) -> int | None:
     return max(steps) if steps else None
 
 
-def _single_file(train_dir: Path, step: int) -> Path:
-    path = _ckpt_path(train_dir, step)
-    if _manifest_path(train_dir, step).exists() and not path.exists():
-        raise NotImplementedError(
-            f"step {step} of {train_dir} is a sharded (manifest) "
-            "checkpoint; the port reads the single-file layout only")
-    return path
+def _manifest_checksum(manifest: dict) -> str:
+    body = {k: v for k, v in manifest.items() if k != "checksum"}
+    return hashlib.sha256(
+        json.dumps(body, sort_keys=True).encode()).hexdigest()
+
+
+def _read_manifest(train_dir: Path, step: int) -> dict:
+    mpath = _manifest_path(train_dir, step)
+    text = _io_retries(lambda: storage.read_text(mpath), mpath.name)
+    try:
+        manifest = json.loads(text)
+    except json.JSONDecodeError as e:
+        raise CheckpointCorruptError(
+            f"{mpath.name}: torn or corrupt manifest ({e})") from e
+    want = manifest.get("checksum")
+    if want and _manifest_checksum(manifest) != want:
+        raise CheckpointCorruptError(f"{mpath.name}: checksum mismatch")
+    return manifest
 
 
 def read_checkpoint_extra(train_dir: str | Path, step: int | None = None
                           ) -> tuple[dict, int] | None:
-    """The JSON ``extra`` payload (the saved run config) of ``step``
-    (default: the newest), or None when nothing was published."""
+    """The JSON ``extra`` payload (the saved run config, world and data
+    cursor) of ``step`` (default: the newest), from its file or its
+    manifest; None when nothing was published."""
     train_dir = Path(train_dir)
     if step is None:
         step = latest_checkpoint_step(train_dir)
         if step is None:
             return None
-    return _extra_of(_read_payload(_single_file(train_dir, step))), step
+    if _manifest_path(train_dir, step).exists():
+        return _read_manifest(train_dir, step).get("extra", {}), step
+    return _extra_of(_read_payload(_ckpt_path(train_dir, step))), step
 
 
 def wait_for_run_config(train_dir: str | Path, timeout_s: float = 600.0):
@@ -404,8 +447,66 @@ def loadable_steps(train_dir: str | Path) -> list[int]:
     return _loadable_steps(Path(train_dir))
 
 
+_STATE_FIELDS = ("params", "momentum", "step", "updates_applied", "root_key",
+                 "window_acc", "window_rounds", "wall_ms", "next_apply_ms")
+
+
+def _read_sharded(train_dir: Path, step: int) -> tuple[dict, dict]:
+    """Reassemble a per-host checkpoint's state dict from every shard
+    file (global arrays; a ``bfloat16`` leaf widened to float32; fields
+    without leaves are None) and its ``extra``."""
+    manifest = _read_manifest(train_dir, step)
+    try:
+        pcount = int(manifest["num_shards"])
+        meta = manifest["leaves"]
+    except (KeyError, TypeError, ValueError) as e:
+        raise CheckpointCorruptError(
+            f"{_manifest_path(train_dir, step).name}: manifest missing "
+            f"required fields ({type(e).__name__}: {e})") from e
+    leaves: dict[str, np.ndarray] = {}
+    for p in range(pcount):
+        spath = _shard_path(train_dir, step, p, pcount)
+        payload = _restore_checked(_verified_read(spath), spath)
+        try:
+            for key, val in payload["leaves"].items():
+                if isinstance(val, dict) and "indices" in val:
+                    m = meta[key]
+                    dt = (np.float32 if m["dtype"] == "bfloat16"
+                          else np.dtype(m["dtype"]))
+                    buf = leaves.setdefault(
+                        key, np.empty(tuple(m["shape"]), dt))
+                    for idx, data in zip(val["indices"], val["datas"]):
+                        buf[tuple(slice(a, b) for a, b in idx)] = data
+                elif key not in leaves:
+                    leaves[key] = np.asarray(val)
+        except (KeyError, ValueError, TypeError, IndexError) as e:
+            raise CheckpointCorruptError(
+                f"{spath.name}: shard/manifest structure mismatch "
+                f"({type(e).__name__}: {e})") from e
+    missing = sorted(set(meta) - set(leaves))
+    if missing:
+        raise CheckpointCorruptError(
+            f"sharded checkpoint step={step} is missing leaves {missing}")
+    state: dict = {f: None for f in _STATE_FIELDS}
+    for key, arr in leaves.items():
+        node = state
+        parts = key.split("/")
+        for part in parts[:-1]:
+            if node.get(part) is None:
+                node[part] = {}
+            node = node[part]
+        node[parts[-1]] = arr
+    return state, manifest.get("extra", {})
+
+
 def _read_state(train_dir: Path, step: int) -> tuple[dict, dict]:
-    payload = _read_payload(_single_file(train_dir, step))
+    if _manifest_path(train_dir, step).exists():
+        state, extra = _read_sharded(train_dir, step)
+        if state.get("params") is None:
+            raise CheckpointCorruptError(
+                f"ckpt-{step:08d}.manifest.json: no params leaves")
+        return state, extra
+    payload = _read_payload(_ckpt_path(train_dir, step))
     state = payload["state"]
     if not isinstance(state, dict) or state.get("params") is None:
         raise CheckpointCorruptError(
@@ -475,6 +576,14 @@ def _digest_tree(tree: Any, h) -> None:
     if tree is None:
         h.update(b"<none>\x00")
         return
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
+        # as the reference digests an ml_dtypes bfloat16 array
+        words = tree.detach().cpu().contiguous().view(torch.int16).numpy()
+        h.update(b"bfloat16\x00")
+        h.update(str(words.shape).encode() + b"\x00")
+        h.update(words.tobytes())
+        h.update(b"\x00")
+        return
     a = np.ascontiguousarray(np.asarray(tree))
     h.update(str(a.dtype).encode() + b"\x00")
     h.update(str(a.shape).encode() + b"\x00")
@@ -509,22 +618,24 @@ def checkpoint_params_digest(train_dir: str | Path, step: int | None = None
 
 # -- writing ----------------------------------------------------------------
 
-def _write_atomic(path: Path, data: bytes) -> None:
-    """tmp write, rename, then the digest sidecar (tmp + rename), as one
-    retried unit."""
+def _write_atomic(path: Path, data: bytes, digest: bool = True) -> None:
+    """tmp write, rename, then (with ``digest``) the digest sidecar (tmp +
+    rename), as one retried unit."""
     def write() -> None:
         tmp = path.with_name(path.name + ".tmp")
         storage.write_bytes(tmp, data, role="data")
         dpath = _digest_path(path)
-        # a re-save of the same step must never leave the old digest
-        # over the new bytes: drop it before the data lands (a crash in
-        # between leaves a digest-less file, which is accepted)
-        dpath.unlink(missing_ok=True)
+        if digest:
+            # a re-save of the same step must never leave the old digest
+            # over the new bytes: drop it before the data lands (a crash
+            # in between leaves a digest-less file, which is accepted)
+            dpath.unlink(missing_ok=True)
         storage.replace(tmp, path, role="data")
-        dtmp = dpath.with_name(dpath.name + ".tmp")
-        storage.write_text(dtmp, hashlib.sha256(data).hexdigest(),
-                           role="sidecar")
-        storage.replace(dtmp, dpath, role="sidecar")
+        if digest:
+            dtmp = dpath.with_name(dpath.name + ".tmp")
+            storage.write_text(dtmp, hashlib.sha256(data).hexdigest(),
+                               role="sidecar")
+            storage.replace(dtmp, dpath, role="sidecar")
     _io_retries(write, path.name)
 
 
@@ -572,6 +683,48 @@ def save_state(train_dir: str | Path, state: dict, step: int,
     _write_pointer(train_dir, step, path.name)
     _garbage_collect(train_dir, keep)
     logger.info("saved checkpoint step=%d → %s", step, path.name)
+    return path
+
+
+def flat_state_items(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """``[("a/b/c", leaf)]`` over a state dict as the reference's per-host
+    writer names its leaves: dict keys sorted, list items by index, None
+    skipped."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in flat_state_items(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree)
+                for kv in flat_state_items(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def save_sharded_state(train_dir: str | Path, local: dict, meta: dict,
+                       step: int, process_index: int, process_count: int,
+                       extra: dict | None = None, keep: int = 0) -> Path:
+    """Publish this process's part of a per-host checkpoint at ``step``:
+    ``local`` maps leaf keys to whole arrays (process 0's whole leaves)
+    or ``{"indices": [[[lo, hi], ...], ...], "datas": [...]}`` slabs;
+    ``meta`` maps every key to ``{"full": True}`` or ``{"shape",
+    "dtype"}``. Process 0 then writes the manifest and the pointer.
+    Every process calls this for the same step."""
+    train_dir = Path(train_dir)
+    train_dir.mkdir(parents=True, exist_ok=True)
+    path = _shard_path(train_dir, step, process_index, process_count)
+    _write_atomic(path, msgpack_serialize({"leaves": local}))
+    if process_index == 0:
+        manifest = {"step": step, "num_shards": process_count,
+                    "leaves": meta, "extra": extra or {}}
+        manifest["checksum"] = _manifest_checksum(manifest)
+        # the manifest carries its own checksum: no digest sidecar
+        mpath = _manifest_path(train_dir, step)
+        _write_atomic(mpath, json.dumps(manifest).encode(), digest=False)
+        _write_pointer(train_dir, step, mpath.name)
+        logger.info("saved sharded checkpoint step=%d → %s (+%d shard "
+                    "files)", step, mpath.name, process_count)
+    _garbage_collect(train_dir, keep)
     return path
 
 

@@ -54,6 +54,26 @@ the final save returns, before a NaN rollback reads the directory and
 when ``run`` ends, on every exit. TensorBoard scalars go to
 ``train_dir/tb`` every ``train.summary_every_steps`` steps.
 
+The slice's train-step knobs come from the config and need nothing
+here but their plumbing: ``train.grad_accum_steps`` feeds ``accum``
+consecutive batches a step (:class:`..data.pipeline.GradAccumFeed`; the
+effective batch, images/sec and the epoch-based decay count all of
+them); ``precision.*`` sets the params' storage dtype; under a ZeRO-1
+plan (``parallel.shard_weight_update``) the live slots — and, with
+``resident_sharded``, the params — are flat chunks, and everything that
+reads params (the evaluator, the digest, the quant publisher via the
+saved state, the NaN guard via the checkpoints) sees the logical ones
+(:func:`..parallel.api.logical_params`). Checkpoints hold the logical
+layout (``canonical_save_state``); where a process holds only its
+replicas' chunks (ZeRO-1 over several processes) every process writes
+its part of the per-host layout, synchronously, on the step cadence
+(``save_interval_secs`` is refused: the processes' clocks would not
+agree on the steps). A resume, and a NaN rollback, go through
+:func:`..parallel.api.restore_for_topology`: a checkpoint of another
+replica or process count is repacked for this run (and journaled as
+``cross_world_restore``), one of another optimizer-state kind raises
+``OptimizerStateMismatchError``.
+
 With ``quant.publish_tiers`` the writer process builds a
 :class:`..quant.ptq.QuantPublisher` (calibrating on the first
 ``quant.calibration_examples`` test examples, on the trainer's device):
@@ -85,15 +105,17 @@ from ..core.device import resolve_device
 from ..core.log import JsonlSink, get_logger
 from ..core.mesh import make_topology
 from ..data.datasets import Datasets, load_datasets
-from ..data.pipeline import make_train_iterator, to_device
-from ..models.convert import (params_to_reference, state_from_reference,
-                              state_to_reference)
+from ..data.pipeline import GradAccumFeed, make_train_iterator, to_device
+from ..models.convert import params_to_reference, state_to_reference
 from ..models.registry import Model, get_model
 from ..obsv.tb import SummaryWriter
 from ..obsv.timing import ReplicaDeviceProbe, StepTimeCollector
 from ..parallel.api import (TrainState, build_eval_step, build_train_step,
-                            init_train_state, make_discipline_vector,
-                            tree_leaves, tree_map, world_signature)
+                            canonical_save_state, init_train_state,
+                            logical_params, make_discipline_vector,
+                            restore_for_topology, tree_leaves, tree_map,
+                            world_signature, zero1_plan_for)
+from ..parallel.partition_rules import Zero1Plan
 from ..parallel.policies import resolve_aggregate_k
 from ..quant.ptq import QuantPublisher
 from . import checkpoint as ckpt
@@ -102,6 +124,7 @@ from .discipline import DisciplineController, WindowStats
 from .evaluation import run_full_eval
 from .lr_schedule import (constant, decay_steps_for, exponential_decay,
                           warmup_polynomial_decay)
+from .optim import is_slot_dict
 
 logger = get_logger("train")
 
@@ -168,13 +191,13 @@ def device_snapshot(state: TrainState
     return snap, event
 
 
-def snapshot_to_host(snapshot: tuple[TrainState, torch.cuda.Event | None]
-                     ) -> dict:
+def snapshot_to_host(snapshot: tuple[TrainState, torch.cuda.Event | None],
+                     plan: Zero1Plan | None = None) -> dict:
     """The writer thread's half of :func:`device_snapshot`: the state
-    dict in the reference layout. On the card: wait on the event on a
-    stream of the snapshot's own device, copy into pinned host memory,
-    synchronize that stream (the device copies are dropped only after
-    it), then convert."""
+    dict in the reference layout (canonical under ``plan``). On the
+    card: wait on the event on a stream of the snapshot's own device,
+    copy into pinned host memory, synchronize that stream (the device
+    copies are dropped only after it), then convert."""
     snap, event = snapshot
     if event is not None:
         device = tree_leaves(snap.params)[0].device
@@ -191,7 +214,11 @@ def snapshot_to_host(snapshot: tuple[TrainState, torch.cuda.Event | None]
                     momentum=tree_map(fetch, snap.momentum),
                     window_acc=tree_map(fetch, snap.window_acc))
             stream.synchronize()
-    return state_to_reference(snap)
+    return state_to_reference(canonical_save_state(snap, plan))
+
+
+def _host_copy(x: Any) -> Any:
+    return x.clone() if isinstance(x, torch.Tensor) else np.copy(x)
 
 
 class Trainer:
@@ -218,9 +245,13 @@ class Trainer:
         if cfg.data.batch_size % n != 0:
             raise ValueError(f"global batch {cfg.data.batch_size} not "
                              f"divisible by {n} replicas")
+        if cfg.train.grad_accum_steps < 1:
+            raise ValueError(f"train.grad_accum_steps must be >= 1, got "
+                             f"{cfg.train.grad_accum_steps}")
+        self.grad_accum = int(cfg.train.grad_accum_steps)
         # images/sec and the epoch-based decay key off the effective
-        # batch (one optimizer application; no accumulation yet)
-        self.effective_batch = cfg.data.batch_size
+        # batch: one optimizer application takes batch_size × accum
+        self.effective_batch = cfg.data.batch_size * self.grad_accum
         self.model: Model = get_model(effective_model_config(cfg))
         self.datasets = datasets if datasets is not None else load_datasets(
             cfg.data, cfg.model.image_size, cfg.model.num_channels,
@@ -233,13 +264,27 @@ class Trainer:
             cudnn_deterministic=cudnn_deterministic)
         self.eval_fn = build_eval_step(
             self.model, cfg, cudnn_deterministic=cudnn_deterministic)
+        # the ZeRO-1 plan (None when it does not apply): the live layout
+        # of the slots (and resident params) and the checkpoint packing
+        self._zero1_plan = zero1_plan_for(self.model, cfg, self.topo)
         self.state: TrainState = init_train_state(self.model, cfg,
-                                                  self.device)
+                                                  self.device, self.topo)
         self.train_iter = make_train_iterator(
             self.datasets.train, cfg.data, seed=cfg.train.seed,
             host_id=self.topo.process_index,
             num_hosts=self.topo.process_count)
+        if self.grad_accum > 1:
+            self.train_iter = GradAccumFeed(self.train_iter, self.grad_accum)
         self.is_writer = self.topo.process_index == 0
+        # every process writes its chunks when none holds them all
+        self._sharded_ckpt = (self._zero1_plan is not None
+                              and self._zero1_plan.any_sharded
+                              and self.topo.process_count > 1)
+        if self._sharded_ckpt and cfg.train.save_interval_secs > 0:
+            raise ValueError(
+                "a cross-process sharded layout needs a deterministic "
+                "checkpoint cadence every process agrees on: set "
+                "train.save_interval_steps (and save_interval_secs=0)")
         self.collector = StepTimeCollector(num_replicas=n)
         # every process runs the same controller on the same [n] times,
         # so all swap alike; only the writer journals (_sink_write)
@@ -261,7 +306,9 @@ class Trainer:
         # resume below included); an unknown one is a ConfigError
         storage.set_durability(cfg.train.durability)
         # only the writer owns a checkpointer, built at its first save
-        self._use_async_ckpt = cfg.train.async_checkpoint and self.is_writer
+        # (the per-host layout is written synchronously by every process)
+        self._use_async_ckpt = (cfg.train.async_checkpoint and self.is_writer
+                                and not self._sharded_ckpt)
         self._async_snapshot = (self._use_async_ckpt
                                 and cfg.train.async_snapshot)
         self._checkpointer: ckpt.AsyncCheckpointer | None = None
@@ -317,8 +364,18 @@ class Trainer:
 
     # -- checkpoints -----------------------------------------------------
 
-    def _adopt(self, saved: dict, extra: dict) -> None:
-        state = state_from_reference(saved, device=self.device)
+    def logical_params(self) -> Any:
+        """The live params in their logical shapes (gathered from every
+        process under a resident plan: every process calls it)."""
+        return logical_params(self.state.params, self._zero1_plan,
+                              self.topo)
+
+    def _restore(self, step: int | None = None, on_event=None):
+        return restore_for_topology(self.model, self.cfg, self.topo,
+                                    self.train_dir, self.state, step=step,
+                                    on_event=on_event)
+
+    def _adopt(self, state: TrainState, extra: dict) -> None:
         if (state.momentum is None) != (self.state.momentum is None):
             raise ValueError(
                 "checkpoint optimizer state does not match optim "
@@ -333,23 +390,23 @@ class Trainer:
                                "restarting stream")
 
     def _maybe_resume(self) -> None:
-        restored = ckpt.restore_state(
-            self.train_dir,
+        restored = self._restore(
             on_event=lambda r: self._recovery_event({"layer": "checkpoint",
                                                      **r}))
         if restored is None:
             return
-        saved, extra, step = restored
-        self._adopt(saved, extra)
+        state, extra, step = restored
+        self._adopt(state, extra)
         self._start_step = self.state.step
         logger.info("resumed from checkpoint step=%d (loop step %d)", step,
                     self._start_step)
 
     def _save(self) -> None:
         """Process 0 writes; the others go on (no barrier: nothing waits
-        on a save, as in the reference). A save that fails after the
+        on a save, as in the reference) — except in the per-host layout,
+        where each process writes its part. A save that fails after the
         I/O retries is journaled as ``save_failed`` and skipped."""
-        if not self.is_writer:
+        if not self.is_writer and not self._sharded_ckpt:
             return
         t0 = time.perf_counter()
         at_step = self.state.step
@@ -395,10 +452,44 @@ class Trainer:
                               "errno": getattr(e, "errno", None),
                               "where": "async"})
 
+    def _save_sharded(self, at_step: int, extra: dict) -> None:
+        """This process's part of the per-host layout: its replicas'
+        chunks of every split leaf as one slab (at ``first·chunk`` of the
+        ``[pad]`` layout), the whole leaves from process 0 only."""
+        plan, topo = self._zero1_plan, self.topo
+        by_path = dict(ckpt.flat_state_items(plan.leaf_plans))
+        host = state_to_reference(self.state)
+        split = {"momentum"} | ({"params"} if plan.params_sharded else set())
+        local, meta = {}, {}
+        for key, leaf in ckpt.flat_state_items(host):
+            field, _, rest = key.partition("/")
+            if field == "momentum" and is_slot_dict(self.state.momentum):
+                rest = rest.partition("/")[2]  # drop LAMB's m/v level
+            lp = by_path.get(rest) if field in split else None
+            if lp is None or not lp.sharded:
+                meta[key] = {"full": True}
+                if self.is_writer:
+                    local[key] = leaf
+                continue
+            lo = topo.first_replica * lp.chunk
+            meta[key] = {"shape": [lp.pad],
+                         "dtype": ("bfloat16" if isinstance(leaf, torch.Tensor)
+                                   else str(leaf.dtype))}
+            local[key] = {"indices": [[[lo, lo + leaf.shape[0]]]],
+                          "datas": [leaf]}
+        ckpt.save_sharded_state(self.train_dir, local, meta, at_step,
+                                topo.process_index, topo.process_count,
+                                extra=extra,
+                                keep=self.cfg.train.keep_checkpoints)
+
     def _save_inner(self, at_step: int, extra: dict, publish) -> None:
         keep = self.cfg.train.keep_checkpoints
+        if self._sharded_ckpt:
+            self._save_sharded(at_step, extra)
+            return
+        canonical = canonical_save_state(self.state, self._zero1_plan)
         if not self._use_async_ckpt:
-            host = state_to_reference(self.state)
+            host = state_to_reference(canonical)
             if publish is not None:
                 publish(host, at_step)  # the sidecar before the pointer
             ckpt.save_state(self.train_dir, host, at_step, extra=extra,
@@ -409,16 +500,18 @@ class Trainer:
                 on_error=self._ckpt_save_failed)
         if not self._async_snapshot:
             # the host fetch on the loop; the writer packs and writes
-            host = state_to_reference(self.state)
+            host = state_to_reference(canonical)
             if self.device.type == "cpu":
                 # a CPU tensor's numpy view aliases the live state, which
                 # the next steps update in place while the writer works
-                host = tree_map(np.copy, host)
+                host = tree_map(_host_copy, host)
             self._checkpointer.save(self.train_dir, host, at_step,
                                     extra=extra, keep=keep, publish=publish)
             return
+        plan = self._zero1_plan
         try:
-            snap, prepare = device_snapshot(self.state), snapshot_to_host
+            snap = device_snapshot(self.state)
+            prepare = lambda s: snapshot_to_host(s, plan)  # noqa: E731
         except Exception as e:  # reported as a failed write, below
             # no fallback to the synchronous path: a snapshot that
             # cannot be taken is a failed write (save_failed, and wait
@@ -453,20 +546,23 @@ class Trainer:
         self._drain_writer()
         for s in sorted(ckpt.loadable_steps(self.train_dir), reverse=True):
             try:
-                saved, extra, _ = ckpt.restore_state(self.train_dir, step=s)
+                saved, _, _ = ckpt.restore_state(self.train_dir, step=s)
+                leaves = [np.asarray(x) for x in tree_leaves(saved["params"])]
+                finite = all(np.isfinite(a).all() for a in leaves
+                             if np.issubdtype(a.dtype, np.floating))
+                state, extra, _ = (self._restore(step=s) if finite
+                                   else (None, None, None))
             except (*ckpt._FALLBACK_ERRORS, KeyError, TypeError) as e:
                 self._recovery_event({"layer": "train",
                                       "action": "rollback_candidate_unusable",
                                       "step": s, "error": str(e)})
                 continue
-            leaves = [np.asarray(x) for x in tree_leaves(saved["params"])]
-            if not all(np.isfinite(a).all() for a in leaves
-                       if np.issubdtype(a.dtype, np.floating)):
+            if not finite:
                 self._recovery_event({"layer": "train",
                                       "action": "rollback_candidate_poisoned",
                                       "step": s})
                 continue
-            self._adopt(saved, extra)
+            self._adopt(state, extra)
             logger.warning("nonfinite loss at step %d — rolled back to "
                            "checkpoint step=%d", err.step, self.state.step)
             self._recovery_event({"layer": "train", "action": "nan_rollback",
@@ -507,7 +603,7 @@ class Trainer:
 
     def evaluate(self, split: str = "test") -> dict[str, float]:
         """One full-split eval pass; also journals an ``eval`` record."""
-        res = run_full_eval(self.eval_fn, self.state.params,
+        res = run_full_eval(self.eval_fn, self.logical_params(),
                             getattr(self.datasets, split),
                             self.cfg.eval.eval_batch_size,
                             device=self.device, topo=self.topo)
@@ -719,7 +815,8 @@ class Trainer:
             "updates_applied": self.state.updates_applied,
             "last_metrics": final_metrics,
             "params_digest": ckpt.params_digest(
-                params_to_reference(self.state.params)),
+                params_to_reference(self.logical_params(),
+                                    keep_bfloat16=True)),
             "timing": self.collector.report(),
             "preempted": self._preempt_requested,
             "nan_rollbacks": rollbacks,

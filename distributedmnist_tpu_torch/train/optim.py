@@ -1,18 +1,35 @@
-"""Optimizers (≙ ``distributedmnist_tpu/train/optim.py``): ``sgd`` and
-``momentum`` as per-leaf update rules.
+"""Optimizers (≙ ``distributedmnist_tpu/train/optim.py``): ``sgd``,
+``momentum`` and the layer-wise trust-ratio optimizers ``lars``
+(arXiv:1708.03888) and ``lamb`` (arXiv:1904.00962) as per-leaf update
+rules.
 
-As in the reference, a leaf's update is computed in float32 and the
-new value cast back to the leaf's storage dtype; moment slots are
-float32. The slot layout is the reference's: ``None`` for stateless
-sgd, else one params-shaped tree. The port updates params and slots
-in place (the reference builds new arrays; its buffer donation reuses
-the memory just the same). ``lars`` and ``lamb`` are not ported yet.
+As in the reference, a leaf's update is computed in float32 and the new
+value cast back to the leaf's storage dtype (a bf16 param without
+master weights still takes its update in float32); slots are float32
+(:func:`slot_dtype`). The update rule sees either a whole logical leaf
+(the replicated update) or a flat region of one (the ZeRO-1 update,
+``parallel/api.py``): the only cross-element quantity is a sum of
+squares, which ``norm_reduce`` completes over the other processes'
+regions (zero padding adds nothing to it); ``adapt`` (weight decay and
+the trust ratio) comes from the leaf's logical rank, never from the
+flat region's. The slot layout is the reference's: ``None`` for
+stateless sgd, one params-shaped tree for momentum and LARS, ``{"m":
+tree, "v": tree}`` for LAMB. The port updates params and slots in place
+(the reference builds new arrays; its buffer donation reuses the memory
+just the same).
+
+Scalars round as the reference's weakly typed float32 ones do: a Python
+float ``c`` in ``c * x`` enters as ``float32(c)``, ``1 - b1`` is formed
+in double and then rounded, and LAMB's bias corrections ``b ** t`` are
+float32 powers of the float32 ``b`` and ``t``, taken on the host (where
+``t`` lives) by torch's scalar ``pow``, which gives XLA's values (numpy's
+float32 ``power`` differs from them by an ulp at about a fifth of ``t``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -22,14 +39,15 @@ from ..core.config import ConfigError, OptimConfig
 OPTIMIZER_NAMES = ("sgd", "momentum", "lars", "lamb")
 
 # update_leaf(p, g, slots, lr, t, norm_reduce, adapt) -> new slots;
-# writes the new p into p. The arguments are the reference's
-# (train/optim.py:194-207): ``t`` the 1-based update count (for bias
-# corrections), ``norm_reduce`` completing a norm's partial sum over a
-# sharded leaf, ``adapt`` whether a trust ratio applies to the leaf —
-# sgd and momentum read none of the three; LARS and LAMB will. ``lr`` is
-# a Python float holding a float32 value (the schedule's), so
-# ``lr * g`` rounds as the reference's float32 product does, and the
-# step enqueues no host-to-device copy for it.
+# writes the new p into p and the new slots into the slots. The
+# arguments are the reference's (train/optim.py:194-207): ``t`` the
+# 1-based update count (LAMB's bias corrections), ``norm_reduce``
+# completing a 0-d sum of squares over the other processes' regions of
+# a sharded leaf (identity for a whole leaf), ``adapt`` whether weight
+# decay and the trust ratio apply. ``lr`` is a Python float holding a
+# float32 value (the schedule's), so ``lr * g`` rounds as the
+# reference's float32 product does, and the step enqueues no
+# host-to-device copy for it.
 UpdateLeaf = Callable[..., tuple]
 
 
@@ -80,6 +98,71 @@ def saved_opt_state_kind(optim_dict: dict | None) -> str | None:
     return str(name)
 
 
+def slot_dtype(param_dtype: torch.dtype) -> torch.dtype:
+    """A slot's dtype: float32 for any floating param."""
+    return torch.float32 if param_dtype.is_floating_point else param_dtype
+
+
+# -- slot trees (None | tree | {"m": tree, "v": tree}) -----------------------
+
+_SLOT_KEYS = frozenset({"m", "v"})
+
+
+def is_slot_dict(opt_state: Any) -> bool:
+    """True for LAMB's two-slot ``{"m": tree, "v": tree}`` layout."""
+    return isinstance(opt_state, dict) and set(opt_state) == _SLOT_KEYS
+
+
+def map_slots(fn: Callable[[Any], Any], opt_state: Any) -> Any:
+    """``fn`` over each params-shaped slot tree, keeping the layout."""
+    if opt_state is None:
+        return None
+    if is_slot_dict(opt_state):
+        return {k: fn(tree) for k, tree in opt_state.items()}
+    return fn(opt_state)
+
+
+def slot_trees(opt: "Optimizer", opt_state: Any) -> list:
+    """The state as an ordered list of ``opt.num_slots`` trees."""
+    if opt.num_slots == 0:
+        return []
+    if opt.num_slots == 1:
+        return [opt_state]
+    return [opt_state["m"], opt_state["v"]]
+
+
+def from_slot_trees(opt: "Optimizer", trees: Sequence) -> Any:
+    if opt.num_slots == 0:
+        return None
+    if opt.num_slots == 1:
+        return trees[0]
+    return {"m": trees[0], "v": trees[1]}
+
+
+def init_slots(opt: "Optimizer", make_tree: Callable[[], Any]) -> Any:
+    """Zero state: ``make_tree()`` builds one slot tree, once a slot."""
+    return from_slot_trees(opt, [make_tree() for _ in range(opt.num_slots)])
+
+
+# -- the update rules ---------------------------------------------------------
+
+def _f32c(c: float) -> float:
+    """A Python scalar as the float32 value the reference computes with."""
+    return float(np.float32(c))
+
+
+def _norm(x32: torch.Tensor, norm_reduce) -> torch.Tensor:
+    return torch.sqrt(norm_reduce(torch.sum(x32 * x32)))
+
+
+def _ratio(num: torch.Tensor, den: torch.Tensor, scale=None) -> torch.Tensor:
+    """``scale·num / max(den, 1e-30)`` where both norms are positive, else
+    1 (a fresh zero leaf must still move)."""
+    top = num if scale is None else scale * num
+    r = top / torch.clamp(den, min=1e-30)
+    return torch.where((num > 0.0) & (den > 0.0), r, torch.ones_like(r))
+
+
 def _sgd_leaf(p: torch.Tensor, g: torch.Tensor, slots: tuple, lr: float,
               t: float, norm_reduce, adapt: bool) -> tuple:
     del slots, t, norm_reduce, adapt
@@ -100,6 +183,60 @@ def _make_momentum_leaf(mu: float) -> UpdateLeaf:
     return update
 
 
+def _make_lars_leaf(ocfg: OptimConfig) -> UpdateLeaf:
+    mu, eta, wd = (_f32c(ocfg.beta1), _f32c(ocfg.trust_coefficient),
+                   _f32c(ocfg.weight_decay))
+
+    def update(p, g, slots, lr, t, norm_reduce, adapt):
+        del t
+        (b,) = slots
+        p32, g32 = p.float(), g.float()
+        if adapt:
+            gw = g32 + wd * p32
+            # trust = eta·‖w‖/‖g + wd·w‖; 1 when either norm is 0
+            trust = _ratio(_norm(p32, norm_reduce), _norm(gw, norm_reduce),
+                           eta)
+            gw = trust * gw
+        else:
+            gw = g32  # biases and norms: no decay, no adaptation
+        nb = mu * b.float() + gw
+        p.copy_(p32 - lr * nb)
+        b.copy_(nb)
+        return (b,)
+    return update
+
+
+def _make_lamb_leaf(ocfg: OptimConfig) -> UpdateLeaf:
+    b1, b2 = _f32c(ocfg.beta1), _f32c(ocfg.beta2)
+    one_b1, one_b2 = _f32c(1.0 - ocfg.beta1), _f32c(1.0 - ocfg.beta2)
+    eps, wd = _f32c(ocfg.eps), _f32c(ocfg.weight_decay)
+
+    def correction(b: float, t: float) -> float:
+        """float32 ``1 - b ** t``."""
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+        return float(np.float32(1.0)
+                     - np.float32(torch.pow(f32(b), f32(t)).item()))
+
+    def update(p, g, slots, lr, t, norm_reduce, adapt):
+        m, v = slots
+        p32, g32 = p.float(), g.float()
+        nm = b1 * m.float() + one_b1 * g32
+        nv = b2 * v.float() + one_b2 * g32 * g32
+        m_hat = nm / correction(b1, t)
+        v_hat = nv / correction(b2, t)
+        u = m_hat / (torch.sqrt(v_hat) + eps)
+        if adapt:
+            u = u + wd * p32
+            ratio = _ratio(_norm(p32, norm_reduce), _norm(u, norm_reduce))
+            p.copy_(p32 - (lr * ratio) * u)
+        else:
+            p.copy_(p32 - lr * u)
+        m.copy_(nm)
+        v.copy_(nv)
+        return (m, v)
+    return update
+
+
 def make_optimizer(ocfg: OptimConfig) -> Optimizer:
     """Resolve the config into an optimizer (validating it)."""
     kind = opt_state_kind(ocfg)
@@ -108,5 +245,8 @@ def make_optimizer(ocfg: OptimConfig) -> Optimizer:
     if kind == "momentum":
         return Optimizer(kind="momentum", num_slots=1,
                          update_leaf=_make_momentum_leaf(ocfg.momentum))
-    raise NotImplementedError(f"optimizer {kind!r} is not ported yet (the "
-                              "port has sgd and momentum)")
+    if kind == "lars":
+        return Optimizer(kind="lars", num_slots=1,
+                         update_leaf=_make_lars_leaf(ocfg))
+    return Optimizer(kind="lamb", num_slots=2,
+                     update_leaf=_make_lamb_leaf(ocfg))

@@ -103,9 +103,20 @@ def test_make_train_iterator_and_device_copy():
 
 
 def test_unported_datasets_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        datasets.load_datasets(DataConfig(dataset="cifar10"))
-    # no download, no silent synthetic fallback: missing idx files raise
+    """No download and no silent synthetic fallback: a dataset whose
+    files are missing raises, naming the fixture writer (cifar10 is
+    ported now: once its fixture is written, it loads)."""
+    cifar = DataConfig(dataset="cifar10", data_dir=str(tmp_path / "c10"))
+    with pytest.raises(FileNotFoundError,
+                       match="materialize_cifar10_fixture"):
+        datasets.load_datasets(cifar)
+    from distributedmnist_tpu_torch.data.fixtures import (
+        materialize_cifar10_fixture)
+    materialize_cifar10_fixture(tmp_path / "c10", num_train=100,
+                                num_test=20)
+    ds = datasets.load_datasets(cifar)
+    assert ds.train.images.shape == (90, 32, 32, 3)
+    assert ds.validation.num_examples == 10 and ds.test.num_examples == 20
     with pytest.raises(FileNotFoundError, match="materialize_idx_fixture"):
         datasets.load_datasets(DataConfig(dataset="mnist",
                                           data_dir=str(tmp_path)))

@@ -50,7 +50,10 @@ TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               # the serving tier: classification, hot-follow and swaps,
               # the quantized tiers, the client and the load generator
               "quant", "quant.ptq", "servesvc.server", "servesvc.decode",
-              "servesvc.client", "servesvc.loadgen")
+              "servesvc.client", "servesvc.loadgen",
+              # the rest of the data-parallel step: the CIFAR-10 fixture,
+              # ResNet-20 and the ZeRO-1 plan
+              "data.fixtures", "models.resnet", "parallel.partition_rules")
 
 
 def test_port_modules_load_no_jax():

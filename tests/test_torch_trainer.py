@@ -212,8 +212,14 @@ def test_launch_train_prints_summary_and_wants_cuda(tmp_path, capsys):
 
 
 def test_unported_loop_knobs_raise(tmp_path):
+    """The profiler windows still raise; accumulation builds now (its
+    effective batch counts every microbatch)."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Trainer(_cfg(SMALL, tmp_path, profile_steps=[1, 3]), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        Trainer(_cfg(SMALL, tmp_path, trace_every_steps=5), device="cpu")
+    t = Trainer(_cfg(SMALL, tmp_path, grad_accum_steps=2), device="cpu")
+    assert t.effective_batch == 2 * SMALL["data"]["batch_size"]
     # train.durability is ported: a known policy builds, an unknown one
     # is the reference's ConfigError
     from distributedmnist_tpu_torch.core.config import ConfigError

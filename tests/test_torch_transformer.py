@@ -192,8 +192,15 @@ def test_decode_step_rejects_unknown_kernel(models):
 
 
 def test_registry_refuses_what_is_not_ported():
+    """ResNet-20 is ported (it builds, vmappable, with no
+    ``predictions`` as in the reference); mixture-of-experts FFNs and
+    unknown families still raise."""
+    resnet = get_model(ModelConfig(name="resnet20", image_size=32,
+                                   num_channels=3))
+    assert resnet.vmap_replicas and resnet.predictions is None
+    assert resnet.input_shape == (32, 32, 3)
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_model(ModelConfig(name="resnet20"))
+        get_model(ModelConfig(name="vit"))
     with pytest.raises(NotImplementedError, match="not ported"):
         get_model(ModelConfig(**{**LM_MODEL, "num_experts": 2}))
 
