@@ -19,8 +19,12 @@ random weights from a seed:
   16-token blocks, 320 blocks, prompts up to 512, up to 64 new tokens)
   serving the checkpoint the training phase wrote;
 
-and the MNIST CNN's sync SGD (the source paper's path) at its published
-widths, on one process and across worker processes; ResNet-20 on
+the same training configuration over 8 simulated replicas in quorum
+k = 5 (one flash launch a layer for every replica) and
+``bench.py bench_flash_long_context``'s model at S = 8192 under each
+remat policy; a sweep of two of the repository's configs with its
+report and the port's invariant checkers; and the MNIST CNN's sync SGD
+(the source paper's path) at its published widths, on one process and across worker processes; ResNet-20 on
 CIFAR-10 (``configs/cifar10_resnet20_sync.json`` on a fixture written
 at the archive's size) with the rest of the data-parallel step's knobs
 — LARS/LAMB, gradient accumulation, bf16 params with and without
@@ -50,7 +54,9 @@ One JSON line per phase:
                 the decode shapes, K1 also at the evaluator's batch
                 (``eval``'s shape); K1-lse (forward with log-sum-exp),
                 K2 (dq), K3 (dk, dv) at the training shape and K4
-                (fused backward) at the short run's; max abs error
+                (fused backward) at the short run's, and K1-lse, K2 and
+                K3 at the long-context shape [2, 8192, 8, 128]; max abs
+                error
                 beside the stated tolerance, the relative error of the
                 whole output beside its own, the mean |plain output|,
                 kernel / plain / library times (CUDA events, device
@@ -75,7 +81,41 @@ One JSON line per phase:
                 kernels against one through their plain versions, as in
                 ``train``; 5 steps of the Trainer with K4 launched 4 times
                 a step, K2 and K3 never; ms per step and tokens/s.
-6. ``cnn``      — the MNIST CNN sync-SGD path (the source paper's), no
+6. ``train_replicas`` — the training configuration at 8 simulated
+                replicas (global batch 16, 2 sequences a replica),
+                quorum k = 5 over lognormal stragglers, 10 steps of the
+                Trainer with its profile window over steps [4, 6)
+                (``train.profile_steps``): one step through the kernels
+                against one through their plain versions (``train``'s
+                tolerances); losses finite and falling,
+                ``num_contributors`` 5 every step; K1-lse, K2 and K3
+                launched 4 times a step (the Functions' vmap rules fold
+                the replicas into one launch a layer); the window's
+                Chrome trace read back: device ms by class, idle share,
+                the flash kernels' names (K1-lse, K2, K3 checked); ms a
+                step by CUDA events beside the one-replica ``train``
+                step and beside the same step with the replicas looped
+                (32 launches each a step), peak memory.
+7. ``long_context`` — ``bench_flash_long_context``'s model (d 1024, 2
+                layers, 8 heads of 128, S = 8192, batch 2, bf16,
+                flash) under remat ``full``, ``save_attn`` and off: one
+                Trainer step each with the counters read (K1-lse 4, 2,
+                2; K2 and K3 2), losses and params after it against the
+                arm without remat (``train``'s tolerances; whether
+                bitwise printed), then ``LONG_TIMED`` steps by CUDA
+                events: tokens/s, model TFLOP/s (bench.py's count: 3 ×
+                the forward's matmul and attention FLOPs), peak memory
+                (checked: lower under ``full`` than without remat).
+8. ``report``   — ``configs/quorum_k4_of_8.json`` and
+                ``configs/interval_3000ms.json`` copied with
+                ``max_steps`` ``SWEEP_STEPS``, the port's MNIST idx
+                fixture as ``data_dir`` and 8 simulated replicas;
+                ``launch sweep`` on them (in process, on the card),
+                ``launch report`` on one run (``stats.json``), the
+                port's ``check_metrics_log``, ``check_checkpoint_dir``
+                and ``check_discipline`` on every run (no violation),
+                ``launch devices`` naming the card; K1-K5 0.
+9. ``cnn``      — the MNIST CNN sync-SGD path (the source paper's), no
                 flash or paged kernel in it (its convolutions and GEMMs
                 are cuDNN/cuBLAS calls, as the reference's are XLA ops;
                 the line carries the K1-K5 counters, all 0): the
@@ -101,7 +141,7 @@ One JSON line per phase:
                 convolution's setting read as it runs; cuDNN's
                 process-wide settings the same after the phase as
                 before it.
-7. ``dist``     — the CNN's sync SGD across worker processes, each a
+10. ``dist``    — the CNN's sync SGD across worker processes, each a
                 ``python -c`` child with ``torchrun``'s environment
                 (free localhost port) that imports only the port, builds
                 the Trainer through the CLI's ``build_trainer`` and is
@@ -144,7 +184,7 @@ One JSON line per phase:
                 ``python3 -c "import json, tempfile, chip_smoke as cs;
                 d = tempfile.mkdtemp(); print(json.dumps(
                 cs._dist_zero1_nccl(d)))"``.
-8. ``resnet``   — the CIFAR-10 fixture written at the archive's size
+11. ``resnet``  — the CIFAR-10 fixture written at the archive's size
                 (50,000 / 10,000) by the port's ``data/fixtures.py``;
                 ``launch train`` on ``configs/cifar10_resnet20_sync.json``
                 through ``build_trainer`` with only ``data.data_dir``
@@ -177,7 +217,7 @@ One JSON line per phase:
                 ones, the cursor at 5 batches, one more step) and a
                 resume under momentum refused with
                 ``OptimizerStateMismatchError``.
-9. ``e2e``      — boots the decode replica on the training phase's
+12. ``e2e``     — boots the decode replica on the training phase's
                 checkpoint through the CLI's ``build_replica``,
                 streams 8 concurrent greedy requests over its socket,
                 and checks:
@@ -188,7 +228,7 @@ One JSON line per phase:
                 iteration; one prefill plus 3 decode steps through the
                 kernels within a stated tolerance of the plain versions.
                 Prints tokens/s, TTFT p50 and inter-token p50.
-10. ``ckpt``    — the training configuration, 15 steps with a save every
+13. ``ckpt``    — the training configuration, 15 steps with a save every
                 5 (keep 2) in three arms: saves on the step loop
                 (``train.async_checkpoint=false``), the host fetch on
                 the loop and the write on the writer thread
@@ -214,7 +254,7 @@ One JSON line per phase:
                 float32 arrays, 5 interleaved repeats × 3 saves) under
                 ``none``, ``data`` and ``full``: median walls printed,
                 fsyncs a save checked against the reference's count.
-11. ``eval``    — ``launch eval``'s Evaluator in process on the ``ckpt``
+14. ``eval``    — ``launch eval``'s Evaluator in process on the ``ckpt``
                 phase's transformer checkpoint: K1 launched 4 times a
                 batch, precision equal to and loss within
                 ``EVAL_LOSS_TOL`` of the Trainer's ``evaluate`` of the
@@ -226,7 +266,7 @@ One JSON line per phase:
                 printed line the source paper's format, each result
                 equal to an in-process eval of that step (loss within
                 ``COLOC_LOSS_RTOL``), ``follow_skip`` records printed.
-12. ``serve``   — one line a part, then the phase's seconds. ``cnn``:
+15. ``serve``   — one line a part, then the phase's seconds. ``cnn``:
                 ``launch train`` on the MNIST CNN at its published widths
                 (``SERVE_CNN``: float32, 60 steps, a save every 10,
                 ``quant.publish_tiers=int8,bf16``, 128 calibration
@@ -273,7 +313,10 @@ Then a ``kernels`` summary line (per kernel also its ``variant`` —
 bf16 call takes — and the build phase's instantiation, registers,
 spills, shared memory and blocks per SM at the timed shape; for K1 also
 ``launches_eval``, the eval phase's count, and ``launches_serve``, the
-serve phase's by path; for K5 also ``launches_serve`` and
+serve phase's by path; for K1-lse, K2 and K3 also
+``launches_replicas`` (the ``train_replicas`` run), ``launches_long_context``
+by remat arm and ``long_context``, the kernel timed at that shape; for
+K5 also ``launches_serve`` and
 ``ms_cold``, and ``ms_in_place``, its share of the decode-step profile
 a launch, beside ``bound_ms_in_place`` for the profile's lengths), the
 card's name and power limit
@@ -284,8 +327,10 @@ phase and exits nonzero before the result line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -356,6 +401,28 @@ TRAIN = {"name": "chip_smoke_train", "model": MODEL, "decode": DECODE,
                    "summary_every_steps": 0, "seed": SEED}}
 # the short run: the same model at a sequence that fits one tile (K4)
 K4_SEQ, K4_BATCH, K4_STEPS = 64, 64, 5
+# the training configuration over 8 simulated replicas, in the
+# reference's quorum run (tests/test_transformer_train.py
+# test_transformer_quorum_mode: k = 5 of 8, lognormal stragglers); the
+# Trainer's profile window over steps [4, 6)
+REPLICAS, REPLICA_K, REPLICA_STEPS, REPLICA_WINDOW = 8, 5, 10, (4, 6)
+# bench.py bench_flash_long_context's model and batch, a few timed
+# steps in each remat arm (K1-lse launches a step: twice a layer under
+# full remat, which reruns the block's forward in the backward)
+LONG = {"model_dim": 1024, "num_layers": 2, "num_heads": 8,
+        "seq_len": 8192, "batch": 2}
+LONG_TIMED = 3
+REMAT_ARMS = {"full": ("model.remat=true", "model.remat_policy=full"),
+              "save_attn": ("model.remat=true",
+                            "model.remat_policy=save_attn"),
+              "off": ("model.remat=false",)}
+LONG_K1_LSE_PER_LAYER = {"full": 2, "save_attn": 1, "off": 1}
+# the report phase: two of the repository's sweep configs, cut to
+# SWEEP_STEPS steps, on the port's MNIST idx fixture and 8 simulated
+# replicas (the reference's runs had 8 chips)
+SWEEP_CONFIGS = ("configs/quorum_k4_of_8.json",
+                 "configs/interval_3000ms.json")
+SWEEP_STEPS = 20
 # one train step through the kernels vs through their plain versions
 # from the same params and batch (bf16 compute): attention outputs and
 # gradients differ by a bf16 ulp here and there, which moves the loss
@@ -802,20 +869,21 @@ def _agreement(got, want, tol) -> dict:
             "mean_abs_plain": w.abs().mean().item()}
 
 
-def _train_attn_inputs(b: int, s: int, dtype, gen):
+def _train_attn_inputs(b: int, s: int, dtype, gen,
+                       h: int = MODEL["num_heads"]):
     """The training path's attention inputs: strided q/k/v views of one
-    [b, s, 3, d] qkv product, and a cotangent."""
+    [b, s, 3, h·d] qkv product (head_dim 128), and a cotangent."""
     import torch
-    h, d = MODEL["num_heads"], MODEL["model_dim"] // MODEL["num_heads"]
+    d = MODEL["model_dim"] // MODEL["num_heads"]
     qkv = torch.randn(b, s, 3, h * d, device=DEVICE, generator=gen).to(dtype)
     q, k, v = (qkv[:, :, i].view(b, s, h, d) for i in range(3))
     do = torch.randn(b, s, h, d, device=DEVICE, generator=gen).to(dtype)
     return q, k, v, do
 
 
-def _attn_pairs(b: int, s: int) -> float:
+def _attn_pairs(b: int, s: int, h: int) -> float:
     """Causal (query, key) pairs of one call, over every head."""
-    return b * MODEL["num_heads"] * s * (s + 1) / 2
+    return b * h * s * (s + 1) / 2
 
 
 def _sdpa_ms(q, k, v, do) -> tuple[float, float]:
@@ -834,11 +902,12 @@ def _sdpa_ms(q, k, v, do) -> tuple[float, float]:
     return fwd_ms, total_ms - fwd_ms
 
 
-def _k1_lse_case(b: int, s: int, dtype, gen, timed: bool) -> dict:
+def _k1_lse_case(b: int, s: int, dtype, gen, timed: bool,
+                 h: int = MODEL["num_heads"]) -> dict:
     import torch
 
     from distributedmnist_tpu_torch.ops import flash_attention as fa
-    q, k, v, do = _train_attn_inputs(b, s, dtype, gen)
+    q, k, v, do = _train_attn_inputs(b, s, dtype, gen, h)
     o, lse = fa.flash_attention_fwd_lse(q, k, v)
     torch.cuda.synchronize()
     want_o, want_lse = fa.flash_attention_fwd_lse_plain(q, k, v)
@@ -855,7 +924,7 @@ def _k1_lse_case(b: int, s: int, dtype, gen, timed: bool) -> dict:
     if timed:
         bb, ss, h, d = q.shape
         nbytes = 4 * bb * ss * h * d * q.element_size() + bb * h * ss * 4
-        t, by = bound(nbytes, 4 * d * _attn_pairs(bb, ss), name)
+        t, by = bound(nbytes, 4 * d * _attn_pairs(bb, ss, h), name)
         fwd_ms, bwd_ms = _sdpa_ms(q, k, v, do)
         rec.update(ms=time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v)),
                    plain_ms=time_ms(
@@ -875,14 +944,14 @@ _BWD = {"K2": ((0,), 5, 1, 3), "K3": ((1, 2), 5, 2, 4),
 
 
 def _bwd_case(kernel: str, b: int, s: int, dtype, gen,
-              timed: bool) -> dict:
+              timed: bool, h: int = MODEL["num_heads"]) -> dict:
     import torch
 
     from distributedmnist_tpu_torch.ops import flash_attention as fa
     fn = {"K2": fa.flash_attention_bwd_dq, "K3": fa.flash_attention_bwd_dkv,
           "K4": fa.flash_attention_bwd_fused}[kernel]
     outs, n_in, n_out, products = _BWD[kernel]
-    q, k, v, do = _train_attn_inputs(b, s, dtype, gen)
+    q, k, v, do = _train_attn_inputs(b, s, dtype, gen, h)
     o, lse = fa.flash_attention_fwd_lse_plain(q, k, v)
     got = fn(q, k, v, o, lse, do)
     got = got if isinstance(got, tuple) else (got,)
@@ -902,7 +971,8 @@ def _bwd_case(kernel: str, b: int, s: int, dtype, gen,
         bb, ss, h, d = q.shape
         nbytes = ((n_in + n_out) * bb * ss * h * d * q.element_size()
                   + bb * h * ss * 4)
-        t, by = bound(nbytes, products * 2 * d * _attn_pairs(bb, ss), name)
+        t, by = bound(nbytes, products * 2 * d * _attn_pairs(bb, ss, h),
+                      name)
         _, bwd_ms = _sdpa_ms(q, k, v, do)
         rec.update(ms=time_ms(lambda: fn(q, k, v, o, lse, do)),
                    # the plain backward computes dq, dk and dv at once
@@ -943,17 +1013,31 @@ def phase_kernels() -> dict:
         train_cases.append(_bwd_case("K3", b, seq, dtype, gen, timed))
         train_cases.append(_bwd_case("K4", k4_b, K4_SEQ, dtype, gen, timed))
         torch.cuda.empty_cache()
-    emit({"phase": "kernels", "cases": train_cases})
-    for c in train_cases:
+    # the long-context path's shape (bench.py bench_flash_long_context)
+    lc_b, lc_s, lc_h = LONG["batch"], LONG["seq_len"], LONG["num_heads"]
+    long_cases = [_k1_lse_case(lc_b, lc_s, torch.bfloat16, gen, True, lc_h)]
+    for kernel in ("K2", "K3"):
+        torch.cuda.empty_cache()
+        long_cases.append(_bwd_case(kernel, lc_b, lc_s, torch.bfloat16, gen,
+                                    True, lc_h))
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "cases": train_cases + long_cases})
+    for c in train_cases + long_cases:
         check(c["tol_ratio"] <= 1.0,
-              f"{c['kernel']} {c['dtype']} disagrees with its plain "
-              f"version beyond atol + rtol |plain| {c['tol']}: "
+              f"{c['kernel']} {c['dtype']} {c['shape']} disagrees with its "
+              f"plain version beyond atol + rtol |plain| {c['tol']}: "
               f"max abs err {c['max_abs_err']}")
-    for c in cases + train_cases:
+    for c in cases + train_cases + long_cases:
         check(c["rel_err"] <= c["rel_tol"],
-              f"{c['kernel']} {c['dtype']} disagrees with its plain "
-              f"version: relative error {c['rel_err']} > {c['rel_tol']}")
+              f"{c['kernel']} {c['dtype']} {c.get('shape', '')} disagrees "
+              f"with its plain version: relative error {c['rel_err']} > "
+              f"{c['rel_tol']}")
     timed = {c["kernel"]: c for c in cases + train_cases if "ms" in c}
+    for c in long_cases:
+        timed[c["kernel"]]["long_context"] = {
+            k: c[k] for k in ("shape", "max_abs_err", "rel_err", "ms",
+                              "plain_ms", "library_ms", "bound_ms",
+                              "bound_by")}
     return timed
 
 
@@ -1151,18 +1235,23 @@ def _plain_attention():
     from distributedmnist_tpu_torch.ops import flash_attention as fa
 
     class Plain(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, q, k, v):
-            o, lse = fa.flash_attention_fwd_lse_plain(q, k, v)
-            ctx.save_for_backward(q, k, v, o, lse)
-            return o
+        generate_vmap_rule = True  # the 8-replica step vmaps it
 
         @staticmethod
-        def backward(ctx, do):
+        def forward(q, k, v):
+            return fa.flash_attention_fwd_lse_plain(q, k, v)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.mark_non_differentiable(output[1])
+            ctx.save_for_backward(*inputs, *output)
+
+        @staticmethod
+        def backward(ctx, do, _dlse):
             return fa.flash_attention_bwd_plain(*ctx.saved_tensors, do)
 
     def attn(q, k, v):
-        return Plain.apply(q, k, v)
+        return Plain.apply(q, k, v)[0]
 
     attn.layout = "bshd"
     return attn
@@ -1198,20 +1287,34 @@ def _step_vs_plain(trainer, batch) -> tuple[float, float]:
                              for a, b in zip(p1, p2))
 
 
-def _time_steps(trainer, batch, steps: int = 5) -> float:
-    """Device ms of one train step (CUDA events around ``steps``)."""
+def _time_steps(trainer, batch, steps: int = 5, step_fn=None) -> float:
+    """Device ms of one train step (CUDA events around ``steps``) of
+    ``step_fn`` (the trainer's own by default) on the trainer's state."""
     import torch
+    step_fn = step_fn or trainer.step_fn
     state = trainer.state
-    state, _ = trainer.step_fn(state, batch)  # warm
+    state, _ = step_fn(state, batch)  # warm
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(steps):
-        state, _ = trainer.step_fn(state, batch)
+        state, _ = step_fn(state, batch)
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / steps
+
+
+def _kernel_class(name: str) -> str:
+    """A transformer step's kernel by class: the flash kernels
+    (K1-lse/K2/K3/K4, either variant), GEMMs, or other."""
+    name = name.lower()
+    if any(k in name for k in ("flash_fwd_", "bwd_dq_", "bwd_dkv_",
+                               "bwd_fused_")):
+        return "attention"
+    if any(k in name for k in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
+        return "gemm"
+    return "other"
 
 
 def _profile_train_step(trainer, batch, wall_ms: float,
@@ -1239,13 +1342,7 @@ def _profile_train_step(trainer, batch, wall_ms: float,
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        name = e.key.lower()
-        cls = ("attention" if any(k in name for k in (
-                   "flash_fwd_", "bwd_dq_", "bwd_dkv_", "bwd_fused_")) else
-               "gemm" if any(k in name for k in ("gemm", "gemv", "xmma",
-                                                 "cutlass", "nvjet"))
-               else "other")
-        by_class[cls] += us / 1e3 / steps
+        by_class[_kernel_class(e.key)] += us / 1e3 / steps
         launches += e.count
         top.append((us / 1e3 / steps, e.key[:60]))
     busy = sum(by_class.values())
@@ -1300,6 +1397,15 @@ def _train_lamb_arm(tmp: str, batch, layers: int) -> dict:
     return rec
 
 
+def _train_flops(batch: int) -> float:
+    """bench.py's count for one training step of ``MODEL`` at
+    ``batch`` sequences: the forward's matmul and attention FLOPs a
+    token, × 3 for forward and backward."""
+    d, V, S = MODEL["model_dim"], MODEL["vocab_size"], MODEL["seq_len"]
+    per_token = MODEL["num_layers"] * (24 * d * d + 2 * S * d) + 2 * d * V
+    return 3 * per_token * batch * S
+
+
 def phase_train(tmp: str) -> dict:
     import torch
 
@@ -1349,9 +1455,7 @@ def phase_train(tmp: str) -> dict:
     ms = _time_steps(trainer, batch)
     profile = _profile_train_step(trainer, batch, ms)
     lamb = _train_lamb_arm(tmp, batch, layers)
-    d, V = MODEL["model_dim"], MODEL["vocab_size"]
-    # bench.py's count: fwd matmul FLOPs per token, x3 for fwd + bwd
-    flops = 3 * (layers * (24 * d * d + 2 * S * d) + 2 * d * V) * B * S
+    flops = _train_flops(B)
     rec = {"phase": "train", "steps": TRAIN_STEPS, "batch": B, "seq": S,
            "first_loss": losses[0], "last_loss": losses[-1],
            "launches": counts, "per_step": {
@@ -1410,6 +1514,288 @@ def phase_train_k4(tmp: str) -> dict:
     check(loss_diff <= STEP_LOSS_TOL and param_diff <= STEP_PARAM_TOL,
           f"kernel step vs plain step at seq {K4_SEQ}: loss diff "
           f"{loss_diff}, param diff {param_diff}")
+    return rec
+
+
+# -- the transformer over replicas, long context, the report --------------
+
+def _trace_breakdown(path, steps: int) -> dict:
+    """A Trainer profile window's Chrome trace (``trace.json``) read
+    back: device ms a step by class (:func:`_kernel_class`), the window's
+    device span a step (first kernel start to last kernel end) and the
+    idle share 1 - busy / span, kernels a step, the largest kernels, and
+    the flash kernels' names found."""
+    events = [e for e in json.loads(open(path).read())["traceEvents"]
+              if e.get("cat") == "kernel"]
+    check(bool(events), f"{path} holds no device kernel")
+    by_class = {"gemm": 0.0, "attention": 0.0, "other": 0.0}
+    by_name: dict = {}
+    for e in events:
+        ms = e["dur"] / 1e3 / steps
+        by_class[_kernel_class(e["name"])] += ms
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + ms
+    busy = sum(by_class.values())
+    span = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events)) / 1e3 / steps
+    flash = sorted({n for n in by_name if _kernel_class(n) == "attention"})
+    return {"steps": steps, "device_busy_ms": busy, "span_ms": span,
+            "device_idle_share": 1 - busy / span,
+            "busy_ms_by_class": by_class,
+            "kernels_per_step": len(events) / steps,
+            "top_kernels_ms": [[round(t, 3), n[:60]] for t, n in sorted(
+                ((t, n) for n, t in by_name.items()), reverse=True)[:8]],
+            "flash_kernels": [n[:60] for n in flash]}
+
+
+def phase_train_replicas(tmp: str, one_replica_ms: float) -> dict:
+    """The training configuration over 8 simulated replicas in quorum
+    k = 5 through the Trainer (the flash Functions' vmap rules fold the
+    replicas into one launch a layer), with its profile window."""
+    import torch
+
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.parallel.api import build_train_step
+    trainer = _build_trainer(
+        tmp, "train_replicas", f"mesh.num_replicas={REPLICAS}",
+        "sync.mode=quorum", f"sync.num_replicas_to_aggregate={REPLICA_K}",
+        "sync.straggler_profile=lognormal",
+        f"train.max_steps={REPLICA_STEPS}",
+        f"train.profile_steps={list(REPLICA_WINDOW)}")
+    check(trainer.topo.num_replicas == REPLICAS
+          and trainer.topo.local_replica_count == REPLICAS
+          and trainer.model.vmap_replicas, "not 8 vmapped local replicas")
+    B = TRAIN["data"]["batch_size"]
+    tr = trainer.datasets.train
+    batch = to_device({"image": tr.images[:B], "label": tr.labels[:B]},
+                      trainer.device)
+    loss_diff, param_diff = _step_vs_plain(trainer, batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, contributors = [], []
+
+    def on_step(step, rec):
+        losses.append(rec["loss"])
+        contributors.append(rec["num_contributors"])
+
+    reset_counts()
+    trainer.run(step_callback=on_step)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers = MODEL["num_layers"]
+    trace = trainer.train_dir / "profile" / "trace.json"
+    check(trace.is_file(), f"no profile window trace at {trace}")
+    window = _trace_breakdown(trace, REPLICA_WINDOW[1] - REPLICA_WINDOW[0])
+    ms = _time_steps(trainer, batch)
+    # the same step with the replicas one at a time (plain autograd):
+    # 8 launches a layer of batch 2 instead of one of batch 16
+    loop_step = build_train_step(
+        dataclasses.replace(trainer.model, vmap_replicas=False),
+        trainer.cfg, trainer.schedule, trainer.topo)
+    reset_counts()
+    loop_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    loop_counts = read_counts()
+    loop_ms = _time_steps(trainer, batch, step_fn=loop_step)
+    rec = {"phase": "train_replicas", "replicas": REPLICAS, "k": REPLICA_K,
+           "steps": REPLICA_STEPS, "batch": B, "losses": losses,
+           "num_contributors": contributors, "launches": counts,
+           "per_step": {k: counts[k] / REPLICA_STEPS
+                        for k in ("K1-lse", "K2", "K3")},
+           "step_vs_plain": {"loss_abs_diff": loss_diff,
+                             "loss_tol": STEP_LOSS_TOL,
+                             "param_max_abs_diff": param_diff,
+                             "param_tol": STEP_PARAM_TOL},
+           "ms_per_step": ms, "one_replica_ms_per_step": one_replica_ms,
+           "vs_one_replica": ms / one_replica_ms,
+           "tokens_per_s": B * MODEL["seq_len"] / (ms / 1e3),
+           "model_tflops_per_s": _train_flops(B) / (ms / 1e3) / 1e12,
+           "loop": {"ms_per_step": loop_ms, "per_step": {
+               k: loop_counts[k] for k in ("K1-lse", "K2", "K3")}},
+           "peak_mem_gb": peak_gb, "profile_window": window}
+    emit(rec)
+    check(len(losses) == REPLICA_STEPS and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0], f"losses {losses}")
+    check(all(c == REPLICA_K for c in contributors),
+          f"num_contributors {contributors}")
+    for k in ("K1-lse", "K2", "K3"):
+        check(counts[k] == layers * REPLICA_STEPS
+              and loop_counts[k] == layers * REPLICAS,
+              f"{k}: {counts[k]} launches in {REPLICA_STEPS} steps "
+              f"(folded), {loop_counts[k]} in one looped step")
+    check(counts["K1"] == counts["K4"] == counts["K5"] == 0,
+          f"unexpected launches {counts}")
+    check(loss_diff <= STEP_LOSS_TOL and param_diff <= STEP_PARAM_TOL,
+          f"8-replica kernel step vs plain step: loss diff {loss_diff}, "
+          f"param diff {param_diff}")
+    names = " ".join(window["flash_kernels"])
+    check(all(k in names for k in ("flash_fwd", "bwd_dq", "bwd_dkv")),
+          f"the profile window shows no K1-lse/K2/K3: {names}")
+    return rec
+
+
+def _long_trainer(tmp: str, arm: str):
+    return _build_trainer(
+        tmp, f"long_{arm}", *REMAT_ARMS[arm],
+        f"model.model_dim={LONG['model_dim']}",
+        f"model.num_layers={LONG['num_layers']}",
+        f"model.num_heads={LONG['num_heads']}",
+        f"model.seq_len={LONG['seq_len']}",
+        f"data.batch_size={LONG['batch']}", "data.synthetic_train_size=8",
+        "data.synthetic_test_size=2", "train.max_steps=1")
+
+
+def phase_long_context(tmp: str) -> dict:
+    """``bench.py bench_flash_long_context``'s model at S = 8192 in
+    three arms — remat ``full``, ``save_attn`` and off: one step
+    through the Trainer each (launch counts; losses and params held
+    against the arm without remat), then timed steps and peak memory."""
+    import gc
+
+    import torch
+
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    B, S, L = LONG["batch"], LONG["seq_len"], LONG["num_layers"]
+    d, V = LONG["model_dim"], MODEL["vocab_size"]
+    fwd_per_token = L * (24 * d * d + 2 * S * d) + 2 * d * V
+    arms, params = {}, {}
+    for arm in ("off", "full", "save_attn"):
+        trainer = _long_trainer(tmp, arm)
+        tr = trainer.datasets.train
+        batch = to_device({"image": tr.images[:B], "label": tr.labels[:B]},
+                          trainer.device)
+        losses = []
+        reset_counts()
+        trainer.run(step_callback=lambda step, r: losses.append(r["loss"]))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        params[arm] = [p.cpu() for p in tree_leaves(trainer.state.params)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_steps(trainer, batch, LONG_TIMED)
+        arms[arm] = {"launches": counts, "loss": losses[0],
+                     "ms_per_step": ms,
+                     "tokens_per_s": B * S / (ms / 1e3),
+                     "model_tflops_per_s":
+                         3 * fwd_per_token * B * S / (ms / 1e3) / 1e12,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del trainer, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arm in ("full", "save_attn"):
+        a = arms[arm]
+        a["loss_abs_diff_vs_off"] = abs(a["loss"] - arms["off"]["loss"])
+        a["param_max_abs_diff_vs_off"] = max(
+            (x - y).abs().max().item()
+            for x, y in zip(params[arm], params["off"]))
+        a["bitwise_vs_off"] = (a["loss"] == arms["off"]["loss"] and all(
+            torch.equal(x, y) for x, y in zip(params[arm], params["off"])))
+    rec = {"phase": "long_context", **LONG, "vocab_size": V,
+           "flops_per_step": 3 * fwd_per_token * B * S, "arms": arms}
+    emit(rec)
+    for arm, a in arms.items():
+        c = a["launches"]
+        check(c["K1-lse"] == LONG_K1_LSE_PER_LAYER[arm] * L
+              and c["K2"] == c["K3"] == L
+              and c["K1"] == c["K4"] == c["K5"] == 0,
+              f"remat {arm}: launches {c}")
+        check(math.isfinite(a["loss"]), f"remat {arm}: loss {a['loss']}")
+    for arm in ("full", "save_attn"):
+        a = arms[arm]
+        check(a["loss_abs_diff_vs_off"] <= STEP_LOSS_TOL
+              and a["param_max_abs_diff_vs_off"] <= STEP_PARAM_TOL,
+              f"remat {arm} vs off after one step: {a}")
+    check(arms["full"]["peak_mem_gb"] < arms["off"]["peak_mem_gb"],
+          f"full remat peak {arms['full']['peak_mem_gb']} GB is not below "
+          f"the {arms['off']['peak_mem_gb']} GB without remat")
+    return rec
+
+
+def _launch_verb(argv: list) -> str:
+    """``python -m distributedmnist_tpu_torch.launch <argv>`` in this
+    process (the CLI's ``main``); returns what it printed."""
+    from distributedmnist_tpu_torch.launch.__main__ import main as launch
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch(list(argv))
+    return out.getvalue()
+
+
+def phase_report(tmp: str) -> dict:
+    """``launch sweep`` on two of the repository's sweep configs (cut to
+    ``SWEEP_STEPS`` steps) on the card, ``launch report`` on one run,
+    the port's single-run invariants on every run's artifacts, and
+    ``launch devices``."""
+    from pathlib import Path
+
+    import torch
+
+    from distributedmnist_tpu_torch.data.fixtures import \
+        materialize_idx_fixture
+    from distributedmnist_tpu_torch.obsv import invariants as inv
+    t0 = time.time()
+    data_dir = materialize_idx_fixture(f"{tmp}/mnist")
+    cfg_dir, results = Path(tmp) / "sweep_cfgs", Path(tmp) / "sweep"
+    cfg_dir.mkdir()
+    for path in SWEEP_CONFIGS:
+        cfg = json.loads(Path(path).read_text())
+        cfg["train"]["max_steps"] = SWEEP_STEPS
+        cfg["data"]["data_dir"] = str(data_dir)
+        cfg["mesh"] = {"simulate_devices": REPLICAS}
+        (cfg_dir / Path(path).name).write_text(json.dumps(cfg))
+    reset_counts()
+    printed = json.loads(_launch_verb(
+        ["sweep", "--configs", str(cfg_dir), "--results", str(results)]
+    ).strip().splitlines()[-1])
+    counts = read_counts()
+    rows = [json.loads(x) for x in
+            (results / "sweep_results.jsonl").read_text().splitlines()]
+    first = rows[0]["name"]
+    _launch_verb(["report", "--train_dir", str(results / first / "train"),
+                  "--out", str(results / "report")])
+    stats = json.loads((results / "report" / "stats.json").read_text())
+    verdicts = {}
+    for r in rows:
+        w = results / r["name"] / "train"
+        log = inv.load_jsonl(w / "train_log.jsonl")
+        steps = [x for x in log if x.get("event") == "step"]
+        disc, applicable = inv.check_discipline(steps, log)
+        verdicts[r["name"]] = {
+            "metrics_log": [v.to_dict() for v in
+                            inv.check_metrics_log(steps, 0)],
+            "checkpoint_integrity": [v.to_dict() for v in
+                                     inv.check_checkpoint_dir(w)],
+            "discipline": [v.to_dict() for v in disc],
+            "discipline_applicable": applicable}
+    devices = json.loads(_launch_verb(["devices"]))
+    rec = {"phase": "report", "seconds": time.time() - t0,
+           "sweep": printed,
+           "runs": [{k: r[k] for k in ("name", "mode", "num_replicas",
+                                       "steps", "updates_applied",
+                                       "wall_seconds", "final_loss",
+                                       "test_accuracy")} for r in rows],
+           "stats": {k: stats.get(k) for k in ("num_steps", "final_loss",
+                                               "barrier")},
+           "invariants": verdicts, "devices": devices,
+           "flash_paged_kernel_launches": counts}
+    emit(rec)
+    names = sorted(Path(p).stem for p in SWEEP_CONFIGS)
+    check(sorted(r["name"] for r in rows) == names
+          and [p["name"] for p in printed] == [r["name"] for r in rows],
+          f"sweep rows {[r['name'] for r in rows]}")
+    check(all(r["steps"] == SWEEP_STEPS and r["num_replicas"] == REPLICAS
+              and math.isfinite(r["final_loss"]) for r in rows),
+          f"sweep runs {rec['runs']}")
+    check(stats.get("num_steps") == SWEEP_STEPS
+          and len(stats.get("per_replica", [])) == REPLICAS,
+          f"stats.json {stats}")
+    for name, v in verdicts.items():
+        check(not (v["metrics_log"] or v["checkpoint_integrity"]
+                   or v["discipline"]), f"invariants of {name}: {v}")
+    check(any(d["kind"] == torch.cuda.get_device_name(0)
+              for d in devices["devices"]), f"launch devices: {devices}")
+    check(not any(counts.values()), f"flash/paged launches {counts}")
     return rec
 
 
@@ -3999,6 +4385,13 @@ def main() -> int:
             train = runs["train"] = phase_train(tmp)
             phase = "train_k4"
             runs["train_k4"] = phase_train_k4(tmp)
+            phase = "train_replicas"
+            runs["train_replicas"] = phase_train_replicas(
+                tmp, train["ms_per_step"])
+            phase = "long_context"
+            runs["long_context"] = phase_long_context(tmp)
+            phase = "report"
+            runs["report"] = phase_report(tmp)
             phase = "cnn"
             runs["cnn"] = phase_cnn(tmp)
             phase = "dist"
@@ -4037,6 +4430,13 @@ def main() -> int:
                  else {"launches_eval": runs["eval"]["k1_launches"],
                        "launches_serve": serve_launches["K1"]}
                  if key == "K1" else {})
+        if key in ("K1-lse", "K2", "K3"):
+            extra = {"launches_replicas":
+                         runs["train_replicas"]["launches"][key],
+                     "launches_long_context": {
+                         arm: a["launches"][key] for arm, a in
+                         runs["long_context"]["arms"].items()},
+                     "long_context": c["long_context"]}
         replaces = ("distributedmnist_tpu/ops/pallas_paged_attention.py:62"
                     if line is None else
                     f"distributedmnist_tpu/ops/pallas_attention.py:{line}")

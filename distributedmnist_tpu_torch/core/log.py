@@ -1,13 +1,12 @@
 """Structured logging (≙ ``distributedmnist_tpu/core/log.py``).
 
 A logger for humans on stderr, and an append-only JSONL sink for the
-machine-readable journals (``serve_log.jsonl``, heartbeats). The
-reference's sink can also validate every record against its event
-schema (``obsv/schema.py``, a test-time switch); the port writes the
-same records and its tests validate them with that schema from the
-outside. Under ``train.durability=full`` each append is fsynced
-(``train/storage.py`` owns the policy). :func:`eval_line` is the
-evaluator's parseable line.
+machine-readable journals (``serve_log.jsonl``, heartbeats). With
+``DMT_VALIDATE_EVENTS`` set (a test-time switch, sampled when a sink is
+opened) the sink checks every record against the event schema
+(``obsv/schema.py``) before it lands, as the reference's does. Under
+``train.durability=full`` each append is fsynced (``train/storage.py``
+owns the policy). :func:`eval_line` is the evaluator's parseable line.
 """
 
 from __future__ import annotations
@@ -18,6 +17,8 @@ import sys
 import time
 from pathlib import Path
 from typing import IO, Any
+
+from ..obsv import schema
 
 # the storage shim owns the fsync policy for journal appends; looked up
 # through sys.modules, since a process that never loaded it can never
@@ -45,9 +46,13 @@ class JsonlSink:
         self.path = Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self._fh: IO[str] = open(self.path, "a", buffering=1)
+        self._validate = schema.validation_enabled()
 
     def write(self, record: dict[str, Any]) -> None:
         record.setdefault("ts", time.time())
+        if self._validate:
+            # records without an "event" key (sweep rows) pass
+            schema.check_event(record, source=self.path.name)
         self._fh.write(json.dumps(record, default=_default) + "\n")
         storage = sys.modules.get(_STORAGE_MODULE)
         if storage is not None and storage.journal_sync_enabled():

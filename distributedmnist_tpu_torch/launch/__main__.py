@@ -1,5 +1,6 @@
 """The port's CLI (≙ ``distributedmnist_tpu/launch/__main__.py``), the
-``train``, ``eval``, ``serve`` and ``serve-load`` verbs:
+``train``, ``eval``, ``serve``, ``serve-load``, ``sweep``, ``report``
+and ``devices`` verbs:
 
   python -m distributedmnist_tpu_torch.launch train --config C.json \\
       [section.key=value ...] [--device cpu]
@@ -13,14 +14,22 @@
       --train-dir D --serve-dir S [--device cpu] [decode/serve flags]
   python -m distributedmnist_tpu_torch.launch serve-load \\
       --endpoints HOST:PORT[,...] | --cluster-root R [--requests N]
+  python -m distributedmnist_tpu_torch.launch sweep --configs DIR_OR_FILE \\
+      --results R [--only a,b] [--device cpu]
+  python -m distributedmnist_tpu_torch.launch report --train_dir D \\
+      [--eval_dir E] --out O [--name N]
+  python -m distributedmnist_tpu_torch.launch devices [--device cpu]
 
 ``train`` builds the :class:`~..train.loop.Trainer` from the config and
 its dotted overrides — any model the port has (``mnist_cnn``,
 ``resnet20`` on ``data.dataset=cifar10`` with a ``data.data_dir`` of
-pickle batches, ``transformer``), every optimizer (sgd, momentum, lars,
-lamb), ``train.grad_accum_steps``, ``precision.param_dtype`` with or
-without ``master_weights`` and ZeRO-1 (``parallel.shard_weight_update``,
-``comm_buckets``, ``resident_sharded``, ``shard_min_leaf_size``) —
+pickle batches, ``transformer`` over any number of replicas, with
+``model.remat`` ``full`` or ``save_attn``), every optimizer (sgd,
+momentum, lars, lamb), ``train.grad_accum_steps``,
+``precision.param_dtype`` with or without ``master_weights``, ZeRO-1
+(``parallel.shard_weight_update``, ``comm_buckets``,
+``resident_sharded``, ``shard_min_leaf_size``) and the profiler windows
+(``train.profile_steps``, ``train.trace_every_steps``) —
 runs it, evaluates the test split and prints the
 reference's last line ``{"summary": ..., "test": ...}`` (a SIGTERM/
 SIGINT mid-run flushes a checkpoint, prints the summary alone and exits
@@ -39,13 +48,21 @@ or, with ``--decode``, a :class:`~..servesvc.decode.DecodeReplica` on
 the newest loadable checkpoint in ``D`` (adopting the run config saved
 in it), follows ``D``'s publishes, serves until SIGTERM/SIGINT, and
 drains. ``serve-load`` drives replicas closed-loop through the failover
-client, journals every request to ``--out`` and prints the summary. The
-flag names are the reference CLI's. The device is ``cuda:0`` unless
-``--device`` names another; without CUDA the default is an error, not
-a CPU run. The reference's other verbs (sweep, cluster, report, ...),
-``serve --tp-ranks``, the model-parallel mesh axes, ``model.remat``,
-mixture-of-experts, the profiler windows, device prefetch and the
-native loader are not ported yet (each raises).
+client, journals every request to ``--out`` and prints the summary.
+``sweep`` runs every config of a directory (:mod:`.sweep`: fresh runs,
+``sweep_results.jsonl``, ``report.md``) and prints each experiment's
+name, test accuracy and examples/sec; ``report`` writes a run's
+``stats.json`` and figures (:mod:`..obsv.report`) and prints the stats;
+``devices`` prints the process index and count and each device's index
+and name. The flag names are the reference CLI's. The device is
+``cuda:0`` unless ``--device`` names another; without CUDA the default
+is an error, not a CPU run.
+
+Accepted and not run, each logged once a Trainer: device prefetch, the
+native loader and the ``compile.*`` knobs. Not ported yet (each raises):
+the model-parallel mesh axes, mixture-of-experts, ``serve --tp-ranks``,
+and the reference's cluster verbs (``cluster``, ``campaign``, ``pod``,
+``fetch``).
 """
 
 from __future__ import annotations
@@ -167,6 +184,22 @@ def build_parser() -> argparse.ArgumentParser:
                     dest="ready_timeout_s")
     pl.add_argument("--out", default="loadgen.jsonl",
                     help="per-request journal path")
+    ps = sub.add_parser("sweep", help="run a directory of experiment "
+                                      "configs")
+    ps.add_argument("--configs", required=True)
+    ps.add_argument("--results", required=True)
+    ps.add_argument("--only", default=None, help="comma-separated names")
+    ps.add_argument("--device", default=None,
+                    help="torch device (default cuda:0)")
+    pr = sub.add_parser("report", help="figures + stats from run logs")
+    pr.add_argument("--train_dir", required=True)
+    pr.add_argument("--eval_dir", default=None)
+    pr.add_argument("--out", required=True)
+    pr.add_argument("--name", default="experiment")
+    pd = sub.add_parser("devices", help="show the process and its devices")
+    pd.add_argument("--device", default=None,
+                    help="'cpu' lists the CPU (default: the CUDA devices, "
+                         "an error without CUDA)")
     return p
 
 
@@ -272,10 +305,76 @@ def serve_load(argv: list[str]) -> dict:
     return summary
 
 
+def sweep(argv: list[str]) -> list[dict]:
+    """``launch sweep``: every config of ``--configs`` (or those named by
+    ``--only``) through :func:`.sweep.run_sweep`; prints each record's
+    name, test accuracy and examples/sec."""
+    from .sweep import load_sweep_configs, run_sweep
+
+    args = build_parser().parse_args(argv)
+    cfgs = load_sweep_configs(args.configs)
+    if args.only:
+        cfgs = [c for c in cfgs if c.name in set(args.only.split(","))]
+    records = run_sweep(cfgs, args.results, device=args.device)
+    print(json.dumps([{k: r[k] for k in ("name", "test_accuracy",
+                                         "examples_per_sec")}
+                      for r in records]), flush=True)
+    return records
+
+
+def report(argv: list[str]) -> dict:
+    """``launch report``: a run's ``stats.json`` and figures; prints the
+    stats."""
+    from ..obsv.report import generate_report
+
+    args = build_parser().parse_args(argv)
+    stats = generate_report(args.train_dir, args.eval_dir, args.out,
+                            name=args.name)
+    print(json.dumps(stats, indent=2), flush=True)
+    return stats
+
+
+def devices(argv: list[str]) -> dict:
+    """``launch devices`` (≙ the reference's, which lists the JAX
+    devices): this process's index and the process count (from the
+    process group, else ``torchrun``'s environment) and each device's
+    index, platform and name — every CUDA device, or the CPU with
+    ``--device cpu``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from ..core.device import resolve_device
+
+    args = build_parser().parse_args(argv)
+    dev = resolve_device(args.device)
+    if dist.is_available() and dist.is_initialized():
+        index, count = dist.get_rank(), dist.get_world_size()
+    else:
+        index = int(os.environ.get("RANK", 0))
+        count = int(os.environ.get("WORLD_SIZE", 1))
+    listed = ([{"id": i, "platform": "gpu",
+                "kind": torch.cuda.get_device_name(i)}
+               for i in range(torch.cuda.device_count())]
+              if dev.type == "cuda" else
+              [{"id": 0, "platform": "cpu", "kind": "cpu"}])
+    info = {"process_index": index, "process_count": count,
+            "devices": listed}
+    print(json.dumps(info, indent=2), flush=True)
+    return info
+
+
+_VERBS = {"sweep": sweep, "report": report, "devices": devices}
+
+
 def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "train":
         train(argv)
+        return
+    if argv and argv[0] in _VERBS:
+        _VERBS[argv[0]](argv)
         return
     if argv and argv[0] == "eval":
         from ..evalsvc.__main__ import evaluator_from_args

@@ -111,9 +111,10 @@ class Model:
     * ``dropout_masks(keys, rows, device)`` — the keep masks for
       ``rows`` examples a key (``[2]`` or ``[n, 2]``), None without
       dropout;
-    * ``vmap_replicas`` — whether the train step may ``torch.func.vmap``
-      the apply over replicas (the transformer's flash-attention
-      ``autograd.Function`` cannot be);
+    * ``vmap_replicas`` — whether the train step runs the local replicas
+      as one ``torch.func.vmap`` of ``grad`` (else one at a time through
+      plain autograd: ``torch.utils.checkpoint`` does not run under
+      ``torch.func``, so the transformer under ``model.remat`` loops);
     * ``loss(logits, labels) -> scalar``; ``accuracy(logits, labels)
       -> scalar``;
     * ``eval_metrics(logits, labels, weight) -> (correct_sum,
@@ -233,6 +234,15 @@ def _transformer(cfg: ModelConfig) -> Model:
         attention_fn = None  # transformer defaults to local_self_attention
     else:
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+    if (cfg.remat and cfg.remat_policy == "save_attn"
+            and cfg.attention_impl != "flash"):
+        # save_attn keeps the attention sublayer's residuals resident;
+        # only the flash Function bounds those at O(s·d) — dense
+        # attention would keep the [b, h, s, s] probabilities a layer
+        raise ValueError(
+            "model.remat_policy='save_attn' requires "
+            "attention_impl='flash' (dense attention has no fused VJP; "
+            "its resident residuals would be O(seq²) per layer)")
 
     def init(generator, device=None):
         return transformer.init(
@@ -246,7 +256,9 @@ def _transformer(cfg: ModelConfig) -> Model:
         return transformer.apply(params, tokens, num_heads=cfg.num_heads,
                                  attention_fn=attention_fn,
                                  positions=positions,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype,
+                                 remat=cfg.remat,
+                                 remat_policy=cfg.remat_policy)
 
     def decode_prefill(params, tokens, positions=None):
         return transformer.prefill_with_kv(
@@ -272,6 +284,7 @@ def _transformer(cfg: ModelConfig) -> Model:
 
     return Model(name=cfg.name, init=init, init_params=init_params,
                  apply=apply, compute_dtype=compute_dtype,
+                 vmap_replicas=not cfg.remat,
                  loss=transformer.loss_fn,
                  accuracy=transformer.accuracy,
                  eval_metrics=lm_eval_metrics,

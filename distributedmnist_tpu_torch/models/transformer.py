@@ -18,8 +18,15 @@ computes in float32 and casts back, attention runs in float32 inside
 the kernels, and the decode attention's float32 output is cast to the
 compute dtype before ``wo``.
 
-Tensor/sequence/pipeline parallelism, remat and mixture-of-experts FFNs
-are not ported yet.
+``apply(remat=True)`` recomputes activations in the backward instead of
+keeping them (``torch.utils.checkpoint``, non-reentrant), by the
+reference's two policies: ``"full"`` checkpoints each block, so the
+flash forward runs again in the backward; ``"save_attn"`` keeps the
+attention sublayer outside the checkpoint (its Function's residuals,
+O(s·d), stay) and recomputes only the FFN sublayer and its norm.
+
+Tensor/sequence/pipeline parallelism and mixture-of-experts FFNs are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import local_self_attention
 from ..ops.paged_attention import paged_attention, paged_attention_dense
@@ -130,14 +138,32 @@ def _head(x: torch.Tensor, p: Params) -> torch.Tensor:
 def apply(params: Params, tokens: torch.Tensor, *, num_heads: int = 4,
           attention_fn: Callable | None = None,
           positions: torch.Tensor | None = None,
-          compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+          compute_dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+          remat_policy: str = "full") -> torch.Tensor:
     """tokens [batch, seq] → logits [batch, seq, vocab] float32."""
     attn = attention_fn or local_self_attention
     p = cast_params(params, compute_dtype)
     x = _embed(p, tokens, positions)
+
+    def block(x, blk):
+        return _ffn_sublayer(_attn_sublayer(x, blk, num_heads=num_heads,
+                                            attn=attn), blk)
+
+    ckpt = lambda fn: lambda *a: checkpoint(fn, *a, use_reentrant=False)  # noqa: E731
+    if remat:
+        if remat_policy == "save_attn":
+            ffn = ckpt(_ffn_sublayer)
+
+            def block(x, blk):  # noqa: F811 — the policy's body
+                return ffn(_attn_sublayer(x, blk, num_heads=num_heads,
+                                          attn=attn), blk)
+        elif remat_policy == "full":
+            block = ckpt(block)
+        else:
+            raise ValueError(f"unknown remat_policy {remat_policy!r} "
+                             "(expected 'full' or 'save_attn')")
     for blk in p["blocks"]:
-        x = _attn_sublayer(x, blk, num_heads=num_heads, attn=attn)
-        x = _ffn_sublayer(x, blk)
+        x = block(x, blk)
     return _head(x, p)
 
 

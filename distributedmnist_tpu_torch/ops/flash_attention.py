@@ -16,7 +16,11 @@ mirrors the reference's ``_flash``:
 * backward — K4 (``csrc/flash_attention_bwd.cu``, dq, dk and dv in one
   visit) when the padded sequence fits one ``(BLOCK_Q, BLOCK_K)`` tile
   pair, else K2 (dq) and K3 (dk, dv). :func:`backward_route` is the
-  one rule, the same for every device.
+  one rule, the same for every device. The backward is a Function of
+  its own (:class:`FlashAttentionBackward`);
+* under ``torch.func.vmap`` (the train step's replicas) both Functions'
+  ``vmap`` rules fold the replica axis into the batch axis, so one
+  launch of each kernel serves every replica.
 
 On a CUDA tensor each wrapper launches its kernel and adds one to its
 ``.launches`` count; on a CPU tensor it runs the plain PyTorch version
@@ -450,30 +454,90 @@ def kernel_occupancy(kernel: str, dtype: torch.dtype,
 
 # -- the autograd binding and the model's entry ---------------------------
 
+def _fold(info, in_dims, *tensors):
+    """The replica axis of each vmapped tensor moved to the front and
+    folded into its batch axis (``[L, b, ...]`` → ``[L·b, ...]``, a view
+    where the strides allow); an unbatched tensor is expanded first."""
+    out = []
+    for x, d in zip(tensors, in_dims):
+        x = (x.movedim(d, 0) if d is not None
+             else x.expand(info.batch_size, *x.shape))
+        out.append(x.reshape(x.shape[0] * x.shape[1], *x.shape[2:]))
+    return out
+
+
+def _unfold(L: int, *tensors: torch.Tensor):
+    return tuple(x.view(L, x.shape[0] // L, *x.shape[1:]) for x in tensors)
+
+
 class FlashAttention(torch.autograd.Function):
-    """≙ the reference's ``_flash`` custom VJP: K1-lse forward saving
-    ``q, k, v, o, lse``; backward through :func:`flash_attention_backward`."""
+    """≙ the reference's ``_flash`` custom VJP: K1-lse forward, returning
+    ``(o, lse)`` (lse not differentiable) and saving ``q, k, v, o, lse``;
+    backward through :class:`FlashAttentionBackward`.
+
+    Under ``torch.func.vmap`` (the train step's replicas) the ``vmap``
+    rule folds the replica axis into the batch axis the kernel already
+    takes, so one launch serves every replica with the same arithmetic.
+    torch runs the backward under vmap too, on batched tensors that have
+    no storage for a launch, hence the second Function with its own
+    fold."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
+    def forward(q, k, v, causal: bool, scale: float):
         if q.device.type == "cuda" and q.shape[-1] > max(_BWD_HEAD_DIMS):
             # refuse before the forward runs, not in the backward
             raise ValueError(
                 f"training through the flash kernels takes head_dim up to "
                 f"{max(_BWD_HEAD_DIMS)}: the backward (K2-K4) has no "
                 f"{_HEAD_DIMS[-1]} instantiation; got {q.shape[-1]}")
-        o, lse = flash_attention_fwd_lse(q, k, v, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
+        return flash_attention_fwd_lse(q, k, v, causal=causal, scale=scale)
 
     @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
-                                              causal=ctx.causal,
-                                              scale=ctx.scale)
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, scale = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        dq, dk, dv = FlashAttentionBackward.apply(
+            *ctx.saved_tensors, do, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, scale):
+        o, lse = FlashAttention.apply(*_fold(info, in_dims[:3], q, k, v),
+                                      causal, scale)
+        return _unfold(info.batch_size, o, lse), (0, 0)
+
+
+class FlashAttentionBackward(torch.autograd.Function):
+    """The backward of :class:`FlashAttention` as a Function of its own
+    — ``(dq, dk, dv)`` through :func:`flash_attention_backward` — whose
+    ``vmap`` rule folds the replicas into one K2 + K3 (or K4) launch. It
+    has no backward itself (no double differentiation, as the
+    reference's ``_flash``)."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, causal: bool, scale: float):
+        return flash_attention_backward(q, k, v, o, lse, do, causal=causal,
+                                        scale=scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash attention is differentiable once")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, causal, scale):
+        grads = FlashAttentionBackward.apply(
+            *_fold(info, in_dims[:6], q, k, v, o, lse, do), causal, scale)
+        return _unfold(info.batch_size, *grads), (0, 0, 0)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -487,7 +551,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, float(scale))
+        return FlashAttention.apply(q, k, v, causal, float(scale))[0]
     if q.device.type == "cpu":
         return flash_attention_bshd_plain(q, k, v, causal=causal,
                                           scale=scale)

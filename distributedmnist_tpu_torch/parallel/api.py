@@ -13,8 +13,12 @@ all processes (:mod:`..core.mesh`):
 * each local replica's forward and backward runs on its row block of
   the process's batch with its own dropout mask (keyed by its global
   index) — all local replicas at once, as one ``torch.func.vmap`` of
-  ``grad`` — and its gradient leaves, loss and accuracy are flattened
-  into one bucket row;
+  ``grad`` (the flash attention's vmap rule folds the replicas into one
+  kernel launch), or one at a time through plain autograd where the
+  model cannot be vmapped (the transformer under ``model.remat``:
+  ``torch.utils.checkpoint`` does not run under ``torch.func``) — and
+  its gradient leaves, loss and accuracy are flattened into one bucket
+  row;
 * with ``train.grad_accum_steps = a`` the process's batch holds ``a``
   consecutive global batches (``data/pipeline.py GradAccumFeed``); each
   replica splits its row block into ``a`` consecutive microbatches
@@ -69,7 +73,7 @@ Checkpoints hold the logical layout whatever the live one
 (:func:`canonical_save_state`); :func:`restore_for_topology` reads one
 saved under any replica or process count, refuses another optimizer's
 state, repacks for this run's plan and storage dtype and journals a
-world change. Not ported yet (each raises): remat and the
+world change. Not ported yet (each raises): the
 tensor/sequence/pipeline/expert parallel applies.
 """
 
@@ -181,8 +185,6 @@ def _check_ported(cfg: ExperimentConfig) -> None:
                  "pipeline_parallelism", "expert_parallelism"):
         if getattr(cfg.mesh, name) != 1:
             raise NotImplementedError(f"mesh.{name} > 1 is not ported yet")
-    if cfg.model.remat:
-        raise NotImplementedError("model.remat is not ported yet")
     if cfg.train.grad_accum_steps < 1:
         raise ValueError(f"train.grad_accum_steps must be >= 1, got "
                          f"{cfg.train.grad_accum_steps}")
@@ -504,10 +506,6 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
             f"sync.mode={mode!r} keeps the full windowed accumulator")
     if model.loss is None or model.accuracy is None:
         raise ValueError(f"model {model.name!r} has no loss/accuracy")
-    if L > 1 and not model.vmap_replicas:
-        raise NotImplementedError(
-            f"{n} replicas of model {model.name!r} are not ported yet (its "
-            "apply cannot be vmapped over replicas)")
     opt = optim_lib.make_optimizer(cfg.optim)
     default_disc = make_discipline_vector(k, sync.timeout_ms,
                                           sync.interval_ms)
@@ -551,31 +549,45 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
         j]``): ``(losses, accs, grads)``, the per-replica losses and
         accuracies ``[L]`` and the float32 gradient leaves, each ``[L,
         ...]`` (a row a replica). Several replicas run as one
-        ``torch.func.vmap`` of ``grad`` over the replica axis (3.2× the
-        speed of a loop over replicas at 8 × 128 CNN rows on an H100,
-        PERF.md); a lone local replica runs autograd directly, as the
-        flash-attention ``autograd.Function`` needs."""
+        ``torch.func.vmap`` of ``grad`` over the replica axis when the
+        model allows it (the transformer's 8-replica step: 81.9–83.4
+        ms against 102.2–110.8 ms looped on an H100 80GB HBM3 at 700 W,
+        PERF.md §6); else, and for a lone local replica, each runs autograd
+        directly and writes its row."""
         keep = None
         if model.dropout_masks is not None:
             keys = prng.replica_keys(state.root_key, "dropout", dropout_step,
                                      n)[first:first + L]
             keep = model.dropout_masks(keys if L > 1 else keys[0],
                                        xs.shape[1], xs.device)
-        if L == 1:
+        if L == 1 or not model.vmap_replicas:
             leaves = tree_leaves(params)
+            losses, accs, grads = [], [], None
             for p in leaves:
                 p.requires_grad_(True)
             try:
-                logits = model.apply(params, xs[0], train=True,
-                                     dropout_keep=keep)
-                loss = model.loss(logits, ys[0])
-                grads = [g.float()[None] for g in
+                for j in range(L):
+                    logits = model.apply(params, xs[j], train=True,
+                                         dropout_keep=(keep if L == 1
+                                                       or keep is None
+                                                       else keep[j]))
+                    loss = model.loss(logits, ys[j])
+                    g = [gi.float() for gi in
                          torch.autograd.grad(loss, leaves)]
+                    if L == 1:
+                        grads = [gi[None] for gi in g]
+                    else:
+                        if grads is None:
+                            grads = [gi.new_empty((L, *gi.shape))
+                                     for gi in g]
+                        for row, gi in zip(grads, g):
+                            row[j] = gi
+                    losses.append(loss.detach())
+                    accs.append(model.accuracy(logits.detach(), ys[j]))
             finally:
                 for p in leaves:
                     p.requires_grad_(False)
-            return (loss.detach()[None],
-                    model.accuracy(logits.detach(), ys[0])[None], grads)
+            return torch.stack(losses), torch.stack(accs), grads
 
         def replica_loss(params, x, y, k):
             logits = model.apply(params, x, train=True, dropout_keep=k)

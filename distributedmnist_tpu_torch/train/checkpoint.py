@@ -600,20 +600,31 @@ def params_digest(params: dict) -> str:
     return h.hexdigest()
 
 
-def checkpoint_params_digest(train_dir: str | Path, step: int | None = None
-                             ) -> tuple[str, int] | None:
-    """(sha256 of the saved params, step) from the artifact alone (≙ the
-    reference's ``checkpoint_params_digest``); None when nothing was
-    published."""
+def checkpoint_state_digests(train_dir: str | Path, step: int | None = None
+                             ) -> tuple[str, str, int] | None:
+    """(sha256 of the saved params, sha256 of the saved optimizer state,
+    step) from one read of the artifact alone (≙ the reference's
+    ``checkpoint_state_digests``: what ``obsv/invariants.py
+    determinism_verdict`` compares); None when nothing was published."""
     train_dir = Path(train_dir)
     if step is None:
         step = latest_checkpoint_step(train_dir)
         if step is None:
             return None
     state, _ = _read_state(train_dir, step)
-    h = hashlib.sha256()
-    _digest_tree(state["params"], h)
-    return h.hexdigest(), step
+    hp, ho = hashlib.sha256(), hashlib.sha256()
+    _digest_tree(state["params"], hp)
+    _digest_tree(state.get("momentum"), ho)
+    return hp.hexdigest(), ho.hexdigest(), step
+
+
+def checkpoint_params_digest(train_dir: str | Path, step: int | None = None
+                             ) -> tuple[str, int] | None:
+    """(sha256 of the saved params, step) from the artifact alone (≙ the
+    reference's ``checkpoint_params_digest``); None when nothing was
+    published."""
+    got = checkpoint_state_digests(train_dir, step)
+    return None if got is None else (got[0], got[2])
 
 
 # -- writing ----------------------------------------------------------------

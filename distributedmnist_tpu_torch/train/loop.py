@@ -81,10 +81,20 @@ every save writes the step's int8/bf16 sidecar before its artifact and
 pointer — inline for a synchronous save, on the writer thread
 otherwise — and its ``save`` record lists the tiers (``quant_tiers``).
 
-Not ported yet (each knob is refused as noted): profiler windows
-(``train.profile_steps`` / ``trace_every_steps`` raise), warm standby,
-and the AOT precompile (PyTorch runs eagerly: there is no ``compile``
-record).
+The profiler windows run on ``torch.profiler`` (CPU and, on the card,
+CUDA activities) in the writer process, in the reference's directory
+layout: ``train.profile_steps = (start, stop)`` traces steps ``[start,
+stop)`` into ``<train_dir>/profile/``, ``train.trace_every_steps = k``
+traces one step in every ``k`` into ``profile/step_<s>/``; each window
+is one Chrome trace file (``trace.json``). Both set is the reference's
+ValueError. On the card a window synchronizes before its trace stops,
+so the trace holds the device work of its steps; a NaN rollback and
+every exit close an open window.
+
+Accepted and not run (each logs one line a Trainer): device prefetch
+(``data.device_prefetch``; batches are staged inline) and the
+``compile.*`` knobs (PyTorch runs the step eagerly: there is no
+``compile`` record). Not ported yet: warm standby.
 """
 
 from __future__ import annotations
@@ -163,11 +173,74 @@ def make_schedule(cfg: ExperimentConfig, num_train_examples: int,
                              o.learning_rate_decay_factor, o.staircase)
 
 
-def _check_loop_knobs(cfg: ExperimentConfig) -> None:
-    t = cfg.train
-    if t.profile_steps[1] > t.profile_steps[0] or t.trace_every_steps:
-        raise NotImplementedError("train.profile_steps / trace_every_steps "
-                                  "are not ported yet")
+def _log_noop_knobs(cfg: ExperimentConfig) -> None:
+    """One line for each knob a config asks for that the port accepts
+    and does not run: device prefetch and the three ``compile.*``
+    knobs (the native loader logs its own, ``data/pipeline.py``)."""
+    if cfg.data.device_prefetch:
+        logger.info("data.device_prefetch (depth %d) is a no-op in the "
+                    "port: batches are staged inline",
+                    cfg.data.device_prefetch_depth)
+    for name in ("precompile", "aot_executable_cache",
+                 "trust_cache_cross_process"):
+        if getattr(cfg.compile, name):
+            logger.info("compile.%s is a no-op in the port: the step runs "
+                        "eagerly", name)
+
+
+class ProfilerWindows:
+    """The Trainer's ``torch.profiler`` windows (≙ the reference's
+    ``jax.profiler`` ones, ``train/loop.py``): ``profile_steps`` as one
+    window over ``[start, stop)`` into ``<train_dir>/profile/``,
+    ``trace_every_steps = k`` as a one-step window every ``k`` steps
+    into ``profile/step_<s>/``; one Chrome trace (``trace.json``) a
+    window. ``enabled`` is False off the writer process."""
+
+    def __init__(self, cfg: ExperimentConfig, root: Path,
+                 device: torch.device, enabled: bool):
+        self.start, self.stop = cfg.train.profile_steps
+        self.every = max(0, cfg.train.trace_every_steps)
+        if self.every and self.stop > self.start:
+            raise ValueError("set either train.profile_steps or "
+                             "train.trace_every_steps, not both "
+                             "(profiler traces cannot nest)")
+        self.root, self.device, self.enabled = root, device, enabled
+        self._prof = None
+        self._dir: Path | None = None
+
+    def before_step(self, step: int) -> None:
+        """Open a window if ``step`` (about to run) starts one."""
+        if not self.enabled or self._prof is not None:
+            return
+        if self.start <= step < self.stop:
+            self._open(self.root)
+        elif self.every and step % self.every == 0:
+            self._open(self.root / f"step_{step}")
+
+    def after_step(self, done: int) -> None:
+        """Close the open window once its steps (``done`` so far) ran."""
+        if self._prof is not None and (self.every or done >= self.stop):
+            self.close()
+
+    def _open(self, out: Path) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._prof, self._dir = profile(activities=acts), out
+        self._prof.start()
+
+    def close(self) -> None:
+        """Stop the open window (after the device's work on the card)
+        and write its trace; a no-op with none open."""
+        if self._prof is None:
+            return
+        prof, self._prof = self._prof, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        self._dir.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(self._dir / "trace.json"))
 
 
 def device_snapshot(state: TrainState
@@ -237,7 +310,7 @@ class Trainer:
                  datasets: Datasets | None = None,
                  device: str | torch.device | None = None, *,
                  cudnn_deterministic: bool = True):
-        _check_loop_knobs(cfg)
+        _log_noop_knobs(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.topo = make_topology(cfg.mesh)
@@ -724,6 +797,8 @@ class Trainer:
                         n_samples=rolling["window_steps"],
                         fast_p50_ms=rolling["fast_p50_ms"]))
 
+        windows = ProfilerWindows(self.cfg, self.train_dir / "profile",
+                                  self.device, self.is_writer)
         self.train_dir.mkdir(parents=True, exist_ok=True)
         step = self._start_step
         rollbacks = 0
@@ -733,6 +808,7 @@ class Trainer:
             while True:
                 try:
                     while step < total:
+                        windows.before_step(step)
                         t0 = time.perf_counter()
                         blocked0 = self.topo.blocked_s
                         measured, stop = self._step_inputs(inject_measured,
@@ -760,6 +836,7 @@ class Trainer:
                         step += 1
                         self.collector.add(metrics["step_times_ms"], host_dt)
                         pending.append((step, metrics, time.time()))
+                        windows.after_step(step)
                         if cfg.step_pace_ms > 0:
                             time.sleep(cfg.step_pace_ms / 1e3)
                         if step % log_every == 0:
@@ -778,6 +855,7 @@ class Trainer:
                     break
                 except _NonFiniteLoss as e:
                     pending.clear()
+                    windows.close()
                     rollbacks += 1
                     if rollbacks > cfg.nan_guard_max_rollbacks:
                         raise RuntimeError(
@@ -801,6 +879,7 @@ class Trainer:
                 logger.warning("closing the checkpoint writer: %s", e)
             raise
         finally:
+            windows.close()
             if saved_handlers is not None:
                 for sig, old in saved_handlers.items():
                     signal.signal(sig, old)

@@ -448,3 +448,44 @@ def test_flash_backward_refuses_what_it_cannot_take(dev):
     o, lse = fa.flash_attention_fwd_lse(q, k, v)
     with pytest.raises(ValueError, match="fused backward"):
         fa.flash_attention_bwd_fused(q, k, v, o, lse, o)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, dict(atol=2e-4,
+                                                            rtol=2e-4)),
+                                       (torch.bfloat16, BF16)])
+@pytest.mark.parametrize("s", [48, 300])
+def test_vmap_rule_folds_replicas_into_one_launch(dev, dtype, tol, s):
+    """``torch.func.vmap(grad(...))`` over 3 replicas through the
+    Functions' vmap rules: one K1-lse launch and one backward (K4 at a
+    one-tile sequence, else K2 + K3) for every replica together, the
+    per-replica gradients bitwise those of a loop over replicas (the
+    same kernel on the same rows), and within ``tol`` of autograd
+    through the plain forward."""
+    L, b, h, d = 3, 2, 4, 128
+    g = torch.Generator(device=dev).manual_seed(s)
+    x = torch.randn(L, b, s, 3 * h * d, generator=g, device=dev).to(dtype)
+    w = torch.linspace(-1, 1, b * s * h * d, device=dev).view(b, s, h, d)
+
+    def loss(attn):
+        def f(xr):
+            q, k, v = (xr.view(b, s, 3, h * d)[:, :, i].view(b, s, h, d)
+                       for i in range(3))
+            return (attn(q, k, v).float() * w).sum()
+        return torch.func.grad(f)
+
+    bwd = ((fa.flash_attention_bwd_fused,) if fa.backward_route(s) == "fused"
+           else (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv))
+    counters = (fa.flash_attention_fwd_lse,) + bwd
+    before = [c.launches for c in counters]
+    folded = torch.func.vmap(loss(flash_attention_bshd))(x)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == \
+        [1] * len(counters)
+    looped = torch.stack([loss(flash_attention_bshd)(x[j])
+                          for j in range(L)])
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == \
+        [1 + L] * len(counters)
+    assert torch.equal(folded, looped)
+    plain = torch.func.vmap(loss(flash_attention_bshd_plain))(x)
+    _close(folded, plain, tol)

@@ -53,7 +53,10 @@ TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               "servesvc.client", "servesvc.loadgen",
               # the rest of the data-parallel step: the CIFAR-10 fixture,
               # ResNet-20 and the ZeRO-1 plan
-              "data.fixtures", "models.resnet", "parallel.partition_rules")
+              "data.fixtures", "models.resnet", "parallel.partition_rules",
+              # the port's own observability and the sweep runner
+              "obsv.schema", "obsv.journal", "obsv.invariants",
+              "obsv.report", "launch.sweep")
 
 
 def test_port_modules_load_no_jax():

@@ -144,9 +144,9 @@ def test_schedules_match_reference(name, args):
 
 
 def test_unported_optimizers_and_modes_raise():
-    """LARS and LAMB, accumulation and low-precision params build now;
-    an unknown optimizer is the reference's ConfigError, and the
-    model-parallel axes and remat still raise "not ported yet"."""
+    """LARS and LAMB, accumulation, low-precision params and remat build
+    now; an unknown optimizer is the reference's ConfigError, and the
+    model-parallel axes still raise "not ported yet"."""
     for name, slots in (("lars", 1), ("lamb", 2)):
         opt = optim.make_optimizer(port_config.OptimConfig(name=name))
         assert (opt.kind, opt.num_slots) == (name, slots)
@@ -155,12 +155,12 @@ def test_unported_optimizers_and_modes_raise():
     model = get_model(port_config.ExperimentConfig.from_dict(RUN).model)
     for over in ({"train": {"grad_accum_steps": 2}},
                  {"precision": {"param_dtype": "bfloat16"}},
-                 {"optim": {"name": "lamb"}}):
+                 {"optim": {"name": "lamb"}},
+                 {"model": {**RUN["model"], "remat": True}}):
         cfg = port_config.ExperimentConfig.from_dict(dict(RUN, **over))
         api.build_train_step(model, cfg, lr_schedule.constant(0.1))
     for over in ({"mesh": {"model_parallelism": 2}},
-                 {"mesh": {"pipeline_parallelism": 2}},
-                 {"model": {**RUN["model"], "remat": True}}):
+                 {"mesh": {"pipeline_parallelism": 2}}):
         cfg = port_config.ExperimentConfig.from_dict(dict(RUN, **over))
         with pytest.raises(NotImplementedError, match="not ported yet"):
             api.build_train_step(model, cfg, lr_schedule.constant(0.1))

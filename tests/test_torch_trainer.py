@@ -212,12 +212,13 @@ def test_launch_train_prints_summary_and_wants_cuda(tmp_path, capsys):
 
 
 def test_unported_loop_knobs_raise(tmp_path):
-    """The profiler windows still raise; accumulation builds now (its
-    effective batch counts every microbatch)."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Trainer(_cfg(SMALL, tmp_path, profile_steps=[1, 3]), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Trainer(_cfg(SMALL, tmp_path, trace_every_steps=5), device="cpu")
+    """The profiler windows build a Trainer now (each knob; both set is
+    refused when the run starts, tests/test_torch_profiler.py);
+    accumulation builds (its effective batch counts every
+    microbatch)."""
+    for knob in ({"profile_steps": [1, 3]}, {"trace_every_steps": 5}):
+        t = Trainer(_cfg(SMALL, tmp_path, **knob), device="cpu")
+        assert isinstance(t, Trainer)
     t = Trainer(_cfg(SMALL, tmp_path, grad_accum_steps=2), device="cpu")
     assert t.effective_batch == 2 * SMALL["data"]["batch_size"]
     # train.durability is ported: a known policy builds, an unknown one
@@ -310,3 +311,35 @@ def test_cnn_basic_config_trains_like_the_reference_smoke(tmp_path):
     assert losses[-1] < losses[0]
     ev = t.evaluate("test")
     assert ev["num_examples"] == 256 and 0.0 < ev["accuracy"] <= 1.0
+
+
+def test_noop_knobs_log_one_line_each(tmp_path, caplog):
+    """Knobs the port accepts and does not run log one line each at
+    Trainer build: a default config asks for device prefetch,
+    ``compile.precompile`` and ``compile.aot_executable_cache``;
+    ``trust_cache_cross_process`` only when set, and nothing is logged
+    for a knob turned off."""
+    import logging
+    port_logger = logging.getLogger("distributedmnist_tpu_torch")
+    port_logger.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.INFO, logger=port_logger.name):
+            Trainer(_cfg(SMALL, tmp_path), device="cpu")
+        lines = [r.getMessage() for r in caplog.records
+                 if "is a no-op in the port" in r.getMessage()]
+        assert sorted(m.split()[0] for m in lines) == [
+            "compile.aot_executable_cache", "compile.precompile",
+            "data.device_prefetch"], lines
+        caplog.clear()
+        off = dict(SMALL, data=dict(SMALL["data"], device_prefetch=False),
+                   compile={"precompile": False,
+                            "aot_executable_cache": False,
+                            "trust_cache_cross_process": True})
+        with caplog.at_level(logging.INFO, logger=port_logger.name):
+            Trainer(_cfg(off, tmp_path), device="cpu")
+        lines = [r.getMessage() for r in caplog.records
+                 if "is a no-op in the port" in r.getMessage()]
+        assert [m.split()[0] for m in lines] == [
+            "compile.trust_cache_cross_process"], lines
+    finally:
+        port_logger.removeHandler(caplog.handler)
