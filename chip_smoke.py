@@ -30,7 +30,9 @@ at the archive's size) with the rest of the data-parallel step's knobs
 — LARS/LAMB, gradient accumulation, bf16 params with and without
 float32 masters, ZeRO-1 and the cross-world restore; then the training
 path's durable checkpoints, the continuous evaluator that follows them,
-and the serving tier that hot-follows training (``launch serve``).
+and the serving tier that hot-follows training (``launch serve``); and the
+compile layer: each path's step captured as CUDA graphs against its
+eager step, and the kernel build cache across processes.
 
 One JSON line per phase:
 
@@ -308,6 +310,39 @@ One JSON line per phase:
                 plain path's softmax for its prompt at batch 1, within
                 ``LM_PREDICT_PROB_REL`` × p + ``LM_PREDICT_PROB_ABS``.
 
+16. ``graphs``  — the compile layer. Phases 4–15 run the eager step
+                (``compile.precompile`` off: their launch counters count
+                wrapper calls, which a replayed graph makes none of);
+                here each arm runs its configuration twice from the same
+                start, captured (``Trainer.precompile``: the train step's
+                stages as CUDA graphs, replayed every step) and eager:
+                ``cnn`` (batch 4096), ``resnet`` (the CIFAR-10 config,
+                batch 1024), ``train`` (seq 1024, one replica),
+                ``train_k4`` (seq 64) and ``train_replicas`` (8 replicas,
+                quorum k = 5), each ``GRAPH_STEPS`` steps of ``run`` with
+                a profile window over ``GRAPH_WINDOW``: the ``compile``
+                record (``source`` ``cuda_graph``, checked, journaled
+                before the first step), params and losses after the run
+                (bitwise for the CNN and ResNet-20, checked; for the
+                flash arms bitwise printed and held to ``train``'s
+                tolerances), the flash kernels' launches a step read from
+                the window's trace by kernel name (K1-lse/K2/K3 or
+                K1-lse/K4 4 a step both ways, checked), ms a step by CUDA
+                events and by the host clock over ``GRAPH_TIMED`` steps,
+                the window's idle share and peak memory; ``decode``: the
+                e2e replica's configuration on the ``train`` checkpoint
+                with each version's decode step captured and eager, the
+                8 e2e requests (greedy tokens equal both ways, checked),
+                ms a decode iteration, and the decode step with every
+                slot live by CUDA events, by the host clock and under the
+                profiler (idle share, K5 4 a step both ways, checked);
+                ``kernel_cache``: three processes on a fresh
+                ``DMT_COMPILE_CACHE_DIR`` each building every library and
+                running one captured step at seq 64 — cold (3 misses, 3
+                new entries), warm (0 misses, no new entry), and after one
+                library is truncated, healed (one rebuild, a warning) —
+                each one's seconds from its start to its first step done.
+
 Then a ``kernels`` summary line (per kernel also its ``variant`` —
 ``wgmma``, ``cuda_cores`` or ``cluster_split``, the compiled kernel the
 bf16 call takes — and the build phase's instantiation, registers,
@@ -398,7 +433,11 @@ TRAIN = {"name": "chip_smoke_train", "model": MODEL, "decode": DECODE,
          "eval": {"eval_batch_size": 16},
          "train": {"max_steps": TRAIN_STEPS, "log_every_steps": 5,
                    "save_interval_steps": 0, "save_results_period": 0,
-                   "summary_every_steps": 0, "seed": SEED}}
+                   "summary_every_steps": 0, "seed": SEED},
+         # the phases before ``graphs`` time and count the eager step:
+         # their launch counters count wrapper calls, which a replayed
+         # graph makes none of
+         "compile": {"precompile": False}}
 # the short run: the same model at a sequence that fits one tile (K4)
 K4_SEQ, K4_BATCH, K4_STEPS = 64, 64, 5
 # the training configuration over 8 simulated replicas, in the
@@ -448,7 +487,8 @@ CNN = {"name": "chip_smoke_cnn",
        "eval": {"eval_batch_size": 256},
        "train": {"max_steps": CNN_TIMED, "log_every_steps": 10,
                  "save_interval_steps": 0, "save_results_period": 0,
-                 "summary_every_steps": 0, "seed": SEED}}
+                 "summary_every_steps": 0, "seed": SEED},
+       "compile": {"precompile": False}}
 # card against CPU, 3 float32 quorum steps: ||Δ|| / ||cpu|| per param
 # leaf. Both sum in float32 in other orders (~1e-7 a step); a max-pool
 # window whose top two values lie closer than that routes one gradient
@@ -1741,6 +1781,7 @@ def phase_report(tmp: str) -> dict:
     for path in SWEEP_CONFIGS:
         cfg = json.loads(Path(path).read_text())
         cfg["train"]["max_steps"] = SWEEP_STEPS
+        cfg["compile"] = {**cfg.get("compile", {}), "precompile": False}
         cfg["data"]["data_dir"] = str(data_dir)
         cfg["mesh"] = {"simulate_devices": REPLICAS}
         (cfg_dir / Path(path).name).write_text(json.dumps(cfg))
@@ -2781,14 +2822,17 @@ def _bitwise(a: list, b: list) -> bool:
 
 def _resnet_main(tmp: str, data_dir: str) -> tuple[dict, "object"]:
     """The slice's main path: ``launch train`` on the ResNet config, only
-    ``data.data_dir`` and ``train.train_dir`` overridden, built by the
-    CLI's ``build_trainer`` (the Trainer loads the fixture itself)."""
+    ``data.data_dir`` and ``train.train_dir`` overridden (and
+    ``compile.precompile`` off: this phase times the eager step; the
+    ``graphs`` phase the captured one), built by the CLI's
+    ``build_trainer`` (the Trainer loads the fixture itself)."""
     import torch
 
     from distributedmnist_tpu_torch.data.pipeline import to_device
     from distributedmnist_tpu_torch.launch.__main__ import build_trainer
     from distributedmnist_tpu_torch.parallel.api import tree_leaves
     tr = build_trainer(["train", "--config", RESNET_CONFIG,
+                        "compile.precompile=false",
                         f"data.data_dir={data_dir}",
                         f"train.train_dir={tmp}/resnet", "--device", DEVICE])
     cfg, n = tr.cfg, tr.topo.num_replicas
@@ -2852,6 +2896,7 @@ def _resnet_card_vs_cpu(tmp: str, ds) -> dict:
                              ("cpu", "cpu", "float32"),
                              ("cpu_f64", "cpu", "float64")):
         tr = build_trainer(["train", "--config", RESNET_CONFIG,
+                            "compile.precompile=false",
                             f"train.train_dir={tmp}/rn_{name}",
                             f"data.batch_size={RESNET_CPU_BATCH}",
                             f"model.compute_dtype={dtype}",
@@ -2893,6 +2938,7 @@ def _resnet_knobs(tmp: str, ds) -> dict:
 
     def arm(name, *over):
         return build_trainer(["train", "--config", RESNET_CONFIG,
+                              "compile.precompile=false",
                               f"train.train_dir={tmp}/knob_{name}",
                               f"mesh.num_replicas={KNOB_REPLICAS}", *over,
                               "--device", DEVICE], datasets=ds)
@@ -3008,6 +3054,7 @@ def _resnet_restore(tmp: str, ds) -> dict:
 
     def trainer(n, *over):
         return build_trainer(["train", "--config", RESNET_CONFIG,
+                              "compile.precompile=false",
                               f"train.train_dir={d}", f"mesh.num_replicas={n}",
                               f"data.batch_size={RESTORE_BATCH}",
                               "optim.name=lamb",
@@ -3522,6 +3569,7 @@ def _colocated(tmp: str) -> dict:
              f"train.save_interval_steps={COLOC_EVERY}",
              "train.keep_checkpoints=0",
              f"train.step_pace_ms={COLOC_PACE_MS}",
+             "compile.precompile=false",
              f"train.train_dir={train_dir}", "--device", DEVICE]
     evaluate = [sys.executable, "-m", "distributedmnist_tpu_torch.launch",
                 "eval", "--train_dir", train_dir, "--eval_dir", eval_dir,
@@ -3659,7 +3707,11 @@ SERVE_CNN = {"name": "chip_smoke_serve",
              "train": {"max_steps": 60, "log_every_steps": 20,
                        "save_interval_steps": 10, "save_results_period": 0,
                        "summary_every_steps": 0, "keep_checkpoints": 0,
-                       "seed": SEED}}
+                       "seed": SEED},
+             # the eager step, as every phase before graphs: the
+             # asynchronous writer keeps only the latest of the saves
+             # queued behind a write, so a faster step publishes fewer
+             "compile": {"precompile": False}}
 SERVE_POLL_S, SERVE_CONC, SERVE_REQS, SERVE_DEADLINE_S = 0.1, 4, 200, 5.0
 SERVE_PUBLISH_EVERY_S = 0.3
 # the reference's gate (bench_serving_latency): p99 across swaps at most
@@ -4349,6 +4401,370 @@ def phase_serve(tmp: str, ckpt_rec: dict) -> dict:
 
 
 # (kernel, name, source, replaces, the phase whose launches it reports)
+# -- phase 16: the compile layer --------------------------------------------
+
+# each training arm: GRAPH_STEPS steps of the Trainer, its profile window
+# over GRAPH_WINDOW, then GRAPH_TIMED steps timed on one batch, once with
+# the step captured (compile.precompile=true) and once eager
+GRAPH_STEPS, GRAPH_WINDOW, GRAPH_TIMED = 8, (4, 7), 10
+# kernel names in a trace by launch counter
+TRACE_NAMES = {"K1-lse": "flash_fwd", "K2": "bwd_dq", "K3": "bwd_dkv",
+               "K4": "bwd_fused", "K5": "paged_split"}
+GRAPH_CHILD_TIMEOUT_S = 300
+
+_CACHE_CHILD = r"""
+import json, sys, time
+t0 = time.time()
+import torch
+from distributedmnist_tpu_torch.core.compile_cache import (
+    cache_stats, enable_persistent_cache)
+from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+from distributedmnist_tpu_torch.ops import _build
+enable_persistent_cache()
+before = cache_stats()
+_build.build()  # every library, as phase_build does: all at once
+for name in _build.SOURCES:
+    _build.load_library(name)
+t = build_trainer(["train", "--config", sys.argv[1], "train.max_steps=1",
+                   "compile.precompile=true", f"train.train_dir={sys.argv[2]}",
+                   "--device", "cuda"])
+first = []
+summary = t.run(step_callback=lambda s, r: first.append(time.time() - t0))
+after = cache_stats()
+print(json.dumps({"first_step_s": first[0],
+                  "compile": summary["compile"],
+                  "entries_before": before["entries"],
+                  "entries": after["entries"],
+                  "new_entries": after["entries"] - before["entries"],
+                  "hits": after["hits"], "misses": after["misses"],
+                  "rebuilds": _build.cache_counters()["rebuilds"]}))
+"""
+
+
+def _trace_counts(path, steps: int) -> dict:
+    """Launches a step of each flash/paged kernel in a Chrome trace, by
+    kernel name (a replay calls no wrapper, so its counter stays)."""
+    events = [e["name"] for e in json.loads(open(path).read())["traceEvents"]
+              if e.get("cat") == "kernel"]
+    return {k: sum(frag in n for n in events) / steps
+            for k, frag in TRACE_NAMES.items()}
+
+
+def _wall_ms(fn, steps: int) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def _graph_train_arm(name: str, build, per_step: dict,
+                     bitwise: bool) -> dict:
+    """One training arm, captured and eager: the compile record, params
+    and losses after ``GRAPH_STEPS`` steps from the same start, ms a step
+    by CUDA events and by the host clock, the profile window's idle share
+    and kernel counts a step, peak memory."""
+    import torch
+
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    out, finals = {}, {}
+    for mode in ("cuda_graph", "eager"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = build(f"graphs_{name}_{mode}",
+                   f"compile.precompile={str(mode == 'cuda_graph').lower()}",
+                   f"train.max_steps={GRAPH_STEPS}",
+                   f"train.profile_steps={list(GRAPH_WINDOW)}")
+        losses = []
+        reset_counts()
+        summary = tr.run(step_callback=lambda s, r: losses.append(r["loss"]))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log = [json.loads(line) for line in
+               (tr.train_dir / "train_log.jsonl").read_text().splitlines()]
+        compiles = [r for r in log if r["event"] == "compile"]
+        steps = GRAPH_WINDOW[1] - GRAPH_WINDOW[0]
+        trace = tr.train_dir / "profile" / "trace.json"
+        window = _trace_breakdown(trace, steps)
+        finals[mode] = ([t.clone() for t in tree_leaves(tr.state.params)],
+                        losses)
+        data, rows = tr.datasets.train, (tr.cfg.data.batch_size
+                                         * tr.cfg.train.grad_accum_steps)
+        batch = to_device({"image": data.images[:rows],
+                           "label": data.labels[:rows]}, tr.device)
+        state = tr.state
+
+        def step():
+            tr.step_fn(state, batch)
+
+        out[mode] = {
+            "compile": (compiles[0] if mode == "cuda_graph" else
+                        summary["compile"]),
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "ms_per_step": _time_steps(tr, batch, steps=GRAPH_TIMED),
+            "wall_ms_per_step": _wall_ms(step, GRAPH_TIMED),
+            "device_idle_share": window["device_idle_share"],
+            "device_busy_ms": window["device_busy_ms"],
+            "kernels_per_step": window["kernels_per_step"],
+            "flash_kernels": window["flash_kernels"],
+            "trace_launches_per_step": _trace_counts(trace, steps),
+            "wrapper_launches": counts, "peak_mem_gb": peak}
+        if mode == "cuda_graph":
+            check(len(compiles) == 1 and log[0]["event"] == "compile"
+                  and compiles[0]["source"] == "cuda_graph",
+                  f"{name}: compile records {compiles}")
+            check(tr._train_step.captured
+                  and tr._train_step._prepared.replay.replays
+                  >= GRAPH_STEPS, f"{name}: the steps did not replay")
+        del tr, state, batch
+    (gp, gl), (ep, el) = finals["cuda_graph"], finals["eager"]
+    del finals
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(gp, ep))
+    rec = {"phase": "graphs", "arm": name, **out,
+           "params_bitwise": all(torch.equal(a, b) for a, b in zip(gp, ep)),
+           "losses_equal": gl == el, "param_max_abs_diff": diff,
+           "loss_max_abs_diff": max(abs(a - b) for a, b in zip(gl, el)),
+           "replay_over_eager_ms": (out["cuda_graph"]["ms_per_step"]
+                                    / out["eager"]["ms_per_step"])}
+    emit(rec)
+    check(out["cuda_graph"]["flash_kernels"] == out["eager"]["flash_kernels"],
+          f"{name}: the capture changed the flash kernels that run: {out}")
+    for mode in out:
+        got = out[mode]["trace_launches_per_step"]
+        check(all(got[k] == v for k, v in per_step.items()),
+              f"{name} {mode}: kernels a step from the trace {got}, "
+              f"want {per_step}")
+    if bitwise:
+        check(rec["params_bitwise"] and rec["losses_equal"],
+              f"{name}: replay differs from eager: {rec}")
+    else:
+        check(rec["loss_max_abs_diff"] <= STEP_LOSS_TOL
+              and diff <= STEP_PARAM_TOL,
+              f"{name}: replay vs eager loss diff "
+              f"{rec['loss_max_abs_diff']}, param diff {diff}")
+    return rec
+
+
+def _decode_step_timing(rep, steps: int = 20) -> dict:
+    """The replica's current version's decode step with every slot live
+    at the e2e requests' mid-generation lengths: ms by CUDA events around
+    ``steps`` graph replays (or eager bodies), ms by the host clock for
+    the whole call (inputs staged, logits read back), and a
+    ``torch.profiler`` window over ``steps`` calls after 3 untraced ones
+    under the profiler (the first replays under a fresh profiler can lose
+    a kernel record; idle share against the unprofiled wall; K5 launches
+    a step by kernel name)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    dstep = rep._params.decode
+    slots = DECODE["decode_slots"]
+    lengths = [p + m // 2 for p, m in REQUESTS][:slots]
+    tables = [rep.cache.alloc_sequence(n) for n in lengths]
+    check(all(t is not None for t in tables), "no free blocks to time")
+    tab = torch.tensor(np.stack(tables), dtype=torch.int32, device=DEVICE)
+    toks = np.ones(slots, np.int64)
+    pos = np.asarray(lengths, np.int64) - 1
+    lens = np.asarray(lengths, np.int64)
+    call = lambda: dstep(toks, pos, lens, tab, "timing")  # noqa: E731
+    body = ((lambda: dstep.replay.replay("decode"))
+            if dstep.replay is not None else dstep.body)
+    for _ in range(3):
+        call()
+    wall = _wall_ms(call, steps)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(steps):
+        body()
+    b.record()
+    b.synchronize()
+    events_ms = a.elapsed_time(b) / steps
+    path = f"{rep.serve_dir}/decode_trace.json"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=2, active=steps),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)
+                 ) as prof:
+        for _ in range(3 + steps):
+            call()  # ends in the logits' read-back: the step is done
+            prof.step()
+    for t in tables:
+        rep.cache.free_sequence(t)
+    kernels = [e for e in json.loads(open(path).read())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    busy = sum(e["dur"] for e in kernels) / 1e3 / steps
+    return {"ms_per_step": events_ms, "wall_ms_per_step": wall,
+            "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall,
+            "kernels_per_step": len(kernels) / steps,
+            "k5_per_step": sum("paged_split" in e["name"]
+                               for e in kernels) / steps}
+
+
+def _graph_decode_arm(tmp: str, train_dir: str) -> dict:
+    """The e2e replica's configuration on the training phase's checkpoint,
+    each version's decode step captured and eager: the capture records,
+    the 8 e2e requests' tokens (greedy: equal both ways), ms a decode
+    iteration by the host clock, and :func:`_decode_step_timing`."""
+    import numpy as np
+    import torch
+
+    from distributedmnist_tpu_torch.servesvc.decode import DecodeReplica
+    from distributedmnist_tpu_torch.servesvc.server import wait_for_run_config
+    cfg = wait_for_run_config(train_dir)
+    rng = np.random.default_rng(SEED)
+    prompts = [(rng.integers(0, MODEL["vocab_size"], p).tolist(), m)
+               for p, m in REQUESTS]
+    out, tokens = {}, {}
+    for mode in ("cuda_graph", "eager"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rep = DecodeReplica(
+            train_dir, serve_dir=f"{tmp}/graphs_decode_{mode}",
+            scfg=cfg.serve, dcfg=cfg.decode, device=DEVICE,
+            cfg=cfg.override({"compile.precompile": mode == "cuda_graph"}))
+        rep.start()
+        try:
+            _drive(rep.bound_port, prompts, "warm")
+            it0 = rep.decode_iterations
+            outs, _, wall = _drive(rep.bound_port, prompts, mode)
+            iters = rep.decode_iterations - it0
+            timing = _decode_step_timing(rep)
+        finally:
+            rep.stop()
+        check(all(o is not None and o.get("status") == "ok" for o in outs),
+              f"decode {mode}: {outs}")
+        tokens[mode] = [o["tokens"] for o in outs]
+        out[mode] = {"compiles": rep.decode_compiles,
+                     "decode_iterations": iters,
+                     "wall_ms_per_iteration": wall * 1e3 / iters,
+                     **timing,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    rec = {"phase": "graphs", "arm": "decode", **out,
+           "tokens_equal": tokens["cuda_graph"] == tokens["eager"],
+           "replay_over_eager_wall": (out["cuda_graph"]["wall_ms_per_step"]
+                                      / out["eager"]["wall_ms_per_step"])}
+    emit(rec)
+    check(all(c["source"] == "cuda_graph"
+              for c in out["cuda_graph"]["compiles"]),
+          f"decode: a version was not captured: {out['cuda_graph']}")
+    for mode in out:
+        check(out[mode]["k5_per_step"] == MODEL["num_layers"],
+              f"decode {mode}: K5 {out[mode]['k5_per_step']} a step")
+    check(rec["tokens_equal"], "decode: replayed tokens differ from eager")
+    return rec
+
+
+def _graph_cache_children(tmp: str) -> dict:
+    """The kernel build cache across processes: a fresh
+    ``DMT_COMPILE_CACHE_DIR``; a cold process (every library a miss), a
+    warm one (none, no new entry), then one library truncated and a
+    third process that heals it with one rebuild; each process's time
+    from its start to the end of its first step (the training
+    configuration at seq 64, one step, captured)."""
+    from pathlib import Path
+    cache = f"{tmp}/graphs_kernel_cache"
+    path = f"{tmp}/graphs_cache.json"
+    with open(path, "w") as f:
+        json.dump({**TRAIN, "model": {**MODEL, "seq_len": K4_SEQ},
+                   "data": {**TRAIN["data"], "batch_size": K4_BATCH}}, f)
+    env = dict(os.environ, DMT_COMPILE_CACHE_DIR=cache)
+    runs = {}
+    for name in ("cold", "warm", "healed"):
+        if name == "healed":
+            lib = sorted(Path(cache, "kernels").glob(
+                "libpaged_attention-*.so"))
+            check(len(lib) == 1, f"kernel cache holds {lib}")
+            lib[0].write_bytes(lib[0].read_bytes()[:64])  # a torn write
+        try:
+            p = subprocess.run(
+                [sys.executable, "-c", _CACHE_CHILD, path,
+                 f"{tmp}/graphs_cache_{name}"], env=env, capture_output=True,
+                text=True, timeout=GRAPH_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            raise PhaseError(f"cache child {name} timed out") from e
+        check(p.returncode == 0, f"cache child {name} exited "
+              f"{p.returncode}: {p.stderr[-3000:]}")
+        runs[name] = json.loads(p.stdout.strip().splitlines()[-1])
+        runs[name]["heal_warning"] = "does not load" in p.stderr
+    from distributedmnist_tpu_torch.ops._build import SOURCES
+    n = len(SOURCES)
+    cold, warm, healed = runs["cold"], runs["warm"], runs["healed"]
+    check(cold["misses"] == n and cold["new_entries"] == n,
+          f"cold: {cold}")
+    check(warm["misses"] == 0 and warm["new_entries"] == 0
+          and warm["hits"] == n, f"warm: {warm}")
+    check(healed["rebuilds"] == 1 and healed["heal_warning"]
+          and healed["entries"] == n, f"healed: {healed}")
+    check(all(r["compile"]["source"] == "cuda_graph" for r in runs.values()),
+          f"cache children's compile records: {runs}")
+    return runs
+
+
+def phase_graphs(tmp: str, train_dir: str) -> dict:
+    """The compile layer: each arm captured against eager, and the kernel
+    build cache across processes."""
+    from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+    t0 = time.time()
+    layers = MODEL["num_layers"]
+    flash = {"K1-lse": layers, "K2": layers, "K3": layers, "K4": 0, "K5": 0}
+    none = dict.fromkeys(TRACE_NAMES, 0)
+
+    def resnet(name, *over):
+        return build_trainer(["train", "--config", RESNET_CONFIG,
+                              f"data.data_dir={tmp}/cifar10",
+                              f"train.train_dir={tmp}/{name}", *over,
+                              "--device", DEVICE])
+
+    arms = {
+        "cnn": _graph_train_arm(
+            "cnn", lambda n, *o: _cnn_trainer(tmp, n, *o), none,
+            bitwise=True),
+        "resnet": _graph_train_arm("resnet", resnet, none, bitwise=True),
+        "train": _graph_train_arm(
+            "train", lambda n, *o: _build_trainer(tmp, n, *o), flash,
+            bitwise=False),
+        "train_k4": _graph_train_arm(
+            "train_k4", lambda n, *o: _build_trainer(
+                tmp, n, f"model.seq_len={K4_SEQ}",
+                f"data.batch_size={K4_BATCH}", *o),
+            {**flash, "K2": 0, "K3": 0, "K4": layers}, bitwise=False),
+        "train_replicas": _graph_train_arm(
+            "train_replicas", lambda n, *o: _build_trainer(
+                tmp, n, f"mesh.num_replicas={REPLICAS}", "sync.mode=quorum",
+                f"sync.num_replicas_to_aggregate={REPLICA_K}",
+                "sync.straggler_profile=lognormal", *o),
+            flash, bitwise=False),
+        "decode": _graph_decode_arm(tmp, train_dir)}
+    import torch
+
+    from distributedmnist_tpu_torch.ops import flash_attention as fa
+    from distributedmnist_tpu_torch.ops import paged_attention as pa
+    hd = MODEL["model_dim"] // MODEL["num_heads"]
+    routes = {k: fa.kernel_route(k, torch.bfloat16, hd)
+              for k in ("K1-lse", "K2", "K3", "K4")}
+    routes["K5"] = pa.kernel_route(torch.bfloat16, hd)
+    # each arm printed its own line; the phase's line sums them up
+    summary = {name: {k: a[k] for k in ("params_bitwise", "tokens_equal",
+                                        "replay_over_eager_ms",
+                                        "replay_over_eager_wall") if k in a}
+               for name, a in arms.items()}
+    rec = {"phase": "graphs", "card": nvidia_smi(), "arms": summary,
+           "routes_after_capture": routes,
+           "kernel_cache": _graph_cache_children(tmp),
+           "seconds": time.time() - t0}
+    emit(rec)
+    check(routes == {"K1-lse": "wgmma", "K2": "wgmma", "K3": "wgmma",
+                     "K4": "wgmma", "K5": "cluster_split"},
+          f"kernel routes after the captures: {routes}")
+    return rec
+
+
 KERNELS = (
     ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "54", "e2e"),
     ("K1-lse", "flash_attention_fwd_lse", "flash_attention_fwd.cu", "54",
@@ -4406,6 +4822,8 @@ def main() -> int:
             runs["eval"] = phase_eval(tmp, runs["ckpt"])
             phase = "serve"
             runs["serve"] = phase_serve(tmp, runs["ckpt"])
+            phase = "graphs"
+            runs["graphs"] = phase_graphs(tmp, train["train_dir"])
     except Exception as e:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}",

@@ -442,39 +442,29 @@ class PrecisionConfig:
 
 @dataclass(frozen=True)
 class CompileConfig:
-    """Restart-latency fast path (ROADMAP item 5): persistent XLA
-    compilation cache + ahead-of-time train-step compilation.
+    """The compile layer (≙ the reference's ``CompileConfig``: its
+    persistent XLA cache and ahead-of-time train step), with the
+    reference's keys.
 
-    Every supervisor restart and chaos trial used to pay the full XLA
-    compile (~10 s) on top of process boot; these knobs let a restarted
-    worker reuse its predecessor's compiles.
+    ``persistent_cache`` / ``cache_dir``: the kernel build cache. A dir
+    (``cache_dir``, else ``DMT_COMPILE_CACHE_DIR``; none when
+    ``persistent_cache`` is false) makes the entry points (``launch
+    train``, ``eval``, ``serve``) build the CUDA kernel libraries into
+    ``<dir>/kernels`` and load them from there, so a later process
+    pointed at the same dir compiles nothing (``core/compile_cache.py``).
+    ``min_entry_size_bytes`` and ``min_compile_time_secs`` (JAX's cache
+    floors) are logged as no-ops: every library is kept.
 
-    ``cache_dir``: where jax's persistent compilation cache lives. ""
-    resolves the ``DMT_COMPILE_CACHE_DIR`` env var (how
-    ``LocalProcessCluster`` threads ONE shared cache dir into every
-    worker it spawns) and disables the cache when that is unset too —
-    so plain library use is unchanged unless a dir is provided.
-    The global jax cache is only ENABLED at process entry points
-    (launch CLI, ``__graft_entry__``) — never from inside the Trainer:
-    on jaxlib 0.4.37 a process that builds several Trainers against an
-    enabled cache corrupts itself (measured). Library callers wanting
-    it call ``core.compile_cache.enable_persistent_cache`` once at
-    startup; the Trainer itself only uses the dir for the AOT
-    executable cache below.
+    ``precompile``: the Trainer binds the train step's device body to
+    its state before the first batch and, on the card, captures it as
+    CUDA graphs that every step replays (``parallel/graphs.py``), with a
+    ``compile`` record in ``train_log.jsonl``; a decode replica captures
+    each params version's decode step the same way.
 
-    ``precompile``: Trainer AOT-compiles the train step
-    (``jit(...).lower(...).compile()``) BEFORE the first batch, so
-    compile time is journaled separately from step time (the
-    ``event: "compile"`` record in train_log.jsonl) and a warm standby
-    can park fully compiled.
-
-    ``aot_executable_cache``: additionally serialize the compiled
-    train-step executable into ``<cache_dir>/aot`` keyed on
-    (model, config, topology) where the installed jax/backend supports
-    cross-process executable serialization. Platforms that don't (the
-    CPU backend raises "Symbols not found" on a foreign executable)
-    discover it on first load, journal the fallback, and lean on the
-    persistent compilation cache instead — measured, not assumed.
+    ``aot_executable_cache`` and ``trust_cache_cross_process`` are
+    logged as no-ops: a CUDA graph cannot be serialized, and a kernel
+    library is a plain shared object that no process needs to
+    quarantine.
     """
 
     persistent_cache: bool = True
@@ -483,16 +473,6 @@ class CompileConfig:
     min_compile_time_secs: float = 0.0
     precompile: bool = True
     aot_executable_cache: bool = True
-    # Cross-process cache reuse is QUARANTINED on jaxlib <= 0.4.37: a
-    # restarted worker that loads executables serialized by its dead
-    # predecessor computes wrong numerics and then segfaults (measured
-    # on this container — dense and ZeRO-1 alike, graceful or SIGKILL
-    # handoff; the cross-process face of the same-process reload
-    # corruption the AOT cache already refuses via its pid stamp).
-    # enable_persistent_cache and the AOT disk cache both refuse on a
-    # quarantined jax unless this override asserts the platform has
-    # been validated (e.g. a real TPU backend where serialization is
-    # known good).
     trust_cache_cross_process: bool = False
 
 

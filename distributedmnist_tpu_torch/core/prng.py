@@ -162,20 +162,24 @@ def random_bits(key, shape: Sequence[int], device=None) -> torch.Tensor:
     """32 random bits per element of ``shape`` (int64 holding uint32
     values). ``key`` is one key ``[2]`` or a batch ``[..., 2]``; a batch
     gives ``[..., *shape]`` (each key its own ``shape``). The rounds run
-    in torch int64 on ``device``, the CPU and the card alike. One key
-    enters them as two Python integers, so drawing on the card copies
-    nothing to it (a copy from pageable memory would make the host wait
-    for the card's queue); a batch of keys goes through pinned memory."""
+    in torch int64 on ``device``, the CPU and the card alike. One host
+    key (numpy) enters them as two Python integers, so drawing on the
+    card copies nothing to it. A key that is a torch tensor (int64
+    words) is read where it lies, on ``device``: the train step keeps its
+    per-step keys in a device buffer, so a CUDA graph of the step reads
+    each replay's keys rather than the ones it was captured with."""
     shape = tuple(int(s) for s in shape)
-    keys = np.asarray(key, np.uint32)
-    batch = keys.shape[:-1]
-    if keys.size == 2:
-        k0, k1 = (int(w) for w in keys.reshape(2))
-    else:
-        k = torch.from_numpy(keys.reshape(-1, 2).astype(np.int64))
-        if torch.device(device or "cpu").type == "cuda":
-            k = k.pin_memory().to(device, non_blocking=True)
+    if not isinstance(key, torch.Tensor):
+        keys = np.asarray(key, np.uint32)
+        if keys.size != 2:
+            key = torch.from_numpy(keys.astype(np.int64)).to(device)
+    if isinstance(key, torch.Tensor):
+        batch = tuple(key.shape[:-1])
+        k = key.reshape(-1, 2).to(torch.int64)
         k0, k1 = k[:, 0:1], k[:, 1:2]
+    else:
+        batch = keys.shape[:-1]
+        k0, k1 = (int(w) for w in keys.reshape(2))
     counts = torch.arange(math.prod(shape), dtype=torch.int64,
                           device=device)[None, :]
     b0, b1 = _rounds((counts >> 32) & _M32, counts & _M32, k0, k1,

@@ -56,7 +56,11 @@ name, test accuracy and examples/sec; ``report`` writes a run's
 ``devices`` prints the process index and count and each device's index
 and name. The flag names are the reference CLI's. The device is
 ``cuda:0`` unless ``--device`` names another; without CUDA the default
-is an error, not a CPU run.
+is an error, not a CPU run. ``train``, ``eval`` and ``serve`` first
+switch on the kernel build cache (``compile.cache_dir`` or
+``DMT_COMPILE_CACHE_DIR``: the kernel libraries are built into and
+loaded from ``<dir>/kernels``, :mod:`..core.compile_cache`), as the
+reference's entry points switch on its persistent compile cache.
 
 Accepted and not run, each logged once a Trainer: device prefetch, the
 native loader and the ``compile.*`` knobs. Not ported yet (each raises):
@@ -224,12 +228,14 @@ def train(argv: list[str]) -> None:
     """``launch train``: join the process group ``torchrun`` describes
     (if any), run, evaluate, print the summary line; leave the group on
     every exit."""
+    from ..core.compile_cache import enable_persistent_cache
     from ..core.mesh import initialize_distributed, shutdown_distributed
 
     args = build_parser().parse_args(argv)
     initialize_distributed(args.dist_backend, args.device)
     try:
         trainer = build_trainer(argv)
+        enable_persistent_cache(trainer.cfg.compile)
         summary = trainer.run()
         shown = {k: v for k, v in summary.items() if k != "timing"}
         if summary.get("preempted"):
@@ -369,6 +375,8 @@ _VERBS = {"sweep": sweep, "report": report, "devices": devices}
 
 
 def main(argv: list[str] | None = None) -> None:
+    from ..core.compile_cache import enable_persistent_cache
+
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "train":
         train(argv)
@@ -378,12 +386,16 @@ def main(argv: list[str] | None = None) -> None:
         return
     if argv and argv[0] == "eval":
         from ..evalsvc.__main__ import evaluator_from_args
-        evaluator_from_args(build_parser().parse_args(argv)).run()
+        evaluator = evaluator_from_args(build_parser().parse_args(argv))
+        enable_persistent_cache()
+        evaluator.run()
         return
     if argv and argv[0] == "serve-load":
         serve_load(argv)
         return
-    build_replica(argv).serve_forever()
+    replica = build_replica(argv)
+    enable_persistent_cache(replica.cfg.compile)
+    replica.serve_forever()
 
 
 if __name__ == "__main__":

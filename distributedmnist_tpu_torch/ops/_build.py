@@ -8,16 +8,28 @@ build takes seconds, not minutes:
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so
          csrc/<name>.cu
 
-Libraries land in ``distributedmnist_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source, the shared headers
-(``csrc/*.cuh``, which every source may include) and the flags, so an
-edited source or header rebuilds and an unchanged one is reused.
+Libraries land in the build directory — ``distributedmnist_tpu_torch/
+_build/`` (listed in ``.gitignore``), or ``<cache_dir>/kernels`` once
+an entry point has enabled the kernel build cache
+(:func:`..core.compile_cache.enable_persistent_cache`, which calls
+:func:`set_build_dir`) — named by a hash of the source, the shared
+headers (``csrc/*.cuh``, which every source may include) and the flags,
+so an edited source or header rebuilds and an unchanged one is reused,
+by this process or by any later one that shares the directory.
 Building happens at first use — importing this module compiles nothing
 — and :func:`build` compiles every stale source at once, one ``nvcc``
-process per source, all started together. The compiler's output
+process per source, all started together; each writes a per-process
+temporary name and renames it into place, so processes building the
+same library at once leave one whole library. The compiler's output
 (``-Xptxas -v``: each kernel's registers, stack and spill bytes) is kept
 beside each library as ``.log``; :func:`ptxas_report` reads it and names
 each kernel instantiation through the toolkit's ``cu++filt``.
+
+The first time a process needs a library it counts a hit (the library
+was there) or a miss (it had to be compiled): :func:`cache_counters`.
+A library that exists but does not load (a torn or truncated file:
+``ctypes.CDLL`` raises ``OSError``) is deleted, logged and rebuilt once:
+cache damage costs one compile, never a crash.
 """
 
 from __future__ import annotations
@@ -32,15 +44,50 @@ import threading
 import time
 from pathlib import Path
 
+from ..core.log import get_logger
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
+DEFAULT_BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+logger = get_logger("build")
+
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# process-wide, as the loaded libraries are: where they are built, and
+# the first-need hit/miss count of each library name
+_build_dir = DEFAULT_BUILD_DIR
+_counted: set[str] = set()
+_counters = {"hits": 0, "misses": 0, "rebuilds": 0}
+
+
+def build_dir() -> Path:
+    """The directory libraries are built into and loaded from."""
+    return _build_dir
+
+
+def set_build_dir(path: str | Path) -> None:
+    """Build into and load from ``path`` from now on (libraries this
+    process already loaded stay loaded)."""
+    global _build_dir
+    with _lock:
+        _build_dir = Path(path)
+
+
+def cache_counters() -> dict[str, int]:
+    """This process's ``hits`` and ``misses`` (one per library name, at
+    its first need) and ``rebuilds`` (damaged libraries compiled
+    again)."""
+    return dict(_counters)
+
+
+def _count(name: str, hit: bool) -> None:
+    if name not in _counted:
+        _counted.add(name)
+        _counters["hits" if hit else "misses"] += 1
 
 
 def _nvcc() -> str:
@@ -61,17 +108,23 @@ def library_path(name: str) -> Path:
         h.update(header.name.encode())
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return _build_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, float]:
     """Compile every stale library among ``names`` in parallel; returns
     the seconds each compile took (empty when all were up to date).
     Raises ``RuntimeError`` with the compiler's output on a failure."""
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = []
+    for n in names:
+        present = library_path(n).exists()
+        _count(n, present)
+        if not present:
+            todo.append(n)
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = _build_dir
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     t0 = time.time()
@@ -94,7 +147,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, float]:
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         for suffix in (".so", ".log"):  # an older build's library and log
-            for stale in BUILD_DIR.glob(f"lib{name}-*{suffix}"):
+            for stale in out_dir.glob(f"lib{name}-*{suffix}"):
                 if stale.stem != out.stem:
                     stale.unlink(missing_ok=True)
     if failed:
@@ -104,13 +157,22 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, float]:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if its
-    source changed since the last build. Thread-safe; loads once per
-    process."""
+    source changed since the last build; a library that fails to load
+    is deleted and rebuilt once. Thread-safe; loads once per process."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
+            path = library_path(name)
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                logger.warning("kernel library %s does not load (%s): "
+                               "deleted, rebuilding it", path.name, e)
+                path.unlink(missing_ok=True)
+                _counters["rebuilds"] += 1
+                build((name,))
+                lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
 

@@ -54,11 +54,20 @@ def masked_mean(buckets: torch.Tensor, scale, topo: Topology,
     """The masked mean of this process's per-replica buckets ``[L, W]``
     over all ``n`` replicas: each local row's first ``width`` columns
     (all of them when None) are scaled in place by the replica's entry
-    of the ``[n]`` ``scale`` (``scale[first_replica + j]``; host numbers:
-    nothing is copied to the device), then one sum over replicas. The
-    columns past ``width`` are summed as they are."""
-    first = topo.first_replica
+    of the ``[n]`` float32 ``scale`` (``scale[first_replica + j]``), then
+    one sum over replicas. The columns past ``width`` are summed as they
+    are. The train step passes ``scale`` as a tensor on the buckets'
+    device, so a CUDA graph of it reads each step's scale."""
     cols = buckets if width is None else buckets[:, :width]
-    for j in range(topo.local_replica_count):
-        cols[j].mul_(float(scale[first + j]))
+    cols.mul_(local_scale(scale, topo, cols))
     return topo.sum_replicas(buckets)
+
+
+def local_scale(scale, topo: Topology, rows: torch.Tensor) -> torch.Tensor:
+    """This process's replicas' entries of the ``[n]`` ``scale``, shaped
+    to broadcast over ``rows`` ``[L, ...]`` (one float32 multiply an
+    element, as scaling each row by its own number is)."""
+    s = torch.as_tensor(scale, dtype=torch.float32, device=rows.device)
+    first = topo.first_replica
+    s = s[first:first + topo.local_replica_count]
+    return s.view(-1, *([1] * (rows.dim() - 1)))

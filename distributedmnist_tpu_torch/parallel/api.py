@@ -69,6 +69,15 @@ The ``[3]`` discipline vector ``(k, timeout_ms, interval_ms)`` and the
 can change between steps with no rebuild. Metrics keep the reference's
 keys and shapes.
 
+The step (:class:`TrainStep`) is a host part and a device body. The
+host part makes every per-step number (the flags and contribution
+scale, lr, LAMB's bias corrections, the interval clock, every
+replica's dropout and drop-connect keys) and the device body reads them
+from static buffers, in stages, so that on the card the body can be
+captured as CUDA graphs (``Trainer.precompile``, :mod:`.graphs`) and
+replayed every step; eager calls run the same stages over the same
+buffers.
+
 Checkpoints hold the logical layout whatever the live one
 (:func:`canonical_save_state`); :func:`restore_for_topology` reads one
 saved under any replica or process count, refuses another optimizer's
@@ -94,7 +103,7 @@ from ..core.log import get_logger
 from ..core.mesh import Topology, make_topology
 from ..models.registry import Model, torch_dtype
 from ..ops import masked_psum
-from ..ops.drop_connect import drop_connect_grads
+from ..ops.drop_connect import leaf_keys, mask_leaves
 from ..train import optim as optim_lib
 from . import policies
 from .partition_rules import (LeafShardPlan, Zero1Plan,
@@ -458,71 +467,188 @@ def _padded_rows(g: torch.Tensor, lp: LeafShardPlan) -> torch.Tensor:
     return rows.view(g.shape[0], -1, lp.chunk)
 
 
-def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
-                     topo: Topology | None = None, *,
-                     cudnn_deterministic: bool = True
-                     ) -> Callable[..., tuple[TrainState, dict]]:
-    """``step_fn(state, batch, measured_ms=None, discipline=None) ->
-    (state, metrics)``. ``batch = {"image", "label"}`` is this process's
-    batch on the state's device (the global batch with one process;
-    ``grad_accum_steps`` of them concatenated under accumulation); local
-    replica j takes rows ``[j·B/L, (j+1)·B/L)`` of it. ``measured_ms`` is
-    the ``[n]`` host-measured base of the modeled step times (zeros when
-    None); ``discipline`` the ``[3]`` vector of
-    :func:`make_discipline_vector` (the config's values when None). The
-    state must be in the layout :func:`init_train_state` gives for
-    ``topo``; it is updated IN PLACE (params, slots, window) and
-    returned. Each call runs under :func:`..core.device.cudnn_policy`:
-    cuDNN's deterministic algorithms unless ``cudnn_deterministic`` is
-    False, and no TF32 rounding when the model computes in float32.
+# the number of pinned staging buffers a train step cycles through: the
+# host may run this many steps ahead of the card before it waits
+_STAGING_RING = 4
 
-    Metrics carry the reference's keys: ``loss`` and ``train_acc`` (the
-    mean over all replicas) are 0-d device tensors — reading them waits for
-    the step; ``lr``, ``num_contributors``, ``updates_applied`` and
-    ``applied`` are host numbers; ``step_times_ms`` (the modeled times)
-    and ``flags`` are ``[n]`` float32 numpy arrays."""
-    _check_ported(cfg)
-    topo = topo or make_topology(cfg.mesh)
-    n, L, first = (topo.num_replicas, topo.local_replica_count,
-                   topo.first_replica)
-    # one bucket and one sum over replicas whenever there is more than
-    # one replica or a process group to reduce over
-    bucketed = n > 1 or topo.distributed
-    sync = cfg.sync
-    sync.validate(num_replicas=n)
-    mode = sync.mode
-    if mode not in ("sync", "quorum", "timeout", "interval", "cdf"):
-        raise ValueError(f"unknown sync mode {mode!r}")
-    k = policies.resolve_aggregate_k(sync, n)
-    accum = int(cfg.train.grad_accum_steps)
-    param_dtype = torch_dtype(cfg.precision.param_dtype)
-    fwd_cast = cfg.precision.master_weights and param_dtype != torch.float32
-    plan = zero1_plan_for(model, cfg, topo)
-    if cfg.parallel.shard_weight_update and plan is None:
-        logger.warning(
-            "parallel.shard_weight_update=true is a no-op here (%s); "
-            "running the replicated update",
-            "replica axis is 1" if n <= 1 else
-            f"sync.mode={mode!r} keeps the full windowed accumulator")
-    if model.loss is None or model.accuracy is None:
-        raise ValueError(f"model {model.name!r} has no loss/accuracy")
-    opt = optim_lib.make_optimizer(cfg.optim)
-    default_disc = make_discipline_vector(k, sync.timeout_ms,
-                                          sync.interval_ms)
-    tf32 = False if model.compute_dtype == torch.float32 else None
-    zeros_ms = torch.zeros(n, dtype=torch.float32)
-    if plan is not None:
-        lps = plan.leaves()
-        sharded = [i for i, lp in enumerate(lps) if lp.sharded]
-        fallback = [i for i, lp in enumerate(lps) if not lp.sharded]
-        # the update's reduce-scatters: one a leaf (monolithic) or one a
-        # layer-ordered bucket; the same addends either way
-        scatter_groups = (comm_bucket_assignment(plan)
-                          if plan.comm_buckets > 1 else [[i] for i in sharded])
-        all_local = L == plan.n
-        resident = plan.params_sharded
 
-    def flags_for(t_ms: torch.Tensor, disc: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass
+class HostStep:
+    """One step's numbers that need no device, made by the host before
+    any of the step's device work: the modeled times and flags, the
+    contribution scale and contributor count, the schedule's ``lr``,
+    ``applied``, the update stage that runs (None: none), the values
+    the input buffer gets (the update's ``lr``, LAMB's corrections, the
+    interval window's divisor) and interval mode's new clock ``(rounds,
+    wall_ms, next_apply_ms)``."""
+
+    t_ms: torch.Tensor
+    flags: torch.Tensor
+    scale: torch.Tensor
+    num: torch.Tensor
+    lr: float
+    applied: int
+    update: str | None
+    lr_update: float
+    corrections: tuple[float, float]
+    rounds: float
+    window: tuple[float, float, float] | None
+
+
+class _Binding:
+    """The device body's static buffers for one state: the state's
+    tensors (updated in place), a batch buffer, the per-step input buffer
+    (float64 ``[W]`` on the device: every number and key word of a step
+    is exact in float64) with its pinned staging ring, the named stages
+    and, once captured, their graphs."""
+
+    def __init__(self, state: TrainState, batch: dict, width: int,
+                 slot_trees: Callable[[Any], list]):
+        self.state = state
+        self.params = state.params
+        self.leaves = tree_leaves(state.params)
+        self.slots = [tree_leaves(t) for t in slot_trees(state.momentum)]
+        self.window = (tree_leaves(state.window_acc)
+                       if state.window_acc is not None else None)
+        self.held = _state_tensors(state)
+        device = self.leaves[0].device
+        self.device = device
+        self.batch = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                      for k, v in batch.items()}
+        self.inputs = torch.zeros(width, dtype=torch.float64, device=device)
+        cuda = device.type == "cuda"
+        self.staging = [torch.zeros(width, dtype=torch.float64,
+                                    pin_memory=cuda)
+                        for _ in range(_STAGING_RING if cuda else 1)]
+        self.staged = [None] * len(self.staging)  # each one's copy event
+        self.turn = 0
+        self.stages: dict[str, Callable[[], Any]] = {}
+        self.replay = None  # a GraphReplay once captured
+
+    def holds(self, state: TrainState, batch: dict) -> bool:
+        """Whether ``state`` is this binding's, tensor for tensor, and
+        ``batch`` fits its buffer."""
+        now = _state_tensors(state)
+        return (state is self.state and state.params is self.params
+                and batch.keys() == self.batch.keys()
+                and all(tuple(v.shape) == tuple(self.batch[k].shape)
+                        for k, v in batch.items())
+                and len(now) == len(self.held)
+                and all(a is b for a, b in zip(now, self.held)))
+
+    def stage(self, fill: Callable[[np.ndarray], None], batch: dict) -> None:
+        """Fill the next staging buffer on the host (waiting first for the
+        copy that last read it), copy it into the input buffer with one
+        host-to-device copy, and the batch into the batch buffer."""
+        i = self.turn
+        self.turn = (i + 1) % len(self.staging)
+        if self.staged[i] is not None:
+            self.staged[i].synchronize()
+        buf = self.staging[i]
+        fill(buf.numpy())
+        self.inputs.copy_(buf, non_blocking=True)
+        if self.device.type == "cuda":
+            ev = self.staged[i] = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+        for k, v in batch.items():
+            self.batch[k].copy_(v, non_blocking=True)
+
+    def run(self, name: str) -> Any:
+        if self.replay is not None:
+            return self.replay.replay(name)
+        return self.stages[name]()
+
+
+class TrainStep:
+    """The train step (≙ the reference's ``build_train_step``), split in
+    two. A host part makes every per-step number that needs no device —
+    modeled times, flags, contribution scale, lr, the update count's
+    LAMB corrections, the PRNG keys of every replica's dropout and
+    drop-connect, the interval clock — and fills one pinned staging
+    buffer. A device body reads all of them from static buffers (one
+    host-to-device copy a step into the input buffer, the batch copied
+    into the batch buffer) and updates the state's tensors in place, in
+    stages: ``grads`` (every local replica's forward and backward,
+    drop-connect, the masked mean), then the update stage the host
+    picked — ``apply``, or interval mode's ``join`` / ``join_fire``, or
+    ZeRO-1's ``zero1`` / ``zero1_reduce`` — or none (an optimizer with
+    slots when nothing was applied).
+
+    A call runs the stages eagerly, or, for the state :meth:`prepare`
+    bound and captured, replays their CUDA graphs: the same bodies over
+    the same buffers either way, so a replay is bitwise an eager step
+    and the CPU's eager run exercises exactly what the card records.
+    The bound state's tensors must stay the ones captured (restore into
+    them in place, :func:`load_state_into`)."""
+
+    def __init__(self, model: Model, cfg: ExperimentConfig,
+                 schedule: Schedule, topo: Topology | None = None, *,
+                 cudnn_deterministic: bool = True):
+        _check_ported(cfg)
+        topo = topo or make_topology(cfg.mesh)
+        self.model, self.cfg, self.schedule, self.topo = (model, cfg,
+                                                          schedule, topo)
+        self.cudnn_deterministic = cudnn_deterministic
+        self.n, self.L, self.first = (topo.num_replicas,
+                                      topo.local_replica_count,
+                                      topo.first_replica)
+        # one bucket and one sum over replicas whenever there is more
+        # than one replica or a process group to reduce over
+        self.bucketed = self.n > 1 or topo.distributed
+        sync = self.sync = cfg.sync
+        sync.validate(num_replicas=self.n)
+        self.mode = sync.mode
+        if self.mode not in ("sync", "quorum", "timeout", "interval", "cdf"):
+            raise ValueError(f"unknown sync mode {self.mode!r}")
+        k = policies.resolve_aggregate_k(sync, self.n)
+        self.accum = int(cfg.train.grad_accum_steps)
+        self.param_dtype = torch_dtype(cfg.precision.param_dtype)
+        self.fwd_cast = (cfg.precision.master_weights
+                         and self.param_dtype != torch.float32)
+        self.plan = plan = zero1_plan_for(model, cfg, topo)
+        if cfg.parallel.shard_weight_update and plan is None:
+            logger.warning(
+                "parallel.shard_weight_update=true is a no-op here (%s); "
+                "running the replicated update",
+                "replica axis is 1" if self.n <= 1 else
+                f"sync.mode={self.mode!r} keeps the full windowed "
+                "accumulator")
+        if model.loss is None or model.accuracy is None:
+            raise ValueError(f"model {model.name!r} has no loss/accuracy")
+        self.opt = optim_lib.make_optimizer(cfg.optim)
+        self.default_disc = make_discipline_vector(k, sync.timeout_ms,
+                                                   sync.interval_ms)
+        self.tf32 = False if model.compute_dtype == torch.float32 else None
+        self.zeros_ms = torch.zeros(self.n, dtype=torch.float32)
+        if plan is not None:
+            self.lps = plan.leaves()
+            sharded = [i for i, lp in enumerate(self.lps) if lp.sharded]
+            self.fallback = [i for i, lp in enumerate(self.lps)
+                             if not lp.sharded]
+            # the update's reduce-scatters: one a leaf (monolithic) or one
+            # a layer-ordered bucket; the same addends either way
+            self.scatter_groups = (comm_bucket_assignment(plan)
+                                   if plan.comm_buckets > 1
+                                   else [[i] for i in sharded])
+        # the input buffer's layout: scale [n], the update's lr, LAMB's
+        # two corrections, the interval divisor, then the dropout keys
+        # [accum, L, 2] and the drop-connect keys [L, leaves, 2]
+        n_leaves = len(tree_leaves(model.init_params(
+            cfg.model.init_seed, torch.device("meta"))))
+        self.n_leaves = n_leaves
+        self.at_keys = self.n + 4
+        self.dropout_words = (self.accum * self.L * 2
+                              if model.dropout_masks is not None else 0)
+        self.at_dc = self.at_keys + self.dropout_words
+        self.dc_words = self.L * n_leaves * 2 if sync.drop_connect else 0
+        self.width = self.at_dc + self.dc_words
+        self._prepared: _Binding | None = None
+        self._scratch: _Binding | None = None
+
+    # -- the host part ---------------------------------------------------
+
+    def flags_for(self, t_ms: torch.Tensor, disc: torch.Tensor) -> torch.Tensor:
+        n, mode = self.n, self.mode
         if mode in ("sync", "cdf"):
             return torch.ones(n, dtype=torch.float32)
         if mode == "quorum":
@@ -532,32 +658,125 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
         # interval: stale if slower than a whole window
         return policies.timeout_flag(t_ms, disc[DISC_INTERVAL_MS])
 
-    def forward_params(state: TrainState) -> Any:
+    def host_part(self, state: TrainState, measured_ms=None,
+                  discipline=None) -> HostStep:
+        """This step's host numbers for ``state``, which it does not
+        change (:meth:`commit` does)."""
+        n = self.n
+        disc = (self.default_disc if discipline is None
+                else torch.as_tensor(discipline, dtype=torch.float32).cpu())
+        meas = (self.zeros_ms if measured_ms is None
+                else torch.as_tensor(measured_ms, dtype=torch.float32).cpu())
+        if meas.shape != (n,):
+            raise ValueError(f"measured_ms must be [{n}], got "
+                             f"{tuple(meas.shape)}")
+        t_ms = policies.sample_step_time_ms(self.sync, state.root_key,
+                                            state.step, meas)
+        flags = self.flags_for(t_ms, disc)
+        scale, num = masked_psum.contribution_scale(flags)
+        lr = self.schedule(state.updates_applied)
+        stateless = self.opt.num_slots == 0
+        applied = int(float(num) > 0)
+        rounds, window = 0.0, None
+        if self.mode == "interval":
+            # ≙ _interval_apply: join the window, advance the modeled
+            # wall clock by the mean replica pace, and on crossing the
+            # window apply the window's average and re-arm from now
+            r = _F32(_F32(state.window_rounds) + _F32(1.0))
+            wall = _F32(_F32(state.wall_ms)
+                        + _F32(_f32_sum(t_ms.numpy()) / _F32(n)))
+            fire = bool(wall >= _F32(state.next_apply_ms))
+            applied, rounds = int(fire), float(r)
+            update, lr_update = ("join_fire" if fire else "join"), lr
+            window = ((0.0, float(wall), float(_F32(
+                wall + _F32(disc[DISC_INTERVAL_MS].item()))))
+                      if fire else
+                      (float(r), float(wall), state.next_apply_ms))
+        elif stateless:
+            # lr·0 is exact, so scaling the lr by the applied flag IS
+            # the no-op
+            update = "zero1" if self.plan is not None else "apply"
+            lr_update = float(_F32(lr) * _F32(applied))
+        elif applied:
+            update, lr_update = ("zero1" if self.plan is not None
+                                 else "apply"), lr
+        else:
+            # moment slots decay even on zero gradients: a true no-op
+            # keeps params and slots as they were (ZeRO-1 still reduces
+            # the loss and accuracy)
+            update = "zero1_reduce" if self.plan is not None else None
+            lr_update = lr
+        corrections = (self.opt.corrections(float(state.updates_applied + 1))
+                       if self.opt.corrections is not None else (1.0, 1.0))
+        return HostStep(t_ms=t_ms, flags=flags, scale=scale, num=num, lr=lr,
+                        applied=applied, update=update, lr_update=lr_update,
+                        corrections=corrections, rounds=rounds,
+                        window=window)
+
+    def fill_inputs(self, state: TrainState, hs: HostStep,
+                    out: np.ndarray) -> None:
+        """Write ``hs`` and the step's keys into a staging buffer."""
+        n, L, first = self.n, self.L, self.first
+        out[:n] = hs.scale.numpy()
+        out[n] = hs.lr_update
+        out[n + 1], out[n + 2] = hs.corrections
+        out[n + 3] = hs.rounds
+        if self.dropout_words:
+            out[self.at_keys:self.at_dc] = np.stack([
+                prng.replica_keys(state.root_key, "dropout",
+                                  state.step * self.accum + idx,
+                                  self.n)[first:first + L]
+                for idx in range(self.accum)]).reshape(-1)
+        if self.dc_words:
+            keys = prng.replica_keys(state.root_key, "drop_connect",
+                                     state.step, n)
+            out[self.at_dc:] = np.stack([
+                leaf_keys(keys[first + j], self.n_leaves)
+                for j in range(L)]).reshape(-1)
+
+    @staticmethod
+    def commit(state: TrainState, hs: HostStep) -> None:
+        """Advance ``state``'s host counters past the step."""
+        state.updates_applied += hs.applied
+        state.step += 1
+        if hs.window is not None:
+            state.window_rounds, state.wall_ms, state.next_apply_ms = (
+                hs.window)
+
+    # -- the device body -------------------------------------------------
+
+    def _scale(self, b: _Binding) -> torch.Tensor:
+        return b.inputs[:self.n].float()
+
+    def _lr(self, b: _Binding):
+        n = self.n
+        return (b.inputs[n].float(),
+                (b.inputs[n + 1].float(), b.inputs[n + 2].float()))
+
+    def _forward_params(self, b: _Binding) -> Any:
         """The params the forward sees: logical (gathered under a
         resident plan), cast to ``param_dtype`` over float32 masters."""
-        params = logical_params(state.params, plan, topo)
-        if fwd_cast:
-            params = tree_map(lambda p: p.to(param_dtype) if p.is_floating_point()
-                              else p, params)
+        params = logical_params(b.params, self.plan, self.topo)
+        if self.fwd_cast:
+            params = tree_map(lambda p: p.to(self.param_dtype)
+                              if p.is_floating_point() else p, params)
         return params
 
-    def replica_grads(state: TrainState, params: Any, xs: torch.Tensor,
-                      ys: torch.Tensor, dropout_step: int):
+    def _replica_grads(self, params: Any, xs: torch.Tensor, ys: torch.Tensor,
+                       keys: torch.Tensor | None):
         """Forward and backward of every local replica on its rows
-        ``xs[j]``, each with its own dropout mask (replica ``first + j``
-        draws ``replica_keys(root, "dropout", dropout_step, n)[first +
-        j]``): ``(losses, accs, grads)``, the per-replica losses and
-        accuracies ``[L]`` and the float32 gradient leaves, each ``[L,
-        ...]`` (a row a replica). Several replicas run as one
+        ``xs[j]``, each with its own dropout mask (from ``keys[j]``, replica
+        ``first + j``'s key): ``(losses, accs, grads)``, the per-replica
+        losses and accuracies ``[L]`` and the float32 gradient leaves,
+        each ``[L, ...]`` (a row a replica). Several replicas run as one
         ``torch.func.vmap`` of ``grad`` over the replica axis when the
-        model allows it (the transformer's 8-replica step: 81.9–83.4
-        ms against 102.2–110.8 ms looped on an H100 80GB HBM3 at 700 W,
-        PERF.md §6); else, and for a lone local replica, each runs autograd
-        directly and writes its row."""
+        model allows it (the transformer's 8-replica step: 81.9–83.4 ms
+        against 102.2–110.8 ms looped on an H100 80GB HBM3 at 700 W,
+        PERF.md §6); else, and for a lone local replica, each runs
+        autograd directly and writes its row."""
+        model, L = self.model, self.L
         keep = None
-        if model.dropout_masks is not None:
-            keys = prng.replica_keys(state.root_key, "dropout", dropout_step,
-                                     n)[first:first + L]
+        if keys is not None:
             keep = model.dropout_masks(keys if L > 1 else keys[0],
                                        xs.shape[1], xs.device)
         if L == 1 or not model.vmap_replicas:
@@ -600,229 +819,347 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                 params, xs, ys, keep)
         return losses, accs, [g.float() for g in tree_leaves(grads)]
 
-    def accumulated_grads(state: TrainState, batch: dict):
-        """:func:`replica_grads` over the step's ``accum`` microbatches:
-        each replica's row block split into ``accum`` consecutive
-        microbatches, float32 sums over them divided by ``accum``."""
-        params = forward_params(state)
-        xs, ys = topo.split_batch(batch["image"]), topo.split_batch(
-            batch["label"])
-        if accum == 1:
-            return replica_grads(state, params, xs, ys, state.step)
-        xs = xs.view(L, accum, -1, *xs.shape[2:])
-        ys = ys.view(L, accum, -1, *ys.shape[2:])
-        losses = accs = grads = None
-        for idx in range(accum):
-            l, a, g = replica_grads(state, params, xs[:, idx], ys[:, idx],
-                                    state.step * accum + idx)
-            if grads is None:
-                losses, accs, grads = l.float(), a.float(), g
-            else:
-                losses, accs = losses + l, accs + a
-                for s, gi in zip(grads, g):
-                    s.add_(gi)
-        for s in grads:
-            s.div_(accum)
-        return losses / accum, accs / accum, grads
+    def _dropout_keys(self, b: _Binding) -> torch.Tensor | None:
+        if not self.dropout_words:
+            return None
+        return b.inputs[self.at_keys:self.at_dc].long().view(
+            self.accum, self.L, 2)
 
-    def drop_connect(state: TrainState, grads: list) -> None:
-        """Mask each local replica's gradient leaves in place with its
-        ``replica_key(root, "drop_connect", step, first + j)``."""
-        keys = prng.replica_keys(state.root_key, "drop_connect", state.step,
-                                 n)
-        for j in range(L):
-            for g, m in zip(grads, drop_connect_grads(
-                    [g[j] for g in grads], keys[first + j],
-                    sync.drop_connect_probability)):
+    def grads_body(self, b: _Binding):
+        """The ``grads`` stage: :meth:`_replica_grads` over the step's
+        ``accum`` microbatches (each replica's row block split into
+        ``accum`` consecutive microbatches, float32 sums over them divided
+        by ``accum``), drop-connect, then — without a ZeRO-1 plan — the
+        masked mean: each replica scaled by its share, one sum over
+        replicas (a lone replica's scaled gradient is the mean). Returns
+        ``(mean leaves, loss, accuracy)``, or under a plan the per-replica
+        ``(grads, losses, accs)``."""
+        topo, L, accum = self.topo, self.L, self.accum
+        params = self._forward_params(b)
+        xs = topo.split_batch(b.batch["image"])
+        ys = topo.split_batch(b.batch["label"])
+        keys = self._dropout_keys(b)
+        if accum == 1:
+            losses, accs, grads = self._replica_grads(
+                params, xs, ys, None if keys is None else keys[0])
+        else:
+            xs = xs.view(L, accum, -1, *xs.shape[2:])
+            ys = ys.view(L, accum, -1, *ys.shape[2:])
+            losses = accs = grads = None
+            for idx in range(accum):
+                l, a, g = self._replica_grads(
+                    params, xs[:, idx], ys[:, idx],
+                    None if keys is None else keys[idx])
+                if grads is None:
+                    losses, accs, grads = l.float(), a.float(), g
+                else:
+                    losses, accs = losses + l, accs + a
+                    for s, gi in zip(grads, g):
+                        s.add_(gi)
+            for s in grads:
+                s.div_(accum)
+            losses, accs = losses / accum, accs / accum
+        with torch.no_grad():
+            if self.dc_words:
+                self._drop_connect(b, grads)
+            if self.plan is not None:
+                return grads, losses, accs
+            scale = self._scale(b)
+            if self.bucketed:
+                # the loss and accuracy ride the gradients' reduction
+                bucket = masked_psum.flatten_replicas(grads, (losses, accs))
+                width = bucket.shape[1] - 2
+                total = masked_psum.masked_mean(bucket, scale, topo, width)
+                mean = masked_psum.unflatten_like(total[:width], b.leaves)
+                return (mean, total[width] / self.n,
+                        total[width + 1] / self.n)
+            # one replica: its scaled gradient is the mean (at scale 1
+            # the multiply is exact)
+            return ([g[0].mul_(scale[0]) for g in grads], losses[0],
+                    accs[0])
+
+    def _drop_connect(self, b: _Binding, grads: list) -> None:
+        """Mask each local replica's gradient leaves in place with leaf
+        keys of ``replica_key(root, "drop_connect", step, first + j)``."""
+        keys = b.inputs[self.at_dc:].long().view(self.L, self.n_leaves, 2)
+        for j in range(self.L):
+            for g, m in zip(grads, mask_leaves(
+                    [g[j] for g in grads], keys[j],
+                    self.sync.drop_connect_probability)):
                 g[j] = m
 
-    def slot_leaves(state: TrainState) -> list[list]:
-        return [tree_leaves(t) for t in optim_lib.slot_trees(
-            opt, state.momentum)]
+    def _apply(self, b: _Binding, grads: list) -> None:
+        lr, corrections = self._lr(b)
+        for i, (p, g) in enumerate(zip(b.leaves, grads)):
+            self.opt.update_leaf(p, g, tuple(s[i] for s in b.slots), lr,
+                                 corrections, lambda x: x, p.dim() > 1)
 
-    def apply_update(state: TrainState, leaves: list, grads: list,
-                     lr: float) -> None:
-        t = float(state.updates_applied + 1)
-        slots = slot_leaves(state)
-        for i, (p, g) in enumerate(zip(leaves, grads)):
-            opt.update_leaf(p, g, tuple(s[i] for s in slots), lr, t,
-                            lambda x: x, p.dim() > 1)
+    def apply_body(self, b: _Binding, mean: list) -> None:
+        """The ``apply`` stage: the optimizer's update of every leaf."""
+        with torch.no_grad():
+            self._apply(b, mean)
 
-    def interval_apply(state: TrainState, leaves: list, mean: list,
-                       t_ms: np.ndarray, interval_ms: _F32,
-                       lr: float) -> int:
-        """≙ ``_interval_apply``: join the window, advance the modeled
-        wall clock by the mean replica pace, and on crossing the window
-        apply the window's average and re-arm relative to now."""
-        acc = tree_leaves(state.window_acc)
-        for a, g in zip(acc, mean):
-            a.add_(g)
-        rounds = _F32(_F32(state.window_rounds) + _F32(1.0))
-        wall = _F32(_F32(state.wall_ms) + _F32(_f32_sum(t_ms) / _F32(n)))
-        fire = bool(wall >= _F32(state.next_apply_ms))
-        if fire:
-            apply_update(state, leaves, [a / rounds for a in acc], lr)
-            for a in acc:
-                a.zero_()
-            state.next_apply_ms = float(_F32(wall + interval_ms))
-            rounds = _F32(0.0)
-        state.window_rounds = float(rounds)
-        state.wall_ms = float(wall)
-        return int(fire)
+    def join_body(self, b: _Binding, mean: list, fire: bool) -> None:
+        """Interval mode's ``join`` stage (add the mean into the window)
+        and ``join_fire`` (then apply the window's average and empty
+        it)."""
+        with torch.no_grad():
+            for a, g in zip(b.window, mean):
+                a.add_(g)
+            if fire:
+                rounds = b.inputs[self.n + 3].float()
+                self._apply(b, [a / rounds for a in b.window])
+                for a in b.window:
+                    a.zero_()
 
-    def zero1_apply(state: TrainState, grads: list, losses: torch.Tensor,
-                    accs: torch.Tensor, scale: np.ndarray, applied: int,
-                    lr: float) -> tuple[torch.Tensor, torch.Tensor]:
-        """≙ ``_zero1_update``: the fallback leaves and the loss and
+    def zero1_body(self, b: _Binding, grads: list, losses: torch.Tensor,
+                   accs: torch.Tensor, apply: bool
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """≙ ``_zero1_update`` (the ``zero1`` stage; ``zero1_reduce``
+        with ``apply`` False): the fallback leaves and the loss and
         accuracy through the masked-mean all-reduce, the sharded leaves
         through one reduce-scatter a group, their chunks and slots
         updated in place, the params made whole again by one all-gather
         a bucket (none on one process, none under a resident plan).
         Returns the mean loss and accuracy."""
-        bucket = masked_psum.flatten_replicas(
-            [grads[i] for i in fallback], (losses, accs))
-        width = bucket.shape[1] - 2
-        total = masked_psum.masked_mean(bucket, scale, topo, width)
-        mean = dict(zip(fallback, masked_psum.unflatten_like(
-            total[:width], [grads[i][0] for i in fallback])))
-        for group in scatter_groups:
-            rows = torch.cat([_padded_rows(grads[i], lps[i]) for i in group],
-                             dim=2)
-            for j in range(L):
-                rows[j].mul_(float(scale[first + j]))
-            out = topo.reduce_scatter_replicas(rows)
-            off = 0
-            for i in group:
-                mean[i] = out[:, off:off + lps[i].chunk].reshape(-1)
-                off += lps[i].chunk
-        stateless = opt.num_slots == 0
-        if stateless or applied:
-            # stateless sgd: lr·0 is exact, so scaling the lr by the
-            # applied flag IS the no-op; slots decay even on zero
-            # gradients, so a stateful optimizer skips the update
-            lr_eff = float(_F32(lr) * _F32(applied)) if stateless else lr
-            t = float(state.updates_applied + 1)
-            leaves, slots = tree_leaves(state.params), slot_leaves(state)
-            reduce = ((lambda x: x) if all_local
-                      else topo.sum_processes)
-            updated = {}
-            for i, (p, lp) in enumerate(zip(leaves, lps)):
-                sl = tuple(s[i] for s in slots)
-                adapt = len(lp.shape) > 1
-                if not lp.sharded:
-                    opt.update_leaf(p, mean[i], sl, lr_eff, t,
-                                    lambda x: x, adapt)
-                elif all_local:
-                    # every chunk is here: update the logical elements
-                    # in place (the padding stays zero)
-                    pv = p[:lp.size] if resident else p.view(-1)
-                    opt.update_leaf(pv, mean[i][:lp.size],
-                                    tuple(s[:lp.size] for s in sl), lr_eff,
-                                    t, reduce, adapt)
-                else:
-                    pl = p if resident else _local_flat(
-                        p, lp, *_local_span(lp, topo, n))
-                    opt.update_leaf(pl, mean[i], sl, lr_eff, t, reduce,
-                                    adapt)
-                    updated[i] = pl
-            if updated and not resident:
-                # the all-gather leg: each bucket's updated chunks
-                # reassemble its leaves whole on every process
-                for group in scatter_groups:
-                    full = topo.all_gather_replicas(torch.cat(
-                        [updated[i].view(L, lps[i].chunk) for i in group],
-                        dim=1))
-                    off = 0
-                    for i in group:
-                        lp = lps[i]
-                        leaves[i].copy_(full[:, off:off + lp.chunk].reshape(
-                            -1)[:lp.size].view(lp.shape))
-                        off += lp.chunk
-        return total[width] / n, total[width + 1] / n
-
-    def step_fn(state: TrainState, batch: dict,
-                measured_ms=None, discipline=None
-                ) -> tuple[TrainState, dict]:
-        with cudnn_policy(cudnn_deterministic, tf32):
-            return step(state, batch, measured_ms, discipline)
-
-    def step(state: TrainState, batch: dict, measured_ms, discipline
-             ) -> tuple[TrainState, dict]:
-        disc = (default_disc if discipline is None
-                else torch.as_tensor(discipline, dtype=torch.float32).cpu())
-        meas = (zeros_ms if measured_ms is None
-                else torch.as_tensor(measured_ms, dtype=torch.float32).cpu())
-        if meas.shape != (n,):
-            raise ValueError(f"measured_ms must be [{n}], got "
-                             f"{tuple(meas.shape)}")
-        # -- per-replica gradients (queued on the device first) ---------
-        losses, accs, grads = accumulated_grads(state, batch)
+        topo, plan, lps, L, n = self.topo, self.plan, self.lps, self.L, self.n
+        all_local, resident = L == plan.n, plan.params_sharded
+        opt, fallback = self.opt, self.fallback
         with torch.no_grad():
-            if sync.drop_connect:
-                drop_connect(state, grads)
-            if bucketed and plan is None:
-                # the loss and accuracy ride the gradients' reduction
-                bucket = masked_psum.flatten_replicas(grads, (losses, accs))
-        # -- modeled times and flags, on the host while the device runs
-        # the backward (they need no gradient) --------------------------
-        t_ms = policies.sample_step_time_ms(sync, state.root_key,
-                                            state.step, meas)
-        flags = flags_for(t_ms, disc)
-        scale, num = masked_psum.contribution_scale(flags)
-        # -- the masked mean: each replica scaled by its share, one sum
-        # over replicas (a lone replica's scaled gradient is the sum, and
-        # at scale 1 the gradient itself, with no copy) ------------------
-        lr = schedule(state.updates_applied)
-        with torch.no_grad():
-            if plan is not None:
-                applied = int(float(num) > 0)
-                loss, train_acc = zero1_apply(state, grads, losses, accs,
-                                              scale.numpy(), applied, lr)
-                state.updates_applied += applied
-                state.step += 1
-                return state, _metrics(loss, train_acc, lr, num, state,
-                                       t_ms, flags, applied)
-            leaves = tree_leaves(state.params)
-            if bucketed:
-                width = bucket.shape[1] - 2
-                total = masked_psum.masked_mean(bucket, scale.numpy(), topo,
-                                                width)
-                mean = masked_psum.unflatten_like(total[:width], leaves)
-                loss, train_acc = total[width] / n, total[width + 1] / n
-            else:
-                s = float(scale[0])
-                mean = [g[0] if s == 1.0 else g[0] * s for g in grads]
-                loss, train_acc = losses[0], accs[0]
-            if mode == "interval":
-                applied = interval_apply(
-                    state, leaves, mean, t_ms.numpy(),
-                    _F32(disc[DISC_INTERVAL_MS].item()), lr)
-            else:
-                applied = int(float(num) > 0)
-                if opt.num_slots == 0:
-                    # stateless sgd: lr·0 is exact, so scaling the lr
-                    # by the applied flag IS the no-op
-                    apply_update(state, leaves, mean,
-                                 float(_F32(lr) * _F32(applied)))
-                elif applied:
-                    # moment slots decay even on zero gradients: a true
-                    # no-op keeps params and slots as they were
-                    apply_update(state, leaves, mean, lr)
-        state.updates_applied += applied
-        state.step += 1
-        return state, _metrics(loss, train_acc, lr, num, state, t_ms, flags,
-                               applied)
+            scale = self._scale(b)
+            bucket = masked_psum.flatten_replicas(
+                [grads[i] for i in fallback], (losses, accs))
+            width = bucket.shape[1] - 2
+            total = masked_psum.masked_mean(bucket, scale, topo, width)
+            mean = dict(zip(fallback, masked_psum.unflatten_like(
+                total[:width], [grads[i][0] for i in fallback])))
+            for group in self.scatter_groups:
+                rows = torch.cat([_padded_rows(grads[i], lps[i])
+                                  for i in group], dim=2)
+                rows.mul_(masked_psum.local_scale(scale, topo, rows))
+                out = topo.reduce_scatter_replicas(rows)
+                off = 0
+                for i in group:
+                    mean[i] = out[:, off:off + lps[i].chunk].reshape(-1)
+                    off += lps[i].chunk
+            if apply:
+                lr, corrections = self._lr(b)
+                leaves, slots = b.leaves, b.slots
+                reduce = ((lambda x: x) if all_local
+                          else topo.sum_processes)
+                updated = {}
+                for i, (p, lp) in enumerate(zip(leaves, lps)):
+                    sl = tuple(s[i] for s in slots)
+                    adapt = len(lp.shape) > 1
+                    if not lp.sharded:
+                        opt.update_leaf(p, mean[i], sl, lr, corrections,
+                                        lambda x: x, adapt)
+                    elif all_local:
+                        # every chunk is here: update the logical
+                        # elements in place (the padding stays zero)
+                        pv = p[:lp.size] if resident else p.view(-1)
+                        opt.update_leaf(pv, mean[i][:lp.size],
+                                        tuple(s[:lp.size] for s in sl), lr,
+                                        corrections, reduce, adapt)
+                    else:
+                        pl = p if resident else _local_flat(
+                            p, lp, *_local_span(lp, topo, n))
+                        opt.update_leaf(pl, mean[i], sl, lr, corrections,
+                                        reduce, adapt)
+                        updated[i] = pl
+                if updated and not resident:
+                    # the all-gather leg: each bucket's updated chunks
+                    # reassemble its leaves whole on every process
+                    for group in self.scatter_groups:
+                        full = topo.all_gather_replicas(torch.cat(
+                            [updated[i].view(L, lps[i].chunk)
+                             for i in group], dim=1))
+                        off = 0
+                        for i in group:
+                            lp = lps[i]
+                            leaves[i].copy_(full[:, off:off + lp.chunk]
+                                            .reshape(-1)[:lp.size]
+                                            .view(lp.shape))
+                            off += lp.chunk
+            return total[width] / n, total[width + 1] / n
 
-    def _metrics(loss, train_acc, lr, num, state, t_ms, flags,
-                 applied) -> dict:
-        return {"loss": loss, "train_acc": train_acc, "lr": lr,
-                "num_contributors": float(num),
-                "updates_applied": state.updates_applied,
-                "step_times_ms": t_ms.numpy(), "flags": flags.numpy(),
-                "applied": applied}
+    # -- bindings, capture and the call ------------------------------------
 
-    step_fn.plan = plan
-    return step_fn
+    def _bind(self, state: TrainState, batch: dict) -> _Binding:
+        b = _Binding(state, batch, self.width,
+                     lambda m: optim_lib.slot_trees(self.opt, m))
+        if self.mode == "interval" and b.window is None:
+            raise ValueError("interval mode needs the state's window_acc")
+        held = {}
+
+        def grads():
+            out = held["grads"] = self.grads_body(b)
+            return out
+
+        b.stages["grads"] = grads
+        if self.plan is not None:
+            b.stages["zero1"] = lambda: self.zero1_body(
+                b, *held["grads"], apply=True)
+            b.stages["zero1_reduce"] = lambda: self.zero1_body(
+                b, *held["grads"], apply=False)
+        elif self.mode == "interval":
+            b.stages["join"] = lambda: self.join_body(b, held["grads"][0],
+                                                      False)
+            b.stages["join_fire"] = lambda: self.join_body(
+                b, held["grads"][0], True)
+        else:
+            b.stages["apply"] = lambda: self.apply_body(b, held["grads"][0])
+        return b
+
+    def eager_reason(self) -> str | None:
+        """Why this step is not captured on the card, or None: a ZeRO-1
+        plan, a process group, ``model.remat``."""
+        if self.plan is not None:
+            return ("zero1: the sharded update's collectives and views "
+                    "run eagerly")
+        if self.topo.distributed:
+            return ("processes: the step's all-reduce runs through a "
+                    "process group, eagerly")
+        if self.cfg.model.remat:
+            return ("model.remat: torch.utils.checkpoint's recompute runs "
+                    "eagerly")
+        return None
+
+    def prepare(self, state: TrainState, batch: dict,
+                cache_dir=None) -> dict:
+        """Bind the device body to ``state`` (the Trainer's, which later
+        calls pass back) and ``batch``'s shapes, and on the card capture
+        its stages as CUDA graphs (:func:`.graphs.aot_compile`; the
+        warm-up leaves ``state`` as it was). Returns the capture's info
+        (``source`` ``"eager"`` with a ``reason`` where nothing is
+        captured: off the card, and :meth:`eager_reason`); a failed
+        capture raises and leaves the step eager."""
+        from .graphs import aot_compile
+        self._prepared = None
+        b = self._bind(state, batch)
+        with cudnn_policy(self.cudnn_deterministic, self.tf32):
+            b.stage(lambda out: self.fill_inputs(
+                state, self.host_part(state), out), batch)
+
+            def snapshot():
+                saved = [(t, t.clone()) for t in _state_tensors(state)]
+
+                def restore():
+                    for t, c in saved:
+                        t.copy_(c)
+                return restore
+
+            replay, info = aot_compile(
+                b.stages, b.device, eager_reason=self.eager_reason(),
+                snapshot=snapshot, cache_dir=cache_dir)
+        b.replay = replay
+        self._prepared = b
+        return info
+
+    @property
+    def captured(self) -> bool:
+        """Whether the prepared state's stages replay CUDA graphs."""
+        return self._prepared is not None and self._prepared.replay is not None
+
+    def _binding_for(self, state: TrainState, batch: dict) -> _Binding:
+        p = self._prepared
+        if p is not None and p.state is state:
+            if not p.holds(state, batch):
+                raise RuntimeError(
+                    "the prepared state's tensors or the batch shapes "
+                    "changed after prepare(): restore into the tensors in "
+                    "place (load_state_into), or prepare again")
+            return p
+        s = self._scratch
+        if s is None or not s.holds(state, batch):
+            s = self._scratch = self._bind(state, batch)
+        return s
+
+    def stage(self, state: TrainState, batch: dict, hs: HostStep) -> None:
+        """Fill the prepared state's buffers for one step: ``hs`` and the
+        step's keys (one host-to-device copy) and ``batch``."""
+        b = self._binding_for(state, batch)
+        b.stage(lambda out: self.fill_inputs(state, hs, out), batch)
+
+    def replay(self, update: str | None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Run the prepared state's stages on what its buffers hold — the
+        ``grads`` stage, then ``update`` (None: none) — replaying their
+        graphs where captured, calling the bodies with no arguments
+        otherwise; nothing of the host's state is read. Returns this
+        step's loss and accuracy (copies: a replay overwrites its
+        outputs)."""
+        return self._run(self._prepared, update)
+
+    def _run(self, b: _Binding, update: str | None):
+        out = b.run("grads")
+        upd = b.run(update) if update is not None else None
+        loss, acc = upd if self.plan is not None else out[1:]
+        return loss.clone(), acc.clone()
+
+    def __call__(self, state: TrainState, batch: dict, measured_ms=None,
+                 discipline=None) -> tuple[TrainState, dict]:
+        """``step_fn(state, batch, measured_ms=None, discipline=None) ->
+        (state, metrics)``; see :func:`build_train_step`."""
+        b = self._binding_for(state, batch)
+        with cudnn_policy(self.cudnn_deterministic, self.tf32):
+            hs = self.host_part(state, measured_ms, discipline)
+            b.stage(lambda out: self.fill_inputs(state, hs, out), batch)
+            loss, acc = self._run(b, hs.update)
+        self.commit(state, hs)
+        return state, {"loss": loss, "train_acc": acc, "lr": hs.lr,
+                       "num_contributors": float(hs.num),
+                       "updates_applied": state.updates_applied,
+                       "step_times_ms": hs.t_ms.numpy(),
+                       "flags": hs.flags.numpy(), "applied": hs.applied}
+
+
+def _state_tensors(state: TrainState) -> list:
+    """Every tensor of ``state`` a step updates: params, slots, window."""
+    return (tree_leaves(state.params) + tree_leaves(state.momentum)
+            + tree_leaves(state.window_acc))
+
+
+def load_state_into(dst: TrainState, src: TrainState) -> None:
+    """Copy ``src``'s tensors into ``dst``'s in place (a captured step
+    keeps updating ``dst``'s) and take its host fields."""
+    a, b = _state_tensors(dst), _state_tensors(src)
+    if len(a) != len(b) or any(x.shape != y.shape or x.dtype != y.dtype
+                               for x, y in zip(a, b)):
+        raise ValueError("restored state does not match the live state's "
+                         "tensors")
+    with torch.no_grad():
+        for x, y in zip(a, b):
+            x.copy_(y)
+    for f in ("step", "updates_applied", "window_rounds", "wall_ms",
+              "next_apply_ms"):
+        setattr(dst, f, getattr(src, f))
+    dst.root_key = np.array(src.root_key)
+
+
+def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
+                     topo: Topology | None = None, *,
+                     cudnn_deterministic: bool = True) -> TrainStep:
+    """``step_fn(state, batch, measured_ms=None, discipline=None) ->
+    (state, metrics)`` (a :class:`TrainStep`). ``batch = {"image",
+    "label"}`` is this process's batch on the state's device (the global
+    batch with one process; ``grad_accum_steps`` of them concatenated
+    under accumulation); local replica j takes rows ``[j·B/L,
+    (j+1)·B/L)`` of it. ``measured_ms`` is the ``[n]`` host-measured
+    base of the modeled step times (zeros when None); ``discipline`` the
+    ``[3]`` vector of :func:`make_discipline_vector` (the config's values
+    when None). The state must be in the layout :func:`init_train_state`
+    gives for ``topo``; it is updated IN PLACE (params, slots, window)
+    and returned. Each call runs under :func:`..core.device.cudnn_policy`:
+    cuDNN's deterministic algorithms unless ``cudnn_deterministic`` is
+    False, and no TF32 rounding when the model computes in float32.
+
+    Metrics carry the reference's keys: ``loss`` and ``train_acc`` (the
+    mean over all replicas) are 0-d device tensors — reading them waits
+    for the step; ``lr``, ``num_contributors``, ``updates_applied`` and
+    ``applied`` are host numbers; ``step_times_ms`` (the modeled times)
+    and ``flags`` are ``[n]`` float32 numpy arrays."""
+    return TrainStep(model, cfg, schedule, topo,
+                     cudnn_deterministic=cudnn_deterministic)
 
 
 def build_eval_step(model: Model, cfg: ExperimentConfig, *,

@@ -17,7 +17,15 @@ sequence's blocks and the first token samples off the prefill logits.
 
 **Decode.** ``decode_step`` with ``decode.attention_kernel="paged"``
 runs the paged-attention kernel K5 once per layer per live params
-version per iteration.
+version per iteration. Each params version gets its own decode step
+(:class:`DecodeStep`, ≙ the reference's one compiled step per live
+version) at the fixed ``[slots]`` shape over static buffers: on the card,
+with ``compile.precompile`` on, it is captured as a CUDA graph when the
+version is put on the device and dropped with the version, and every
+iteration writes the tokens, positions and lengths into its buffer with
+one host-to-device copy, copies the version's block table in when the
+table changed, and replays it; elsewhere the same body runs eagerly
+over the same buffers. Prefill stays eager: prompts vary in length.
 
 **Weight swaps mid-generation.** The follower stages digest-verified
 publishes as the classification replica's does; the flip happens at a
@@ -58,6 +66,7 @@ import collections
 import json
 import queue
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -65,9 +74,13 @@ import torch
 from ..core import prng
 from ..core.config import ConfigError
 from ..models.convert import params_from_reference
+from ..core.log import get_logger
 from ..models.registry import sample_token
+from ..parallel.graphs import aot_compile
 from .kv_cache import PagedKVCache
 from .server import ServingReplica, _Pending
+
+logger = get_logger("decode")
 
 
 class _DecodeSeq(_Pending):
@@ -91,6 +104,71 @@ class _DecodeSeq(_Pending):
         self.conn_dead = False
         self.sample_seed = 0
         self.restarts = 0          # mid-generation restarts
+
+
+class _Version(dict):
+    """One params version on the device: its params tree (the dict the
+    model reads) and its :class:`DecodeStep` in ``decode``, which lives
+    and dies with it."""
+
+    decode: "DecodeStep | None" = None
+
+
+class DecodeStep:
+    """One params version's ``decode_step`` over the replica's paged cache
+    at the fixed ``[slots]`` shape, reading static buffers: ``inputs``
+    ``[3, slots]`` int64 (each slot's newest token, its position, the
+    context length) and ``tables`` ``[slots, width]`` int32. On the card
+    with ``capture`` it is a CUDA graph (:func:`..parallel.graphs.
+    aot_compile`; its warm-up and capture run over all-zero tables and
+    lengths, whose cache writes land in the null block); else its body
+    runs eagerly over the same buffers. ``info`` is the capture's. The
+    cache tensors, whose addresses the graph (and K5's tensor maps)
+    hold, live as long as the replica."""
+
+    def __init__(self, model, params: _Version, cache: PagedKVCache, dcfg,
+                 device: torch.device, capture: bool):
+        slots = dcfg.decode_slots
+        inputs = torch.zeros((3, slots), dtype=torch.int64, device=device)
+        tables = torch.zeros((slots, cache.max_blocks_per_seq),
+                             dtype=torch.int32, device=device)
+        self.inputs, self.tables = inputs, tables
+        self.staging = torch.zeros((3, slots), dtype=torch.int64,
+                                   pin_memory=device.type == "cuda")
+        self.table_key = None
+        # the params are read through a weak reference: the version owns
+        # this step, not the other way round
+        ref = weakref.ref(params)
+        block_size, kernel = dcfg.block_size, dcfg.attention_kernel
+
+        def body():
+            logits, _, _ = model.decode_step(
+                ref(), inputs[0], inputs[1], cache.k, cache.v, tables,
+                inputs[2].to(torch.int32), block_size=block_size,
+                attention_kernel=kernel)
+            return logits
+
+        self.body = body
+        self.replay, self.info = aot_compile(
+            {"decode": body}, device,
+            eager_reason=None if capture else "compile.precompile is off")
+
+    def __call__(self, tokens: np.ndarray, positions: np.ndarray,
+                 lengths: np.ndarray, table: torch.Tensor,
+                 table_key) -> torch.Tensor:
+        """Logits ``[slots, vocab]`` (on the host) for one step: the
+        per-slot numbers in one copy, ``table`` copied in when
+        ``table_key`` differs from the last one's. Reading the logits
+        back waits for the step, so the staging buffer is free again."""
+        host = self.staging.numpy()
+        host[0], host[1], host[2] = tokens, positions, lengths
+        self.inputs.copy_(self.staging, non_blocking=True)
+        if table_key != self.table_key:
+            self.tables.copy_(table)
+            self.table_key = table_key
+        out = (self.replay.replay("decode") if self.replay is not None
+               else self.body())
+        return out.cpu()
 
 
 class DecodeReplica(ServingReplica):
@@ -139,12 +217,27 @@ class DecodeReplica(ServingReplica):
         # uploaded once per (version, table epoch), not once per token
         self._tables_epoch = 0
         self._tables_cache: dict[tuple[int, int], torch.Tensor] = {}
+        # each version's decode-step info, as made (source, compile_s)
+        self.decode_compiles: list[dict] = []
 
     def _params_on_device(self, tree: dict):
         """Params in the model's compute dtype, cast once here so the
-        per-call casts inside the model are no-ops."""
-        return params_from_reference(tree, device=self.device,
-                                     dtype=self.model.compute_dtype)
+        per-call casts inside the model are no-ops, with their decode
+        step (captured here on the card, off the decode loop)."""
+        params = _Version(params_from_reference(
+            tree, device=self.device, dtype=self.model.compute_dtype))
+        capture = self.cfg.compile.precompile
+        try:
+            params.decode = DecodeStep(self.model, params, self.cache,
+                                       self.dcfg, self.device, capture)
+        except Exception as e:  # the version must still serve
+            logger.warning("decode step capture failed (%s: %s): the "
+                           "version runs eagerly", type(e).__name__, e)
+            params.decode = DecodeStep(self.model, params, self.cache,
+                                       self.dcfg, self.device, False)
+            params.decode.info["error"] = f"{type(e).__name__}: {e}"
+        self.decode_compiles.append(params.decode.info)
+        return params
 
     # -- admission ------------------------------------------------------
 
@@ -196,7 +289,7 @@ class DecodeReplica(ServingReplica):
             return
         if not any(s is not None and s.params_step == step
                    for s in self._slots):
-            del self._versions[step]
+            self._versions.pop(step).decode = None  # its graph with it
 
     def _maybe_swap(self) -> None:
         """Decode-loop-boundary flip under ``decode.swap_policy``;
@@ -390,7 +483,6 @@ class DecodeReplica(ServingReplica):
         if not active:
             return
         n = self.dcfg.decode_slots
-        dev = lambda a: torch.from_numpy(a).to(self.device)
         self.decode_iterations += 1
         # pin: one step per live version (at most a handful); slots of
         # other versions read length 0 through the null table
@@ -403,13 +495,10 @@ class DecodeReplica(ServingReplica):
                 tokens[i] = s.tokens[-1]
                 positions[i] = s.length
                 lengths[i] = s.length + 1
-            logits, _, _ = self.model.decode_step(
-                self._params_for(ver), dev(tokens), dev(positions),
-                self.cache.k, self.cache.v, self._tables_for(ver, mine),
-                dev(lengths), block_size=self.dcfg.block_size,
-                attention_kernel=self.dcfg.attention_kernel)
+            logits = self._params_for(ver).decode(
+                tokens, positions, lengths, self._tables_for(ver, mine),
+                (ver, self._tables_epoch))
             self.version_steps += 1
-            logits = logits.cpu()
             for i, s in mine:
                 s.length += 1  # the fed token's K/V is now cached
                 tok = self._sample(s, logits[i])

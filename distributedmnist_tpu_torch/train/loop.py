@@ -91,10 +91,25 @@ ValueError. On the card a window synchronizes before its trace stops,
 so the trace holds the device work of its steps; a NaN rollback and
 every exit close an open window.
 
+``compile.precompile`` (default on, as in the reference) runs
+:meth:`Trainer.precompile` before the first batch: the train step's
+device body is bound to the Trainer's state and, on the card, captured
+as CUDA graphs (``parallel/graphs.py``), which every later step replays;
+the run journals one ``compile`` record before its first ``step``
+record, and ``summary["compile"]`` is the same info. On the CPU, and on
+the card under a ZeRO-1 plan, over a process group or under
+``model.remat``, nothing is captured: the record says ``source:
+"eager"`` with the reason, and the same bodies run eagerly over the
+same buffers. A capture that fails is journaled with its ``error`` and
+the run goes on eagerly, as the reference's failed precompile does.
+A resume or a NaN rollback copies the restored state into the captured
+tensors in place (:func:`..parallel.api.load_state_into`).
+
 Accepted and not run (each logs one line a Trainer): device prefetch
-(``data.device_prefetch``; batches are staged inline) and the
-``compile.*`` knobs (PyTorch runs the step eagerly: there is no
-``compile`` record). Not ported yet: warm standby.
+(``data.device_prefetch``; batches are staged inline),
+``compile.aot_executable_cache`` (a CUDA graph cannot be serialized)
+and ``compile.trust_cache_cross_process`` (a kernel library is never
+quarantined). Not ported yet: warm standby.
 """
 
 from __future__ import annotations
@@ -122,7 +137,8 @@ from ..obsv.tb import SummaryWriter
 from ..obsv.timing import ReplicaDeviceProbe, StepTimeCollector
 from ..parallel.api import (TrainState, build_eval_step, build_train_step,
                             canonical_save_state, init_train_state,
-                            logical_params, make_discipline_vector,
+                            load_state_into, logical_params,
+                            make_discipline_vector,
                             restore_for_topology, tree_leaves, tree_map,
                             world_signature, zero1_plan_for)
 from ..parallel.partition_rules import Zero1Plan
@@ -173,19 +189,24 @@ def make_schedule(cfg: ExperimentConfig, num_train_examples: int,
                              o.learning_rate_decay_factor, o.staircase)
 
 
+_NOOP_COMPILE_KNOBS = {
+    "aot_executable_cache": "a CUDA graph cannot be serialized, so the "
+                            "kernel build cache is the warm path",
+    "trust_cache_cross_process": "a kernel library is a plain shared "
+                                 "object, never quarantined"}
+
+
 def _log_noop_knobs(cfg: ExperimentConfig) -> None:
     """One line for each knob a config asks for that the port accepts
-    and does not run: device prefetch and the three ``compile.*``
-    knobs (the native loader logs its own, ``data/pipeline.py``)."""
+    and does not run: device prefetch and two ``compile.*`` knobs (the
+    native loader logs its own, ``data/pipeline.py``)."""
     if cfg.data.device_prefetch:
         logger.info("data.device_prefetch (depth %d) is a no-op in the "
                     "port: batches are staged inline",
                     cfg.data.device_prefetch_depth)
-    for name in ("precompile", "aot_executable_cache",
-                 "trust_cache_cross_process"):
+    for name, why in _NOOP_COMPILE_KNOBS.items():
         if getattr(cfg.compile, name):
-            logger.info("compile.%s is a no-op in the port: the step runs "
-                        "eagerly", name)
+            logger.info("compile.%s is a no-op in the port: %s", name, why)
 
 
 class ProfilerWindows:
@@ -332,9 +353,14 @@ class Trainer:
         self.schedule = make_schedule(cfg, self.datasets.train.num_examples,
                                       self.effective_batch,
                                       resolve_aggregate_k(cfg.sync, n))
-        self.step_fn = build_train_step(
+        # the step object (precompile binds and captures it); step_fn is
+        # what the loop calls, which a caller may wrap
+        self._train_step = build_train_step(
             self.model, cfg, self.schedule, self.topo,
             cudnn_deterministic=cudnn_deterministic)
+        self.step_fn = self._train_step
+        self._compile_info: dict[str, Any] | None = None
+        self._compile_logged = False
         self.eval_fn = build_eval_step(
             self.model, cfg, cudnn_deterministic=cudnn_deterministic)
         # the ZeRO-1 plan (None when it does not apply): the live layout
@@ -454,7 +480,8 @@ class Trainer:
                 "checkpoint optimizer state does not match optim "
                 f"{self.cfg.optim.name!r} (momentum={self.cfg.optim.momentum})"
                 f": saved slots {'absent' if state.momentum is None else 'present'}")
-        self.state = state
+        # in place: a captured step keeps updating the live tensors
+        load_state_into(self.state, state)
         if "data_iter" in extra:
             try:
                 self.train_iter.restore(extra["data_iter"])
@@ -672,6 +699,43 @@ class Trainer:
             if m.size:
                 np.save(self.train_dir / "step_times.npy", m)
 
+    # -- precompile --------------------------------------------------------
+
+    def precompile(self) -> dict[str, Any]:
+        """Bind the train step's device body to this Trainer's state
+        before the first batch and, on the card, capture it as CUDA
+        graphs (≙ the reference's AOT compile): the capture's time is
+        measured and journaled as its own ``compile`` record instead of
+        hiding in the first steps, and later steps replay it. The warm-up
+        leaves the state as it was. Idempotent per Trainer. With a cache
+        dir (``compile.cache_dir`` / ``DMT_COMPILE_CACHE_DIR``) the info
+        carries what the kernel build cache did meanwhile
+        (``persistent_cache``). The build cache itself is switched on
+        only by the entry points (``launch train``/``eval``/``serve``),
+        as the reference's persistent cache is."""
+        if self._compile_info is not None:
+            return self._compile_info
+        from ..core.compile_cache import resolve_cache_dir
+        img = self.datasets.train.images
+        lbl = self.datasets.train.labels
+        # the process's batch: its share of the global batch, accum of
+        # them concatenated
+        rows = (self.cfg.data.batch_size // self.topo.process_count
+                * self.grad_accum)
+        batch = to_device({"image": np.zeros((rows, *img.shape[1:]),
+                                             img.dtype),
+                           "label": np.zeros((rows, *lbl.shape[1:]),
+                                             lbl.dtype)}, self.device)
+        info = self._train_step.prepare(
+            self.state, batch, cache_dir=resolve_cache_dir(self.cfg.compile))
+        if info["source"] == "eager":
+            logger.info("train step runs eagerly (%s)", info["reason"])
+        else:
+            logger.info("captured the train step as %d CUDA graphs in %.2fs",
+                        info["graphs"], info["compile_s"])
+        self._compile_info = info
+        return info
+
     # -- eval and run ----------------------------------------------------
 
     def evaluate(self, split: str = "test") -> dict[str, float]:
@@ -800,6 +864,20 @@ class Trainer:
         windows = ProfilerWindows(self.cfg, self.train_dir / "profile",
                                   self.device, self.is_writer)
         self.train_dir.mkdir(parents=True, exist_ok=True)
+        if self.cfg.compile.precompile and self._compile_info is None:
+            try:
+                self.precompile()
+            except Exception as e:  # the run must outlive a failed capture
+                logger.warning("precompile failed (%s: %s): the step runs "
+                               "eagerly", type(e).__name__, e)
+                self._compile_info = {"compile_s": None, "source": "eager",
+                                      "serialized": False,
+                                      "reason": "capture failed",
+                                      "error": f"{type(e).__name__}: {e}"}
+        if self._compile_info is not None and not self._compile_logged:
+            self._sink_write({"event": "compile", "time": time.time(),
+                              **self._compile_info})
+            self._compile_logged = True
         step = self._start_step
         rollbacks = 0
         self._preempt_requested = None
@@ -899,7 +977,9 @@ class Trainer:
             "timing": self.collector.report(),
             "preempted": self._preempt_requested,
             "nan_rollbacks": rollbacks,
-            "compile": None,
+            # where the step came from (None when precompile is off):
+            # journaled in train_log.jsonl too
+            "compile": self._compile_info,
         }
         if self._discipline is not None:
             summary["discipline"] = self._discipline.summary()

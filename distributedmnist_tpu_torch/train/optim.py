@@ -23,7 +23,14 @@ float ``c`` in ``c * x`` enters as ``float32(c)``, ``1 - b1`` is formed
 in double and then rounded, and LAMB's bias corrections ``b ** t`` are
 float32 powers of the float32 ``b`` and ``t``, taken on the host (where
 ``t`` lives) by torch's scalar ``pow``, which gives XLA's values (numpy's
-float32 ``power`` differs from them by an ulp at about a fifth of ``t``).
+float32 ``power`` differs from them by an ulp at about a fifth of ``t``):
+once a step, by :attr:`Optimizer.corrections`.
+
+The per-step numbers an update reads — ``lr`` and LAMB's corrections —
+may be Python floats or 0-d float32 tensors on the leaves' device. The
+train step passes tensors, read from its device buffer, so a CUDA graph
+of the update reads each step's values; the arithmetic is the same
+float32 either way.
 """
 
 from __future__ import annotations
@@ -41,21 +48,25 @@ OPTIMIZER_NAMES = ("sgd", "momentum", "lars", "lamb")
 # update_leaf(p, g, slots, lr, t, norm_reduce, adapt) -> new slots;
 # writes the new p into p and the new slots into the slots. The
 # arguments are the reference's (train/optim.py:194-207): ``t`` the
-# 1-based update count (LAMB's bias corrections), ``norm_reduce``
+# 1-based update count (LAMB's bias corrections; or the corrections
+# ``(1 - b1**t, 1 - b2**t)`` already made), ``norm_reduce``
 # completing a 0-d sum of squares over the other processes' regions of
 # a sharded leaf (identity for a whole leaf), ``adapt`` whether weight
 # decay and the trust ratio apply. ``lr`` is a Python float holding a
 # float32 value (the schedule's), so ``lr * g`` rounds as the
-# reference's float32 product does, and the step enqueues no
-# host-to-device copy for it.
+# reference's float32 product does (a 0-d float32 tensor rounds alike).
 UpdateLeaf = Callable[..., tuple]
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
+    """``corrections(t)`` gives LAMB's two bias corrections for the
+    1-based update count ``t`` (host floats); None for the others."""
+
     kind: str
     num_slots: int
     update_leaf: UpdateLeaf
+    corrections: Callable[[float], tuple[float, float]] | None = None
 
 
 def validate(ocfg: OptimConfig) -> None:
@@ -206,24 +217,32 @@ def _make_lars_leaf(ocfg: OptimConfig) -> UpdateLeaf:
     return update
 
 
+def _correction(b: float, t: float) -> float:
+    """float32 ``1 - b ** t``."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    return float(np.float32(1.0)
+                 - np.float32(torch.pow(f32(b), f32(t)).item()))
+
+
+def _lamb_corrections(ocfg: OptimConfig) -> Callable[[float], tuple]:
+    b1, b2 = _f32c(ocfg.beta1), _f32c(ocfg.beta2)
+    return lambda t: (_correction(b1, t), _correction(b2, t))
+
+
 def _make_lamb_leaf(ocfg: OptimConfig) -> UpdateLeaf:
     b1, b2 = _f32c(ocfg.beta1), _f32c(ocfg.beta2)
     one_b1, one_b2 = _f32c(1.0 - ocfg.beta1), _f32c(1.0 - ocfg.beta2)
     eps, wd = _f32c(ocfg.eps), _f32c(ocfg.weight_decay)
-
-    def correction(b: float, t: float) -> float:
-        """float32 ``1 - b ** t``."""
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
-        return float(np.float32(1.0)
-                     - np.float32(torch.pow(f32(b), f32(t)).item()))
+    corrections = _lamb_corrections(ocfg)
 
     def update(p, g, slots, lr, t, norm_reduce, adapt):
         m, v = slots
+        c1, c2 = t if isinstance(t, tuple) else corrections(t)
         p32, g32 = p.float(), g.float()
         nm = b1 * m.float() + one_b1 * g32
         nv = b2 * v.float() + one_b2 * g32 * g32
-        m_hat = nm / correction(b1, t)
-        v_hat = nv / correction(b2, t)
+        m_hat = nm / c1
+        v_hat = nv / c2
         u = m_hat / (torch.sqrt(v_hat) + eps)
         if adapt:
             u = u + wd * p32
@@ -249,4 +268,5 @@ def make_optimizer(ocfg: OptimConfig) -> Optimizer:
         return Optimizer(kind="lars", num_slots=1,
                          update_leaf=_make_lars_leaf(ocfg))
     return Optimizer(kind="lamb", num_slots=2,
-                     update_leaf=_make_lamb_leaf(ocfg))
+                     update_leaf=_make_lamb_leaf(ocfg),
+                     corrections=_lamb_corrections(ocfg))

@@ -98,7 +98,8 @@ def test_transformer_trains_through_trainer(tmp_path):
     assert ev["loss"] < 3.0 and 0.0 < ev["accuracy"] <= 1.0
     assert ev["num_examples"] == 128
     recs = _assert_schema(tmp_path / "train_log.jsonl")
-    assert [r["event"] for r in recs] == ["step"] * 40 + ["save", "eval"]
+    assert [r["event"] for r in recs] == (["compile"] + ["step"] * 40
+                                          + ["save", "eval"])
     assert s["params_digest"] == ckpt.checkpoint_params_digest(tmp_path)[0]
 
 
@@ -315,10 +316,11 @@ def test_cnn_basic_config_trains_like_the_reference_smoke(tmp_path):
 
 def test_noop_knobs_log_one_line_each(tmp_path, caplog):
     """Knobs the port accepts and does not run log one line each at
-    Trainer build: a default config asks for device prefetch,
-    ``compile.precompile`` and ``compile.aot_executable_cache``;
-    ``trust_cache_cross_process`` only when set, and nothing is logged
-    for a knob turned off."""
+    Trainer build: a default config asks for device prefetch and
+    ``compile.aot_executable_cache``; ``trust_cache_cross_process`` only
+    when set, and nothing is logged for a knob turned off.
+    ``compile.precompile`` runs (the train step is bound, and captured
+    on the card) and logs no such line."""
     import logging
     port_logger = logging.getLogger("distributedmnist_tpu_torch")
     port_logger.addHandler(caplog.handler)
@@ -328,8 +330,7 @@ def test_noop_knobs_log_one_line_each(tmp_path, caplog):
         lines = [r.getMessage() for r in caplog.records
                  if "is a no-op in the port" in r.getMessage()]
         assert sorted(m.split()[0] for m in lines) == [
-            "compile.aot_executable_cache", "compile.precompile",
-            "data.device_prefetch"], lines
+            "compile.aot_executable_cache", "data.device_prefetch"], lines
         caplog.clear()
         off = dict(SMALL, data=dict(SMALL["data"], device_prefetch=False),
                    compile={"precompile": False,
