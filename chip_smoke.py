@@ -30,9 +30,11 @@ at the archive's size) with the rest of the data-parallel step's knobs
 — LARS/LAMB, gradient accumulation, bf16 params with and without
 float32 masters, ZeRO-1 and the cross-world restore; then the training
 path's durable checkpoints, the continuous evaluator that follows them,
-and the serving tier that hot-follows training (``launch serve``); and the
+and the serving tier that hot-follows training (``launch serve``); the
 compile layer: each path's step captured as CUDA graphs against its
-eager step, and the kernel build cache across processes.
+eager step, and the kernel build cache across processes; and the local
+process cluster: a seeded chaos campaign on ``launch train`` workers
+under the supervisor, and the restart latency of a worker.
 
 One JSON line per phase:
 
@@ -342,6 +344,37 @@ One JSON line per phase:
                 new entries), warm (0 misses, no new entry), and after one
                 library is truncated, healed (one rebuild, a warning) —
                 each one's seconds from its start to its first step done.
+17. ``cluster`` — the chaos campaign (``launch/chaos.py``) on the port's
+                ``launch train`` workers on the card: the train payload
+                (the MNIST CNN, 2 simulated replicas, momentum 0.9,
+                ZeRO-1 in 2 buckets, float32; ``CLUSTER_CNN``), 2 seeded
+                trials and the fault-free reference run, 40 steps paced
+                ``CLUSTER_CNN_PACE_MS``; then one flash-transformer trial
+                (``CLUSTER_FLASH``: the training path's widths at
+                ``FLASH_LAYERS`` layers, plain sgd so the step is
+                captured, 20 steps, a save every 5, one warm standby; its
+                schedule's kill checked) whose workers' profile window
+                (``FLASH_PROFILE``) counts the flash kernels a step by
+                name. Checked: every trial ``all_green``, determinism
+                ``pass`` in CNN trial 0 (kill + corrupt + stall) and the
+                flash trial (``pass`` or ``skipped`` elsewhere), their
+                faults fired, every worker's ``compile`` record on
+                ``cuda:0`` (the flash workers' ``cuda_graph``), K1-lse,
+                K2 and K3 ``FLASH_LAYERS`` a step in every flash worker's
+                trace and no kernel launched by this process. Printed:
+                every invariant's counts, each trial's schedule, outcome,
+                seconds, MTTR and boot, the fired faults, and each flash
+                worker's kernel-cache hits and misses.
+18. ``restart`` — ``bench.py bench_restart_latency`` on the port:
+                spawn (or promotion) to the first moved step of the
+                chaos train payload, ``RESTART_SAMPLES`` each cold (an
+                empty kernel directory a spawn), warm (the shared cache
+                a prime spawn filled; skipped, with its reason, when the
+                prime persisted nothing) and standby (a parked,
+                precompiled spare promoted into the killed worker's
+                train_dir); the reference's gates against the cold
+                median (standby ≤ 0.3×, warm ≤ 0.6×); and cold and warm
+                once on the flash payload (printed, not gated).
 
 Then a ``kernels`` summary line (per kernel also its ``variant`` —
 ``wgmma``, ``cuda_cores`` or ``cluster_split``, the compiled kernel the
@@ -350,7 +383,9 @@ spills, shared memory and blocks per SM at the timed shape; for K1 also
 ``launches_eval``, the eval phase's count, and ``launches_serve``, the
 serve phase's by path; for K1-lse, K2 and K3 also
 ``launches_replicas`` (the ``train_replicas`` run), ``launches_long_context``
-by remat arm and ``long_context``, the kernel timed at that shape; for
+by remat arm, ``long_context``, the kernel timed at that shape, and
+``launches_cluster_a_step``, each flash worker's count a step from its
+trace in the ``cluster`` phase; for
 K5 also ``launches_serve`` and
 ``ms_cold``, and ``ms_in_place``, its share of the decode-step profile
 a launch, beside ``bound_ms_in_place`` for the profile's lengths), the
@@ -4450,6 +4485,31 @@ def _trace_counts(path, steps: int) -> dict:
             for k, frag in TRACE_NAMES.items()}
 
 
+def _step_kernel_names(path) -> list:
+    """A scheduled profile's Chrome trace read back step by step: for each
+    ``ProfilerStep#`` range on the host, the names of the kernels whose
+    launch (the CUDA API call with the kernel's correlation id; a graph
+    replay's kernels share their ``cudaGraphLaunch``'s) lies in
+    it. The tracer can drop a kernel record, never add one."""
+    ev = json.loads(open(path).read())["traceEvents"]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"]) for e in ev
+                    if str(e.get("name", "")).startswith("ProfilerStep#")
+                    and e.get("cat") != "gpu_user_annotation"
+                    and "dur" in e)
+    launched = {e["args"]["correlation"]: e["ts"] for e in ev
+                if str(e.get("cat", "")).startswith("cuda_")
+                and "correlation" in e.get("args", {})}
+    out = [[] for _ in ranges]
+    for e in ev:
+        t = (launched.get(e.get("args", {}).get("correlation"))
+             if e.get("cat") == "kernel" else None)
+        i = next((i for i, (a, b) in enumerate(ranges) if a <= (t or -1) < b),
+                 None)
+        if i is not None:
+            out[i].append(e["name"])
+    return out
+
+
 def _wall_ms(fn, steps: int) -> float:
     import torch
     torch.cuda.synchronize()
@@ -4558,7 +4618,8 @@ def _decode_step_timing(rep, steps: int = 20) -> dict:
     ``torch.profiler`` window over ``steps`` calls after 3 untraced ones
     under the profiler (the first replays under a fresh profiler can lose
     a kernel record; idle share against the unprofiled wall; K5 launches
-    a step by kernel name)."""
+    a step by kernel name, step by step: the tracer still drops a record
+    now and then, so the step with the most records is the one read)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -4598,12 +4659,19 @@ def _decode_step_timing(rep, steps: int = 20) -> dict:
     kernels = [e for e in json.loads(open(path).read())["traceEvents"]
                if e.get("cat") == "kernel"]
     busy = sum(e["dur"] for e in kernels) / 1e3 / steps
+    by_step = _step_kernel_names(path)
+    check(len(by_step) == steps, f"decode trace: {len(by_step)} steps")
+    k5 = [sum("paged_split" in n for n in names) for names in by_step]
+    fullest = max(range(steps), key=lambda i: len(by_step[i]))
     return {"ms_per_step": events_ms, "wall_ms_per_step": wall,
             "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall,
             "kernels_per_step": len(kernels) / steps,
-            "k5_per_step": sum("paged_split" in e["name"]
-                               for e in kernels) / steps}
+            "kernel_records_by_step": [len(n) for n in by_step],
+            "trace_records_lost": (len(by_step[fullest]) * steps
+                                   - sum(len(n) for n in by_step)),
+            "k5_by_step": k5, "k5_per_step": k5[fullest],
+            "k5_per_step_mean": sum(k5) / steps}
 
 
 def _graph_decode_arm(tmp: str, train_dir: str) -> dict:
@@ -4654,8 +4722,11 @@ def _graph_decode_arm(tmp: str, train_dir: str) -> dict:
               for c in out["cuda_graph"]["compiles"]),
           f"decode: a version was not captured: {out['cuda_graph']}")
     for mode in out:
-        check(out[mode]["k5_per_step"] == MODEL["num_layers"],
-              f"decode {mode}: K5 {out[mode]['k5_per_step']} a step")
+        # the step with the most kernel records holds them all (a trace
+        # only drops records); no step may hold more K5 than layers
+        check(out[mode]["k5_per_step"] == MODEL["num_layers"]
+              and max(out[mode]["k5_by_step"]) == MODEL["num_layers"],
+              f"decode {mode}: K5 a step {out[mode]['k5_by_step']}")
     check(rec["tokens_equal"], "decode: replayed tokens differ from eager")
     return rec
 
@@ -4678,7 +4749,7 @@ def _graph_cache_children(tmp: str) -> dict:
     for name in ("cold", "warm", "healed"):
         if name == "healed":
             lib = sorted(Path(cache, "kernels").glob(
-                "libpaged_attention-*.so"))
+                "libflash_attention_fwd-*.so"))
             check(len(lib) == 1, f"kernel cache holds {lib}")
             lib[0].write_bytes(lib[0].read_bytes()[:64])  # a torn write
         try:
@@ -4765,6 +4836,371 @@ def phase_graphs(tmp: str, train_dir: str) -> dict:
     return rec
 
 
+# the cluster phase: the chaos campaign's train payload (the MNIST CNN
+# at its published widths, 2 simulated replicas, momentum 0.9, ZeRO-1
+# in 2 buckets, float32) on the port's `launch train` workers on the
+# card, paced so that the campaign's 0.5 s poll sees each trigger step
+# (pacing sleeps between steps and leaves the numerics alone): seed 0's
+# trial 0 stalls worker 1 for 5.5 s at step 11 and kills it with its
+# newest checkpoint torn at 13, so worker 0's run must outlast both
+CLUSTER_CNN = {"name": "cnn", "trials": 2, "seed": 0, "until_step": 40,
+               "save_interval_steps": 5, "shrink": False,
+               "poll_secs": 0.5,
+               "trial_timeout_s": 300.0, "drain_timeout_s": 120.0}
+CLUSTER_CNN_PACE_MS = 200
+# one flash-transformer trial through the same campaign: the training
+# path's widths (d 2048, 16 heads of 128, seq 1024, vocab 1024, bf16,
+# flash) at 2 layers (cut from 4), plain sgd so the step is captured as
+# CUDA graphs, batch 16, 20 steps, a save every 5; seed 40's trial 0 is
+# a kill of worker 1 at step 7 with no corruption, so the promoted warm
+# standby must restore the intact step-5 checkpoint into its captured
+# tensors to end on the reference's bits; the profile window's trace
+# counts the flash kernels (a replayed graph calls no wrapper, and the
+# workers are other processes)
+FLASH_LAYERS = 2
+FLASH_PROFILE = (16, 18)
+FLASH_PACE_MS = 200
+FLASH_MIN_RESTORE = 5
+CLUSTER_FLASH = {"name": "flash", "trials": 1, "seed": 40, "until_step": 20,
+                 "save_interval_steps": 5, "standby_workers": 1,
+                 "shrink": False, "trial_timeout_s": 400.0,
+                 "drain_timeout_s": 180.0}
+
+
+def _flash_payload(max_steps: int, pace_ms: float) -> str:
+    m = {**MODEL, "num_layers": FLASH_LAYERS}
+    return ("python -m distributedmnist_tpu_torch.launch train "
+            "train.train_dir=. data.dataset=synthetic_lm "
+            "data.batch_size=16 data.synthetic_train_size=512 "
+            "data.synthetic_test_size=32 data.use_native_pipeline=false "
+            + " ".join(f"model.{k}={v}" for k, v in m.items())
+            + " optim.name=sgd optim.initial_learning_rate=0.1 "
+            "optim.learning_rate_decay_factor=1.0 eval.eval_batch_size=16 "
+            f"train.max_steps={max_steps} train.log_every_steps=1 "
+            "train.save_interval_steps=5 train.keep_checkpoints=2 "
+            "train.async_checkpoint=false train.save_results_period=0 "
+            f"train.step_pace_ms={pace_ms} "
+            f"train.profile_steps=[{FLASH_PROFILE[0]},{FLASH_PROFILE[1]}]")
+
+
+def _worker_compiles(root: str) -> list:
+    """Every compile record in every worker journal under a campaign
+    root: run, worker, device, source (and reason), kernel cache."""
+    import glob
+
+    from distributedmnist_tpu_torch.obsv.report import load_jsonl
+    out = []
+    for log in sorted(glob.glob(f"{root}/*/worker*/train_log.jsonl")):
+        run, worker = log.split("/")[-3:-1]
+        for r in load_jsonl(log, "compile"):
+            out.append({"run": run, "worker": worker,
+                        "device": r.get("device"), "source": r.get("source"),
+                        "reason": r.get("reason"),
+                        "cache": {k: (r.get("persistent_cache") or {}).get(k)
+                                  for k in ("hits", "misses",
+                                            "new_entries")}})
+    return out
+
+
+def _standby_restores(trial_dir: str) -> list:
+    """Each standby promotion the supervisor journaled in a trial: the
+    worker, the step its adopted process restored (its first step
+    record after its own ``compile`` record, less one), that record's
+    source and the worker log's count of compile records."""
+    from distributedmnist_tpu_torch.obsv.report import load_jsonl
+    out = []
+    for e in load_jsonl(f"{trial_dir}/command_journal.jsonl", "recovery"):
+        if e.get("action") != "restart" or e.get("via") != "standby":
+            continue
+        log = load_jsonl(f"{trial_dir}/worker{e['worker']}/train_log.jsonl")
+        at = [i for i, r in enumerate(log) if r.get("event") == "compile"]
+        after = log[at[-1] + 1:] if at else []
+        first = next((r["step"] for r in after if r.get("event") == "step"),
+                     None)
+        out.append({"worker": e["worker"], "compiles": len(at),
+                    "source": log[at[-1]].get("source") if at else None,
+                    "restored_step": first - 1 if first else None})
+    return out
+
+
+def _campaign(cfg) -> tuple[dict, list]:
+    from distributedmnist_tpu_torch.launch.chaos import run_campaign
+    summary = run_campaign(cfg)
+    with open(summary["report_path"]) as f:
+        report = [json.loads(line) for line in f]
+    return summary, report
+
+
+def _trial_lines(report: list) -> list:
+    return [{"trial": r["trial"], "described": r["described"],
+             "outcome": r["outcome"], "duration_s": r["duration_s"],
+             "determinism":
+                 r["verdicts"]["determinism"], "faults": r["faults"],
+             "mttr": r["mttr"], "boot_s": r["boot_s"],
+             "stall_timeout_s": r["stall_timeout_s"]} for r in report]
+
+
+def phase_cluster(tmp: str) -> dict:
+    """The chaos campaign on the port's `launch train` workers on the
+    card: the CNN campaign and the flash-transformer trial, every
+    trial's invariants against its fault-free reference run."""
+    from distributedmnist_tpu_torch.launch.chaos import (ChaosConfig,
+                                                         generate_schedule)
+    t0 = time.time()
+    reset_counts()
+    cnn_base = ChaosConfig(**CLUSTER_CNN)
+    cnn_cfg = ChaosConfig(**CLUSTER_CNN, workdir=f"{tmp}/cluster",
+                          train_command=(cnn_base.resolved_train_command()
+                                         + f" train.step_pace_ms="
+                                         f"{CLUSTER_CNN_PACE_MS}"))
+    cnn, cnn_report = _campaign(cnn_cfg)
+    flash_cfg = ChaosConfig(**CLUSTER_FLASH, workdir=f"{tmp}/cluster",
+                            poll_secs=0.5, train_command=_flash_payload(
+                                CLUSTER_FLASH["until_step"], FLASH_PACE_MS))
+    sched = generate_schedule(flash_cfg.seed, 0, flash_cfg.num_workers,
+                              flash_cfg.step_window(),
+                              max_faults=flash_cfg.max_faults,
+                              min_faults=flash_cfg.min_faults,
+                              stall_ms_range=flash_cfg
+                              .resolved_stall_ms_range())
+    check("kill" in {f.kind for f in sched.faults}
+          and "corrupt" not in {f.kind for f in sched.faults},
+          f"flash trial schedule is not a kill after an intact save: "
+          f"{sched.describe()}")
+    flash, flash_report = _campaign(flash_cfg)
+    parent = read_counts()
+    traces = {}
+    for run in ("reference", "trial000"):
+        for w in (0, 1):
+            path = f"{tmp}/cluster/flash/{run}/worker{w}/profile/trace.json"
+            if os.path.exists(path):
+                traces[f"{run}/worker{w}"] = _trace_counts(
+                    path, FLASH_PROFILE[1] - FLASH_PROFILE[0])
+    compiles = {"cnn": _worker_compiles(f"{tmp}/cluster/cnn"),
+                "flash": _worker_compiles(f"{tmp}/cluster/flash")}
+    promoted = _standby_restores(f"{tmp}/cluster/flash/trial000")
+    rec = {"phase": "cluster", "card": nvidia_smi(),
+           "cnn": {"all_green": cnn["all_green"],
+                   "invariants": cnn["invariants"],
+                   "faults": cnn["faults"], "mttr": cnn["mttr"],
+                   "trials": _trial_lines(cnn_report)},
+           "flash": {"all_green": flash["all_green"],
+                     "invariants": flash["invariants"],
+                     "faults": flash["faults"], "mttr": flash["mttr"],
+                     "trials": _trial_lines(flash_report),
+                     "standby_restores": promoted,
+                     "launches_a_step_from_trace": traces,
+                     "kernel_cache": compiles["flash"]},
+           "compile_source": {k: sorted({(c["device"], c["source"])
+                                         for c in v})
+                              for k, v in compiles.items()},
+           "cnn_compiles": len(compiles["cnn"]),
+           "parent_launches": parent,
+           "seconds": time.time() - t0}
+    emit(rec)
+    for name, summ in (("cnn", cnn), ("flash", flash)):
+        check(summ["all_green"], f"{name} campaign not all green: "
+              f"{summ['failing_trials']}")
+    dets = {(n, r["trial"]): r["verdicts"]["determinism"]
+            for n, rep in (("cnn", cnn_report), ("flash", flash_report))
+            for r in rep}
+    check(dets[("cnn", 0)] == "pass" and dets[("flash", 0)] == "pass",
+          f"determinism: {dets}")
+    check(all(v in ("pass", "skipped") for v in dets.values()),
+          f"determinism: {dets}")
+    fired0 = cnn_report[0]["faults"]["unfired"]
+    check(not any(f["kind"] in ("kill", "corrupt") for f in fired0),
+          f"cnn trial 0's kill/corrupt never fired: {fired0}")
+    check(not flash_report[0]["faults"]["unfired"],
+          f"flash trial's faults never fired: "
+          f"{flash_report[0]['faults']}")
+    every = compiles["cnn"] + compiles["flash"]
+    check(every and all(c["device"] == "cuda:0" for c in every),
+          f"a worker journal not on cuda:0: {every}")
+    check(all(c["source"] == "cuda_graph" for c in compiles["flash"]),
+          f"flash workers not captured: {compiles['flash']}")
+    check(promoted and all(
+        p["source"] == "cuda_graph" and p["compiles"] == 2
+        and (p["restored_step"] or 0) >= FLASH_MIN_RESTORE
+        for p in promoted),
+          f"no promoted standby restored step >= {FLASH_MIN_RESTORE} into "
+          f"captured graphs: {promoted}")
+    check(traces and all(t[k] == FLASH_LAYERS for t in traces.values()
+                         for k in ("K1-lse", "K2", "K3")),
+          f"flash kernels a step in the workers' traces: {traces}")
+    check(all(v == 0 for v in parent.values()),
+          f"this process launched kernels: {parent}")
+    return rec
+
+
+# the restart phase (≙ bench.py bench_restart_latency): spawn (or
+# promotion) → first moved step of the chaos train payload, cold (an
+# empty kernel directory), warm (the shared cache primed once) and
+# standby (a parked, precompiled spare promoted), RESTART_SAMPLES each;
+# the reference's gates against the cold median
+RESTART_SAMPLES = 3
+RESTART_GATES = {"warm": 0.6, "standby": 0.3}
+
+
+def _first_step_after(cluster, anchor: float, timeout_s: float = 300.0
+                      ) -> float:
+    """Seconds from ``anchor`` to worker 0's first step record stamped
+    at or after it."""
+    from distributedmnist_tpu_torch.obsv.report import load_jsonl
+    log = f"{cluster.cfg.worker_dir(0)}/train_log.jsonl"
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        for r in load_jsonl(log, "step"):
+            if isinstance(r.get("time"), (int, float)) and r["time"] >= anchor:
+                return r["time"] - anchor
+        time.sleep(0.1)
+    raise PhaseError(f"no step record within {timeout_s:.0f}s of the "
+                     f"(re)spawn: {log}")
+
+
+def _spawn_and_time(cluster) -> float:
+    """Fresh worker dir, spawn, seconds to the first moved step; the
+    worker is stopped after."""
+    import shutil
+    cluster.kill_all(worker="0")
+    wdir = str(cluster.cfg.worker_dir(0))
+    shutil.rmtree(wdir, ignore_errors=True)
+    os.makedirs(wdir)
+    cluster.run_train()
+    anchor = cluster.status()["workers"][0]["spawned_at"]
+    try:
+        return _first_step_after(cluster, anchor)
+    finally:
+        cluster.kill_all(worker="0")
+
+
+def _restart_cluster(root: str, name: str, payload: str, cache: bool):
+    from distributedmnist_tpu_torch.launch.cluster import (
+        LocalClusterConfig, LocalProcessCluster)
+    from distributedmnist_tpu_torch.launch.exec import (CommandExecutor,
+                                                        RetryPolicy)
+    cfg = LocalClusterConfig(
+        name=name, num_workers=1, workdir=root, train_command=payload,
+        compile_cache=cache,
+        compile_cache_dir=f"{root}/{name}_cache" if cache else "")
+    c = LocalProcessCluster(cfg, CommandExecutor(
+        journal=cfg.root / "command_journal.jsonl",
+        retry=RetryPolicy(max_attempts=1)))
+    c.create()
+    return c
+
+
+def _ready_standbys(cluster) -> int:
+    return sum(sb["ready"] for sb in cluster.status().get("standbys", []))
+
+
+def _promote_and_time(cluster) -> float:
+    """Kill worker 0, promote a ready standby into its train_dir, seconds
+    from the promotion to the first step it moves."""
+    deadline = time.time() + 300.0
+    while not _ready_standbys(cluster):
+        check(time.time() < deadline, "no standby parked")
+        time.sleep(0.2)
+    cluster.kill_all(worker="0")
+    check(cluster.promote_standby(0), "promote_standby found no ready spare")
+    anchor = cluster.status()["workers"][0]["spawned_at"]
+    return _first_step_after(cluster, anchor)
+
+
+def _cold_entries(cluster) -> int:
+    """Kernel libraries the cold spawns built, each into its own empty
+    directory under ``<root>/cold_compile``: what a prime run would
+    persist into a shared cache."""
+    import glob
+
+    from distributedmnist_tpu_torch.core.compile_cache import cache_stats
+    return sum(cache_stats(d)["entries"]
+               for d in glob.glob(f"{cluster.cfg.root}/cold_compile/*"))
+
+
+def _restart_cnn(root: str) -> dict:
+    """The chaos train payload (long enough never to finish while timed):
+    cold spawns; warm spawns after a prime spawn, only where the cold
+    spawns built a kernel library; and promotions of standbys parked
+    before any timing."""
+    from distributedmnist_tpu_torch.launch.chaos import ChaosConfig
+    payload = ChaosConfig(until_step=100000).resolved_train_command()
+    cold_c = _restart_cluster(root, "cnn_cold", payload, cache=False)
+    warm_c = _restart_cluster(root, "cnn_warm", payload, cache=True)
+    try:
+        # boot every standby at once, before the timed spawns: parked,
+        # they poll a file and hold the cores no longer
+        warm_c.ensure_standbys(RESTART_SAMPLES)
+        deadline = time.time() + 300.0
+        while _ready_standbys(warm_c) < RESTART_SAMPLES:
+            check(time.time() < deadline, "the standbys never parked")
+            time.sleep(0.2)
+        cold = [_spawn_and_time(cold_c) for _ in range(RESTART_SAMPLES)]
+        built = _cold_entries(cold_c)
+        prime = None
+        skipped = None
+        warm = []
+        if built == 0:
+            skipped = ("the cold spawns built no kernel library (the CNN "
+                       "payload has none), so a prime would persist no "
+                       "cache entry and nothing is warm to be had")
+        else:
+            prime = _spawn_and_time(warm_c)
+            warm = [_spawn_and_time(warm_c) for _ in range(RESTART_SAMPLES)]
+        standby = [_promote_and_time(warm_c) for _ in range(RESTART_SAMPLES)]
+    finally:
+        cold_c.kill_all()
+        warm_c.kill_all()
+    med = {"cold": statistics.median(cold),
+           "warm": statistics.median(warm) if warm else None,
+           "standby": statistics.median(standby)}
+    ratio = {k: (med[k] / med["cold"] if med[k] is not None else None)
+             for k in RESTART_GATES}
+    return {"payload": payload, "cold_s": cold, "prime_s": prime,
+            "warm_s": warm, "standby_s": standby, "median_s": med,
+            "ratio_vs_cold": ratio, "gates": RESTART_GATES,
+            "warm_gate_ok": (None if skipped else
+                             ratio["warm"] <= RESTART_GATES["warm"]),
+            "warm_skipped": skipped,
+            "standby_gate_ok": ratio["standby"] <= RESTART_GATES["standby"],
+            "entries_built_cold": built}
+
+
+def _restart_flash(root: str) -> dict:
+    """One cluster on a shared kernel cache over an empty directory: its
+    first spawn is cold (nvcc; it fills the cache), its second warm; not
+    gated."""
+    payload = _flash_payload(10000, 0)
+    c = _restart_cluster(root, "flash", payload, cache=True)
+    times, compiles = [], []
+    try:
+        for _ in ("cold", "warm"):
+            # each spawn starts a fresh worker dir: read its record now
+            times.append(_spawn_and_time(c))
+            compiles += [r for r in _worker_compiles(root)
+                         if r["run"] == "flash"]
+    finally:
+        c.kill_all()
+    return {"payload": payload, "cold_s": times[0], "warm_s": times[1],
+            "warm_over_cold": times[1] / times[0], "compile": compiles}
+
+
+def phase_restart(tmp: str) -> dict:
+    t0 = time.time()
+    root = f"{tmp}/restart"
+    cnn = _restart_cnn(root)
+    flash = _restart_flash(root)
+    rec = {"phase": "restart", "card": nvidia_smi(), "cnn": cnn,
+           "flash": flash, "seconds": time.time() - t0}
+    emit(rec)
+    check(cnn["standby_gate_ok"], f"standby restart over cold: "
+          f"{cnn['ratio_vs_cold']['standby']:.3f} > "
+          f"{RESTART_GATES['standby']}")
+    check(cnn["warm_gate_ok"] is not False, f"warm restart over cold: "
+          f"{cnn['ratio_vs_cold']['warm']}")
+    return rec
+
+
 KERNELS = (
     ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "54", "e2e"),
     ("K1-lse", "flash_attention_fwd_lse", "flash_attention_fwd.cu", "54",
@@ -4824,6 +5260,10 @@ def main() -> int:
             runs["serve"] = phase_serve(tmp, runs["ckpt"])
             phase = "graphs"
             runs["graphs"] = phase_graphs(tmp, train["train_dir"])
+            phase = "cluster"
+            runs["cluster"] = phase_cluster(tmp)
+            phase = "restart"
+            runs["restart"] = phase_restart(tmp)
     except Exception as e:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}",
@@ -4854,7 +5294,10 @@ def main() -> int:
                      "launches_long_context": {
                          arm: a["launches"][key] for arm, a in
                          runs["long_context"]["arms"].items()},
-                     "long_context": c["long_context"]}
+                     "long_context": c["long_context"],
+                     "launches_cluster_a_step": {
+                         w: t[key] for w, t in runs["cluster"]["flash"]
+                         ["launches_a_step_from_trace"].items()}}
         replaces = ("distributedmnist_tpu/ops/pallas_paged_attention.py:62"
                     if line is None else
                     f"distributedmnist_tpu/ops/pallas_attention.py:{line}")

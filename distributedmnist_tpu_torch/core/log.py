@@ -77,6 +77,15 @@ def _default(o: Any):
     return str(o)
 
 
+def text_tail(s: str | None, limit: int = 2000) -> str | None:
+    """Last ``limit`` characters of ``s`` — the journal-friendly form of
+    a subprocess stream (a crashing worker's last lines are the
+    diagnostic ones)."""
+    if s is None:
+        return None
+    return s if len(s) <= limit else s[-limit:]
+
+
 def eval_line(num_examples: int, precision: float, loss: float,
               seconds: float) -> str:
     """The evaluator's line, in the exact format of the source paper's

@@ -1,6 +1,6 @@
 """The port's CLI (≙ ``distributedmnist_tpu/launch/__main__.py``), the
-``train``, ``eval``, ``serve``, ``serve-load``, ``sweep``, ``report``
-and ``devices`` verbs:
+``train``, ``eval``, ``serve``, ``serve-load``, ``sweep``, ``report``,
+``devices`` and ``cluster`` verbs:
 
   python -m distributedmnist_tpu_torch.launch train --config C.json \\
       [section.key=value ...] [--device cpu]
@@ -19,6 +19,8 @@ and ``devices`` verbs:
   python -m distributedmnist_tpu_torch.launch report --train_dir D \\
       [--eval_dir E] --out O [--name N]
   python -m distributedmnist_tpu_torch.launch devices [--device cpu]
+  python -m distributedmnist_tpu_torch.launch cluster ACTION \\
+      [--config C.json] [--device cpu] [cluster flags]
 
 ``train`` builds the :class:`~..train.loop.Trainer` from the config and
 its dotted overrides — any model the port has (``mnist_cnn``,
@@ -54,8 +56,17 @@ client, journals every request to ``--out`` and prints the summary.
 name, test accuracy and examples/sec; ``report`` writes a run's
 ``stats.json`` and figures (:mod:`..obsv.report`) and prints the stats;
 ``devices`` prints the process index and count and each device's index
-and name. The flag names are the reference CLI's. The device is
-``cuda:0`` unless ``--device`` names another; without CUDA the default
+and name. ``cluster`` forwards to :func:`.cluster.main`: the local
+process cluster (create, delete, status, run, kill-all, exec, download,
+poll), the self-healing supervisor (``supervise``, ``reconfigure``) and
+the seeded chaos campaign (``chaos``), whose workers are this CLI's own
+``train`` processes. A ``train`` process whose environment names
+``DMT_STANDBY_ACTIVATION`` is a warm standby: it precompiles, writes
+``<activation>.ready``, parks until the activation file appears and
+then adopts the ``train_dir`` it names
+(:meth:`~..train.loop.Trainer.adopt_train_dir`). The flag names are the
+reference CLI's. The device is ``cuda:0`` unless ``--device`` names
+another; without CUDA the default
 is an error, not a CPU run. ``train``, ``eval`` and ``serve`` first
 switch on the kernel build cache (``compile.cache_dir`` or
 ``DMT_COMPILE_CACHE_DIR``: the kernel libraries are built into and
@@ -65,8 +76,10 @@ reference's entry points switch on its persistent compile cache.
 Accepted and not run, each logged once a Trainer: device prefetch, the
 native loader and the ``compile.*`` knobs. Not ported yet (each raises):
 the model-parallel mesh axes, mixture-of-experts, ``serve --tp-ranks``,
-and the reference's cluster verbs (``cluster``, ``campaign``, ``pod``,
-``fetch``).
+the cluster's serving payload, network chaos and resource broker
+(``cluster broker``, ``cluster chaos --payload serving``), the gcloud
+backend (``cluster --backend gcloud``), and the reference's
+``campaign``, ``pod`` and ``fetch`` verbs.
 """
 
 from __future__ import annotations
@@ -200,6 +213,13 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--eval_dir", default=None)
     pr.add_argument("--out", required=True)
     pr.add_argument("--name", default="experiment")
+    pc = sub.add_parser(
+        "cluster", add_help=False,
+        help="local process cluster of `launch train` workers: "
+             "lifecycle, fault plans, command journal, supervised "
+             "self-healing runs, seeded chaos campaigns with invariant "
+             "checking (`cluster chaos --trials N --seed S`)")
+    pc.add_argument("rest", nargs=argparse.REMAINDER)
     pd = sub.add_parser("devices", help="show the process and its devices")
     pd.add_argument("--device", default=None,
                     help="'cpu' lists the CPU (default: the CUDA devices, "
@@ -224,10 +244,41 @@ def build_trainer(argv: list[str], **trainer_kwargs):
     return Trainer(cfg, device=args.device, **trainer_kwargs)
 
 
+def _park_standby(trainer, activation: str) -> None:
+    """The warm-standby protocol (≙ the reference's ``_park_standby``):
+    precompile, signal readiness by writing ``<activation>.ready``, then
+    PARK until the supervisor's promotion writes the activation file
+    (an atomic rename — never read torn) naming the dead worker's
+    train_dir, and adopt it. The parked process has already paid
+    import, the kernel build and the capture, so promotion → first
+    moved step is data-path time only."""
+    import os
+    from pathlib import Path
+
+    try:
+        trainer.precompile()
+    except Exception as e:  # park anyway: a warm PROCESS still beats a
+        # cold boot even if the capture must happen at the first step
+        print(f"standby precompile failed ({type(e).__name__}: {e}); "
+              "parking warm-process only", file=sys.stderr)
+    act = Path(activation)
+    act.parent.mkdir(parents=True, exist_ok=True)
+    ready = act.with_name(act.name + ".ready")
+    ready.write_text(json.dumps({"pid": os.getpid(),
+                                 "ready_at": time.time()}))
+    while not act.exists():
+        time.sleep(0.1)
+    assignment = json.loads(act.read_text())
+    trainer.adopt_train_dir(assignment["train_dir"])
+
+
 def train(argv: list[str]) -> None:
     """``launch train``: join the process group ``torchrun`` describes
-    (if any), run, evaluate, print the summary line; leave the group on
-    every exit."""
+    (if any), park as a warm standby when ``DMT_STANDBY_ACTIVATION``
+    names an activation file, run, evaluate, print the summary line;
+    leave the group on every exit."""
+    import os
+
     from ..core.compile_cache import enable_persistent_cache
     from ..core.mesh import initialize_distributed, shutdown_distributed
 
@@ -236,6 +287,9 @@ def train(argv: list[str]) -> None:
     try:
         trainer = build_trainer(argv)
         enable_persistent_cache(trainer.cfg.compile)
+        activation = os.environ.get("DMT_STANDBY_ACTIVATION")
+        if activation:
+            _park_standby(trainer, activation)
         summary = trainer.run()
         shown = {k: v for k, v in summary.items() if k != "timing"}
         if summary.get("preempted"):
@@ -371,7 +425,16 @@ def devices(argv: list[str]) -> dict:
     return info
 
 
-_VERBS = {"sweep": sweep, "report": report, "devices": devices}
+def cluster(argv: list[str]) -> None:
+    """``launch cluster``: the local process cluster, its supervisor and
+    the chaos campaign (:func:`.cluster.main` parses the rest)."""
+    from .cluster import main as cluster_main
+
+    cluster_main(argv[1:])
+
+
+_VERBS = {"sweep": sweep, "report": report, "devices": devices,
+          "cluster": cluster}
 
 
 def main(argv: list[str] | None = None) -> None:

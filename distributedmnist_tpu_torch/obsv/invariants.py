@@ -1,34 +1,53 @@
 """Post-run invariant checking (≙ ``distributedmnist_tpu/obsv/
-invariants.py``): is a run, replayed from its ARTIFACTS ALONE — the
-train log, the recovery and serve journals, the checkpoint dir — a
-correct run? This module holds the checkers a single run gives input
-for:
+invariants.py``, whole): is a *recovered* run a *correct* run? The
+checkers replay a finished run's ARTIFACTS ALONE — ``train_log.jsonl``,
+the command journal, the recovery and serve journals, the checkpoint
+dir — so a downloaded trial directory is as checkable as a live one,
+and the chaos campaign (``launch/chaos.py``) can shrink a failing
+schedule by re-running and re-checking mechanically:
 
-* **metrics_log** (:func:`check_metrics_log`) — the step series is
-  gap-free and duplicate-free after rollback splicing
-  (:func:`splice_rollbacks`), and every rewind is explained by a
-  journaled recovery event;
-* **checkpoint_integrity** (:func:`check_checkpoint_dir`) — every
-  digest sidecar verifies (``train/checkpoint.py verify_artifact``) and
-  the pointer resolves;
-* **determinism** (:func:`determinism_verdict`) — a run's final params
-  and optimizer state bitwise equal to a same-seed reference run's;
-* **discipline** (:func:`check_discipline`) — every change of the
-  adaptive controller (``train/discipline.py``) is licensed, closed,
-  and observed at its epoch boundary;
-* the serving invariants (:func:`check_serving`): one terminal outcome
-  a request, never a torn publish, monotone served steps, licensed
-  swaps mid-generation;
-* **storage_faults** (:func:`check_storage_faults`) — every skipped
-  save and every fallback past a corrupt checkpoint licensed by an
-  injected disk fault, no pointer past a missing digest.
+1. **terminal_state** (:func:`check_terminal_state`) — the run reached
+   its target, or aborted only through a journaled
+   ``below_quorum_abort`` within the restart budget.
+2. **metrics_log** (:func:`check_metrics_log`) — the step series is
+   gap-free and duplicate-free after rollback splicing
+   (:func:`splice_rollbacks`), every rewind explained by a journaled
+   recovery event.
+3. **determinism** (:func:`determinism_verdict`) — a faulted but fully
+   recovered worker's final params and optimizer state bitwise equal
+   to a fault-free same-seed reference run's.
+4. **causality** (:func:`check_causality`) — every restart follows a
+   detect, every fallback restore a corruption or I/O event.
+5. **checkpoint_integrity** (:func:`check_checkpoint_dir`) — every
+   digest sidecar verifies (journaled torn targets exempt,
+   :func:`corruption_exempt_targets`) and the pointer resolves.
+6. **reconfigure** (:func:`check_reconfigure`) — a changed world is
+   licensed by a journaled reshape, lands where the artifacts show,
+   and its metrics splice across the change.
+7–10. the serving invariants (:func:`check_serving`): one terminal
+   outcome a request, never a torn publish, monotone served steps,
+   licensed swaps mid-generation.
+11. **serve_group** (:func:`check_serve_group`) — a tensor-parallel
+   serving group dies and restarts as a unit.
+12. **autoscale** (:func:`check_autoscale`) — every roster change of
+   the resource broker is licensed by a held signal crossing.
+13. **net_faults** (:func:`check_net_faults`) — exactly-once outcomes
+   under retry amplification.
+14. **discipline** (:func:`check_discipline`) — every change of the
+   adaptive controller (``train/discipline.py``) is licensed, closed
+   and observed at its epoch boundary.
+15. **storage_faults** (:func:`check_storage_faults`) — every skipped
+   save and every fallback past a corrupt checkpoint licensed by an
+   injected disk fault.
 
-A trial directory holds ``worker<k>/`` logdirs (a run's ``train_dir``
-under ``worker0``). The cluster checkers (terminal state, causality,
-reconfigure, autoscale, network faults, serve groups) and the whole-run
-``check_run`` are not ported yet: the port writes no cluster trial
-directories. The event vocabulary is the one ``obsv/schema.py``
-declares, so reader and writer cannot drift.
+:func:`check_run` runs every checker that applies to a trial directory
+(``worker<k>/`` logdirs, ``command_journal.jsonl``, ``outcome.json``);
+:func:`shrink_faults` is the greedy minimizer. The serving, group,
+autoscale and network checkers read trial directories the port cannot
+write yet (its chaos campaign runs the train and shell payloads), so
+they hold the reference's verdicts on the reference's artifacts. The
+event vocabulary is the one ``obsv/schema.py`` declares, so reader and
+writer cannot drift.
 """
 
 from __future__ import annotations
@@ -36,14 +55,16 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 from . import schema
 from .report import load_jsonl
 
-INVARIANTS = ("metrics_log", "determinism", "checkpoint_integrity",
+INVARIANTS = ("terminal_state", "metrics_log", "determinism",
+              "causality", "checkpoint_integrity", "reconfigure",
               "serve_outcomes", "serve_digest", "serve_monotone",
-              "decode_swap", "discipline", "storage_faults")
+              "decode_swap", "serve_group", "autoscale", "discipline",
+              "net_faults", "storage_faults")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +141,102 @@ def check_metrics_log(steps: list[dict], allowed_rewinds: int | None = None,
                 "metrics_log",
                 f"gap in spliced series: step {prev['step']} -> "
                 f"{rec['step']}", worker))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (1) terminal-state legality and (4) journal causality
+# ---------------------------------------------------------------------------
+
+def check_terminal_state(outcome: dict, recovery_events: list[dict]
+                         ) -> list[Violation]:
+    """Invariant (1): ``outcome`` is the campaign's trial record
+    ({"outcome", "step", "target", "supervisor": SupervisorConfig
+    fields}); legality is judged against the journaled events."""
+    out: list[Violation] = []
+    target = outcome.get("target", 0)
+    kind = outcome.get("outcome")
+    aborts = [r for r in recovery_events
+              if r.get("action") == "below_quorum_abort"]
+    if kind == "completed":
+        if outcome.get("step", -1) < target:
+            out.append(Violation(
+                "terminal_state",
+                f"trial reported completed at step {outcome.get('step')} "
+                f"< target {target}"))
+        if aborts:
+            out.append(Violation(
+                "terminal_state",
+                "completed trial has a below_quorum_abort event"))
+    elif kind == "aborted":
+        if not aborts:
+            out.append(Violation(
+                "terminal_state",
+                "aborted without a journaled below_quorum_abort — the "
+                "quorum policy never sanctioned this exit"))
+        else:
+            quorum = (outcome.get("supervisor") or {}).get("quorum")
+            rec = aborts[-1]
+            if (quorum is not None and rec.get("workers_alive") is not None
+                    and rec["workers_alive"] >= quorum):
+                out.append(Violation(
+                    "terminal_state",
+                    f"abort with workers_alive={rec['workers_alive']} >= "
+                    f"quorum {quorum}"))
+    else:
+        out.append(Violation(
+            "terminal_state",
+            f"illegal terminal state {kind!r}: "
+            f"{outcome.get('error', 'no error recorded')}"))
+    # restart budget respected regardless of the terminal kind
+    budget = (outcome.get("supervisor") or {}).get("max_restarts_per_worker")
+    if budget is not None:
+        per_worker: dict[int, int] = {}
+        for r in recovery_events:
+            if r.get("action") == "restart" and "worker" in r:
+                per_worker[r["worker"]] = per_worker.get(r["worker"], 0) + 1
+        for k, n in sorted(per_worker.items()):
+            if n > budget:
+                out.append(Violation(
+                    "terminal_state",
+                    f"{n} restarts > budget {budget}", k))
+    return out
+
+
+def check_causality(recovery_events: list[dict],
+                    worker_events: dict[int, list[dict]]) -> list[Violation]:
+    """Invariant (4). ``recovery_events``: the supervisor's records from
+    the command journal; ``worker_events``: each worker's own
+    ``recovery_journal.jsonl`` records."""
+    out: list[Violation] = []
+    chains: dict[int, list[str]] = {}
+    for r in recovery_events:
+        if "worker" in r:
+            chains.setdefault(r["worker"], []).append(r.get("action", "?"))
+    for k, chain in sorted(chains.items()):
+        detects = restarts = 0
+        for action in chain:
+            detects += action == "detect"
+            restarts += action == "restart"
+            if restarts > detects:
+                out.append(Violation(
+                    "causality",
+                    f"restart #{restarts} not preceded by a detect "
+                    f"(chain: {chain})", k))
+                break
+    for k, events in sorted(worker_events.items()):
+        causes = restores = 0
+        for r in events:
+            action = r.get("action")
+            causes += action in ("corrupt_checkpoint_fallback",
+                                 "rollback_candidate_unusable")
+            restores += action == "fallback_restore"
+            if restores > causes:
+                out.append(Violation(
+                    "causality",
+                    "fallback_restore without a preceding corruption/IO "
+                    "event in the worker recovery journal", k))
+                break
     return out
 
 
@@ -230,6 +347,184 @@ def determinism_verdict(logdir: str | Path, reference_dir: str | Path,
             f"the fault-free reference ({got_opt[:12]}… != "
             f"{ref_opt[0][:12]}…)", worker))
     return True, out
+
+
+# ---------------------------------------------------------------------------
+# (6) cross-world resume (elastic reconfigure)
+# ---------------------------------------------------------------------------
+
+def check_reconfigure(trial_dir: str | Path, outcome: dict,
+                      journal_records: list[dict]
+                      ) -> tuple[list[Violation], bool, set[int],
+                                 dict[int, int]]:
+    """Invariant (6) over the artifacts alone. Returns
+    ``(violations, applicable, grown_workers, relaunch_counts)`` —
+    ``applicable`` False when the run neither reshaped nor claims to
+    have (verdict: skipped); ``grown_workers`` are ids whose logdirs
+    were seeded mid-run (their metric series may start mid-run);
+    ``relaunch_counts`` maps worker → number of journaled reconfigure
+    relaunches that respawned it (each one licenses a log rewind).
+
+    The causal-license rule: the launch world is ``outcome
+    ["num_workers"]``; the final world is what the backend's
+    ``state.json`` artifact shows. A difference with NO journaled
+    ``event: "reconfigure"`` record fails — a run that silently
+    changed shape must not replay green. When reconfigure events DO
+    exist, the last journaled reshape must land on the world the
+    artifacts show."""
+    trial_dir = Path(trial_dir)
+    reconf = [r for r in journal_records
+              if r.get("event") == schema.RECONFIGURE]
+    reshapes = [r for r in reconf if r.get("action") == "reshape"]
+    relaunches = [r for r in reconf if r.get("action") == "relaunched"]
+    grown = {int(k) for r in reshapes for k in (r.get("grown") or {})}
+    relaunch_counts: dict[int, int] = {}
+    for r in (relaunches or reshapes):
+        for k in r.get("workers", []):
+            relaunch_counts[k] = relaunch_counts.get(k, 0) + 1
+
+    final_ids: list[int] | None = None
+    state_path = trial_dir / "state.json"
+    if state_path.exists():
+        try:
+            st = json.loads(state_path.read_text())
+            final_ids = sorted(int(w["worker"])
+                               for w in st.get("workers", []))
+        except (json.JSONDecodeError, KeyError, TypeError, ValueError):
+            final_ids = None
+    initial = outcome.get("num_workers")
+
+    out: list[Violation] = []
+    world_changed = (final_ids is not None and initial is not None
+                     and len(final_ids) != initial)
+    if world_changed and not reconf:
+        out.append(Violation(
+            "reconfigure",
+            f"world changed {initial} -> {len(final_ids)} workers "
+            f"(roster {final_ids}) with no journaled reconfigure event "
+            "— no causal license for the resize"))
+    if reshapes and final_ids is not None:
+        last = sorted(int(k) for k in reshapes[-1].get("workers", []))
+        if last and last != final_ids:
+            out.append(Violation(
+                "reconfigure",
+                f"journaled reconfigure lands on roster {last} but the "
+                f"artifacts show {final_ids} — the journal and the "
+                "cluster state disagree about the final world"))
+    # a trial that claims a final world must match the artifact too
+    claimed = outcome.get("final_world")
+    if (claimed is not None and final_ids is not None
+            and claimed != len(final_ids)):
+        out.append(Violation(
+            "reconfigure",
+            f"outcome claims final_world={claimed} but state.json shows "
+            f"{len(final_ids)} workers"))
+    applicable = bool(reconf) or world_changed
+    return out, applicable, grown, relaunch_counts
+
+
+# ---------------------------------------------------------------------------
+# (11) autoscale: every roster change in a brokered run is licensed
+# ---------------------------------------------------------------------------
+
+def check_autoscale(outcome: dict, journal_records: list[dict]
+                    ) -> tuple[list[Violation], bool]:
+    """Invariant (11), replayed from the journal alone. Returns
+    ``(violations, applicable)`` — not applicable (verdict: skipped)
+    for runs with no broker and no autoscale records.
+
+    The causal-license rule, same discipline as invariant 6: a
+    brokered run's roster may only change because a recorded signal
+    crossed its recorded threshold. Three claims:
+
+    * every ``autoscale begin`` carries a license that actually holds
+      — ``value op threshold`` must be true of the numbers the broker
+      itself journaled (a begin whose own evidence contradicts it is
+      a fabricated license);
+    * decisions are single-flight and closed: each begin is followed
+      by its ``complete`` or ``error`` before the next begin (the
+      broker's cooldown-from-settlement discipline), and no begin is
+      left dangling at the end of the run;
+    * every cluster ``reshape`` in a brokered run is consumed against
+      a preceding unconsumed license — an ``autoscale begin`` or a
+      supervisor ``reconfigure begin`` (fault-path reshapes keep
+      their own license) — and a reshape consuming an autoscale
+      license must land on the world that begin declared
+      (``new_serve + new_train``). Silent scaling fails replay.
+    """
+    recs = [r for r in journal_records
+            if r.get("event") == schema.AUTOSCALE]
+    applicable = bool(recs) or bool(outcome.get("broker"))
+    out: list[Violation] = []
+    if not applicable:
+        return out, False
+
+    open_begin: dict | None = None
+    for r in recs:
+        action = r.get("action")
+        if action == "begin":
+            v, thr, op = r.get("value"), r.get("threshold"), r.get("op")
+            if not (isinstance(v, (int, float))
+                    and isinstance(thr, (int, float))
+                    and op in (">=", "<=")):
+                out.append(Violation(
+                    "autoscale",
+                    f"autoscale begin ({r.get('decision')}) with a "
+                    f"malformed license: value={v!r} op={op!r} "
+                    f"threshold={thr!r}"))
+            elif not (v >= thr if op == ">=" else v <= thr):
+                out.append(Violation(
+                    "autoscale",
+                    f"autoscale begin ({r.get('decision')}) licensed by "
+                    f"{r.get('trigger')}={v} {op} {thr}, which does not "
+                    "hold — the recorded signal never crossed the "
+                    "recorded threshold"))
+            if open_begin is not None:
+                out.append(Violation(
+                    "autoscale",
+                    "overlapping autoscale decisions: a second begin "
+                    f"({r.get('decision')}) before the previous one "
+                    f"({open_begin.get('decision')}) completed — the "
+                    "broker is single-flight by construction"))
+            open_begin = r
+        elif action in ("complete", "error"):
+            open_begin = None
+    if open_begin is not None:
+        out.append(Violation(
+            "autoscale",
+            f"autoscale begin ({open_begin.get('decision')}) never "
+            "closed by a complete or error record"))
+
+    # license-consumption walk over the whole journal, in order
+    licenses: list[dict | None] = []  # None = supervisor reconfigure
+    for r in journal_records:
+        ev, action = r.get("event"), r.get("action")
+        if ev == schema.AUTOSCALE and action == "begin":
+            licenses.append(r)
+        elif (ev == schema.RECONFIGURE and action == "begin"
+                and r.get("layer") == "supervisor"):
+            licenses.append(None)
+        elif ev == schema.RECONFIGURE and action == "reshape":
+            if not licenses:
+                out.append(Violation(
+                    "autoscale",
+                    f"roster reshape {r.get('old_world')} -> "
+                    f"{r.get('new_world')} with no preceding autoscale "
+                    "or reconfigure begin — an unlicensed roster change "
+                    "in a brokered run"))
+                continue
+            lic = licenses.pop()
+            if lic is not None:
+                want = lic.get("new_serve", 0) + lic.get("new_train", 0)
+                got_world = r.get("new_world")
+                if isinstance(got_world, int) and got_world != want:
+                    out.append(Violation(
+                        "autoscale",
+                        f"reshape lands on world {got_world} but its "
+                        f"licensing autoscale begin declared "
+                        f"{lic.get('new_serve')} serving + "
+                        f"{lic.get('new_train')} train = {want}"))
+    return out, True
 
 
 # ---------------------------------------------------------------------------
@@ -620,6 +915,176 @@ def check_serving(trial_dir: str | Path, outcome: dict,
     return out, True, serve_workers, decode_applicable
 
 
+def check_serve_group(trial_dir: str | Path
+                      ) -> tuple[list[Violation], bool]:
+    """**serve_group** — die-as-a-unit for tensor-parallel serving
+    groups (servesvc/tp_group.py), replayed from ``group_log.jsonl``.
+
+    A TP replica is one process group; a group missing a rank holds
+    only part of every sharded weight, so it must NEVER keep (or
+    resume) serving half-dead.  The supervisor's journal chain makes
+    that checkable: every ``rank_exit`` must be answered by a
+    ``group_down`` (all surviving ranks killed) before any later
+    ``group_start`` (the unit restart), and restart ``attempt``
+    numbers only move forward — a supervisor looping without
+    acknowledging teardown is exactly the bug this invariant exists
+    to catch.  Applicable only to workers that left a group journal;
+    returns ``(violations, applicable)``."""
+    trial_dir = Path(trial_dir)
+    out: list[Violation] = []
+    applicable = False
+    for k, d in sorted(_worker_dirs(trial_dir).items()):
+        glog = d / "group_log.jsonl"
+        if not glog.exists():
+            continue
+        applicable = True
+        recs = load_jsonl(glog, schema.SERVE)
+        pending_exit: Any = None   # rank of an unanswered rank_exit
+        started = False
+        last_attempt = -1
+        for r in recs:
+            a = r.get("action")
+            if a == "group_start":
+                if pending_exit is not None:
+                    out.append(Violation(
+                        "serve_group",
+                        f"group restarted after rank {pending_exit} "
+                        "exited with no group_down in between — a "
+                        "half-dead TP group was never torn down as a "
+                        "unit", k))
+                    pending_exit = None
+                att = r.get("attempt")
+                if isinstance(att, int):
+                    if started and att <= last_attempt:
+                        out.append(Violation(
+                            "serve_group",
+                            f"group_start attempt went backwards "
+                            f"({last_attempt} -> {att}) — the restart "
+                            "budget scan is meaningless", k))
+                    last_attempt = att
+                started = True
+            elif a == "rank_exit":
+                pending_exit = r.get("rank")
+            elif a == "group_down":
+                pending_exit = None
+        if pending_exit is not None:
+            out.append(Violation(
+                "serve_group",
+                f"rank {pending_exit} exited and no group_down ever "
+                "followed — the group may have kept serving with a "
+                "missing shard", k))
+    return out, applicable
+
+
+# ---------------------------------------------------------------------------
+# (13) net_faults: exactly-once outcomes under retry amplification
+# ---------------------------------------------------------------------------
+
+def check_net_faults(trial_dir: str | Path, outcome: dict,
+                     journal_records: list[dict]
+                     ) -> tuple[list[Violation], bool]:
+    """Invariant (13), replayed from artifacts alone. Returns
+    ``(violations, applicable)`` — not applicable (verdict: skipped)
+    when the trial shows no network-fault evidence at all: no
+    journaled ``net_*`` fault, no ``dedup_hit`` in any serve journal,
+    and no retried client terminal.
+
+    Network faults (launch/netchaos.py) make requests ARRIVE more
+    than once — a mid-stream reset or partition forces the client to
+    retry an id on a sibling, or on the same replica after its
+    connection died. The hardened protocol's claim is exactly-once
+    OUTCOMES, not exactly-once arrivals, and this invariant holds the
+    books to it:
+
+    * **exactly one client terminal per issue, globally** — retry
+      amplification (``attempts`` > 1) must never surface as a second
+      terminal outcome for one id; the failover loop returns one.
+    * **duplicate admits are licensed** — a request id admitted more
+      than once across the roster (double execution) is legal only
+      when the client journaled a retry for that id or a ``net_*``
+      fault was journaled against one of the replicas involved;
+      an unlicensed duplicate admit is the server double-executing a
+      request nobody resent.
+    * **dedup hits are honest** — a ``dedup_hit`` record must FOLLOW
+      a completed terminal (``respond``/``decode_finish``) for that
+      id on the same replica, in journal order: both server paths
+      journal the terminal before populating the cache (the journal
+      lock serializes the writes), so a hit with no prior terminal is
+      a cache returning an outcome it never computed.
+    """
+    trial_dir = Path(trial_dir)
+    net_faults = [r for r in journal_records
+                  if r.get("event") == schema.FAULT
+                  and str(r.get("action", "")).startswith("net_")]
+    net_faulted = {r["worker"] for r in net_faults
+                   if isinstance(r.get("worker"), int)}
+
+    # client side: per-id issue/terminal books + retry licenses
+    load_records = load_jsonl(trial_dir / "loadgen.jsonl", schema.LOAD)
+    issued: dict[Any, int] = {}
+    terminal: dict[Any, int] = {}
+    retried_ids: set = set()
+    for r in load_records:
+        if r.get("action") == "issue":
+            issued[r.get("id")] = issued.get(r.get("id"), 0) + 1
+        elif r.get("action") == "outcome":
+            terminal[r.get("id")] = terminal.get(r.get("id"), 0) + 1
+            attempts = r.get("attempts")
+            if r.get("retried") or (isinstance(attempts, int)
+                                    and attempts > 1):
+                retried_ids.add(r.get("id"))
+
+    # server side: admits per id across the roster + dedup honesty
+    out: list[Violation] = []
+    admits_by_id: dict[Any, list[int]] = {}
+    dedup_hits = 0
+    for k, d in sorted(_worker_dirs(trial_dir).items()):
+        recs = load_jsonl(d / "serve_log.jsonl", schema.SERVE)
+        completed: set = set()  # ids with a terminal SO FAR, in order
+        for r in recs:
+            action = r.get("action")
+            if action == "admit":
+                admits_by_id.setdefault(r.get("id"), []).append(k)
+            elif action in ("respond", "decode_finish"):
+                completed.add(r.get("id"))
+            elif action == "dedup_hit":
+                dedup_hits += 1
+                if r.get("id") not in completed:
+                    out.append(Violation(
+                        "net_faults",
+                        f"dedup_hit for id {r.get('id')!r} with no "
+                        "earlier completed terminal for that id on this "
+                        "replica — the cache returned an outcome it "
+                        "never computed", k))
+
+    applicable = bool(net_faults) or dedup_hits > 0 or bool(retried_ids)
+    if not applicable:
+        return [], False
+
+    for i in sorted(issued, key=str):
+        if terminal.get(i, 0) > issued[i]:
+            out.append(Violation(
+                "net_faults",
+                f"request id {i!r} issued {issued[i]}x but reached "
+                f"{terminal[i]} terminal outcomes — retry amplification "
+                "leaked a duplicate terminal to the client"))
+    for i, ks in sorted(admits_by_id.items(), key=str):
+        if len(ks) <= 1 or i in retried_ids:
+            continue
+        if any(k in net_faulted for k in ks):
+            continue
+        out.append(Violation(
+            "net_faults",
+            f"request id {i!r} admitted {len(ks)}x (replicas "
+            f"{sorted(set(ks))}) with no journaled retry or net fault "
+            "licensing the duplicate — an unlicensed double execution"))
+    return out, True
+
+
+# ---------------------------------------------------------------------------
+# (14) storage-fault licensing + atomic-save protocol ordering
+# ---------------------------------------------------------------------------
+
 # injector actions that surface to the writer as an OSError — the only
 # firings that can license a skipped cadence save (train/storage.py)
 _DISK_ERROR_ACTIONS = ("disk_enospc", "disk_eio", "disk_torn_write")
@@ -786,9 +1251,247 @@ def check_storage_faults(trial_dir: str | Path,
     return out, True
 
 
+# ---------------------------------------------------------------------------
+# whole-run replay
+# ---------------------------------------------------------------------------
+
 def _worker_dirs(trial_dir: Path) -> dict[int, Path]:
     out = {}
     for d in sorted(trial_dir.glob("worker*")):
         if d.is_dir() and d.name[len("worker"):].isdigit():
             out[int(d.name[len("worker"):])] = d
     return out
+
+
+def corruption_exempt_targets(journal_records: list[dict]
+                              ) -> dict[int, set[str]]:
+    """{worker: {artifact names}} the fault injector journaled as
+    deliberately torn — exempt from invariant (5)."""
+    out: dict[int, set[str]] = {}
+    for r in journal_records:
+        if (r.get("event") == schema.FAULT
+                and r.get("action") == "corrupt_latest_checkpoint"
+                and r.get("target")):
+            out.setdefault(r.get("worker", -1), set()).add(r["target"])
+    return out
+
+
+def check_run(trial_dir: str | Path, outcome: dict | None = None,
+              reference_dir: str | Path | None = None) -> dict[str, Any]:
+    """Replay one trial's artifact set and verify all five invariants.
+
+    ``trial_dir`` is a LocalProcessCluster root: ``worker<k>/`` logdirs
+    plus ``command_journal.jsonl``; the campaign also leaves
+    ``outcome.json`` (trial metadata) there, or the caller passes
+    ``outcome`` directly. Returns ``{"verdicts": {invariant:
+    pass|fail|skipped}, "violations": [...], "workers": [...]}``.
+    """
+    trial_dir = Path(trial_dir)
+    if outcome is None:
+        opath = trial_dir / "outcome.json"
+        outcome = (json.loads(opath.read_text()) if opath.exists() else {})
+    if reference_dir is None and outcome.get("reference_dir"):
+        reference_dir = outcome["reference_dir"]
+
+    journal_all = load_jsonl(trial_dir / "command_journal.jsonl")
+    recovery = [r for r in journal_all if r.get("event") == schema.RECOVERY]
+    workers = _worker_dirs(trial_dir)
+    worker_events = {k: load_jsonl(d / "recovery_journal.jsonl",
+                                   schema.RECOVERY)
+                     for k, d in workers.items()}
+    exempt = corruption_exempt_targets(journal_all)
+    # artifacts the workers' own disk injectors journaled as torn
+    # (train/storage.py) carry the same exemption standing as the
+    # supervisor's corrupt_latest_checkpoint targets
+    storage_faults = load_storage_faults(trial_dir)
+    for k, names in storage_exempt_targets(storage_faults).items():
+        exempt.setdefault(k, set()).update(names)
+
+    violations: list[Violation] = []
+    skipped: set[str] = set()
+
+    # the reference checkpoint is immutable once its run completed:
+    # digest it ONCE per check, not once per worker
+    ref_digest: tuple[str, int] | None = None
+    ref_opt_digest: tuple[str, int] | None = None
+    if reference_dir is not None:
+        from ..train.checkpoint import (CheckpointCorruptError,
+                                        checkpoint_state_digests)
+        try:
+            both = checkpoint_state_digests(reference_dir)
+            if both is not None:
+                ref_digest = (both[0], both[2])
+                ref_opt_digest = (both[1], both[2])
+        except CheckpointCorruptError as e:
+            violations.append(Violation(
+                "determinism", f"reference checkpoint unreadable: {e}"))
+        if ref_digest is None:
+            reference_dir = None  # nothing to compare against → skip
+
+    violations += check_terminal_state(outcome, recovery)
+    violations += check_causality(recovery, worker_events)
+    reconf_violations, reconf_applicable, grown, relaunch_counts = \
+        check_reconfigure(trial_dir, outcome, journal_all)
+    violations += reconf_violations
+    if not reconf_applicable:
+        skipped.add("reconfigure")
+    serve_violations, serving_applicable, serve_workers, \
+        decode_applicable = check_serving(trial_dir, outcome, journal_all)
+    violations += serve_violations
+    if not serving_applicable:
+        skipped.update(("serve_outcomes", "serve_digest",
+                        "serve_monotone"))
+    if not decode_applicable:
+        # only trials whose replicas ran the decode workload make the
+        # swap-during-generation claim
+        skipped.add("decode_swap")
+    group_violations, group_applicable = check_serve_group(trial_dir)
+    violations += group_violations
+    if not group_applicable:
+        # only trials that booted a TP serving process group (a worker
+        # left a group_log.jsonl) make the die-as-a-unit claim
+        skipped.add("serve_group")
+    autoscale_violations, autoscale_applicable = check_autoscale(
+        outcome, journal_all)
+    violations += autoscale_violations
+    if not autoscale_applicable:
+        skipped.add("autoscale")
+    net_violations, net_applicable = check_net_faults(
+        trial_dir, outcome, journal_all)
+    violations += net_violations
+    if not net_applicable:
+        # only trials with network-fault evidence (a journaled net_*
+        # fault, a dedup hit, or a retried terminal) make the
+        # exactly-once-under-retry claim
+        skipped.add("net_faults")
+    storage_violations, storage_applicable = check_storage_faults(
+        trial_dir, journal_all, worker_events=worker_events,
+        storage_faults=storage_faults)
+    violations += storage_violations
+    if not storage_applicable:
+        # only trials with storage-fault evidence (a journaled disk_*
+        # firing or a save_failed) make the crash-consistency claim
+        skipped.add("storage_faults")
+
+    restarts_by_worker: dict[int, int] = {}
+    for r in recovery:
+        if r.get("action") == "restart" and "worker" in r:
+            restarts_by_worker[r["worker"]] = (
+                restarts_by_worker.get(r["worker"], 0) + 1)
+
+    # invariant (3) under the adaptive controller is epoch-spliced:
+    # bitwise WITHIN a discipline epoch, causal ACROSS them. With only
+    # terminal digests as artifacts, the comparable case is identical
+    # epoch histories (the seeded-synthetic contract: same decisions →
+    # same series → bitwise must hold end-to-end); a trial whose
+    # licensed trace diverged from the reference's has no common final
+    # epoch to compare, so its digest check is spliced out — the
+    # discipline invariant still holds every change to account.
+    from ..train.discipline import discipline_trace
+    ref_trace: list = []
+    if reference_dir is not None:
+        ref_trace = discipline_trace(
+            load_jsonl(Path(reference_dir) / "train_log.jsonl"))
+
+    det_checked = 0
+    det_spliced = 0
+    disc_applicable = False
+    for k, d in sorted(workers.items()):
+        if k in serve_workers:
+            # serving replicas have no train series or checkpoints —
+            # their artifacts are replayed by check_serving above
+            continue
+        full_log = load_jsonl(d / "train_log.jsonl")
+        # the trainer stamps event:"step"; minimal payloads (chaos
+        # shell smoke, the reference's own tools) may write bare
+        # {"step": N, ...} records — both are the metrics series
+        steps = [r for r in full_log
+                 if isinstance(r.get("step"), int)
+                 and r.get("event", schema.STEP) == schema.STEP]
+        disc_violations, disc_app = check_discipline(
+            steps, full_log, worker=k)
+        violations += disc_violations
+        disc_applicable = disc_applicable or disc_app
+        if k in grown and not steps:
+            # a grown worker that never produced a step before
+            # teardown has nothing to splice — its resume evidence is
+            # the reconfigure journal, not a log. Its SEEDED checkpoint
+            # dir still gets the integrity check: a source file copied
+            # while torn is exactly what invariant 5 exists to catch.
+            violations += check_checkpoint_dir(d, exempt.get(k, set()),
+                                               worker=k)
+            continue
+        allowed = (restarts_by_worker.get(k, 0)
+                   + relaunch_counts.get(k, 0)
+                   + sum(1 for r in worker_events.get(k, [])
+                         if r.get("action") in ("nan_rollback",
+                                                "fallback_restore")))
+        violations += check_metrics_log(
+            steps, allowed_rewinds=allowed, worker=k,
+            # a grown worker's logdir was seeded mid-run: its series
+            # legitimately starts at the seed checkpoint's step
+            expect_first_step=None if k in grown else 1)
+        violations += check_checkpoint_dir(d, exempt.get(k, set()), worker=k)
+        if reference_dir is not None:
+            if discipline_trace(full_log) != ref_trace:
+                # divergent epoch history: the bitwise claim stops at
+                # the first differing boundary, before the terminal
+                # digest — splice this worker out, causality above
+                # remains the binding check
+                det_spliced += 1
+                continue
+            checked, det_violations = determinism_verdict(
+                d, reference_dir, worker=k, reference_digest=ref_digest,
+                reference_opt_digest=ref_opt_digest)
+            violations += det_violations
+            det_checked += checked
+    if reference_dir is None:
+        skipped.add("determinism")
+    elif det_checked == 0:
+        # every worker was left short of the reference step — nothing
+        # was "fully recovered", so the bitwise claim has no subject
+        # (or every worker was epoch-spliced out)
+        skipped.add("determinism")
+    if not disc_applicable:
+        skipped.add("discipline")
+
+    failed = {v.invariant for v in violations}
+    verdicts = {inv: ("fail" if inv in failed
+                      else "skipped" if inv in skipped else "pass")
+                for inv in INVARIANTS}
+    return {"verdicts": verdicts,
+            "violations": [v.to_dict() for v in violations],
+            "workers": sorted(workers),
+            "determinism_workers_checked": det_checked,
+            "determinism_workers_spliced": det_spliced}
+
+
+# ---------------------------------------------------------------------------
+# schedule shrinking (used by launch/chaos.py; lives here so the
+# reduction is defined next to the predicate it minimizes against)
+# ---------------------------------------------------------------------------
+
+def shrink_faults(faults: tuple, still_fails: Callable[[tuple], bool],
+                  max_probes: int = 32) -> tuple[tuple, int]:
+    """Greedy one-at-a-time reduction: repeatedly try dropping each
+    fault; keep any drop under which the violation persists
+    (``still_fails(candidate)`` True). Returns (minimal fault tuple,
+    probes spent). The classic ddmin endgame without the partitioning
+    prelude — chaos schedules are small (a handful of faults), so the
+    linear pass converges in O(n²) probes worst-case, bounded by
+    ``max_probes``."""
+    current = tuple(faults)
+    probes = 0
+    changed = True
+    while changed and len(current) > 1 and probes < max_probes:
+        changed = False
+        for i in range(len(current)):
+            cand = current[:i] + current[i + 1:]
+            probes += 1
+            if still_fails(cand):
+                current = cand
+                changed = True
+                break
+            if probes >= max_probes:
+                break
+    return current, probes

@@ -1,11 +1,12 @@
-"""Journal analysis (≙ ``distributedmnist_tpu/obsv/journal.py``): load
-JSONL journals torn-write-tolerantly and aggregate them — a command
-journal into per-verb stats (attempts, retries, failures, durations),
-recovery records into episodes and MTTR, serve records into weight
-swaps by tier, the discipline controller's records into its
-adaptation trace, reconfigure records into world transitions. The
-cluster-campaign summaries (chaos, network and disk faults, autoscale)
-are not ported yet: the port writes no cluster trial directories.
+"""Journal analysis (≙ ``distributedmnist_tpu/obsv/journal.py``,
+whole): load JSONL journals torn-write-tolerantly and aggregate them —
+a command journal into per-verb stats (attempts, retries, failures,
+durations), recovery records into episodes and MTTR, reconfigure
+records into world transitions, serve records into weight swaps by
+tier, the discipline controller's and the resource broker's decision
+records into their adaptation evidence, a trial directory's network
+and disk faults into their books, and a chaos report into the
+campaign's one-line summary (:func:`summarize_chaos`).
 """
 
 from __future__ import annotations
@@ -253,10 +254,64 @@ def summarize_recovery(path: str | Path) -> dict[str, Any]:
     return summarize_recovery_events(load_recovery_events(path))
 
 
+def summarize_autoscale(records: list[dict]) -> dict[str, Any]:
+    """Aggregate a run's ``event: "autoscale"`` records (the resource
+    broker's decision journal, ``launch/broker.py``) into its scaling
+    evidence:
+
+    * ``decisions`` / ``completed`` / ``errors`` — begin records and
+      how each closed,
+    * ``by_trigger`` / ``by_direction`` — which signal fired each
+      decision and which way the roster moved,
+    * ``reaction_s`` — detect→capacity-live latency percentiles from
+      the ``complete`` records (the broker's MTTR analogue),
+    * ``flaps`` — consecutive opposite-direction decisions closer than
+      twice the recorded cooldown: the oscillation the hysteresis
+      band exists to prevent, surfaced so a campaign can gate on it
+      staying zero.
+    """
+    begins = [r for r in records if r.get("action") == "begin"]
+    completes = [r for r in records if r.get("action") == "complete"]
+    errors = [r for r in records if r.get("action") == "error"]
+    by_trigger: dict[str, int] = {}
+    by_direction: dict[str, int] = {}
+    for r in begins:
+        t = r.get("trigger", "?")
+        by_trigger[t] = by_trigger.get(t, 0) + 1
+        d = r.get("decision", "?")
+        by_direction[d] = by_direction.get(d, 0) + 1
+    flaps = 0
+    prev: dict | None = None
+    for r in begins:
+        if prev is not None and r.get("decision") != prev.get("decision"):
+            gap = (r.get("time") or 0) - (prev.get("time") or 0)
+            lim = 2 * float(r.get("cooldown_s") or 30.0)
+            if 0 <= gap < lim:
+                flaps += 1
+        prev = r
+    out: dict[str, Any] = {"decisions": len(begins),
+                           "completed": len(completes),
+                           "errors": len(errors),
+                           "by_trigger": by_trigger,
+                           "by_direction": by_direction,
+                           "flaps": flaps,
+                           "reaction_s": {}}
+    reactions = sorted(float(r["reaction_s"]) for r in completes
+                       if isinstance(r.get("reaction_s"), (int, float)))
+    if reactions:
+        out["reaction_s"] = {
+            "mean": round(sum(reactions) / len(reactions), 3),
+            "p50": _percentile(reactions, 0.50),
+            "p99": _percentile(reactions, 0.99),
+            "max": reactions[-1]}
+    return out
+
+
 def summarize_discipline(records: list[dict]) -> dict[str, Any]:
     """Aggregate a run's ``event: "discipline"`` records (the straggler
     discipline controller's decision journal, ``train/discipline.py``)
-    into its adaptation evidence:
+    into its adaptation evidence — the same shape
+    :func:`summarize_autoscale` gives the broker:
 
     * ``changes`` / ``completed`` — begin records and how many closed,
     * ``by_trigger`` / ``by_direction`` — which CDF signal licensed
@@ -315,6 +370,363 @@ def summarize_discipline(records: list[dict]) -> dict[str, Any]:
             "p99": _percentile(reactions, 0.99),
             "max": reactions[-1]}
     return out
+
+
+def summarize_net_chaos(trial_dir: str | Path) -> dict[str, Any] | None:
+    """One trial's network-fault evidence, from artifacts alone: the
+    ``net_*`` fault records the chaos proxies (launch/netchaos.py)
+    journaled, the dedup-cache hits and deadline aborts the hardened
+    replicas booked, and the client-side retry amplification the load
+    journal shows. Returns ``None`` when the trial carries no network
+    evidence at all — the per-trial ``net`` slot in the chaos report
+    stays absent for non-network campaigns."""
+    trial_dir = Path(trial_dir)
+    by_kind: dict[str, int] = {}
+    for r in load_jsonl(trial_dir / "command_journal.jsonl"):
+        a = str(r.get("action", ""))
+        if r.get("event") == schema.FAULT and a.startswith("net_"):
+            by_kind[a] = by_kind.get(a, 0) + 1
+    dedup_hits = conn_aborts = 0
+    for f in sorted(trial_dir.glob("worker*/serve_log.jsonl")):
+        for r in load_jsonl(f, schema.SERVE):
+            if r.get("action") == "dedup_hit":
+                dedup_hits += 1
+            elif r.get("action") == "conn_abort":
+                conn_aborts += 1
+    attempts: list[float] = []
+    retried = terminals = 0
+    for r in load_jsonl(trial_dir / "loadgen.jsonl", schema.LOAD):
+        if r.get("action") != "outcome":
+            continue
+        terminals += 1
+        n = r.get("attempts")
+        if isinstance(n, (int, float)):
+            attempts.append(float(n))
+        if r.get("retried") or (isinstance(n, int) and n > 1):
+            retried += 1
+    if not by_kind and not dedup_hits and not retried:
+        return None
+    out: dict[str, Any] = {
+        "faults": by_kind, "fired": sum(by_kind.values()),
+        "dedup_hits": dedup_hits, "conn_aborts": conn_aborts,
+        "retried": retried,
+        "retry_rate": round(retried / max(1, terminals), 4)}
+    if attempts:
+        s = sorted(attempts)
+        out["attempts"] = {"p50": _percentile(s, 0.50),
+                           "p99": _percentile(s, 0.99), "max": s[-1]}
+    return out
+
+
+def summarize_disk_chaos(trial_dir: str | Path) -> dict[str, Any] | None:
+    """One trial's storage-fault evidence, from artifacts alone: the
+    ``disk_*`` fault records each worker's injector (train/storage.py)
+    journaled into its own ``storage_faults.jsonl``, and the
+    degradation bookkeeping the trainer left behind — ``save_failed``
+    (a cadence save skipped under ENOSPC/EIO, training continued) and
+    ``fallback_restore`` (a restore that walked past a torn or
+    power-cut artifact) in each worker's ``recovery_journal.jsonl``.
+    Returns ``None`` when the trial carries no storage evidence at all
+    — the per-trial ``disk`` slot in the chaos report stays absent for
+    non-disk campaigns."""
+    trial_dir = Path(trial_dir)
+    by_action: dict[str, int] = {}
+    workers: set[int] = set()
+    for f in sorted(trial_dir.glob("worker*/storage_faults.jsonl")):
+        for r in load_jsonl(f, schema.FAULT):
+            a = str(r.get("action", ""))
+            if not a.startswith("disk_"):
+                continue
+            by_action[a] = by_action.get(a, 0) + 1
+            if isinstance(r.get("worker"), int):
+                workers.add(r["worker"])
+    save_failed = fallbacks = 0
+    for f in sorted(trial_dir.glob("worker*/recovery_journal.jsonl")):
+        for r in load_jsonl(f, schema.RECOVERY):
+            if r.get("action") == "save_failed":
+                save_failed += 1
+            elif r.get("action") == "fallback_restore":
+                fallbacks += 1
+    if not by_action and not save_failed:
+        return None
+    return {"faults": by_action, "fired": sum(by_action.values()),
+            "workers": sorted(workers), "save_failed": save_failed,
+            "fallback_restores": fallbacks}
+
+
+def summarize_chaos(path: str | Path) -> dict[str, Any]:
+    """Aggregate a chaos campaign's ``chaos_report.jsonl`` (one
+    ``event: "chaos_trial"`` record per trial, written by
+    ``launch/chaos.py``) into the single-line campaign verdict: trial
+    outcomes, per-invariant pass/fail/skip tallies, which trials
+    violated what, and any shrunk reproducer paths. ``all_green`` means
+    every trial passed every applicable invariant — the regression
+    signal a scheduled chaos sweep gates on."""
+    records = load_jsonl(path, event=schema.CHAOS_TRIAL)
+    outcomes: dict[str, int] = {}
+    by_invariant: dict[str, dict[str, int]] = {}
+    failing: list[dict[str, Any]] = []
+    reproducers: list[str] = []
+    mttr_trials: list[dict[str, Any]] = []
+    mttr_all: list[float] = []
+    fault_trials: list[dict[str, Any]] = []
+    serving_trials: list[dict[str, Any]] = []
+    autoscale_trials: list[dict[str, Any]] = []
+    discipline_trials: list[dict[str, Any]] = []
+    net_trials: list[dict[str, Any]] = []
+    disk_trials: list[dict[str, Any]] = []
+    reconfigures = 0
+    swaps_by_tier: dict[str, int] = {}
+    quant_fallbacks = 0
+    for rec in records:
+        sv = rec.get("serving")
+        if sv is not None:
+            serving_trials.append({
+                "trial": rec.get("trial"),
+                "issued": sv.get("issued"),
+                "dropped": sv.get("dropped"),
+                "responses": sv.get("responses"),
+                "rejected": sv.get("rejected"),
+                "errors": sv.get("errors"),
+                "reject_rate": sv.get("reject_rate"),
+                "p50_ms": (sv.get("latency_ms") or {}).get("p50"),
+                "p99_ms": (sv.get("latency_ms") or {}).get("p99"),
+                # decode sweeps: tokens actually streamed and the
+                # time-to-first-token tail (None on classify trials)
+                "tokens_streamed": sv.get("tokens_streamed"),
+                "ttft_p99_ms": (sv.get("ttft_ms") or {}).get("p99"),
+                "model_steps_served": sv.get("model_steps_served"),
+                "tiers_served": sv.get("tiers_served"),
+                "serve_swaps": rec.get("serve_swaps")})
+            # swap-by-tier tally across the campaign; a trial record
+            # (or its swaps) written before the quantized tiers
+            # existed carries no tier breakdown — those swaps count as
+            # fp32, the only tier that path ever served (never a
+            # KeyError on legacy journals)
+            sw = rec.get("serve_swaps") or {}
+            tiers = sw.get("by_tier")
+            if tiers is None:
+                tiers = {"fp32": sw.get("swaps", 0)} if sw else {}
+            for tier, n in tiers.items():
+                key = tier or "fp32"
+                swaps_by_tier[key] = swaps_by_tier.get(key, 0) + (n or 0)
+            quant_fallbacks += sw.get("quant_sidecar_fallbacks") or 0
+        a = rec.get("autoscale")
+        if a is not None:
+            autoscale_trials.append({
+                "trial": rec.get("trial"),
+                "decisions": a.get("decisions", 0),
+                "fired": a.get("fired", 0),
+                "by_direction": a.get("by_direction") or {},
+                "flaps": a.get("flaps", 0),
+                "reaction_p99_s": (a.get("reaction_s") or {}).get("p99")})
+        dc = rec.get("discipline")
+        if dc is not None:
+            discipline_trials.append({
+                "trial": rec.get("trial"),
+                "changes": dc.get("changes", 0),
+                "by_direction": dc.get("by_direction") or {},
+                "flaps": dc.get("flaps", 0),
+                "trace": dc.get("trace") or []})
+        nt = rec.get("net")
+        if nt is not None:
+            net_trials.append({
+                "trial": rec.get("trial"),
+                "faults": nt.get("faults") or {},
+                "fired": nt.get("fired", 0),
+                "dedup_hits": nt.get("dedup_hits", 0),
+                "conn_aborts": nt.get("conn_aborts", 0),
+                "retried": nt.get("retried", 0),
+                "retry_rate": nt.get("retry_rate"),
+                "attempts_p50": (nt.get("attempts") or {}).get("p50"),
+                "attempts_p99": (nt.get("attempts") or {}).get("p99")})
+        dk = rec.get("disk")
+        if dk is not None:
+            disk_trials.append({
+                "trial": rec.get("trial"),
+                "faults": dk.get("faults") or {},
+                "fired": dk.get("fired", 0),
+                "save_failed": dk.get("save_failed", 0),
+                "fallback_restores": dk.get("fallback_restores", 0)})
+        f = rec.get("faults")
+        if f is not None:
+            fault_trials.append({"trial": rec.get("trial"),
+                                 "scheduled": f.get("scheduled", 0),
+                                 "fired": f.get("fired", 0),
+                                 "unfired": f.get("unfired", [])})
+        reconfigures += rec.get("reconfigures") or 0
+        outcomes[rec.get("outcome", "?")] = (
+            outcomes.get(rec.get("outcome", "?"), 0) + 1)
+        for inv, verdict in (rec.get("verdicts") or {}).items():
+            slot = by_invariant.setdefault(
+                inv, {"pass": 0, "fail": 0, "skipped": 0})
+            slot[verdict] = slot.get(verdict, 0) + 1
+        if rec.get("violations"):
+            failing.append({
+                "trial": rec.get("trial"),
+                "schedule": rec.get("described"),
+                "invariants": sorted({v["invariant"]
+                                      for v in rec["violations"]})})
+        shrunk = rec.get("shrunk")
+        if shrunk and shrunk.get("fault_plan_path"):
+            reproducers.append(shrunk["fault_plan_path"])
+        m = rec.get("mttr")
+        if m is not None:
+            mttr_trials.append({"trial": rec.get("trial"),
+                                "episodes": m.get("episodes", 0),
+                                "unrecovered": m.get("unrecovered", 0),
+                                "p50_s": m.get("p50_s"),
+                                "max_s": m.get("max_s")})
+            mttr_all += [v for w in (m.get("by_worker") or {}).values()
+                         for v in w]
+    mttr: dict[str, Any] = {
+        "episodes": sum(t["episodes"] for t in mttr_trials),
+        # detects no resume ever closed (exhausted budgets, or a worker
+        # torn down before it moved): surfaced so "every recovery
+        # episode has an MTTR" is checkable, not assumed
+        "unrecovered": sum(t["unrecovered"] for t in mttr_trials),
+        "per_trial": mttr_trials}
+    if mttr_all:
+        s = sorted(mttr_all)
+        mttr.update(mean_s=round(sum(s) / len(s), 3),
+                    p50_s=_percentile(s, 0.50),
+                    p90_s=_percentile(s, 0.90), max_s=s[-1])
+    return {"trials": len(records),
+            "seed": records[0].get("seed") if records else None,
+            "outcomes": outcomes,
+            "invariants": by_invariant,
+            "all_green": not failing and bool(records),
+            "failing_trials": failing,
+            "reproducers": reproducers,
+            # scheduled-vs-fired accounting: a kill that lands after
+            # run-end fires nothing — without this a zero-episode
+            # trial is indistinguishable from a real all-quiet run,
+            # and the nightly gate asserts the campaign actually
+            # FIRED something (fired > 0)
+            "faults": {
+                "scheduled": sum(t["scheduled"] for t in fault_trials),
+                "fired": sum(t["fired"] for t in fault_trials),
+                "never_fired": sum(len(t["unfired"])
+                                   for t in fault_trials),
+                "per_trial": fault_trials},
+            # elastic world reshapes across the campaign (the resize
+            # fault kind / below-quorum shrinks)
+            "reconfigures": reconfigures,
+            # MTTR as a first-class campaign metric: detect→first-
+            # moved-step latency over every recovery episode in every
+            # trial (the chaos CI asserts this key exists and uploads
+            # its one-line summary)
+            "mttr": mttr,
+            # serving-mode campaigns: per-trial load-sweep evidence
+            # (issued/dropped/rejects/p99 under live faults) — the
+            # zero-drop claim is checkable from the one-line summary
+            "serving": ({
+                "trials": len(serving_trials),
+                "issued": sum(t["issued"] or 0 for t in serving_trials),
+                "dropped": sum(t["dropped"] or 0 for t in serving_trials),
+                "responses": sum(t["responses"] or 0
+                                 for t in serving_trials),
+                "errors": sum(t["errors"] or 0 for t in serving_trials),
+                # decode campaigns: total generated tokens + the worst
+                # per-trial time-to-first-token tail (the decode
+                # latency split the loadgen records per request)
+                "tokens_streamed": sum(t["tokens_streamed"] or 0
+                                       for t in serving_trials),
+                "ttft_p99_ms": max(
+                    (t["ttft_p99_ms"] for t in serving_trials
+                     if t["ttft_p99_ms"] is not None), default=None),
+                # which precision tier each installed swap served
+                # (tier-less legacy swaps counted as fp32) and how
+                # often a quantized replica's sidecar preference fell
+                # back to full precision — the campaign-level evidence
+                # for the quantized serving path
+                "swaps_by_tier": swaps_by_tier,
+                "quant_sidecar_fallbacks": quant_fallbacks,
+                "per_trial": serving_trials}
+                if serving_trials else None),
+            # brokered campaigns: the autoscale evidence per trial and
+            # in aggregate — the nightly broker gate asserts decisions
+            # fired (> 0), in BOTH directions, with zero flaps
+            "autoscale": ({
+                "trials": len(autoscale_trials),
+                "decisions": sum(t["decisions"] or 0
+                                 for t in autoscale_trials),
+                "fired": sum(t["fired"] or 0 for t in autoscale_trials),
+                "scale_ups": sum(
+                    t["by_direction"].get("scale_up_serving", 0)
+                    for t in autoscale_trials),
+                "scale_downs": sum(
+                    t["by_direction"].get("scale_down_serving", 0)
+                    for t in autoscale_trials),
+                "flaps": sum(t["flaps"] or 0 for t in autoscale_trials),
+                "reaction_p99_s": max(
+                    (t["reaction_p99_s"] for t in autoscale_trials
+                     if t["reaction_p99_s"] is not None), default=None),
+                "per_trial": autoscale_trials}
+                if autoscale_trials else None),
+            # controller-armed campaigns: the straggler-discipline
+            # evidence per trial and in aggregate — the nightly gate
+            # asserts changes fired with zero flaps and every trial's
+            # discipline invariant green
+            "discipline": ({
+                "trials": len(discipline_trials),
+                "changes": sum(t["changes"] or 0
+                               for t in discipline_trials),
+                "tightens": sum(
+                    n for t in discipline_trials
+                    for d, n in t["by_direction"].items()
+                    if d.startswith("tighten")),
+                "relaxes": sum(
+                    n for t in discipline_trials
+                    for d, n in t["by_direction"].items()
+                    if not d.startswith("tighten")),
+                "flaps": sum(t["flaps"] or 0 for t in discipline_trials),
+                "per_trial": discipline_trials}
+                if discipline_trials else None),
+            # network-mode campaigns: the transport-fault evidence per
+            # trial and in aggregate — faults by kind, dedup-cache
+            # hits (the exactly-once proof), retry amplification —
+            # the nightly network gate asserts faults fired (incl. a
+            # mid-stream reset), dropped==0, and invariant 13 green
+            "net": ({
+                "trials": len(net_trials),
+                "fired": sum(t["fired"] or 0 for t in net_trials),
+                "faults_by_kind": {
+                    k: sum((t["faults"] or {}).get(k, 0)
+                           for t in net_trials)
+                    for t2 in net_trials for k in (t2["faults"] or {})},
+                "dedup_hits": sum(t["dedup_hits"] or 0
+                                  for t in net_trials),
+                "conn_aborts": sum(t["conn_aborts"] or 0
+                                   for t in net_trials),
+                "retried": sum(t["retried"] or 0 for t in net_trials),
+                "attempts_p50": max(
+                    (t["attempts_p50"] for t in net_trials
+                     if t["attempts_p50"] is not None), default=None),
+                "attempts_p99": max(
+                    (t["attempts_p99"] for t in net_trials
+                     if t["attempts_p99"] is not None), default=None),
+                "per_trial": net_trials}
+                if net_trials else None),
+            # disk-mode campaigns: the storage-fault evidence per
+            # trial and in aggregate — firings by action, cadence
+            # saves skipped under injected ENOSPC/EIO, fallback
+            # restores past torn/power-cut artifacts — the nightly
+            # disk gate asserts faults fired (incl. a retry-exhausting
+            # ENOSPC) and invariant 14 green
+            "disk": ({
+                "trials": len(disk_trials),
+                "fired": sum(t["fired"] or 0 for t in disk_trials),
+                "faults_by_action": {
+                    k: sum((t["faults"] or {}).get(k, 0)
+                           for t in disk_trials)
+                    for t2 in disk_trials for k in (t2["faults"] or {})},
+                "save_failed": sum(t["save_failed"] or 0
+                                   for t in disk_trials),
+                "fallback_restores": sum(t["fallback_restores"] or 0
+                                         for t in disk_trials),
+                "per_trial": disk_trials}
+                if disk_trials else None)}
 
 
 def summarize_journal(path: str | Path) -> dict[str, Any]:

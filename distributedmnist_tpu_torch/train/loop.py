@@ -96,7 +96,8 @@ every exit close an open window.
 device body is bound to the Trainer's state and, on the card, captured
 as CUDA graphs (``parallel/graphs.py``), which every later step replays;
 the run journals one ``compile`` record before its first ``step``
-record, and ``summary["compile"]`` is the same info. On the CPU, and on
+record, and ``summary["compile"]`` is the same info (the record also
+names the run's ``device``). On the CPU, and on
 the card under a ZeRO-1 plan, over a process group or under
 ``model.remat``, nothing is captured: the record says ``source:
 "eager"`` with the reason, and the same bodies run eagerly over the
@@ -109,7 +110,12 @@ Accepted and not run (each logs one line a Trainer): device prefetch
 (``data.device_prefetch``; batches are staged inline),
 ``compile.aot_executable_cache`` (a CUDA graph cannot be serialized)
 and ``compile.trust_cache_cross_process`` (a kernel library is never
-quarantined). Not ported yet: warm standby.
+quarantined).
+
+:meth:`Trainer.adopt_train_dir` is the warm standby's promotion: a
+parked Trainer that has precompiled re-roots onto a dead worker's
+``train_dir`` and resumes from its checkpoints into the captured
+tensors.
 """
 
 from __future__ import annotations
@@ -501,6 +507,29 @@ class Trainer:
         logger.info("resumed from checkpoint step=%d (loop step %d)", step,
                     self._start_step)
 
+    def adopt_train_dir(self, train_dir: str | Path) -> None:
+        """Re-root this trainer onto ``train_dir`` and resume from
+        whatever checkpoints live there — the warm-standby promotion
+        hook: a parked, precompiled process adopts a dead worker's
+        logdir and continues its run without paying boot, kernel build
+        or capture again. The journals and the TB writer are reopened
+        in the new dir, the restored state is copied into the captured
+        tensors (:meth:`_maybe_resume`), and the ``compile`` record is
+        journaled again there, so the adopted log carries the
+        episode's compile evidence."""
+        self._close_sinks()
+        self.train_dir = Path(train_dir)
+        self.train_dir.mkdir(parents=True, exist_ok=True)
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = SummaryWriter(self.train_dir / "tb")
+        self._compile_logged = False
+        self._log_opened = False
+        self._series.clear()
+        self._start_step = 0
+        if self.cfg.train.resume:
+            self._maybe_resume()
+
     def _save(self) -> None:
         """Process 0 writes; the others go on (no barrier: nothing waits
         on a save, as in the reference) — except in the per-host layout,
@@ -876,6 +905,7 @@ class Trainer:
                                       "error": f"{type(e).__name__}: {e}"}
         if self._compile_info is not None and not self._compile_logged:
             self._sink_write({"event": "compile", "time": time.time(),
+                              "device": str(self.device),
                               **self._compile_info})
             self._compile_logged = True
         step = self._start_step

@@ -56,7 +56,11 @@ TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               "data.fixtures", "models.resnet", "parallel.partition_rules",
               # the port's own observability and the sweep runner
               "obsv.schema", "obsv.journal", "obsv.invariants",
-              "obsv.report", "launch.sweep")
+              "obsv.report", "launch.sweep",
+              # the local process cluster, its supervisor and the chaos
+              # campaign
+              "launch.exec", "launch.cluster", "launch.supervisor",
+              "launch.chaos")
 
 
 def test_port_modules_load_no_jax():
