@@ -34,7 +34,9 @@ and the serving tier that hot-follows training (``launch serve``); the
 compile layer: each path's step captured as CUDA graphs against its
 eager step, and the kernel build cache across processes; and the local
 process cluster: a seeded chaos campaign on ``launch train`` workers
-under the supervisor, and the restart latency of a worker.
+under the supervisor, and the restart latency of a worker; last, the
+serving chaos trial: decode replicas on the card under live load and
+seeded network faults.
 
 One JSON line per phase:
 
@@ -206,13 +208,13 @@ One JSON line per phase:
                 CPU (the card's error no more than
                 ``RESNET_CARD_VS_CPU_FACTOR`` × the CPU's; the two
                 float32 runs' gap printed); the knobs over 8 simulated
-                replicas at batch 1024, each arm on the same 5 batches
+                replicas at batch 1024, each arm on the same 3 batches
                 with its ms a step: momentum replicated against ZeRO-1
                 monolithic, 4 buckets and resident (params and slots
                 bitwise), LARS and LAMB replicated against ZeRO-1
-                (within ``KNOB_RTOL``/``KNOB_ATOL`` after one step, the
-                5-step gap printed), accumulation 2 × 512 against 1 ×
-                1024 (params' relative error), bf16 params with and
+                (within ``KNOB_RTOL``/``KNOB_ATOL`` after one step),
+                accumulation 2 × 512 against 1 × 1024 (params'
+                relative error), bf16 params with and
                 without masters (storage dtypes, loss beside float32's),
                 an all-masked timeout step under LAMB and ZeRO-1
                 (bitwise no-op); a ZeRO-1 LAMB run at 8 replicas saved
@@ -339,11 +341,13 @@ One JSON line per phase:
                 slot live by CUDA events, by the host clock and under the
                 profiler (idle share, K5 4 a step both ways, checked);
                 ``kernel_cache``: three processes on a fresh
-                ``DMT_COMPILE_CACHE_DIR`` each building every library and
-                running one captured step at seq 64 — cold (3 misses, 3
-                new entries), warm (0 misses, no new entry), and after one
-                library is truncated, healed (one rebuild, a warning) —
-                each one's seconds from its start to its first step done.
+                ``DMT_COMPILE_CACHE_DIR`` each building and loading every
+                library — cold (3 misses, 3 new entries; then one
+                captured step at seq 64, its ``compile`` record
+                ``cuda_graph``), warm (0 misses, no new entry), and after
+                one library is truncated, healed (one rebuild, a warning)
+                — each one's seconds from its start to its libraries
+                loaded (``ready_s``), the cold one's to its first step.
 17. ``cluster`` — the chaos campaign (``launch/chaos.py``) on the port's
                 ``launch train`` workers on the card: the train payload
                 (the MNIST CNN, 2 simulated replicas, momentum 0.9,
@@ -373,15 +377,37 @@ One JSON line per phase:
                 prime persisted nothing) and standby (a parked,
                 precompiled spare promoted into the killed worker's
                 train_dir); the reference's gates against the cold
-                median (standby ≤ 0.3×, warm ≤ 0.6×); and cold and warm
-                once on the flash payload (printed, not gated).
+                median (standby ≤ 0.3×, warm ≤ 0.6×). What a kernel
+                build costs a process is ``graphs``' ``kernel_cache``.
+19. ``serving_chaos`` — the serving chaos trial on the card (≙ the
+                reference's network scenario, ``tests/test_servesvc.py
+                :783``; ``SERVING_CHAOS``): ``cluster chaos --payload
+                serving --serve-decode --network`` with 2 decode replicas
+                (``launch serve --decode``) following a publisher that
+                trains the flash transformer (the training path's widths
+                at ``FLASH_LAYERS`` layers, ``decode.attention_kernel=
+                paged``), paced by the reference's rule on the measured
+                boot, the shared kernel cache seeded from ``build``;
+                seeded chaos proxies cut one token stream mid-generation
+                and partition one link under live load. Checked:
+                ``all_green``; ``net_faults``, ``serve_outcomes``,
+                ``serve_digest``, ``serve_monotone`` and ``decode_swap``
+                pass; requests issued, none dropped, every fault fired;
+                one ``net_reset`` mid-stream after bytes flowed and one
+                ``net_partition``; each replica on ``cuda:0`` by its meta
+                answer and by its boot log's ``compile`` records, every
+                decode step ``cuda_graph``, no kernel-cache miss; the
+                replicas' K1 and K5 launches (each process's
+                ``kernel_launches.jsonl``) above 0, none by this process.
 
 Then a ``kernels`` summary line (per kernel also its ``variant`` —
 ``wgmma``, ``cuda_cores`` or ``cluster_split``, the compiled kernel the
 bf16 call takes — and the build phase's instantiation, registers,
 spills, shared memory and blocks per SM at the timed shape; for K1 also
 ``launches_eval``, the eval phase's count, and ``launches_serve``, the
-serve phase's by path; for K1-lse, K2 and K3 also
+serve phase's by path; for K1 and K5 ``launches_serving_chaos``, the
+serving_chaos replicas' launches (each replica process's count, K5's
+taken from its decode graphs' replays); for K1-lse, K2 and K3 also
 ``launches_replicas`` (the ``train_replicas`` run), ``launches_long_context``
 by remat arm, ``long_context``, the kernel timed at that shape, and
 ``launches_cluster_a_step``, each flash worker's count a step from its
@@ -2715,8 +2741,8 @@ RESNET_RUN_STEPS, RESNET_TIMED = 10, 20
 # as close to float64 as the CPU is (within RESNET_CARD_VS_CPU_FACTOR of
 # the CPU's error)
 RESNET_CPU_BATCH, RESNET_CARD_VS_CPU_FACTOR = 64, 2.0
-# the knobs on 8 simulated replicas at the config's batch, 5 steps an arm
-KNOB_REPLICAS, KNOB_STEPS = 8, 5
+# the knobs on 8 simulated replicas at the config's batch, 3 steps an arm
+KNOB_REPLICAS, KNOB_STEPS = 8, 3
 KNOB_RTOL, KNOB_ATOL = 1e-5, 1e-6
 ZERO_KNOBS = {"zero1": ("parallel.shard_weight_update=true",),
               "zero1_buckets4": ("parallel.shard_weight_update=true",
@@ -2961,9 +2987,9 @@ def _resnet_card_vs_cpu(tmp: str, ds) -> dict:
 
 def _resnet_knobs(tmp: str, ds) -> dict:
     """The slice's knobs on ResNet-20 over 8 simulated replicas at the
-    config's batch, each arm fed the same 5 batches: ZeRO-1 against the
+    config's batch, each arm fed the same 3 batches: ZeRO-1 against the
     replicated update (momentum bitwise; LARS and LAMB within the
-    tolerance after one step, the 5-step gap printed), accumulation,
+    tolerance after one step), accumulation,
     bf16 params with and without masters, and an all-masked LAMB step."""
     import torch
 
@@ -3011,16 +3037,12 @@ def _resnet_knobs(tmp: str, ds) -> dict:
     out["momentum"] = zero
     # LARS and LAMB: replicated against ZeRO-1 (4 buckets)
     for opt in ("lars", "lamb"):
-        rec = {}
-        for steps in (1, KNOB_STEPS):
-            tr, st, _ = run(f"{opt}_replicated_{steps}", f"optim.name={opt}",
-                            steps=steps)
-            tz, sz, _ = run(f"{opt}_zero1_{steps}", f"optim.name={opt}",
-                            *ZERO_KNOBS["zero1_buckets4"], steps=steps)
-            w, g = _canonical_leaves(tr, st), _canonical_leaves(tz, sz)
-            rec[f"after_{steps}"] = {"params": _leaf_gap(g[0], w[0]),
-                                     "slots": _leaf_gap(g[1], w[1])}
-        out[opt] = rec
+        tr, st, _ = run(f"{opt}_replicated_1", f"optim.name={opt}", steps=1)
+        tz, sz, _ = run(f"{opt}_zero1_1", f"optim.name={opt}",
+                        *ZERO_KNOBS["zero1_buckets4"], steps=1)
+        w, g = _canonical_leaves(tr, st), _canonical_leaves(tz, sz)
+        out[opt] = {"after_1": {"params": _leaf_gap(g[0], w[0]),
+                                "slots": _leaf_gap(g[1], w[1])}}
     # accumulation: 2 × B/2 against 1 × B on the same rows
     B = tr.cfg.data.batch_size
     ta, sa, ha = run("accum2", *MOMENTUM_ARGS, "train.grad_accum_steps=2",
@@ -4460,14 +4482,18 @@ before = cache_stats()
 _build.build()  # every library, as phase_build does: all at once
 for name in _build.SOURCES:
     _build.load_library(name)
-t = build_trainer(["train", "--config", sys.argv[1], "train.max_steps=1",
-                   "compile.precompile=true", f"train.train_dir={sys.argv[2]}",
-                   "--device", "cuda"])
-first = []
-summary = t.run(step_callback=lambda s, r: first.append(time.time() - t0))
+ready = time.time() - t0
+first, compile_rec = [None], None
+if sys.argv[3] == "step":
+    t = build_trainer(["train", "--config", sys.argv[1], "train.max_steps=1",
+                       "compile.precompile=true",
+                       f"train.train_dir={sys.argv[2]}", "--device", "cuda"])
+    first = []
+    compile_rec = t.run(step_callback=lambda s, r: first.append(
+        time.time() - t0))["compile"]
 after = cache_stats()
-print(json.dumps({"first_step_s": first[0],
-                  "compile": summary["compile"],
+print(json.dumps({"ready_s": ready, "first_step_s": first[0],
+                  "compile": compile_rec,
                   "entries_before": before["entries"],
                   "entries": after["entries"],
                   "new_entries": after["entries"] - before["entries"],
@@ -4736,8 +4762,9 @@ def _graph_cache_children(tmp: str) -> dict:
     ``DMT_COMPILE_CACHE_DIR``; a cold process (every library a miss), a
     warm one (none, no new entry), then one library truncated and a
     third process that heals it with one rebuild; each process's time
-    from its start to the end of its first step (the training
-    configuration at seq 64, one step, captured)."""
+    from its start to every library loaded (``ready_s``), and the cold
+    one's to the end of its first step (the training configuration at
+    seq 64, one step, captured)."""
     from pathlib import Path
     cache = f"{tmp}/graphs_kernel_cache"
     path = f"{tmp}/graphs_cache.json"
@@ -4755,8 +4782,10 @@ def _graph_cache_children(tmp: str) -> dict:
         try:
             p = subprocess.run(
                 [sys.executable, "-c", _CACHE_CHILD, path,
-                 f"{tmp}/graphs_cache_{name}"], env=env, capture_output=True,
-                text=True, timeout=GRAPH_CHILD_TIMEOUT_S)
+                 f"{tmp}/graphs_cache_{name}",
+                 "step" if name == "cold" else "load"], env=env,
+                capture_output=True, text=True,
+                timeout=GRAPH_CHILD_TIMEOUT_S)
         except subprocess.TimeoutExpired as e:
             raise PhaseError(f"cache child {name} timed out") from e
         check(p.returncode == 0, f"cache child {name} exited "
@@ -4772,8 +4801,8 @@ def _graph_cache_children(tmp: str) -> dict:
           and warm["hits"] == n, f"warm: {warm}")
     check(healed["rebuilds"] == 1 and healed["heal_warning"]
           and healed["entries"] == n, f"healed: {healed}")
-    check(all(r["compile"]["source"] == "cuda_graph" for r in runs.values()),
-          f"cache children's compile records: {runs}")
+    check(cold["compile"]["source"] == "cuda_graph",
+          f"the cold cache child's compile record: {cold}")
     return runs
 
 
@@ -4867,7 +4896,8 @@ CLUSTER_FLASH = {"name": "flash", "trials": 1, "seed": 40, "until_step": 20,
                  "drain_timeout_s": 180.0}
 
 
-def _flash_payload(max_steps: int, pace_ms: float) -> str:
+def _flash_payload(max_steps: int, pace_ms: float, save: int = 5,
+                   profile: bool = True) -> str:
     m = {**MODEL, "num_layers": FLASH_LAYERS}
     return ("python -m distributedmnist_tpu_torch.launch train "
             "train.train_dir=. data.dataset=synthetic_lm "
@@ -4877,10 +4907,11 @@ def _flash_payload(max_steps: int, pace_ms: float) -> str:
             + " optim.name=sgd optim.initial_learning_rate=0.1 "
             "optim.learning_rate_decay_factor=1.0 eval.eval_batch_size=16 "
             f"train.max_steps={max_steps} train.log_every_steps=1 "
-            "train.save_interval_steps=5 train.keep_checkpoints=2 "
+            f"train.save_interval_steps={save} train.keep_checkpoints=2 "
             "train.async_checkpoint=false train.save_results_period=0 "
-            f"train.step_pace_ms={pace_ms} "
-            f"train.profile_steps=[{FLASH_PROFILE[0]},{FLASH_PROFILE[1]}]")
+            f"train.step_pace_ms={pace_ms}"
+            + (f" train.profile_steps=[{FLASH_PROFILE[0]},{FLASH_PROFILE[1]}]"
+               if profile else ""))
 
 
 def _worker_compiles(root: str) -> list:
@@ -5038,7 +5069,7 @@ def phase_cluster(tmp: str) -> dict:
 # empty kernel directory), warm (the shared cache primed once) and
 # standby (a parked, precompiled spare promoted), RESTART_SAMPLES each;
 # the reference's gates against the cold median
-RESTART_SAMPLES = 3
+RESTART_SAMPLES = 2
 RESTART_GATES = {"warm": 0.6, "standby": 0.3}
 
 
@@ -5166,38 +5197,233 @@ def _restart_cnn(root: str) -> dict:
             "entries_built_cold": built}
 
 
-def _restart_flash(root: str) -> dict:
-    """One cluster on a shared kernel cache over an empty directory: its
-    first spawn is cold (nvcc; it fills the cache), its second warm; not
-    gated."""
-    payload = _flash_payload(10000, 0)
-    c = _restart_cluster(root, "flash", payload, cache=True)
-    times, compiles = [], []
-    try:
-        for _ in ("cold", "warm"):
-            # each spawn starts a fresh worker dir: read its record now
-            times.append(_spawn_and_time(c))
-            compiles += [r for r in _worker_compiles(root)
-                         if r["run"] == "flash"]
-    finally:
-        c.kill_all()
-    return {"payload": payload, "cold_s": times[0], "warm_s": times[1],
-            "warm_over_cold": times[1] / times[0], "compile": compiles}
-
-
 def phase_restart(tmp: str) -> dict:
     t0 = time.time()
     root = f"{tmp}/restart"
     cnn = _restart_cnn(root)
-    flash = _restart_flash(root)
     rec = {"phase": "restart", "card": nvidia_smi(), "cnn": cnn,
-           "flash": flash, "seconds": time.time() - t0}
+           "seconds": time.time() - t0}
     emit(rec)
     check(cnn["standby_gate_ok"], f"standby restart over cold: "
           f"{cnn['ratio_vs_cold']['standby']:.3f} > "
           f"{RESTART_GATES['standby']}")
     check(cnn["warm_gate_ok"] is not False, f"warm restart over cold: "
           f"{cnn['ratio_vs_cold']['warm']}")
+    return rec
+
+
+# the serving chaos trial (≙ tests/test_servesvc.py:783, the reference's
+# network scenario): `cluster chaos --payload serving --serve-decode
+# --network`, 2 decode replicas (`launch serve --decode` on the card)
+# following a publisher that trains the flash transformer at the training
+# path's widths, cut to FLASH_LAYERS layers, with
+# decode.attention_kernel=paged, so every replica prefills through K1 and
+# decodes through K5 in its captured decode step; seeded chaos proxies in
+# front of the replicas cut one token stream mid-generation (seed 0: at
+# byte 665 of worker 2's) and partition worker 1's link under live load
+SERVING_CHAOS = {"name": "serving_chaos", "payload": "serving",
+                 "serve_decode": True, "network": True,
+                 "serve_replicas": 2, "until_step": 60,
+                 "save_interval_steps": 10, "trials": 1, "seed": 0,
+                 "shrink": False, "trial_timeout_s": 420.0}
+SERVING_REPLICAS = (1, 2)
+
+
+def _seed_kernel_cache(cache_dir) -> list:
+    """Copy the libraries ``phase_build`` built into a campaign's shared
+    kernel cache (the names are the sources' hashes, so each is the
+    library a worker would build): no worker of the campaign compiles."""
+    import shutil
+
+    from distributedmnist_tpu_torch.core.compile_cache import kernels_dir
+    from distributedmnist_tpu_torch.ops import _build
+    dst = kernels_dir(cache_dir)
+    dst.mkdir(parents=True, exist_ok=True)
+    out = []
+    for name in _build.SOURCES:
+        src = _build.library_path(name)
+        check(src.exists(), f"{src} was not built")
+        shutil.copy2(src, dst / src.name)
+        out.append(src.name)
+    return out
+
+
+def _flash_serving_campaign(cfg):
+    """The serving campaign with the flash publisher in place of the
+    compact LM: each run's publisher is paced by the reference's rule on
+    the boot the campaign measured (``resolved_publisher_pace_ms``, as the
+    built-in publisher is), and the shared kernel cache is seeded before
+    the reference run."""
+    from distributedmnist_tpu_torch.launch.chaos import ChaosCampaign
+
+    class FlashPublisher(ChaosCampaign):
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.paces: dict = {}
+            self.seeded: list = []
+
+        def _run_trial(self, rel, plan, seed, num_workers,
+                       measured_boot_s=None, serving=False):
+            if rel == "reference":
+                self.seeded[:] = _seed_kernel_cache(
+                    self.cfg.root / "compile_cache")
+            pace = self.cfg.resolved_publisher_pace_ms(measured_boot_s)
+            self.paces[rel] = pace
+            self.cfg = dataclasses.replace(
+                self.cfg, train_command=_flash_payload(
+                    self.cfg.until_step, pace,
+                    save=self.cfg.save_interval_steps, profile=False)
+                + " decode.attention_kernel=paged")
+            return super()._run_trial(rel, plan, seed, num_workers,
+                                      measured_boot_s=measured_boot_s,
+                                      serving=serving)
+
+    return FlashPublisher(cfg)
+
+
+def _watch_metas(trial_dir: str, stop: threading.Event) -> dict:
+    """Each replica's meta answer, asked once its ``serve.json`` is up,
+    straight to its port (not through its proxy), on a thread until
+    ``stop``; returns the dict the thread fills."""
+    from distributedmnist_tpu_torch.servesvc import ServeClient
+    got: dict = {}
+
+    def run():
+        while not stop.is_set() and len(got) < len(SERVING_REPLICAS):
+            for k in SERVING_REPLICAS:
+                try:
+                    with open(f"{trial_dir}/worker{k}/serve.json") as f:
+                        ep = json.load(f)
+                except (OSError, ValueError):
+                    continue
+                if k not in got:
+                    meta = ServeClient([(ep["host"], ep["port"])],
+                                       deadline_s=2.0,
+                                       max_attempts=1).meta(deadline_s=2.0)
+                    if meta is not None:
+                        got[k] = {key: meta.get(key) for key in (
+                            "device", "decode", "model", "model_step",
+                            "decode_slots")}
+            stop.wait(0.5)
+
+    threading.Thread(target=run, daemon=True, name="meta-watch").start()
+    return got
+
+
+def _replica_evidence(trial_dir: str) -> dict:
+    """Per replica: its boot log's ``compile`` records (device, source,
+    the kernel cache over the capture) and each of its processes' kernel
+    launches (``kernel_launches.jsonl``, written at its stop)."""
+    from distributedmnist_tpu_torch.obsv.report import load_jsonl
+    out = {}
+    for k in SERVING_REPLICAS:
+        d = f"{trial_dir}/worker{k}"
+        out[k] = {
+            "compile": [{"device": r.get("device"),
+                         "source": r.get("source"),
+                         "reason": r.get("reason"),
+                         "compile_s": r.get("compile_s"),
+                         "cache": {c: (r.get("persistent_cache") or {})
+                                   .get(c) for c in ("hits", "misses",
+                                                     "new_entries")}}
+                        for r in load_jsonl(f"{d}/train_log.jsonl",
+                                            "compile")],
+            "processes": load_jsonl(f"{d}/kernel_launches.jsonl")}
+    return out
+
+
+def phase_serving_chaos(tmp: str) -> dict:
+    """The serving chaos trial on the card: the reference's network
+    scenario over the flash publisher, every check of the reference's
+    test, plus the replicas' device, capture, kernel cache and K1/K5
+    launches."""
+    from distributedmnist_tpu_torch.launch.chaos import (
+        ChaosConfig, generate_network_schedule)
+    t0 = time.time()
+    cfg = ChaosConfig(**SERVING_CHAOS, workdir=f"{tmp}/serving")
+    sched = generate_network_schedule(cfg.seed, 0,
+                                      list(SERVING_REPLICAS),
+                                      max_faults=cfg.max_faults,
+                                      min_faults=max(2, cfg.min_faults))
+    trial_dir = f"{cfg.root}/trial000"
+    reset_counts()
+    stop = threading.Event()
+    metas = _watch_metas(trial_dir, stop)
+    campaign = _flash_serving_campaign(cfg)
+    try:
+        summary = campaign.run()
+    finally:
+        stop.set()
+    parent = read_counts()
+    with open(summary["report_path"]) as f:
+        report = [json.loads(line) for line in f]
+    from distributedmnist_tpu_torch.obsv.report import load_jsonl
+    journal = load_jsonl(f"{trial_dir}/command_journal.jsonl", "fault")
+    net = [{k: r.get(k) for k in ("action", "worker", "after_bytes",
+                                  "bytes_passed", "mid_stream", "start_s",
+                                  "duration_s", "conns_dropped", "conn")
+            if k in r} for r in journal
+           if str(r.get("action", "")).startswith("net_")]
+    replicas = _replica_evidence(trial_dir)
+    launches = {key: sum(p["launches"][key] for r in replicas.values()
+                         for p in r["processes"]) for key in ("K1", "K5")}
+    with open(f"{cfg.root}/reference/outcome.json") as f:
+        ref_outcome = json.load(f)
+    rec = {"phase": "serving_chaos", "card": nvidia_smi(),
+           "schedule": sched.describe(),
+           "all_green": summary["all_green"],
+           "invariants": summary["invariants"],
+           "faults": {k: summary["faults"][k]
+                      for k in ("scheduled", "fired", "never_fired")},
+           "net": summary["net"], "net_records": net,
+           "serving": report[0]["serving"],
+           "trial": {k: report[0][k] for k in ("outcome", "duration_s",
+                                               "boot_s",
+                                               "stall_timeout_s")},
+           "reference": {"duration_s": ref_outcome.get("duration_s"),
+                         "boot_s": ref_outcome.get("boot_s")},
+           "publisher_pace_ms": campaign.paces,
+           "kernel_cache_seeded": campaign.seeded,
+           "metas": metas, "replicas": replicas, "launches": launches,
+           "parent_launches": parent, "seconds": time.time() - t0}
+    emit(rec)
+    check(summary["all_green"], f"serving chaos not all green: "
+          f"{summary['failing_trials']}")
+    inv = summary["invariants"]
+    for name in ("net_faults", "serve_outcomes", "serve_digest",
+                 "serve_monotone", "decode_swap"):
+        check(inv[name]["pass"] == 1, f"invariant {name}: {inv[name]}")
+    sv = summary["serving"]
+    check(sv["issued"] > 0 and sv["dropped"] == 0,
+          f"issued {sv['issued']}, dropped {sv['dropped']}")
+    check(summary["faults"]["never_fired"] == 0,
+          f"faults never fired: {summary['faults']['per_trial']}")
+    resets = [r for r in net if r["action"] == "net_reset"]
+    check(len(resets) == 1 and resets[0]["mid_stream"]
+          and resets[0]["bytes_passed"] > 0, f"net_reset records: {resets}")
+    check(sum(r["action"] == "net_partition" for r in net) == 1,
+          f"net_partition records: {net}")
+    check(sorted(metas) == list(SERVING_REPLICAS)
+          and all(m["device"] == "cuda:0" and m["decode"]
+                  for m in metas.values()),
+          f"replica metas: {metas}")
+    for k, r in replicas.items():
+        check(r["compile"] and all(c["device"] == "cuda:0"
+                                   and c["source"] == "cuda_graph"
+                                   for c in r["compile"]),
+              f"worker {k}'s decode steps not captured on cuda:0: "
+              f"{r['compile']}")
+        check(all(c["cache"]["misses"] == 0 for c in r["compile"])
+              and r["processes"]
+              and all(p["device"] == "cuda:0"
+                      and p["kernel_cache"]["misses"] == 0
+                      and p["kernel_cache"]["hits"] > 0
+                      for p in r["processes"]),
+              f"worker {k} built a kernel or left no launches: {r}")
+    check(launches["K1"] > 0 and launches["K5"] > 0,
+          f"replicas' K1/K5 launches: {launches}")
+    check(all(v == 0 for v in parent.values()),
+          f"this process launched kernels: {parent}")
     return rec
 
 
@@ -5264,6 +5490,8 @@ def main() -> int:
             runs["cluster"] = phase_cluster(tmp)
             phase = "restart"
             runs["restart"] = phase_restart(tmp)
+            phase = "serving_chaos"
+            runs["serving_chaos"] = phase_serving_chaos(tmp)
     except Exception as e:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}",
@@ -5283,10 +5511,13 @@ def main() -> int:
     serve_launches["K1"]["lm_one_shot"] = serve["lm_one_shot"]["k1_launches"]
     for key, name, src, line, path in KERNELS:
         c = timed[key]
+        chaos = runs["serving_chaos"]["launches"]
         extra = ({**k5_in_place, "ms_cold": c["ms_cold"],
-                  "launches_serve": serve_launches["K5"]} if key == "K5"
+                  "launches_serve": serve_launches["K5"],
+                  "launches_serving_chaos": chaos["K5"]} if key == "K5"
                  else {"launches_eval": runs["eval"]["k1_launches"],
-                       "launches_serve": serve_launches["K1"]}
+                       "launches_serve": serve_launches["K1"],
+                       "launches_serving_chaos": chaos["K1"]}
                  if key == "K1" else {})
         if key in ("K1-lse", "K2", "K3"):
             extra = {"launches_replicas":

@@ -60,7 +60,10 @@ and name. ``cluster`` forwards to :func:`.cluster.main`: the local
 process cluster (create, delete, status, run, kill-all, exec, download,
 poll), the self-healing supervisor (``supervise``, ``reconfigure``) and
 the seeded chaos campaign (``chaos``), whose workers are this CLI's own
-``train`` processes. A ``train`` process whose environment names
+``train`` processes, or with ``--payload serving`` a ``train``
+publisher and ``serve`` replicas under a closed-loop load
+(``--serve-decode``: decode replicas; ``--network``: transport faults
+through the chaos proxies of :mod:`.netchaos`). A ``train`` process whose environment names
 ``DMT_STANDBY_ACTIVATION`` is a warm standby: it precompiles, writes
 ``<activation>.ready``, parks until the activation file appears and
 then adopts the ``train_dir`` it names
@@ -75,9 +78,9 @@ reference's entry points switch on its persistent compile cache.
 
 Accepted and not run, each logged once a Trainer: device prefetch, the
 native loader and the ``compile.*`` knobs. Not ported yet (each raises):
-the model-parallel mesh axes, mixture-of-experts, ``serve --tp-ranks``,
-the cluster's serving payload, network chaos and resource broker
-(``cluster broker``, ``cluster chaos --payload serving``), the gcloud
+the model-parallel mesh axes, mixture-of-experts, ``serve --tp-ranks``
+(and the chaos campaign's ``serve_tp_ranks``), the resource broker
+(``cluster broker``, the chaos campaign's ``broker``), the gcloud
 backend (``cluster --backend gcloud``), and the reference's
 ``campaign``, ``pod`` and ``fetch`` verbs.
 """

@@ -1,5 +1,5 @@
 """Chaos campaign engine (≙ ``distributedmnist_tpu/launch/chaos.py``,
-the train and shell payloads): stop imagining fault scenarios by hand.
+all but the resource broker): stop imagining fault scenarios by hand.
 
 The source paper's regime is synchronous training that *survives* dead
 and slow workers (arXiv:1604.00981); its descendants treat replica loss
@@ -27,16 +27,23 @@ module searches the fault space mechanically:
   minimal reproducer is emitted as a plain FaultPlan JSON anyone can
   rerun with ``cluster supervise --fault-plan``.
 
-The serving payload (a publisher, serving replicas and the load
-generator), the network faults and the resource broker are not ported
-yet: ``payload="serving"``, ``network``, ``serve_decode`` and
-``broker`` raise :class:`~.cluster.ClusterError` at config build.
+``payload="serving"`` puts the serving tier under fire: worker 0
+publishes checkpoints (a paced ``launch train``), workers 1..N are
+``launch serve`` replicas following it (``serve_decode``: decode
+replicas streaming tokens), a closed-loop load generator drives them
+for the whole trial, and the serving invariants replay beside the
+training ones. ``network`` swaps the process faults for transport
+faults through seeded chaos proxies (:mod:`.netchaos`) in front of the
+replicas. The resource broker (``broker``) is not ported yet and
+raises :class:`~.cluster.ClusterError` at config build, as does
+``serve_tp_ranks`` > 1.
 
 CLI: ``python -m distributedmnist_tpu_torch.launch cluster chaos
---trials N --seed S --until-step M [--payload train|shell]
-[--device cpu]``. The campaign leaves ``chaos_report.jsonl`` (one record
-per trial: schedule, outcome, invariant verdicts) under its workdir and
-prints the one-line summary from ``obsv.journal.summarize_chaos`` last.
+--trials N --seed S --until-step M [--payload train|shell|serving]
+[--serve-decode] [--network] [--device cpu]``. The campaign leaves
+``chaos_report.jsonl`` (one record per trial: schedule, outcome,
+invariant verdicts) under its workdir and prints the one-line summary
+from ``obsv.journal.summarize_chaos`` last.
 """
 
 from __future__ import annotations
@@ -107,6 +114,48 @@ _TRAIN_PAYLOAD = (
     "optim.momentum=0.9 parallel.shard_weight_update=true "
     "parallel.comm_buckets=2 "
     "train.max_steps={max_steps} "
+    "train.log_every_steps=1 train.save_interval_steps={save} "
+    "train.async_checkpoint=false train.save_results_period=0")
+
+# Serving-mode publisher (worker 0 of a serving trial, and the serving
+# campaign's fault-free reference): a deterministic single-device
+# trainer whose job is to PUBLISH a stream of checkpoints across a
+# wall window long enough for serving replicas to boot, hot-swap, and
+# be faulted mid-traffic — train.step_pace_ms stretches the publish
+# cadence without touching numerics, so the publisher still reproduces
+# the reference bitwise.
+_SERVE_PUBLISHER_PAYLOAD = (
+    "python -m distributedmnist_tpu_torch.launch train "
+    "train.train_dir=. data.dataset=synthetic data.batch_size=32 "
+    "data.synthetic_train_size=256 data.synthetic_test_size=64 "
+    "model.compute_dtype=float32 "
+    "train.max_steps={max_steps} train.step_pace_ms={pace} "
+    "train.log_every_steps=1 train.save_interval_steps={save} "
+    "train.async_checkpoint=false train.save_results_period=0")
+
+# Serving replicas (workers 1..N of a serving trial): hot-follow the
+# publisher's logdir. Their ``train_log.jsonl`` carries heartbeat
+# records whose step is the terminal-outcome count, so the supervisor's
+# liveness/stall/progress machinery applies unchanged.
+_SERVE_PAYLOAD = (
+    "python -m distributedmnist_tpu_torch.launch serve "
+    "--train_dir ../worker0 --serve-dir . --port 0 "
+    "--poll-secs 0.2 --queue-depth {queue} --max-batch 8")
+
+# Decode-mode publisher (serve_decode=true): the published model must
+# be a dense-FFN causal LM for the replicas' incremental decode
+# export — a compact transformer on the synthetic LM stream, float32
+# and dense attention for CPU-affordable chaos trials, paced exactly
+# like the classification publisher.
+_DECODE_PUBLISHER_PAYLOAD = (
+    "python -m distributedmnist_tpu_torch.launch train "
+    "train.train_dir=. data.dataset=synthetic_lm data.batch_size=32 "
+    "data.synthetic_train_size=256 data.synthetic_test_size=64 "
+    "data.use_native_pipeline=false "
+    "model.name=transformer model.seq_len=64 model.model_dim=64 "
+    "model.num_heads=4 model.num_layers=2 model.vocab_size=32 "
+    "model.compute_dtype=float32 model.attention_impl=dense "
+    "train.max_steps={max_steps} train.step_pace_ms={pace} "
     "train.log_every_steps=1 train.save_interval_steps={save} "
     "train.async_checkpoint=false train.save_results_period=0")
 
@@ -600,7 +649,8 @@ def count_fired_faults(trial_dir: Path,
 
 @dataclasses.dataclass(frozen=True)
 class ChaosConfig:
-    """Campaign knobs (JSON-loadable like every launch config)."""
+    """Campaign knobs (JSON-loadable like every launch config: the
+    reference's keys plus ``device``)."""
 
     name: str = "chaos"
     trials: int = 5
@@ -611,8 +661,14 @@ class ChaosConfig:
     # "train" = real `launch train` workers (all invariants apply,
     # incl. bitwise determinism); "shell" = the cheap 20-steps/s shell
     # loop (no real checkpoints: determinism reports skipped) — for CI
-    # smoke and generator/checker development; "serving" (the online
-    # serving tier under fire) is not ported yet and raises
+    # smoke and generator/checker development; "serving" = the online
+    # serving tier under fire: worker 0 is a paced checkpoint PUBLISHER
+    # (`launch train`), workers 1..serve_replicas are serving replicas
+    # (`launch serve` hot-following ../worker0), a closed-loop load
+    # generator drives traffic for the whole trial, and the three
+    # serving invariants (exactly-one terminal outcome, never serve a
+    # failed digest, monotone served step) replay alongside the
+    # training ones on the publisher
     payload: str = "train"
     train_command: str = ""     # override; "" = built-in payload
     save_interval_steps: int = 5
@@ -620,13 +676,54 @@ class ChaosConfig:
     # verb's own default (cuda:0); "cpu" appends `--device cpu` to
     # each such payload (LocalClusterConfig.device)
     device: str = ""
-    # -- serving, network and broker modes --------------------------------
-    # The reference's switches, refused in __post_init__ until the
-    # serving payload is ported (its other serving knobs are unknown
-    # keys here)
+    # -- serving mode ---------------------------------------------------
+    serve_replicas: int = 2
+    load_concurrency: int = 2
+    request_deadline_s: float = 3.0
+    publisher_pace_ms: float = 150.0   # publish-cadence stretch (wall only)
+    serve_queue_depth: int = 32
+    # kill/hang/stall triggers on serving replicas are in HEARTBEAT
+    # units (terminal outcomes that replica produced)
+    serve_fault_window: tuple[int, int] = (5, 40)
+    # Per-replica serving precision tiers (quantized serving under
+    # fire): entry i names replica i+1's serve.precision_tier; missing
+    # entries default to fp32. Any non-fp32 entry makes the PUBLISHER
+    # payload write the matching quant sidecars
+    # (quant.publish_tiers), so the corrupt-published-artifact fault —
+    # which tears the .quant sidecar alongside the checkpoint — also
+    # exercises the sidecar's digest refusal on a live replica.
+    # None/() = every replica full precision.
+    serve_precision_tiers: tuple[str, ...] | None = None
+    # Decode-mode serving trials: the publisher trains a compact
+    # causal LM and the replicas run `launch serve --decode` —
+    # continuous-batching streaming generation over the paged KV
+    # cache, with the loadgen driving token prompts through the
+    # generate path. Kill/hang/stall triggers stay in heartbeat units
+    # (finished generations); the decode_swap invariant replays
+    # alongside 7-9. Incompatible with non-fp32 precision tiers (the
+    # decode service serves full precision only).
     serve_decode: bool = False
+    # --decode knobs threaded to every decode replica (kept small so
+    # generations finish fast enough for chaos's heartbeat triggers,
+    # and so prompt+generation fit the compact LM's seq_len=64
+    # position table)
+    decode_max_new_tokens: int = 16
+    decode_max_prompt_len: int = 16
+    decode_slots: int = 4
+    # the reference boots every serving replica as an N-rank
+    # tensor-parallel process group (serve.tp_ranks); the port serves
+    # one rank a replica, and refuses N > 1 (Queue A item 9)
+    serve_tp_ranks: int = 1
+    # network=true swaps the serving arm's process-fault grammar for
+    # the TRANSPORT one (generate_network_schedule): every trial
+    # interposes seeded chaos proxies (launch/netchaos.py) between the
+    # load generator and the net-faulted replicas — always a
+    # mid-stream reset plus a partition window under live load — and
+    # the exactly-once net_faults invariant (13) replays alongside
+    # 7-10. Requires payload=serving AND serve_decode=true: the
+    # mandatory reset must cut a token STREAM mid-generation, and
+    # only the decode wire protocol streams.
     network: bool = False
-    broker: bool = False
     # disk=true swaps the training arm's process-fault grammar for the
     # STORAGE one (generate_disk_schedule): every trial scripts
     # deterministic disk faults (ENOSPC budgets, EIO, torn writes,
@@ -640,6 +737,20 @@ class ChaosConfig:
     # serving arm's published-artifact corruption is the existing
     # ``corrupt`` fault).
     disk: bool = False
+    # -- resource broker (serving mode only) ------------------------------
+    # The reference's demand-driven autoscaling (launch/broker.py) and
+    # its diurnal load trace. Its knobs parse so that any reference
+    # config file loads; broker=true is refused in __post_init__ until
+    # the broker is ported (slice 10).
+    broker: bool = False
+    broker_train_workers: int = 2   # total trainers incl. the publisher
+    broker_standbys: int = 0        # warm serving spares for scale-up
+    broker_phases: int = 4          # diurnal phases; odd = trough first
+    broker_low_concurrency: int = 1
+    broker_high_concurrency: int = 8
+    broker_phase_secs: float = 10.0
+    broker_window_s: float = 3.0    # loadgen rolling-window width
+    broker_config: dict | None = None  # BrokerConfig field overrides
     # -- straggler-discipline controller (train payload only) -------------
     # discipline_controller=true arms the adaptive straggler-discipline
     # controller (train/discipline.py) inside every train worker: the
@@ -702,20 +813,49 @@ class ChaosConfig:
     shrink_max_probes: int = 8
 
     def __post_init__(self) -> None:
-        for knob, armed in (("payload=serving", self.payload == "serving"),
-                            ("serve_decode=true", self.serve_decode),
-                            ("network=true", self.network),
-                            ("broker=true", self.broker)):
-            if armed:
-                raise ClusterError(
-                    f"chaos {knob} is not ported yet: the serving "
-                    "payload, the network chaos proxies "
-                    "(launch/netchaos.py) and the resource broker "
-                    "(launch/broker.py) come with slice 9 of the port; "
-                    "the port's campaigns run payload=train or shell")
-        if self.payload not in ("train", "shell"):
+        # the repo's knob contract: a typo is a typed error naming the
+        # valid set at config build — not a replica crash-looping
+        # against its restart budget mid-trial
+        from ..core.config import SERVING_PRECISION_TIERS
+        if self.payload not in ("train", "shell", "serving"):
             raise ClusterError(f"unknown chaos payload {self.payload!r} "
-                               "(choices: train, shell)")
+                               "(choices: train, shell, serving)")
+        for t in (self.serve_precision_tiers or ()):
+            if t not in SERVING_PRECISION_TIERS:
+                raise ClusterError(
+                    f"serve_precision_tiers names unknown tier {t!r}; "
+                    f"valid tiers: "
+                    f"{', '.join(SERVING_PRECISION_TIERS)}")
+        if self.serve_tp_ranks > 1:
+            raise ClusterError(
+                f"serve_tp_ranks={self.serve_tp_ranks} is not ported: "
+                "the port serves one rank a replica (tensor-parallel "
+                "serving groups are ROADMAP Queue A item 9)")
+        if self.serve_decode and any(
+                t and t != "fp32"
+                for t in (self.serve_precision_tiers or ())):
+            raise ClusterError(
+                "serve_decode=true is incompatible with non-fp32 "
+                "serve_precision_tiers: the decode service serves "
+                "full precision only (quant sidecars hold weights for "
+                "the one-shot predict export)")
+        if self.network:
+            if self.payload != "serving":
+                raise ClusterError(
+                    "network=true requires payload=serving: the chaos "
+                    "proxies interpose on the serving wire protocol")
+            if not self.serve_decode:
+                raise ClusterError(
+                    "network=true requires serve_decode=true: the "
+                    "mandatory mid-stream reset must cut a decode "
+                    "token stream, and only the decode protocol "
+                    "streams multi-line responses")
+            if self.broker:
+                raise ClusterError(
+                    "network=true is incompatible with broker=true: "
+                    "the broker's traded roster would outgrow the "
+                    "boot-time proxy set, leaving new replicas "
+                    "unproxied mid-trial")
         if self.disk:
             if self.payload != "train":
                 raise ClusterError(
@@ -729,6 +869,12 @@ class ChaosConfig:
                     "crash_rename fault pairs with a kill one step "
                     "after the save it corrupts, so at least one step "
                     "must separate consecutive cadence saves")
+        if self.broker:
+            raise ClusterError(
+                "chaos broker=true is not ported yet: the resource "
+                "broker (launch/broker.py) and its diurnal load trace "
+                "come with slice 10 of the port; serving campaigns run "
+                "a fixed roster")
         if self.discipline_controller:
             if self.payload != "train":
                 raise ClusterError(
@@ -749,8 +895,8 @@ class ChaosConfig:
         # `--chaos-config` accepts a file path or inline JSON — a path
         # can't start with "{", so the sniff is unambiguous. CLI flag
         # overrides merge BEFORE construction: __post_init__ validates
-        # cross-field constraints (disk requires payload=train), so
-        # the config must be built once, already merged.
+        # cross-field constraints (network requires payload=serving),
+        # so the config must be built once, already merged.
         text = str(path)
         d = (json.loads(text) if text.lstrip().startswith("{")
              else json.loads(Path(path).read_text()))
@@ -760,6 +906,12 @@ class ChaosConfig:
             raise ClusterError(f"unknown chaos config keys: {sorted(unknown)}")
         if "stall_ms_range" in d and d["stall_ms_range"] is not None:
             d["stall_ms_range"] = tuple(d["stall_ms_range"])
+        if "serve_fault_window" in d:
+            d["serve_fault_window"] = tuple(d["serve_fault_window"])
+        if "serve_precision_tiers" in d and \
+                d["serve_precision_tiers"] is not None:
+            d["serve_precision_tiers"] = tuple(
+                str(t) for t in d["serve_precision_tiers"])
         if "resize_worlds" in d and d["resize_worlds"] is not None:
             d["resize_worlds"] = tuple(int(w) for w in d["resize_worlds"])
         return cls(**d)
@@ -810,11 +962,47 @@ class ChaosConfig:
             worlds.append(self.num_workers + 1)  # warm grow
         return tuple(worlds)
 
-    def resolved_train_command(self) -> str:
+    def resolved_publisher_pace_ms(self,
+                                   measured_boot_s: float | None = None
+                                   ) -> float:
+        """The serving publisher's ``train.step_pace_ms``. The pace
+        ADAPTS to the measured boot (the reference run's spawn→first-log
+        cost): serving replicas pay roughly the same boot the publisher
+        did, so the publishing window must outlast it with margin or a
+        loaded box finishes the trial before any replica ever serves —
+        the same derive-from-reality move the stall timeout makes."""
+        pace = self.publisher_pace_ms
+        if measured_boot_s is not None and measured_boot_s > 0:
+            floor = 2500.0 * measured_boot_s / max(1, self.until_step)
+            pace = min(2000.0, max(pace, floor))
+        return round(pace, 1)
+
+    def resolved_train_command(self, measured_boot_s: float | None = None
+                               ) -> str:
         if self.train_command:
             return self.train_command
         if self.payload == "shell":
             return _SHELL_PAYLOAD.format(limit=self.until_step + 20)
+        if self.payload == "serving":
+            # worker 0 AND the campaign reference: the paced publisher
+            pace = self.resolved_publisher_pace_ms(measured_boot_s)
+            if self.serve_decode:
+                # decode trials publish a causal LM — no quant
+                # sidecars (validated fp32-only above)
+                return _DECODE_PUBLISHER_PAYLOAD.format(
+                    max_steps=self.until_step, pace=pace,
+                    save=self.save_interval_steps)
+            cmd = _SERVE_PUBLISHER_PAYLOAD.format(
+                max_steps=self.until_step, pace=pace,
+                save=self.save_interval_steps)
+            quant = self.resolved_quant_publish_tiers()
+            if quant:
+                # the publisher writes the sidecars the quantized
+                # replicas prefer (also runs in the fault-free
+                # reference — same payload, bitwise determinism holds:
+                # sidecars never touch the train state)
+                cmd += f" quant.publish_tiers={','.join(quant)}"
+            return cmd
         cmd = _TRAIN_PAYLOAD.format(max_steps=self.until_step,
                                     save=self.save_interval_steps)
         if self.discipline_controller:
@@ -832,6 +1020,48 @@ class ChaosConfig:
                 f" sync.straggler_spike_scale={self.discipline_spike_scale}")
         return cmd
 
+    def resolved_quant_publish_tiers(self) -> tuple[str, ...]:
+        """The distinct non-fp32 tiers any replica serves — what the
+        publisher must write sidecars for (order-stable)."""
+        tiers: list[str] = []
+        for t in (self.serve_precision_tiers or ()):
+            if t and t != "fp32" and t not in tiers:
+                tiers.append(t)
+        return tuple(tiers)
+
+    def resolved_serve_command(self) -> str:
+        """The uniform serving payload (fp32, no tier suffix): what
+        every replica runs before its tier is appended."""
+        cmd = _SERVE_PAYLOAD.format(queue=self.serve_queue_depth)
+        if self.serve_decode:
+            cmd += (f" --decode --decode-slots {self.decode_slots}"
+                    f" --max-new-tokens {self.decode_max_new_tokens}"
+                    f" --max-prompt-len {self.decode_max_prompt_len}")
+        return cmd
+
+    def resolved_worker_commands(self) -> dict[str, str]:
+        """Per-worker payload overrides — serving mode's mixed roster
+        (publisher + replicas); empty for the uniform payloads.
+        ``serve_precision_tiers`` entry i pins replica i+1's tier (a
+        mixed fp32/int8 roster exercises both weight paths under one
+        fault plan)."""
+        if self.payload != "serving":
+            return {}
+        tiers = self.serve_precision_tiers or ()
+        out: dict[str, str] = {}
+        for k in range(1, 1 + self.serve_replicas):
+            cmd = self.resolved_serve_command()
+            tier = tiers[k - 1] if k - 1 < len(tiers) else ""
+            if tier and tier != "fp32":
+                cmd += f" --precision-tier {tier}"
+            out[str(k)] = cmd
+        return out
+
+    def trial_num_workers(self) -> int:
+        if self.payload != "serving":
+            return self.num_workers
+        return 1 + self.serve_replicas
+
     def step_window(self) -> tuple[int, int]:
         lo = max(2, self.save_interval_steps + 1)
         return (lo, max(lo, int(self.until_step * self.last_fault_frac)))
@@ -839,6 +1069,47 @@ class ChaosConfig:
     @property
     def root(self) -> Path:
         return Path(self.workdir) / self.name
+
+
+def _merge_load_summaries(summaries: list[dict | None]) -> dict | None:
+    """Fold the per-phase ``summarize_outcomes`` dicts of a diurnal
+    load trace into one trial-level summary: counters SUM, tail
+    latencies take the worst phase (the bound the chaos gate checks —
+    a per-request-weighted percentile across phases would launder a
+    bad burst through a long calm trough), serving evidence sets
+    union. Phases that never ran (``None``) are skipped; all-``None``
+    merges to ``None``."""
+    real = [s for s in summaries if s]
+    if not real:
+        return None
+    counters = ("issued", "terminal", "dropped", "responses",
+                "rejected", "errors", "tokens_streamed")
+    out: dict[str, Any] = {k: sum(int(s.get(k, 0)) for s in real)
+                           for k in counters}
+    if not out["tokens_streamed"]:
+        del out["tokens_streamed"]
+    by_reason: dict[str, int] = {}
+    for s in real:
+        for k, v in (s.get("by_reason") or {}).items():
+            by_reason[k] = by_reason.get(k, 0) + int(v)
+    out["by_reason"] = by_reason
+    out["reject_rate"] = round(out["rejected"] / max(1, out["terminal"]),
+                               4)
+    out["duration_s"] = round(sum(float(s.get("duration_s", 0.0))
+                                  for s in real), 3)
+    out["throughput_rps"] = round(
+        out["terminal"] / max(out["duration_s"], 1e-9), 2)
+    out["model_steps_served"] = sorted(
+        {st for s in real for st in s.get("model_steps_served", ())})
+    out["tiers_served"] = sorted(
+        {t for s in real for t in s.get("tiers_served", ())})
+    for key in ("latency_ms", "ttft_ms", "inter_token_ms"):
+        dists = [s[key] for s in real if s.get(key)]
+        if dists:
+            out[key] = {q: max(d[q] for d in dists if q in d)
+                        for q in dists[0]}
+    out["phases_merged"] = len(real)
+    return out
 
 
 class ChaosCampaign:
@@ -857,18 +1128,27 @@ class ChaosCampaign:
 
     def _run_trial(self, rel: str, plan: FaultPlan, seed: int,
                    num_workers: int,
-                   measured_boot_s: float | None = None) -> dict[str, Any]:
+                   measured_boot_s: float | None = None,
+                   serving: bool = False) -> dict[str, Any]:
         """Execute one supervised run under ``plan`` in
         ``<root>/<rel>``; returns the outcome record (also written to
         ``outcome.json`` there so the invariant replay is
         artifact-only). ``measured_boot_s``: a previous run's observed
         spawn→first-log cost — lets the stall timeout derive from the
-        measured boot instead of the hardcoded worst case."""
+        measured boot instead of the hardcoded worst case.
+
+        ``serving``: the mixed serving roster (worker 0 publishes,
+        workers 1..N serve) with the closed-loop load generator driving
+        traffic for the whole supervised window; progress toward the
+        target counts from the PUBLISHER only (a replica's heartbeat
+        step is its request counter, not run progress)."""
         cfg = self.cfg
         target = cfg.until_step
         lcfg = LocalClusterConfig(
             name=rel, num_workers=num_workers, workdir=str(cfg.root),
-            train_command=cfg.resolved_train_command(),
+            train_command=cfg.resolved_train_command(measured_boot_s),
+            worker_commands=(cfg.resolved_worker_commands()
+                             if serving else {}),
             # ONE cache for the whole campaign, not per-trial: the
             # reference's cold build warms every later boot
             compile_cache=cfg.share_compile_cache,
@@ -898,16 +1178,39 @@ class ChaosCampaign:
                               if self.reference_dir else None),
         }
         t0 = time.monotonic()
+        loadgen_thread: Any = None
+        load_stop = None
+        load_result: dict[str, Any] = {}
+        proxies: dict[int, Any] = {}
         try:
             # inside the try: a spawn that fails halfway (fork pressure
             # mid-campaign) must still hit the kill_all/close below, or
             # already-spawned detached workers outlive the campaign
             cluster.create()
             cluster.run_train()
+            if plan.net_faults:
+                # one seeded chaos proxy per net-faulted replica,
+                # journaling its net_* firings into the same command
+                # journal the process faults use; the loadgen below
+                # routes those replicas' endpoints through the proxy
+                # ports (upstreams re-resolve from serve.json per
+                # connection, so replica restarts stay reachable)
+                from .netchaos import start_proxies
+                proxies = start_proxies(lcfg.root, plan.net_faults,
+                                        journal=executor.journal,
+                                        seed=seed)
+            if serving:
+                loadgen_thread, load_stop = self._start_loadgen(
+                    lcfg, load_result, proxies=proxies)
             got = sup.supervise_until_step(
                 target, poll_secs=cfg.resolved_poll_secs(),
-                timeout_secs=cfg.trial_timeout_s)
+                timeout_secs=cfg.trial_timeout_s,
+                target_worker=0 if serving else None)
             outcome.update(outcome="completed", step=got["step"])
+            if serving:
+                self._stop_serving(cluster, sup, num_workers,
+                                   loadgen_thread, load_stop)
+                loadgen_thread = None
             self._drain(cluster, sup)
             # the drain may have closed recovery episodes the
             # supervised loop left open (a worker restarted near
@@ -930,9 +1233,34 @@ class ChaosCampaign:
                            step=None, error=str(e),
                            recovery=sup.summary())
         finally:
+            if loadgen_thread is not None:  # error path: stop the load
+                load_stop.set()
+                loadgen_thread.join(timeout=30)
+            for p in proxies.values():
+                p.stop()
             cluster.kill_all()
             executor.close()
-        if cfg.discipline_controller:
+        if serving:
+            outcome["mode"] = "serving"
+            outcome["serve_workers"] = list(range(1, num_workers))
+            outcome["serving"] = load_result.get("summary")
+            # weight-swap-by-tier accounting over every replica's
+            # serve journal (tier-less legacy swaps count as fp32) —
+            # the evidence a quantized campaign arm actually served
+            # its tier, and that sidecar digest refusals fired
+            from ..obsv.journal import (summarize_net_chaos,
+                                        summarize_serving_swaps)
+            from ..obsv.report import load_jsonl
+            serve_recs: list[dict] = []
+            for k in outcome["serve_workers"]:
+                serve_recs += load_jsonl(
+                    lcfg.worker_dir(k) / "serve_log.jsonl", "serve")
+            outcome["serve_swaps"] = summarize_serving_swaps(serve_recs)
+            # network-fault evidence (None when the trial saw none):
+            # proxy firings by kind, dedup-cache hits, retry
+            # amplification — the chaos report's ``net`` slot
+            outcome["net"] = summarize_net_chaos(lcfg.root)
+        if cfg.discipline_controller and not serving:
             # worker 0's decision journal is the trial's discipline
             # evidence (every worker runs the identical seeded program,
             # so one trace represents them all; per-worker divergence
@@ -947,6 +1275,103 @@ class ChaosCampaign:
         (lcfg.root / "outcome.json").write_text(
             json.dumps(outcome, indent=2, default=str))
         return outcome
+
+    # -- serving-mode plumbing ------------------------------------------
+
+    def _start_loadgen(self, lcfg: LocalClusterConfig,
+                       load_result: dict[str, Any],
+                       proxies: dict[int, Any] | None = None):
+        """Launch the closed-loop load generator on a background
+        thread: wait for the first replica to become ready (its
+        ``serve.json`` + a meta answer), then drive traffic through
+        the round-robin failover shim until told to stop. The
+        per-request journal lands in ``<trial root>/loadgen.jsonl`` —
+        the artifact the serving invariants replay.
+
+        ``proxies``: network-mode chaos proxies keyed by proxied
+        worker — those replicas' discovered endpoints are rewritten to
+        the proxy's listen port, so every request to a net-faulted
+        replica crosses its fault scripts."""
+        import threading
+
+        from ..servesvc.client import ServeClient, discover_endpoints
+        from ..servesvc.loadgen import (make_input_fn, make_prompt_fn,
+                                        run_load)
+        cfg = self.cfg
+        root = lcfg.root
+        stop = threading.Event()
+
+        def endpoints() -> list[dict]:
+            eps = discover_endpoints(root)
+            if not proxies:
+                return eps
+            out = []
+            for e in eps:
+                p = proxies.get(e.get("worker"))
+                if p is not None and p.bound_port:
+                    e = {**e, "host": p.listen_host,
+                         "port": p.bound_port}
+                out.append(e)
+            return out
+
+        def drive() -> None:
+            client = ServeClient(endpoints,
+                                 deadline_s=cfg.request_deadline_s,
+                                 max_attempts=6,
+                                 seed=cfg.seed)
+            meta = None
+            while meta is None and not stop.is_set():
+                meta = client.meta(deadline_s=1.0)
+                if meta is None:
+                    time.sleep(0.5)
+            if meta is None:
+                load_result["summary"] = None  # nothing ever came up
+                return
+            if meta.get("decode"):
+                # decode replicas: drive token prompts through the
+                # streaming generate path (ttft/itl recorded per
+                # request, tokens bounded so generations finish
+                # inside heartbeat-trigger cadence)
+                make_input = make_prompt_fn(meta["vocab_size"],
+                                            meta["max_prompt_len"])
+            else:
+                make_input = make_input_fn(meta["input_shape"],
+                                           meta["input_dtype"])
+            load_result["summary"] = run_load(
+                client, None, cfg.load_concurrency, make_input,
+                journal_path=root / "loadgen.jsonl", stop_event=stop,
+                decode=bool(meta.get("decode")))
+
+        t = threading.Thread(target=drive, daemon=True, name="chaos-load")
+        t.start()
+        return t, stop
+
+    def _stop_serving(self, cluster: LocalProcessCluster,
+                      sup: ClusterSupervisor, num_workers: int,
+                      loadgen_thread, load_stop) -> None:
+        """Orderly serving teardown once the publisher hit its target:
+        stop the offered load, then SIGTERM the replicas so their
+        graceful drain sheds anything still queued with a TYPED reject
+        (the zero-drop evidence), closing any recovery episodes their
+        heartbeats can prove resumed."""
+        load_stop.set()
+        loadgen_thread.join(timeout=60)
+        st = cluster.status()
+        if st is not None and sup.open_episodes:
+            for w in st["workers"]:
+                if w["worker"] in sup.open_episodes:
+                    resumed = worker_resumed_step_since_spawn(
+                        w, events=("step", "heartbeat"))
+                    if resumed is not None:
+                        sup.close_episode(w["worker"], *resumed)
+        # never worker 0 — the publisher already finished and its final
+        # save must not race a SIGTERM
+        live = (sorted(w["worker"] for w in st["workers"])
+                if st is not None else list(range(num_workers)))
+        for k in live:
+            if k != 0:
+                cluster.stop_all(worker=str(k))
+        cluster.wait_drained(15.0)
 
     def _drain(self, cluster: LocalProcessCluster,
                sup: ClusterSupervisor | None = None) -> None:
@@ -1055,9 +1480,24 @@ class ChaosCampaign:
                 cfg.resolved_stall_timeout_s())
 
         reproducer: dict[str, Any] | None = None
-        nw = cfg.num_workers
+        serving = cfg.payload == "serving"
+        nw = cfg.trial_num_workers()
         for t in range(cfg.trials):
-            if cfg.disk:
+            if serving and cfg.network:
+                # transport faults only: the proxies carry the whole
+                # chaos load, so the protocol-hardening claims are
+                # tested in isolation from process death
+                schedule = generate_network_schedule(
+                    cfg.seed, t, list(range(1, 1 + cfg.serve_replicas)),
+                    max_faults=cfg.max_faults,
+                    min_faults=max(2, cfg.min_faults))
+            elif serving:
+                schedule = generate_serving_schedule(
+                    cfg.seed, t, list(range(1, 1 + cfg.serve_replicas)),
+                    cfg.serve_fault_window, cfg.step_window(),
+                    max_faults=cfg.max_faults, min_faults=cfg.min_faults,
+                    stall_ms_range=cfg.resolved_stall_ms_range())
+            elif cfg.disk:
                 # storage faults only: the workers' own durable-write
                 # shims carry the whole chaos load, so the atomic-save
                 # protocol's claims are tested in isolation from
@@ -1078,9 +1518,14 @@ class ChaosCampaign:
             logger.info("chaos trial %d/%d: %s", t + 1, cfg.trials,
                         schedule.describe())
             rel = f"trial{t:03d}"
+            # the serving kwarg rides only when armed: train/shell
+            # campaigns keep the historical _run_trial signature (test
+            # harnesses subclass and override it)
             outcome = self._run_trial(rel, schedule.to_fault_plan(),
                                       cfg.seed, nw,
-                                      measured_boot_s=self._measured_boot_s)
+                                      measured_boot_s=self._measured_boot_s,
+                                      **({"serving": True} if serving
+                                         else {}))
             if outcome.get("boot_s"):
                 # warm boots keep tightening (never loosening past the
                 # cap) the next trial's detection window
@@ -1108,6 +1553,14 @@ class ChaosCampaign:
                    "reconfigures": ((outcome.get("recovery") or {})
                                     .get("reconfigure") or {}).get("count", 0),
                    "final_world": outcome.get("final_world"),
+                   # serving mode: the load generator's one-line sweep
+                   # summary (requests, dropped, p50/p99, rejects,
+                   # model steps served) rides into the campaign report
+                   "serving": outcome.get("serving"),
+                   "serve_swaps": outcome.get("serve_swaps"),
+                   # network-mode evidence (net_* firings by kind,
+                   # dedup hits, retry percentiles); None off-mode
+                   "net": outcome.get("net"),
                    # disk-mode evidence (storage-fault firings by
                    # action, failed/skipped saves, fallback restores);
                    # None off-mode
@@ -1153,8 +1606,11 @@ class ChaosCampaign:
             probes[0] += 1
             logger.info("shrink probe %s: %s", rel, cand.describe())
             outcome = self._run_trial(rel, cand.to_fault_plan(), cfg.seed,
-                                      cfg.num_workers,
-                                      measured_boot_s=self._measured_boot_s)
+                                      cfg.trial_num_workers(),
+                                      measured_boot_s=self._measured_boot_s,
+                                      **({"serving": True}
+                                         if cfg.payload == "serving"
+                                         else {}))
             got = check_run(cfg.root / rel, outcome=outcome,
                             reference_dir=self.reference_dir)
             return bool({v["invariant"] for v in got["violations"]}

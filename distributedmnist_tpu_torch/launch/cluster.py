@@ -5,9 +5,11 @@
 status / run_train / kill_all / exec_all / download / poll, plus the
 recovery verbs restart_worker and reconfigure — and
 :class:`LocalProcessCluster` realizes it as REAL local subprocesses: N
-worker processes running the port's ``launch train``, per-worker
-logdirs, a pgrep-equivalent ``status()`` probe, file-copy
-``download``, warm standbys parked after their ``precompile``. Every
+worker processes running the port's ``launch train`` (or, per
+worker, another payload: a serving roster's ``launch serve``
+replicas), per-worker logdirs, a pgrep-equivalent ``status()`` probe,
+file-copy ``download``, warm standbys parked after their
+``precompile``. Every
 verb executes as an actual subprocess through
 :class:`~.exec.CommandExecutor`, so ``create → run → poll --until-step
 → download → delete`` runs end-to-end and leaves a JSONL command
@@ -1247,20 +1249,26 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--payload", default=None,
                    choices=["train", "shell", "serving"],
                    help="for chaos: real `launch train` workers (all "
-                        "invariants incl. bitwise determinism) or the "
-                        "cheap shell loop (CI smoke); serving is not "
-                        "ported yet (slice 9) and raises")
+                        "invariants incl. bitwise determinism), the "
+                        "cheap shell loop (CI smoke), or the serving "
+                        "tier under fire (publisher + serve replicas + "
+                        "closed-loop load, serving invariants checked)")
     p.add_argument("--chaos-config", default=None,
                    help="for chaos: ChaosConfig JSON (flags above "
                         "override it)")
     p.add_argument("--no-shrink", action="store_true",
                    help="for chaos: skip minimizing failing schedules")
     p.add_argument("--serve-decode", action="store_true",
-                   help="for chaos (payload=serving): not ported yet "
-                        "(slice 9), raises")
+                   help="for chaos (payload=serving): decode replicas "
+                        "(token streaming) instead of classifiers")
     p.add_argument("--network", action="store_true",
-                   help="for chaos: transport faults through chaos "
-                        "proxies — not ported yet (slice 9), raises")
+                   help="for chaos (payload=serving, requires "
+                        "--serve-decode): transport faults via per-"
+                        "replica chaos proxies (launch/netchaos.py) — "
+                        "mid-stream reset + partition window every "
+                        "trial — instead of process faults; invariant "
+                        "13 (net_faults) replays the exactly-once "
+                        "books")
     p.add_argument("--disk", action="store_true",
                    help="for chaos (payload=train): storage faults via "
                         "the workers' durable-write shim "
@@ -1274,8 +1282,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.action == "broker":
         raise ClusterError(
             "cluster broker is not ported yet: the resource broker "
-            "(launch/broker.py) comes with the serving payload in slice "
-            "9 of the port")
+            "(launch/broker.py) comes with slice 10 of the port")
 
     if args.action == "chaos":
         # the campaign owns its clusters/executors (one per trial, all

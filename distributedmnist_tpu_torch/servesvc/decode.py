@@ -25,7 +25,11 @@ version is put on the device and dropped with the version, and every
 iteration writes the tokens, positions and lengths into its buffer with
 one host-to-device copy, copies the version's block table in when the
 table changed, and replays it; elsewhere the same body runs eagerly
-over the same buffers. Prefill stays eager: prompts vary in length.
+over the same buffers. Each version's step leaves a ``compile`` record
+in the replica's ``train_log.jsonl`` (its device, ``source``
+``cuda_graph`` or ``eager`` with the reason, and the kernel build
+cache's hits and misses over the capture). Prefill stays eager:
+prompts vary in length.
 
 **Weight swaps mid-generation.** The follower stages digest-verified
 publishes as the classification replica's does; the flip happens at a
@@ -72,10 +76,12 @@ import numpy as np
 import torch
 
 from ..core import prng
+from ..core.compile_cache import resolve_cache_dir
 from ..core.config import ConfigError
 from ..models.convert import params_from_reference
 from ..core.log import get_logger
 from ..models.registry import sample_token
+from ..ops.paged_attention import paged_attention
 from ..parallel.graphs import aot_compile
 from .kv_cache import PagedKVCache
 from .server import ServingReplica, _Pending
@@ -124,10 +130,19 @@ class DecodeStep:
     lengths, whose cache writes land in the null block); else its body
     runs eagerly over the same buffers. ``info`` is the capture's. The
     cache tensors, whose addresses the graph (and K5's tensor maps)
-    hold, live as long as the replica."""
+    hold, live as long as the replica.
+
+    A replay launches K5 without calling its wrapper: ``k5_recorded``
+    counts the wrapper calls a capture recorded into a graph (which
+    launched nothing), ``k5_replayed`` the launches replays made, both
+    over the process, as the wrapper's own count is."""
+
+    k5_recorded = 0
+    k5_replayed = 0
 
     def __init__(self, model, params: _Version, cache: PagedKVCache, dcfg,
-                 device: torch.device, capture: bool):
+                 device: torch.device, capture: bool,
+                 cache_dir: str | None = None):
         slots = dcfg.decode_slots
         inputs = torch.zeros((3, slots), dtype=torch.int64, device=device)
         tables = torch.zeros((slots, cache.max_blocks_per_seq),
@@ -142,16 +157,22 @@ class DecodeStep:
         block_size, kernel = dcfg.block_size, dcfg.attention_kernel
 
         def body():
+            k5 = paged_attention.launches
             logits, _, _ = model.decode_step(
                 ref(), inputs[0], inputs[1], cache.k, cache.v, tables,
                 inputs[2].to(torch.int32), block_size=block_size,
                 attention_kernel=kernel)
+            self.k5_a_step = paged_attention.launches - k5
             return logits
 
         self.body = body
+        self.k5_a_step = 0
         self.replay, self.info = aot_compile(
-            {"decode": body}, device,
+            {"decode": body}, device, cache_dir=cache_dir,
             eager_reason=None if capture else "compile.precompile is off")
+        if self.replay is not None:
+            # the last call of the body was the capture's
+            DecodeStep.k5_recorded += self.k5_a_step
 
     def __call__(self, tokens: np.ndarray, positions: np.ndarray,
                  lengths: np.ndarray, table: torch.Tensor,
@@ -166,8 +187,11 @@ class DecodeStep:
         if table_key != self.table_key:
             self.tables.copy_(table)
             self.table_key = table_key
-        out = (self.replay.replay("decode") if self.replay is not None
-               else self.body())
+        if self.replay is not None:
+            out = self.replay.replay("decode")
+            DecodeStep.k5_replayed += self.k5_a_step
+        else:
+            out = self.body()
         return out.cpu()
 
 
@@ -227,17 +251,36 @@ class DecodeReplica(ServingReplica):
         params = _Version(params_from_reference(
             tree, device=self.device, dtype=self.model.compute_dtype))
         capture = self.cfg.compile.precompile
+        cache_dir = resolve_cache_dir(self.cfg.compile)
         try:
             params.decode = DecodeStep(self.model, params, self.cache,
-                                       self.dcfg, self.device, capture)
+                                       self.dcfg, self.device, capture,
+                                       cache_dir=cache_dir)
         except Exception as e:  # the version must still serve
             logger.warning("decode step capture failed (%s: %s): the "
                            "version runs eagerly", type(e).__name__, e)
             params.decode = DecodeStep(self.model, params, self.cache,
-                                       self.dcfg, self.device, False)
+                                       self.dcfg, self.device, False,
+                                       cache_dir=cache_dir)
             params.decode.info["error"] = f"{type(e).__name__}: {e}"
         self.decode_compiles.append(params.decode.info)
+        # the boot log says how each version's step runs, as a
+        # trainer's does: a version served eagerly says so, and why
+        with self._journal_lock:
+            if not self._journal_closed:
+                self._heartbeat.write({
+                    "event": "compile", "time": time.time(),
+                    "stage": "decode_step", "device": str(self.device),
+                    **params.decode.info})
         return params
+
+    def kernel_launches(self) -> dict[str, int]:
+        """As the classification replica's, with K5 counted on the
+        device: the wrapper's calls less those a capture recorded into
+        a graph, plus the launches the graphs' replays made."""
+        out = super().kernel_launches()
+        out["K5"] += DecodeStep.k5_replayed - DecodeStep.k5_recorded
+        return out
 
     # -- admission ------------------------------------------------------
 

@@ -57,7 +57,11 @@ respond / reject / weight_swap / follower fallbacks / serve_start /
 serve_stop, and the decode records), ``train_log.jsonl`` (``event:
 "heartbeat"`` whose ``step`` counts terminal outcomes — the
 supervisor's progress probe), and ``serve.json`` (the bound endpoint,
-written once the replica is ready).
+written once the replica is ready). The port adds one file: at each
+stop the process appends its kernel launches (:meth:`ServingReplica.
+kernel_launches`) as a line of ``kernel_launches.jsonl``, so a
+supervisor or a script can read what a replica process ran on the card
+after the process is gone.
 
 Not ported yet: tensor-parallel serving groups (``serve.tp_ranks > 1``
 is refused).
@@ -79,6 +83,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.compile_cache import cache_stats
 from ..core.config import (SERVING_PRECISION_TIERS, ConfigError,
                            ExperimentConfig, ServeConfig,
                            effective_model_config)
@@ -86,6 +91,8 @@ from ..core.device import resolve_device
 from ..core.log import JsonlSink, get_logger
 from ..models.convert import params_from_reference
 from ..models.registry import get_model
+from ..ops.flash_attention import flash_attention_bshd
+from ..ops.paged_attention import paged_attention
 from ..quant.ptq import build_tier_predict
 from ..train import checkpoint as ckpt
 
@@ -708,9 +715,26 @@ class ServingReplica:
                        "terminals": self._terminals,
                        "model_step": self.model_step, "swaps": self.swaps})
         with self._journal_lock:
+            first_stop = not self._journal_closed
             self._journal_closed = True
             self._serve_log.close()
             self._heartbeat.close()
+        if not first_stop:
+            return
+        with open(self.serve_dir / "kernel_launches.jsonl", "a") as fh:
+            fh.write(json.dumps({
+                "pid": os.getpid(), "time": time.time(),
+                "device": str(self.device),
+                "launches": self.kernel_launches(),
+                "kernel_cache": cache_stats()}) + "\n")
+
+    def kernel_launches(self) -> dict[str, int]:
+        """The launches this process made of the kernels a replica can
+        run, by kernel: K1 (the flash forward of a transformer's
+        predict or prefill) and K5 (paged attention), from the
+        wrappers' counters (which a CPU tensor leaves at 0)."""
+        return {"K1": flash_attention_bshd.launches,
+                "K5": paged_attention.launches}
 
     def serve_forever(self, install_signal_handlers: bool = True) -> None:
         """The process entry: start, park until SIGTERM/SIGINT, stop."""

@@ -117,8 +117,30 @@ def test_config_resolution_is_the_reference(kw):
                                 {"network": True},
                                 {"broker": True, "payload": "train"}])
 def test_unported_modes_raise_naming_slice_9(kw):
-    with pytest.raises(ClusterError, match="slice 9"):
-        ChaosConfig(**kw)
+    """The switches slice 8 refused (naming slice 9): the serving ones
+    are now taken or refused as the reference's ``ChaosConfig`` takes or
+    refuses them, with its message; ``broker`` alone stays refused,
+    naming slice 10."""
+    if kw.get("broker"):
+        with pytest.raises(ClusterError, match="slice 10"):
+            ChaosConfig(**kw)
+        return
+    try:
+        want = ref_chaos.ChaosConfig(**kw)
+    except ref_cluster.ClusterError as e:
+        with pytest.raises(ClusterError) as got:
+            ChaosConfig(**kw)
+        assert str(got.value) == str(e)
+        return
+    got = ChaosConfig(**kw)
+    assert got.trial_num_workers() == want.trial_num_workers()
+    assert got.resolved_train_command(9.0) == want.resolved_train_command(
+        9.0).replace("distributedmnist_tpu.launch",
+                     "distributedmnist_tpu_torch.launch")
+    assert got.resolved_worker_commands() == {
+        k: c.replace("distributedmnist_tpu.launch",
+                     "distributedmnist_tpu_torch.launch")
+        for k, c in want.resolved_worker_commands().items()}
 
 
 def test_count_fired_faults_is_the_reference(tmp_path):

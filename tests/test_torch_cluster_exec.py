@@ -239,19 +239,49 @@ def test_cluster_cli_dry_run_through_the_launch_verb(tmp_path, capsys):
                and c.endswith("--device cpu'") for c in spawned)
 
 
-@pytest.mark.parametrize("argv, match", [
+def _chaos_cli(main, chaos_module, argv, monkeypatch):
+    """The ChaosConfig a ``cluster chaos`` command line builds (its
+    campaign not run), or the ClusterError it raises."""
+    built = []
+    monkeypatch.setattr(chaos_module, "run_campaign",
+                        lambda cfg: built.append(cfg) or {})
+    try:
+        main(argv)
+    except (ClusterError, ref_cluster.ClusterError) as e:
+        return e
+    return built[0]
+
+
+@pytest.mark.parametrize("argv, want", [
     (["status", "--backend", "gcloud"], "launch pod"),
-    (["broker", "--until-step", "5"], "slice 9"),
-    (["chaos", "--payload", "serving"], "slice 9"),
-    (["chaos", "--network"], "slice 9"),
-    (["chaos", "--serve-decode"], "slice 9"),
+    (["broker", "--until-step", "5"], "slice 10"),
+    (["chaos", "--payload", "serving"], "the reference's"),
+    (["chaos", "--network"], "the reference's"),
+    (["chaos", "--serve-decode"], "the reference's"),
 ])
-def test_unported_cluster_surfaces_refuse_at_once(argv, match, tmp_path):
+def test_unported_cluster_surfaces_refuse_at_once(argv, want, tmp_path,
+                                                  monkeypatch, capsys):
+    """What the port does not have refuses at once, naming it (the
+    gcloud backend; the broker, slice 10); the serving chaos flags are
+    taken or refused as the reference's CLI takes or refuses them, with
+    its message. None of them runs anything."""
+    from distributedmnist_tpu.launch import chaos as ref_chaos
+    from distributedmnist_tpu_torch.launch import chaos as pt_chaos
     t0 = time.monotonic()
-    with pytest.raises(ClusterError, match=match):
-        pt_cluster.main(argv + (["--chaos-config",
-                                 json.dumps({"workdir": str(tmp_path)})]
-                                if argv[0] == "chaos" else []))
+    if argv[0] != "chaos":
+        with pytest.raises(ClusterError, match=want):
+            pt_cluster.main(argv)
+    else:
+        argv = argv + ["--chaos-config",
+                       json.dumps({"workdir": str(tmp_path)})]
+        got = _chaos_cli(pt_cluster.main, pt_chaos, argv, monkeypatch)
+        ref = _chaos_cli(ref_cluster.main, ref_chaos, argv, monkeypatch)
+        assert type(got) is ClusterError or not isinstance(got, Exception)
+        if isinstance(ref, Exception):
+            assert str(got) == str(ref)
+        else:
+            fields = {k: v for k, v in vars(got).items() if k != "device"}
+            assert fields == vars(ref)
     assert time.monotonic() - t0 < 5
     assert not any(tmp_path.iterdir())
 

@@ -1,14 +1,26 @@
-"""A supervised two-worker run of the port's ``launch train`` on the card
-(``distributedmnist_tpu_torch/launch/``): worker 1 is killed at step 10
-and a parked standby, its step already captured as CUDA graphs, is
-promoted into its train_dir; it restores a checkpoint of step 5 or
-later into the captured tensors, both workers end bitwise equal to an
-unfaulted run, and the promoted process journals its ``compile`` record
-(``cuda_graph`` on ``cuda:0``) in the adopted directory.
+"""The port's local process cluster on the card
+(``distributedmnist_tpu_torch/launch/``):
+
+* a supervised two-worker run of ``launch train``: worker 1 is killed
+  at step 10 and a parked standby, its step already captured as CUDA
+  graphs, is promoted into its train_dir; it restores a checkpoint of
+  step 5 or later into the captured tensors, both workers end bitwise
+  equal to an unfaulted run, and the promoted process journals its
+  ``compile`` record (``cuda_graph`` on ``cuda:0``) in the adopted
+  directory;
+* the serving chaos trial (``payload="serving"``) with classification
+  replicas on the int8 and bf16 tiers: a replica kill and a corrupt
+  publish under live load (``tests/test_servesvc.py:761``'s trial);
+* the decode serving chaos trial of ``tests/test_decode.py:637`` (kills
+  mid-generation and a torn checkpoint) over the flash publisher of
+  ``chip_smoke.py``'s serving_chaos phase (d 2048, 2 layers, paged
+  decode), every replica incarnation's decode step captured on
+  ``cuda:0`` and its K1 and K5 launches counted.
 
 Needs an NVIDIA GPU and skips with a reason without one. The module
 imports torch and the port only — no JAX — so it runs where the
-reference is not installed:
+reference is not installed; run it from the repository's root (the
+decode trial imports ``chip_smoke``):
 
     python -m pytest tests/test_torch_cuda_cluster.py -m cuda \\
         --noconftest -p no:cacheprovider
@@ -21,7 +33,7 @@ import time
 import pytest
 import torch
 
-from distributedmnist_tpu_torch.launch.chaos import ChaosConfig
+from distributedmnist_tpu_torch.launch.chaos import ChaosConfig, run_campaign
 from distributedmnist_tpu_torch.launch.cluster import (LocalClusterConfig,
                                                        LocalProcessCluster)
 from distributedmnist_tpu_torch.launch.exec import (CommandExecutor,
@@ -117,3 +129,71 @@ def test_kill_and_standby_promotion_end_bitwise_equal(card, tmp_path):
     assert steps[-1] == STEPS and steps.count(STEPS) == 1
     act = json.loads((c.cfg.root / "standby0" / "activate.json").read_text())
     assert act == {"train_dir": str(c.cfg.worker_dir(1)), "worker": 1}
+
+
+def _replica_launch_records(root, replicas=(1, 2)):
+    return {k: load_jsonl(root / f"worker{k}" / "kernel_launches.jsonl")
+            for k in replicas}
+
+
+def test_serving_trial_replica_kill_and_corrupt_publish_quant_tiers(
+        card, tmp_path):
+    cfg = ChaosConfig(name="servetrial", workdir=str(tmp_path),
+                      payload="serving", trials=1, seed=0,
+                      until_step=60, save_interval_steps=10,
+                      serve_replicas=2, serve_precision_tiers=("int8", "bf16"),
+                      shrink=False, trial_timeout_s=420.0)
+    summary = run_campaign(cfg)
+    assert summary["trials"] == 1
+    assert summary["all_green"], summary
+    inv = summary["invariants"]
+    for name in ("serve_outcomes", "serve_digest", "serve_monotone",
+                 "determinism"):
+        assert inv[name]["pass"] == 1, (name, inv)
+    sv = summary["serving"]
+    assert sv["issued"] > 0 and sv["dropped"] == 0, sv
+    fired = summary["faults"]["per_trial"][0]
+    assert not [f for f in fired["unfired"]
+                if f["kind"] in ("kill", "corrupt")], fired
+    assert {"int8", "bf16"} <= set(sv["swaps_by_tier"]), sv
+    trial = cfg.root / "trial000"
+    for k, procs in _replica_launch_records(trial).items():
+        assert procs and all(p["device"] == "cuda:0" for p in procs), k
+
+
+def test_decode_trial_kill_mid_generation_and_torn_checkpoint_flash(
+        card, tmp_path):
+    import chip_smoke as cs
+    from distributedmnist_tpu_torch.ops import _build
+    _build.build()  # the libraries the campaign's cache is seeded from
+    cfg = ChaosConfig(
+        name="decodetrial", workdir=str(tmp_path), payload="serving",
+        serve_decode=True, trials=1, seed=0, until_step=60,
+        save_interval_steps=10, serve_replicas=2,
+        request_deadline_s=10.0, serve_fault_window=(3, 20),
+        shrink=False, trial_timeout_s=420.0)
+    summary = cs._flash_serving_campaign(cfg).run()
+    assert summary["all_green"], summary
+    assert summary["faults"]["fired"] > 0, summary["faults"]
+    assert summary["faults"]["never_fired"] == 0, summary["faults"]
+    sv = summary["serving"]
+    assert sv["issued"] > 0 and sv["dropped"] == 0, sv
+    assert sv["tokens_streamed"] > 0 and sv["ttft_p99_ms"] is not None
+    inv = summary["invariants"]
+    assert inv["decode_swap"]["fail"] == 0
+    assert inv["decode_swap"]["pass"] + inv["decode_swap"]["skipped"] == 1
+    assert inv["determinism"]["pass"] == 1, inv
+    trial = cfg.root / "trial000"
+    boots = {k: load_jsonl(trial / f"worker{k}" / "train_log.jsonl",
+                           "compile") for k in (1, 2)}
+    for k, recs in boots.items():
+        assert recs and all(r["device"] == "cuda:0"
+                            and r["source"] == "cuda_graph"
+                            for r in recs), (k, recs)
+    # a killed replica was respawned (and its records above are among
+    # those checked)
+    assert summary["mttr"]["episodes"] >= 1, summary["mttr"]
+    procs = [p for ps in _replica_launch_records(trial).values() for p in ps]
+    assert procs and all(p["device"] == "cuda:0" for p in procs)
+    assert sum(p["launches"]["K1"] for p in procs) > 0, procs
+    assert sum(p["launches"]["K5"] for p in procs) > 0, procs

@@ -58,9 +58,10 @@ TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               "obsv.schema", "obsv.journal", "obsv.invariants",
               "obsv.report", "launch.sweep",
               # the local process cluster, its supervisor and the chaos
-              # campaign
+              # campaign, with the network chaos proxies of its serving
+              # trial
               "launch.exec", "launch.cluster", "launch.supervisor",
-              "launch.chaos")
+              "launch.chaos", "launch.netchaos")
 
 
 def test_port_modules_load_no_jax():
