@@ -36,7 +36,8 @@ eager step, and the kernel build cache across processes; and the local
 process cluster: a seeded chaos campaign on ``launch train`` workers
 under the supervisor, and the restart latency of a worker; last, the
 serving chaos trial: decode replicas on the card under live load and
-seeded network faults.
+seeded network faults; and the resource broker trading a donor trainer's
+slot for a decode replica at a load peak and back in the trough.
 
 One JSON line per phase:
 
@@ -61,8 +62,8 @@ One JSON line per phase:
                 (``eval``'s shape); K1-lse (forward with log-sum-exp),
                 K2 (dq), K3 (dk, dv) at the training shape and K4
                 (fused backward) at the short run's, and K1-lse, K2 and
-                K3 at the long-context shape [2, 8192, 8, 128]; max abs
-                error
+                K3 at the long-context shape [2, 8192, 8, 128] (checked,
+                not timed); max abs error
                 beside the stated tolerance, the relative error of the
                 whole output beside its own, the mean |plain output|,
                 kernel / plain / library times (CUDA events, device
@@ -132,7 +133,7 @@ One JSON line per phase:
                 bytes counted in ``_cnn_bytes``), a ``torch.profiler``
                 split (cuDNN convolution, GEMM, other kernels, idle)
                 and peak memory, with cuDNN's deterministic algorithms
-                on (the port's setting) and off; 8 simulated replicas
+                on (the port's setting); 8 simulated replicas
                 on ``cuda:0`` at global batch 1024, 10 steps each:
                 quorum k=4 (4 flags every step), timeout with the
                 deadline swapped to 0 on one step (params bitwise
@@ -143,8 +144,8 @@ One JSON line per phase:
                 ``CNN_CARD_VS_CPU_TOL``; the flags, drawn on the host
                 from the same keys on both sides, equal); two seeded
                 5-step runs bitwise equal with cuDNN's deterministic
-                algorithms (checked) and reported without them, each
-                convolution's setting read as it runs; cuDNN's
+                algorithms, each convolution's setting read as it
+                runs; cuDNN's
                 process-wide settings the same after the phase as
                 before it.
 10. ``dist``    — the CNN's sync SGD across worker processes, each a
@@ -155,16 +156,16 @@ One JSON line per phase:
                 ``DIST_CHILD_TIMEOUT_S``: one NCCL process with 8
                 replicas at global batch 4096, bf16, sync, 5 steps —
                 params digest equal to the same run on the simulated
-                topology in a fresh process with no group, and
-                ``step_fn``'s ms a step both ways (host clock around 5
-                steps on one batch, ending in a synchronize); two gloo processes on ``cuda:0`` — quorum
+                topology in a fresh process with no group (the two
+                processes side by side, untimed); two gloo processes on ``cuda:0`` — quorum
                 k=4 over the measured host times with rank 1 sleeping
                 250 ms a batch (flags ``[1,1,1,1,0,0,0,0]`` from step 2
                 on both ranks, digests equal), ms a step at batch 4096
                 (gloo stages through host memory: not an NCCL number),
                 and 3 float32 full-batch steps within ``DIST_F32_TOL``
                 of each leaf's norm of the simulated 8-replica run; two
-                NCCL ranks on one card refused; two NCCL processes on two
+                NCCL ranks on one card refused (their processes run
+                beside the adaptive arm); two NCCL processes on two
                 cards where there are two (else null with the card
                 count); in this process, the adaptive discipline
                 (tests/test_discipline.py's spike case, 14 steps) on the
@@ -235,10 +236,9 @@ One JSON line per phase:
                 kernels within a stated tolerance of the plain versions.
                 Prints tokens/s, TTFT p50 and inter-token p50.
 13. ``ckpt``    — the training configuration, 15 steps with a save every
-                5 (keep 2) in three arms: saves on the step loop
-                (``train.async_checkpoint=false``), the host fetch on
-                the loop and the write on the writer thread
-                (``async_snapshot=false``), and the device snapshot. Per
+                5 (keep 2) in two arms: the host fetch on the loop and
+                the write on the writer thread (``async_snapshot=
+                false``), and the device snapshot. Per
                 arm the journaled ``save_stall_ms`` (each and the
                 median), ms a step (each step timed to the end of its
                 compute stream) with a write in flight and with none,
@@ -255,7 +255,9 @@ One JSON line per phase:
                 probe (a snapshot, then at once an in-place add of 1.0
                 on every param: the artifact holds the values from
                 before the add); the CNN's saved digests equal across
-                the three arms (the transformer's reported). Then
+                three arms, the two and saves on the step loop
+                (``train.async_checkpoint=false``) (the transformer's
+                reported). Then
                 ``bench_checkpoint_durability``'s save (24 [256, 256]
                 float32 arrays, 5 interleaved repeats × 3 saves) under
                 ``none``, ``data`` and ``full``: median walls printed,
@@ -340,24 +342,28 @@ One JSON line per phase:
                 ms a decode iteration, and the decode step with every
                 slot live by CUDA events, by the host clock and under the
                 profiler (idle share, K5 4 a step both ways, checked);
-                ``kernel_cache``: three processes on a fresh
-                ``DMT_COMPILE_CACHE_DIR`` each building and loading every
-                library — cold (3 misses, 3 new entries; then one
-                captured step at seq 64, its ``compile`` record
-                ``cuda_graph``), warm (0 misses, no new entry), and after
-                one library is truncated, healed (one rebuild, a warning)
-                — each one's seconds from its start to its libraries
-                loaded (``ready_s``), the cold one's to its first step.
+                ``kernel_cache``: three processes side by side, each
+                building and loading every library in its own
+                ``DMT_COMPILE_CACHE_DIR`` — cold on a fresh one (3
+                misses, 3 new entries; then one captured step at seq
+                64, its ``compile`` record ``cuda_graph``), warm on
+                build's libraries (0 misses, no new entry), and healed
+                on build's libraries with one truncated (one rebuild, a
+                warning) — each one's seconds from its start to its
+                libraries loaded (``ready_s``, with the other two
+                running), the cold one's to its first step.
 17. ``cluster`` — the chaos campaign (``launch/chaos.py``) on the port's
                 ``launch train`` workers on the card: the train payload
                 (the MNIST CNN, 2 simulated replicas, momentum 0.9,
                 ZeRO-1 in 2 buckets, float32; ``CLUSTER_CNN``), 2 seeded
                 trials and the fault-free reference run, 40 steps paced
-                ``CLUSTER_CNN_PACE_MS``; then one flash-transformer trial
+                ``CLUSTER_CNN_PACE_MS`` (each campaign's reference run
+                unpaced); then one flash-transformer trial
                 (``CLUSTER_FLASH``: the training path's widths at
                 ``FLASH_LAYERS`` layers, plain sgd so the step is
                 captured, 20 steps, a save every 5, one warm standby; its
-                schedule's kill checked) whose workers' profile window
+                schedule's kill checked; its kernel cache seeded from
+                ``build``, so no worker compiles) whose workers' profile window
                 (``FLASH_PROFILE``) counts the flash kernels a step by
                 name. Checked: every trial ``all_green``, determinism
                 ``pass`` in CNN trial 0 (kill + corrupt + stall) and the
@@ -387,7 +393,8 @@ One JSON line per phase:
                 trains the flash transformer (the training path's widths
                 at ``FLASH_LAYERS`` layers, ``decode.attention_kernel=
                 paged``), paced by the reference's rule on the measured
-                boot, the shared kernel cache seeded from ``build``;
+                boot (its reference run unpaced), the shared kernel
+                cache seeded from ``build``;
                 seeded chaos proxies cut one token stream mid-generation
                 and partition one link under live load. Checked:
                 ``all_green``; ``net_faults``, ``serve_outcomes``,
@@ -399,6 +406,31 @@ One JSON line per phase:
                 decode step ``cuda_graph``, no kernel-cache miss; the
                 replicas' K1 and K5 launches (each process's
                 ``kernel_launches.jsonl``) above 0, none by this process.
+20. ``broker``  — the resource broker's trial (``launch/broker.py``;
+                ``cluster chaos --payload serving --serve-decode`` with
+                ``broker=true``; ``BROKER``): ``serving_chaos``'s flash
+                publisher (its fault-free reference run taken as this
+                campaign's), one decode replica, one donor trainer, one
+                serving spare parked on the card (CUDA context and
+                kernel libraries loaded), no faults; a seeded trace of
+                a trough at concurrency 1, a peak at twice the replica's
+                slots and a final trough. A ``broker_plan`` line first:
+                the publisher's pace that makes the trial outlast the
+                trace, the cooldown, two windows and a trainer's boot by
+                ``BROKER_MARGIN``. Checked: ``all_green`` with
+                ``autoscale``, the serving invariants and determinism
+                passing; requests issued, none dropped; every
+                ``decide`` call the broker made replayed bitwise from
+                its recorded arguments; exactly one
+                ``scale_up_serving`` licensed by ``kv_free_frac`` while
+                the peak's requests were in flight and one
+                ``scale_down_serving`` in the final trough, each
+                completed; the scale-up slot promoted from the spare
+                (``reaction_s`` printed), its decode steps captured on
+                ``cuda:0`` with no kernel-cache miss and its requests
+                answered; the grown trainer resumed from a seeded
+                checkpoint; the brokered replicas' K1 and K5 launches
+                above 0, none by this process.
 
 Then a ``kernels`` summary line (per kernel also its ``variant`` —
 ``wgmma``, ``cuda_cores`` or ``cluster_split``, the compiled kernel the
@@ -407,9 +439,10 @@ spills, shared memory and blocks per SM at the timed shape; for K1 also
 ``launches_eval``, the eval phase's count, and ``launches_serve``, the
 serve phase's by path; for K1 and K5 ``launches_serving_chaos``, the
 serving_chaos replicas' launches (each replica process's count, K5's
-taken from its decode graphs' replays); for K1-lse, K2 and K3 also
+taken from its decode graphs' replays), and ``launches_broker``, the
+broker trial's replicas' launches counted the same way; for K1-lse, K2 and K3 also
 ``launches_replicas`` (the ``train_replicas`` run), ``launches_long_context``
-by remat arm, ``long_context``, the kernel timed at that shape, and
+by remat arm, ``long_context``, the kernel's errors at that shape, and
 ``launches_cluster_a_step``, each flash worker's count a step from its
 trace in the ``cluster`` phase; for
 K5 also ``launches_serve`` and
@@ -423,6 +456,7 @@ phase and exits nonzero before the result line.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -572,6 +606,9 @@ CKPT_ARMS = {"sync": ("train.async_checkpoint=false",),
                             "train.async_snapshot=false"),
              "snapshot": ("train.async_checkpoint=true",
                           "train.async_snapshot=true")}
+# the arms the transformer runs (the CNN runs all three): the two the
+# stall gate reads
+CKPT_TIMED = ("host_fetch", "snapshot")
 # the reference's accelerator gate (bench.py bench_save_stall): the
 # snapshot arm's median save stall at most half the host fetch's
 CKPT_STALL_GATE = 0.5
@@ -771,10 +808,11 @@ def phase_build() -> dict:
     for name in _build.SOURCES:
         _build.load_library(name)
     seconds = round(time.time() - t0, 3)
-    ptxas, hgmma = {}, {}
-    for name in _build.SOURCES:
-        ptxas[name] = _build.ptxas_report(name)
-        hgmma[name] = _hgmma_counts(_build.library_path(name))
+    ptxas = {name: _build.ptxas_report(name) for name in _build.SOURCES}
+    with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        hgmma = dict(zip(_build.SOURCES, pool.map(
+            lambda n: _hgmma_counts(_build.library_path(n)),
+            _build.SOURCES)))
     by_kernel = {row["kernel"]: row for rows in ptxas.values()
                  for row in rows}
     resources = {key: _resources(key, shape, by_kernel)
@@ -1116,11 +1154,12 @@ def phase_kernels() -> dict:
         torch.cuda.empty_cache()
     # the long-context path's shape (bench.py bench_flash_long_context)
     lc_b, lc_s, lc_h = LONG["batch"], LONG["seq_len"], LONG["num_heads"]
-    long_cases = [_k1_lse_case(lc_b, lc_s, torch.bfloat16, gen, True, lc_h)]
+    long_cases = [_k1_lse_case(lc_b, lc_s, torch.bfloat16, gen, False,
+                               lc_h)]
     for kernel in ("K2", "K3"):
         torch.cuda.empty_cache()
         long_cases.append(_bwd_case(kernel, lc_b, lc_s, torch.bfloat16, gen,
-                                    True, lc_h))
+                                    False, lc_h))
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "cases": train_cases + long_cases})
     for c in train_cases + long_cases:
@@ -1136,9 +1175,8 @@ def phase_kernels() -> dict:
     timed = {c["kernel"]: c for c in cases + train_cases if "ms" in c}
     for c in long_cases:
         timed[c["kernel"]]["long_context"] = {
-            k: c[k] for k in ("shape", "max_abs_err", "rel_err", "ms",
-                              "plain_ms", "library_ms", "bound_ms",
-                              "bound_by")}
+            k: c[k] for k in ("shape", "max_abs_err", "rel_err", "bound_ms",
+                              "bound_by") if k in c}
     return timed
 
 
@@ -2178,10 +2216,7 @@ def phase_cnn(tmp: str) -> dict:
                        "label": tr.labels[:CNN_BATCH]}, trainer.device)
     reset_counts()
     throughput = {"deterministic": _cnn_throughput(trainer, batch)}
-    throughput["nondeterministic"] = _cnn_throughput(
-        _cnn_trainer(tmp, "cnn_nondet", cudnn_deterministic=False), batch)
-    det = {"deterministic": _cnn_determinism(tmp, batch, True),
-           "nondeterministic": _cnn_determinism(tmp, batch, False)}
+    det = {"deterministic": _cnn_determinism(tmp, batch, True)}
     counts = read_counts()
     losses = []
     summary = trainer.run(
@@ -2195,10 +2230,6 @@ def phase_cnn(tmp: str) -> dict:
                    torch.backends.cudnn.allow_tf32)
     rec = {"phase": "cnn", "batch": CNN_BATCH, "dtype": "bfloat16",
            **throughput["deterministic"],
-           "nondeterministic_cudnn": {
-               k: throughput["nondeterministic"][k]
-               for k in ("ms_per_step", "host_issue_ms_per_step",
-                         "images_per_s", "model_tflops_per_s")},
            "flops_per_step": flops, "bytes_per_step": nbytes,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2313,8 +2344,9 @@ def _dist_launch(tmp: str, name: str, backend: str, devices: list,
     ``kill_on_failure`` is False) or the group outlives
     ``DIST_CHILD_TIMEOUT_S``. Returns (exit codes, results, log
     tails)."""
-    with open(f"{tmp}/dist_cnn.json", "w") as f:
+    with open(f"{tmp}/dist_cnn.json.{name}", "w") as f:
         json.dump(CNN, f)
+    os.replace(f"{tmp}/dist_cnn.json.{name}", f"{tmp}/dist_cnn.json")
     port, world, procs = _free_port(), len(devices), []
     for rank, dev in enumerate(devices):
         spec = {"backend": backend, "device": dev, "runs": runs,
@@ -2444,18 +2476,17 @@ DIST_QUORUM_FLAGS = [1, 1, 1, 1, 0, 0, 0, 0]
 
 def _dist_world1(tmp: str) -> tuple[dict, int]:
     """One NCCL process against the simulated topology (a fresh process
-    with no group, timed the same way): the same sums, so the same
+    with no group), the two side by side: the same sums, so the same
     params. Returns (record, the children's K1-K5 launches)."""
-    w1, sim = (_dist_group(tmp, name, backend, ["cuda:0"], [
-        {"name": "sync", "timed": DIST_TIMED,
-         "overrides": DIST_BIG + [f"train.train_dir={tmp}/{name}"]}])[0]
-        for name, backend in (("nccl_world1", "nccl"), ("simulated", None)))
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        w1, sim = [f.result()[0] for f in [
+            pool.submit(_dist_group, tmp, name, backend, ["cuda:0"], [
+                {"name": "sync",
+                 "overrides": DIST_BIG + [f"train.train_dir={tmp}/{name}"]}])
+            for name, backend in (("nccl_world1", "nccl"),
+                                  ("simulated", None))]]
     rec = {"digest_equal": w1["runs"]["sync"]["digest"]
-           == sim["runs"]["sync"]["digest"],
-           "ms_per_step": w1["runs"]["sync"]["ms_per_step"],
-           "simulated_ms_per_step": sim["runs"]["sync"]["ms_per_step"]}
-    rec["process_group_ms_per_step"] = (rec["ms_per_step"]
-                                        - rec["simulated_ms_per_step"])
+           == sim["runs"]["sync"]["digest"]}
     check(rec["digest_equal"], f"nccl world 1 vs simulated: {rec}")
     return rec, w1["kernel_launches"] + sim["kernel_launches"]
 
@@ -2709,9 +2740,13 @@ def phase_dist(tmp: str) -> dict:
     reset_counts()
     world1, l1 = _dist_world1(tmp)
     gloo, l2 = _dist_gloo_one_card(tmp)
-    refused = _dist_nccl_shared_refused(tmp)
     nccl2, l3 = _dist_nccl_two(tmp)
-    adaptive = _dist_adaptive(tmp)
+    # the refusal (two processes that exit before a group is made) runs
+    # beside the adaptive arm, whose checks are host-side draws
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        refusal = pool.submit(_dist_nccl_shared_refused, tmp)
+        adaptive = _dist_adaptive(tmp)
+        refused = refusal.result()
     skew = _dist_device_skew(tmp)
     zero1, l4 = _dist_zero1(tmp)
     counts = read_counts()
@@ -3552,7 +3587,8 @@ def phase_ckpt(tmp: str) -> dict:
     t_phase = time.time()
     arms, transformer_digests = {}, {}
     trainer = None
-    for arm, over in CKPT_ARMS.items():
+    for arm in CKPT_TIMED:
+        over = CKPT_ARMS[arm]
         trainer = None
         gc.collect()
         trainer = _build_trainer(tmp, f"ckpt_{arm}", *over,
@@ -3579,8 +3615,8 @@ def phase_ckpt(tmp: str) -> dict:
     rec = {"phase": "ckpt", "steps": CKPT_STEPS, "save_every": CKPT_EVERY,
            "keep": CKPT_KEEP, "arms": arms,
            "snapshot_extra_device_gb": (
-               peak["snapshot"] - peak["sync"]
-               if peak["sync"] is not None else None),
+               peak["snapshot"] - peak["host_fetch"]
+               if peak["host_fetch"] is not None else None),
            "stall_ratio_snapshot_over_host_fetch": snap_med / fetch_med,
            "stall_gate": CKPT_STALL_GATE, "race_probe": race,
            "transformer_final_digests": transformer_digests,
@@ -4550,7 +4586,7 @@ def _graph_train_arm(name: str, build, per_step: dict,
                      bitwise: bool) -> dict:
     """One training arm, captured and eager: the compile record, params
     and losses after ``GRAPH_STEPS`` steps from the same start, ms a step
-    by CUDA events and by the host clock, the profile window's idle share
+    by CUDA events, the profile window's idle share
     and kernel counts a step, peak memory."""
     import torch
 
@@ -4583,16 +4619,11 @@ def _graph_train_arm(name: str, build, per_step: dict,
         batch = to_device({"image": data.images[:rows],
                            "label": data.labels[:rows]}, tr.device)
         state = tr.state
-
-        def step():
-            tr.step_fn(state, batch)
-
         out[mode] = {
             "compile": (compiles[0] if mode == "cuda_graph" else
                         summary["compile"]),
             "first_loss": losses[0], "last_loss": losses[-1],
             "ms_per_step": _time_steps(tr, batch, steps=GRAPH_TIMED),
-            "wall_ms_per_step": _wall_ms(step, GRAPH_TIMED),
             "device_idle_share": window["device_idle_share"],
             "device_busy_ms": window["device_busy_ms"],
             "kernels_per_step": window["kernels_per_step"],
@@ -4758,11 +4789,12 @@ def _graph_decode_arm(tmp: str, train_dir: str) -> dict:
 
 
 def _graph_cache_children(tmp: str) -> dict:
-    """The kernel build cache across processes: a fresh
-    ``DMT_COMPILE_CACHE_DIR``; a cold process (every library a miss), a
-    warm one (none, no new entry), then one library truncated and a
-    third process that heals it with one rebuild; each process's time
-    from its start to every library loaded (``ready_s``), and the cold
+    """The kernel build cache across processes, three at once: a cold
+    process on a fresh ``DMT_COMPILE_CACHE_DIR`` (every library a miss),
+    a warm one on a cache of build's libraries (none, no new entry) and
+    one on such a cache with one library truncated (it heals it with one
+    rebuild); each process's time from its start to every library
+    loaded (``ready_s``, each with the other two running), and the cold
     one's to the end of its first step (the training configuration at
     seq 64, one step, captured)."""
     from pathlib import Path
@@ -4771,14 +4803,18 @@ def _graph_cache_children(tmp: str) -> dict:
     with open(path, "w") as f:
         json.dump({**TRAIN, "model": {**MODEL, "seq_len": K4_SEQ},
                    "data": {**TRAIN["data"], "batch_size": K4_BATCH}}, f)
-    env = dict(os.environ, DMT_COMPILE_CACHE_DIR=cache)
-    runs = {}
-    for name in ("cold", "warm", "healed"):
-        if name == "healed":
-            lib = sorted(Path(cache, "kernels").glob(
-                "libflash_attention_fwd-*.so"))
-            check(len(lib) == 1, f"kernel cache holds {lib}")
-            lib[0].write_bytes(lib[0].read_bytes()[:64])  # a torn write
+    # the warm and healed caches hold build's libraries (the healed one
+    # with one torn), so the three processes run side by side
+    for name in ("warm", "healed"):
+        _seed_kernel_cache(f"{cache}_{name}")
+    lib = sorted(Path(f"{cache}_healed", "kernels").glob(
+        "libflash_attention_fwd-*.so"))
+    check(len(lib) == 1, f"kernel cache holds {lib}")
+    lib[0].write_bytes(lib[0].read_bytes()[:64])  # a torn write
+
+    def child(name):
+        env = dict(os.environ, DMT_COMPILE_CACHE_DIR=(
+            cache if name == "cold" else f"{cache}_{name}"))
         try:
             p = subprocess.run(
                 [sys.executable, "-c", _CACHE_CHILD, path,
@@ -4790,8 +4826,13 @@ def _graph_cache_children(tmp: str) -> dict:
             raise PhaseError(f"cache child {name} timed out") from e
         check(p.returncode == 0, f"cache child {name} exited "
               f"{p.returncode}: {p.stderr[-3000:]}")
-        runs[name] = json.loads(p.stdout.strip().splitlines()[-1])
-        runs[name]["heal_warning"] = "does not load" in p.stderr
+        got = json.loads(p.stdout.strip().splitlines()[-1])
+        got["heal_warning"] = "does not load" in p.stderr
+        return got
+
+    names = ("cold", "warm", "healed")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        runs = dict(zip(names, pool.map(child, names)))
     from distributedmnist_tpu_torch.ops._build import SOURCES
     n = len(SOURCES)
     cold, warm, healed = runs["cold"], runs["warm"], runs["healed"]
@@ -4954,9 +4995,38 @@ def _standby_restores(trial_dir: str) -> list:
     return out
 
 
-def _campaign(cfg) -> tuple[dict, list]:
-    from distributedmnist_tpu_torch.launch.chaos import run_campaign
-    summary = run_campaign(cfg)
+def _unpaced(train_command: str) -> str:
+    """A payload with its ``train.step_pace_ms`` set to 0. A campaign's
+    fault-free reference run needs no pace: the pace is a sleep between
+    steps that leaves the numerics alone, and it is there so that the
+    trials' faults and polls see each step."""
+    return re.sub(r"train\.step_pace_ms=[0-9.]+", "train.step_pace_ms=0",
+                  train_command)
+
+
+def _campaign(cfg, seed_cache: bool = False) -> tuple[dict, list]:
+    """Run a campaign, its reference run unpaced and with no standby (a
+    fault-free run promotes none); ``seed_cache``: its shared kernel
+    cache is seeded from ``build`` before the reference run, so no
+    worker compiles."""
+    from distributedmnist_tpu_torch.launch.chaos import ChaosCampaign
+
+    class Seeded(ChaosCampaign):
+        def _run_trial(self, rel, *args, **kwargs):
+            if rel != "reference":
+                return super()._run_trial(rel, *args, **kwargs)
+            if seed_cache:
+                _seed_kernel_cache(self.cfg.root / "compile_cache")
+            paced = self.cfg
+            self.cfg = dataclasses.replace(
+                paced, train_command=_unpaced(paced.train_command),
+                standby_workers=0)
+            try:
+                return super()._run_trial(rel, *args, **kwargs)
+            finally:
+                self.cfg = paced
+
+    summary = Seeded(cfg).run()
     with open(summary["report_path"]) as f:
         report = [json.loads(line) for line in f]
     return summary, report
@@ -4998,7 +5068,7 @@ def phase_cluster(tmp: str) -> dict:
           and "corrupt" not in {f.kind for f in sched.faults},
           f"flash trial schedule is not a kill after an intact save: "
           f"{sched.describe()}")
-    flash, flash_report = _campaign(flash_cfg)
+    flash, flash_report = _campaign(flash_cfg, seed_cache=True)
     parent = read_counts()
     traces = {}
     for run in ("reference", "trial000"):
@@ -5267,7 +5337,10 @@ def _flash_serving_campaign(cfg):
             if rel == "reference":
                 self.seeded[:] = _seed_kernel_cache(
                     self.cfg.root / "compile_cache")
-            pace = self.cfg.resolved_publisher_pace_ms(measured_boot_s)
+            # the reference run unpaced (see _unpaced); the trials by the
+            # reference's rule on the boot it measured
+            pace = (0.0 if rel == "reference" else
+                    self.cfg.resolved_publisher_pace_ms(measured_boot_s))
             self.paces[rel] = pace
             self.cfg = dataclasses.replace(
                 self.cfg, train_command=_flash_payload(
@@ -5310,13 +5383,13 @@ def _watch_metas(trial_dir: str, stop: threading.Event) -> dict:
     return got
 
 
-def _replica_evidence(trial_dir: str) -> dict:
+def _replica_evidence(trial_dir: str, workers=SERVING_REPLICAS) -> dict:
     """Per replica: its boot log's ``compile`` records (device, source,
     the kernel cache over the capture) and each of its processes' kernel
     launches (``kernel_launches.jsonl``, written at its stop)."""
     from distributedmnist_tpu_torch.obsv.report import load_jsonl
     out = {}
-    for k in SERVING_REPLICAS:
+    for k in workers:
         d = f"{trial_dir}/worker{k}"
         out[k] = {
             "compile": [{"device": r.get("device"),
@@ -5385,7 +5458,8 @@ def phase_serving_chaos(tmp: str) -> dict:
            "publisher_pace_ms": campaign.paces,
            "kernel_cache_seeded": campaign.seeded,
            "metas": metas, "replicas": replicas, "launches": launches,
-           "parent_launches": parent, "seconds": time.time() - t0}
+           "parent_launches": parent, "root": str(cfg.root),
+           "seconds": time.time() - t0}
     emit(rec)
     check(summary["all_green"], f"serving chaos not all green: "
           f"{summary['failing_trials']}")
@@ -5427,6 +5501,307 @@ def phase_serving_chaos(tmp: str) -> dict:
     return rec
 
 
+# the resource broker's trial (≙ the reference's `cluster chaos --payload
+# serving` with broker=true; launch/broker.py): serving_chaos's flash
+# publisher (the same seed, steps and saves, so the campaign takes that
+# phase's fault-free reference run) with one decode replica, one donor
+# trainer on the publisher's payload and one serving spare parked on the
+# card; no faults: a seeded trace of a trough at concurrency 1, a peak at
+# twice the replica's slots, and a final trough to the trial's end. The
+# publisher's decode.num_blocks holds exactly decode_slots sequences
+# (admission reserves prompt + max_new_tokens), so the heartbeats'
+# kv_free_frac follows the live sequences: 0.75 in a trough (one live),
+# 0 at the peak. Only the KV marks can be crossed: every other mark sits
+# where no value of the trial reaches it either way (latencies and TTFT
+# are capped by the client's deadline and retries far below 1e6 ms;
+# reject and queue fractions are at most 1)
+BROKER = {"name": "broker", "payload": "serving", "serve_decode": True,
+          "serve_replicas": 1, "broker": True, "broker_train_workers": 2,
+          "broker_standbys": 1, "max_faults": 0, "min_faults": 0,
+          "trials": 1, "shrink": False, "broker_phases": 2,
+          "broker_low_concurrency": 1, "broker_phase_secs": 4.0,
+          "broker_window_s": 2.0, "trial_timeout_s": 420.0,
+          **{k: SERVING_CHAOS[k] for k in ("seed", "until_step",
+                                           "save_interval_steps")}}
+BROKER_MARKS = {"window_s": 2.0, "cooldown_s": 1.5,
+                "kv_free_low": 0.4, "kv_free_high": 0.6,
+                "p99_high_ms": 2e6, "p99_low_ms": 1e6,
+                "ttft_high_ms": 2e6, "ttft_low_ms": 1e6,
+                "reject_high": 2.0, "reject_low": 1.0,
+                "queue_high": 2.0, "queue_low": 1.0,
+                "min_serve_replicas": 1, "max_serve_replicas": 2,
+                "min_train_workers": 1, "max_train_workers": 2,
+                "settle_timeout_s": 60.0}
+# the plan's margins: the trial must outlast the trace's end, the
+# cooldown, two windows and the grown trainer's first log record by
+# BROKER_MARGIN; a replica serves REPLICA_READY_S after the first publish
+BROKER_MARGIN = 1.5
+BROKER_REPLICA_READY_S = 3.0
+
+
+def _broker_plan(boot_s: float, cfg) -> dict:
+    """The publisher's pace that makes the paced trial outlast, by
+    ``BROKER_MARGIN``, the trace's end (the first publish at step
+    ``save_interval_steps``, a replica ready, each leg at its longest
+    jitter), plus the cooldown, two windows and the grown trainer's
+    spawn → first ``train_log.jsonl`` record, taken as the publisher's
+    measured boot (the same payload; ``_train_live_at`` reads that
+    file's mtime). Every time is from the trial's start."""
+    steps, save = cfg.until_step, cfg.save_interval_steps
+    trace = BROKER_REPLICA_READY_S + 1.2 * cfg.broker_phase_secs \
+        * cfg.broker_phases
+    tail = BROKER_MARKS["cooldown_s"] + 2 * BROKER_MARKS["window_s"] + boot_s
+    # boot + steps·P >= MARGIN·(boot + save·P + trace + tail)
+    pace = ((BROKER_MARGIN * (boot_s + trace + tail) - boot_s)
+            / (steps - BROKER_MARGIN * save))
+    pace_ms = math.floor(pace * 100) * 10.0 + 10.0  # up, past any rounding
+    first_publish = boot_s + save * pace_ms / 1e3
+    must_outlast = first_publish + trace + tail
+    return {"boot_s": boot_s, "grown_trainer_life_s": boot_s,
+            "pace_ms": pace_ms, "first_publish_s": first_publish,
+            "trace_end_s": first_publish + trace,
+            "cooldown_s": BROKER_MARKS["cooldown_s"],
+            "window_s": BROKER_MARKS["window_s"],
+            "must_outlast_s": must_outlast,
+            "trial_s": boot_s + steps * pace_ms / 1e3,
+            "margin": (boot_s + steps * pace_ms / 1e3) / must_outlast}
+
+
+def _broker_campaign(cfg, reference: str, pace_ms: float, blocks: int):
+    """The brokered campaign: its reference run is serving_chaos's (the
+    same publisher), its trial's publisher and donor run the flash
+    payload at the planned pace with ``decode.num_blocks=blocks``, the
+    shared kernel cache is seeded from ``build``, and its broker records
+    every tick that reaches ``decide``: the arguments and the decision
+    taken (``ticks``)."""
+    import shutil
+
+    from distributedmnist_tpu_torch.core.config import BrokerConfig
+    from distributedmnist_tpu_torch.launch.broker import ResourceBroker
+    from distributedmnist_tpu_torch.launch.chaos import ChaosCampaign
+
+    class ReplayedBroker(ResourceBroker):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.ticks: list = []
+
+        def read_signals(self, workers, progress, now):
+            # tick calls this once a decide call, just before it
+            sig = super().read_signals(workers, progress, now)
+            serve, train = self._roles(workers)
+            self.ticks.append({"serve_n": len(serve), "train_n": len(train),
+                               "signals": dict(sig),
+                               "last_change_t": self._last_change_t,
+                               "now": now, "decision": None})
+            return sig
+
+        def execute(self, d, serve_ids, train_ids, now):
+            self.ticks[-1]["decision"] = list(dataclasses.astuple(d))
+            return super().execute(d, serve_ids, train_ids, now)
+
+    class BrokerCampaign(ChaosCampaign):
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.brokers: list = []
+            self.seeded: list = []
+
+        def _make_broker(self, sup, lcfg):
+            b = ReplayedBroker(
+                sup, BrokerConfig(**self.cfg.broker_config),
+                serve_command=self.cfg.resolved_serve_command(),
+                loadgen_journal=lcfg.root / "loadgen.jsonl",
+                warm_standbys=self.cfg.broker_standbys)
+            self.brokers.append(b)
+            return b
+
+        def _run_trial(self, rel, plan, seed, num_workers,
+                       measured_boot_s=None, serving=False):
+            if rel == "reference":
+                self.seeded[:] = _seed_kernel_cache(
+                    self.cfg.root / "compile_cache")
+                shutil.copytree(reference, self.cfg.root / "reference",
+                                symlinks=True)
+                with open(self.cfg.root / "reference/outcome.json") as f:
+                    return json.load(f)
+            self.cfg = dataclasses.replace(
+                self.cfg, train_command=_flash_payload(
+                    self.cfg.until_step, pace_ms,
+                    save=self.cfg.save_interval_steps, profile=False)
+                + f" decode.attention_kernel=paged decode.num_blocks={blocks}")
+            return super()._run_trial(rel, plan, seed, num_workers,
+                                      measured_boot_s=measured_boot_s,
+                                      serving=serving)
+
+    return BrokerCampaign(cfg)
+
+
+def _in_flight(loadgen: list):
+    """The requests the load generator had issued and not yet ended, as
+    a function of time (its journal's issue and outcome records), and
+    the times at which that count changed."""
+    import bisect
+    import itertools
+    events = sorted((r["time"], 1 if r["action"] == "issue" else -1)
+                    for r in loadgen)
+    times = [t for t, _ in events]
+    level = list(itertools.accumulate(d for _, d in events))
+
+    def at(t: float) -> int:
+        i = bisect.bisect_right(times, t)
+        return level[i - 1] if i else 0
+
+    return at, list(zip(times, level))
+
+
+def phase_broker(tmp: str, serving: dict) -> dict:
+    """The brokered serving trial on the card: the decisions the trace
+    calls for, each licensed by the KV pool, the scale-up promoted from
+    the parked spare, the scale-back grown from the seeded checkpoint,
+    and every recorded ``decide`` call replayed bitwise."""
+    from distributedmnist_tpu_torch.core.config import (BrokerConfig,
+                                                        DecodeConfig)
+    from distributedmnist_tpu_torch.launch.broker import (SCALE_DOWN,
+                                                          SCALE_UP, decide)
+    from distributedmnist_tpu_torch.launch.chaos import ChaosConfig
+    from distributedmnist_tpu_torch.obsv.report import load_jsonl
+    import glob
+    t0 = time.time()
+    bcfg = BrokerConfig(**BROKER_MARKS)
+    bcfg.validate()
+    base = ChaosConfig(**BROKER)
+    per_seq = -(-(base.decode_max_prompt_len + base.decode_max_new_tokens)
+                // DecodeConfig().block_size)
+    blocks = 1 + base.decode_slots * per_seq
+    cfg = dataclasses.replace(
+        base, workdir=f"{tmp}/broker", broker_config=dict(BROKER_MARKS),
+        broker_high_concurrency=2 * base.decode_slots)
+    reference = f"{serving['root']}/reference"
+    with open(f"{reference}/outcome.json") as f:
+        boot = json.load(f)["boot_s"]
+    plan = _broker_plan(boot, cfg)
+    emit({"phase": "broker_plan", "num_blocks": blocks,
+          "high_concurrency": cfg.broker_high_concurrency,
+          "marks": BROKER_MARKS, **plan})
+    check(plan["margin"] >= BROKER_MARGIN, f"trial plan: {plan}")
+    trial_dir = f"{cfg.root}/trial000"
+    reset_counts()
+    campaign = _broker_campaign(cfg, reference, plan["pace_ms"], blocks)
+    summary = campaign.run()
+    parent = read_counts()
+    with open(summary["report_path"]) as f:
+        report = [json.loads(line) for line in f]
+    with open(f"{trial_dir}/outcome.json") as f:
+        outcome = json.load(f)
+    journal = load_jsonl(f"{trial_dir}/command_journal.jsonl")
+    auto = [r for r in journal if r.get("event") == "autoscale"]
+    begins = [r for r in auto if r["action"] == "begin"]
+    completes = [r for r in auto if r["action"] == "complete"]
+    loadgen = [r for r in load_jsonl(f"{trial_dir}/loadgen.jsonl", "load")
+               if r.get("action") in ("issue", "outcome")]
+    flight, levels = _in_flight(loadgen)
+    peak_times = [t for t, n in levels if n > cfg.broker_low_concurrency]
+    at = {r["decision"]: r for r in begins}
+    in_flight = {d: flight(r["time"]) for d, r in at.items()}
+    up = next((r for r in completes if r["decision"] == SCALE_UP), {})
+    down = next((r for r in completes if r["decision"] == SCALE_DOWN), {})
+    promoted = [r for r in journal if r.get("action") == "promote_standby"]
+    serve_workers = outcome.get("serve_workers") or []
+    replicas = _replica_evidence(trial_dir, serve_workers)
+    launches = {key: sum(p["launches"][key] for r in replicas.values()
+                         for p in r["processes"]) for key in ("K1", "K5")}
+    new_replica = replicas.get(up.get("worker"), {})
+    answered = sum(r.get("action") == "decode_finish" for r in load_jsonl(
+        f"{trial_dir}/worker{up.get('worker')}/serve_log.jsonl"))
+    grown_steps = [r["step"] for r in load_jsonl(
+        f"{trial_dir}/worker{down.get('worker')}/train_log.jsonl", "step")]
+    ready = {}
+    for path in sorted(glob.glob(f"{trial_dir}/standby*/*.ready")):
+        with open(path) as f:
+            ready[path.split("/")[-2]] = json.load(f).get("warm_s")
+    replayed = []
+    for b in campaign.brokers:
+        for tk in b.ticks:
+            d = decide(b.cfg, tk["serve_n"], tk["train_n"], tk["signals"],
+                       tk["last_change_t"], tk["now"])
+            got = None if d is None else list(dataclasses.astuple(d))
+            replayed.append(_exact(got) == _exact(tk["decision"]))
+    rec = {"phase": "broker", "card": nvidia_smi(), "plan": plan,
+           "all_green": summary["all_green"],
+           "invariants": {k: summary["invariants"][k] for k in (
+               "autoscale", "serve_outcomes", "serve_digest",
+               "serve_monotone", "determinism")},
+           "serving": report[0]["serving"], "autoscale": report[0].get(
+               "autoscale"), "load_phases": outcome.get("load_phases"),
+           "begins": [{k: r.get(k) for k in (
+               "decision", "trigger", "value", "threshold", "op",
+               "old_serve", "new_serve", "old_train", "new_train",
+               "time")} for r in begins],
+           "completes": [{k: r.get(k) for k in (
+               "decision", "worker", "dropped", "reaction_s", "serve",
+               "train")} for r in completes],
+           "in_flight_at_begin": in_flight,
+           "peak": [peak_times[0], peak_times[-1]] if peak_times else None,
+           "reaction_s": up.get("reaction_s"), "promoted": promoted,
+           "spare_warm_s": ready, "serve_workers": serve_workers,
+           "new_replica": {"worker": up.get("worker"),
+                           "answered": answered, **new_replica},
+           "grown_trainer": {"worker": down.get("worker"),
+                             "first_steps": grown_steps[:3]},
+           "decide_calls": len(replayed),
+           "decide_replayed_bitwise": all(replayed) and bool(replayed),
+           "trial": {k: report[0][k] for k in ("outcome", "duration_s",
+                                               "boot_s")},
+           "kernel_cache_seeded": campaign.seeded, "launches": launches,
+           "parent_launches": parent, "seconds": time.time() - t0}
+    emit(rec)
+    check(summary["all_green"], f"broker trial not all green: "
+          f"{summary['failing_trials']}")
+    for name, v in rec["invariants"].items():
+        check(v["pass"] == 1, f"invariant {name}: {v}")
+    sv = summary["serving"]
+    check(sv["issued"] > 0 and sv["dropped"] == 0,
+          f"issued {sv['issued']}, dropped {sv['dropped']}")
+    check(rec["decide_replayed_bitwise"],
+          f"decide replayed over {len(replayed)} ticks: {replayed}")
+    check([r["decision"] for r in begins] == [SCALE_UP, SCALE_DOWN]
+          and [r["decision"] for r in completes] == [SCALE_UP, SCALE_DOWN]
+          and len(auto) == 4, f"autoscale records: {auto}")
+    check(at[SCALE_UP]["trigger"] == "kv_free_frac"
+          and peak_times
+          and peak_times[0] <= at[SCALE_UP]["time"] <= peak_times[-1]
+          and in_flight[SCALE_UP] > cfg.broker_low_concurrency,
+          f"scale-up not licensed by the KV pool during the peak: "
+          f"{rec['begins']}, peak {rec['peak']}, in flight {in_flight}")
+    check(at[SCALE_DOWN]["time"] > peak_times[-1]
+          and in_flight[SCALE_DOWN] <= cfg.broker_low_concurrency,
+          f"scale-down not in the final trough: {rec['begins']}, "
+          f"peak {rec['peak']}, in flight {in_flight}")
+    check([p.get("worker") for p in promoted][:1] == [up.get("worker")],
+          f"the scale-up slot was not promoted from the spare: {promoted}")
+    check(new_replica.get("compile") and all(
+        c["device"] == "cuda:0" and c["source"] == "cuda_graph"
+        and c["cache"]["misses"] == 0 for c in new_replica["compile"])
+        and answered > 0, f"new replica: {rec['new_replica']}")
+    check(grown_steps and grown_steps[0] > cfg.save_interval_steps
+          and (grown_steps[0] - 1) % cfg.save_interval_steps == 0,
+          f"grown trainer did not resume a seeded checkpoint: "
+          f"{rec['grown_trainer']}")
+    check(launches["K1"] > 0 and launches["K5"] > 0,
+          f"brokered replicas' K1/K5 launches: {launches}")
+    check(all(v == 0 for v in parent.values()),
+          f"this process launched kernels: {parent}")
+    return rec
+
+
+def _exact(x):
+    """A decision with every float spelled exactly (``float.hex``)."""
+    if isinstance(x, float):
+        return x.hex()
+    if isinstance(x, (list, tuple)):
+        return [_exact(v) for v in x]
+    return x
+
+
 KERNELS = (
     ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "54", "e2e"),
     ("K1-lse", "flash_attention_fwd_lse", "flash_attention_fwd.cu", "54",
@@ -5452,46 +5827,40 @@ def _k5_in_place(profile: dict) -> dict:
 def main() -> int:
     phase = "env"
     runs = {}
+    took = {}
+    t_start = time.time()
+
+    def run(name, fn, *args):
+        nonlocal phase
+        phase = name
+        t0 = time.time()
+        runs[name] = fn(*args)
+        took[name] = round(time.time() - t0, 1)
+        return runs[name]
+
     try:
-        env = phase_env()
-        phase = "build"
-        resources = phase_build()
-        phase = "kernels"
-        timed = phase_kernels()
+        env = run("env", phase_env)
+        resources = run("build", phase_build)
+        timed = run("kernels", phase_kernels)
         with tempfile.TemporaryDirectory(prefix="dmt_smoke_") as tmp:
-            phase = "train"
-            train = runs["train"] = phase_train(tmp)
-            phase = "train_k4"
-            runs["train_k4"] = phase_train_k4(tmp)
-            phase = "train_replicas"
-            runs["train_replicas"] = phase_train_replicas(
-                tmp, train["ms_per_step"])
-            phase = "long_context"
-            runs["long_context"] = phase_long_context(tmp)
-            phase = "report"
-            runs["report"] = phase_report(tmp)
-            phase = "cnn"
-            runs["cnn"] = phase_cnn(tmp)
-            phase = "dist"
-            runs["dist"] = phase_dist(tmp)
-            phase = "resnet"
-            runs["resnet"] = phase_resnet(tmp)
-            phase = "e2e"
-            e2e = runs["e2e"] = phase_e2e(train["train_dir"], tmp)
-            phase = "ckpt"
-            runs["ckpt"] = phase_ckpt(tmp)
-            phase = "eval"
-            runs["eval"] = phase_eval(tmp, runs["ckpt"])
-            phase = "serve"
-            runs["serve"] = phase_serve(tmp, runs["ckpt"])
-            phase = "graphs"
-            runs["graphs"] = phase_graphs(tmp, train["train_dir"])
-            phase = "cluster"
-            runs["cluster"] = phase_cluster(tmp)
-            phase = "restart"
-            runs["restart"] = phase_restart(tmp)
-            phase = "serving_chaos"
-            runs["serving_chaos"] = phase_serving_chaos(tmp)
+            train = run("train", phase_train, tmp)
+            run("train_k4", phase_train_k4, tmp)
+            run("train_replicas", phase_train_replicas, tmp,
+                train["ms_per_step"])
+            run("long_context", phase_long_context, tmp)
+            run("report", phase_report, tmp)
+            run("cnn", phase_cnn, tmp)
+            run("dist", phase_dist, tmp)
+            run("resnet", phase_resnet, tmp)
+            e2e = run("e2e", phase_e2e, train["train_dir"], tmp)
+            run("ckpt", phase_ckpt, tmp)
+            run("eval", phase_eval, tmp, runs["ckpt"])
+            run("serve", phase_serve, tmp, runs["ckpt"])
+            run("graphs", phase_graphs, tmp, train["train_dir"])
+            run("cluster", phase_cluster, tmp)
+            run("restart", phase_restart, tmp)
+            run("serving_chaos", phase_serving_chaos, tmp)
+            run("broker", phase_broker, tmp, runs["serving_chaos"])
     except Exception as e:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}",
@@ -5512,12 +5881,15 @@ def main() -> int:
     for key, name, src, line, path in KERNELS:
         c = timed[key]
         chaos = runs["serving_chaos"]["launches"]
+        brokered = runs["broker"]["launches"]
         extra = ({**k5_in_place, "ms_cold": c["ms_cold"],
                   "launches_serve": serve_launches["K5"],
-                  "launches_serving_chaos": chaos["K5"]} if key == "K5"
+                  "launches_serving_chaos": chaos["K5"],
+                  "launches_broker": brokered["K5"]} if key == "K5"
                  else {"launches_eval": runs["eval"]["k1_launches"],
                        "launches_serve": serve_launches["K1"],
-                       "launches_serving_chaos": chaos["K1"]}
+                       "launches_serving_chaos": chaos["K1"],
+                       "launches_broker": brokered["K1"]}
                  if key == "K1" else {})
         if key in ("K1-lse", "K2", "K3"):
             extra = {"launches_replicas":
@@ -5540,6 +5912,8 @@ def main() -> int:
                      "bound_by": c["bound_by"],
                      "library_ms": c["library_ms"], **extra,
                      **resources[key]})
+    emit({"phase": "seconds", **took,
+          "script": round(time.time() - t_start, 1)})
     emit({"kernels": rows})
     print(env["nvidia_smi"] or "nvidia-smi: not available", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

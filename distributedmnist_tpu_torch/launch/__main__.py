@@ -58,8 +58,9 @@ name, test accuracy and examples/sec; ``report`` writes a run's
 ``devices`` prints the process index and count and each device's index
 and name. ``cluster`` forwards to :func:`.cluster.main`: the local
 process cluster (create, delete, status, run, kill-all, exec, download,
-poll), the self-healing supervisor (``supervise``, ``reconfigure``) and
-the seeded chaos campaign (``chaos``), whose workers are this CLI's own
+poll), the self-healing supervisor (``supervise``, ``reconfigure``), the
+resource broker over a mixed roster (``broker``) and the seeded chaos
+campaign (``chaos``), whose workers are this CLI's own
 ``train`` processes, or with ``--payload serving`` a ``train``
 publisher and ``serve`` replicas under a closed-loop load
 (``--serve-decode``: decode replicas; ``--network``: transport faults
@@ -67,9 +68,15 @@ through the chaos proxies of :mod:`.netchaos`). A ``train`` process whose enviro
 ``DMT_STANDBY_ACTIVATION`` is a warm standby: it precompiles, writes
 ``<activation>.ready``, parks until the activation file appears and
 then adopts the ``train_dir`` it names
-(:meth:`~..train.loop.Trainer.adopt_train_dir`). The flag names are the
-reference CLI's. The device is ``cuda:0`` unless ``--device`` names
-another; without CUDA the default
+(:meth:`~..train.loop.Trainer.adopt_train_dir`); a ``serve`` process
+with it is a warm serving spare: it waits for the publish dir's config,
+makes its CUDA context and loads its kernel libraries (on the card),
+writes ``<activation>.ready``, parks, and on promotion serves in the
+worker logdir the activation file names — the pool the resource broker
+(``cluster broker``, the chaos campaign's ``broker``) promotes a
+scale-up replica from. The flag names are the reference CLI's. The
+device is ``cuda:0`` unless ``--device`` names another; without CUDA
+the default
 is an error, not a CPU run. ``train``, ``eval`` and ``serve`` first
 switch on the kernel build cache (``compile.cache_dir`` or
 ``DMT_COMPILE_CACHE_DIR``: the kernel libraries are built into and
@@ -79,10 +86,9 @@ reference's entry points switch on its persistent compile cache.
 Accepted and not run, each logged once a Trainer: device prefetch, the
 native loader and the ``compile.*`` knobs. Not ported yet (each raises):
 the model-parallel mesh axes, mixture-of-experts, ``serve --tp-ranks``
-(and the chaos campaign's ``serve_tp_ranks``), the resource broker
-(``cluster broker``, the chaos campaign's ``broker``), the gcloud
-backend (``cluster --backend gcloud``), and the reference's
-``campaign``, ``pod`` and ``fetch`` verbs.
+(and the chaos campaign's ``serve_tp_ranks``), the gcloud backend
+(``cluster --backend gcloud``), and the reference's ``campaign``,
+``pod`` and ``fetch`` verbs.
 """
 
 from __future__ import annotations
@@ -275,6 +281,18 @@ def _park_standby(trainer, activation: str) -> None:
     trainer.adopt_train_dir(assignment["train_dir"])
 
 
+def _deterministic_cpu() -> None:
+    """Put a CPU training process on torch's deterministic kernels. The
+    one that matters is ``index_put_`` with ``accumulate=True`` (the
+    backward of the transformer's ``embed[tokens]`` lookup): on several
+    threads it adds rows with atomics, in an order that changes run to
+    run, so the final params would not be bitwise the fault-free run's;
+    the deterministic path adds them serially, in index order."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+
 def train(argv: list[str]) -> None:
     """``launch train``: join the process group ``torchrun`` describes
     (if any), park as a warm standby when ``DMT_STANDBY_ACTIVATION``
@@ -289,6 +307,8 @@ def train(argv: list[str]) -> None:
     initialize_distributed(args.dist_backend, args.device)
     try:
         trainer = build_trainer(argv)
+        if trainer.device.type == "cpu":
+            _deterministic_cpu()
         enable_persistent_cache(trainer.cfg.compile)
         activation = os.environ.get("DMT_STANDBY_ACTIVATION")
         if activation:
@@ -314,9 +334,14 @@ def build_replica(argv: list[str]):
     if args.cmd != "serve":
         raise SystemExit(f"build_replica wants the serve verb, got "
                          f"{args.cmd!r}")
-    from ..servesvc.server import ServingReplica, wait_for_run_config
+    from ..servesvc.server import wait_for_run_config
 
-    cfg = wait_for_run_config(args.train_dir)
+    return _make_replica(args, wait_for_run_config(args.train_dir))
+
+
+def _make_replica(args, cfg):
+    from ..servesvc.server import ServingReplica
+
     scfg = dataclasses.replace(
         cfg.serve, **{k: getattr(args, k) for k in _SERVE_FLAGS
                       if getattr(args, k) is not None})
@@ -331,6 +356,79 @@ def build_replica(argv: list[str]):
     cfg = cfg.replace(serve=scfg, decode=dcfg)
     return DecodeReplica(args.train_dir, serve_dir=args.serve_dir,
                          scfg=scfg, dcfg=dcfg, cfg=cfg, device=args.device)
+
+
+def _warm_serving_spare(args, cfg) -> float:
+    """What a parked serving spare pays before it parks, beyond the
+    imports and the publish dir's config wait (the reference's spare
+    pays only those): on the card, the CUDA context and the kernel
+    libraries the replica launches — K1 (``flash_attention_fwd``) for a
+    flash model's prefills, K5 (``paged_attention``) for paged decode —
+    loaded from the kernel cache. Returns the seconds it took (0.0 on
+    the CPU, which has neither)."""
+    import torch
+
+    from ..core.compile_cache import enable_persistent_cache
+    from ..core.device import resolve_device
+    from ..ops._build import load_library
+
+    t0 = time.time()
+    device = resolve_device(args.device)
+    if device.type != "cuda":
+        return 0.0
+    enable_persistent_cache(cfg.compile)
+    torch.zeros(1, device=device)
+    if cfg.model.attention_impl == "flash":
+        load_library("flash_attention_fwd")
+    if args.decode and (args.attention_kernel
+                        or cfg.decode.attention_kernel) == "paged":
+        load_library("paged_attention")
+    torch.cuda.synchronize(device)
+    return time.time() - t0
+
+
+def _park_serve_standby(activation: str, warm_s: float) -> str:
+    """The serving half of the warm-standby protocol (≙ the reference's
+    ``_park_serve_standby``): signal ready (``<activation>.ready``, with
+    ``warm_s``, the seconds :func:`_warm_serving_spare` took), park
+    until the promotion's activation file appears, and return the
+    worker logdir it assigns (its ``train_dir`` key, the protocol's
+    field name) for the replica to adopt as its serve_dir — it binds
+    there and writes ``serve.json`` where ``discover_endpoints``
+    looks."""
+    import os
+    from pathlib import Path
+
+    act = Path(activation)
+    act.parent.mkdir(parents=True, exist_ok=True)
+    ready = act.with_name(act.name + ".ready")
+    ready.write_text(json.dumps({"pid": os.getpid(),
+                                 "ready_at": time.time(),
+                                 "warm_s": round(warm_s, 3)}))
+    while not act.exists():
+        time.sleep(0.1)
+    return json.loads(act.read_text())["train_dir"]
+
+
+def serve(argv: list[str]) -> None:
+    """``launch serve``: wait for the publish dir's run config, park as a
+    warm serving spare when ``DMT_STANDBY_ACTIVATION`` names an
+    activation file (then serve in the worker logdir the promotion
+    assigns), build the replica and serve until SIGTERM/SIGINT."""
+    import os
+
+    from ..core.compile_cache import enable_persistent_cache
+    from ..servesvc.server import wait_for_run_config
+
+    args = build_parser().parse_args(argv)
+    cfg = wait_for_run_config(args.train_dir)
+    activation = os.environ.get("DMT_STANDBY_ACTIVATION")
+    if activation:
+        args.serve_dir = _park_serve_standby(
+            activation, _warm_serving_spare(args, cfg))
+    replica = _make_replica(args, cfg)
+    enable_persistent_cache(replica.cfg.compile)
+    replica.serve_forever()
 
 
 def serve_load(argv: list[str]) -> dict:
@@ -459,9 +557,7 @@ def main(argv: list[str] | None = None) -> None:
     if argv and argv[0] == "serve-load":
         serve_load(argv)
         return
-    replica = build_replica(argv)
-    enable_persistent_cache(replica.cfg.compile)
-    replica.serve_forever()
+    serve(argv)
 
 
 if __name__ == "__main__":

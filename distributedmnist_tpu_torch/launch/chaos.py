@@ -1,5 +1,5 @@
-"""Chaos campaign engine (≙ ``distributedmnist_tpu/launch/chaos.py``,
-all but the resource broker): stop imagining fault scenarios by hand.
+"""Chaos campaign engine (≙ ``distributedmnist_tpu/launch/chaos.py``):
+stop imagining fault scenarios by hand.
 
 The source paper's regime is synchronous training that *survives* dead
 and slow workers (arXiv:1604.00981); its descendants treat replica loss
@@ -34,9 +34,11 @@ replicas streaming tokens), a closed-loop load generator drives them
 for the whole trial, and the serving invariants replay beside the
 training ones. ``network`` swaps the process faults for transport
 faults through seeded chaos proxies (:mod:`.netchaos`) in front of the
-replicas. The resource broker (``broker``) is not ported yet and
-raises :class:`~.cluster.ClusterError` at config build, as does
-``serve_tp_ranks`` > 1.
+replicas. ``broker`` adds donor trainers to the roster, drives a seeded
+diurnal load trace and lets the resource broker (:mod:`.broker`) trade
+slots between training and serving on the trial's journaled pressure.
+``serve_tp_ranks`` > 1 raises :class:`~.cluster.ClusterError` at config
+build.
 
 CLI: ``python -m distributedmnist_tpu_torch.launch cluster chaos
 --trials N --seed S --until-step M [--payload train|shell|serving]
@@ -738,10 +740,17 @@ class ChaosConfig:
     # ``corrupt`` fault).
     disk: bool = False
     # -- resource broker (serving mode only) ------------------------------
-    # The reference's demand-driven autoscaling (launch/broker.py) and
-    # its diurnal load trace. Its knobs parse so that any reference
-    # config file loads; broker=true is refused in __post_init__ until
-    # the broker is ported (slice 10).
+    # broker=true arms demand-driven autoscaling (launch/broker.py)
+    # over the trial's roster: DONOR train workers join it
+    # (broker_train_workers TOTAL trainers incl. the publisher — the
+    # capacity the broker trades into serving slots, never the
+    # publisher itself), the load generator drives a seeded bursty
+    # diurnal trace (trough/peak concurrency phases with jittered
+    # durations) with rolling-window pressure snapshots journaled, and
+    # the ResourceBroker rides supervise_until_step's per-tick
+    # callback. Every roster change must replay against the
+    # "autoscale" invariant — the campaign's gate is at least one
+    # scale-up AND one scale-back with dropped==0 throughout.
     broker: bool = False
     broker_train_workers: int = 2   # total trainers incl. the publisher
     broker_standbys: int = 0        # warm serving spares for scale-up
@@ -870,11 +879,27 @@ class ChaosConfig:
                     "after the save it corrupts, so at least one step "
                     "must separate consecutive cadence saves")
         if self.broker:
-            raise ClusterError(
-                "chaos broker=true is not ported yet: the resource "
-                "broker (launch/broker.py) and its diurnal load trace "
-                "come with slice 10 of the port; serving campaigns run "
-                "a fixed roster")
+            # the broker recognizes serving slots by command EQUALITY
+            # with one uniform serving payload — a mixed-tier roster
+            # (per-replica command suffixes) would misclassify every
+            # non-fp32 replica as a trainer
+            if self.payload != "serving":
+                raise ClusterError(
+                    "broker=true requires payload=serving: the broker "
+                    "trades training slots for serving replicas")
+            if any(t and t != "fp32"
+                   for t in (self.serve_precision_tiers or ())):
+                raise ClusterError(
+                    "broker=true is incompatible with non-fp32 "
+                    "serve_precision_tiers: the broker identifies "
+                    "serving slots by payload equality, so the roster "
+                    "must run one uniform serving command")
+            if self.broker_train_workers < 2:
+                raise ClusterError(
+                    "broker=true requires broker_train_workers >= 2: "
+                    "the publisher is never a scale-up victim, so at "
+                    "least one donor trainer must exist for the broker "
+                    "to trade")
         if self.discipline_controller:
             if self.payload != "train":
                 raise ClusterError(
@@ -1030,8 +1055,9 @@ class ChaosConfig:
         return tuple(tiers)
 
     def resolved_serve_command(self) -> str:
-        """The uniform serving payload (fp32, no tier suffix): what
-        every replica runs before its tier is appended."""
+        """The uniform serving payload (fp32, no tier suffix) — the
+        broker's serving-slot identity and the command every replica
+        and warm standby runs under broker=true."""
         cmd = _SERVE_PAYLOAD.format(queue=self.serve_queue_depth)
         if self.serve_decode:
             cmd += (f" --decode --decode-slots {self.decode_slots}"
@@ -1039,12 +1065,28 @@ class ChaosConfig:
                     f" --max-prompt-len {self.decode_max_prompt_len}")
         return cmd
 
-    def resolved_worker_commands(self) -> dict[str, str]:
+    def resolved_donor_command(self,
+                               measured_boot_s: float | None = None
+                               ) -> str:
+        """A donor trainer's payload: the publisher's command with a
+        10× step budget so donors never finish inside the trial window
+        (the broker reaps them by reshape, not the supervisor by
+        restart). Safe for determinism — the LR schedule is an
+        epoch-indexed staircase, independent of max_steps."""
+        base = self.resolved_train_command(measured_boot_s)
+        return base.replace(f"train.max_steps={self.until_step}",
+                            f"train.max_steps={self.until_step * 10}")
+
+    def resolved_worker_commands(self,
+                                 measured_boot_s: float | None = None
+                                 ) -> dict[str, str]:
         """Per-worker payload overrides — serving mode's mixed roster
         (publisher + replicas); empty for the uniform payloads.
         ``serve_precision_tiers`` entry i pins replica i+1's tier (a
         mixed fp32/int8 roster exercises both weight paths under one
-        fault plan)."""
+        fault plan). Under broker=true the roster also carries donor
+        trainers after the replicas — overridden slots the broker may
+        trade for serving capacity."""
         if self.payload != "serving":
             return {}
         tiers = self.serve_precision_tiers or ()
@@ -1055,12 +1097,19 @@ class ChaosConfig:
             if tier and tier != "fp32":
                 cmd += f" --precision-tier {tier}"
             out[str(k)] = cmd
+        if self.broker:
+            donor = self.resolved_donor_command(measured_boot_s)
+            for k in range(1 + self.serve_replicas,
+                           self.trial_num_workers()):
+                out[str(k)] = donor
         return out
 
     def trial_num_workers(self) -> int:
         if self.payload != "serving":
             return self.num_workers
-        return 1 + self.serve_replicas
+        donors = max(0, self.broker_train_workers - 1) if self.broker \
+            else 0
+        return 1 + self.serve_replicas + donors
 
     def step_window(self) -> tuple[int, int]:
         lo = max(2, self.save_interval_steps + 1)
@@ -1144,11 +1193,19 @@ class ChaosCampaign:
         step is its request counter, not run progress)."""
         cfg = self.cfg
         target = cfg.until_step
+        broker = None
+        brokered = serving and cfg.broker
         lcfg = LocalClusterConfig(
             name=rel, num_workers=num_workers, workdir=str(cfg.root),
             train_command=cfg.resolved_train_command(measured_boot_s),
-            worker_commands=(cfg.resolved_worker_commands()
+            worker_commands=(cfg.resolved_worker_commands(measured_boot_s)
                              if serving else {}),
+            # brokered rosters park their warm spares on the SERVING
+            # payload: a scale-up promotes one into the new slot with
+            # its boot already paid
+            standby_command=(cfg.resolved_serve_command()
+                             if brokered and cfg.broker_standbys > 0
+                             else ""),
             # ONE cache for the whole campaign, not per-trial: the
             # reference's cold build warms every later boot
             compile_cache=cfg.share_compile_cache,
@@ -1168,6 +1225,8 @@ class ChaosCampaign:
             standby_workers=cfg.standby_workers,
             seed=seed)
         sup = ClusterSupervisor(cluster, scfg)
+        if brokered:
+            broker = self._make_broker(sup, lcfg)
         outcome: dict[str, Any] = {
             "name": rel, "seed": seed, "target": target,
             "num_workers": num_workers,
@@ -1188,6 +1247,8 @@ class ChaosCampaign:
             # already-spawned detached workers outlive the campaign
             cluster.create()
             cluster.run_train()
+            if broker is not None:
+                broker.start()  # provision the warm serving spares
             if plan.net_faults:
                 # one seeded chaos proxy per net-faulted replica,
                 # journaling its net_* firings into the same command
@@ -1205,7 +1266,8 @@ class ChaosCampaign:
             got = sup.supervise_until_step(
                 target, poll_secs=cfg.resolved_poll_secs(),
                 timeout_secs=cfg.trial_timeout_s,
-                target_worker=0 if serving else None)
+                target_worker=0 if serving else None,
+                on_tick=broker.tick if broker is not None else None)
             outcome.update(outcome="completed", step=got["step"])
             if serving:
                 self._stop_serving(cluster, sup, num_workers,
@@ -1242,8 +1304,22 @@ class ChaosCampaign:
             executor.close()
         if serving:
             outcome["mode"] = "serving"
-            outcome["serve_workers"] = list(range(1, num_workers))
+            if brokered:
+                # the roster TRADED slots mid-run: the serving workers
+                # are whichever dirs actually served (grown ids
+                # included), not the boot-time range — the serving
+                # invariants replay exactly these journals
+                outcome["broker"] = True
+                outcome["autoscale"] = (broker.summary()
+                                        if broker is not None else None)
+                outcome["serve_workers"] = sorted(
+                    int(p.parent.name[len("worker"):])
+                    for p in lcfg.root.glob("worker*/serve_log.jsonl"))
+            else:
+                outcome["serve_workers"] = list(range(1, num_workers))
             outcome["serving"] = load_result.get("summary")
+            if load_result.get("phases") is not None:
+                outcome["load_phases"] = load_result["phases"]
             # weight-swap-by-tier accounting over every replica's
             # serve journal (tier-less legacy swaps count as fp32) —
             # the evidence a quantized campaign arm actually served
@@ -1277,6 +1353,22 @@ class ChaosCampaign:
         return outcome
 
     # -- serving-mode plumbing ------------------------------------------
+
+    def _make_broker(self, sup: ClusterSupervisor,
+                     lcfg: LocalClusterConfig):
+        """A brokered trial's :class:`~.broker.ResourceBroker` over the
+        trial's supervisor: ``broker_config``'s marks, the uniform
+        serving payload as the serving-slot identity, the trial's
+        ``loadgen.jsonl`` as its window source. A method, so that a
+        campaign can wrap the broker it runs."""
+        from ..core.config import BrokerConfig
+        from .broker import ResourceBroker
+        cfg = self.cfg
+        return ResourceBroker(
+            sup, BrokerConfig(**(cfg.broker_config or {})),
+            serve_command=cfg.resolved_serve_command(),
+            loadgen_journal=lcfg.root / "loadgen.jsonl",
+            warm_standbys=cfg.broker_standbys)
 
     def _start_loadgen(self, lcfg: LocalClusterConfig,
                        load_result: dict[str, Any],
@@ -1337,10 +1429,70 @@ class ChaosCampaign:
             else:
                 make_input = make_input_fn(meta["input_shape"],
                                            meta["input_dtype"])
-            load_result["summary"] = run_load(
-                client, None, cfg.load_concurrency, make_input,
-                journal_path=root / "loadgen.jsonl", stop_event=stop,
-                decode=bool(meta.get("decode")))
+            decode = bool(meta.get("decode"))
+            if not cfg.broker:
+                load_result["summary"] = run_load(
+                    client, None, cfg.load_concurrency, make_input,
+                    journal_path=root / "loadgen.jsonl", stop_event=stop,
+                    decode=decode)
+                return
+            # broker mode: a seeded bursty DIURNAL trace — trough and
+            # peak concurrency phases with jittered durations, each a
+            # run_load leg appending to the one shared loadgen.jsonl
+            # with rolling-window pressure snapshots the broker reads.
+            # A final trough leg holds until the trial ends so the
+            # window stays fresh — the calm evidence the scale-back
+            # needs. Each leg's ids start where the last leg's ended:
+            # the replicas' dedup caches key on the id, so a leg that
+            # numbered from 0 again (the reference) would be answered
+            # from cache and its requests counted twice.
+            rng = random.Random(f"{cfg.seed}:{lcfg.name}:diurnal")
+            snap = max(0.5, cfg.broker_window_s / 3.0)
+            phases: list[dict[str, Any]] = []
+            next_id = [0]
+
+            def leg(conc: int, phase_stop) -> dict[str, Any] | None:
+                s = run_load(
+                    client, None, conc, make_input,
+                    journal_path=root / "loadgen.jsonl",
+                    stop_event=phase_stop, decode=decode,
+                    window_s=cfg.broker_window_s, snapshot_every_s=snap,
+                    first_id=next_id[0])
+                next_id[0] += s["issued"]
+                return s
+
+            for i in range(max(0, cfg.broker_phases)):
+                if stop.is_set():
+                    break
+                conc = (cfg.broker_low_concurrency if i % 2 == 0
+                        else cfg.broker_high_concurrency)
+                dur = cfg.broker_phase_secs * (0.8 + 0.4 * rng.random())
+                phase_stop = threading.Event()
+
+                def pace(deadline=time.monotonic() + dur, ps=phase_stop):
+                    while time.monotonic() < deadline \
+                            and not stop.is_set():
+                        time.sleep(0.1)
+                    ps.set()
+
+                pacer = threading.Thread(target=pace, daemon=True,
+                                         name=f"chaos-load-pace{i}")
+                pacer.start()
+                s = leg(conc, phase_stop)
+                pacer.join(timeout=5)
+                phases.append({"phase": i, "concurrency": conc,
+                               "duration_s": round(dur, 3),
+                               "summary": s})
+            if not stop.is_set():
+                s = leg(cfg.broker_low_concurrency, stop)
+                phases.append({"phase": len(phases),
+                               "concurrency": cfg.broker_low_concurrency,
+                               "duration_s": None, "summary": s})
+            load_result["summary"] = _merge_load_summaries(
+                [p["summary"] for p in phases])
+            load_result["phases"] = [
+                {k: v for k, v in p.items() if k != "summary"}
+                for p in phases]
 
         t = threading.Thread(target=drive, daemon=True, name="chaos-load")
         t.start()
@@ -1364,8 +1516,10 @@ class ChaosCampaign:
                         w, events=("step", "heartbeat"))
                     if resumed is not None:
                         sup.close_episode(w["worker"], *resumed)
-        # never worker 0 — the publisher already finished and its final
-        # save must not race a SIGTERM
+        # stop whatever the roster holds NOW (a brokered trial's ids
+        # grow past the boot-time range), never worker 0 — the
+        # publisher already finished and its final save must not race
+        # a SIGTERM
         live = (sorted(w["worker"] for w in st["workers"])
                 if st is not None else list(range(num_workers)))
         for k in live:
@@ -1483,7 +1637,13 @@ class ChaosCampaign:
         serving = cfg.payload == "serving"
         nw = cfg.trial_num_workers()
         for t in range(cfg.trials):
-            if serving and cfg.network:
+            if serving and cfg.broker and cfg.max_faults == 0:
+                # broker-only campaign: the load trace IS the chaos —
+                # a fault-free schedule isolates the autoscale path
+                # (the gate: roster changes licensed, dropped==0)
+                schedule = ChaosSchedule(seed=cfg.seed, trial=t,
+                                         faults=())
+            elif serving and cfg.network:
                 # transport faults only: the proxies carry the whole
                 # chaos load, so the protocol-hardening claims are
                 # tested in isolation from process death
@@ -1492,6 +1652,9 @@ class ChaosCampaign:
                     max_faults=cfg.max_faults,
                     min_faults=max(2, cfg.min_faults))
             elif serving:
+                # faults target the BOOT-TIME replicas only: a donor
+                # trainer's slot may be traded away mid-run, and a
+                # fault addressed to a dead id would no-op silently
                 schedule = generate_serving_schedule(
                     cfg.seed, t, list(range(1, 1 + cfg.serve_replicas)),
                     cfg.serve_fault_window, cfg.step_window(),
@@ -1568,6 +1731,9 @@ class ChaosCampaign:
                             if cfg.disk else None),
                    "verdicts": check["verdicts"],
                    "violations": check["violations"]}
+            if outcome.get("broker"):
+                rec["broker"] = True
+                rec["autoscale"] = outcome.get("autoscale")
             if outcome.get("discipline") is not None:
                 rec["discipline"] = outcome["discipline"]
             if check["violations"] and cfg.shrink and reproducer is None:

@@ -1277,12 +1277,24 @@ def main(argv: list[str] | None = None) -> None:
                         "a kill every trial — instead of process "
                         "faults; invariant 14 (storage_faults) replays "
                         "the crash-consistency books")
+    p.add_argument("--serve-command", default=None,
+                   help="for broker: the serving payload a scaled-up "
+                        "replica slot runs — also how the broker "
+                        "recognizes which roster slots are serving "
+                        "(command equality)")
+    p.add_argument("--broker-config", default=None,
+                   help="for broker: BrokerConfig JSON (thresholds, "
+                        "hysteresis marks, cooldown, roster bounds)")
+    p.add_argument("--loadgen-journal", default=None,
+                   help="for broker: the loadgen.jsonl carrying "
+                        "rolling-window pressure snapshots (defaults "
+                        "to <workdir>/loadgen.jsonl)")
+    p.add_argument("--warm-standbys", type=int, default=0,
+                   help="for broker: pre-boot N parked serving spares; "
+                        "a scale-up promotes one instead of paying a "
+                        "cold boot")
     args = p.parse_args(argv)
     poll_secs = 5.0 if args.poll_secs is None else args.poll_secs
-    if args.action == "broker":
-        raise ClusterError(
-            "cluster broker is not ported yet: the resource broker "
-            "(launch/broker.py) comes with slice 10 of the port")
 
     if args.action == "chaos":
         # the campaign owns its clusters/executors (one per trial, all
@@ -1356,10 +1368,14 @@ def main(argv: list[str] | None = None) -> None:
                 timeout_secs=args.poll_timeout_s)))
         else:
             backend.run_train()
-    elif args.action in ("supervise", "reconfigure"):
+    elif args.action in ("supervise", "reconfigure", "broker"):
         from .supervisor import ClusterSupervisor, SupervisorConfig
-        if args.action == "supervise" and args.until_step is None:
+        if args.action in ("supervise", "broker") \
+                and args.until_step is None:
             p.error(f"{args.action} requires --until-step")
+        if args.action == "broker" and not args.serve_command:
+            p.error("broker requires --serve-command (the serving "
+                    "payload a scaled-up slot runs)")
         if args.action == "reconfigure" and args.new_workers is None:
             p.error("reconfigure requires --new-workers")
         scfg = (SupervisorConfig.from_file(args.supervisor_config)
@@ -1391,6 +1407,32 @@ def main(argv: list[str] | None = None) -> None:
             else:
                 print(json.dumps({"reconfigure": rec,
                                   "summary": sup.summary()}))
+        elif args.action == "broker":
+            # supervise + demand-driven autoscaling: the broker rides
+            # the supervise loop's per-tick callback, trading roster
+            # slots on journaled load pressure (every move replayable
+            # via the `autoscale` invariant)
+            from ..core.config import BrokerConfig
+            from .broker import ResourceBroker
+            bcfg = (BrokerConfig(**json.loads(
+                        Path(args.broker_config).read_text()))
+                    if args.broker_config else BrokerConfig())
+            journal_path = (Path(args.loadgen_journal)
+                            if args.loadgen_journal
+                            else getattr(backend, "cfg", None)
+                            and backend.cfg.root / "loadgen.jsonl")
+            broker = ResourceBroker(
+                sup, bcfg, serve_command=args.serve_command,
+                loadgen_journal=journal_path,
+                warm_standbys=args.warm_standbys)
+            broker.start()
+            got = sup.run_until_step(
+                args.until_step, poll_secs=poll_secs,
+                timeout_secs=args.poll_timeout_s,
+                target_worker=args.target_worker,
+                on_tick=broker.tick)
+            print(json.dumps({**got, "autoscale": broker.summary()},
+                             default=str))
         else:
             print(json.dumps(sup.run_until_step(
                 args.until_step, poll_secs=poll_secs,

@@ -229,6 +229,9 @@ class DecodeReplica(ServingReplica):
         self._slots: list[_DecodeSeq | None] = (
             [None] * self.dcfg.decode_slots)
         self._waiting: collections.deque[_DecodeSeq] = collections.deque()
+        # the fewest free blocks since the last heartbeat (None: no
+        # admission pass since): what the heartbeat reports
+        self._kv_free_low: int | None = None
         self._versions: dict[int, object] = {}  # pinned older params
         self._seq_counter = 0
         self.sequences_finished = 0
@@ -387,10 +390,29 @@ class DecodeReplica(ServingReplica):
         self._tables_epoch += 1
         self._tables_cache.clear()
 
+    def _note_kv_low(self) -> None:
+        """Lower the pool's low-water mark to its free blocks now (after
+        an admission pass, when the pool is fullest)."""
+        free = self.cache.allocator.available
+        if self._kv_free_low is None or free < self._kv_free_low:
+            self._kv_free_low = free
+
     def _pressure_fields(self) -> dict:
+        """The heartbeat's pressure fields. ``kv_blocks_free`` is the
+        pool's low-water mark since the previous heartbeat, not its
+        state at this one: a heartbeat lands at a completion, after the
+        finishing sequences freed their blocks, and sequences admitted
+        in one pass finish in one step, so under any load the pool can
+        read empty just then (the reference reports that reading, and
+        its broker's ``kv_free_frac`` then misses a full pool). The mark
+        restarts from the pool's state at each heartbeat."""
         alloc = self.cache.allocator
+        free = alloc.available
+        if self._kv_free_low is not None:
+            free = min(free, self._kv_free_low)
+        self._kv_free_low = None
         return {**super()._pressure_fields(),
-                "kv_blocks_free": alloc.available,
+                "kv_blocks_free": free,
                 "kv_blocks_total": alloc.num_blocks - 1,
                 "kv_blocks_reserved": len(alloc.in_use),
                 "decode_waiting": len(self._waiting)}
@@ -401,6 +423,7 @@ class DecodeReplica(ServingReplica):
         while not self._stop.is_set():
             self._maybe_swap()
             self._admit_new()
+            self._note_kv_low()
             self._step_active()
             self._maybe_heartbeat()
         # graceful drain: in-flight generations, deferred admissions and

@@ -77,7 +77,8 @@ def run_load(client: ServeClient, num_requests: int | None,
              deadline_s: float | None = None,
              decode: bool = False,
              window_s: float = 0.0,
-             snapshot_every_s: float = 0.0) -> dict[str, Any]:
+             snapshot_every_s: float = 0.0,
+             first_id: int = 0) -> dict[str, Any]:
     """Drive the cluster closed-loop until ``num_requests`` terminal
     outcomes (or ``stop_event``, whichever first; one of the two must
     be provided). Returns the summary; journals to ``journal_path``.
@@ -94,12 +95,19 @@ def run_load(client: ServeClient, num_requests: int | None,
     a ``{"event": "load", "action": "window"}`` record summarizing the
     last ``window_s`` seconds of outcomes lands in the journal — the
     live signal a poller (and a human tailing the file) reads, where
-    the end-of-run summary only exists after the fact."""
+    the end-of-run summary only exists after the fact.
+
+    ``first_id``: the id of the first request (then one up each). Legs
+    of one trace that share a journal and a set of replicas start where
+    the last leg's ids ended, so no id repeats: a replica's dedup cache
+    answers a repeated id from its cache, and the serving books would
+    then count one request twice. The reference numbers every call from
+    0."""
     if num_requests is None and stop_event is None:
         raise ValueError("run_load needs num_requests or stop_event")
     sink = JsonlSink(journal_path) if journal_path is not None else None
     sink_lock = threading.Lock()
-    counter = iter(range(1 << 62))
+    counter = iter(range(first_id, 1 << 62))
     outcomes: list[dict] = []
     out_lock = threading.Lock()
     issued = [0]
@@ -250,13 +258,25 @@ def _tail_records(path: str | Path, tail_bytes: int):
 def read_latest_window(journal_path: str | Path,
                        tail_bytes: int = 1 << 16) -> dict | None:
     """The newest ``window`` snapshot in a (possibly still-growing)
-    loadgen journal, or None. Reads only the file tail and scans
-    backwards past torn lines — a poller reads it against a journal
-    another process is appending to."""
-    for rec in _tail_records(journal_path, tail_bytes):
-        if rec.get("event") == "load" and rec.get("action") == "window":
-            return rec
-    return None
+    loadgen journal, or None. Reads the file's tail and scans backwards
+    past torn lines — a poller reads it against a journal another
+    process is appending to. When the tail holds no snapshot (a busy
+    leg can journal more than ``tail_bytes`` of outcomes between two),
+    the tail doubles until it covers the whole file: the reference
+    reads one 64 KiB tail and then answers None, which hides a snapshot
+    that is there. How old the snapshot is stays the caller's question
+    (``launch/broker.py collect_signals`` drops a stale one)."""
+    try:
+        size = Path(journal_path).stat().st_size
+    except OSError:
+        return None
+    while True:
+        for rec in _tail_records(journal_path, tail_bytes):
+            if rec.get("event") == "load" and rec.get("action") == "window":
+                return rec
+        if tail_bytes >= size:
+            return None
+        tail_bytes *= 2
 
 
 def summarize_outcomes(outcomes: list[dict], issued: int,

@@ -254,7 +254,9 @@ def _chaos_cli(main, chaos_module, argv, monkeypatch):
 
 @pytest.mark.parametrize("argv, want", [
     (["status", "--backend", "gcloud"], "launch pod"),
-    (["broker", "--until-step", "5"], "slice 10"),
+    # the case's id from when it refused naming slice 10, kept
+    pytest.param(["broker", "--until-step", "5"], "requires --serve-command",
+                 id="argv1-slice 10"),
     (["chaos", "--payload", "serving"], "the reference's"),
     (["chaos", "--network"], "the reference's"),
     (["chaos", "--serve-decode"], "the reference's"),
@@ -262,13 +264,24 @@ def _chaos_cli(main, chaos_module, argv, monkeypatch):
 def test_unported_cluster_surfaces_refuse_at_once(argv, want, tmp_path,
                                                   monkeypatch, capsys):
     """What the port does not have refuses at once, naming it (the
-    gcloud backend; the broker, slice 10); the serving chaos flags are
-    taken or refused as the reference's CLI takes or refuses them, with
-    its message. None of them runs anything."""
+    gcloud backend); ``broker`` without ``--serve-command`` stops at the
+    reference's parse-time error, word for word (it once refused naming
+    slice 10); the serving chaos flags are taken or refused as the
+    reference's CLI takes or refuses them, with its message. None of
+    them runs anything."""
     from distributedmnist_tpu.launch import chaos as ref_chaos
     from distributedmnist_tpu_torch.launch import chaos as pt_chaos
     t0 = time.monotonic()
-    if argv[0] != "chaos":
+    if argv[0] == "broker":
+        said = []
+        for main in (pt_cluster.main, ref_cluster.main):
+            with pytest.raises(SystemExit) as e:
+                main(argv)
+            assert e.value.code == 2
+            said.append(capsys.readouterr().err.strip().splitlines()[-1]
+                        .split(" error: ", 1)[1])
+        assert said[0] == said[1] and want in said[0]
+    elif argv[0] != "chaos":
         with pytest.raises(ClusterError, match=want):
             pt_cluster.main(argv)
     else:

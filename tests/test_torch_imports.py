@@ -61,7 +61,9 @@ TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               # campaign, with the network chaos proxies of its serving
               # trial
               "launch.exec", "launch.cluster", "launch.supervisor",
-              "launch.chaos", "launch.netchaos")
+              "launch.chaos", "launch.netchaos",
+              # the resource broker
+              "launch.broker")
 
 
 def test_port_modules_load_no_jax():

@@ -4,8 +4,9 @@ launch/chaos.py`` with ``payload="serving"``) held to the reference's:
 the reference's refuses, with its message, and resolves the rest to the
 reference's payloads on the port's verbs (the publisher's pace adapted
 to a measured boot, the replicas' commands, the quant sidecar tiers,
-the roster size); ``broker`` and ``serve_tp_ranks`` > 1 stay refused,
-naming where they are queued; ``_merge_load_summaries`` folds as the
+the roster size, with ``broker`` its donor trainers); ``serve_tp_ranks``
+> 1 stays refused, naming where it is queued; ``_merge_load_summaries``
+folds as the
 reference's does; the reference's wiring tests
 (``tests/test_servesvc.py:563``, ``tests/test_decode.py:614``) on the
 port; and (``slow``) the reference's three real trials
@@ -114,8 +115,19 @@ def test_serving_resolvers_are_the_reference(kw):
      "broker_standbys": 1},
 ])
 def test_broker_is_refused_naming_slice_10(kw):
-    with pytest.raises(ClusterError, match="slice 10"):
-        ChaosConfig(**kw)
+    """Once refused naming slice 10, the port's broker knobs are now
+    taken or refused as the reference's ``ChaosConfig`` takes or
+    refuses them, with its message, and resolve to the reference's
+    roster (donor trainers included)."""
+    got, want = _both(**kw)
+    if isinstance(want, Exception):
+        assert isinstance(got, ClusterError) and str(got) == str(want)
+        return
+    _assert_resolves_alike(got, want)
+    for boot in BOOTS:
+        assert got.resolved_worker_commands(boot) == {
+            k: _on_port(c)
+            for k, c in want.resolved_worker_commands(boot).items()}
 
 
 @pytest.mark.parametrize("ranks", [2, 4])
@@ -140,8 +152,11 @@ def test_every_reference_key_parses(tmp_path):
     assert {k: v for k, v in vars(got).items() if k != "device"} \
         == vars(want)
     assert got.serve_fault_window == (3, 20)
-    with pytest.raises(ClusterError, match="slice 10"):
-        ChaosConfig.from_file(p, overrides={"broker": True})
+    got = ChaosConfig.from_file(p, overrides={"broker": True})
+    want = ref_chaos.ChaosConfig.from_file(p, overrides={"broker": True})
+    assert {k: v for k, v in vars(got).items() if k != "device"} \
+        == vars(want)
+    assert got.trial_num_workers() == want.trial_num_workers()
 
 
 @pytest.mark.parametrize("boot", [None, 1.0, 4.0, 30.0, 200.0])
@@ -286,12 +301,14 @@ def test_serving_trial_signature_and_schedules(tmp_path, monkeypatch):
 # the reference's three real trials, on the port's workers on the CPU
 # ---------------------------------------------------------------------------
 
-# _ONE_THREAD: the decode trials' publisher is a transformer, whose CPU
-# kernels (MKL's threaded reductions) are not bitwise run to run when
-# the trial's processes share the cores; the determinism invariant
-# holds its final params bitwise to the reference run's, so the workers
-# (which inherit this environment) compute on one thread each. The CNN
-# publisher is bitwise either way.
+# _ONE_THREAD: the decode trials' publisher is a transformer. Its CPU
+# backward once took index_put_'s threaded, atomic accumulation (the
+# embedding lookup's gradient), which is not bitwise run to run, and
+# these tests ran the workers on one thread each to get round it; a
+# `launch train --device cpu` process now takes torch's deterministic
+# kernels itself (launch/__main__.py _deterministic_cpu), so the trials
+# run on the machine's default thread count, and the network trial is
+# run once more with OMP_NUM_THREADS and MKL_NUM_THREADS unset.
 
 @pytest.mark.slow  # boots a publisher + 2 serving replicas + reference
 def test_serving_chaos_trial_end_to_end(tmp_path):
@@ -316,13 +333,12 @@ def test_serving_chaos_trial_end_to_end(tmp_path):
 
 
 @pytest.mark.slow  # boots a publisher + 2 decode replicas + proxies
-def test_network_chaos_trial_end_to_end(tmp_path, monkeypatch):
+def test_network_chaos_trial_end_to_end(tmp_path):
     """Transport faults (chaos proxies) under live decode load: every
     scheduled net fault fires, the mandatory reset cuts a token stream
     MID-generation, the partition opens under live traffic, zero
     requests are dropped, and invariant 13 holds the exactly-once books
     (``tests/test_servesvc.py:783``)."""
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # see _ONE_THREAD
     cfg = ChaosConfig(name="nettrial", workdir=str(tmp_path),
                       payload="serving", trials=1, seed=0,
                       until_step=60, save_interval_steps=10,
@@ -351,13 +367,12 @@ def test_network_chaos_trial_end_to_end(tmp_path, monkeypatch):
 
 
 @pytest.mark.slow  # boots an LM publisher + 2 decode replicas + reference
-def test_decode_chaos_trial_end_to_end(tmp_path, monkeypatch):
+def test_decode_chaos_trial_end_to_end(tmp_path):
     """A seeded decode-mode serving trial — replica killed
     mid-generation, published checkpoint torn, live generate load
     throughout — completes with dropped == 0 and every serving
     invariant (decode_swap too) passing (``tests/test_decode.py:637``).
     """
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # see _ONE_THREAD
     cfg = ChaosConfig(
         name="decodetrial", workdir=str(tmp_path), payload="serving",
         serve_decode=True, trials=1, seed=0, until_step=60,
@@ -375,3 +390,25 @@ def test_decode_chaos_trial_end_to_end(tmp_path, monkeypatch):
     assert inv["decode_swap"]["fail"] == 0
     assert (inv["decode_swap"]["pass"]
             + inv["decode_swap"]["skipped"]) == 1
+
+
+@pytest.mark.slow  # boots a publisher + 2 decode replicas + proxies
+def test_network_trial_is_bitwise_on_every_thread(tmp_path, monkeypatch):
+    """C13: the decode network trial with ``OMP_NUM_THREADS`` and
+    ``MKL_NUM_THREADS`` unset, so the transformer publisher and its
+    fault-free reference run each compute on the machine's default
+    thread count while the trial's processes share the cores; the
+    determinism invariant holds the trial's final params bitwise to the
+    reference run's (see _ONE_THREAD)."""
+    for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+        monkeypatch.delenv(var, raising=False)
+    cfg = ChaosConfig(name="c13", workdir=str(tmp_path), payload="serving",
+                      trials=1, seed=0, until_step=60,
+                      save_interval_steps=10, serve_replicas=2,
+                      serve_decode=True, network=True, shrink=False,
+                      trial_timeout_s=420.0, device="cpu")
+    summary = run_campaign(cfg)
+    assert summary["all_green"], summary
+    report = [json.loads(line) for line in
+              open(summary["report_path"]).read().splitlines()]
+    assert report[0]["verdicts"]["determinism"] == "pass", report[0]
