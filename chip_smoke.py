@@ -37,7 +37,9 @@ process cluster: a seeded chaos campaign on ``launch train`` workers
 under the supervisor, and the restart latency of a worker; last, the
 serving chaos trial: decode replicas on the card under live load and
 seeded network faults; and the resource broker trading a donor trainer's
-slot for a decode replica at a load peak and back in the trough.
+slot for a decode replica at a load peak and back in the trough. The
+flagship campaign (``launch campaign``) runs its evaluated group and its
+other model families after the evaluator.
 
 One JSON line per phase:
 
@@ -274,7 +276,31 @@ One JSON line per phase:
                 printed line the source paper's format, each result
                 equal to an in-process eval of that step (loss within
                 ``COLOC_LOSS_RTOL``), ``follow_skip`` records printed.
-15. ``serve``   — one line a part, then the phase's seconds. ``cnn``:
+15. ``campaign`` — ``launch campaign`` in process on the card (≙ the
+                reference's ``run_campaign.py``), on a copy of
+                ``configs/`` (``mnist_99`` at its 4000 steps) with the
+                report and resnet phases' fixtures as its data cache: ``--groups
+                repro_mnist99`` (the MNIST CNN at its published widths,
+                global batch 512 over 8 simulated replicas) with its
+                ``launch eval --single_device`` child live on ``cuda:0``:
+                the record's replicas and steps, its keys the
+                reference's (``CAMPAIGN_RECORD_KEYS``), the final
+                checkpoint's step journaled by the evaluator at the
+                record's ``test_accuracy``, and the seconds
+                ``stop_evaluator`` waited and what ended the wait
+                (checked: the final evaluation); then ``--groups extras
+                --quick`` (fashion-MNIST timeout, ResNet-20 on the
+                CIFAR-10 fixture, the synthetic-LM transformer, 20 steps
+                each, with the launch counters set to 0 before and read
+                after: finite records; K1-lse, K2 and K3 in training and
+                K1 in evaluation above 0, K4 and K5 0); then
+                ``--finalize-only`` twice: ``campaign_summary.json``
+                holds both groups, the same bytes both times, and no
+                ``ckpt-*.msgpack`` or ``CHECKPOINT`` is left. These runs
+                take the configs' own ``compile.precompile`` (on): a
+                captured step launches through its graph's replays, so
+                the training counts are the captures' launches.
+16. ``serve``   — one line a part, then the phase's seconds. ``cnn``:
                 ``launch train`` on the MNIST CNN at its published widths
                 (``SERVE_CNN``: float32, 60 steps, a save every 10,
                 ``quant.publish_tiers=int8,bf16``, 128 calibration
@@ -316,7 +342,7 @@ One JSON line per phase:
                 plain path's softmax for its prompt at batch 1, within
                 ``LM_PREDICT_PROB_REL`` × p + ``LM_PREDICT_PROB_ABS``.
 
-16. ``graphs``  — the compile layer. Phases 4–15 run the eager step
+17. ``graphs``  — the compile layer. Phases 4–14 and 16 run the eager step
                 (``compile.precompile`` off: their launch counters count
                 wrapper calls, which a replayed graph makes none of);
                 here each arm runs its configuration twice from the same
@@ -352,7 +378,7 @@ One JSON line per phase:
                 warning) — each one's seconds from its start to its
                 libraries loaded (``ready_s``, with the other two
                 running), the cold one's to its first step.
-17. ``cluster`` — the chaos campaign (``launch/chaos.py``) on the port's
+18. ``cluster`` — the chaos campaign (``launch/chaos.py``) on the port's
                 ``launch train`` workers on the card: the train payload
                 (the MNIST CNN, 2 simulated replicas, momentum 0.9,
                 ZeRO-1 in 2 buckets, float32; ``CLUSTER_CNN``), 2 seeded
@@ -375,7 +401,7 @@ One JSON line per phase:
                 every invariant's counts, each trial's schedule, outcome,
                 seconds, MTTR and boot, the fired faults, and each flash
                 worker's kernel-cache hits and misses.
-18. ``restart`` — ``bench.py bench_restart_latency`` on the port:
+19. ``restart`` — ``bench.py bench_restart_latency`` on the port:
                 spawn (or promotion) to the first moved step of the
                 chaos train payload, ``RESTART_SAMPLES`` each cold (an
                 empty kernel directory a spawn), warm (the shared cache
@@ -385,7 +411,7 @@ One JSON line per phase:
                 train_dir); the reference's gates against the cold
                 median (standby ≤ 0.3×, warm ≤ 0.6×). What a kernel
                 build costs a process is ``graphs``' ``kernel_cache``.
-19. ``serving_chaos`` — the serving chaos trial on the card (≙ the
+20. ``serving_chaos`` — the serving chaos trial on the card (≙ the
                 reference's network scenario, ``tests/test_servesvc.py
                 :783``; ``SERVING_CHAOS``): ``cluster chaos --payload
                 serving --serve-decode --network`` with 2 decode replicas
@@ -406,7 +432,7 @@ One JSON line per phase:
                 decode step ``cuda_graph``, no kernel-cache miss; the
                 replicas' K1 and K5 launches (each process's
                 ``kernel_launches.jsonl``) above 0, none by this process.
-20. ``broker``  — the resource broker's trial (``launch/broker.py``;
+21. ``broker``  — the resource broker's trial (``launch/broker.py``;
                 ``cluster chaos --payload serving --serve-decode`` with
                 ``broker=true``; ``BROKER``): ``serving_chaos``'s flash
                 publisher (its fault-free reference run taken as this
@@ -437,7 +463,8 @@ Then a ``kernels`` summary line (per kernel also its ``variant`` —
 bf16 call takes — and the build phase's instantiation, registers,
 spills, shared memory and blocks per SM at the timed shape; for K1 also
 ``launches_eval``, the eval phase's count, and ``launches_serve``, the
-serve phase's by path; for K1 and K5 ``launches_serving_chaos``, the
+serve phase's by path; for K1, K1-lse, K2 and K3 ``launches_campaign``,
+the campaign phase's ``extras`` run's; for K1 and K5 ``launches_serving_chaos``, the
 serving_chaos replicas' launches (each replica process's count, K5's
 taken from its decode graphs' replays), and ``launches_broker``, the
 broker trial's replicas' launches counted the same way; for K1-lse, K2 and K3 also
@@ -3783,6 +3810,124 @@ def phase_eval(tmp: str, ckpt_rec: dict) -> dict:
     return rec
 
 
+# -- the campaign -----------------------------------------------------------
+
+# the keys of a campaign record as sweep_results.jsonl holds it: the
+# reference's run_experiment record (distributedmnist_tpu/launch/
+# sweep.py), run_group's two, and the sink's time stamp
+CAMPAIGN_RECORD_KEYS = frozenset({
+    "name", "mode", "num_replicas", "aggregate_k", "interval_ms",
+    "straggler_profile", "steps", "updates_applied", "wall_seconds",
+    "examples_per_sec", "final_loss", "final_train_acc", "test_accuracy",
+    "test_loss", "timing", "overrides", "group", "ts"})
+
+
+def _campaign_records(results, group: str) -> list:
+    with open(results / group / "sweep_results.jsonl") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def phase_campaign(tmp: str) -> dict:
+    """``launch campaign`` on the card, in process: ``repro_mnist99``
+    with the ``launch eval`` child live on ``cuda:0``, then ``extras
+    --quick`` with the counters set to 0 before and read after, then
+    ``--finalize-only`` twice."""
+    import shutil
+    from pathlib import Path
+
+    from distributedmnist_tpu_torch.launch import campaign
+    t_phase = time.time()
+    cfgs, results = Path(tmp) / "campaign_cfgs", Path(tmp) / "campaign"
+    shutil.copytree("configs", cfgs)
+    steps = json.loads((cfgs / "repro" / "mnist_99.json").read_text()
+                       )["train"]["max_steps"]
+    # the report and resnet phases wrote mnist and cifar10 under tmp
+    common = ["--configs", str(cfgs), "--results", str(results),
+              "--data-cache", tmp]
+    stops = []
+    stop = campaign.stop_evaluator
+
+    def recording_stop(proc, run_dir, bound_s=None):
+        stops.append(stop(proc, run_dir, bound_s))
+        return stops[-1]
+
+    campaign.stop_evaluator = recording_stop
+    groups_s = {}
+    try:
+        t0 = time.time()
+        reset_counts()
+        _launch_verb(["campaign", "--groups", "repro_mnist99", *common])
+        repro_counts = read_counts()
+        groups_s["repro_mnist99"] = time.time() - t0
+    finally:
+        campaign.stop_evaluator = stop
+    t0 = time.time()
+    reset_counts()
+    _launch_verb(["campaign", "--groups", "extras", "--quick", *common])
+    extras_counts = read_counts()
+    groups_s["extras"] = time.time() - t0
+    summaries = []
+    for _ in range(2):
+        _launch_verb(["campaign", "--finalize-only", "--results",
+                      str(results)])
+        summaries.append((results / "campaign_summary.json").read_bytes())
+    left = sorted(str(p.relative_to(results)) for pattern in
+                  ("ckpt-*.msgpack", "CHECKPOINT")
+                  for p in results.rglob(pattern))
+    rec99, = _campaign_records(results, "repro_mnist99")
+    extras = _campaign_records(results, "extras")
+    run = results / "repro_mnist99" / "mnist_99"
+    with open(run / "eval" / "eval_log.jsonl") as f:
+        evals = [json.loads(line) for line in f if line.strip()]
+    final = [e for e in evals if e.get("step") == rec99["steps"]]
+    summary = json.loads(summaries[0])
+    numbers = ("final_loss", "test_accuracy", "test_loss",
+               "examples_per_sec")
+    rec = {"phase": "campaign", "groups_s": groups_s,
+           "repro_mnist99": {k: rec99[k] for k in (
+               "num_replicas", "steps", "updates_applied", "wall_seconds",
+               "examples_per_sec", "final_loss", "test_accuracy",
+               "overrides")},
+           "evaluated_steps": [e["step"] for e in evals],
+           "final_eval": final[-1] if final else None,
+           "stop_evaluator": stops,
+           "extras": [{k: r[k] for k in ("name", "num_replicas", "steps",
+                                         "wall_seconds", *numbers)}
+                      for r in extras],
+           "launches_repro": repro_counts, "launches_extras": extras_counts,
+           "summary_groups": sorted(summary["groups"]),
+           "finalize_same_bytes": summaries[0] == summaries[1],
+           "checkpoints_left": left, "seconds": time.time() - t_phase}
+    emit(rec)
+    check(rec99["num_replicas"] == REPLICAS
+          and rec99["steps"] == steps,
+          f"mnist_99 record {rec['repro_mnist99']}")
+    for r in [rec99, *extras]:
+        check(set(r) == CAMPAIGN_RECORD_KEYS,
+              f"{r['name']}: record keys {sorted(set(r))}")
+    check(bool(final) and final[-1]["precision_at_1"]
+          == rec99["test_accuracy"],
+          f"the evaluator's final step {final} against the record's "
+          f"test_accuracy {rec99['test_accuracy']}")
+    check(len(stops) == 1 and stops[0]["ended_by"] == "evaluated"
+          and stops[0]["step"] == rec99["steps"],
+          f"stop_evaluator {stops}")
+    check([r["name"] for r in extras] == campaign.GROUPS["extras"]
+          and all(r["steps"] == 20 and all(math.isfinite(r[k])
+                                           for k in numbers)
+                  for r in extras), f"extras {rec['extras']}")
+    check(not any(repro_counts.values()), f"mnist_99 launched "
+                                          f"{repro_counts}")
+    check(all(extras_counts[k] > 0 for k in ("K1", "K1-lse", "K2", "K3"))
+          and extras_counts["K4"] == extras_counts["K5"] == 0,
+          f"extras launches {extras_counts}")
+    check(rec["summary_groups"] == ["extras", "repro_mnist99"]
+          and rec["finalize_same_bytes"] and not left,
+          f"finalize: groups {rec['summary_groups']}, same bytes "
+          f"{rec['finalize_same_bytes']}, left {left}")
+    return rec
+
+
 # -- phase 11 ---------------------------------------------------------------
 
 # the serving tier (bench.py bench_serving_latency and
@@ -5137,9 +5282,10 @@ def phase_cluster(tmp: str) -> dict:
 # the restart phase (≙ bench.py bench_restart_latency): spawn (or
 # promotion) → first moved step of the chaos train payload, cold (an
 # empty kernel directory), warm (the shared cache primed once) and
-# standby (a parked, precompiled spare promoted), RESTART_SAMPLES each;
-# the reference's gates against the cold median
-RESTART_SAMPLES = 2
+# standby (a parked, precompiled spare promoted), RESTART_SAMPLES each
+# (one since the campaign phase: the gates' margin is 3x, the samples'
+# spread 15%); the reference's gates against the cold median
+RESTART_SAMPLES = 1
 RESTART_GATES = {"warm": 0.6, "standby": 0.3}
 
 
@@ -5855,6 +6001,7 @@ def main() -> int:
             e2e = run("e2e", phase_e2e, train["train_dir"], tmp)
             run("ckpt", phase_ckpt, tmp)
             run("eval", phase_eval, tmp, runs["ckpt"])
+            run("campaign", phase_campaign, tmp)
             run("serve", phase_serve, tmp, runs["ckpt"])
             run("graphs", phase_graphs, tmp, train["train_dir"])
             run("cluster", phase_cluster, tmp)
@@ -5891,8 +6038,11 @@ def main() -> int:
                        "launches_serving_chaos": chaos["K1"],
                        "launches_broker": brokered["K1"]}
                  if key == "K1" else {})
+        if key in ("K1", "K1-lse", "K2", "K3"):
+            extra["launches_campaign"] = runs["campaign"][
+                "launches_extras"][key]
         if key in ("K1-lse", "K2", "K3"):
-            extra = {"launches_replicas":
+            extra = {**extra, "launches_replicas":
                          runs["train_replicas"]["launches"][key],
                      "launches_long_context": {
                          arm: a["launches"][key] for arm, a in

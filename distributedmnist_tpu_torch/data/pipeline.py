@@ -198,10 +198,13 @@ def make_train_iterator(data: ArrayDataset, cfg: DataConfig, seed: int,
                         host_id: int = 0, num_hosts: int = 1) -> BatchIterator:
     """The train stream. ``data.use_native_pipeline`` selects the
     reference's C++ prefetcher, which is not ported: the port always
-    batches inline, in the same order, and says so."""
+    batches inline in the numpy iterator's order, and says so. (The
+    reference's prefetcher, where it runs, draws a permutation of its
+    own, so its batches are not these.)"""
     if cfg.use_native_pipeline:
         get_logger("data").info("data.use_native_pipeline is a no-op in "
-                                "the port: batching inline")
+                                "the port: batching inline, in the numpy "
+                                "iterator's order")
     return BatchIterator(data, cfg.batch_size, seed=seed, host_id=host_id,
                          num_hosts=num_hosts, shard_mode=cfg.shard_mode)
 

@@ -1,6 +1,6 @@
 """The port's CLI (≙ ``distributedmnist_tpu/launch/__main__.py``), the
 ``train``, ``eval``, ``serve``, ``serve-load``, ``sweep``, ``report``,
-``devices`` and ``cluster`` verbs:
+``devices``, ``cluster`` and ``campaign`` verbs:
 
   python -m distributedmnist_tpu_torch.launch train --config C.json \\
       [section.key=value ...] [--device cpu]
@@ -21,6 +21,8 @@
   python -m distributedmnist_tpu_torch.launch devices [--device cpu]
   python -m distributedmnist_tpu_torch.launch cluster ACTION \\
       [--config C.json] [--device cpu] [cluster flags]
+  python -m distributedmnist_tpu_torch.launch campaign [--groups G,...] \\
+      [--quick] [--finalize-only] [--results R] [--device cpu]
 
 ``train`` builds the :class:`~..train.loop.Trainer` from the config and
 its dotted overrides — any model the port has (``mnist_cnn``,
@@ -64,7 +66,10 @@ campaign (``chaos``), whose workers are this CLI's own
 ``train`` processes, or with ``--payload serving`` a ``train``
 publisher and ``serve`` replicas under a closed-loop load
 (``--serve-decode``: decode replicas; ``--network``: transport faults
-through the chaos proxies of :mod:`.netchaos`). A ``train`` process whose environment names
+through the chaos proxies of :mod:`.netchaos`). ``campaign`` forwards
+to :func:`.campaign.main`: the source paper's experiment grids (quorum,
+interval, CDF, extras, the 99% repro with the evaluator live) on one
+device, into ``results_torch/``. A ``train`` process whose environment names
 ``DMT_STANDBY_ACTIVATION`` is a warm standby: it precompiles, writes
 ``<activation>.ready``, parks until the activation file appears and
 then adopts the ``train_dir`` it names
@@ -87,8 +92,8 @@ Accepted and not run, each logged once a Trainer: device prefetch, the
 native loader and the ``compile.*`` knobs. Not ported yet (each raises):
 the model-parallel mesh axes, mixture-of-experts, ``serve --tp-ranks``
 (and the chaos campaign's ``serve_tp_ranks``), the gcloud backend
-(``cluster --backend gcloud``), and the reference's ``campaign``,
-``pod`` and ``fetch`` verbs.
+(``cluster --backend gcloud``), and the reference's ``pod`` and
+``fetch`` verbs.
 """
 
 from __future__ import annotations
@@ -542,6 +547,11 @@ def main(argv: list[str] | None = None) -> None:
     from ..core.compile_cache import enable_persistent_cache
 
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "campaign":
+        # pre-dispatch: the campaign owns its own flags
+        from .campaign import main as campaign_main
+        campaign_main(argv[1:])
+        return
     if argv and argv[0] == "train":
         train(argv)
         return

@@ -63,7 +63,15 @@ TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               "launch.exec", "launch.cluster", "launch.supervisor",
               "launch.chaos", "launch.netchaos",
               # the resource broker
-              "launch.broker")
+              "launch.broker",
+              # the flagship campaign
+              "launch.campaign",
+              # the port's static checks
+              "analysis", "analysis.core", "analysis.__main__",
+              "analysis.schema_check", "analysis.config_check",
+              "analysis.threads_check", "analysis.durability_check",
+              "analysis.net_check", "analysis.paged_check",
+              "analysis.torch_check")
 
 
 def test_port_modules_load_no_jax():
