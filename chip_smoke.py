@@ -24,7 +24,9 @@ k = 5 (one flash launch a layer for every replica) and
 ``bench.py bench_flash_long_context``'s model at S = 8192 under each
 remat policy; a sweep of two of the repository's configs with its
 report and the port's invariant checkers; and the MNIST CNN's sync SGD
-(the source paper's path) at its published widths, on one process and across worker processes; ResNet-20 on
+(the source paper's path) at its published widths, on one process and across worker processes; the
+transformer split over 4 worker processes by tensor and sequence
+parallelism (Megatron TP, ring and Ulysses attention); ResNet-20 on
 CIFAR-10 (``configs/cifar10_resnet20_sync.json`` on a fixture written
 at the archive's size) with the rest of the data-parallel step's knobs
 — LARS/LAMB, gradient accumulation, bf16 params with and without
@@ -177,11 +179,11 @@ One JSON line per phase:
                 step: quorum k=7 leaves it out); ``zero1``: ZeRO-1 (4
                 buckets) at 8 replicas over two gloo processes on one
                 card, float32 full-batch steps under momentum (3) and
-                LAMB (1 and 3), against the one-process run fed the two
+                LAMB (1), against the one-process run fed the two
                 processes' batches concatenated: each leaf within
                 ``ZERO_DIST_TOL`` of its norm (momentum; LAMB after one
-                step within ``ZERO_DIST_LAMB_TOL``, its 3-step gap
-                printed), each rank's slot bytes half
+                step within ``ZERO_DIST_LAMB_TOL``), each rank's slot
+                bytes half
                 the sharded slots' plus the fallback leaves, the
                 momentum run's per-host checkpoint (two shard files and
                 a manifest) resumed in one process to that run's params
@@ -193,6 +195,33 @@ One JSON line per phase:
                 ``python3 -c "import json, tempfile, chip_smoke as cs;
                 d = tempfile.mkdtemp(); print(json.dumps(
                 cs._dist_zero1_nccl(d)))"``.
+10b. ``model_parallel`` — tensor and sequence parallelism (Queue A item
+                8a) in one launch of 4 worker processes (gloo, all on
+                ``cuda:0``; the dist phase's launcher, each child
+                joining the group and building its Trainer through
+                ``launch train``'s ``build_trainer``), bf16, flash,
+                ``MP_STEPS`` steps an arm: A, TP 4 and B, TP 2 × SP 2
+                (Ulysses over flash) at the training path's widths cut
+                to 2 layers, global batch 8; C, SP 4 on
+                ``bench_flash_long_context``'s model at S = 8192, batch
+                2, by ring under remat ``full`` and by Ulysses over
+                flash; and as float32 controls, A and the ring again
+                at ``compute_dtype=float32``, step 1 alone. Each arm's
+                step 1 against the same config's one-process step in
+                this process (same seed, same batch): the loss within
+                ``MP_LOSS_TOL``; each leaf's update within
+                ``MP_UPDATE_TOL_F32`` of its norm in the float32
+                controls, and in the bf16 arms within
+                ``MP_NOISE_RATIO`` × the one-process bf16 step's own
+                distance from the float32 step in that leaf; the loss
+                equal on every rank; every process on a card; K1-lse,
+                K2 and K3 launched by every process of a flash arm (K1
+                in A's and B's test eval). Printed: ms a step by CUDA
+                events (steps 2–3), tokens/s, peak GB and seconds in
+                collectives a process, the exchanges staged through
+                host memory (gloo carries no CUDA point-to-point or
+                all-to-all). With 4 cards arm B again over NCCL, one
+                card a process; else null with the card count.
 11. ``resnet``  — the CIFAR-10 fixture written at the archive's size
                 (50,000 / 10,000) by the port's ``data/fixtures.py``;
                 ``launch train`` on ``configs/cifar10_resnet20_sync.json``
@@ -856,14 +885,16 @@ def phase_build() -> dict:
 
 # -- phase 3 ----------------------------------------------------------------
 
-def _k1_case(b: int, s: int, dtype, gen, timed: bool) -> dict:
+def _k1_case(b: int, s: int, dtype, gen, timed: bool,
+             h: int = MODEL["num_heads"]) -> dict:
     import torch
     import torch.nn.functional as F
 
     from distributedmnist_tpu_torch.ops.flash_attention import (
         flash_attention_bshd, flash_attention_bshd_plain)
-    h, d = MODEL["num_heads"], MODEL["model_dim"] // MODEL["num_heads"]
-    # the model's inputs: strided q/k/v views of one [b, s, 3, d] product
+    d = MODEL["model_dim"] // MODEL["num_heads"]
+    # the model's inputs: strided q/k/v views of one [b, s, 3, h·d]
+    # product
     qkv = torch.randn(b, s, 3, h * d, device=DEVICE, generator=gen).to(dtype)
     q, k, v = (qkv[:, :, i].view(b, s, h, d) for i in range(3))
     got = flash_attention_bshd(q, k, v)
@@ -1036,13 +1067,17 @@ def _agreement(got, want, tol) -> dict:
 
 
 def _train_attn_inputs(b: int, s: int, dtype, gen,
-                       h: int = MODEL["num_heads"]):
+                       h: int = MODEL["num_heads"], packed: bool = True):
     """The training path's attention inputs: strided q/k/v views of one
-    [b, s, 3, h·d] qkv product (head_dim 128), and a cotangent."""
+    [b, s, 3, h·d] qkv product (head_dim 128), or with ``packed`` False
+    three contiguous [b, s, h, d] tensors (what Ulysses' all-to-all
+    gives), and a cotangent."""
     import torch
     d = MODEL["model_dim"] // MODEL["num_heads"]
     qkv = torch.randn(b, s, 3, h * d, device=DEVICE, generator=gen).to(dtype)
     q, k, v = (qkv[:, :, i].view(b, s, h, d) for i in range(3))
+    if not packed:
+        q, k, v = (x.contiguous() for x in (q, k, v))
     do = torch.randn(b, s, h, d, device=DEVICE, generator=gen).to(dtype)
     return q, k, v, do
 
@@ -1069,11 +1104,11 @@ def _sdpa_ms(q, k, v, do) -> tuple[float, float]:
 
 
 def _k1_lse_case(b: int, s: int, dtype, gen, timed: bool,
-                 h: int = MODEL["num_heads"]) -> dict:
+                 h: int = MODEL["num_heads"], packed: bool = True) -> dict:
     import torch
 
     from distributedmnist_tpu_torch.ops import flash_attention as fa
-    q, k, v, do = _train_attn_inputs(b, s, dtype, gen, h)
+    q, k, v, do = _train_attn_inputs(b, s, dtype, gen, h, packed)
     o, lse = fa.flash_attention_fwd_lse(q, k, v)
     torch.cuda.synchronize()
     want_o, want_lse = fa.flash_attention_fwd_lse_plain(q, k, v)
@@ -1081,6 +1116,7 @@ def _k1_lse_case(b: int, s: int, dtype, gen, timed: bool,
     agree = _agreement(o, want_o, BWD_TOL[name])
     lse_agree = _agreement(lse, want_lse, BWD_TOL["lse"])
     rec = {"kernel": "K1-lse", "dtype": name, "shape": list(q.shape),
+           "packed": packed,
            "max_abs_err": agree["max_abs_err"],
            "lse_max_abs_err": lse_agree["max_abs_err"],
            "tol_ratio": max(agree["tol_ratio"], lse_agree["tol_ratio"]),
@@ -1110,14 +1146,15 @@ _BWD = {"K2": ((0,), 5, 1, 3), "K3": ((1, 2), 5, 2, 4),
 
 
 def _bwd_case(kernel: str, b: int, s: int, dtype, gen,
-              timed: bool, h: int = MODEL["num_heads"]) -> dict:
+              timed: bool, h: int = MODEL["num_heads"],
+              packed: bool = True) -> dict:
     import torch
 
     from distributedmnist_tpu_torch.ops import flash_attention as fa
     fn = {"K2": fa.flash_attention_bwd_dq, "K3": fa.flash_attention_bwd_dkv,
           "K4": fa.flash_attention_bwd_fused}[kernel]
     outs, n_in, n_out, products = _BWD[kernel]
-    q, k, v, do = _train_attn_inputs(b, s, dtype, gen, h)
+    q, k, v, do = _train_attn_inputs(b, s, dtype, gen, h, packed)
     o, lse = fa.flash_attention_fwd_lse_plain(q, k, v)
     got = fn(q, k, v, o, lse, do)
     got = got if isinstance(got, tuple) else (got,)
@@ -1128,7 +1165,7 @@ def _bwd_case(kernel: str, b: int, s: int, dtype, gen,
              for g, i in zip(got, outs)]
     worst = lambda key: max(a[key] for a in agree)
     rec = {"kernel": kernel, "dtype": name, "shape": list(q.shape),
-           "route": fa.backward_route(s),
+           "packed": packed, "route": fa.backward_route(s),
            "max_abs_err": worst("max_abs_err"),
            "tol_ratio": worst("tol_ratio"), "tol": BWD_TOL[name],
            "rel_err": worst("rel_err"), "rel_tol": REL_TOL[name],
@@ -1188,13 +1225,19 @@ def phase_kernels() -> dict:
         long_cases.append(_bwd_case(kernel, lc_b, lc_s, torch.bfloat16, gen,
                                     False, lc_h))
     torch.cuda.empty_cache()
+    mp_k1, mp_train = _mp_kernel_cases(gen)
     emit({"phase": "kernels", "cases": train_cases + long_cases})
-    for c in train_cases + long_cases:
+    emit({"phase": "kernels", "model_parallel_cases": mp_k1 + mp_train})
+    for c in mp_k1:
+        check(c["max_abs_err"] <= c["tol"],
+              f"K1 {c['shape']} disagrees with its plain version: max abs "
+              f"err {c['max_abs_err']} > {c['tol']}")
+    for c in train_cases + long_cases + mp_train:
         check(c["tol_ratio"] <= 1.0,
               f"{c['kernel']} {c['dtype']} {c['shape']} disagrees with its "
               f"plain version beyond atol + rtol |plain| {c['tol']}: "
               f"max abs err {c['max_abs_err']}")
-    for c in cases + train_cases + long_cases:
+    for c in cases + train_cases + long_cases + mp_k1 + mp_train:
         check(c["rel_err"] <= c["rel_tol"],
               f"{c['kernel']} {c['dtype']} {c.get('shape', '')} disagrees "
               f"with its plain version: relative error {c['rel_err']} > "
@@ -1204,7 +1247,35 @@ def phase_kernels() -> dict:
         timed[c["kernel"]]["long_context"] = {
             k: c[k] for k in ("shape", "max_abs_err", "rel_err", "bound_ms",
                               "bound_by") if k in c}
+    for c in mp_k1 + mp_train:
+        timed[c["kernel"]].setdefault("model_parallel_shapes", []).append(
+            {k: c[k] for k in ("shape", "packed", "max_abs_err", "rel_err")
+             if k in c})
     return timed
+
+
+def _mp_kernel_cases(gen) -> tuple[list, list]:
+    """K1, K1-lse, K2 and K3 at the ``model_parallel`` phase's shapes,
+    each against its plain version (untimed): K1 at A's and B's TP eval
+    (4 and 8 heads a rank, strided views of the rank's qkv product);
+    K1-lse/K2/K3 at A's TP 4 (strided), at B's Ulysses after TP 2 and
+    at C's Ulysses at S = 8192 (contiguous, from the all-to-all)."""
+    import torch
+    bf, b, s, h = torch.bfloat16, MP_BATCH, MODEL["seq_len"], \
+        MODEL["num_heads"]
+    k1 = [_k1_case(b, s, bf, gen, False, h=h // MP_WORLD),
+          _k1_case(b, s, bf, gen, False, h=h // 2)]
+    train = []
+    for bb, ss, hh, packed in ((b, s, h // MP_WORLD, True),
+                               (b, s, h // 2 // 2, False),
+                               (LONG["batch"], LONG["seq_len"],
+                                LONG["num_heads"] // MP_WORLD, False)):
+        train.append(_k1_lse_case(bb, ss, bf, gen, False, hh, packed))
+        for kernel in ("K2", "K3"):
+            train.append(_bwd_case(kernel, bb, ss, bf, gen, False, hh,
+                                   packed))
+        torch.cuda.empty_cache()
+    return k1, train
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -2362,15 +2433,15 @@ def _free_port() -> int:
 
 
 def _dist_launch(tmp: str, name: str, backend: str, devices: list,
-                 runs: list, kill_on_failure: bool = True
-                 ) -> tuple[list, list, list]:
+                 runs: list, kill_on_failure: bool = True,
+                 child: str | None = None) -> tuple[list, list, list]:
     """Start one worker process a device in ``devices`` (torchrun's
     environment, a free port on localhost; no group and no such
-    environment when ``backend`` is None), each in its own session;
-    wait for all of them, killing every one when one fails (unless
-    ``kill_on_failure`` is False) or the group outlives
-    ``DIST_CHILD_TIMEOUT_S``. Returns (exit codes, results, log
-    tails)."""
+    environment when ``backend`` is None), each in its own session,
+    running ``child`` (default ``_DIST_CHILD``); wait for all of them,
+    killing every one when one fails (unless ``kill_on_failure`` is
+    False) or the group outlives ``DIST_CHILD_TIMEOUT_S``. Returns (exit
+    codes, results, log tails)."""
     with open(f"{tmp}/dist_cnn.json.{name}", "w") as f:
         json.dump(CNN, f)
     os.replace(f"{tmp}/dist_cnn.json.{name}", f"{tmp}/dist_cnn.json")
@@ -2385,7 +2456,7 @@ def _dist_launch(tmp: str, name: str, backend: str, devices: list,
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
         with open(f"{tmp}/{name}.{rank}.log", "w") as log:
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", _DIST_CHILD], env=env,
+                [sys.executable, "-c", child or _DIST_CHILD], env=env,
                 stdout=log, stderr=subprocess.STDOUT,
                 start_new_session=True))
     deadline = time.monotonic() + DIST_CHILD_TIMEOUT_S
@@ -2414,10 +2485,11 @@ def _dist_launch(tmp: str, name: str, backend: str, devices: list,
 
 
 def _dist_group(tmp: str, name: str, backend: str, devices: list,
-                runs: list) -> list:
+                runs: list, child: str | None = None) -> list:
     """:func:`_dist_launch` that must succeed, on the backend (None: no
     group) and devices asked for."""
-    rcs, results, tails = _dist_launch(tmp, name, backend, devices, runs)
+    rcs, results, tails = _dist_launch(tmp, name, backend, devices, runs,
+                                       child=child)
     check(all(rc == 0 for rc in rcs), f"{name}: exit codes {rcs}, logs "
                                       f"{tails}")
     for res, dev in zip(results, devices):
@@ -2681,7 +2753,7 @@ def _dist_zero1_nccl(tmp: str) -> tuple[dict | None, int]:
 
 def _dist_zero1(tmp: str) -> tuple[dict, int]:
     """ZeRO-1 at 8 replicas over two gloo processes on one card, under
-    momentum (3 steps) and LAMB (1 and 3 steps), against the one-process
+    momentum (3 steps) and LAMB (1 step), against the one-process
     run; each rank's slot bytes; the per-host checkpoint (two shard files
     and a manifest) resumed in one process to the run's logical state;
     NCCL processes on up to 4 cards where there are two or more."""
@@ -2692,7 +2764,7 @@ def _dist_zero1(tmp: str) -> tuple[dict, int]:
     from distributedmnist_tpu_torch.parallel.partition_rules import (
         zero1_unpack)
     runs = [_zero1_run(tmp, opt, steps)
-            for opt, steps in (("momentum", 3), ("lamb", 1), ("lamb", 3))]
+            for opt, steps in (("momentum", 3), ("lamb", 1))]
     two = _dist_group(tmp, "zero1_gloo", "gloo", ["cuda:0", "cuda:0"], runs)
     rec = {}
     for run in runs:
@@ -2742,7 +2814,7 @@ def _dist_zero1(tmp: str) -> tuple[dict, int]:
           f"ZeRO-1 momentum, two processes vs one: {m}")
     check(l1["max_leaf_rel_gap"] <= ZERO_DIST_LAMB_TOL,
           f"ZeRO-1 LAMB after one step, two processes vs one: {l1}")
-    for name in ("momentum_3", "lamb_3"):
+    for name in ("momentum_3", "lamb_1"):
         r = rec[name]
         check(all(b == r["slot_bytes_rank_expected"]
                   for b in r["slot_bytes_ranks"]),
@@ -2787,6 +2859,300 @@ def phase_dist(tmp: str) -> dict:
     emit(rec)
     check(all(v == 0 for v in counts.values()) and l1 + l2 + l3 + l4 == 0,
           f"launches {counts}, children {l1 + l2 + l3 + l4}")
+    return rec
+
+
+# -- phase 10b: tensor and sequence parallelism ------------------------------
+
+# the model_parallel phase: 4 worker processes, one launch, each building
+# its Trainer through `launch train`'s build_trainer for every arm in
+# turn (flash; depth cut, widths never): A = TP 4 and B = TP 2 × SP 2
+# (Ulysses over flash) on the training path's widths (d 2048, 16 heads
+# of 128, seq 1024, vocab 1024) at 2 layers and global batch 8; C = SP 4
+# on bench_flash_long_context's model at S = 8192, batch 2, by ring
+# (remat full) and by Ulysses over flash. The bf16 arms take MP_STEPS
+# steps: step 1 is held against the same config's one-process step
+# here, the rest timed by CUDA events. The float32 controls (A and the
+# ring again, at model.compute_dtype=float32) take step 1 alone.
+MP_WORLD, MP_STEPS, MP_BATCH = 4, 3, 8
+MP_TRAIN = {**TRAIN, "name": "chip_smoke_mp",
+            "model": {**MODEL, "num_layers": 2},
+            "data": {"dataset": "synthetic_lm", "batch_size": MP_BATCH,
+                     "synthetic_train_size": 32, "synthetic_test_size": 8,
+                     "use_native_pipeline": False},
+            "eval": {"eval_batch_size": 8},
+            "train": {**TRAIN["train"], "max_steps": MP_STEPS}}
+MP_LONG = {**MP_TRAIN,
+           "model": {**MODEL, "model_dim": LONG["model_dim"],
+                     "num_layers": LONG["num_layers"],
+                     "num_heads": LONG["num_heads"],
+                     "seq_len": LONG["seq_len"]},
+           "data": {**MP_TRAIN["data"], "batch_size": LONG["batch"],
+                    "synthetic_train_size": 8}}
+_F32 = lambda c: {**c, "model": {**c["model"],  # noqa: E731
+                                 "compute_dtype": "float32"}}
+MP_KINDS = {"train": MP_TRAIN, "long": MP_LONG,
+            "train_f32": _F32(MP_TRAIN), "long_f32": _F32(MP_LONG)}
+_RING = ("mesh.seq_parallelism=4", "model.sp_attention=ring",
+         "model.remat=true", "model.remat_policy=full")
+MP_ARMS = {
+    "A_tp4": ("train", ("mesh.model_parallelism=4",), True),
+    "B_tp2_sp2_ulysses": ("train", ("mesh.model_parallelism=2",
+                                    "mesh.seq_parallelism=2",
+                                    "model.sp_attention=ulysses"), True),
+    "C_sp4_ring": ("long", _RING, False),
+    "C_sp4_ulysses": ("long", ("mesh.seq_parallelism=4",
+                               "model.sp_attention=ulysses"), True),
+    "A_tp4_f32": ("train_f32", ("mesh.model_parallelism=4",), True),
+    "C_sp4_ring_f32": ("long_f32", _RING, False)}
+# step 1 against the one-process step from the same params and batch.
+# The loss (~6.9) within MP_LOSS_TOL. Each leaf's update (lr ·
+# gradient, SGD) as ||sharded − one process|| / ||one-process update||.
+# The two steps sum in other orders (the row-parallel partial products
+# over the model group, the ring's online softmax against the flash
+# kernel), and a rounding-sized difference in a pre-activation flips
+# ReLU's mask where it is near 0, an O(1) change in that term: every
+# leaf behind a ReLU moves far more than its rounding (float32, on the
+# H100: 2e-4–1.6e-3 in those leaves, 7e-6–2.4e-5 in the last w2 and
+# final_norm, which no ReLU precedes). A shard left out of a sum, or
+# one summed twice, moves a leaf by 0.25 or more. So the float32
+# controls hold every leaf within MP_UPDATE_TOL_F32, and each bf16 arm
+# holds each leaf within MP_NOISE_RATIO × the one-process bf16 step's
+# own distance from the float32 step in that leaf (its bf16 noise,
+# measured in the same run; sound arms read 0.59–0.92 of it)
+MP_LOSS_TOL = 2e-2
+MP_UPDATE_TOL_F32 = 1e-2
+MP_NOISE_RATIO = 2.0
+
+_MP_CHILD = r"""
+import json, os, time
+import torch
+import torch.distributed as dist
+from distributedmnist_tpu_torch.core.mesh import (initialize_distributed,
+                                                  shutdown_distributed)
+spec = json.loads(os.environ["DMT_SPEC"])
+rank = int(os.environ["RANK"])
+initialize_distributed(spec["backend"], spec["device"], timeout_s=120)
+try:
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+    from distributedmnist_tpu_torch.ops import flash_attention as fa
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    kernels = {"K1": fa.flash_attention_bshd,
+               "K1-lse": fa.flash_attention_fwd_lse,
+               "K2": fa.flash_attention_bwd_dq,
+               "K3": fa.flash_attention_bwd_dkv,
+               "K4": fa.flash_attention_bwd_fused}
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "runs": {}}
+    for run in spec["runs"]:
+        for f in kernels.values():
+            f.launches = 0
+        t = build_trainer(["train", "--config", run["config"],
+                           *run["overrides"], "--device", spec["device"]])
+        feed = [to_device(next(t.train_iter), t.device)
+                for _ in range(run["steps"])]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        blocked0 = t.topo.blocked_s
+        state, m = t.step_fn(t.state, feed[0])
+        loss1 = m["loss"].item()
+        full = t.logical_params()
+        if t.topo.rank == 0:
+            torch.save([p.detach().float().cpu() for p in tree_leaves(full)],
+                       run["save"])
+        del full
+        res = {"device": str(t.device), "loss1": loss1,
+               "last_loss": loss1, "ms_per_step": None,
+               "collective_s_a_timed_step": None,
+               "coords": [t.topo.process_index, t.topo.model_index,
+                          t.topo.seq_index]}
+        if len(feed) > 1:
+            # every rank starts the timed steps together (rank 0 wrote
+            # the params meanwhile)
+            dist.barrier()
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            blocked1 = t.topo.blocked_s
+            a.record()
+            for batch in feed[1:]:
+                state, m = t.step_fn(state, batch)
+            b.record()
+            b.synchronize()
+            res.update(last_loss=m["loss"].item(),
+                       ms_per_step=a.elapsed_time(b) / (len(feed) - 1),
+                       collective_s_a_timed_step=(t.topo.blocked_s
+                                                  - blocked1)
+                       / (len(feed) - 1))
+        res.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   collective_s=t.topo.blocked_s - blocked0,
+                   staged=t.topo.comm.staged)
+        if run.get("eval"):
+            res["eval_loss"] = t.evaluate()["loss"]
+        res["launches"] = {k: f.launches for k, f in kernels.items()}
+        out["runs"][run["name"]] = res
+        del t, state, feed
+        torch.cuda.empty_cache()
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(out, f)
+finally:
+    shutdown_distributed()
+"""
+
+
+def _mp_config(tmp: str, kind: str) -> str:
+    path = f"{tmp}/mp_{kind}.json"
+    with open(path, "w") as f:
+        json.dump(MP_KINDS[kind], f)
+    return path
+
+
+def _mp_reference(tmp: str, kind: str) -> dict:
+    """The one-process step of an arm's model from the same seed and
+    batch: its loss and the params before and after it (float32 on the
+    host)."""
+    import torch
+
+    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.launch.__main__ import build_trainer
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    from distributedmnist_tpu_torch.parallel.partition_rules import \
+        tree_path_names
+    t = build_trainer(["train", "--config", _mp_config(tmp, kind),
+                       f"train.train_dir={tmp}/mp_ref_{kind}",
+                       "mesh.num_replicas=1", "--device", DEVICE])
+    before = [p.detach().float().cpu() for p in tree_leaves(t.state.params)]
+    state, m = t.step_fn(t.state, to_device(next(t.train_iter), t.device))
+    after = [p.detach().float().cpu() for p in tree_leaves(state.params)]
+    rec = {"loss1": m["loss"].item(), "before": before, "after": after,
+           "names": tree_path_names(state.params)}
+    del t, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _update_gaps(got: list, ref: dict) -> list:
+    """Each leaf's ``||got − ref after|| / ||ref update||``."""
+    return [float((g - a).norm() / max(float((a - b).norm()), 1e-30))
+            for g, a, b in zip(got, ref["after"], ref["before"])]
+
+
+def _mp_runs(tmp: str, name: str, arms: list) -> list:
+    runs = []
+    for arm in arms:
+        kind = MP_ARMS[arm][0]
+        f32 = kind.endswith("_f32")
+        runs.append({"name": arm, "config": _mp_config(tmp, kind),
+                     "steps": 1 if f32 else MP_STEPS,
+                     "eval": kind == "train",
+                     "save": f"{tmp}/{name}_{arm}.pt",
+                     "overrides": ["mesh.num_replicas=1",
+                                   f"train.train_dir={tmp}/{name}_{arm}",
+                                   *MP_ARMS[arm][1]]})
+    return runs
+
+
+def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
+    """One arm's record from every process's result, and what fails its
+    checks: step 1 against the one-process step, the same loss on every
+    rank, a card a process, the flash kernels launched by every
+    process."""
+    import torch
+    kind, _, flash = MP_ARMS[run["name"]]
+    ref, f32 = refs[kind], kind.endswith("_f32")
+    procs = [r["runs"][run["name"]] for r in results]
+    errs = _update_gaps(torch.load(run["save"]), ref)
+    if f32:
+        bound = [MP_UPDATE_TOL_F32] * len(errs)
+    else:
+        noise = _update_gaps(ref["after"], refs[f"{kind}_f32"])
+        bound = [MP_NOISE_RATIO * z for z in noise]
+    worst = max(range(len(errs)), key=lambda i: errs[i] / max(bound[i],
+                                                              1e-30))
+    ms = procs[0]["ms_per_step"]
+    tokens = (MP_BATCH * MODEL["seq_len"] if kind.startswith("train")
+              else LONG["batch"] * LONG["seq_len"])
+    rec = {"dtype": "float32" if f32 else "bfloat16",
+           "loss1": procs[0]["loss1"], "loss1_one_process": ref["loss1"],
+           "loss1_abs_diff": abs(procs[0]["loss1"] - ref["loss1"]),
+           "update_rel_err_max": max(errs),
+           "update_worst_leaf": ref["names"][worst],
+           "update_worst_gap_over_bound": errs[worst] / max(bound[worst],
+                                                            1e-30),
+           "update_gap_by_leaf": dict(zip(ref["names"], errs)),
+           "last_loss": procs[0]["last_loss"],
+           "ms_per_step": ms, "ms_per_step_by_rank": [p["ms_per_step"]
+                                                      for p in procs],
+           "tokens_per_s": None if ms is None else tokens / (ms / 1e3),
+           "peak_gb_by_rank": [p["peak_gb"] for p in procs],
+           "collective_s_by_rank": [p["collective_s"] for p in procs],
+           "collective_s_a_timed_step_by_rank": [
+               p["collective_s_a_timed_step"] for p in procs],
+           "staged_by_rank": [p["staged"] for p in procs],
+           "coords_by_rank": [p["coords"] for p in procs],
+           "launches_by_rank": [p["launches"] for p in procs],
+           "devices": [p["device"] for p in procs],
+           "eval_loss": procs[0].get("eval_loss")}
+    if not f32:
+        # each leaf: the one-process bf16 step's own distance from the
+        # float32 step, over the float32 update's norm
+        rec["bf16_noise_by_leaf"] = dict(zip(ref["names"], noise))
+    name = run["name"]
+    fails = [msg for ok, msg in (
+        (all(d.startswith("cuda") for d in rec["devices"]),
+         f"{name}: devices {rec['devices']}"),
+        (len({p["loss1"] for p in procs}) == 1,
+         f"{name}: step-1 losses differ across ranks: "
+         f"{[p['loss1'] for p in procs]}"),
+        (rec["loss1_abs_diff"] <= MP_LOSS_TOL,
+         f"{name}: step-1 loss {rec['loss1']} against one process's "
+         f"{ref['loss1']}"),
+        (all(e <= b for e, b in zip(errs, bound)),
+         f"{name}: update of {rec['update_worst_leaf']} "
+         f"{errs[worst]} of its norm from one process's, over its bound "
+         f"{bound[worst]}"),
+        (not flash or all(p["launches"][k] > 0 for p in procs
+                          for k in ("K1-lse", "K2", "K3")),
+         f"{name}: flash launches {rec['launches_by_rank']}")) if not ok]
+    return rec, fails
+
+
+def phase_model_parallel(tmp: str) -> dict:
+    """Tensor and sequence parallelism (Queue A item 8a): the arms of
+    ``MP_ARMS`` in one launch of ``MP_WORLD`` gloo processes sharing
+    ``cuda:0``, each arm's step 1 against the one-process step of its
+    model here; with 4 cards, arm B again over NCCL, one card a
+    process (else null with the card count)."""
+    import torch
+    t_phase = time.time()
+    refs = {kind: _mp_reference(tmp, kind) for kind in MP_KINDS}
+    reset_counts()
+    runs = _mp_runs(tmp, "mp_gloo", list(MP_ARMS))
+    res = _dist_group(tmp, "mp_gloo", "gloo", ["cuda:0"] * MP_WORLD, runs,
+                      child=_MP_CHILD)
+    arms, fails = {}, []
+    for run in runs:
+        arms[run["name"]], f = _mp_arm(res, run, refs)
+        fails += f
+    cards = torch.cuda.device_count()
+    nccl = {"cards": cards, "B_tp2_sp2_ulysses": None}
+    if cards >= MP_WORLD:
+        runs = _mp_runs(tmp, "mp_nccl", ["B_tp2_sp2_ulysses"])
+        res = _dist_group(tmp, "mp_nccl", "nccl",
+                          [f"cuda:{i}" for i in range(MP_WORLD)], runs,
+                          child=_MP_CHILD)
+        nccl["B_tp2_sp2_ulysses"], f = _mp_arm(res, runs[0], refs)
+        fails += f
+    counts = read_counts()
+    rec = {"phase": "model_parallel", "card": nvidia_smi(),
+           "world": MP_WORLD, "steps": MP_STEPS,
+           "arms": arms, "nccl": nccl, "loss_tol": MP_LOSS_TOL,
+           "update_tol_f32": MP_UPDATE_TOL_F32,
+           "noise_ratio": MP_NOISE_RATIO,
+           "launches_here": counts, "seconds": time.time() - t_phase}
+    emit(rec)
+    check(not fails, "; ".join(fails))
     return rec
 
 
@@ -3190,7 +3556,9 @@ def _resnet_restore(tmp: str, ds) -> dict:
     cross = [r for r in records if r.get("action") == "cross_world_restore"]
     _, slots = _canonical_leaves(resumed)
     want = tree_leaves(params_from_reference(saved["momentum"], device="cpu"))
-    cursor = resumed.train_iter.state()["batches"]
+    # the lockstep batch count of either order's cursor (the config
+    # batches in the native loader's order on a host with a spare core)
+    cursor = resumed.train_iter.batches_consumed
     more = resumed.run(max_steps=RESTORE_STEPS + 1)
     refused = None
     try:
@@ -4644,7 +5012,7 @@ def phase_serve(tmp: str, ckpt_rec: dict) -> dict:
 # each training arm: GRAPH_STEPS steps of the Trainer, its profile window
 # over GRAPH_WINDOW, then GRAPH_TIMED steps timed on one batch, once with
 # the step captured (compile.precompile=true) and once eager
-GRAPH_STEPS, GRAPH_WINDOW, GRAPH_TIMED = 8, (4, 7), 10
+GRAPH_STEPS, GRAPH_WINDOW, GRAPH_TIMED = 8, (4, 7), 5
 # kernel names in a trace by launch counter
 TRACE_NAMES = {"K1-lse": "flash_fwd", "K2": "bwd_dq", "K3": "bwd_dkv",
                "K4": "bwd_fused", "K5": "paged_split"}
@@ -5997,6 +6365,7 @@ def main() -> int:
             run("report", phase_report, tmp)
             run("cnn", phase_cnn, tmp)
             run("dist", phase_dist, tmp)
+            run("model_parallel", phase_model_parallel, tmp)
             run("resnet", phase_resnet, tmp)
             e2e = run("e2e", phase_e2e, train["train_dir"], tmp)
             run("ckpt", phase_ckpt, tmp)
@@ -6041,6 +6410,10 @@ def main() -> int:
         if key in ("K1", "K1-lse", "K2", "K3"):
             extra["launches_campaign"] = runs["campaign"][
                 "launches_extras"][key]
+            # each worker process's count, by arm (4 processes an arm)
+            extra["launches_model_parallel"] = {
+                arm: [c[key] for c in a["launches_by_rank"]]
+                for arm, a in runs["model_parallel"]["arms"].items()}
         if key in ("K1-lse", "K2", "K3"):
             extra = {**extra, "launches_replicas":
                          runs["train_replicas"]["launches"][key],

@@ -31,6 +31,22 @@ environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``);
 without ``WORLD_SIZE`` it does nothing and :func:`make_topology` builds
 the one-process topology.
+
+Tensor and sequence parallelism (``mesh.model_parallelism = m``,
+``mesh.seq_parallelism = s``; ≙ the reference's 3-D mesh,
+``core/mesh.py:459-515``) spread each replica over ``m·s`` processes:
+the world is ``P_r × m × s`` processes laid out replica-major, then
+model, then seq (the reference's axis order), so rank ``(p·m + i)·s +
+j`` holds model shard ``i`` and sequence block ``j`` of replica-process
+``p``. Three sub-groups are made once for each layout and named by
+``mesh.replica_axis`` / ``model_axis`` / ``seq_axis``: the replica group
+(the ``P_r`` processes with one ``(i, j)``) carries every cross-replica
+sum above, the model group the Megatron all-reduces and the seq group
+the ring, the all-to-alls and the gradient sums over sequence blocks.
+``process_index`` / ``process_count`` are the replica-process
+coordinate ``p`` / ``P_r`` (the data shard a process reads: every
+process of one model/seq group reads the same rows); ``rank`` /
+``world_size`` are the process group's.
 """
 
 from __future__ import annotations
@@ -45,12 +61,15 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from .config import MeshConfig
+from .config import ConfigError, MeshConfig
 from .device import resolve_device
 
 # the gloo group host tensors reduce over; None with a gloo default
 # group (the default group is gloo already) or without a group
 _host_group: Any = None
+# the sub-groups of each (P_r, m, s) layout made so far: every rank makes
+# every group of a layout once, in one order (dist.new_group's contract)
+_layouts: dict[tuple[int, int, int], dict] = {}
 
 
 def local_sum(x: torch.Tensor) -> torch.Tensor:
@@ -65,23 +84,83 @@ def local_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class CommStats:
+    """What one topology's collectives cost this process: the host
+    seconds spent inside them, waiting for peers included, and the
+    exchanges staged through host buffers (gloo and a CUDA tensor,
+    :mod:`..ops.collectives`)."""
+
+    blocked_s: float = 0.0
+    staged: dict = dataclasses.field(
+        default_factory=lambda: {"ppermute": 0, "all_to_all": 0})
+
+    def timed(self, fn, *args, **kw):
+        """``fn(*args, **kw)``, its host seconds added to ``blocked_s``."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        self.blocked_s += time.perf_counter() - t0
+        return out
+
+
+@dataclasses.dataclass
 class Topology:
     """``num_replicas`` data-parallel replicas split evenly over
-    ``process_count`` processes; this one is ``process_index`` and holds
-    replicas ``[first_replica, first_replica + local_replica_count)`` on
-    the device its state lives on. ``distributed`` is set when a process
-    group is up (even of one process): the sums then run through it.
-    ``blocked_s`` counts the host seconds this process spent inside
-    collectives, waiting for its peers included (the Trainer takes them
-    out of its measured step time, as the reference's device-side
-    collectives never stall its host)."""
+    ``process_count`` replica-processes; this one is ``process_index``
+    and holds replicas ``[first_replica, first_replica +
+    local_replica_count)`` on the device its state lives on — each of
+    them, under tensor/sequence parallelism, as model shard
+    ``model_index`` of ``model_parallelism`` and sequence block
+    ``seq_index`` of ``seq_parallelism``. ``distributed`` is set when a
+    process group is up (even of one process): the sums then run
+    through it. ``comm`` counts what this process's collectives cost —
+    the sums here, and the tensor/sequence-parallel collectives the
+    step hands it to; :attr:`blocked_s` is their host seconds, waiting
+    for peers included (the Trainer takes them out of its measured
+    step time, as the reference's device-side collectives never stall
+    its host).
+
+    ``replica_group`` / ``model_group`` / ``seq_group`` are the
+    sub-groups (None: the default group for the replica group; no group
+    for a model or seq axis of 1); ``replica_host_group`` the group
+    host tensors sum over the replicas in (the replica group itself
+    under gloo, its gloo twin under NCCL; None: the default group).
+    ``axis_names`` are the config's ``(replica, model, seq)`` axis
+    names."""
 
     num_replicas: int
     process_index: int = 0
     process_count: int = 1
     distributed: bool = False
     host_group: Any = None
-    blocked_s: float = 0.0
+    comm: CommStats = dataclasses.field(default_factory=CommStats)
+    model_parallelism: int = 1
+    seq_parallelism: int = 1
+    model_index: int = 0
+    seq_index: int = 0
+    rank: int = 0
+    world_size: int = 1
+    replica_group: Any = None
+    replica_host_group: Any = None
+    model_group: Any = None
+    seq_group: Any = None
+    axis_names: tuple[str, str, str] = ("replica", "model", "seq")
+
+    @property
+    def blocked_s(self) -> float:
+        """Host seconds this process spent inside collectives."""
+        return self.comm.blocked_s
+
+    @property
+    def sharded(self) -> bool:
+        """Whether a replica spans several processes (``m·s > 1``)."""
+        return self.model_parallelism * self.seq_parallelism > 1
+
+    @property
+    def replica_leader(self) -> bool:
+        """The process whose measured time fills its replicas' rows:
+        model shard 0, sequence block 0 (≙ the reference's
+        ``measured_timing_supported``: one owner a row)."""
+        return self.model_index == 0 and self.seq_index == 0
 
     @property
     def local_replica_count(self) -> int:
@@ -111,13 +190,16 @@ class Topology:
                              f"{L} local replicas")
         return x.view(L, -1, *x.shape[1:])
 
-    def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` in place over the processes: through the gloo host
-        group for a CPU tensor, the default group otherwise."""
-        group = self.host_group if x.device.type == "cpu" else None
-        t0 = time.perf_counter()
-        dist.all_reduce(x, group=group)
-        self.blocked_s += time.perf_counter() - t0
+    def _all_reduce(self, x: torch.Tensor, world: bool = False,
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """Reduce ``x`` in place over the replica-processes (``world``:
+        over every process): through the gloo twin for a CPU tensor."""
+        cpu = x.device.type == "cpu"
+        if world:
+            group = self.host_group if cpu else None
+        else:
+            group = self.replica_host_group if cpu else self.replica_group
+        self.comm.timed(dist.all_reduce, x, op=op, group=group)
         return x
 
     def sum_replicas(self, x: torch.Tensor) -> torch.Tensor:
@@ -130,16 +212,19 @@ class Topology:
 
     def gather_scalars(self, x: torch.Tensor) -> torch.Tensor:
         """``[L, ...]`` rows of this process's replicas → ``[n, ...]`` in
-        replica order on every process: a zeros ``[n, ...]`` with this
-        process's rows written in, one all-reduce (≙
-        ``_gather_replicated``'s one-hot psum: every other row adds an
-        exact zero, so the result is bitwise the rows)."""
+        replica order on every process: an ``[n, ...]`` of ``-inf`` with
+        this process's rows written in, one max all-reduce over every
+        process (≙ ``_gather_replicated``'s one-hot psum, where every
+        other row adds an exact zero: the max is bitwise the rows as
+        well). When a replica spans several processes (:attr:`sharded`)
+        its ``m·s`` processes may each write its rows: a row holds the
+        largest value written there (write ``-inf`` for no value)."""
         if not self.distributed:
             return x
-        out = x.new_zeros((self.num_replicas, *x.shape[1:]))
+        out = x.new_full((self.num_replicas, *x.shape[1:]), float("-inf"))
         first = self.first_replica
         out[first:first + self.local_replica_count] = x
-        return self._all_reduce(out)
+        return self._all_reduce(out, world=True, op=dist.ReduceOp.MAX)
 
     def reduce_scatter_replicas(self, x: torch.Tensor) -> torch.Tensor:
         """``[L, n, C]`` (each local replica's row for every replica) →
@@ -152,9 +237,7 @@ class Topology:
         if not self.distributed:
             return out
         mine = out.new_empty((self.local_replica_count, out.shape[1]))
-        t0 = time.perf_counter()
-        _reduce_scatter(mine, out)
-        self.blocked_s += time.perf_counter() - t0
+        self.comm.timed(_reduce_scatter, mine, out, group=self.replica_group)
         return mine
 
     def all_gather_replicas(self, x: torch.Tensor) -> torch.Tensor:
@@ -164,15 +247,53 @@ class Topology:
         if not self.distributed:
             return x
         out = x.new_empty((self.num_replicas, x.shape[1]))
-        t0 = time.perf_counter()
-        _all_gather(out, x.contiguous())
-        self.blocked_s += time.perf_counter() - t0
+        self.comm.timed(_all_gather, out, x.contiguous(),
+                        group=self.replica_group)
         return out
 
     def sum_processes(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the processes (one all-reduce; ``x`` as is
-        with one process)."""
+        """``x`` summed over the replica-processes (one all-reduce; ``x``
+        as is with one process)."""
         return self._all_reduce(x) if self.distributed else x
+
+    def sum_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed in place over the seq group (as it is without
+        sequence parallelism)."""
+        if self.seq_group is not None:
+            self.comm.timed(dist.all_reduce, x, group=self.seq_group)
+        return x
+
+    def sum_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model group (a new tensor; ``x`` as it
+        is without tensor parallelism)."""
+        if self.model_group is None:
+            return x
+        x = x.clone()
+        self.comm.timed(dist.all_reduce, x, group=self.model_group)
+        return x
+
+    def all_gather_model(self, out: list, x: torch.Tensor) -> None:
+        """Every model rank's ``x`` into ``out``, in rank order."""
+        self.comm.timed(dist.all_gather, out, x, group=self.model_group)
+
+    def seq_block(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's block of a ``[b, S, ...]`` token batch: columns
+        ``[j·S/s, (j+1)·S/s)`` for sequence block ``j`` (≙
+        ``device_put_batch(seq_sharded=True)``, reference
+        ``core/mesh.py:318-340``); ``x`` itself without SP."""
+        s = self.seq_parallelism
+        if s == 1:
+            return x
+        if x.shape[1] % s:
+            raise ValueError(f"seq_len {x.shape[1]} not divisible by "
+                             f"mesh.seq_parallelism={s}")
+        w = x.shape[1] // s
+        return x[:, self.seq_index * w:(self.seq_index + 1) * w]
+
+    def seq_positions(self, s_local: int, device) -> torch.Tensor:
+        """The global positions of this process's sequence block."""
+        return self.seq_index * s_local + torch.arange(s_local,
+                                                       device=device)
 
 
 # the single-tensor collectives under their current names (older torch
@@ -183,31 +304,94 @@ _all_gather = getattr(dist, "all_gather_single", None) or getattr(
     dist, "all_gather_into_tensor")
 
 
+def _make_groups(p_r: int, m: int, s: int) -> dict:
+    """Every sub-group of the ``(P_r, m, s)`` layout, made once (all
+    ranks call ``new_group`` for every group, in one order) and kept for
+    later topologies of the layout: this rank's replica, model and seq
+    groups, and with an NCCL default group a gloo twin of its replica
+    group for host tensors."""
+    key = (p_r, m, s)
+    if key in _layouts:
+        return _layouts[key]
+    rank_of = lambda p, i, j: (p * m + i) * s + j  # noqa: E731
+    me = dist.get_rank()
+    gloo_twin = dist.get_backend() != "gloo"
+    mine: dict = {}
+
+    def make(name, ranks_list, twin=False):
+        for ranks in ranks_list:
+            g = dist.new_group(ranks)
+            h = dist.new_group(ranks, backend="gloo") if twin else g
+            if me in ranks:
+                mine[name], mine[name + "_host"] = g, h
+
+    make("replica", [[rank_of(p, i, j) for p in range(p_r)]
+                     for i in range(m) for j in range(s)], gloo_twin)
+    if m > 1:
+        make("model", [[rank_of(p, i, j) for i in range(m)]
+                       for p in range(p_r) for j in range(s)])
+    if s > 1:
+        make("seq", [[rank_of(p, i, j) for j in range(s)]
+                     for p in range(p_r) for i in range(m)])
+    _layouts[key] = mine
+    return mine
+
+
 def make_topology(cfg: MeshConfig) -> Topology:
-    """``mesh.num_replicas`` replicas, or ``mesh.simulate_devices`` when
-    ``num_replicas`` is -1 (the reference's "every device" on its forced
-    CPU mesh), else one; over the processes of the group
-    :func:`initialize_distributed` made, if any. Model, sequence,
-    pipeline and expert parallelism are not ported."""
-    for name in ("model_parallelism", "seq_parallelism",
-                 "pipeline_parallelism", "expert_parallelism"):
+    """``mesh.num_replicas`` replicas, or when ``num_replicas`` is -1
+    (the reference's "every device") ``mesh.simulate_devices / (m·s)``,
+    else one a replica-process; over the processes of the group
+    :func:`initialize_distributed` made, if any. ``mesh.model_parallelism
+    = m`` and ``mesh.seq_parallelism = s`` spread each replica over
+    ``m·s`` processes (the layout in the module docstring), which needs
+    a process group of ``P_r·m·s`` processes: without one this is a
+    ConfigError, never a one-process run. Pipeline and expert
+    parallelism are not ported (Queue A items 8c and 8b)."""
+    for name, item in (("pipeline_parallelism", "8c"),
+                       ("expert_parallelism", "8b")):
         if getattr(cfg, name) != 1:
-            raise NotImplementedError(f"mesh.{name} > 1 is not ported yet")
+            raise NotImplementedError(
+                f"mesh.{name} > 1 is not ported yet (Queue A item {item})")
+    m, s = int(cfg.model_parallelism), int(cfg.seq_parallelism)
+    if m < 1 or s < 1:
+        raise ConfigError(f"mesh.model_parallelism={m} and "
+                          f"mesh.seq_parallelism={s} must be >= 1")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if m * s > 1 and (world < m * s or world % (m * s)):
+        raise ConfigError(
+            f"mesh.model_parallelism={m} × mesh.seq_parallelism={s} spread "
+            f"each replica over {m * s} processes, but this process group "
+            f"has {world}: launch a multiple of {m * s} processes under "
+            f"torchrun (e.g. torchrun --nproc_per_node {m * s} -m "
+            "distributedmnist_tpu_torch.launch train ...)")
+    p_r = world // (m * s)
     n = cfg.num_replicas
     if n == -1:
-        n = cfg.simulate_devices if cfg.simulate_devices > 0 else 1
+        n = (cfg.simulate_devices // (m * s) if cfg.simulate_devices > 0
+             else (p_r if m * s > 1 else 1))
     if n < 1:
         raise ValueError(f"mesh.num_replicas must be -1 or >= 1, got {n}")
+    names = (cfg.replica_axis, cfg.model_axis, cfg.seq_axis)
     if not dist.is_initialized():
-        return Topology(num_replicas=n)
-    topo = Topology(num_replicas=n, process_index=dist.get_rank(),
-                    process_count=dist.get_world_size(), distributed=True,
-                    host_group=_host_group)
+        return Topology(num_replicas=n, axis_names=names)
+    rank = dist.get_rank()
+    topo = Topology(num_replicas=n, process_index=rank // (m * s),
+                    process_count=p_r, distributed=True,
+                    host_group=_host_group, model_parallelism=m,
+                    seq_parallelism=s, model_index=(rank // s) % m,
+                    seq_index=rank % s, rank=rank, world_size=world,
+                    replica_host_group=_host_group, axis_names=names)
     if not topo.measured_timing_supported:
         raise ValueError(f"{n} replicas do not split evenly over "
-                         f"{topo.process_count} processes: set "
-                         "mesh.num_replicas to a multiple of the process "
-                         "count")
+                         f"{p_r} replica-processes: set mesh.num_replicas "
+                         "to a multiple of the process count"
+                         + (f" / {m * s}" if m * s > 1 else ""))
+    if m * s > 1:
+        groups = _make_groups(p_r, m, s)
+        topo.replica_group = groups["replica"]
+        topo.replica_host_group = groups["replica_host"]
+        topo.model_group = groups.get("model")
+        topo.seq_group = groups.get("seq")
     return topo
 
 
@@ -287,3 +471,4 @@ def shutdown_distributed() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _host_group = None
+    _layouts.clear()

@@ -3,24 +3,34 @@ epoch-reshuffling train stream with a resumable cursor, the gradient
 accumulation feed, fixed-order weight-padded eval batches, and the hop
 of a host batch onto the card.
 
-The shuffle is the reference's numpy code, so batch order is bitwise
-the reference's for the same seed, and a cursor saved by either
-package resumes the same stream in the other. The native C++
-prefetcher and the device-side prefetch thread are not ported: batches
-are assembled inline and copied to the card from pinned memory
-(:func:`to_device`).
+Two shuffles, as in the reference, and each is bitwise the reference's
+for the same seed, so a cursor saved by either package resumes the same
+stream in the other:
+
+* :class:`BatchIterator` — the reference's numpy code;
+* :class:`NativeOrderIterator` — the permutation of the reference's C++
+  prefetcher (``native/dml_native.cc``: a splitmix64-seeded
+  Fisher-Yates an epoch), which the reference batches in wherever it
+  runs that prefetcher (``data.use_native_pipeline`` on a host with a
+  spare core). The port draws it in numpy and Python, inline: the
+  prefetch thread itself is not ported, nor the device-side one.
+  Batches are copied to the card from pinned memory (:func:`to_device`).
 """
 
 from __future__ import annotations
 
 from typing import Iterator
 
+import os
+
 import numpy as np
 import torch
 
 from ..core.config import DataConfig
-from ..core.log import get_logger
 from .datasets import ArrayDataset
+
+_MASK64 = (1 << 64) - 1
+_GOLDEN = 0x9e3779b97f4a7c15
 
 
 class BatchIterator:
@@ -194,19 +204,81 @@ def eval_batches(data: ArrayDataset, batch_size: int, pad_multiple: int = 1,
         yield {"image": x, "label": y, "weight": w}
 
 
+def _splitmix64(states: np.ndarray) -> np.ndarray:
+    """splitmix64's output mix of each (already advanced) uint64 state
+    (≙ ``dml_native.cc:34-39``; numpy's uint64 arrays wrap as C++'s
+    ``uint64_t`` does)."""
+    z = states
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xbf58476d1ce4e5b9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94d049bb133111eb)
+    return z ^ (z >> np.uint64(31))
+
+
+def native_permutation(seed: int, epoch: int, n: int) -> np.ndarray:
+    """The C++ loader's ``shuffle_for(epoch)`` over ``n`` rows
+    (≙ ``dml_native.cc:78-89``): state ``seed ^ (golden · (epoch+1))``,
+    one draw discarded, then Fisher-Yates from ``n-1`` down with ``j =
+    draw % (i+1)``. Draw ``t`` (from 1) mixes the state ``s0 + (t+1) ·
+    golden``, so every draw is made in one vectorised pass; only the
+    swaps run in a Python loop."""
+    s0 = (int(seed) & _MASK64) ^ ((_GOLDEN * (epoch + 1)) & _MASK64)
+    order = list(range(n))
+    if n < 2:
+        return np.asarray(order, np.int64)
+    steps = np.arange(2, n + 1, dtype=np.uint64)
+    draws = _splitmix64(np.uint64(s0) + steps * np.uint64(_GOLDEN))
+    bounds = np.arange(n, 1, -1, dtype=np.uint64)  # i + 1
+    js = (draws % bounds).tolist()
+    for i, j in zip(range(n - 1, 0, -1), js):
+        order[i], order[j] = order[j], order[i]
+    return np.asarray(order, np.int64)
+
+
+class NativeOrderIterator(BatchIterator):
+    """The stream the reference's ``NativePrefetcher`` yields (≙
+    ``data/native_loader.py:55-115``), drawn inline: the host's own rows
+    (its shard) in :func:`native_permutation` order for the iterator's
+    ``seed``, the first permutation at epoch 0, the ragged tail dropped
+    and a reshuffle at ``epoch + 1`` (``dml_native.cc:92-97,213``). Its
+    cursor is the loader's, ``{"impl": "native", "epoch", "pos"}``;
+    restoring the numpy stream's cursor raises, as the loader's does."""
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        return native_permutation(self.seed, epoch, self.data.num_examples)
+
+    def state(self) -> dict:
+        return {"impl": "native", "epoch": self._epoch, "pos": self._pos}
+
+    def restore(self, state: dict) -> None:
+        impl = state.get("impl", "numpy")
+        if impl != "native":
+            raise ValueError(
+                f"data-iterator state was produced by the {impl!r} pipeline; "
+                "restoring it into the native shuffle stream would replay a "
+                "different permutation")
+        self._epoch = max(int(state["epoch"]), 0)
+        self._order = self._epoch_order(self._epoch)
+        self._pos = min(max(int(state["pos"]), 0), self.data.num_examples)
+
+
+def host_can_spare_producer_thread() -> bool:
+    """The reference's gate for its prefetch thread (≙ ``data/
+    pipeline.py:265-275``): a spare core."""
+    return (os.cpu_count() or 1) >= 2
+
+
 def make_train_iterator(data: ArrayDataset, cfg: DataConfig, seed: int,
                         host_id: int = 0, num_hosts: int = 1) -> BatchIterator:
-    """The train stream. ``data.use_native_pipeline`` selects the
-    reference's C++ prefetcher, which is not ported: the port always
-    batches inline in the numpy iterator's order, and says so. (The
-    reference's prefetcher, where it runs, draws a permutation of its
-    own, so its batches are not these.)"""
-    if cfg.use_native_pipeline:
-        get_logger("data").info("data.use_native_pipeline is a no-op in "
-                                "the port: batching inline, in the numpy "
-                                "iterator's order")
-    return BatchIterator(data, cfg.batch_size, seed=seed, host_id=host_id,
-                         num_hosts=num_hosts, shard_mode=cfg.shard_mode)
+    """The train stream, in the order the reference batches the same
+    config in on this host (≙ ``data/pipeline.py:291-320``): with
+    ``data.use_native_pipeline`` on a host with a spare core, its C++
+    prefetcher's (:class:`NativeOrderIterator`); else its numpy
+    iterator's."""
+    cls = (NativeOrderIterator
+           if cfg.use_native_pipeline and host_can_spare_producer_thread()
+           else BatchIterator)
+    return cls(data, cfg.batch_size, seed=seed, host_id=host_id,
+               num_hosts=num_hosts, shard_mode=cfg.shard_mode)
 
 
 def to_device(batch: dict, device: torch.device) -> dict:

@@ -90,7 +90,7 @@ class Evaluator:
         self.datasets = datasets if datasets is not None else load_datasets(
             cfg.data, cfg.model.image_size, cfg.model.num_channels,
             cfg.model.num_classes, cfg.model.seq_len, cfg.model.vocab_size)
-        self.eval_fn = build_eval_step(self.model, cfg)
+        self.eval_fn = build_eval_step(self.model, cfg, self.topo)
         self.follower = ckpt.CheckpointFollower(self.train_dir,
                                                 on_event=self._skipped)
         self._sink: JsonlSink | None = None

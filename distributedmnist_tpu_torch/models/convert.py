@@ -14,6 +14,11 @@ directions copy leaf for leaf; no array is transposed or renamed.
 ``TrainState`` (params, optimizer slots and counters) the same way; the
 slots are ``None``, one params-shaped tree, or LAMB's ``{"m": tree,
 "v": tree}``.
+
+:func:`shard_params` / :func:`gather_params` carry a full tree (the
+reference's, or a checkpoint's) to one tensor-parallel rank's shard and
+the ranks' shards back, by a partition-rule table
+(``parallel/partition_rules.py``).
 """
 
 from __future__ import annotations
@@ -149,3 +154,29 @@ def state_to_reference(state) -> dict:
         "wall_ms": np.asarray(state.wall_ms, np.float32),
         "next_apply_ms": np.asarray(state.next_apply_ms, np.float32),
     }
+
+
+def shard_params(tree: Any, rules: list, rank: int, m: int,
+                 axis: str = "model") -> Any:
+    """Tensor-parallel rank ``rank``'s shard (of ``m``) of the full
+    ``tree`` (numpy arrays or tensors; lists, or their state-dict form):
+    each leaf cut along the dim its rule splits over ``axis``
+    (views)."""
+    from ..parallel.partition_rules import (map_leaves,
+                                            match_partition_rules,
+                                            shard_leaf)
+    tree = list_form(tree)
+    specs = match_partition_rules(rules, tree)
+    return map_leaves(lambda x, spec: shard_leaf(x, spec, axis, rank, m),
+                      tree, specs)
+
+
+def gather_params(shards: list, rules: list, axis: str = "model") -> Any:
+    """The inverse of :func:`shard_params`: the ``m`` ranks' shards, in
+    rank order, joined into the full tree."""
+    from ..parallel.partition_rules import (gather_leaf, map_leaves,
+                                            match_partition_rules)
+    shards = [list_form(t) for t in shards]
+    specs = match_partition_rules(rules, shards[0])
+    return map_leaves(lambda first, spec, *rest: gather_leaf(
+        [first, *rest], spec, axis), shards[0], specs, *shards[1:])

@@ -7,6 +7,14 @@ and the ``transformer`` entry (the same for a causal LM — its
 ``predictions`` is the next-token distribution — plus the decode
 exports the serving replica builds on). The transformer's
 mixture-of-experts FFNs raise "not ported yet".
+
+The transformer entry carries its partition-rule table (≙ the
+reference's ``transformer_partition_rules``; ``parallel/
+partition_rules.py`` maps it) and its ``sharded_apply_factory`` (≙
+``registry.py:369-438``, with ``make_seq_attn``): the apply of the
+DP×TP×SP train step, on one rank's shard of the params and one block of
+the sequence. The CNN and ResNet-20 have neither, so they refuse the
+model and seq axes.
 """
 
 from __future__ import annotations
@@ -129,7 +137,16 @@ class Model:
     * ``decode_step(params, tokens, positions, k_cache, v_cache,
       block_tables, lengths, *, block_size, attention_kernel)`` — one
       token per slot over the paged cache;
-    * ``decode_cache_shape = (num_layers, num_heads, head_dim)``.
+    * ``decode_cache_shape = (num_layers, num_heads, head_dim)``;
+    * ``partition_rules(axes) -> [(regex, spec)]`` — the table
+      :func:`..parallel.partition_rules.match_partition_rules` maps over
+      the params (:class:`..parallel.partition_rules.RuleAxes` binds the
+      active axes);
+    * ``sharded_apply_factory(seq_group, model_group, stats=None) ->
+      apply(params, tokens, positions)`` — the tensor-/sequence-parallel
+      apply, its collectives counted in ``stats`` (a
+      :class:`..core.mesh.CommStats`; None: the model supports
+      neither).
     """
 
     name: str
@@ -148,6 +165,46 @@ class Model:
     decode_prefill: Callable[..., tuple] | None = None
     decode_step: Callable[..., tuple] | None = None
     decode_cache_shape: tuple[int, int, int] | None = None
+    partition_rules: Callable[[Any], list] | None = None
+    sharded_apply_factory: Callable[..., Callable] | None = None
+
+
+def transformer_partition_rules(num_experts: int) -> Callable[[Any], list]:
+    """The transformer's table (≙ the reference's): Megatron TP on the
+    model axis — ``wqkv [d, 3, d]`` and ``w1`` split on their last
+    (output) dim, ``wo`` and ``w2`` on their first (input) dim — and the
+    embeddings and norms replicated. The expert entries and the stacked
+    (pipeline) layout's are the reference's too; the port builds neither
+    layout yet (Queue A items 8b and 8c), so they are not reached."""
+    def rules(axes) -> list:
+        m, e, st = axes.model, axes.expert, axes.stage
+        out: list = []
+        if st is not None:
+            out += [(r"blocks/wqkv$", (st, None, None, m)),
+                    (r"blocks/wo$", (st, m, None)),
+                    (r"blocks/(ln1|ln2)/scale$", (st,))]
+            if num_experts > 0:
+                out += [(r"blocks/router$", (st,)),
+                        (r"blocks/w1$", (st, e, None, m)),
+                        (r"blocks/w2$", (st, e, m, None))]
+            else:
+                out += [(r"blocks/w1$", (st, None, m)),
+                        (r"blocks/w2$", (st, m, None))]
+        else:
+            out += [(r"blocks/\d+/wqkv$", (None, None, m)),
+                    (r"blocks/\d+/wo$", (m, None))]
+            if num_experts > 0:
+                out += [(r"blocks/\d+/router$", ()),
+                        (r"blocks/\d+/w1$", (e, None, m)),
+                        (r"blocks/\d+/w2$", (e, m, None))]
+            else:
+                out += [(r"blocks/\d+/w1$", (None, m)),
+                        (r"blocks/\d+/w2$", (m, None))]
+        # embeddings and norms replicated in every layout
+        out += [(r"(^|/)(ln1|ln2|final_norm)/scale$", ()),
+                (r"^(embed|pos)$", ())]
+        return out
+    return rules
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -221,7 +278,8 @@ def _resnet20(cfg: ModelConfig) -> Model:
 
 def _transformer(cfg: ModelConfig) -> Model:
     from . import transformer
-    from ..ops.flash_attention import flash_attention_bshd
+    from ..ops.flash_attention import (flash_attention_bshd,
+                                       flash_attention_bshd_plain)
 
     if cfg.num_experts > 0:
         raise NotImplementedError("mixture-of-experts FFNs "
@@ -230,8 +288,11 @@ def _transformer(cfg: ModelConfig) -> Model:
     compute_dtype = torch_dtype(cfg.compute_dtype)
     if cfg.attention_impl == "flash":
         attention_fn = flash_attention_bshd
+        # Ulysses' full-sequence attention, in the model's bshd layout
+        inner_bshd = flash_attention_bshd
     elif cfg.attention_impl == "dense":
         attention_fn = None  # transformer defaults to local_self_attention
+        inner_bshd = flash_attention_bshd_plain  # dense, bshd
     else:
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     if (cfg.remat and cfg.remat_policy == "save_attn"
@@ -274,6 +335,60 @@ def _transformer(cfg: ModelConfig) -> Model:
             lengths, num_heads=cfg.num_heads, block_size=block_size,
             compute_dtype=compute_dtype, attention_kernel=attention_kernel)
 
+    def make_seq_attn(seq_group, stats=None):
+        """The attention for a sequence split over ``seq_group``: the
+        configured one when unsplit, else ring or Ulysses over the
+        group."""
+        if seq_group is None:
+            return attention_fn  # flash or dense, per attention_impl
+        if cfg.sp_attention == "ring":
+            from ..ops.ring_attention import ring_self_attention
+
+            def sharded_attn(q, k, v, causal=True, scale=None):
+                return ring_self_attention(q, k, v, seq_group,
+                                           causal=causal, scale=scale,
+                                           stats=stats)
+            return sharded_attn
+        if cfg.sp_attention == "ulysses":
+            from ..ops.ulysses_attention import ulysses_self_attention
+
+            def sharded_attn(q, k, v, causal=True, scale=None):
+                return ulysses_self_attention(q, k, v, seq_group,
+                                              causal=causal, scale=scale,
+                                              attention_fn=inner_bshd,
+                                              stats=stats)
+            sharded_attn.layout = "bshd"
+            return sharded_attn
+        raise ValueError(f"unknown sp_attention {cfg.sp_attention!r}")
+
+    def sharded_apply_factory(seq_group, model_group, stats=None):
+        """The apply of the DP×SP×TP train step: tokens arrive as this
+        process's ``[b, seq_local]`` block with their global positions;
+        attention crosses the blocks by the configured strategy; the
+        params may be this rank's tensor-parallel shard."""
+        sharded_attn = make_seq_attn(seq_group, stats)
+        if (cfg.remat and cfg.remat_policy == "save_attn"
+                and seq_group is not None and cfg.sp_attention == "ring"):
+            # save_attn keeps the attention sublayer outside the
+            # checkpoint so the flash Function's O(s·d) residuals stay;
+            # the ring has no fused backward — autograd would keep every
+            # ring step's scores instead, what remat exists to avoid
+            raise ValueError(
+                "model.remat_policy='save_attn' requires an attention "
+                "with a fused VJP (flash / Ulysses-over-flash); ring "
+                "attention under sequence parallelism needs "
+                "remat_policy='full'")
+
+        def apply_sharded(params, tokens, positions):
+            return transformer.apply(params, tokens, num_heads=cfg.num_heads,
+                                     attention_fn=sharded_attn,
+                                     positions=positions,
+                                     compute_dtype=compute_dtype,
+                                     remat=cfg.remat,
+                                     remat_policy=cfg.remat_policy,
+                                     model_group=model_group, stats=stats)
+        return apply_sharded
+
     def init_params(seed, device):
         # a torch generator: other numbers than the reference's JAX key
         # (the meta device, which has none, takes the shapes alone)
@@ -292,4 +407,7 @@ def _transformer(cfg: ModelConfig) -> Model:
                  input_shape=(cfg.seq_len,), input_dtype="int32",
                  decode_prefill=decode_prefill, decode_step=decode_step,
                  decode_cache_shape=(cfg.num_layers, cfg.num_heads,
-                                     cfg.model_dim // cfg.num_heads))
+                                     cfg.model_dim // cfg.num_heads),
+                 partition_rules=transformer_partition_rules(
+                     cfg.num_experts),
+                 sharded_apply_factory=sharded_apply_factory)

@@ -25,8 +25,19 @@ flash forward runs again in the backward; ``"save_attn"`` keeps the
 attention sublayer outside the checkpoint (its Function's residuals,
 O(s·d), stay) and recomputes only the FFN sublayer and its norm.
 
-Tensor/sequence/pipeline parallelism and mixture-of-experts FFNs are
-not ported yet.
+Tensor parallelism (Megatron; ≙ the reference's ``model_axis`` path):
+``apply(model_group=g)`` runs on one rank's shard of the params
+(``parallel/partition_rules.py transformer_partition_rules``: ``wqkv``
+and ``w1`` split on their output dim, ``wo`` and ``w2`` on their input
+dim), so this rank computes ``num_heads / m`` heads and its slice of the
+FFN; ``copy_to_group`` (*f*) sits on ``ln1(x)`` and ``ln2(x)`` where they
+enter the column-parallel products and ``reduce_from_group`` (*g*)
+after ``wo`` and ``w2``, so activations, logits and any loss are the
+same on every rank of the group. Sequence parallelism needs nothing
+here but the block's global ``positions`` and a sequence-parallel
+``attention_fn`` (ring or Ulysses, ``models/registry.py
+make_seq_attn``); :func:`sp_partial_token_loss` is its loss.
+Pipeline parallelism and mixture-of-experts FFNs are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,10 +45,12 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import local_self_attention
+from ..ops.collectives import copy_to_group, reduce_from_group
 from ..ops.paged_attention import paged_attention, paged_attention_dense
 
 Params = dict[str, Any]
@@ -91,36 +104,47 @@ def _rms_norm(x: torch.Tensor, p: Params) -> torch.Tensor:
 
 
 def _attn_sublayer(x: torch.Tensor, blk: Params, *, num_heads: int,
-                   attn: Callable, return_kv: bool = False):
-    """Pre-norm attention sublayer: ``x + wo(attn(qkv(ln1(x))))``.
+                   attn: Callable, return_kv: bool = False,
+                   model_group=None, stats=None):
+    """Pre-norm attention sublayer: ``x + wo(attn(qkv(ln1(x))))``. Under
+    tensor parallelism ``blk`` holds this rank's shard (``wqkv [d, 3,
+    e]``, ``wo [e, d]``, ``e = d / m``): it runs its ``e / head_dim``
+    heads, and the row-parallel ``wo`` product is summed over
+    ``model_group``.
 
     ``return_kv`` also returns this layer's K/V in ``[b, s, h, hd]``
     (strided views of the qkv product) — what the prefill seeds the
     paged cache with."""
     b, s, d = x.shape
     hd = d // num_heads
-    h = _rms_norm(x, blk["ln1"])
-    qkv = (h @ blk["wqkv"].reshape(d, 3 * d)).view(b, s, 3, d)
+    e = blk["wqkv"].shape[-1]
+    h_local = e // hd
+    h = copy_to_group(_rms_norm(x, blk["ln1"]), model_group, stats)
+    qkv = (h @ blk["wqkv"].reshape(d, 3 * e)).view(b, s, 3, e)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    bshd = lambda t: t.view(b, s, num_heads, hd)
+    bshd = lambda t: t.view(b, s, h_local, hd)
     if getattr(attn, "layout", "bhsd") == "bshd":
         # the kernel reads the residual layout through its strides: no
         # head transpose, no copy
-        o = attn(bshd(q), bshd(k), bshd(v)).reshape(b, s, d)
+        o = attn(bshd(q), bshd(k), bshd(v)).reshape(b, s, e)
     else:
         heads = lambda t: bshd(t).transpose(1, 2)
         o = attn(heads(q), heads(k), heads(v)).transpose(1, 2).reshape(
-            b, s, d)
-    out = x + o @ blk["wo"]
+            b, s, e)
+    out = x + reduce_from_group(o @ blk["wo"], model_group, stats)
     if return_kv:
         return out, bshd(k), bshd(v)
     return out
 
 
-def _ffn_sublayer(x: torch.Tensor, blk: Params) -> torch.Tensor:
-    """Pre-norm dense FFN sublayer: ``x + w2(relu(w1(ln2(x))))``."""
-    h = _rms_norm(x, blk["ln2"])
-    return x + F.relu(h @ blk["w1"]) @ blk["w2"]
+def _ffn_sublayer(x: torch.Tensor, blk: Params,
+                  model_group=None, stats=None) -> torch.Tensor:
+    """Pre-norm dense FFN sublayer: ``x + w2(relu(w1(ln2(x))))``; under
+    tensor parallelism ``w1`` holds this rank's columns and ``w2`` its
+    rows, and the product is summed over ``model_group``."""
+    h = copy_to_group(_rms_norm(x, blk["ln2"]), model_group, stats)
+    return x + reduce_from_group(F.relu(h @ blk["w1"]) @ blk["w2"],
+                                 model_group, stats)
 
 
 def _embed(p: Params, tokens: torch.Tensor,
@@ -139,24 +163,41 @@ def apply(params: Params, tokens: torch.Tensor, *, num_heads: int = 4,
           attention_fn: Callable | None = None,
           positions: torch.Tensor | None = None,
           compute_dtype: torch.dtype = torch.bfloat16, remat: bool = False,
-          remat_policy: str = "full") -> torch.Tensor:
-    """tokens [batch, seq] → logits [batch, seq, vocab] float32."""
+          remat_policy: str = "full", model_group=None,
+          stats=None) -> torch.Tensor:
+    """tokens [batch, seq] → logits [batch, seq, vocab] float32.
+
+    ``positions`` (the global positions of these tokens) must be given
+    when the sequence is split; defaults to ``arange(seq)``.
+    ``model_group``: run tensor-parallel over that process group on this
+    rank's shard of the params (the module docstring); the heads must
+    divide over it. ``stats`` (a :class:`..core.mesh.CommStats`) counts
+    its all-reduces."""
     attn = attention_fn or local_self_attention
+    m = 1 if model_group is None else dist.get_world_size(model_group)
+    if num_heads % m != 0:
+        raise ValueError(f"num_heads={num_heads} not divisible by "
+                         f"model-parallel size {m}")
     p = cast_params(params, compute_dtype)
     x = _embed(p, tokens, positions)
 
+    def attn_part(x, blk):
+        return _attn_sublayer(x, blk, num_heads=num_heads, attn=attn,
+                              model_group=model_group, stats=stats)
+
+    def ffn_part(x, blk):
+        return _ffn_sublayer(x, blk, model_group, stats)
+
     def block(x, blk):
-        return _ffn_sublayer(_attn_sublayer(x, blk, num_heads=num_heads,
-                                            attn=attn), blk)
+        return ffn_part(attn_part(x, blk), blk)
 
     ckpt = lambda fn: lambda *a: checkpoint(fn, *a, use_reentrant=False)  # noqa: E731
     if remat:
         if remat_policy == "save_attn":
-            ffn = ckpt(_ffn_sublayer)
+            ffn = ckpt(ffn_part)
 
             def block(x, blk):  # noqa: F811 — the policy's body
-                return ffn(_attn_sublayer(x, blk, num_heads=num_heads,
-                                          attn=attn), blk)
+                return ffn(attn_part(x, blk), blk)
         elif remat_policy == "full":
             block = ckpt(block)
         else:
@@ -165,6 +206,27 @@ def apply(params: Params, tokens: torch.Tensor, *, num_heads: int = 4,
     for blk in p["blocks"]:
         x = block(x, blk)
     return _head(x, p)
+
+
+def sp_partial_token_loss(logits: torch.Tensor, tgt: torch.Tensor,
+                          positions: torch.Tensor, s_global: int,
+                          total: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sequence-parallel partial next-token (loss, accuracy) of one
+    sequence block (≙ the reference's ``sp_partial_token_loss``).
+
+    ``logits`` [b, s_loc, V] this block's; ``tgt`` [b, s_loc] its targets,
+    already shifted one *global* position (the caller fetches the next
+    block's first column); ``positions`` its global positions;
+    ``total`` the global count of predicted tokens. Summed over the
+    sequence blocks the pair is the dense :func:`loss_fn` /
+    :func:`accuracy`: the global last position has no target (weight
+    0)."""
+    w = (positions < s_global - 1).float()[None, :]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tgt = tgt.long()
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    correct = (torch.argmax(logp, dim=-1) == tgt).float()
+    return (nll * w).sum() / total, (correct * w).sum() / total
 
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

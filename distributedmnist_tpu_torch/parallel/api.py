@@ -78,12 +78,30 @@ captured as CUDA graphs (``Trainer.precompile``, :mod:`.graphs`) and
 replayed every step; eager calls run the same stages over the same
 buffers.
 
+Tensor and sequence parallelism (``mesh.model_parallelism = m``,
+``mesh.seq_parallelism = s``; ≙ the SP and TP parts of the reference's
+``build_train_step``): each replica spans ``m·s`` processes
+(:mod:`..core.mesh`). The state holds this rank's model shard of every
+leaf the model's partition rules split (:func:`tp_shard`; the
+replicated leaves whole), and the step loops the local replicas
+(``vmap`` cannot carry process-group collectives): each runs the
+model's ``sharded_apply_factory`` on its block of the sequence with its
+global positions, takes the sequence-parallel partial loss (the targets
+shifted one *global* position, the next block's first column through a
+``ppermute``, normalised by ``b·(S−1)``), and sums its loss, accuracy
+and every gradient over the seq group. Model-sharded leaves keep their
+shard's gradient; the replicated ones come out identical on every model
+rank. The masked mean and every sync mode then run over the replica
+group as above, and LARS/LAMB complete each model-sharded leaf's sum of
+squares over the model group. ZeRO-1 with ``m`` or ``s > 1`` is refused
+(a ConfigError), as are pipeline and expert parallelism (not ported).
+
 Checkpoints hold the logical layout whatever the live one
-(:func:`canonical_save_state`); :func:`restore_for_topology` reads one
-saved under any replica or process count, refuses another optimizer's
-state, repacks for this run's plan and storage dtype and journals a
-world change. Not ported yet (each raises): the
-tensor/sequence/pipeline/expert parallel applies.
+(:func:`canonical_save_state`; under TP the shards gathered first,
+:func:`gather_state`); :func:`restore_for_topology` reads one saved
+under any replica, process or model-parallel count, refuses another
+optimizer's state, repacks for this run's plan, shards and storage
+dtype and journals a world change.
 """
 
 from __future__ import annotations
@@ -103,13 +121,17 @@ from ..core.log import get_logger
 from ..core.mesh import Topology, make_topology
 from ..models.registry import Model, torch_dtype
 from ..ops import masked_psum
+from ..ops.collectives import ppermute
 from ..ops.drop_connect import leaf_keys, mask_leaves
 from ..train import optim as optim_lib
 from . import policies
-from .partition_rules import (LeafShardPlan, Zero1Plan,
+from .partition_rules import (LeafShardPlan, RuleAxes, Zero1Plan,
                               comm_bucket_assignment, make_zero1_plan,
-                              map_leaves, tree_leaves, zero1_init_state,
-                              zero1_logical, zero1_pack, zero1_unpack)
+                              map_leaves, match_partition_rules,
+                              shard_leaf, spec_leaves, split_dim,
+                              tree_leaves,
+                              zero1_init_state, zero1_logical, zero1_pack,
+                              zero1_unpack)
 
 logger = get_logger("parallel")
 
@@ -189,11 +211,21 @@ class TrainState:
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
-    """Raise for what the port does not run."""
-    for name in ("model_parallelism", "seq_parallelism",
-                 "pipeline_parallelism", "expert_parallelism"):
+    """Raise for what the port does not run: pipeline and expert
+    parallelism (Queue A items 8c, 8b), and ZeRO-1 under tensor or
+    sequence parallelism (Queue A item 8d)."""
+    for name, item in (("pipeline_parallelism", "8c"),
+                       ("expert_parallelism", "8b")):
         if getattr(cfg.mesh, name) != 1:
-            raise NotImplementedError(f"mesh.{name} > 1 is not ported yet")
+            raise NotImplementedError(
+                f"mesh.{name} > 1 is not ported yet (Queue A item {item})")
+    m, s = cfg.mesh.model_parallelism, cfg.mesh.seq_parallelism
+    if cfg.parallel.shard_weight_update and m * s > 1:
+        raise ConfigError(
+            f"parallel.shard_weight_update=true with mesh.model_parallelism="
+            f"{m} / mesh.seq_parallelism={s}: ZeRO-1 over tensor- or "
+            "sequence-parallel replicas is not ported yet (Queue A item "
+            "8d); turn one of them off")
     if cfg.train.grad_accum_steps < 1:
         raise ValueError(f"train.grad_accum_steps must be >= 1, got "
                          f"{cfg.train.grad_accum_steps}")
@@ -271,6 +303,9 @@ def init_train_state(model: Model, cfg: ExperimentConfig,
         # no master copy: cast once, updated in this dtype from now on
         params = tree_map(lambda p: p.to(store_dt) if p.is_floating_point() else p,
                           params)
+    if topo is not None:
+        # every model rank draws the full params, then keeps its shard
+        params = tp_shard(params, model, topo)
     plan = (zero1_plan_for(model, cfg, topo, params)
             if topo is not None else None)
 
@@ -300,10 +335,76 @@ def init_train_state(model: Model, cfg: ExperimentConfig,
 
 def world_signature(topo: Topology) -> dict:
     """The world a checkpoint is saved under (≙ the reference's
-    ``world_signature``: only axes > 1 enter the mesh record)."""
+    ``world_signature``: the process count, and only axes > 1 in the
+    mesh record)."""
     n = int(topo.num_replicas)
-    return {"num_replicas": n, "process_count": int(topo.process_count),
-            "mesh": {"replica": n} if n > 1 else {}}
+    sizes = (n, topo.model_parallelism, topo.seq_parallelism)
+    return {"num_replicas": n, "process_count": int(topo.world_size),
+            "mesh": {name: int(k) for name, k in zip(topo.axis_names, sizes)
+                     if k > 1}}
+
+
+# -- tensor-parallel shards ---------------------------------------------------
+
+def tp_specs(model: Model, topo: Topology, params: Any) -> Any | None:
+    """The spec a leaf of ``params`` (full or shard shapes) under the
+    model's partition rules with the model axis bound, or None without
+    tensor parallelism. A model with no table, or with no tensor-
+    parallel apply, is refused."""
+    if topo.model_parallelism == 1:
+        return None
+    if model.partition_rules is None or model.sharded_apply_factory is None:
+        raise ValueError(
+            f"mesh has model_parallelism={topo.model_parallelism} but model "
+            f"{model.name!r} has no tensor-parallel parameter specs")
+    rules = model.partition_rules(RuleAxes(model=topo.axis_names[1]))
+    return match_partition_rules(rules, params)
+
+
+def tp_shard(tree: Any, model: Model, topo: Topology) -> Any:
+    """This rank's model shard of a full params-shaped tree of tensors
+    (a copy of each split leaf, so the full one can go); ``tree`` as it
+    is without tensor parallelism."""
+    specs = tp_specs(model, topo, tree) if tree is not None else None
+    if specs is None:
+        return tree
+    axis, i, m = topo.axis_names[1], topo.model_index, topo.model_parallelism
+    return map_leaves(lambda x, spec: (
+        shard_leaf(x, spec, axis, i, m).clone()
+        if split_dim(spec, axis) is not None else x), tree, specs)
+
+
+def tp_gather(tree: Any, model: Model, topo: Topology) -> Any:
+    """The full tree on every rank of the model group from each rank's
+    shard (one all-gather a split leaf; every rank must call it);
+    ``tree`` as it is without tensor parallelism."""
+    specs = tp_specs(model, topo, tree) if tree is not None else None
+    if specs is None:
+        return tree
+    axis, m = topo.axis_names[1], topo.model_parallelism
+
+    def gather(x, spec):
+        d = split_dim(spec, axis)
+        if d is None:
+            return x
+        blocks = [torch.empty_like(x) for _ in range(m)]
+        topo.all_gather_model(blocks, x.contiguous())
+        return torch.cat(blocks, dim=d)
+    return map_leaves(gather, tree, specs)
+
+
+def gather_state(state: TrainState, model: Model,
+                 topo: Topology) -> TrainState:
+    """``state`` with its params, slots and window gathered whole from
+    the model group's shards (every rank of the group must call it;
+    ``state`` itself without tensor parallelism)."""
+    if topo.model_parallelism == 1:
+        return state
+    full = lambda tree: tp_gather(tree, model, topo)  # noqa: E731
+    return dataclasses.replace(
+        state, params=full(state.params),
+        momentum=optim_lib.map_slots(full, state.momentum),
+        window_acc=full(state.window_acc))
 
 
 # -- the live layout and the canonical one ----------------------------------
@@ -385,11 +486,13 @@ def restore_for_topology(model: Model, cfg: ExperimentConfig,
                          on_event: Callable[[dict], None] | None = None,
                          ) -> tuple[TrainState, dict, int] | None:
     """Mesh-portable restore (≙ the reference's): read a checkpoint saved
-    under any replica or process count — single file or per-host shards
-    — and rebuild the live state for THIS run on the template's device:
-    the ZeRO-1 plan is derived from this run's replica count, the slots
-    (and resident params) repacked for it, the params cast to this
-    run's storage dtype. A checkpoint whose saved optimizer names
+    under any replica, process or model-parallel count — single file or
+    per-host shards — and rebuild the live state for THIS run on the
+    template's device: the ZeRO-1 plan is derived from this run's
+    replica count, the slots (and resident params) repacked for it, the
+    params cast to this run's storage dtype, and under tensor
+    parallelism every params-shaped tree cut to this rank's shard. A
+    checkpoint whose saved optimizer names
     another state kind raises ``OptimizerStateMismatchError`` before
     anything is grafted; a world change is reported through
     ``on_event`` as ``cross_world_restore`` naming both worlds. A
@@ -434,6 +537,11 @@ def restore_for_topology(model: Model, cfg: ExperimentConfig,
     state.params = tree_map(
         lambda p: p.to(store_dt) if p.is_floating_point() and p.dtype != store_dt
         else p, state.params)
+    # the checkpoint holds whole leaves: keep this rank's shards
+    shard = lambda tree: tp_shard(tree, model, topo)  # noqa: E731
+    state.params = shard(state.params)
+    state.momentum = optim_lib.map_slots(shard, state.momentum)
+    state.window_acc = shard(state.window_acc)
     saved_world = (extra or {}).get("world")
     current = world_signature(topo)
     if isinstance(saved_world, dict) and saved_world != current:
@@ -615,6 +723,9 @@ class TrainStep:
                 "accumulator")
         if model.loss is None or model.accuracy is None:
             raise ValueError(f"model {model.name!r} has no loss/accuracy")
+        self.sharded_apply = None
+        if topo.sharded:
+            self.sharded_apply = self._sharded_apply(model, topo)
         self.opt = optim_lib.make_optimizer(cfg.optim)
         self.default_disc = make_discipline_vector(k, sync.timeout_ms,
                                                    sync.interval_ms)
@@ -633,9 +744,18 @@ class TrainStep:
         # the input buffer's layout: scale [n], the update's lr, LAMB's
         # two corrections, the interval divisor, then the dropout keys
         # [accum, L, 2] and the drop-connect keys [L, leaves, 2]
-        n_leaves = len(tree_leaves(model.init_params(
-            cfg.model.init_seed, torch.device("meta"))))
+        shapes = model.init_params(cfg.model.init_seed, torch.device("meta"))
+        n_leaves = len(tree_leaves(shapes))
         self.n_leaves = n_leaves
+        # each leaf's sum of squares completes over the model group when
+        # the leaf is split there (LARS/LAMB trust ratios)
+        specs = tp_specs(model, topo, shapes)
+        axis = topo.axis_names[1]
+        self.norm_reduce = [
+            topo.sum_model if split_dim(spec, axis) is not None
+            else (lambda x: x)
+            for spec in (spec_leaves(specs) if specs is not None
+                         else [()] * n_leaves)]
         self.at_keys = self.n + 4
         self.dropout_words = (self.accum * self.L * 2
                               if model.dropout_masks is not None else 0)
@@ -644,6 +764,27 @@ class TrainStep:
         self.width = self.at_dc + self.dc_words
         self._prepared: _Binding | None = None
         self._scratch: _Binding | None = None
+
+    @staticmethod
+    def _sharded_apply(model: Model, topo: Topology) -> Callable:
+        """The model's tensor-/sequence-parallel apply over this
+        process's groups; refuses a model without one, and one with
+        dropout (the sharded loss threads no dropout key), with the
+        reference's messages."""
+        m, s = topo.model_parallelism, topo.seq_parallelism
+        if model.sharded_apply_factory is None:
+            raise ValueError(
+                f"mesh has seq_parallelism={s} / model_parallelism={m} / "
+                f"expert_parallelism=1 but model {model.name!r} supports "
+                "none of them (no sharded_apply_factory)")
+        if model.dropout_masks is not None:
+            raise ValueError(
+                f"model {model.name!r} uses dropout, but the sharded "
+                "(SP/TP/PP) loss paths do not thread a dropout key; set "
+                "model.dropout_rate=0 or run it data-parallel only")
+        # the collectives' seconds are waits, counted in topo.comm
+        return model.sharded_apply_factory(topo.seq_group, topo.model_group,
+                                           topo.comm)
 
     # -- the host part ---------------------------------------------------
 
@@ -775,6 +916,8 @@ class TrainStep:
         PERF.md §6); else, and for a lone local replica, each runs
         autograd directly and writes its row."""
         model, L = self.model, self.L
+        if self.sharded_apply is not None:
+            return self._sharded_grads(params, xs, ys)
         keep = None
         if keys is not None:
             keep = model.dropout_masks(keys if L > 1 else keys[0],
@@ -818,6 +961,58 @@ class TrainStep:
             in_dims=(None, 0, 0, None if keep is None else 0))(
                 params, xs, ys, keep)
         return losses, accs, [g.float() for g in tree_leaves(grads)]
+
+    def _sharded_grads(self, params: Any, xs: torch.Tensor,
+                       ys: torch.Tensor):
+        """:meth:`_replica_grads` under tensor/sequence parallelism (≙
+        the reference's ``make_sp_loss`` and the seq-axis psums): each
+        local replica in turn runs the sharded apply on its sequence
+        block ``[b, S/s]`` with its global positions; its targets are the
+        tokens shifted one global position (the next block's first
+        column through a ``ppermute``), its partial loss and accuracy
+        normalised by the replica's ``b·(S−1)`` predicted tokens; then
+        the loss, the accuracy and every float32 gradient summed over the
+        seq group in one all-reduce. Model-sharded leaves keep their
+        shard's gradient."""
+        from ..models.transformer import sp_partial_token_loss
+        topo, L = self.topo, self.L
+        s = topo.seq_parallelism
+        leaves = tree_leaves(params)
+        losses, accs, grads = [], [], None
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            for j in range(L):
+                tokens, labels = topo.seq_block(xs[j]), topo.seq_block(ys[j])
+                b, s_loc = tokens.shape
+                positions = topo.seq_positions(s_loc, tokens.device)
+                logits = self.sharded_apply(params, tokens, positions)
+                # block j takes block j+1's first target column
+                nxt = ppermute(labels[:, :1].contiguous(), -1,
+                               topo.seq_group, topo.comm)
+                tgt = torch.cat([labels[:, 1:], nxt], dim=1)
+                s_global = s_loc * s
+                loss, acc = sp_partial_token_loss(
+                    logits, tgt, positions, s_global, b * (s_global - 1))
+                g = torch.autograd.grad(loss, leaves)
+                with torch.no_grad():
+                    flat = torch.cat([gi.float().reshape(-1) for gi in g]
+                                     + [loss.detach().reshape(1).float(),
+                                        acc.reshape(1).float()])
+                    topo.sum_seq(flat)
+                if grads is None:
+                    grads = [gi.new_empty((L, *gi.shape), dtype=torch.float32)
+                             for gi in g]
+                at = 0
+                for row, gi in zip(grads, g):
+                    row[j] = flat[at:at + gi.numel()].view(gi.shape)
+                    at += gi.numel()
+                losses.append(flat[at])
+                accs.append(flat[at + 1])
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        return torch.stack(losses), torch.stack(accs), grads
 
     def _dropout_keys(self, b: _Binding) -> torch.Tensor | None:
         if not self.dropout_words:
@@ -892,7 +1087,8 @@ class TrainStep:
         lr, corrections = self._lr(b)
         for i, (p, g) in enumerate(zip(b.leaves, grads)):
             self.opt.update_leaf(p, g, tuple(s[i] for s in b.slots), lr,
-                                 corrections, lambda x: x, p.dim() > 1)
+                                 corrections, self.norm_reduce[i],
+                                 p.dim() > 1)
 
     def apply_body(self, b: _Binding, mean: list) -> None:
         """The ``apply`` stage: the optimizer's update of every leaf."""
@@ -1162,22 +1358,39 @@ def build_train_step(model: Model, cfg: ExperimentConfig, schedule: Schedule,
                      cudnn_deterministic=cudnn_deterministic)
 
 
-def build_eval_step(model: Model, cfg: ExperimentConfig, *,
+def build_eval_step(model: Model, cfg: ExperimentConfig,
+                    topo: Topology | None = None, *,
                     cudnn_deterministic: bool = True) -> Callable:
     """``eval_fn(params, batch) -> (correct_sum, loss_sum, weight_sum)``
     over ``batch = {"image", "label", "weight"}`` (padded rows carry
-    weight 0) with logical-shape ``params`` (:func:`logical_params`); no
-    autograd, so attention runs the forward kernel K1. cuDNN runs under
-    the train step's policy."""
+    weight 0); no autograd, so attention runs the forward kernel K1.
+    ``params`` are logical-shape (:func:`logical_params`), or under
+    tensor parallelism (``topo`` with ``model_parallelism > 1``) this
+    rank's shard, run through the model's tensor-parallel apply over
+    the whole sequence (eval batches are not split along it; ≙ the
+    reference's ``build_eval_step``). cuDNN runs under the train step's
+    policy."""
     del cfg
     if model.eval_metrics is None:
         raise ValueError(f"model {model.name!r} has no eval_metrics")
     tf32 = False if model.compute_dtype == torch.float32 else None
+    apply = model.apply
+    if topo is not None and topo.model_parallelism > 1:
+        if model.sharded_apply_factory is None:
+            raise ValueError(
+                f"mesh has model_parallelism={topo.model_parallelism} / "
+                f"expert_parallelism=1 but model {model.name!r} is not "
+                "tensor-/expert-parallel capable")
+        tp_apply = model.sharded_apply_factory(None, topo.model_group,
+                                               topo.comm)
+
+        def apply(params, images):
+            return tp_apply(params, images, None)
 
     @torch.no_grad()
     def eval_fn(params, batch):
         with cudnn_policy(cudnn_deterministic, tf32):
-            logits = model.apply(params, batch["image"])
+            logits = apply(params, batch["image"])
             return model.eval_metrics(logits, batch["label"],
                                       batch["weight"])
 

@@ -1,10 +1,22 @@
-"""The ZeRO-1 shard plan (≙ the ZeRO-1 half of
-``distributedmnist_tpu/parallel/partition_rules.py``): which leaves'
-optimizer state (and, under ``parallel.resident_sharded``, params) split
-over the ``n`` replicas, their padded flat layout, and the layer-ordered
-communication buckets. The port has no tensor, pipeline or expert
-parallelism, so every param is replicated and the reference's rule
-table reduces to its replicated entry.
+"""Declarative partition rules and the ZeRO-1 shard plan (≙
+``distributedmnist_tpu/parallel/partition_rules.py``).
+
+**The rule engine** (:func:`match_partition_rules`, the reference's
+``:48-113``) maps an ordered list of ``(regex on the "/"-joined leaf
+path, spec)`` rules over a param tree: first match wins, a scalar leaf
+is never split, and a leaf no rule covers is an
+:class:`UnmatchedLeafError`. A spec is a tuple with one entry a dim:
+an axis name (that dim is split over the axis) or None (whole); ``()``
+is replicated — the reference's ``PartitionSpec``. The port runs the
+model axis (tensor parallelism): :func:`shard_leaf` / :func:`gather_leaf`
+cut a leaf to one rank's block along its model-axis dim and put the
+blocks back. The tables live with the models (``models/registry.py``).
+
+**The ZeRO-1 plan**: which leaves' optimizer state (and, under
+``parallel.resident_sharded``, params) split over the ``n`` replicas,
+their padded flat layout, and the layer-ordered communication buckets.
+It runs without tensor parallelism only (``parallel/api.py`` refuses
+the two together), so every leaf it sees is replicated.
 
 A sharded leaf of ``size`` elements lives flattened and zero-padded to
 ``pad = chunk·n`` elements, ``chunk = ceil(size / n)``; replica ``r``
@@ -26,10 +38,128 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+import re
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+
+# One rule: (regex searched in the "/"-joined leaf path, spec). Ordered;
+# the first match wins.
+Spec = tuple
+Rule = tuple[str, Spec]
+
+
+class UnmatchedLeafError(ValueError):
+    """A param leaf no partition rule covers. Deliberately loud: an
+    incomplete table must fail at build time, not silently replicate."""
+
+
+@dataclasses.dataclass(frozen=True)
+class RuleAxes:
+    """The mesh axes a rule table may reference; None: that form of
+    parallelism is inactive and the table leaves those dims whole."""
+
+    model: str | None = None
+    expert: str | None = None
+    stage: str | None = None
+
+
+def tree_path_names(tree: Any) -> list[str]:
+    """The "/"-joined leaf paths of ``tree`` (``blocks/0/wqkv``), in
+    :func:`tree_leaves` order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [f"{k}/{p}" if p else str(k) for k in sorted(tree)
+                for p in tree_path_names(tree[k]) or [""]
+                if tree[k] is not None]
+    if isinstance(tree, (list, tuple)):
+        return [f"{i}/{p}" if p else str(i) for i, v in enumerate(tree)
+                for p in tree_path_names(v) or [""]]
+    return [""]
+
+
+def _leaf_size(leaf: Any) -> int:
+    shape = tuple(getattr(leaf, "shape", ()))
+    return math.prod(int(d) for d in shape) if shape else 1
+
+
+def match_partition_rules(rules: Sequence[Rule], tree: Any) -> Any:
+    """A tree shaped like ``tree`` with a spec a leaf: the first rule
+    whose regex ``re.search``-matches the leaf's path; ``()`` for a
+    scalar or single-element leaf before any rule is read; a leaf no
+    rule matches raises :class:`UnmatchedLeafError` naming its path."""
+    compiled = [(re.compile(pat), spec) for pat, spec in rules]
+
+    def walk(node, path):
+        if node is None:
+            return None
+        join = lambda k: f"{path}/{k}" if path else str(k)  # noqa: E731
+        if isinstance(node, dict):
+            return {k: walk(v, join(k)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, join(i)) for i, v in enumerate(node)]
+        if _leaf_size(node) <= 1:
+            return ()
+        for pat, spec in compiled:
+            if pat.search(path) is not None:
+                return tuple(spec)
+        raise UnmatchedLeafError(
+            f"no partition rule matches param leaf {path!r} (shape "
+            f"{tuple(getattr(node, 'shape', ()))}); rules: "
+            f"{[pat for pat, _ in rules]}")
+    return walk(tree, "")
+
+
+def spec_leaves(specs: Any) -> list[Spec]:
+    """The specs of a :func:`match_partition_rules` tree in
+    :func:`tree_leaves` order (a spec is a tuple, and a leaf)."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in spec_leaves(v)]
+    return [specs]
+
+
+def split_dim(spec: Spec, axis: str | None) -> int | None:
+    """The dim ``spec`` splits over ``axis``, or None."""
+    if axis is None:
+        return None
+    for d, entry in enumerate(spec):
+        names = entry if isinstance(entry, (tuple, list)) else (entry,)
+        if axis in names:
+            return d
+    return None
+
+
+def shard_leaf(x: Any, spec: Spec, axis: str | None, rank: int,
+               size: int) -> Any:
+    """Rank ``rank``'s block of ``x`` (a tensor or array) along the dim
+    ``spec`` splits over ``axis``, out of ``size`` equal blocks (a view;
+    ``x`` itself when nothing splits)."""
+    d = split_dim(spec, axis)
+    if d is None or size == 1:
+        return x
+    n = int(x.shape[d])
+    if n % size:
+        raise ValueError(f"dim {d} of size {n} is not divisible by the "
+                         f"{axis!r} axis' size {size}")
+    w = n // size
+    index = [slice(None)] * len(x.shape)
+    index[d] = slice(rank * w, (rank + 1) * w)
+    return x[tuple(index)]
+
+
+def gather_leaf(blocks: Sequence, spec: Spec, axis: str | None) -> Any:
+    """The inverse of :func:`shard_leaf`: every rank's block, in rank
+    order, joined along the split dim (numpy arrays or tensors)."""
+    d = split_dim(spec, axis)
+    if d is None:
+        return blocks[0]
+    if isinstance(blocks[0], torch.Tensor):
+        return torch.cat(list(blocks), dim=d)
+    return np.concatenate([np.asarray(b) for b in blocks], axis=d)
 
 
 @dataclasses.dataclass(frozen=True)

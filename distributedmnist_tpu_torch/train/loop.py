@@ -33,7 +33,16 @@ one small host all-reduce a step, which also carries each process's
 SIGTERM/SIGINT request, so every process stops after the same step —
 and only process 0 writes the journals, checkpoints and series dumps;
 every process resumes from the newest loadable checkpoint. The step's
-host time excludes the time spent waiting in collectives.
+host time excludes the time spent waiting in collectives. Under tensor
+or sequence parallelism (``mesh.model_parallelism`` /
+``seq_parallelism``) a replica spans ``m·s`` processes: they all read
+their replica-process's shard of the data, the one with model shard 0
+and sequence block 0 fills its replicas' measured rows (so every
+process draws the same flags), a save first gathers the model shards
+(every process takes part, so under tensor parallelism the cadence is
+by steps: ``save_interval_secs`` is refused; rank 0 writes whole
+leaves, the bytes a one-process run writes) and a restore cuts them
+again.
 
 Checkpoints are written as the reference writes them: the fsync
 policy ``train.durability`` is installed before any durable write, a
@@ -142,11 +151,11 @@ from ..models.registry import Model, get_model
 from ..obsv.tb import SummaryWriter
 from ..obsv.timing import ReplicaDeviceProbe, StepTimeCollector
 from ..parallel.api import (TrainState, build_eval_step, build_train_step,
-                            canonical_save_state, init_train_state,
-                            load_state_into, logical_params,
-                            make_discipline_vector,
-                            restore_for_topology, tree_leaves, tree_map,
-                            world_signature, zero1_plan_for)
+                            canonical_save_state, gather_state,
+                            init_train_state, load_state_into,
+                            logical_params, make_discipline_vector,
+                            restore_for_topology, tp_gather, tree_leaves,
+                            tree_map, world_signature, zero1_plan_for)
 from ..parallel.partition_rules import Zero1Plan
 from ..parallel.policies import resolve_aggregate_k
 from ..quant.ptq import QuantPublisher
@@ -340,6 +349,14 @@ class Trainer:
         _log_noop_knobs(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.mesh.model_parallelism > 1 and cfg.train.save_interval_secs > 0:
+            # a save gathers the model shards, a collective every rank
+            # enters; the ranks' clocks would not agree on its step
+            raise ValueError(
+                "mesh.model_parallelism > 1 gathers the model shards at "
+                "every save, which needs a checkpoint cadence every process "
+                "agrees on: set train.save_interval_steps (and "
+                "save_interval_secs=0)")
         self.topo = make_topology(cfg.mesh)
         n = self.topo.num_replicas
         if cfg.data.batch_size % n != 0:
@@ -352,6 +369,11 @@ class Trainer:
         # images/sec and the epoch-based decay key off the effective
         # batch: one optimizer application takes batch_size × accum
         self.effective_batch = cfg.data.batch_size * self.grad_accum
+        # DP×SP: each process takes one block of every sequence
+        n_seq = self.topo.seq_parallelism
+        if n_seq > 1 and cfg.model.seq_len % n_seq != 0:
+            raise ValueError(f"seq_len {cfg.model.seq_len} not divisible by "
+                             f"seq_parallelism {n_seq}")
         self.model: Model = get_model(effective_model_config(cfg))
         self.datasets = datasets if datasets is not None else load_datasets(
             cfg.data, cfg.model.image_size, cfg.model.num_channels,
@@ -368,7 +390,8 @@ class Trainer:
         self._compile_info: dict[str, Any] | None = None
         self._compile_logged = False
         self.eval_fn = build_eval_step(
-            self.model, cfg, cudnn_deterministic=cudnn_deterministic)
+            self.model, cfg, self.topo,
+            cudnn_deterministic=cudnn_deterministic)
         # the ZeRO-1 plan (None when it does not apply): the live layout
         # of the slots (and resident params) and the checkpoint packing
         self._zero1_plan = zero1_plan_for(self.model, cfg, self.topo)
@@ -380,7 +403,9 @@ class Trainer:
             num_hosts=self.topo.process_count)
         if self.grad_accum > 1:
             self.train_iter = GradAccumFeed(self.train_iter, self.grad_accum)
-        self.is_writer = self.topo.process_index == 0
+        # one process writes: under TP/SP every process of replica-process
+        # 0 reads its data, but only rank 0 journals and saves
+        self.is_writer = self.topo.rank == 0
         # every process writes its chunks when none holds them all
         self._sharded_ckpt = (self._zero1_plan is not None
                               and self._zero1_plan.any_sharded
@@ -471,9 +496,10 @@ class Trainer:
 
     def logical_params(self) -> Any:
         """The live params in their logical shapes (gathered from every
-        process under a resident plan: every process calls it)."""
-        return logical_params(self.state.params, self._zero1_plan,
-                              self.topo)
+        process under a resident plan, and from the model group's shards
+        under tensor parallelism: every process calls it)."""
+        return tp_gather(logical_params(self.state.params, self._zero1_plan,
+                                        self.topo), self.model, self.topo)
 
     def _restore(self, step: int | None = None, on_event=None):
         return restore_for_topology(self.model, self.cfg, self.topo,
@@ -535,6 +561,9 @@ class Trainer:
         on a save, as in the reference) — except in the per-host layout,
         where each process writes its part. A save that fails after the
         I/O retries is journaled as ``save_failed`` and skipped."""
+        # under tensor parallelism the checkpoint holds whole leaves:
+        # every rank takes part in gathering them, then the writer writes
+        source = gather_state(self.state, self.model, self.topo)
         if not self.is_writer and not self._sharded_ckpt:
             return
         t0 = time.perf_counter()
@@ -549,7 +578,7 @@ class Trainer:
         # arms the at_step-gated disk fault scripts for this save
         storage.note_step(at_step)
         try:
-            self._save_inner(at_step, extra, publish)
+            self._save_inner(source, at_step, extra, publish)
         except OSError as e:
             logger.error("checkpoint save for step=%d failed (%s) — "
                          "skipping this cadence", at_step, e)
@@ -611,12 +640,15 @@ class Trainer:
                                 extra=extra,
                                 keep=self.cfg.train.keep_checkpoints)
 
-    def _save_inner(self, at_step: int, extra: dict, publish) -> None:
+    def _save_inner(self, source: TrainState, at_step: int, extra: dict,
+                    publish) -> None:
+        """Write ``source`` (the live state, or under tensor parallelism
+        its gathered copy) as step ``at_step``'s checkpoint."""
         keep = self.cfg.train.keep_checkpoints
         if self._sharded_ckpt:
             self._save_sharded(at_step, extra)
             return
-        canonical = canonical_save_state(self.state, self._zero1_plan)
+        canonical = canonical_save_state(source, self._zero1_plan)
         if not self._use_async_ckpt:
             host = state_to_reference(canonical)
             if publish is not None:
@@ -639,7 +671,7 @@ class Trainer:
             return
         plan = self._zero1_plan
         try:
-            snap = device_snapshot(self.state)
+            snap = device_snapshot(source)
             prepare = lambda s: snapshot_to_host(s, plan)  # noqa: E731
         except Exception as e:  # reported as a failed write, below
             # no fallback to the synchronous path: a snapshot that
@@ -769,7 +801,10 @@ class Trainer:
 
     def evaluate(self, split: str = "test") -> dict[str, float]:
         """One full-split eval pass; also journals an ``eval`` record."""
-        res = run_full_eval(self.eval_fn, self.logical_params(),
+        # under tensor parallelism the eval step runs on this rank's shard
+        params = (self.state.params if self.topo.model_parallelism > 1
+                  else self.logical_params())
+        res = run_full_eval(self.eval_fn, params,
                             getattr(self.datasets, split),
                             self.cfg.eval.eval_batch_size,
                             device=self.device, topo=self.topo)
@@ -798,6 +833,10 @@ class Trainer:
             rows[:, 0] = host_dt * 1000.0
             if self._last_device_skew is not None:
                 rows[:, 0] += torch.from_numpy(self._last_device_skew)
+        if topo.sharded and not topo.replica_leader:
+            # a replica spans m·s processes: its leader's time fills its
+            # rows (gather_scalars takes the max of what is written)
+            rows[:, 0] = float("-inf")
         if self._preempt_requested is not None:
             rows[:, 1] = signal.Signals[self._preempt_requested].value
         rows = topo.gather_scalars(rows)

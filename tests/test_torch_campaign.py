@@ -10,9 +10,9 @@ campaign.py``, the ``launch campaign`` verb) against the reference's
   give the same ``campaign_summary.json`` bytes and prune the same
   files; a second finalize changes nothing.
 * The ``cdf`` group through both packages' ``run_group``: tiny copies of
-  its four configs (batch 16, 3 steps, float32, the numpy batch order:
-  the reference's native loader draws a permutation of its own, C15) on
-  a small idx fixture.
+  its four configs (batch 16, 3 steps, float32, the native pipeline on
+  for both sides: each batches in the C++ loader's permutation where the
+  host has a spare core, C15) on a small idx fixture.
   The records' discrete fields are equal, ``final_loss`` agrees at
   float32's ``rtol 1e-5`` (``tests/test_torch_sync_modes.py``), and
   ``test_accuracy`` is within one test example.
@@ -178,12 +178,12 @@ def _tiny_configs(root: Path, names, **sections) -> Path:
 def cdf_runs(tmp_path_factory, data_dir):
     root = tmp_path_factory.mktemp("cdf")
     names = campaign.GROUPS["cdf"]
-    # use_native_pipeline off: with it on, the reference's C++ loader
-    # draws its own permutation (C15, Queue A item 6), while both
-    # packages' numpy iterators draw the same one
+    # use_native_pipeline on: the reference batches in its C++ loader's
+    # permutation on a host with a spare core, and so does the port's
+    # iterator since C15 was repaired
     cfgs = _tiny_configs(root / "configs", names,
                          data={"batch_size": 16,
-                               "use_native_pipeline": False},
+                               "use_native_pipeline": True},
                          model={"compute_dtype": "float32"},
                          train={"max_steps": 3, "log_every_steps": 1})
     port = campaign.run_group("cdf", names, root / "port", cfgs, data_dir,

@@ -96,7 +96,13 @@ def test_make_train_iterator_and_device_copy():
     port, _ = _lm()
     cfg = DataConfig(dataset="synthetic_lm", batch_size=10)
     it = pipeline.make_train_iterator(port.train, cfg, seed=0)
-    want = next(ref_pipe.BatchIterator(port.train, 10, seed=0))
+    # the reference's own choice for this config on this host: its C++
+    # loader's order with a spare core, else the numpy order (C15)
+    ref_it = ref_pipe.make_train_iterator(
+        port.train, RefDataConfig(dataset="synthetic_lm", batch_size=10),
+        seed=0)
+    want = next(ref_it)
+    getattr(ref_it, "close", lambda: None)()
     b = pipeline.to_device(next(it), torch.device("cpu"))
     assert b["image"].dtype == torch.int32 and b["image"].shape == (10, 12)
     np.testing.assert_array_equal(b["image"].numpy(), want["image"])

@@ -71,7 +71,10 @@ TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               "analysis.schema_check", "analysis.config_check",
               "analysis.threads_check", "analysis.durability_check",
               "analysis.net_check", "analysis.paged_check",
-              "analysis.torch_check")
+              "analysis.torch_check",
+              # tensor and sequence parallelism
+              "ops.collectives", "ops.ring_attention",
+              "ops.ulysses_attention")
 
 
 def test_port_modules_load_no_jax():

@@ -145,8 +145,10 @@ def test_schedules_match_reference(name, args):
 
 def test_unported_optimizers_and_modes_raise():
     """LARS and LAMB, accumulation, low-precision params and remat build
-    now; an unknown optimizer is the reference's ConfigError, and the
-    model-parallel axes still raise "not ported yet"."""
+    now; an unknown optimizer is the reference's ConfigError; tensor
+    parallelism on one process is a ConfigError that says to launch the
+    processes under torchrun, and pipeline parallelism still raises "not
+    ported yet"."""
     for name, slots in (("lars", 1), ("lamb", 2)):
         opt = optim.make_optimizer(port_config.OptimConfig(name=name))
         assert (opt.kind, opt.num_slots) == (name, slots)
@@ -159,8 +161,11 @@ def test_unported_optimizers_and_modes_raise():
                  {"model": {**RUN["model"], "remat": True}}):
         cfg = port_config.ExperimentConfig.from_dict(dict(RUN, **over))
         api.build_train_step(model, cfg, lr_schedule.constant(0.1))
-    for over in ({"mesh": {"model_parallelism": 2}},
-                 {"mesh": {"pipeline_parallelism": 2}}):
-        cfg = port_config.ExperimentConfig.from_dict(dict(RUN, **over))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            api.build_train_step(model, cfg, lr_schedule.constant(0.1))
+    cfg = port_config.ExperimentConfig.from_dict(
+        dict(RUN, mesh={"model_parallelism": 2}))
+    with pytest.raises(port_config.ConfigError, match="torchrun"):
+        api.build_train_step(model, cfg, lr_schedule.constant(0.1))
+    cfg = port_config.ExperimentConfig.from_dict(
+        dict(RUN, mesh={"pipeline_parallelism": 2}))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        api.build_train_step(model, cfg, lr_schedule.constant(0.1))
