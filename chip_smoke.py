@@ -25,8 +25,9 @@ k = 5 (one flash launch a layer for every replica) and
 remat policy; a sweep of two of the repository's configs with its
 report and the port's invariant checkers; and the MNIST CNN's sync SGD
 (the source paper's path) at its published widths, on one process and across worker processes; the
-transformer split over 4 worker processes by tensor and sequence
-parallelism (Megatron TP, ring and Ulysses attention); ResNet-20 on
+transformer split over 4 worker processes by tensor, sequence and
+expert parallelism (Megatron TP, ring and Ulysses attention, and a
+mixture-of-experts transformer over an expert axis); ResNet-20 on
 CIFAR-10 (``configs/cifar10_resnet20_sync.json`` on a fixture written
 at the archive's size) with the rest of the data-parallel step's knobs
 — LARS/LAMB, gradient accumulation, bf16 params with and without
@@ -161,15 +162,16 @@ One JSON line per phase:
                 replicas at global batch 4096, bf16, sync, 5 steps —
                 params digest equal to the same run on the simulated
                 topology in a fresh process with no group (the two
-                processes side by side, untimed); two gloo processes on ``cuda:0`` — quorum
+                processes side by side, untimed, beside the gloo pair
+                and the refusal); two gloo processes on ``cuda:0`` — quorum
                 k=4 over the measured host times with rank 1 sleeping
                 250 ms a batch (flags ``[1,1,1,1,0,0,0,0]`` from step 2
-                on both ranks, digests equal), ms a step at batch 4096
-                (gloo stages through host memory: not an NCCL number),
-                and 3 float32 full-batch steps within ``DIST_F32_TOL``
+                on both ranks, digests equal), sync at batch 4096
+                (digests equal; untimed: gloo stages through host
+                memory), 3 float32 full-batch steps within ``DIST_F32_TOL``
                 of each leaf's norm of the simulated 8-replica run; two
                 NCCL ranks on one card refused (their processes run
-                beside the adaptive arm); two NCCL processes on two
+                beside the gloo pair); two NCCL processes on two
                 cards where there are two (else null with the card
                 count); in this process, the adaptive discipline
                 (tests/test_discipline.py's spike case, 14 steps) on the
@@ -195,8 +197,9 @@ One JSON line per phase:
                 ``python3 -c "import json, tempfile, chip_smoke as cs;
                 d = tempfile.mkdtemp(); print(json.dumps(
                 cs._dist_zero1_nccl(d)))"``.
-10b. ``model_parallel`` — tensor and sequence parallelism (Queue A item
-                8a) in one launch of 4 worker processes (gloo, all on
+10b. ``model_parallel`` — tensor, sequence and expert parallelism
+                (Queue A items 8a and 8b) in one launch of 4 worker
+                processes (gloo, all on
                 ``cuda:0``; the dist phase's launcher, each child
                 joining the group and building its Trainer through
                 ``launch train``'s ``build_trainer``), bf16, flash,
@@ -205,10 +208,16 @@ One JSON line per phase:
                 to 2 layers, global batch 8; C, SP 4 on
                 ``bench_flash_long_context``'s model at S = 8192, batch
                 2, by ring under remat ``full`` and by Ulysses over
-                flash; and as float32 controls, A and the ring again
-                at ``compute_dtype=float32``, step 1 alone. Each arm's
+                flash; D, EP 4 and E, TP 2 × EP 2 on the training
+                path's MoE transformer (8 experts, GShard top-2, 4
+                token groups a row, capacity factor 1.25, so tokens
+                drop; 2 layers, batch 8); and as float32 controls, A,
+                the ring and D again at ``compute_dtype=float32``, step
+                1 alone (C's ring takes step 1 alone). Each arm's
                 step 1 against the same config's one-process step in
-                this process (same seed, same batch): the loss within
+                this process (same seed, same batch; made while the
+                workers boot, which time no step before it is done):
+                the loss within
                 ``MP_LOSS_TOL``; each leaf's update within
                 ``MP_UPDATE_TOL_F32`` of its norm in the float32
                 controls, and in the bf16 arms within
@@ -216,14 +225,18 @@ One JSON line per phase:
                 distance from the float32 step in that leaf; the loss
                 equal on every rank; every process on a card; K1-lse,
                 K2 and K3 launched by every process of a flash arm (K1
-                in A's and B's test eval). Printed: ms a step by CUDA
-                events (steps 2–3), tokens/s, peak GB and seconds in
-                collectives a process, the exchanges staged through
+                in the test eval of A, B and D). Printed: ms a step by
+                CUDA events (step 2), tokens/s, peak GB and seconds
+                in collectives a process, the exchanges staged through
                 host memory (gloo carries no CUDA point-to-point or
-                all-to-all). With 4 cards arm B again over NCCL, one
-                card a process; else null with the card count.
+                all-to-all), each arm's seconds. With 4 cards arms B and
+                D again over NCCL, one card a process; else null with
+                the card count.
 11. ``resnet``  — the CIFAR-10 fixture written at the archive's size
-                (50,000 / 10,000) by the port's ``data/fixtures.py``;
+                (50,000 / 10,000) by the port's ``data/fixtures.py``, in
+                a process started with ``train`` and waited for before
+                ``campaign``; the phase runs beside ``cluster``, in a
+                thread of its own (its times are taken there);
                 ``launch train`` on ``configs/cifar10_resnet20_sync.json``
                 through ``build_trainer`` with only ``data.data_dir``
                 and ``train.train_dir`` overridden (ResNet-20, batch
@@ -388,8 +401,8 @@ One JSON line per phase:
                 flash arms bitwise printed and held to ``train``'s
                 tolerances), the flash kernels' launches a step read from
                 the window's trace by kernel name (K1-lse/K2/K3 or
-                K1-lse/K4 4 a step both ways, checked), ms a step by CUDA
-                events and by the host clock over ``GRAPH_TIMED`` steps,
+                K1-lse/K4 4 a step both ways, checked), the replayed ms
+                a step by CUDA events over ``GRAPH_TIMED`` steps,
                 the window's idle share and peak memory; ``decode``: the
                 e2e replica's configuration on the ``train`` checkpoint
                 with each version's decode step captured and eager, the
@@ -406,15 +419,17 @@ One JSON line per phase:
                 on build's libraries with one truncated (one rebuild, a
                 warning) — each one's seconds from its start to its
                 libraries loaded (``ready_s``, with the other two
-                running), the cold one's to its first step.
+                running), the cold one's to its first step. The three
+                run beside the arms (their checks are counts; the arms'
+                are counts and bits, and their times a record).
 18. ``cluster`` — the chaos campaign (``launch/chaos.py``) on the port's
                 ``launch train`` workers on the card: the train payload
                 (the MNIST CNN, 2 simulated replicas, momentum 0.9,
                 ZeRO-1 in 2 buckets, float32; ``CLUSTER_CNN``), 2 seeded
                 trials and the fault-free reference run, 40 steps paced
                 ``CLUSTER_CNN_PACE_MS`` (each campaign's reference run
-                unpaced); then one flash-transformer trial
-                (``CLUSTER_FLASH``: the training path's widths at
+                unpaced); beside it, in a campaign of its own, one
+                flash-transformer trial (``CLUSTER_FLASH``: the training path's widths at
                 ``FLASH_LAYERS`` layers, plain sgd so the step is
                 captured, 20 steps, a save every 5, one warm standby; its
                 schedule's kill checked; its kernel cache seeded from
@@ -508,6 +523,13 @@ card's name and power limit
 as ``nvidia-smi`` reports them, and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failure prints the failing
 phase and exits nonzero before the result line.
+
+Every process the script starts ends before it does: on its way out,
+by any path, it stops what is still running below it (the workers of
+the cluster phases run in sessions of their own, so a signal to the
+script's process group would not reach them). So does a SIGTERM, a
+SIGHUP or a SIGINT, and so does the script's own limit of
+``SCRIPT_LIMIT_S`` seconds, past which the running phase fails.
 """
 
 from __future__ import annotations
@@ -689,7 +711,9 @@ COLOC_LOSS_RTOL = 1e-6
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    # one write, so that a line from another thread cannot split it
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 class PhaseError(Exception):
@@ -709,6 +733,108 @@ def nvidia_smi() -> str | None:
     except (OSError, subprocess.TimeoutExpired):
         return None
     return p.stdout.strip().splitlines()[0] if p.returncode == 0 else None
+
+
+# the script's own limit on its wall time, 60 s under the 1200 s a run
+# of it is given: past it the running phase fails, every process below
+# the script is stopped, and it exits 1
+SCRIPT_LIMIT_S = 1140
+
+
+# directories whose processes are the script's own wherever their parent
+# is (a worker whose parent died is re-parented away from the script):
+# a process working under one of them
+OWN_DIRS: list = []
+
+
+def descendants() -> list:
+    """Every live (not zombie) process below this one, from ``/proc``'s
+    parent links, parents before their children, and every other one
+    working under one of ``OWN_DIRS``."""
+    kids, cwds = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        if state != "Z":
+            kids.setdefault(int(ppid), []).append(int(d))
+            with contextlib.suppress(OSError):
+                cwds[int(d)] = os.readlink(f"/proc/{d}/cwd").removesuffix(
+                    " (deleted)")
+    out, todo = [], [os.getpid()]
+    while todo:
+        for pid in kids.get(todo.pop(), ()):
+            out.append(pid)
+            todo.append(pid)
+    out += [pid for pid, cwd in cwds.items() if pid not in out and any(
+        cwd == d or cwd.startswith(d + "/") for d in OWN_DIRS)]
+    return out
+
+
+def stop_descendants() -> list:
+    """Stop every process :func:`descendants` finds: each is frozen
+    (SIGSTOP) until a walk finds none it has not frozen, so none forks
+    out of reach, then all are killed, and this process, made their
+    subreaper, reaps them for up to 5 s. Returns their command lines."""
+    import ctypes
+    with contextlib.suppress(OSError, AttributeError):
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)  # subreaper
+    frozen: dict = {}
+    for _ in range(50):
+        new = [pid for pid in descendants() if pid not in frozen]
+        if not new:
+            break
+        for pid in new:
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    frozen[pid] = f.read().replace(b"\0", b" ").decode(
+                        errors="replace").strip()[:200]
+                os.kill(pid, signal.SIGSTOP)
+            except OSError:
+                frozen[pid] = None
+    for pid in frozen:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    deadline = time.time() + 5
+    while frozen and time.time() < deadline:
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                time.sleep(0.05)
+        except ChildProcessError:
+            break
+    return [cmd for cmd in frozen.values() if cmd is not None]
+
+
+def guard_processes(phase) -> threading.Timer:
+    """Make every way out of the script stop the processes below it:
+    SIGTERM, SIGHUP and SIGINT, and a timer at ``SCRIPT_LIMIT_S`` that
+    fails the phase ``phase()`` names. The caller stops them on its own
+    way out, and cancels the timer."""
+    def leave(error: str, code: int) -> None:
+        emit({"phase": phase(), "ok": False, "error": error,
+              "stopped": stop_descendants()})
+        os._exit(code)
+
+    owner = os.getpid()
+
+    def on_signal(signum, frame):
+        if os.getpid() != owner:  # a forked child's copy: die as before
+            signal.signal(signum, signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+            return
+        leave(f"ended by signal {signum}", 128 + signum)
+
+    for sig in (signal.SIGTERM, signal.SIGHUP, signal.SIGINT):
+        signal.signal(sig, on_signal)
+    timer = threading.Timer(SCRIPT_LIMIT_S, leave, args=(
+        f"the script passed its limit of {SCRIPT_LIMIT_S} s", 1))
+    timer.daemon = True
+    timer.start()
+    return timer
 
 
 @functools.cache
@@ -1257,19 +1383,23 @@ def phase_kernels() -> dict:
 def _mp_kernel_cases(gen) -> tuple[list, list]:
     """K1, K1-lse, K2 and K3 at the ``model_parallel`` phase's shapes,
     each against its plain version (untimed): K1 at A's and B's TP eval
-    (4 and 8 heads a rank, strided views of the rank's qkv product);
-    K1-lse/K2/K3 at A's TP 4 (strided), at B's Ulysses after TP 2 and
-    at C's Ulysses at S = 8192 (contiguous, from the all-to-all)."""
+    (4 and 8 heads a rank, strided views of the rank's qkv product; 8
+    is E's too) and D's (16 heads, every head on every expert rank);
+    K1-lse/K2/K3 at A's TP 4 (strided), at B's Ulysses after TP 2, at
+    C's Ulysses at S = 8192 (contiguous, from the all-to-all), at D's
+    16 heads and E's TP 2 (strided)."""
     import torch
     bf, b, s, h = torch.bfloat16, MP_BATCH, MODEL["seq_len"], \
         MODEL["num_heads"]
     k1 = [_k1_case(b, s, bf, gen, False, h=h // MP_WORLD),
-          _k1_case(b, s, bf, gen, False, h=h // 2)]
+          _k1_case(b, s, bf, gen, False, h=h // 2),
+          _k1_case(b, s, bf, gen, False, h=h)]
     train = []
     for bb, ss, hh, packed in ((b, s, h // MP_WORLD, True),
                                (b, s, h // 2 // 2, False),
                                (LONG["batch"], LONG["seq_len"],
-                                LONG["num_heads"] // MP_WORLD, False)):
+                                LONG["num_heads"] // MP_WORLD, False),
+                               (b, s, h, True), (b, s, h // 2, True)):
         train.append(_k1_lse_case(bb, ss, bf, gen, False, hh, packed))
         for kernel in ("K2", "K3"):
             train.append(_bwd_case(kernel, bb, ss, bf, gen, False, hh,
@@ -2590,20 +2720,22 @@ def _dist_world1(tmp: str) -> tuple[dict, int]:
     return rec, w1["kernel_launches"] + sim["kernel_launches"]
 
 
-def _dist_gloo_one_card(tmp: str) -> tuple[dict, int]:
+def _dist_gloo_one_card(tmp: str, more: list) -> tuple[dict, int, list]:
     """Two gloo processes on ``cuda:0``: the measured-time quorum with
-    rank 1 sleeping, ms a step at batch 4096, and 3 float32 steps
-    against the simulated 8-replica run in this process."""
+    rank 1 sleeping, sync at batch 4096, and 3 float32 steps against
+    the simulated 8-replica run in this process; the same launch runs
+    the runs ``more`` after them (one process boot for all). Returns
+    (record, the children's K1-K5 launches, every rank's results)."""
     import torch
 
     from distributedmnist_tpu_torch.parallel.api import tree_leaves
     two = _dist_group(tmp, "gloo_one_card", "gloo", ["cuda:0", "cuda:0"], [
         {"name": "quorum", "sleep_ms": DIST_SLEEP_MS,
          "overrides": DIST_QUORUM + [f"train.train_dir={tmp}/g_q"]},
-        {"name": "sync", "timed": DIST_TIMED,
+        {"name": "sync",
          "overrides": DIST_BIG + [f"train.train_dir={tmp}/g_s"]},
         {"name": "f32", "save_params": f"{tmp}/g_f32",
-         "overrides": DIST_F32 + [f"train.train_dir={tmp}/g_f"]}])
+         "overrides": DIST_F32 + [f"train.train_dir={tmp}/g_f"]}, *more])
     q0, q1 = two[0]["runs"]["quorum"], two[1]["runs"]["quorum"]
     sim = _cnn_trainer(tmp, "dist_sim_f32", *DIST_F32)
     sim.run()
@@ -2617,8 +2749,6 @@ def _dist_gloo_one_card(tmp: str) -> tuple[dict, int]:
            "measured_ms_last_step": q0["times"][-1],
            "sync_digests_equal": two[0]["runs"]["sync"]["digest"]
            == two[1]["runs"]["sync"]["digest"],
-           "ms_per_step_gloo_through_host":
-               two[0]["runs"]["sync"]["ms_per_step"],
            "f32_param_rel_err": f32_err, "f32_tol": DIST_F32_TOL}
     check(all(f == DIST_QUORUM_FLAGS for f in q0["flags"][1:])
           and rec["quorum_flags_equal_ranks"]
@@ -2626,7 +2756,7 @@ def _dist_gloo_one_card(tmp: str) -> tuple[dict, int]:
           f"gloo two ranks on one card: {rec}")
     check(f32_err <= DIST_F32_TOL, f"two ranks vs simulated, float32: "
                                    f"{f32_err} > {DIST_F32_TOL}")
-    return rec, sum(r["kernel_launches"] for r in two)
+    return rec, sum(r["kernel_launches"] for r in two), two
 
 
 def _dist_nccl_shared_refused(tmp: str) -> bool:
@@ -2751,21 +2881,25 @@ def _dist_zero1_nccl(tmp: str) -> tuple[dict | None, int]:
     return rec, sum(r["kernel_launches"] for r in group)
 
 
-def _dist_zero1(tmp: str) -> tuple[dict, int]:
+# the ZeRO-1 runs over two gloo processes (in the gloo_one_card launch)
+ZERO_GLOO_RUNS = (("momentum", 3), ("lamb", 1))
+
+
+def _dist_zero1(tmp: str, two: list) -> tuple[dict, int]:
     """ZeRO-1 at 8 replicas over two gloo processes on one card, under
-    momentum (3 steps) and LAMB (1 step), against the one-process
-    run; each rank's slot bytes; the per-host checkpoint (two shard files
-    and a manifest) resumed in one process to the run's logical state;
-    NCCL processes on up to 4 cards where there are two or more."""
+    momentum (3 steps) and LAMB (1 step; ``two``: the launch's results
+    for ``ZERO_GLOO_RUNS``), against the one-process run; each rank's
+    slot bytes; the per-host checkpoint (two shard files and a
+    manifest) resumed in one process to the run's logical state; NCCL
+    processes on up to 4 cards where there are two or more (their K1-K5
+    launches returned)."""
     import torch
 
     from distributedmnist_tpu_torch.parallel.api import (tree_leaves,
                                                          tree_unflatten)
     from distributedmnist_tpu_torch.parallel.partition_rules import (
         zero1_unpack)
-    runs = [_zero1_run(tmp, opt, steps)
-            for opt, steps in (("momentum", 3), ("lamb", 1))]
-    two = _dist_group(tmp, "zero1_gloo", "gloo", ["cuda:0", "cuda:0"], runs)
+    runs = [_zero1_run(tmp, opt, steps) for opt, steps in ZERO_GLOO_RUNS]
     rec = {}
     for run in runs:
         name = run["name"]
@@ -2807,8 +2941,7 @@ def _dist_zero1(tmp: str) -> tuple[dict, int]:
         "files": files,
         "resumed_params_bitwise": _bitwise(got_p, torch.load(f"{d}.0.pt")),
         "resumed_slots_bitwise": _bitwise(got_s, [x.float() for x in want_s])}
-    rec["nccl_cards"], nccl_launches = _dist_zero1_nccl(tmp)
-    launches = sum(r["kernel_launches"] for r in two) + nccl_launches
+    rec["nccl_cards"], launches = _dist_zero1_nccl(tmp)
     m, l1 = rec["momentum_3"], rec["lamb_1"]
     check(m["max_leaf_rel_gap"] <= ZERO_DIST_TOL,
           f"ZeRO-1 momentum, two processes vs one: {m}")
@@ -2837,17 +2970,22 @@ def phase_dist(tmp: str) -> dict:
     then the adaptive discipline and the device-skew probe in process."""
     t_phase = time.time()
     reset_counts()
-    world1, l1 = _dist_world1(tmp)
-    gloo, l2 = _dist_gloo_one_card(tmp)
-    nccl2, l3 = _dist_nccl_two(tmp)
-    # the refusal (two processes that exit before a group is made) runs
-    # beside the adaptive arm, whose checks are host-side draws
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    # the world-1 pair and the refusal (two processes that exit before a
+    # group is made) run beside the two gloo processes: their checks are
+    # digests and exit codes, and the gloo quorum's straggler sleeps
+    # 250 ms a batch
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        side = pool.submit(_dist_world1, tmp)
         refusal = pool.submit(_dist_nccl_shared_refused, tmp)
-        adaptive = _dist_adaptive(tmp)
+        gloo, l2, two = _dist_gloo_one_card(
+            tmp, [_zero1_run(tmp, opt, steps)
+                  for opt, steps in ZERO_GLOO_RUNS])
+        world1, l1 = side.result()
         refused = refusal.result()
+    nccl2, l3 = _dist_nccl_two(tmp)
+    adaptive = _dist_adaptive(tmp)
     skew = _dist_device_skew(tmp)
-    zero1, l4 = _dist_zero1(tmp)
+    zero1, l4 = _dist_zero1(tmp, two)
     counts = read_counts()
     rec = {"phase": "dist", "batch": CNN_BATCH, "dtype": "bfloat16",
            "nccl_world1": world1, "gloo_two_ranks_one_card": gloo,
@@ -2870,11 +3008,17 @@ def phase_dist(tmp: str) -> dict:
 # (Ulysses over flash) on the training path's widths (d 2048, 16 heads
 # of 128, seq 1024, vocab 1024) at 2 layers and global batch 8; C = SP 4
 # on bench_flash_long_context's model at S = 8192, batch 2, by ring
-# (remat full) and by Ulysses over flash. The bf16 arms take MP_STEPS
-# steps: step 1 is held against the same config's one-process step
-# here, the rest timed by CUDA events. The float32 controls (A and the
-# ring again, at model.compute_dtype=float32) take step 1 alone.
-MP_WORLD, MP_STEPS, MP_BATCH = 4, 3, 8
+# (remat full) and by Ulysses over flash; D = EP 4 and E = TP 2 × EP 2
+# on the same widths with every FFN a mixture of 8 experts (w1 and w2
+# [8, 2048, 8192] a layer, 2 experts a rank under EP 4), GShard top-2,
+# 4 token groups a row (so routing is the same on every mesh) at the
+# default capacity factor 1.25 (so tokens drop) and aux weight 0.01.
+# The bf16 arms take MP_STEPS steps (C's ring 1: its step 2 was timing
+# only): step 1 is held against the same config's one-process step
+# here, step 2 timed by CUDA events (a third step, timed too, went to
+# pay for the MoE arms). The float32 controls (A, the ring and D again,
+# at model.compute_dtype=float32) take step 1 alone.
+MP_WORLD, MP_STEPS, MP_BATCH = 4, 2, 8
 MP_TRAIN = {**TRAIN, "name": "chip_smoke_mp",
             "model": {**MODEL, "num_layers": 2},
             "data": {"dataset": "synthetic_lm", "batch_size": MP_BATCH,
@@ -2889,22 +3033,34 @@ MP_LONG = {**MP_TRAIN,
                      "seq_len": LONG["seq_len"]},
            "data": {**MP_TRAIN["data"], "batch_size": LONG["batch"],
                     "synthetic_train_size": 8}}
+MP_MOE = {**MP_TRAIN,
+          "model": {**MP_TRAIN["model"], "num_experts": 8,
+                    "moe_num_groups": 4, "moe_router_top_k": 2}}
 _F32 = lambda c: {**c, "model": {**c["model"],  # noqa: E731
                                  "compute_dtype": "float32"}}
-MP_KINDS = {"train": MP_TRAIN, "long": MP_LONG,
-            "train_f32": _F32(MP_TRAIN), "long_f32": _F32(MP_LONG)}
+MP_KINDS = {"train": MP_TRAIN, "long": MP_LONG, "moe": MP_MOE,
+            "train_f32": _F32(MP_TRAIN), "long_f32": _F32(MP_LONG),
+            "moe_f32": _F32(MP_MOE)}
 _RING = ("mesh.seq_parallelism=4", "model.sp_attention=ring",
          "model.remat=true", "model.remat_policy=full")
+# each arm: its kind, its overrides, whether it runs the flash kernels
+# and its steps
 MP_ARMS = {
-    "A_tp4": ("train", ("mesh.model_parallelism=4",), True),
+    "A_tp4": ("train", ("mesh.model_parallelism=4",), True, MP_STEPS),
     "B_tp2_sp2_ulysses": ("train", ("mesh.model_parallelism=2",
                                     "mesh.seq_parallelism=2",
-                                    "model.sp_attention=ulysses"), True),
-    "C_sp4_ring": ("long", _RING, False),
+                                    "model.sp_attention=ulysses"), True,
+                          MP_STEPS),
+    "C_sp4_ring": ("long", _RING, False, 1),
     "C_sp4_ulysses": ("long", ("mesh.seq_parallelism=4",
-                               "model.sp_attention=ulysses"), True),
-    "A_tp4_f32": ("train_f32", ("mesh.model_parallelism=4",), True),
-    "C_sp4_ring_f32": ("long_f32", _RING, False)}
+                               "model.sp_attention=ulysses"), True,
+                      MP_STEPS),
+    "D_ep4": ("moe", ("mesh.expert_parallelism=4",), True, MP_STEPS),
+    "E_tp2_ep2": ("moe", ("mesh.model_parallelism=2",
+                          "mesh.expert_parallelism=2"), True, MP_STEPS),
+    "A_tp4_f32": ("train_f32", ("mesh.model_parallelism=4",), True, 1),
+    "C_sp4_ring_f32": ("long_f32", _RING, False, 1),
+    "D_ep4_f32": ("moe_f32", ("mesh.expert_parallelism=4",), True, 1)}
 # step 1 against the one-process step from the same params and batch.
 # The loss (~6.9) within MP_LOSS_TOL. Each leaf's update (lr ·
 # gradient, SGD) as ||sharded − one process|| / ||one-process update||.
@@ -2946,6 +3102,7 @@ try:
     out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
            "runs": {}}
     for run in spec["runs"]:
+        t_run = time.perf_counter()
         for f in kernels.values():
             f.launches = 0
         t = build_trainer(["train", "--config", run["config"],
@@ -2966,10 +3123,13 @@ try:
                "last_loss": loss1, "ms_per_step": None,
                "collective_s_a_timed_step": None,
                "coords": [t.topo.process_index, t.topo.model_index,
-                          t.topo.seq_index]}
+                          t.topo.seq_index, t.topo.expert_index]}
         if len(feed) > 1:
             # every rank starts the timed steps together (rank 0 wrote
-            # the params meanwhile)
+            # the params meanwhile), once the parent's one-process
+            # references are done
+            while not os.path.exists(run["hold"]):
+                time.sleep(0.05)
             dist.barrier()
             torch.cuda.synchronize()
             a = torch.cuda.Event(enable_timing=True)
@@ -2991,6 +3151,7 @@ try:
         if run.get("eval"):
             res["eval_loss"] = t.evaluate()["loss"]
         res["launches"] = {k: f.launches for k, f in kernels.items()}
+        res["seconds"] = time.perf_counter() - t_run
         out["runs"][run["name"]] = res
         del t, state, feed
         torch.cuda.empty_cache()
@@ -3003,15 +3164,17 @@ finally:
 
 def _mp_config(tmp: str, kind: str) -> str:
     path = f"{tmp}/mp_{kind}.json"
-    with open(path, "w") as f:
+    with open(f"{path}.part", "w") as f:
         json.dump(MP_KINDS[kind], f)
+    os.replace(f"{path}.part", path)  # the workers may be reading it
     return path
 
 
-def _mp_reference(tmp: str, kind: str) -> dict:
+def _mp_reference(tmp: str, kind: str, refs: dict) -> dict:
     """The one-process step of an arm's model from the same seed and
-    batch: its loss and the params before and after it (float32 on the
-    host)."""
+    batch: its loss, the params before and after it (float32 on the
+    host), each leaf's update norm and, for a bf16 kind, each leaf's
+    bf16 noise against the float32 kind's step in ``refs``."""
     import torch
 
     from distributedmnist_tpu_torch.data.pipeline import to_device
@@ -3025,8 +3188,14 @@ def _mp_reference(tmp: str, kind: str) -> dict:
     before = [p.detach().float().cpu() for p in tree_leaves(t.state.params)]
     state, m = t.step_fn(t.state, to_device(next(t.train_iter), t.device))
     after = [p.detach().float().cpu() for p in tree_leaves(state.params)]
-    rec = {"loss1": m["loss"].item(), "before": before, "after": after,
+    rec = {"loss1": m["loss"].item(), "after": after,
+           "update_norm": [float((a - b).norm())
+                           for a, b in zip(after, before)],
            "names": tree_path_names(state.params)}
+    if not kind.endswith("_f32"):
+        # each leaf's bf16 noise: this step's distance from the float32
+        # step (the float32 kind's reference is made first)
+        rec["noise"] = _update_gaps(after, refs[f"{kind}_f32"])
     del t, state
     torch.cuda.empty_cache()
     return rec
@@ -3034,22 +3203,21 @@ def _mp_reference(tmp: str, kind: str) -> dict:
 
 def _update_gaps(got: list, ref: dict) -> list:
     """Each leaf's ``||got − ref after|| / ||ref update||``."""
-    return [float((g - a).norm() / max(float((a - b).norm()), 1e-30))
-            for g, a, b in zip(got, ref["after"], ref["before"])]
+    return [float((g - a).norm()) / max(u, 1e-30)
+            for g, a, u in zip(got, ref["after"], ref["update_norm"])]
 
 
 def _mp_runs(tmp: str, name: str, arms: list) -> list:
     runs = []
     for arm in arms:
-        kind = MP_ARMS[arm][0]
-        f32 = kind.endswith("_f32")
+        kind, overrides, _, steps = MP_ARMS[arm]
         runs.append({"name": arm, "config": _mp_config(tmp, kind),
-                     "steps": 1 if f32 else MP_STEPS,
-                     "eval": kind == "train",
+                     "steps": steps, "eval": kind in ("train", "moe"),
                      "save": f"{tmp}/{name}_{arm}.pt",
+                     "hold": f"{tmp}/mp_references_done",
                      "overrides": ["mesh.num_replicas=1",
                                    f"train.train_dir={tmp}/{name}_{arm}",
-                                   *MP_ARMS[arm][1]]})
+                                   *overrides]})
     return runs
 
 
@@ -3059,20 +3227,20 @@ def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
     rank, a card a process, the flash kernels launched by every
     process."""
     import torch
-    kind, _, flash = MP_ARMS[run["name"]]
+    kind, _, flash, _ = MP_ARMS[run["name"]]
     ref, f32 = refs[kind], kind.endswith("_f32")
     procs = [r["runs"][run["name"]] for r in results]
     errs = _update_gaps(torch.load(run["save"]), ref)
     if f32:
         bound = [MP_UPDATE_TOL_F32] * len(errs)
     else:
-        noise = _update_gaps(ref["after"], refs[f"{kind}_f32"])
+        noise = ref["noise"]
         bound = [MP_NOISE_RATIO * z for z in noise]
     worst = max(range(len(errs)), key=lambda i: errs[i] / max(bound[i],
                                                               1e-30))
     ms = procs[0]["ms_per_step"]
-    tokens = (MP_BATCH * MODEL["seq_len"] if kind.startswith("train")
-              else LONG["batch"] * LONG["seq_len"])
+    tokens = (LONG["batch"] * LONG["seq_len"] if kind.startswith("long")
+              else MP_BATCH * MODEL["seq_len"])
     rec = {"dtype": "float32" if f32 else "bfloat16",
            "loss1": procs[0]["loss1"], "loss1_one_process": ref["loss1"],
            "loss1_abs_diff": abs(procs[0]["loss1"] - ref["loss1"]),
@@ -3093,7 +3261,8 @@ def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
            "coords_by_rank": [p["coords"] for p in procs],
            "launches_by_rank": [p["launches"] for p in procs],
            "devices": [p["device"] for p in procs],
-           "eval_loss": procs[0].get("eval_loss")}
+           "eval_loss": procs[0].get("eval_loss"),
+           "seconds_by_rank": [p["seconds"] for p in procs]}
     if not f32:
         # each leaf: the one-process bf16 step's own distance from the
         # float32 step, over the float32 update's norm
@@ -3119,38 +3288,61 @@ def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
 
 
 def phase_model_parallel(tmp: str) -> dict:
-    """Tensor and sequence parallelism (Queue A item 8a): the arms of
-    ``MP_ARMS`` in one launch of ``MP_WORLD`` gloo processes sharing
-    ``cuda:0``, each arm's step 1 against the one-process step of its
-    model here; with 4 cards, arm B again over NCCL, one card a
-    process (else null with the card count)."""
+    """Tensor, sequence and expert parallelism (Queue A items 8a and
+    8b): the arms of ``MP_ARMS`` in one launch of ``MP_WORLD`` gloo
+    processes sharing ``cuda:0``, each arm's step 1 against the
+    one-process step of its model here; with 4 cards, arms B and D
+    again over NCCL, one card a process (else null with the card
+    count)."""
     import torch
     t_phase = time.time()
-    refs = {kind: _mp_reference(tmp, kind) for kind in MP_KINDS}
-    reset_counts()
+    ref_s, refs = {}, {}
+
+    def references():
+        # the float32 kinds first: each bf16 kind's noise reads its own
+        try:
+            for kind in sorted(MP_KINDS,
+                               key=lambda k: not k.endswith("_f32")):
+                t0 = time.time()
+                refs[kind] = _mp_reference(tmp, kind, refs)
+                ref_s[kind] = time.time() - t0
+        finally:
+            open(runs[0]["hold"], "w").close()
+
     runs = _mp_runs(tmp, "mp_gloo", list(MP_ARMS))
-    res = _dist_group(tmp, "mp_gloo", "gloo", ["cuda:0"] * MP_WORLD, runs,
-                      child=_MP_CHILD)
+    # the references are made here while the workers boot and build;
+    # the workers time no step before they are done
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        made = pool.submit(references)
+        res = _dist_group(tmp, "mp_gloo", "gloo", ["cuda:0"] * MP_WORLD,
+                          runs, child=_MP_CHILD)
+        made.result()
+    reset_counts()
     arms, fails = {}, []
     for run in runs:
         arms[run["name"]], f = _mp_arm(res, run, refs)
         fails += f
+    t_gloo = time.time() - t_phase
     cards = torch.cuda.device_count()
-    nccl = {"cards": cards, "B_tp2_sp2_ulysses": None}
+    nccl_arms = ("B_tp2_sp2_ulysses", "D_ep4")
+    nccl = {"cards": cards, **dict.fromkeys(nccl_arms)}
     if cards >= MP_WORLD:
-        runs = _mp_runs(tmp, "mp_nccl", ["B_tp2_sp2_ulysses"])
+        runs = _mp_runs(tmp, "mp_nccl", list(nccl_arms))
         res = _dist_group(tmp, "mp_nccl", "nccl",
                           [f"cuda:{i}" for i in range(MP_WORLD)], runs,
                           child=_MP_CHILD)
-        nccl["B_tp2_sp2_ulysses"], f = _mp_arm(res, runs[0], refs)
-        fails += f
+        for run in runs:
+            nccl[run["name"]], f = _mp_arm(res, run, refs)
+            fails += f
     counts = read_counts()
     rec = {"phase": "model_parallel", "card": nvidia_smi(),
            "world": MP_WORLD, "steps": MP_STEPS,
            "arms": arms, "nccl": nccl, "loss_tol": MP_LOSS_TOL,
            "update_tol_f32": MP_UPDATE_TOL_F32,
            "noise_ratio": MP_NOISE_RATIO,
-           "launches_here": counts, "seconds": time.time() - t_phase}
+           "launches_here": counts, "reference_seconds": ref_s,
+           "gloo_launch_seconds": t_gloo,
+           "seconds": time.time() - t_phase}
     emit(rec)
     check(not fails, "; ".join(fails))
     return rec
@@ -3576,6 +3768,24 @@ def _resnet_restore(tmp: str, ds) -> dict:
           and math.isfinite(rec["continued_loss"]) and refused is not None,
           f"cross-world restore: {rec}")
     return rec
+
+
+def start_cifar_fixture(tmp: str) -> subprocess.Popen:
+    """A process writing the CIFAR-10 fixture under ``tmp`` (seconds of
+    numpy and pickling), started phases before the first reads it."""
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys\n"
+         "from distributedmnist_tpu_torch.data.fixtures import (\n"
+         "    materialize_cifar10_fixture)\n"
+         "materialize_cifar10_fixture(sys.argv[1])", f"{tmp}/cifar10"],
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def wait_cifar_fixture(fixture: subprocess.Popen) -> dict:
+    check(fixture.wait() == 0,
+          f"the CIFAR-10 fixture's process exited {fixture.returncode}")
+    return {"returncode": fixture.returncode}
 
 
 def phase_resnet(tmp: str) -> dict:
@@ -5136,7 +5346,9 @@ def _graph_train_arm(name: str, build, per_step: dict,
             "compile": (compiles[0] if mode == "cuda_graph" else
                         summary["compile"]),
             "first_loss": losses[0], "last_loss": losses[-1],
-            "ms_per_step": _time_steps(tr, batch, steps=GRAPH_TIMED),
+            # the replay's time only (the eager step's: PERF.md §5)
+            "ms_per_step": (_time_steps(tr, batch, steps=GRAPH_TIMED)
+                            if mode == "cuda_graph" else None),
             "device_idle_share": window["device_idle_share"],
             "device_busy_ms": window["device_busy_ms"],
             "kernels_per_step": window["kernels_per_step"],
@@ -5158,9 +5370,7 @@ def _graph_train_arm(name: str, build, per_step: dict,
     rec = {"phase": "graphs", "arm": name, **out,
            "params_bitwise": all(torch.equal(a, b) for a, b in zip(gp, ep)),
            "losses_equal": gl == el, "param_max_abs_diff": diff,
-           "loss_max_abs_diff": max(abs(a - b) for a, b in zip(gl, el)),
-           "replay_over_eager_ms": (out["cuda_graph"]["ms_per_step"]
-                                    / out["eager"]["ms_per_step"])}
+           "loss_max_abs_diff": max(abs(a - b) for a, b in zip(gl, el))}
     emit(rec)
     check(out["cuda_graph"]["flash_kernels"] == out["eager"]["flash_kernels"],
           f"{name}: the capture changed the flash kernels that run: {out}")
@@ -5375,6 +5585,11 @@ def phase_graphs(tmp: str, train_dir: str) -> dict:
                               f"train.train_dir={tmp}/{name}", *over,
                               "--device", DEVICE])
 
+    # the cache children run beside the arms: their checks are counts,
+    # the arms' counts and bits, and the arms' times are a record
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    children = pool.submit(_graph_cache_children, tmp)
+    pool.shutdown(wait=False)
     arms = {
         "cnn": _graph_train_arm(
             "cnn", lambda n, *o: _cnn_trainer(tmp, n, *o), none,
@@ -5405,12 +5620,11 @@ def phase_graphs(tmp: str, train_dir: str) -> dict:
     routes["K5"] = pa.kernel_route(torch.bfloat16, hd)
     # each arm printed its own line; the phase's line sums them up
     summary = {name: {k: a[k] for k in ("params_bitwise", "tokens_equal",
-                                        "replay_over_eager_ms",
                                         "replay_over_eager_wall") if k in a}
                for name, a in arms.items()}
     rec = {"phase": "graphs", "card": nvidia_smi(), "arms": summary,
            "routes_after_capture": routes,
-           "kernel_cache": _graph_cache_children(tmp),
+           "kernel_cache": children.result(),
            "seconds": time.time() - t0}
     emit(rec)
     check(routes == {"K1-lse": "wgmma", "K2": "wgmma", "K3": "wgmma",
@@ -5567,7 +5781,6 @@ def phase_cluster(tmp: str) -> dict:
                           train_command=(cnn_base.resolved_train_command()
                                          + f" train.step_pace_ms="
                                          f"{CLUSTER_CNN_PACE_MS}"))
-    cnn, cnn_report = _campaign(cnn_cfg)
     flash_cfg = ChaosConfig(**CLUSTER_FLASH, workdir=f"{tmp}/cluster",
                             poll_secs=0.5, train_command=_flash_payload(
                                 CLUSTER_FLASH["until_step"], FLASH_PACE_MS))
@@ -5581,7 +5794,14 @@ def phase_cluster(tmp: str) -> dict:
           and "corrupt" not in {f.kind for f in sched.faults},
           f"flash trial schedule is not a kill after an intact save: "
           f"{sched.describe()}")
-    flash, flash_report = _campaign(flash_cfg, seed_cache=True)
+    # the two campaigns run side by side, each under its own root: every
+    # trial is held to its own campaign's fault-free reference run, a
+    # pace is a sleep that leaves the numerics alone, and no worker is
+    # this process
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        flash_run = pool.submit(_campaign, flash_cfg, seed_cache=True)
+        cnn, cnn_report = _campaign(cnn_cfg)
+        flash, flash_report = flash_run.result()
     parent = read_counts()
     traces = {}
     for run in ("reference", "trial000"):
@@ -6339,24 +6559,52 @@ def _k5_in_place(profile: dict) -> dict:
 
 
 def main() -> int:
-    phase = "env"
+    """The phases and the result lines; whatever the way out, every
+    process still running below the script is stopped first."""
+    now = {"phase": "env"}
+    timer = guard_processes(lambda: now["phase"])
+    try:
+        return _main(now)
+    finally:
+        timer.cancel()
+        stopped = stop_descendants()
+        if stopped:
+            print(json.dumps({"stopped_at_exit": stopped}), file=sys.stderr,
+                  flush=True)
+
+
+def _main(now: dict) -> int:
     runs = {}
     took = {}
     t_start = time.time()
 
     def run(name, fn, *args):
-        nonlocal phase
-        phase = name
+        now["phase"] = name
         t0 = time.time()
-        runs[name] = fn(*args)
+        try:
+            runs[name] = fn(*args)
+        except BaseException:
+            now["phase"] = name  # a phase beside it may have renamed it
+            raise
         took[name] = round(time.time() - t0, 1)
         return runs[name]
+
+    def run_beside(side: tuple, main: tuple) -> None:
+        """``side``'s phase in a thread beside ``main``'s; each is timed
+        on its own."""
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            other = pool.submit(run, *side)
+            run(*main)
+            other.result()
 
     try:
         env = run("env", phase_env)
         resources = run("build", phase_build)
         timed = run("kernels", phase_kernels)
-        with tempfile.TemporaryDirectory(prefix="dmt_smoke_") as tmp:
+        with tempfile.TemporaryDirectory(prefix="dmt_smoke_",
+                                         ignore_cleanup_errors=True) as tmp:
+            OWN_DIRS.append(tmp)
+            fixture = start_cifar_fixture(tmp)
             train = run("train", phase_train, tmp)
             run("train_k4", phase_train_k4, tmp)
             run("train_replicas", phase_train_replicas, tmp,
@@ -6366,19 +6614,24 @@ def main() -> int:
             run("cnn", phase_cnn, tmp)
             run("dist", phase_dist, tmp)
             run("model_parallel", phase_model_parallel, tmp)
-            run("resnet", phase_resnet, tmp)
             e2e = run("e2e", phase_e2e, train["train_dir"], tmp)
             run("ckpt", phase_ckpt, tmp)
             run("eval", phase_eval, tmp, runs["ckpt"])
+            run("fixture", wait_cifar_fixture, fixture)
             run("campaign", phase_campaign, tmp)
             run("serve", phase_serve, tmp, runs["ckpt"])
             run("graphs", phase_graphs, tmp, train["train_dir"])
-            run("cluster", phase_cluster, tmp)
+            # resnet beside the chaos campaigns: its checks are counts,
+            # bits and finite losses (its times are a record), theirs
+            # are their workers', and neither launches a flash or paged
+            # kernel in this process
+            run_beside(("resnet", phase_resnet, tmp),
+                       ("cluster", phase_cluster, tmp))
             run("restart", phase_restart, tmp)
             run("serving_chaos", phase_serving_chaos, tmp)
             run("broker", phase_broker, tmp, runs["serving_chaos"])
     except Exception as e:  # report the failing phase, then fail
-        emit({"phase": phase, "ok": False,
+        emit({"phase": now["phase"], "ok": False,
               "error": f"{type(e).__name__}: {e}",
               "traceback": traceback.format_exc()[-4000:]})
         return 1

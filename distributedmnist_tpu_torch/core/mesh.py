@@ -32,20 +32,25 @@ environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 without ``WORLD_SIZE`` it does nothing and :func:`make_topology` builds
 the one-process topology.
 
-Tensor and sequence parallelism (``mesh.model_parallelism = m``,
-``mesh.seq_parallelism = s``; ≙ the reference's 3-D mesh,
-``core/mesh.py:459-515``) spread each replica over ``m·s`` processes:
-the world is ``P_r × m × s`` processes laid out replica-major, then
-model, then seq (the reference's axis order), so rank ``(p·m + i)·s +
-j`` holds model shard ``i`` and sequence block ``j`` of replica-process
-``p``. Three sub-groups are made once for each layout and named by
-``mesh.replica_axis`` / ``model_axis`` / ``seq_axis``: the replica group
-(the ``P_r`` processes with one ``(i, j)``) carries every cross-replica
-sum above, the model group the Megatron all-reduces and the seq group
-the ring, the all-to-alls and the gradient sums over sequence blocks.
-``process_index`` / ``process_count`` are the replica-process
-coordinate ``p`` / ``P_r`` (the data shard a process reads: every
-process of one model/seq group reads the same rows); ``rank`` /
+Tensor, sequence and expert parallelism (``mesh.model_parallelism =
+m``, ``mesh.seq_parallelism = s``, ``mesh.expert_parallelism = e``; ≙
+the reference's mesh, ``core/mesh.py:459-515``) spread each replica over
+``m·s·e`` processes: the world is ``P_r × m × s × e`` processes laid out
+replica-major, then model, then seq, then expert (the reference's axis
+order ``(replica, model, seq, stage, expert)``; a pipeline stage index
+would sit between seq and expert), so rank ``((p·m + i)·s + j)·e + k``
+holds model shard ``i``, sequence block ``j`` and expert shard ``k`` of
+replica-process ``p``. The sub-groups are made once for each layout and
+named by ``mesh.replica_axis`` / ``model_axis`` / ``seq_axis`` /
+``expert_axis``: the replica group (the ``P_r`` processes with one
+``(i, j, k)``) carries every cross-replica sum above, the model group
+the Megatron all-reduces, the seq group the ring, the all-to-alls and
+the gradient sums over sequence blocks, the expert group the
+mixture-of-experts all-to-alls, and the expert×model group (the ``m·e``
+processes with one ``(p, j)``) the one sum that reassembles an expert
+layer's output. ``process_index`` / ``process_count`` are the
+replica-process coordinate ``p`` / ``P_r`` (the data shard a process
+reads: every process of one replica reads the same rows); ``rank`` /
 ``world_size`` are the process group's.
 """
 
@@ -67,9 +72,10 @@ from .device import resolve_device
 # the gloo group host tensors reduce over; None with a gloo default
 # group (the default group is gloo already) or without a group
 _host_group: Any = None
-# the sub-groups of each (P_r, m, s) layout made so far: every rank makes
-# every group of a layout once, in one order (dist.new_group's contract)
-_layouts: dict[tuple[int, int, int], dict] = {}
+# the sub-groups of each (P_r, m, s, e) layout made so far: every rank
+# makes every group of a layout once, in one order (dist.new_group's
+# contract)
+_layouts: dict[tuple[int, int, int, int], dict] = {}
 
 
 def local_sum(x: torch.Tensor) -> torch.Tensor:
@@ -108,24 +114,28 @@ class Topology:
     ``process_count`` replica-processes; this one is ``process_index``
     and holds replicas ``[first_replica, first_replica +
     local_replica_count)`` on the device its state lives on — each of
-    them, under tensor/sequence parallelism, as model shard
-    ``model_index`` of ``model_parallelism`` and sequence block
-    ``seq_index`` of ``seq_parallelism``. ``distributed`` is set when a
+    them, under tensor/sequence/expert parallelism, as model shard
+    ``model_index`` of ``model_parallelism``, sequence block
+    ``seq_index`` of ``seq_parallelism`` and expert shard
+    ``expert_index`` of ``expert_parallelism``. ``distributed`` is set when a
     process group is up (even of one process): the sums then run
     through it. ``comm`` counts what this process's collectives cost —
-    the sums here, and the tensor/sequence-parallel collectives the
+    the sums here, and the tensor/sequence/expert collectives the
     step hands it to; :attr:`blocked_s` is their host seconds, waiting
     for peers included (the Trainer takes them out of its measured
     step time, as the reference's device-side collectives never stall
     its host).
 
-    ``replica_group`` / ``model_group`` / ``seq_group`` are the
-    sub-groups (None: the default group for the replica group; no group
-    for a model or seq axis of 1); ``replica_host_group`` the group
-    host tensors sum over the replicas in (the replica group itself
-    under gloo, its gloo twin under NCCL; None: the default group).
-    ``axis_names`` are the config's ``(replica, model, seq)`` axis
-    names."""
+    ``replica_group`` / ``model_group`` / ``seq_group`` /
+    ``expert_group`` are the sub-groups (None: the default group for
+    the replica group; no group for a model, seq or expert axis of 1);
+    ``expert_model_group`` the expert×model ranks of one replica and
+    sequence block (the expert group without tensor parallelism, None
+    without expert parallelism); ``replica_host_group`` the group host
+    tensors sum over the replicas in (the replica group itself under
+    gloo, its gloo twin under NCCL; None: the default group).
+    ``axis_names`` are the config's ``(replica, model, seq, expert)``
+    axis names."""
 
     num_replicas: int
     process_index: int = 0
@@ -137,13 +147,18 @@ class Topology:
     seq_parallelism: int = 1
     model_index: int = 0
     seq_index: int = 0
+    expert_parallelism: int = 1
+    expert_index: int = 0
     rank: int = 0
     world_size: int = 1
     replica_group: Any = None
     replica_host_group: Any = None
     model_group: Any = None
     seq_group: Any = None
-    axis_names: tuple[str, str, str] = ("replica", "model", "seq")
+    expert_group: Any = None
+    expert_model_group: Any = None
+    axis_names: tuple[str, str, str, str] = ("replica", "model", "seq",
+                                             "expert")
 
     @property
     def blocked_s(self) -> float:
@@ -152,15 +167,17 @@ class Topology:
 
     @property
     def sharded(self) -> bool:
-        """Whether a replica spans several processes (``m·s > 1``)."""
-        return self.model_parallelism * self.seq_parallelism > 1
+        """Whether a replica spans several processes (``m·s·e > 1``)."""
+        return (self.model_parallelism * self.seq_parallelism
+                * self.expert_parallelism) > 1
 
     @property
     def replica_leader(self) -> bool:
         """The process whose measured time fills its replicas' rows:
-        model shard 0, sequence block 0 (≙ the reference's
-        ``measured_timing_supported``: one owner a row)."""
-        return self.model_index == 0 and self.seq_index == 0
+        model shard 0, sequence block 0, expert shard 0 (≙ the
+        reference's ``measured_timing_supported``: one owner a row)."""
+        return (self.model_index == 0 and self.seq_index == 0
+                and self.expert_index == 0)
 
     @property
     def local_replica_count(self) -> int:
@@ -263,18 +280,16 @@ class Topology:
             self.comm.timed(dist.all_reduce, x, group=self.seq_group)
         return x
 
-    def sum_model(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the model group (a new tensor; ``x`` as it
-        is without tensor parallelism)."""
-        if self.model_group is None:
-            return x
+    def sum_group(self, x: torch.Tensor, group) -> torch.Tensor:
+        """``x`` summed over ``group``, one of this topology's sub-groups
+        (a new tensor)."""
         x = x.clone()
-        self.comm.timed(dist.all_reduce, x, group=self.model_group)
+        self.comm.timed(dist.all_reduce, x, group=group)
         return x
 
-    def all_gather_model(self, out: list, x: torch.Tensor) -> None:
-        """Every model rank's ``x`` into ``out``, in rank order."""
-        self.comm.timed(dist.all_gather, out, x, group=self.model_group)
+    def all_gather(self, out: list, x: torch.Tensor, group) -> None:
+        """Every rank of ``group``'s ``x`` into ``out``, in rank order."""
+        self.comm.timed(dist.all_gather, out, x, group=group)
 
     def seq_block(self, x: torch.Tensor) -> torch.Tensor:
         """This process's block of a ``[b, S, ...]`` token batch: columns
@@ -304,94 +319,113 @@ _all_gather = getattr(dist, "all_gather_single", None) or getattr(
     dist, "all_gather_into_tensor")
 
 
-def _make_groups(p_r: int, m: int, s: int) -> dict:
-    """Every sub-group of the ``(P_r, m, s)`` layout, made once (all
+def _make_groups(p_r: int, m: int, s: int, e: int) -> dict:
+    """Every sub-group of the ``(P_r, m, s, e)`` layout, made once (all
     ranks call ``new_group`` for every group, in one order) and kept for
-    later topologies of the layout: this rank's replica, model and seq
-    groups, and with an NCCL default group a gloo twin of its replica
-    group for host tensors."""
-    key = (p_r, m, s)
+    later topologies of the layout: this rank's replica, model, seq,
+    expert and expert×model groups, and with an NCCL default group a
+    gloo twin of its replica group for host tensors."""
+    key = (p_r, m, s, e)
     if key in _layouts:
         return _layouts[key]
-    rank_of = lambda p, i, j: (p * m + i) * s + j  # noqa: E731
+    rank_of = lambda p, i, j, k: ((p * m + i) * s + j) * e + k  # noqa: E731
     me = dist.get_rank()
     gloo_twin = dist.get_backend() != "gloo"
     mine: dict = {}
+    coords = [(p, i, j, k) for p in range(p_r) for i in range(m)
+              for j in range(s) for k in range(e)]
 
-    def make(name, ranks_list, twin=False):
-        for ranks in ranks_list:
+    def make(name, free):
+        """One group a value of the coordinates not in ``free``, its
+        ranks those that differ only in ``free``'s coordinates."""
+        groups: dict = {}
+        for c in coords:
+            key = tuple(v for n, v in enumerate(c) if n not in free)
+            groups.setdefault(key, []).append(rank_of(*c))
+        for ranks in groups.values():
             g = dist.new_group(ranks)
-            h = dist.new_group(ranks, backend="gloo") if twin else g
+            h = (dist.new_group(ranks, backend="gloo")
+                 if name == "replica" and gloo_twin else g)
             if me in ranks:
                 mine[name], mine[name + "_host"] = g, h
 
-    make("replica", [[rank_of(p, i, j) for p in range(p_r)]
-                     for i in range(m) for j in range(s)], gloo_twin)
-    if m > 1:
-        make("model", [[rank_of(p, i, j) for i in range(m)]
-                       for p in range(p_r) for j in range(s)])
-    if s > 1:
-        make("seq", [[rank_of(p, i, j) for j in range(s)]
-                     for p in range(p_r) for i in range(m)])
+    make("replica", (0,))
+    for name, size, free in (("model", m, (1,)), ("seq", s, (2,)),
+                             ("expert", e, (3,))):
+        if size > 1:
+            make(name, free)
+    if e > 1:
+        if m > 1:
+            make("expert_model", (1, 3))
+        else:
+            mine["expert_model"] = mine["expert"]
     _layouts[key] = mine
     return mine
 
 
 def make_topology(cfg: MeshConfig) -> Topology:
     """``mesh.num_replicas`` replicas, or when ``num_replicas`` is -1
-    (the reference's "every device") ``mesh.simulate_devices / (m·s)``,
+    (the reference's "every device") ``mesh.simulate_devices / (m·s·e)``,
     else one a replica-process; over the processes of the group
     :func:`initialize_distributed` made, if any. ``mesh.model_parallelism
-    = m`` and ``mesh.seq_parallelism = s`` spread each replica over
-    ``m·s`` processes (the layout in the module docstring), which needs
-    a process group of ``P_r·m·s`` processes: without one this is a
-    ConfigError, never a one-process run. Pipeline and expert
-    parallelism are not ported (Queue A items 8c and 8b)."""
-    for name, item in (("pipeline_parallelism", "8c"),
-                       ("expert_parallelism", "8b")):
-        if getattr(cfg, name) != 1:
-            raise NotImplementedError(
-                f"mesh.{name} > 1 is not ported yet (Queue A item {item})")
+    = m``, ``mesh.seq_parallelism = s`` and ``mesh.expert_parallelism =
+    e`` spread each replica over ``m·s·e`` processes (the layout in the
+    module docstring), which needs a process group of ``P_r·m·s·e``
+    processes: without one this is a ConfigError, never a one-process
+    run. Pipeline parallelism is not ported (Queue A item 8c)."""
+    if cfg.pipeline_parallelism != 1:
+        raise NotImplementedError(
+            "mesh.pipeline_parallelism > 1 is not ported yet (Queue A "
+            "item 8c)")
     m, s = int(cfg.model_parallelism), int(cfg.seq_parallelism)
-    if m < 1 or s < 1:
-        raise ConfigError(f"mesh.model_parallelism={m} and "
-                          f"mesh.seq_parallelism={s} must be >= 1")
+    e = int(cfg.expert_parallelism)
+    if m < 1 or s < 1 or e < 1:
+        raise ConfigError(f"mesh.model_parallelism={m}, "
+                          f"mesh.seq_parallelism={s} and "
+                          f"mesh.expert_parallelism={e} must be >= 1")
+    span = m * s * e
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if m * s > 1 and (world < m * s or world % (m * s)):
+    if span > 1 and (world < span or world % span):
         raise ConfigError(
-            f"mesh.model_parallelism={m} × mesh.seq_parallelism={s} spread "
-            f"each replica over {m * s} processes, but this process group "
-            f"has {world}: launch a multiple of {m * s} processes under "
-            f"torchrun (e.g. torchrun --nproc_per_node {m * s} -m "
-            "distributedmnist_tpu_torch.launch train ...)")
-    p_r = world // (m * s)
+            f"mesh.model_parallelism={m} × mesh.seq_parallelism={s} × "
+            f"mesh.expert_parallelism={e} spread each replica over {span} "
+            f"processes, but this process group has {world}: launch a "
+            f"multiple of {span} processes under torchrun (e.g. torchrun "
+            f"--nproc_per_node {span} -m distributedmnist_tpu_torch.launch "
+            "train ...)")
+    p_r = world // span
     n = cfg.num_replicas
     if n == -1:
-        n = (cfg.simulate_devices // (m * s) if cfg.simulate_devices > 0
-             else (p_r if m * s > 1 else 1))
+        n = (cfg.simulate_devices // span if cfg.simulate_devices > 0
+             else (p_r if span > 1 else 1))
     if n < 1:
         raise ValueError(f"mesh.num_replicas must be -1 or >= 1, got {n}")
-    names = (cfg.replica_axis, cfg.model_axis, cfg.seq_axis)
+    names = (cfg.replica_axis, cfg.model_axis, cfg.seq_axis,
+             cfg.expert_axis)
     if not dist.is_initialized():
         return Topology(num_replicas=n, axis_names=names)
     rank = dist.get_rank()
-    topo = Topology(num_replicas=n, process_index=rank // (m * s),
+    topo = Topology(num_replicas=n, process_index=rank // span,
                     process_count=p_r, distributed=True,
                     host_group=_host_group, model_parallelism=m,
-                    seq_parallelism=s, model_index=(rank // s) % m,
-                    seq_index=rank % s, rank=rank, world_size=world,
+                    seq_parallelism=s, expert_parallelism=e,
+                    model_index=(rank // (s * e)) % m,
+                    seq_index=(rank // e) % s, expert_index=rank % e,
+                    rank=rank, world_size=world,
                     replica_host_group=_host_group, axis_names=names)
     if not topo.measured_timing_supported:
         raise ValueError(f"{n} replicas do not split evenly over "
                          f"{p_r} replica-processes: set mesh.num_replicas "
                          "to a multiple of the process count"
-                         + (f" / {m * s}" if m * s > 1 else ""))
-    if m * s > 1:
-        groups = _make_groups(p_r, m, s)
+                         + (f" / {span}" if span > 1 else ""))
+    if span > 1:
+        groups = _make_groups(p_r, m, s, e)
         topo.replica_group = groups["replica"]
         topo.replica_host_group = groups["replica_host"]
         topo.model_group = groups.get("model")
         topo.seq_group = groups.get("seq")
+        topo.expert_group = groups.get("expert")
+        topo.expert_model_group = groups.get("expert_model")
     return topo
 
 

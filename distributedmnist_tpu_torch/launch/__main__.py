@@ -33,14 +33,18 @@ momentum, lars, lamb), ``train.grad_accum_steps``,
 ``precision.param_dtype`` with or without ``master_weights``, ZeRO-1
 (``parallel.shard_weight_update``, ``comm_buckets``,
 ``resident_sharded``, ``shard_min_leaf_size``) and the profiler windows
-(``train.profile_steps``, ``train.trace_every_steps``) —
+(``train.profile_steps``, ``train.trace_every_steps``), a
+transformer with mixture-of-experts FFNs (``model.num_experts``) —
 runs it, evaluates the test split and prints the
 reference's last line ``{"summary": ..., "test": ...}`` (a SIGTERM/
 SIGINT mid-run flushes a checkpoint, prints the summary alone and exits
 with ``train.resumable_exit_code``). Under ``torchrun`` (``WORLD_SIZE``
 set) it first joins the process group
 (:func:`~..core.mesh.initialize_distributed`): the replicas split
-evenly over the processes, one device each (``cuda:$LOCAL_RANK``, or
+evenly over the processes, ``P = P_r·m·s·e`` with each replica over
+``m·s·e`` of them under tensor, sequence and expert parallelism
+(``mesh.model_parallelism`` / ``seq_parallelism`` /
+``expert_parallelism``), one device each (``cuda:$LOCAL_RANK``, or
 ``--device``), ``--dist-backend`` ``nccl`` on the card and ``gloo`` on
 the CPU by default; every rank prints the last line, and the group is
 torn down on every exit. ``eval`` runs the continuous evaluator
@@ -90,7 +94,8 @@ reference's entry points switch on its persistent compile cache.
 
 Accepted and not run, each logged once a Trainer: device prefetch, the
 native loader and the ``compile.*`` knobs. Not ported yet (each raises):
-the model-parallel mesh axes, mixture-of-experts, ``serve --tp-ranks``
+pipeline parallelism (``mesh.pipeline_parallelism``), ZeRO-1 over
+tensor-, sequence- or expert-parallel replicas, ``serve --tp-ranks``
 (and the chaos campaign's ``serve_tp_ranks``), the gcloud backend
 (``cluster --backend gcloud``), and the reference's ``pod`` and
 ``fetch`` verbs.

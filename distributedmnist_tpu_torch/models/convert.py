@@ -7,8 +7,10 @@ per-layer dicts. ResNet-20's ``stages`` is a list of stages, each a
 list of block dicts. In a checkpoint's flax state-dict form every list
 is a dict keyed ``"0"``, ``"1"``, ... The CNN's is ``{"conv1", "conv2",
 "fc1", "fc2"}`` of ``{"w", "b"}`` (HWIO kernels, ``[in, out]`` dense).
-The port keeps each layout as torch tensors with lists as lists. Both
-directions copy leaf for leaf; no array is transposed or renamed.
+A mixture-of-experts block adds ``router [d, E]`` and stacks its experts
+as ``w1 [E, d, 4d]``, ``w2 [E, 4d, d]``. The port keeps each layout as
+torch tensors with lists as lists. Both directions copy leaf for leaf;
+no array is transposed or renamed.
 
 :func:`state_from_reference` / :func:`state_to_reference` carry a whole
 ``TrainState`` (params, optimizer slots and counters) the same way; the
@@ -16,9 +18,11 @@ slots are ``None``, one params-shaped tree, or LAMB's ``{"m": tree,
 "v": tree}``.
 
 :func:`shard_params` / :func:`gather_params` carry a full tree (the
-reference's, or a checkpoint's) to one tensor-parallel rank's shard and
-the ranks' shards back, by a partition-rule table
-(``parallel/partition_rules.py``).
+reference's, or a checkpoint's) to one rank's shard along one mesh axis
+(the model axis, or the expert axis of an MoE block's experts) and the
+ranks' shards back, by a partition-rule table
+(``parallel/partition_rules.py``); a rank of both axes takes its shard
+of one, then of the other.
 """
 
 from __future__ import annotations
@@ -158,7 +162,7 @@ def state_to_reference(state) -> dict:
 
 def shard_params(tree: Any, rules: list, rank: int, m: int,
                  axis: str = "model") -> Any:
-    """Tensor-parallel rank ``rank``'s shard (of ``m``) of the full
+    """Rank ``rank``'s shard (of ``m``) along ``axis`` of the full
     ``tree`` (numpy arrays or tensors; lists, or their state-dict form):
     each leaf cut along the dim its rule splits over ``axis``
     (views)."""

@@ -5,16 +5,16 @@ the ``resnet20`` entry (CIFAR-10 ResNet-20: the CNN's loss, accuracy
 and eval sums, no dropout and, as in the reference, no ``predictions``)
 and the ``transformer`` entry (the same for a causal LM — its
 ``predictions`` is the next-token distribution — plus the decode
-exports the serving replica builds on). The transformer's
-mixture-of-experts FFNs raise "not ported yet".
+exports the serving replica builds on; a mixture-of-experts
+transformer has none, as in the reference).
 
 The transformer entry carries its partition-rule table (≙ the
 reference's ``transformer_partition_rules``; ``parallel/
 partition_rules.py`` maps it) and its ``sharded_apply_factory`` (≙
 ``registry.py:369-438``, with ``make_seq_attn``): the apply of the
-DP×TP×SP train step, on one rank's shard of the params and one block of
-the sequence. The CNN and ResNet-20 have neither, so they refuse the
-model and seq axes.
+DP×TP×SP×EP train step, on one rank's shard of the params and one block
+of the sequence. The CNN and ResNet-20 have neither, so they refuse the
+model, seq and expert axes.
 """
 
 from __future__ import annotations
@@ -142,11 +142,14 @@ class Model:
       :func:`..parallel.partition_rules.match_partition_rules` maps over
       the params (:class:`..parallel.partition_rules.RuleAxes` binds the
       active axes);
-    * ``sharded_apply_factory(seq_group, model_group, stats=None) ->
-      apply(params, tokens, positions)`` — the tensor-/sequence-parallel
-      apply, its collectives counted in ``stats`` (a
-      :class:`..core.mesh.CommStats`; None: the model supports
-      neither).
+    * ``sharded_apply_factory(seq_group, model_group, stats=None,
+      expert_group=None, expert_model_group=None) -> apply(params,
+      tokens, positions, return_aux=False)`` — the tensor-, sequence-
+      and expert-parallel apply, its collectives counted in ``stats`` (a
+      :class:`..core.mesh.CommStats`; None: the model supports none);
+    * ``has_aux`` — ``apply(..., return_aux=True)`` returns ``(logits,
+      aux)`` and the train step adds ``aux_weight · aux`` to the loss
+      (the MoE load-balance loss).
     """
 
     name: str
@@ -167,15 +170,20 @@ class Model:
     decode_cache_shape: tuple[int, int, int] | None = None
     partition_rules: Callable[[Any], list] | None = None
     sharded_apply_factory: Callable[..., Callable] | None = None
+    has_aux: bool = False
+    aux_weight: float = 0.0
 
 
 def transformer_partition_rules(num_experts: int) -> Callable[[Any], list]:
     """The transformer's table (≙ the reference's): Megatron TP on the
     model axis — ``wqkv [d, 3, d]`` and ``w1`` split on their last
-    (output) dim, ``wo`` and ``w2`` on their first (input) dim — and the
-    embeddings and norms replicated. The expert entries and the stacked
-    (pipeline) layout's are the reference's too; the port builds neither
-    layout yet (Queue A items 8b and 8c), so they are not reached."""
+    (output) dim, ``wo`` and ``w2`` on their first (input) dim — the
+    experts of a mixture-of-experts block (``w1 [E, d, ff]``, ``w2 [E,
+    ff, d]``) on their first dim over the expert axis and their hidden
+    dim over the model axis, the router, embeddings and norms
+    replicated. The stacked (pipeline) layout's entries are the
+    reference's too; the port does not build that layout yet (Queue A
+    item 8c), so they are not reached."""
     def rules(axes) -> list:
         m, e, st = axes.model, axes.expert, axes.stage
         out: list = []
@@ -281,10 +289,7 @@ def _transformer(cfg: ModelConfig) -> Model:
     from ..ops.flash_attention import (flash_attention_bshd,
                                        flash_attention_bshd_plain)
 
-    if cfg.num_experts > 0:
-        raise NotImplementedError("mixture-of-experts FFNs "
-                                  "(model.num_experts > 0) are not ported "
-                                  "yet")
+    moe = cfg.num_experts > 0
     compute_dtype = torch_dtype(cfg.compute_dtype)
     if cfg.attention_impl == "flash":
         attention_fn = flash_attention_bshd
@@ -309,17 +314,31 @@ def _transformer(cfg: ModelConfig) -> Model:
         return transformer.init(
             generator, vocab_size=cfg.vocab_size, model_dim=cfg.model_dim,
             num_heads=cfg.num_heads, num_layers=cfg.num_layers,
-            max_seq_len=cfg.seq_len, device=device)
+            max_seq_len=cfg.seq_len, device=device,
+            num_experts=cfg.num_experts)
+
+    def moe_groups(expert_group=None, reduce_group=None, stats_group=None):
+        if not moe:
+            return None
+        return transformer.MoeGroups(
+            num_experts=cfg.num_experts,
+            capacity_factor=cfg.expert_capacity_factor,
+            router_top_k=cfg.moe_router_top_k,
+            num_groups=cfg.moe_num_groups, expert_group=expert_group,
+            reduce_group=reduce_group, stats_group=stats_group)
+
+    local_moe = moe_groups()
 
     def apply(params, tokens, positions=None, *, train=False,
-              dropout_keep=None):
+              dropout_keep=None, return_aux=False):
         del train, dropout_keep  # the reference's has no dropout
         return transformer.apply(params, tokens, num_heads=cfg.num_heads,
                                  attention_fn=attention_fn,
                                  positions=positions,
                                  compute_dtype=compute_dtype,
                                  remat=cfg.remat,
-                                 remat_policy=cfg.remat_policy)
+                                 remat_policy=cfg.remat_policy,
+                                 moe=local_moe, return_aux=return_aux)
 
     def decode_prefill(params, tokens, positions=None):
         return transformer.prefill_with_kv(
@@ -361,11 +380,18 @@ def _transformer(cfg: ModelConfig) -> Model:
             return sharded_attn
         raise ValueError(f"unknown sp_attention {cfg.sp_attention!r}")
 
-    def sharded_apply_factory(seq_group, model_group, stats=None):
-        """The apply of the DP×SP×TP train step: tokens arrive as this
+    def sharded_apply_factory(seq_group, model_group, stats=None,
+                              expert_group=None, expert_model_group=None):
+        """The apply of the DP×SP×TP×EP train step: tokens arrive as this
         process's ``[b, seq_local]`` block with their global positions;
         attention crosses the blocks by the configured strategy; the
-        params may be this rank's tensor-parallel shard."""
+        params may be this rank's tensor- and expert-parallel shard.
+        Under SP×MoE routing runs on each block with block-local
+        capacity while the load statistics average over the seq group,
+        so the aux loss is the full-token value on every block."""
+        if expert_group is not None and not moe:
+            raise ValueError("mesh has expert parallelism but the model has "
+                             "no experts (model.num_experts == 0)")
         sharded_attn = make_seq_attn(seq_group, stats)
         if (cfg.remat and cfg.remat_policy == "save_attn"
                 and seq_group is not None and cfg.sp_attention == "ring"):
@@ -379,14 +405,17 @@ def _transformer(cfg: ModelConfig) -> Model:
                 "attention under sequence parallelism needs "
                 "remat_policy='full'")
 
-        def apply_sharded(params, tokens, positions):
+        groups = moe_groups(expert_group, expert_model_group, seq_group)
+
+        def apply_sharded(params, tokens, positions, return_aux=False):
             return transformer.apply(params, tokens, num_heads=cfg.num_heads,
                                      attention_fn=sharded_attn,
                                      positions=positions,
                                      compute_dtype=compute_dtype,
                                      remat=cfg.remat,
                                      remat_policy=cfg.remat_policy,
-                                     model_group=model_group, stats=stats)
+                                     model_group=model_group, stats=stats,
+                                     moe=groups, return_aux=return_aux)
         return apply_sharded
 
     def init_params(seed, device):
@@ -397,6 +426,12 @@ def _transformer(cfg: ModelConfig) -> Model:
             return init(torch.Generator(), device)
         return init(torch.Generator(device=device).manual_seed(seed))
 
+    # decode exports: dense-FFN causal LMs only (MoE routing works on
+    # token groups; a one-token step has no group to route)
+    decode = {} if moe else dict(
+        decode_prefill=decode_prefill, decode_step=decode_step,
+        decode_cache_shape=(cfg.num_layers, cfg.num_heads,
+                            cfg.model_dim // cfg.num_heads))
     return Model(name=cfg.name, init=init, init_params=init_params,
                  apply=apply, compute_dtype=compute_dtype,
                  vmap_replicas=not cfg.remat,
@@ -405,9 +440,7 @@ def _transformer(cfg: ModelConfig) -> Model:
                  eval_metrics=lm_eval_metrics,
                  predictions=lm_predictions,
                  input_shape=(cfg.seq_len,), input_dtype="int32",
-                 decode_prefill=decode_prefill, decode_step=decode_step,
-                 decode_cache_shape=(cfg.num_layers, cfg.num_heads,
-                                     cfg.model_dim // cfg.num_heads),
                  partition_rules=transformer_partition_rules(
                      cfg.num_experts),
-                 sharded_apply_factory=sharded_apply_factory)
+                 sharded_apply_factory=sharded_apply_factory,
+                 has_aux=moe, aux_weight=cfg.moe_aux_weight, **decode)

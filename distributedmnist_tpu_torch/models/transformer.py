@@ -1,14 +1,17 @@
 """A compact causal-LM transformer (≙ ``distributedmnist_tpu/models/
-transformer.py``): ``init``, ``apply`` (dense FFN; differentiable, so
-the train step runs it under autograd), the next-token ``loss_fn`` and
-``accuracy``, the prompt prefill with K/V export, and the one-token
-decode step over a paged KV cache.
+transformer.py``): ``init``, ``apply`` (a dense or mixture-of-experts
+FFN; differentiable, so the train step runs it under autograd), the
+next-token ``loss_fn`` and ``accuracy``, the prompt prefill with K/V
+export, and the one-token decode step over a paged KV cache (dense FFNs
+only, as in the reference).
 
 Params are a plain dict in the reference's layout, so a reference
 checkpoint converts leaf for leaf (``models/convert.py``):
 ``embed [V, d]`` (also the tied LM head), ``pos [S, d]``, per block
 ``ln1/ln2 {"scale": [d]}``, ``wqkv [d, 3, d]``, ``wo [d, d]``,
-``w1 [d, 4d]``, ``w2 [4d, d]``, and ``final_norm {"scale": [d]}``.
+``w1 [d, 4d]``, ``w2 [4d, d]``, and ``final_norm {"scale": [d]}``; with
+``num_experts = E > 0`` each block's FFN is ``router [d, E]``, ``w1 [E,
+d, 4d]`` and ``w2 [E, 4d, d]`` (:mod:`..ops.moe`).
 
 Dtypes follow the reference at the same points: every param is cast to
 the compute dtype on entry (a no-op when the caller already holds them
@@ -36,12 +39,16 @@ after ``wo`` and ``w2``, so activations, logits and any loss are the
 same on every rank of the group. Sequence parallelism needs nothing
 here but the block's global ``positions`` and a sequence-parallel
 ``attention_fn`` (ring or Ulysses, ``models/registry.py
-make_seq_attn``); :func:`sp_partial_token_loss` is its loss.
-Pipeline parallelism and mixture-of-experts FFNs are not ported yet.
+make_seq_attn``); :func:`sp_partial_token_loss` is its loss. Expert
+parallelism: ``apply(moe=MoeGroups(...))`` runs each MoE FFN on this
+rank's experts over the expert group (:func:`..ops.moe.moe_ffn`), the
+block's other leaves whole (or tensor-parallel as above). Pipeline
+parallelism is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import torch
@@ -51,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import local_self_attention
 from ..ops.collectives import copy_to_group, reduce_from_group
+from ..ops.moe import moe_ffn
 from ..ops.paged_attention import paged_attention, paged_attention_dense
 
 Params = dict[str, Any]
@@ -65,11 +73,31 @@ def _trunc_normal(shape, stddev, generator, device) -> torch.Tensor:
                                        2 * stddev, generator=generator)
 
 
+@dataclasses.dataclass(frozen=True)
+class MoeGroups:
+    """How a block's mixture-of-experts FFN runs (≙ the reference's
+    ``num_experts`` … ``moe_stats_axes`` arguments): the routing knobs,
+    and the process groups of expert parallelism (``expert_group``; its
+    output sum over ``reduce_group``, the expert×model ranks) and of
+    the sequence blocks its load statistics average over
+    (``stats_group``). The model group is ``apply``'s."""
+
+    num_experts: int
+    capacity_factor: float
+    router_top_k: int
+    num_groups: int
+    expert_group: Any
+    reduce_group: Any
+    stats_group: Any
+
+
 def init(generator: torch.Generator, vocab_size: int = 256,
          model_dim: int = 128, num_heads: int = 4, num_layers: int = 2,
-         max_seq_len: int = 512, device=None) -> Params:
+         max_seq_len: int = 512, device=None,
+         num_experts: int = 0) -> Params:
     """Float32 params on ``device`` (default: the generator's; ``meta``
-    gives the shapes alone)."""
+    gives the shapes alone); ``num_experts > 0`` makes every block's FFN
+    a routed mixture of experts."""
     if model_dim % num_heads:
         raise ValueError(f"model_dim={model_dim} not divisible by "
                          f"num_heads={num_heads}")
@@ -77,11 +105,18 @@ def init(generator: torch.Generator, vocab_size: int = 256,
     d, ff, scale = model_dim, 4 * model_dim, 0.02
     tn = lambda *shape: _trunc_normal(shape, scale, generator, dev)
     ones = lambda: {"scale": torch.ones(d, dtype=torch.float32, device=dev)}
+    def ffn() -> dict:
+        if num_experts > 0:
+            return {"router": tn(d, num_experts),
+                    "w1": tn(num_experts, d, ff),
+                    "w2": tn(num_experts, ff, d)}
+        return {"w1": tn(d, ff), "w2": tn(ff, d)}
+
     return {
         "embed": tn(vocab_size, d),
         "pos": tn(max_seq_len, d),
         "blocks": [{"ln1": ones(), "wqkv": tn(d, 3, d), "wo": tn(d, d),
-                    "ln2": ones(), "w1": tn(d, ff), "w2": tn(ff, d)}
+                    "ln2": ones(), **ffn()}
                    for _ in range(num_layers)],
         "final_norm": ones(),
     }
@@ -147,6 +182,24 @@ def _ffn_sublayer(x: torch.Tensor, blk: Params,
                                  model_group, stats)
 
 
+def _moe_sublayer(x: torch.Tensor, blk: Params, moe: MoeGroups,
+                  model_group=None, stats=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm mixture-of-experts FFN sublayer: ``(x + moe(ln2(x)),
+    aux)`` (:func:`..ops.moe.moe_ffn` sums over the model group
+    itself)."""
+    out, aux = moe_ffn(_rms_norm(x, blk["ln2"]), blk["router"], blk["w1"],
+                       blk["w2"], num_experts=moe.num_experts,
+                       capacity_factor=moe.capacity_factor,
+                       router_top_k=moe.router_top_k,
+                       num_groups=moe.num_groups,
+                       expert_group=moe.expert_group,
+                       model_group=model_group,
+                       reduce_group=moe.reduce_group,
+                       stats_group=moe.stats_group, stats=stats)
+    return x + out, aux
+
+
 def _embed(p: Params, tokens: torch.Tensor,
            positions: torch.Tensor | None) -> torch.Tensor:
     if positions is None:
@@ -164,15 +217,19 @@ def apply(params: Params, tokens: torch.Tensor, *, num_heads: int = 4,
           positions: torch.Tensor | None = None,
           compute_dtype: torch.dtype = torch.bfloat16, remat: bool = False,
           remat_policy: str = "full", model_group=None,
-          stats=None) -> torch.Tensor:
-    """tokens [batch, seq] → logits [batch, seq, vocab] float32.
+          stats=None, moe: MoeGroups | None = None,
+          return_aux: bool = False):
+    """tokens [batch, seq] → logits [batch, seq, vocab] float32, or with
+    ``return_aux`` ``(logits, aux)``: the MoE load-balance losses summed
+    over the blocks (0 without experts).
 
     ``positions`` (the global positions of these tokens) must be given
     when the sequence is split; defaults to ``arange(seq)``.
     ``model_group``: run tensor-parallel over that process group on this
     rank's shard of the params (the module docstring); the heads must
-    divide over it. ``stats`` (a :class:`..core.mesh.CommStats`) counts
-    its all-reduces."""
+    divide over it. ``moe``: how the blocks' expert FFNs run (needed
+    when the params have a ``router``). ``stats`` (a
+    :class:`..core.mesh.CommStats`) counts its collectives."""
     attn = attention_fn or local_self_attention
     m = 1 if model_group is None else dist.get_world_size(model_group)
     if num_heads % m != 0:
@@ -186,7 +243,10 @@ def apply(params: Params, tokens: torch.Tensor, *, num_heads: int = 4,
                               model_group=model_group, stats=stats)
 
     def ffn_part(x, blk):
-        return _ffn_sublayer(x, blk, model_group, stats)
+        if "router" in blk:
+            return _moe_sublayer(x, blk, moe, model_group, stats)
+        return _ffn_sublayer(x, blk, model_group, stats), x.new_zeros(
+            (), dtype=torch.float32)
 
     def block(x, blk):
         return ffn_part(attn_part(x, blk), blk)
@@ -203,9 +263,14 @@ def apply(params: Params, tokens: torch.Tensor, *, num_heads: int = 4,
         else:
             raise ValueError(f"unknown remat_policy {remat_policy!r} "
                              "(expected 'full' or 'save_attn')")
+    if "router" in p["blocks"][0] and moe is None:
+        raise ValueError("mixture-of-experts params need apply(moe=...)")
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in p["blocks"]:
-        x = block(x, blk)
-    return _head(x, p)
+        x, aux = block(x, blk)
+        aux_total = aux_total + aux
+    logits = _head(x, p)
+    return (logits, aux_total) if return_aux else logits
 
 
 def sp_partial_token_loss(logits: torch.Tensor, tgt: torch.Tensor,

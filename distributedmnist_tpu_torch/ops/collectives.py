@@ -14,7 +14,18 @@ replicated→varying cast (``core/mesh.py`` makes the groups):
 * :func:`all_to_all` — the tiled all-to-all (``lax.all_to_all(...,
   tiled=True)``): ``split_dim`` cut into ``n`` blocks, block ``k`` to
   rank ``k``, the received blocks concatenated along ``concat_dim`` in
-  rank order; its backward is the inverse all-to-all.
+  rank order; its backward is the inverse all-to-all (the expert
+  layer's two, reference ``ops/moe.py:217,225``, are ``(1, 2)`` and
+  ``(2, 1)``);
+* :func:`scatter_sum` — this rank's block written into zeros at its
+  rank's offset, summed over the group: the reference's scatter+psum
+  reassembly of a replicated activation (``ops/moe.py:232-237``); its
+  backward is this rank's block of the gradient, as the transpose of a
+  ``psum`` to a replicated value is the identity;
+* :func:`all_reduce_sum` — ``psum`` whose gradient is summed over the
+  group too: a replicated statistic that enters every rank's partial
+  of a loss the caller sums over the group (the MoE aux loss over the
+  seq group, reference ``parallel/api.py:1036-1040``).
 
 ``group`` None means no group (an axis of size 1): every operation is
 then the identity. Each collective is one call of the group's backend,
@@ -185,3 +196,51 @@ def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
     if x.requires_grad:
         return _AllToAll.apply(x, split_dim, concat_dim, group, stats)
     return _all_to_all(x, split_dim, concat_dim, group, stats)
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, index, n, group, stats):
+        ctx.dim, ctx.index, ctx.w = dim, index, x.shape[dim]
+        pad = [0, 0] * (x.dim() - 1 - dim)
+        pad += [index * x.shape[dim], (n - 1 - index) * x.shape[dim]]
+        return _all_reduce(torch.nn.functional.pad(x, pad), group, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = ctx.w
+        return (g.narrow(ctx.dim, ctx.index * w, w), None, None, None,
+                None, None)
+
+
+def scatter_sum(x: torch.Tensor, dim: int, index: int, n: int, group,
+                stats: CommStats | None = None) -> torch.Tensor:
+    """Block ``index`` of ``n`` along ``dim``: ``x`` written into zeros
+    ``n`` times its width at offset ``index·width``, summed over
+    ``group`` (≙ ``lax.psum(lax.dynamic_update_slice_in_dim(zeros, x,
+    index·w, dim), axes)``). Each rank passes its own block, so the sum
+    is every block in place, the same on every rank. Differentiable:
+    the gradient is block ``index`` of the output's gradient. Without a
+    group (``n`` must be 1) ``x`` as it is."""
+    if group is None:
+        return x
+    return _ScatterSum.apply(x, dim, index, n, group, stats)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, stats):
+        ctx.group, ctx.stats = group, stats
+        return _all_reduce(x.clone(), group, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.group, ctx.stats), None, None
+
+
+def all_reduce_sum(x: torch.Tensor, group,
+                   stats: CommStats | None = None) -> torch.Tensor:
+    """``x`` summed over ``group``, and its gradient summed over it too
+    (a value every rank holds whole, entering partials of a loss that
+    is summed over the group; ``x`` as it is without a group)."""
+    return x if group is None else _AllReduceSum.apply(x, group, stats)

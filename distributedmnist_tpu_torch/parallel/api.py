@@ -78,23 +78,27 @@ captured as CUDA graphs (``Trainer.precompile``, :mod:`.graphs`) and
 replayed every step; eager calls run the same stages over the same
 buffers.
 
-Tensor and sequence parallelism (``mesh.model_parallelism = m``,
-``mesh.seq_parallelism = s``; ≙ the SP and TP parts of the reference's
-``build_train_step``): each replica spans ``m·s`` processes
-(:mod:`..core.mesh`). The state holds this rank's model shard of every
-leaf the model's partition rules split (:func:`tp_shard`; the
-replicated leaves whole), and the step loops the local replicas
-(``vmap`` cannot carry process-group collectives): each runs the
-model's ``sharded_apply_factory`` on its block of the sequence with its
-global positions, takes the sequence-parallel partial loss (the targets
-shifted one *global* position, the next block's first column through a
-``ppermute``, normalised by ``b·(S−1)``), and sums its loss, accuracy
-and every gradient over the seq group. Model-sharded leaves keep their
-shard's gradient; the replicated ones come out identical on every model
-rank. The masked mean and every sync mode then run over the replica
-group as above, and LARS/LAMB complete each model-sharded leaf's sum of
-squares over the model group. ZeRO-1 with ``m`` or ``s > 1`` is refused
-(a ConfigError), as are pipeline and expert parallelism (not ported).
+Tensor, sequence and expert parallelism (``mesh.model_parallelism =
+m``, ``mesh.seq_parallelism = s``, ``mesh.expert_parallelism = e``; ≙
+the SP, TP and EP parts of the reference's ``build_train_step``): each
+replica spans ``m·s·e`` processes (:mod:`..core.mesh`). The state holds
+this rank's model and expert shard of every leaf the model's partition
+rules split (:func:`tp_shard`; the replicated leaves whole), and the
+step loops the local replicas (``vmap`` cannot carry process-group
+collectives): each runs the model's ``sharded_apply_factory`` on its
+block of the sequence with its global positions, takes the
+sequence-parallel partial loss (the targets shifted one *global*
+position, the next block's first column through a ``ppermute``,
+normalised by ``b·(S−1)``; a mixture-of-experts model adds
+``aux_weight · aux / s``, its aux already the full-token value on every
+block), and sums its loss, accuracy and every gradient over the seq
+group. Sharded leaves keep their shard's gradient; the replicated ones
+(attention, router, norms, embeddings) come out identical on every
+model and expert rank. The masked mean and every sync mode then run
+over the replica group as above, and LARS/LAMB complete each split
+leaf's sum of squares over the groups it is split over. ZeRO-1 with
+``m·s·e > 1`` is refused (a ConfigError), as is pipeline parallelism
+(not ported).
 
 Checkpoints hold the logical layout whatever the live one
 (:func:`canonical_save_state`; under TP the shards gathered first,
@@ -129,7 +133,7 @@ from .partition_rules import (LeafShardPlan, RuleAxes, Zero1Plan,
                               comm_bucket_assignment, make_zero1_plan,
                               map_leaves, match_partition_rules,
                               shard_leaf, spec_leaves, split_dim,
-                              tree_leaves,
+                              tree_leaves, tree_path_names,
                               zero1_init_state, zero1_logical, zero1_pack,
                               zero1_unpack)
 
@@ -211,21 +215,21 @@ class TrainState:
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
-    """Raise for what the port does not run: pipeline and expert
-    parallelism (Queue A items 8c, 8b), and ZeRO-1 under tensor or
-    sequence parallelism (Queue A item 8d)."""
-    for name, item in (("pipeline_parallelism", "8c"),
-                       ("expert_parallelism", "8b")):
-        if getattr(cfg.mesh, name) != 1:
-            raise NotImplementedError(
-                f"mesh.{name} > 1 is not ported yet (Queue A item {item})")
+    """Raise for what the port does not run: pipeline parallelism (Queue
+    A item 8c), and ZeRO-1 under tensor, sequence or expert parallelism
+    (Queue A item 8d)."""
+    if cfg.mesh.pipeline_parallelism != 1:
+        raise NotImplementedError(
+            "mesh.pipeline_parallelism > 1 is not ported yet (Queue A "
+            "item 8c)")
     m, s = cfg.mesh.model_parallelism, cfg.mesh.seq_parallelism
-    if cfg.parallel.shard_weight_update and m * s > 1:
+    e = cfg.mesh.expert_parallelism
+    if cfg.parallel.shard_weight_update and m * s * e > 1:
         raise ConfigError(
             f"parallel.shard_weight_update=true with mesh.model_parallelism="
-            f"{m} / mesh.seq_parallelism={s}: ZeRO-1 over tensor- or "
-            "sequence-parallel replicas is not ported yet (Queue A item "
-            "8d); turn one of them off")
+            f"{m} / mesh.seq_parallelism={s} / mesh.expert_parallelism={e}: "
+            "ZeRO-1 over tensor-, sequence- or expert-parallel replicas is "
+            "not ported yet (Queue A item 8d); turn one of them off")
     if cfg.train.grad_accum_steps < 1:
         raise ValueError(f"train.grad_accum_steps must be >= 1, got "
                          f"{cfg.train.grad_accum_steps}")
@@ -338,67 +342,96 @@ def world_signature(topo: Topology) -> dict:
     ``world_signature``: the process count, and only axes > 1 in the
     mesh record)."""
     n = int(topo.num_replicas)
-    sizes = (n, topo.model_parallelism, topo.seq_parallelism)
+    sizes = (n, topo.model_parallelism, topo.seq_parallelism,
+             topo.expert_parallelism)
     return {"num_replicas": n, "process_count": int(topo.world_size),
             "mesh": {name: int(k) for name, k in zip(topo.axis_names, sizes)
                      if k > 1}}
 
 
-# -- tensor-parallel shards ---------------------------------------------------
+# -- tensor- and expert-parallel shards ------------------------------------
+
+def _shard_axes(topo: Topology) -> list:
+    """``(axis name, this rank's index, size, group)`` of each active
+    axis that splits leaves: model, then expert."""
+    out = []
+    if topo.model_parallelism > 1:
+        out.append((topo.axis_names[1], topo.model_index,
+                    topo.model_parallelism, topo.model_group))
+    if topo.expert_parallelism > 1:
+        out.append((topo.axis_names[3], topo.expert_index,
+                    topo.expert_parallelism, topo.expert_group))
+    return out
+
 
 def tp_specs(model: Model, topo: Topology, params: Any) -> Any | None:
     """The spec a leaf of ``params`` (full or shard shapes) under the
-    model's partition rules with the model axis bound, or None without
-    tensor parallelism. A model with no table, or with no tensor-
-    parallel apply, is refused."""
-    if topo.model_parallelism == 1:
+    model's partition rules with the model and expert axes bound, or
+    None without tensor or expert parallelism. A model with no table or
+    no sharded apply is refused, and one without experts on an expert
+    axis, with the reference's messages."""
+    m, e = topo.model_parallelism, topo.expert_parallelism
+    if m == 1 and e == 1:
         return None
+    if e > 1 and not any(n.endswith("router")
+                         for n in tree_path_names(params)):
+        raise ValueError(f"mesh has expert_parallelism={e} but model "
+                         f"{model.name!r} has no experts to shard")
     if model.partition_rules is None or model.sharded_apply_factory is None:
         raise ValueError(
-            f"mesh has model_parallelism={topo.model_parallelism} but model "
+            f"mesh has model_parallelism={m} but model "
             f"{model.name!r} has no tensor-parallel parameter specs")
-    rules = model.partition_rules(RuleAxes(model=topo.axis_names[1]))
+    rules = model.partition_rules(RuleAxes(
+        model=topo.axis_names[1] if m > 1 else None,
+        expert=topo.axis_names[3] if e > 1 else None))
     return match_partition_rules(rules, params)
 
 
 def tp_shard(tree: Any, model: Model, topo: Topology) -> Any:
-    """This rank's model shard of a full params-shaped tree of tensors
-    (a copy of each split leaf, so the full one can go); ``tree`` as it
-    is without tensor parallelism."""
+    """This rank's model and expert shard of a full params-shaped tree
+    of tensors (a copy of each split leaf, so the full one can go);
+    ``tree`` as it is without tensor or expert parallelism."""
     specs = tp_specs(model, topo, tree) if tree is not None else None
     if specs is None:
         return tree
-    axis, i, m = topo.axis_names[1], topo.model_index, topo.model_parallelism
-    return map_leaves(lambda x, spec: (
-        shard_leaf(x, spec, axis, i, m).clone()
-        if split_dim(spec, axis) is not None else x), tree, specs)
+    axes = _shard_axes(topo)
+
+    def shard(x, spec):
+        if all(split_dim(spec, a) is None for a, *_ in axes):
+            return x
+        for axis, i, size, _ in axes:
+            x = shard_leaf(x, spec, axis, i, size)
+        return x.clone()
+    return map_leaves(shard, tree, specs)
 
 
 def tp_gather(tree: Any, model: Model, topo: Topology) -> Any:
-    """The full tree on every rank of the model group from each rank's
-    shard (one all-gather a split leaf; every rank must call it);
-    ``tree`` as it is without tensor parallelism."""
+    """The full tree on every rank of the model and expert groups from
+    each rank's shard (one all-gather a split leaf and axis; every rank
+    must call it); ``tree`` as it is without tensor or expert
+    parallelism."""
     specs = tp_specs(model, topo, tree) if tree is not None else None
     if specs is None:
         return tree
-    axis, m = topo.axis_names[1], topo.model_parallelism
+    axes = _shard_axes(topo)
 
     def gather(x, spec):
-        d = split_dim(spec, axis)
-        if d is None:
-            return x
-        blocks = [torch.empty_like(x) for _ in range(m)]
-        topo.all_gather_model(blocks, x.contiguous())
-        return torch.cat(blocks, dim=d)
+        for axis, _, size, group in axes:
+            d = split_dim(spec, axis)
+            if d is not None:
+                blocks = [torch.empty_like(x) for _ in range(size)]
+                topo.all_gather(blocks, x.contiguous(), group)
+                x = torch.cat(blocks, dim=d)
+        return x
     return map_leaves(gather, tree, specs)
 
 
 def gather_state(state: TrainState, model: Model,
                  topo: Topology) -> TrainState:
     """``state`` with its params, slots and window gathered whole from
-    the model group's shards (every rank of the group must call it;
-    ``state`` itself without tensor parallelism)."""
-    if topo.model_parallelism == 1:
+    the model and expert groups' shards (every rank of the groups must
+    call it; ``state`` itself without tensor or expert parallelism)."""
+    if topo.model_parallelism == 1 and topo.expert_parallelism == 1:
         return state
     full = lambda tree: tp_gather(tree, model, topo)  # noqa: E731
     return dataclasses.replace(
@@ -491,8 +524,8 @@ def restore_for_topology(model: Model, cfg: ExperimentConfig,
     template's device: the ZeRO-1 plan is derived from this run's
     replica count, the slots (and resident params) repacked for it, the
     params cast to this run's storage dtype, and under tensor
-    parallelism every params-shaped tree cut to this rank's shard. A
-    checkpoint whose saved optimizer names
+    or expert parallelism every params-shaped tree cut to this rank's
+    shard. A checkpoint whose saved optimizer names
     another state kind raises ``OptimizerStateMismatchError`` before
     anything is grafted; a world change is reported through
     ``on_event`` as ``cross_world_restore`` naming both worlds. A
@@ -747,15 +780,12 @@ class TrainStep:
         shapes = model.init_params(cfg.model.init_seed, torch.device("meta"))
         n_leaves = len(tree_leaves(shapes))
         self.n_leaves = n_leaves
-        # each leaf's sum of squares completes over the model group when
-        # the leaf is split there (LARS/LAMB trust ratios)
+        # each leaf's sum of squares completes over the groups the leaf
+        # is split over (LARS/LAMB trust ratios)
         specs = tp_specs(model, topo, shapes)
-        axis = topo.axis_names[1]
         self.norm_reduce = [
-            topo.sum_model if split_dim(spec, axis) is not None
-            else (lambda x: x)
-            for spec in (spec_leaves(specs) if specs is not None
-                         else [()] * n_leaves)]
+            self._norm_reduce(spec) for spec in
+            (spec_leaves(specs) if specs is not None else [()] * n_leaves)]
         self.at_keys = self.n + 4
         self.dropout_words = (self.accum * self.L * 2
                               if model.dropout_masks is not None else 0)
@@ -765,17 +795,30 @@ class TrainStep:
         self._prepared: _Binding | None = None
         self._scratch: _Binding | None = None
 
+    def _norm_reduce(self, spec) -> Callable:
+        """How a leaf's sum of squares completes: over the model, expert
+        or expert×model group, as the leaf is split."""
+        topo = self.topo
+        split = [split_dim(spec, a) is not None
+                 for a in (topo.axis_names[1], topo.axis_names[3])]
+        group = {(True, False): topo.model_group,
+                 (False, True): topo.expert_group,
+                 (True, True): topo.expert_model_group}.get(tuple(split))
+        return ((lambda x: x) if group is None
+                else (lambda x: topo.sum_group(x, group)))
+
     @staticmethod
     def _sharded_apply(model: Model, topo: Topology) -> Callable:
-        """The model's tensor-/sequence-parallel apply over this
+        """The model's tensor-/sequence-/expert-parallel apply over this
         process's groups; refuses a model without one, and one with
         dropout (the sharded loss threads no dropout key), with the
         reference's messages."""
         m, s = topo.model_parallelism, topo.seq_parallelism
+        e = topo.expert_parallelism
         if model.sharded_apply_factory is None:
             raise ValueError(
                 f"mesh has seq_parallelism={s} / model_parallelism={m} / "
-                f"expert_parallelism=1 but model {model.name!r} supports "
+                f"expert_parallelism={e} but model {model.name!r} supports "
                 "none of them (no sharded_apply_factory)")
         if model.dropout_masks is not None:
             raise ValueError(
@@ -783,8 +826,9 @@ class TrainStep:
                 "(SP/TP/PP) loss paths do not thread a dropout key; set "
                 "model.dropout_rate=0 or run it data-parallel only")
         # the collectives' seconds are waits, counted in topo.comm
-        return model.sharded_apply_factory(topo.seq_group, topo.model_group,
-                                           topo.comm)
+        return model.sharded_apply_factory(
+            topo.seq_group, topo.model_group, topo.comm,
+            topo.expert_group, topo.expert_model_group)
 
     # -- the host part ---------------------------------------------------
 
@@ -929,11 +973,9 @@ class TrainStep:
                 p.requires_grad_(True)
             try:
                 for j in range(L):
-                    logits = model.apply(params, xs[j], train=True,
-                                         dropout_keep=(keep if L == 1
-                                                       or keep is None
-                                                       else keep[j]))
-                    loss = model.loss(logits, ys[j])
+                    loss, logits = self._local_loss(
+                        params, xs[j], ys[j],
+                        keep if L == 1 or keep is None else keep[j])
                     g = [gi.float() for gi in
                          torch.autograd.grad(loss, leaves)]
                     if L == 1:
@@ -952,8 +994,7 @@ class TrainStep:
             return torch.stack(losses), torch.stack(accs), grads
 
         def replica_loss(params, x, y, k):
-            logits = model.apply(params, x, train=True, dropout_keep=k)
-            loss = model.loss(logits, y)
+            loss, logits = self._local_loss(params, x, y, k)
             return loss, (loss, model.accuracy(logits, y))
 
         grads, (losses, accs) = vmap(
@@ -961,6 +1002,19 @@ class TrainStep:
             in_dims=(None, 0, 0, None if keep is None else 0))(
                 params, xs, ys, keep)
         return losses, accs, [g.float() for g in tree_leaves(grads)]
+
+    def _local_loss(self, params: Any, x: torch.Tensor, y: torch.Tensor,
+                    keep) -> tuple[torch.Tensor, torch.Tensor]:
+        """One replica's ``(loss, logits)`` on its rows (≙ the
+        reference's ``local_loss``): with an aux loss (MoE) the loss
+        adds ``aux_weight · aux``."""
+        model = self.model
+        if model.has_aux:
+            logits, aux = model.apply(params, x, train=True,
+                                      dropout_keep=keep, return_aux=True)
+            return model.loss(logits, y) + model.aux_weight * aux, logits
+        logits = model.apply(params, x, train=True, dropout_keep=keep)
+        return model.loss(logits, y), logits
 
     def _sharded_grads(self, params: Any, xs: torch.Tensor,
                        ys: torch.Tensor):
@@ -970,9 +1024,11 @@ class TrainStep:
         block ``[b, S/s]`` with its global positions; its targets are the
         tokens shifted one global position (the next block's first
         column through a ``ppermute``), its partial loss and accuracy
-        normalised by the replica's ``b·(S−1)`` predicted tokens; then
-        the loss, the accuracy and every float32 gradient summed over the
-        seq group in one all-reduce. Model-sharded leaves keep their
+        normalised by the replica's ``b·(S−1)`` predicted tokens, plus
+        ``aux_weight · aux / s`` for an MoE model (the aux is the
+        full-token value on every block, so the seq sum counts it once);
+        then the loss, the accuracy and every float32 gradient summed
+        over the seq group in one all-reduce. Sharded leaves keep their
         shard's gradient."""
         from ..models.transformer import sp_partial_token_loss
         topo, L = self.topo, self.L
@@ -986,7 +1042,13 @@ class TrainStep:
                 tokens, labels = topo.seq_block(xs[j]), topo.seq_block(ys[j])
                 b, s_loc = tokens.shape
                 positions = topo.seq_positions(s_loc, tokens.device)
-                logits = self.sharded_apply(params, tokens, positions)
+                aux = 0.0
+                if self.model.has_aux:
+                    logits, aux = self.sharded_apply(params, tokens,
+                                                     positions,
+                                                     return_aux=True)
+                else:
+                    logits = self.sharded_apply(params, tokens, positions)
                 # block j takes block j+1's first target column
                 nxt = ppermute(labels[:, :1].contiguous(), -1,
                                topo.seq_group, topo.comm)
@@ -994,6 +1056,7 @@ class TrainStep:
                 s_global = s_loc * s
                 loss, acc = sp_partial_token_loss(
                     logits, tgt, positions, s_global, b * (s_global - 1))
+                loss = loss + self.model.aux_weight * aux / s
                 g = torch.autograd.grad(loss, leaves)
                 with torch.no_grad():
                     flat = torch.cat([gi.float().reshape(-1) for gi in g]
@@ -1365,24 +1428,26 @@ def build_eval_step(model: Model, cfg: ExperimentConfig,
     over ``batch = {"image", "label", "weight"}`` (padded rows carry
     weight 0); no autograd, so attention runs the forward kernel K1.
     ``params`` are logical-shape (:func:`logical_params`), or under
-    tensor parallelism (``topo`` with ``model_parallelism > 1``) this
-    rank's shard, run through the model's tensor-parallel apply over
-    the whole sequence (eval batches are not split along it; ≙ the
-    reference's ``build_eval_step``). cuDNN runs under the train step's
-    policy."""
+    tensor or expert parallelism (``topo`` with ``model_parallelism`` or
+    ``expert_parallelism > 1``) this rank's shard, run through the
+    model's sharded apply over the whole sequence (eval batches are not
+    split along it; ≙ the reference's ``build_eval_step``). cuDNN runs
+    under the train step's policy."""
     del cfg
     if model.eval_metrics is None:
         raise ValueError(f"model {model.name!r} has no eval_metrics")
     tf32 = False if model.compute_dtype == torch.float32 else None
     apply = model.apply
-    if topo is not None and topo.model_parallelism > 1:
+    if topo is not None and (topo.model_parallelism > 1
+                             or topo.expert_parallelism > 1):
         if model.sharded_apply_factory is None:
             raise ValueError(
                 f"mesh has model_parallelism={topo.model_parallelism} / "
-                f"expert_parallelism=1 but model {model.name!r} is not "
-                "tensor-/expert-parallel capable")
-        tp_apply = model.sharded_apply_factory(None, topo.model_group,
-                                               topo.comm)
+                f"expert_parallelism={topo.expert_parallelism} but model "
+                f"{model.name!r} is not tensor-/expert-parallel capable")
+        tp_apply = model.sharded_apply_factory(
+            None, topo.model_group, topo.comm, topo.expert_group,
+            topo.expert_model_group)
 
         def apply(params, images):
             return tp_apply(params, images, None)

@@ -8,15 +8,17 @@ is never split, and a leaf no rule covers is an
 :class:`UnmatchedLeafError`. A spec is a tuple with one entry a dim:
 an axis name (that dim is split over the axis) or None (whole); ``()``
 is replicated — the reference's ``PartitionSpec``. The port runs the
-model axis (tensor parallelism): :func:`shard_leaf` / :func:`gather_leaf`
-cut a leaf to one rank's block along its model-axis dim and put the
-blocks back. The tables live with the models (``models/registry.py``).
+model axis (tensor parallelism) and the expert axis (an MoE block's
+experts): :func:`shard_leaf` / :func:`gather_leaf` cut a leaf to one
+rank's block along the dim an axis splits and put the blocks back. The
+tables live with the models (``models/registry.py``).
 
 **The ZeRO-1 plan**: which leaves' optimizer state (and, under
 ``parallel.resident_sharded``, params) split over the ``n`` replicas,
 their padded flat layout, and the layer-ordered communication buckets.
-It runs without tensor parallelism only (``parallel/api.py`` refuses
-the two together), so every leaf it sees is replicated.
+It runs without tensor, sequence or expert parallelism only
+(``parallel/api.py`` refuses them together), so every leaf it sees is
+replicated.
 
 A sharded leaf of ``size`` elements lives flattened and zero-padded to
 ``pad = chunk·n`` elements, ``chunk = ceil(size / n)``; replica ``r``

@@ -210,7 +210,9 @@ class DecodeReplica(ServingReplica):
         if (self.model.decode_prefill is None
                 or self.model.decode_step is None):
             raise ConfigError(
-                f"model {self.cfg.model.name!r} exports no decode step")
+                f"model {self.cfg.model.name!r} exports no decode step "
+                "(decode needs a dense-FFN causal LM; MoE and "
+                "classifier families have no incremental export)")
         self.dcfg = dcfg or self.cfg.decode
         self.dcfg.validate()
         if (self.dcfg.max_prompt_len + self.dcfg.max_new_tokens

@@ -33,16 +33,16 @@ one small host all-reduce a step, which also carries each process's
 SIGTERM/SIGINT request, so every process stops after the same step —
 and only process 0 writes the journals, checkpoints and series dumps;
 every process resumes from the newest loadable checkpoint. The step's
-host time excludes the time spent waiting in collectives. Under tensor
-or sequence parallelism (``mesh.model_parallelism`` /
-``seq_parallelism``) a replica spans ``m·s`` processes: they all read
-their replica-process's shard of the data, the one with model shard 0
-and sequence block 0 fills its replicas' measured rows (so every
-process draws the same flags), a save first gathers the model shards
-(every process takes part, so under tensor parallelism the cadence is
-by steps: ``save_interval_secs`` is refused; rank 0 writes whole
-leaves, the bytes a one-process run writes) and a restore cuts them
-again.
+host time excludes the time spent waiting in collectives. Under tensor,
+sequence or expert parallelism (``mesh.model_parallelism`` /
+``seq_parallelism`` / ``expert_parallelism``) a replica spans ``m·s·e``
+processes: they all read their replica-process's shard of the data, the
+one with model shard 0, sequence block 0 and expert shard 0 fills its
+replicas' measured rows (so every process draws the same flags), a
+save first gathers the model and expert shards (every process takes
+part, so under tensor or expert parallelism the cadence is by steps:
+``save_interval_secs`` is refused; rank 0 writes whole leaves, the
+bytes a one-process run writes) and a restore cuts them again.
 
 Checkpoints are written as the reference writes them: the fsync
 policy ``train.durability`` is installed before any durable write, a
@@ -349,14 +349,16 @@ class Trainer:
         _log_noop_knobs(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.mesh.model_parallelism > 1 and cfg.train.save_interval_secs > 0:
-            # a save gathers the model shards, a collective every rank
-            # enters; the ranks' clocks would not agree on its step
+        split = [f"mesh.{k} > 1" for k in ("model_parallelism",
+                                            "expert_parallelism")
+                 if getattr(cfg.mesh, k) > 1]
+        if split and cfg.train.save_interval_secs > 0:
+            # a save gathers the shards, a collective every rank enters;
+            # the ranks' clocks would not agree on its step
             raise ValueError(
-                "mesh.model_parallelism > 1 gathers the model shards at "
-                "every save, which needs a checkpoint cadence every process "
-                "agrees on: set train.save_interval_steps (and "
-                "save_interval_secs=0)")
+                f"{' and '.join(split)} gathers the shards at every save, "
+                "which needs a checkpoint cadence every process agrees on: "
+                "set train.save_interval_steps (and save_interval_secs=0)")
         self.topo = make_topology(cfg.mesh)
         n = self.topo.num_replicas
         if cfg.data.batch_size % n != 0:
@@ -496,8 +498,9 @@ class Trainer:
 
     def logical_params(self) -> Any:
         """The live params in their logical shapes (gathered from every
-        process under a resident plan, and from the model group's shards
-        under tensor parallelism: every process calls it)."""
+        process under a resident plan, and from the model and expert
+        groups' shards under tensor or expert parallelism: every process
+        calls it)."""
         return tp_gather(logical_params(self.state.params, self._zero1_plan,
                                         self.topo), self.model, self.topo)
 
@@ -561,8 +564,9 @@ class Trainer:
         on a save, as in the reference) — except in the per-host layout,
         where each process writes its part. A save that fails after the
         I/O retries is journaled as ``save_failed`` and skipped."""
-        # under tensor parallelism the checkpoint holds whole leaves:
-        # every rank takes part in gathering them, then the writer writes
+        # under tensor or expert parallelism the checkpoint holds whole
+        # leaves: every rank takes part in gathering them, then the
+        # writer writes
         source = gather_state(self.state, self.model, self.topo)
         if not self.is_writer and not self._sharded_ckpt:
             return
@@ -801,8 +805,10 @@ class Trainer:
 
     def evaluate(self, split: str = "test") -> dict[str, float]:
         """One full-split eval pass; also journals an ``eval`` record."""
-        # under tensor parallelism the eval step runs on this rank's shard
-        params = (self.state.params if self.topo.model_parallelism > 1
+        # under tensor or expert parallelism the eval step runs on this
+        # rank's shard
+        params = (self.state.params if (self.topo.model_parallelism > 1
+                                        or self.topo.expert_parallelism > 1)
                   else self.logical_params())
         res = run_full_eval(self.eval_fn, params,
                             getattr(self.datasets, split),
@@ -834,7 +840,7 @@ class Trainer:
             if self._last_device_skew is not None:
                 rows[:, 0] += torch.from_numpy(self._last_device_skew)
         if topo.sharded and not topo.replica_leader:
-            # a replica spans m·s processes: its leader's time fills its
+            # a replica spans m·s·e processes: its leader's time fills its
             # rows (gather_scalars takes the max of what is written)
             rows[:, 0] = float("-inf")
         if self._preempt_requested is not None:

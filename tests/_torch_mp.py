@@ -1,8 +1,9 @@
-"""The launcher of the port's tensor/sequence-parallel parity tests: one
-group of gloo worker processes on the CPU (``torchrun``'s environment,
-a free port on localhost) runs a list of cases from
-``_torch_tp_cases`` and hands each rank's results back. The children
-import the port only; the reference side runs in the pytest process.
+"""The launcher of the port's model-parallel parity tests: one group of
+gloo worker processes on the CPU (``torchrun``'s environment, a free
+port on localhost) runs a list of cases from a cases module
+(``_torch_tp_cases`` unless named) and hands each rank's results back.
+The children import the port only; the reference side runs in the
+pytest process.
 """
 
 import os
@@ -24,7 +25,8 @@ torch.set_num_threads(1)
 from distributedmnist_tpu_torch.core.mesh import (initialize_distributed,
                                                   shutdown_distributed)
 assert initialize_distributed("gloo", "cpu", timeout_s=120)
-import _torch_tp_cases as cases
+import importlib
+cases = importlib.import_module(os.environ["DMT_CASES"])
 rank = int(os.environ["RANK"])
 out = {}
 try:
@@ -46,12 +48,14 @@ def _free_port() -> int:
 
 
 def run_world(tmp: Path, world: int, jobs: list, timeout_s: float = 240.0,
-              argv: list | None = None) -> list:
+              argv: list | None = None,
+              cases: str = "_torch_tp_cases") -> list:
     """Run ``jobs`` (``[(name, payload)]``, each payload naming its
-    ``case``) in ``world`` gloo processes, or ``python argv`` in each
-    when given; every process must exit 0 within ``timeout_s`` (a failed
-    sibling is killed). Returns each rank's ``{name: result}`` (its log
-    text with ``argv``)."""
+    ``case``, a function of the module ``cases``) in ``world`` gloo
+    processes, or ``python argv`` in each when given; every process
+    must exit 0 within ``timeout_s`` (a failed sibling is killed).
+    Returns each rank's ``{name: result}`` (its log text with
+    ``argv``)."""
     tmp.mkdir(parents=True, exist_ok=True)
     with open(tmp / "jobs.pkl", "wb") as f:
         pickle.dump(jobs, f)
@@ -61,6 +65,7 @@ def run_world(tmp: Path, world: int, jobs: list, timeout_s: float = 240.0,
                    WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                    OMP_NUM_THREADS="1", DMT_TESTS=str(TESTS),
+                   DMT_CASES=cases,
                    DMT_IN=str(tmp / "jobs.pkl"), DMT_OUT=str(tmp))
         with open(tmp / f"rank{rank}.log", "w") as log:
             procs.append(subprocess.Popen(

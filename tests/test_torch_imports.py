@@ -72,8 +72,8 @@ TRAIN_PATH = ("data.datasets", "data.pipeline", "parallel.api",
               "analysis.threads_check", "analysis.durability_check",
               "analysis.net_check", "analysis.paged_check",
               "analysis.torch_check",
-              # tensor and sequence parallelism
-              "ops.collectives", "ops.ring_attention",
+              # tensor, sequence and expert parallelism
+              "ops.collectives", "ops.moe", "ops.ring_attention",
               "ops.ulysses_attention")
 
 

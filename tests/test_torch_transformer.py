@@ -193,16 +193,22 @@ def test_decode_step_rejects_unknown_kernel(models):
 
 def test_registry_refuses_what_is_not_ported():
     """ResNet-20 is ported (it builds, vmappable, with no
-    ``predictions`` as in the reference); mixture-of-experts FFNs and
-    unknown families still raise."""
+    ``predictions`` as in the reference); a mixture-of-experts
+    transformer builds with its aux loss and, as in the reference, no
+    decode export; unknown families still raise."""
     resnet = get_model(ModelConfig(name="resnet20", image_size=32,
                                    num_channels=3))
     assert resnet.vmap_replicas and resnet.predictions is None
     assert resnet.input_shape == (32, 32, 3)
     with pytest.raises(NotImplementedError, match="not ported"):
         get_model(ModelConfig(name="vit"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_model(ModelConfig(**{**LM_MODEL, "num_experts": 2}))
+    moe = get_model(ModelConfig(**{**LM_MODEL, "num_experts": 2,
+                                   "moe_aux_weight": 0.03}))
+    assert moe.has_aux and moe.aux_weight == 0.03
+    assert (moe.decode_prefill, moe.decode_step,
+            moe.decode_cache_shape) == (None, None, None)
+    dense = get_model(ModelConfig(**LM_MODEL))
+    assert not dense.has_aux and dense.decode_step is not None
 
 
 @pytest.mark.parametrize("temperature", [0.7, 1.3])
