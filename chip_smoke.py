@@ -25,9 +25,10 @@ k = 5 (one flash launch a layer for every replica) and
 remat policy; a sweep of two of the repository's configs with its
 report and the port's invariant checkers; and the MNIST CNN's sync SGD
 (the source paper's path) at its published widths, on one process and across worker processes; the
-transformer split over 4 worker processes by tensor, sequence and
-expert parallelism (Megatron TP, ring and Ulysses attention, and a
-mixture-of-experts transformer over an expert axis); ResNet-20 on
+transformer split over 4 worker processes by tensor, sequence, expert
+and pipeline parallelism (Megatron TP, ring and Ulysses attention, a
+mixture-of-experts transformer over an expert axis, GPipe and
+interleaved 1F1B over a stage axis); ResNet-20 on
 CIFAR-10 (``configs/cifar10_resnet20_sync.json`` on a fixture written
 at the archive's size) with the rest of the data-parallel step's knobs
 — LARS/LAMB, gradient accumulation, bf16 params with and without
@@ -197,8 +198,8 @@ One JSON line per phase:
                 ``python3 -c "import json, tempfile, chip_smoke as cs;
                 d = tempfile.mkdtemp(); print(json.dumps(
                 cs._dist_zero1_nccl(d)))"``.
-10b. ``model_parallel`` — tensor, sequence and expert parallelism
-                (Queue A items 8a and 8b) in one launch of 4 worker
+10b. ``model_parallel`` — tensor, sequence, expert and pipeline
+                parallelism (Queue A items 8a–8c) in one launch of 4 worker
                 processes (gloo, all on
                 ``cuda:0``; the dist phase's launcher, each child
                 joining the group and building its Trainer through
@@ -211,9 +212,14 @@ One JSON line per phase:
                 flash; D, EP 4 and E, TP 2 × EP 2 on the training
                 path's MoE transformer (8 experts, GShard top-2, 4
                 token groups a row, capacity factor 1.25, so tokens
-                drop; 2 layers, batch 8); and as float32 controls, A,
-                the ring and D again at ``compute_dtype=float32``, step
-                1 alone (C's ring takes step 1 alone). Each arm's
+                drop; 2 layers, batch 8); F, PP 2 × EP 2 under GPipe
+                with 2 microbatches on D's model (step 1 alone); G, PP
+                2 × TP 2 under interleaved 1F1B (2 chunks a stage, 4
+                microbatches) on the training model at its 4 layers,
+                batch 8; and as float32 controls, A, the ring and D
+                again at ``compute_dtype=float32``, step 1 alone (C's
+                ring takes step 1 alone; the one-step arms run first,
+                beside the references). Each arm's
                 step 1 against the same config's one-process step in
                 this process (same seed, same batch; made while the
                 workers boot, which time no step before it is done):
@@ -225,13 +231,16 @@ One JSON line per phase:
                 distance from the float32 step in that leaf; the loss
                 equal on every rank; every process on a card; K1-lse,
                 K2 and K3 launched by every process of a flash arm (K1
-                in the test eval of A, B and D). Printed: ms a step by
+                in the test eval of A, B, D and E), F's and G's at the
+                counts their schedules predict (``_pp_launches``), and
+                their step 1 read in the stacked layout
+                (``_stacked_gaps``). Printed: ms a step by
                 CUDA events (step 2), tokens/s, peak GB and seconds
                 in collectives a process, the exchanges staged through
                 host memory (gloo carries no CUDA point-to-point or
-                all-to-all), each arm's seconds. With 4 cards arms B and
-                D again over NCCL, one card a process; else null with
-                the card count.
+                all-to-all), each arm's seconds. With 4 cards arms B, D
+                and G again over NCCL, one card a process; else null
+                with the card count.
 11. ``resnet``  — the CIFAR-10 fixture written at the archive's size
                 (50,000 / 10,000) by the port's ``data/fixtures.py``, in
                 a process started with ``train`` and waited for before
@@ -1384,22 +1393,27 @@ def _mp_kernel_cases(gen) -> tuple[list, list]:
     """K1, K1-lse, K2 and K3 at the ``model_parallel`` phase's shapes,
     each against its plain version (untimed): K1 at A's and B's TP eval
     (4 and 8 heads a rank, strided views of the rank's qkv product; 8
-    is E's too) and D's (16 heads, every head on every expert rank);
+    is E's too), D's (16 heads, every head on every expert rank) and G's
+    microbatch of 2 rows at TP 2 (its eval's and its forward works');
     K1-lse/K2/K3 at A's TP 4 (strided), at B's Ulysses after TP 2, at
     C's Ulysses at S = 8192 (contiguous, from the all-to-all), at D's
-    16 heads and E's TP 2 (strided)."""
+    16 heads and E's TP 2 (strided), at F's microbatch of 4 rows (16
+    heads) and G's of 2 rows (TP 2, strided)."""
     import torch
     bf, b, s, h = torch.bfloat16, MP_BATCH, MODEL["seq_len"], \
         MODEL["num_heads"]
     k1 = [_k1_case(b, s, bf, gen, False, h=h // MP_WORLD),
           _k1_case(b, s, bf, gen, False, h=h // 2),
-          _k1_case(b, s, bf, gen, False, h=h)]
+          _k1_case(b, s, bf, gen, False, h=h),
+          _k1_case(b // 4, s, bf, gen, False, h=h // 2)]
     train = []
     for bb, ss, hh, packed in ((b, s, h // MP_WORLD, True),
                                (b, s, h // 2 // 2, False),
                                (LONG["batch"], LONG["seq_len"],
                                 LONG["num_heads"] // MP_WORLD, False),
-                               (b, s, h, True), (b, s, h // 2, True)):
+                               (b, s, h, True), (b, s, h // 2, True),
+                               (b // 2, s, h, True),
+                               (b // 4, s, h // 2, True)):
         train.append(_k1_lse_case(bb, ss, bf, gen, False, hh, packed))
         for kernel in ("K2", "K3"):
             train.append(_bwd_case(kernel, bb, ss, bf, gen, False, hh,
@@ -2564,13 +2578,16 @@ def _free_port() -> int:
 
 def _dist_launch(tmp: str, name: str, backend: str, devices: list,
                  runs: list, kill_on_failure: bool = True,
-                 child: str | None = None) -> tuple[list, list, list]:
+                 child: str | None = None,
+                 timeout_s: float = DIST_CHILD_TIMEOUT_S
+                 ) -> tuple[list, list, list]:
     """Start one worker process a device in ``devices`` (torchrun's
     environment, a free port on localhost; no group and no such
     environment when ``backend`` is None), each in its own session,
     running ``child`` (default ``_DIST_CHILD``); wait for all of them,
     killing every one when one fails (unless ``kill_on_failure`` is
-    False) or the group outlives ``DIST_CHILD_TIMEOUT_S``. Returns (exit
+    False) or the group outlives ``timeout_s`` (default
+    ``DIST_CHILD_TIMEOUT_S``). Returns (exit
     codes, results, log tails)."""
     with open(f"{tmp}/dist_cnn.json.{name}", "w") as f:
         json.dump(CNN, f)
@@ -2589,7 +2606,7 @@ def _dist_launch(tmp: str, name: str, backend: str, devices: list,
                 [sys.executable, "-c", child or _DIST_CHILD], env=env,
                 stdout=log, stderr=subprocess.STDOUT,
                 start_new_session=True))
-    deadline = time.monotonic() + DIST_CHILD_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     try:
         while any(p.poll() is None for p in procs):
             failed = any(p.poll() not in (None, 0) for p in procs)
@@ -2615,11 +2632,12 @@ def _dist_launch(tmp: str, name: str, backend: str, devices: list,
 
 
 def _dist_group(tmp: str, name: str, backend: str, devices: list,
-                runs: list, child: str | None = None) -> list:
+                runs: list, child: str | None = None,
+                timeout_s: float = DIST_CHILD_TIMEOUT_S) -> list:
     """:func:`_dist_launch` that must succeed, on the backend (None: no
     group) and devices asked for."""
     rcs, results, tails = _dist_launch(tmp, name, backend, devices, runs,
-                                       child=child)
+                                       child=child, timeout_s=timeout_s)
     check(all(rc == 0 for rc in rcs), f"{name}: exit codes {rcs}, logs "
                                       f"{tails}")
     for res, dev in zip(results, devices):
@@ -3000,7 +3018,7 @@ def phase_dist(tmp: str) -> dict:
     return rec
 
 
-# -- phase 10b: tensor and sequence parallelism ------------------------------
+# -- phase 10b: tensor, sequence, expert and pipeline parallelism ------------
 
 # the model_parallel phase: 4 worker processes, one launch, each building
 # its Trainer through `launch train`'s build_trainer for every arm in
@@ -3017,8 +3035,19 @@ def phase_dist(tmp: str) -> dict:
 # only): step 1 is held against the same config's one-process step
 # here, step 2 timed by CUDA events (a third step, timed too, went to
 # pay for the MoE arms). The float32 controls (A, the ring and D again,
-# at model.compute_dtype=float32) take step 1 alone.
+# at model.compute_dtype=float32) take step 1 alone. The pipeline arms:
+# F = PP 2 × EP 2 under GPipe with 2 microbatches on D's model (1 layer
+# a stage; step 1 alone, gated against D's own references, the experts'
+# all-to-alls inside each stage), G = PP 2 × TP 2 under interleaved
+# 1F1B with 2 chunks a stage and 4 microbatches on the training model at
+# its full 4 layers (1 layer a chunk, so the ring wraps: chunk 2 is on
+# stage 0), step 2 timed, eval on. Their params are the stacked layout,
+# so step 1 is held against the one-process step read in that layout.
 MP_WORLD, MP_STEPS, MP_BATCH = 4, 2, 8
+# the launch's own limit: its 11 arms took 105.6 s on an H100 80GB HBM3
+# at 700 W (PERF.md §6), over DIST_CHILD_TIMEOUT_S on a host a third
+# slower
+MP_CHILD_TIMEOUT_S = 240
 MP_TRAIN = {**TRAIN, "name": "chip_smoke_mp",
             "model": {**MODEL, "num_layers": 2},
             "data": {"dataset": "synthetic_lm", "batch_size": MP_BATCH,
@@ -3036,31 +3065,52 @@ MP_LONG = {**MP_TRAIN,
 MP_MOE = {**MP_TRAIN,
           "model": {**MP_TRAIN["model"], "num_experts": 8,
                     "moe_num_groups": 4, "moe_router_top_k": 2}}
+# G's kind: the training model at its full depth, batch 8
+MP_TRAIN4 = {**MP_TRAIN, "model": MODEL}
 _F32 = lambda c: {**c, "model": {**c["model"],  # noqa: E731
                                  "compute_dtype": "float32"}}
 MP_KINDS = {"train": MP_TRAIN, "long": MP_LONG, "moe": MP_MOE,
+            "train4": MP_TRAIN4,
             "train_f32": _F32(MP_TRAIN), "long_f32": _F32(MP_LONG),
-            "moe_f32": _F32(MP_MOE)}
+            "moe_f32": _F32(MP_MOE), "train4_f32": _F32(MP_TRAIN4)}
 _RING = ("mesh.seq_parallelism=4", "model.sp_attention=ring",
          "model.remat=true", "model.remat_policy=full")
 # each arm: its kind, its overrides, whether it runs the flash kernels
-# and its steps
+# and its steps. The one-step arms come first: the workers run them
+# while the parent makes the one-process references, which the first
+# timed step waits for (so that no reference shares the card with a
+# timed step)
 MP_ARMS = {
+    "C_sp4_ring": ("long", _RING, False, 1),
+    "A_tp4_f32": ("train_f32", ("mesh.model_parallelism=4",), True, 1),
+    "C_sp4_ring_f32": ("long_f32", _RING, False, 1),
+    "D_ep4_f32": ("moe_f32", ("mesh.expert_parallelism=4",), True, 1),
+    "F_pp2_ep2_gpipe": ("moe", ("mesh.pipeline_parallelism=2",
+                                "mesh.expert_parallelism=2",
+                                "mesh.pipeline_microbatches=2"), True, 1),
     "A_tp4": ("train", ("mesh.model_parallelism=4",), True, MP_STEPS),
     "B_tp2_sp2_ulysses": ("train", ("mesh.model_parallelism=2",
                                     "mesh.seq_parallelism=2",
                                     "model.sp_attention=ulysses"), True,
                           MP_STEPS),
-    "C_sp4_ring": ("long", _RING, False, 1),
     "C_sp4_ulysses": ("long", ("mesh.seq_parallelism=4",
                                "model.sp_attention=ulysses"), True,
                       MP_STEPS),
     "D_ep4": ("moe", ("mesh.expert_parallelism=4",), True, MP_STEPS),
     "E_tp2_ep2": ("moe", ("mesh.model_parallelism=2",
                           "mesh.expert_parallelism=2"), True, MP_STEPS),
-    "A_tp4_f32": ("train_f32", ("mesh.model_parallelism=4",), True, 1),
-    "C_sp4_ring_f32": ("long_f32", _RING, False, 1),
-    "D_ep4_f32": ("moe_f32", ("mesh.expert_parallelism=4",), True, 1)}
+    "G_pp2_tp2_1f1b": ("train4", ("mesh.pipeline_parallelism=2",
+                                  "mesh.model_parallelism=2",
+                                  "mesh.pipeline_schedule=1f1b",
+                                  "mesh.pipeline_chunks=2",
+                                  "mesh.pipeline_microbatches=4"), True,
+                       MP_STEPS)}
+# the pipeline arms' (schedule, stages, chunks a stage, microbatches):
+# their stacked layout, and the flash launches their schedule predicts
+MP_PP = {"F_pp2_ep2_gpipe": ("gpipe", 2, 1, 2),
+         "G_pp2_tp2_1f1b": ("1f1b", 2, 2, 4)}
+# arms without an eval (F's gate is its step; G evaluates the pipeline)
+MP_NO_EVAL = ("F_pp2_ep2_gpipe",)
 # step 1 against the one-process step from the same params and batch.
 # The loss (~6.9) within MP_LOSS_TOL. Each leaf's update (lr ·
 # gradient, SGD) as ||sharded − one process|| / ||one-process update||.
@@ -3123,7 +3173,8 @@ try:
                "last_loss": loss1, "ms_per_step": None,
                "collective_s_a_timed_step": None,
                "coords": [t.topo.process_index, t.topo.model_index,
-                          t.topo.seq_index, t.topo.expert_index]}
+                          t.topo.seq_index, t.topo.stage_index,
+                          t.topo.expert_index]}
         if len(feed) > 1:
             # every rank starts the timed steps together (rank 0 wrote
             # the params meanwhile), once the parent's one-process
@@ -3212,7 +3263,9 @@ def _mp_runs(tmp: str, name: str, arms: list) -> list:
     for arm in arms:
         kind, overrides, _, steps = MP_ARMS[arm]
         runs.append({"name": arm, "config": _mp_config(tmp, kind),
-                     "steps": steps, "eval": kind in ("train", "moe"),
+                     "steps": steps,
+                     "eval": (kind in ("train", "moe", "train4")
+                              and arm not in MP_NO_EVAL),
                      "save": f"{tmp}/{name}_{arm}.pt",
                      "hold": f"{tmp}/mp_references_done",
                      "overrides": ["mesh.num_replicas=1",
@@ -3221,20 +3274,106 @@ def _mp_runs(tmp: str, name: str, arms: list) -> list:
     return runs
 
 
+def _stacked_rows(ref: dict, stages: int, chunks: int) -> tuple[list, list]:
+    """The stacked layout's leaf names (in its ``tree_leaves`` order) and,
+    for each, the indices of the one-process reference's per-layer
+    leaves its rows hold (``pp_layer_order``: the 1F1B layout permutes
+    the layers); a leaf outside the blocks holds its own."""
+    from distributedmnist_tpu_torch.models.transformer import pp_layer_order
+    idx = {n: i for i, n in enumerate(ref["names"])}
+    layers = 1 + max(int(n.split("/")[1]) for n in ref["names"]
+                     if n.startswith("blocks/"))
+    order = pp_layer_order(layers, stages, chunks)
+    names, rows = [], []
+    for n in ref["names"]:
+        parts = n.split("/")
+        sn = "/".join(["blocks"] + parts[2:]) if parts[0] == "blocks" else n
+        if sn in names:
+            continue
+        names.append(sn)
+        rows.append([idx[f"blocks/{layer}/{'/'.join(parts[2:])}"]
+                     for layer in order] if parts[0] == "blocks"
+                    else [idx[n]])
+    return names, rows
+
+
+def _stacked_gaps(got: list, ref: dict, f32: dict | None, stages: int,
+                  chunks: int) -> tuple[list, list, list]:
+    """:func:`_update_gaps` of a pipeline arm's stacked leaves against
+    the one-process reference's per-layer ones: each stacked leaf's
+    ``||got − ref after||`` over its rows, over the norm of the
+    reference's update of those rows; with ``f32`` (the float32 kind's
+    reference) each stacked leaf's bf16 noise, the bf16 step's distance
+    from the float32 step over the float32 update, over the same rows.
+    Returns (names, gaps, noise or None)."""
+    names, rows = _stacked_rows(ref, stages, chunks)
+    gaps, noise = [], []
+    for g, rs in zip(got, rows):
+        parts = g.unbind(0) if ref["names"][rs[0]].startswith("blocks/") \
+            else [g]
+        num = sum(float((p - ref["after"][r]).norm()) ** 2
+                  for p, r in zip(parts, rs))
+        den = sum(ref["update_norm"][r] ** 2 for r in rs)
+        gaps.append(math.sqrt(num) / max(math.sqrt(den), 1e-30))
+        if f32 is not None:
+            n2 = sum((ref["noise"][r] * f32["update_norm"][r]) ** 2
+                     for r in rs)
+            d2 = sum(f32["update_norm"][r] ** 2 for r in rs)
+            noise.append(math.sqrt(n2) / max(math.sqrt(d2), 1e-30))
+    return names, gaps, (noise if f32 is not None else None)
+
+
+def _pp_launches(arm: str, steps: int, evaluate: bool) -> dict:
+    """The flash launches a process of a pipeline arm makes, from its
+    schedule's table (every stage does as many works): under 1F1B a
+    forward work runs without autograd (K1) and its backward recomputes
+    the chunk (K1-lse, then K2 and K3); under GPipe a forward keeps its
+    graph (K1-lse). An eval pipelines the eval batch at the largest
+    microbatch count up to the training one that divides it (K1 a
+    forward)."""
+    from distributedmnist_tpu_torch.ops.pipeline import (make_1f1b_schedule,
+                                                         make_gpipe_schedule)
+    schedule, S, v, M = MP_PP[arm]
+    kind = MP_KINDS[MP_ARMS[arm][0]]
+    per = kind["model"]["num_layers"] // (S * v)
+    one_f = schedule == "1f1b"
+    tbl = (make_1f1b_schedule(S, v, M) if one_f
+           else make_gpipe_schedule(S, M))
+    f = int(((tbl["kind"] == 1) | (tbl["kind"] == 2)).sum()) // S
+    b = int((tbl["kind"] == 3).sum()) // S
+    out = {"K1": steps * f * per if one_f else 0,
+           "K1-lse": steps * (b if one_f else f) * per,
+           "K2": steps * b * per, "K3": steps * b * per, "K4": 0}
+    if evaluate:
+        rows = kind["eval"]["eval_batch_size"]
+        m_eval = max(m for m in range(1, M + 1) if rows % m == 0)
+        ev = (make_1f1b_schedule(S, v, m_eval, forward_only=True) if one_f
+              else make_gpipe_schedule(S, m_eval, forward_only=True))
+        out["K1"] += int((ev["kind"] > 0).sum()) // S * per
+    return out
+
+
 def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
     """One arm's record from every process's result, and what fails its
-    checks: step 1 against the one-process step, the same loss on every
-    rank, a card a process, the flash kernels launched by every
-    process."""
+    checks: step 1 against the one-process step (a pipeline arm's in the
+    stacked layout), the same loss on every rank, a card a process, the
+    flash kernels launched by every process (a pipeline arm's at the
+    counts its schedule predicts)."""
     import torch
-    kind, _, flash, _ = MP_ARMS[run["name"]]
+    kind, _, flash, steps = MP_ARMS[run["name"]]
     ref, f32 = refs[kind], kind.endswith("_f32")
     procs = [r["runs"][run["name"]] for r in results]
-    errs = _update_gaps(torch.load(run["save"]), ref)
+    pp = MP_PP.get(run["name"])
+    names, noise = ref["names"], ref.get("noise")
+    if pp is not None:
+        names, errs, noise = _stacked_gaps(
+            torch.load(run["save"]), ref, None if f32 else
+            refs[f"{kind}_f32"], pp[1], pp[2])
+    else:
+        errs = _update_gaps(torch.load(run["save"]), ref)
     if f32:
         bound = [MP_UPDATE_TOL_F32] * len(errs)
     else:
-        noise = ref["noise"]
         bound = [MP_NOISE_RATIO * z for z in noise]
     worst = max(range(len(errs)), key=lambda i: errs[i] / max(bound[i],
                                                               1e-30))
@@ -3245,10 +3384,10 @@ def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
            "loss1": procs[0]["loss1"], "loss1_one_process": ref["loss1"],
            "loss1_abs_diff": abs(procs[0]["loss1"] - ref["loss1"]),
            "update_rel_err_max": max(errs),
-           "update_worst_leaf": ref["names"][worst],
+           "update_worst_leaf": names[worst],
            "update_worst_gap_over_bound": errs[worst] / max(bound[worst],
                                                             1e-30),
-           "update_gap_by_leaf": dict(zip(ref["names"], errs)),
+           "update_gap_by_leaf": dict(zip(names, errs)),
            "last_loss": procs[0]["last_loss"],
            "ms_per_step": ms, "ms_per_step_by_rank": [p["ms_per_step"]
                                                       for p in procs],
@@ -3266,8 +3405,14 @@ def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
     if not f32:
         # each leaf: the one-process bf16 step's own distance from the
         # float32 step, over the float32 update's norm
-        rec["bf16_noise_by_leaf"] = dict(zip(ref["names"], noise))
+        rec["bf16_noise_by_leaf"] = dict(zip(names, noise))
     name = run["name"]
+    want = None
+    if pp is not None:
+        want = _pp_launches(name, steps, run["eval"])
+        rec["pipeline"] = {"schedule": pp[0], "stages": pp[1],
+                           "chunks": pp[2], "microbatches": pp[3],
+                           "launches_expected": want}
     fails = [msg for ok, msg in (
         (all(d.startswith("cuda") for d in rec["devices"]),
          f"{name}: devices {rec['devices']}"),
@@ -3283,15 +3428,18 @@ def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
          f"{bound[worst]}"),
         (not flash or all(p["launches"][k] > 0 for p in procs
                           for k in ("K1-lse", "K2", "K3")),
-         f"{name}: flash launches {rec['launches_by_rank']}")) if not ok]
+         f"{name}: flash launches {rec['launches_by_rank']}"),
+        (want is None or all(p["launches"] == want for p in procs),
+         f"{name}: flash launches {rec['launches_by_rank']}, the schedule "
+         f"predicts {want} a process")) if not ok]
     return rec, fails
 
 
 def phase_model_parallel(tmp: str) -> dict:
-    """Tensor, sequence and expert parallelism (Queue A items 8a and
-    8b): the arms of ``MP_ARMS`` in one launch of ``MP_WORLD`` gloo
+    """Tensor, sequence, expert and pipeline parallelism (Queue A items
+    8a–8c): the arms of ``MP_ARMS`` in one launch of ``MP_WORLD`` gloo
     processes sharing ``cuda:0``, each arm's step 1 against the
-    one-process step of its model here; with 4 cards, arms B and D
+    one-process step of its model here; with 4 cards, arms B, D and G
     again over NCCL, one card a process (else null with the card
     count)."""
     import torch
@@ -3315,7 +3463,8 @@ def phase_model_parallel(tmp: str) -> dict:
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         made = pool.submit(references)
         res = _dist_group(tmp, "mp_gloo", "gloo", ["cuda:0"] * MP_WORLD,
-                          runs, child=_MP_CHILD)
+                          runs, child=_MP_CHILD,
+                          timeout_s=MP_CHILD_TIMEOUT_S)
         made.result()
     reset_counts()
     arms, fails = {}, []
@@ -3324,13 +3473,13 @@ def phase_model_parallel(tmp: str) -> dict:
         fails += f
     t_gloo = time.time() - t_phase
     cards = torch.cuda.device_count()
-    nccl_arms = ("B_tp2_sp2_ulysses", "D_ep4")
+    nccl_arms = ("B_tp2_sp2_ulysses", "D_ep4", "G_pp2_tp2_1f1b")
     nccl = {"cards": cards, **dict.fromkeys(nccl_arms)}
     if cards >= MP_WORLD:
         runs = _mp_runs(tmp, "mp_nccl", list(nccl_arms))
         res = _dist_group(tmp, "mp_nccl", "nccl",
                           [f"cuda:{i}" for i in range(MP_WORLD)], runs,
-                          child=_MP_CHILD)
+                          child=_MP_CHILD, timeout_s=MP_CHILD_TIMEOUT_S)
         for run in runs:
             nccl[run["name"]], f = _mp_arm(res, run, refs)
             fails += f

@@ -32,26 +32,28 @@ environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 without ``WORLD_SIZE`` it does nothing and :func:`make_topology` builds
 the one-process topology.
 
-Tensor, sequence and expert parallelism (``mesh.model_parallelism =
-m``, ``mesh.seq_parallelism = s``, ``mesh.expert_parallelism = e``; ≙
+Tensor, sequence, pipeline and expert parallelism
+(``mesh.model_parallelism = m``, ``mesh.seq_parallelism = s``,
+``mesh.pipeline_parallelism = S``, ``mesh.expert_parallelism = e``; ≙
 the reference's mesh, ``core/mesh.py:459-515``) spread each replica over
-``m·s·e`` processes: the world is ``P_r × m × s × e`` processes laid out
-replica-major, then model, then seq, then expert (the reference's axis
-order ``(replica, model, seq, stage, expert)``; a pipeline stage index
-would sit between seq and expert), so rank ``((p·m + i)·s + j)·e + k``
-holds model shard ``i``, sequence block ``j`` and expert shard ``k`` of
-replica-process ``p``. The sub-groups are made once for each layout and
-named by ``mesh.replica_axis`` / ``model_axis`` / ``seq_axis`` /
-``expert_axis``: the replica group (the ``P_r`` processes with one
-``(i, j, k)``) carries every cross-replica sum above, the model group
-the Megatron all-reduces, the seq group the ring, the all-to-alls and
-the gradient sums over sequence blocks, the expert group the
-mixture-of-experts all-to-alls, and the expert×model group (the ``m·e``
-processes with one ``(p, j)``) the one sum that reassembles an expert
-layer's output. ``process_index`` / ``process_count`` are the
-replica-process coordinate ``p`` / ``P_r`` (the data shard a process
-reads: every process of one replica reads the same rows); ``rank`` /
-``world_size`` are the process group's.
+``m·s·S·e`` processes: the world is ``P_r × m × s × S × e`` processes
+laid out in the reference's axis order ``(replica, model, seq, stage,
+expert)``, so rank ``(((p·m + i)·s + j)·S + t)·e + k`` holds model
+shard ``i``, sequence block ``j``, pipeline stage ``t`` and expert shard
+``k`` of replica-process ``p``. The sub-groups are made once for each
+layout and named by ``mesh.replica_axis`` / ``model_axis`` /
+``seq_axis`` / ``stage_axis`` / ``expert_axis``: the replica group (the
+``P_r`` processes with one ``(i, j, t, k)``) carries every
+cross-replica sum above, the model group the Megatron all-reduces, the
+seq group the ring, the all-to-alls and the gradient sums over sequence
+blocks, the stage group the pipeline's point-to-point transfers
+(:mod:`..ops.pipeline`) and the sums of the leaves every stage holds
+whole, the expert group the mixture-of-experts all-to-alls, and the
+expert×model group (the ``m·e`` processes with one ``(p, j, t)``) the
+one sum that reassembles an expert layer's output. ``process_index`` /
+``process_count`` are the replica-process coordinate ``p`` / ``P_r``
+(the data shard a process reads: every process of one replica reads the
+same rows); ``rank`` / ``world_size`` are the process group's.
 """
 
 from __future__ import annotations
@@ -72,10 +74,10 @@ from .device import resolve_device
 # the gloo group host tensors reduce over; None with a gloo default
 # group (the default group is gloo already) or without a group
 _host_group: Any = None
-# the sub-groups of each (P_r, m, s, e) layout made so far: every rank
-# makes every group of a layout once, in one order (dist.new_group's
-# contract)
-_layouts: dict[tuple[int, int, int, int], dict] = {}
+# the sub-groups of each (P_r, m, s, S, e) layout made so far: every
+# rank makes every group of a layout once, in one order
+# (dist.new_group's contract)
+_layouts: dict[tuple[int, int, int, int, int], dict] = {}
 
 
 def local_sum(x: torch.Tensor) -> torch.Tensor:
@@ -98,7 +100,8 @@ class CommStats:
 
     blocked_s: float = 0.0
     staged: dict = dataclasses.field(
-        default_factory=lambda: {"ppermute": 0, "all_to_all": 0})
+        default_factory=lambda: {"ppermute": 0, "all_to_all": 0,
+                                 "p2p": 0})
 
     def timed(self, fn, *args, **kw):
         """``fn(*args, **kw)``, its host seconds added to ``blocked_s``."""
@@ -127,15 +130,16 @@ class Topology:
     its host).
 
     ``replica_group`` / ``model_group`` / ``seq_group`` /
-    ``expert_group`` are the sub-groups (None: the default group for
-    the replica group; no group for a model, seq or expert axis of 1);
-    ``expert_model_group`` the expert×model ranks of one replica and
-    sequence block (the expert group without tensor parallelism, None
-    without expert parallelism); ``replica_host_group`` the group host
-    tensors sum over the replicas in (the replica group itself under
-    gloo, its gloo twin under NCCL; None: the default group).
-    ``axis_names`` are the config's ``(replica, model, seq, expert)``
-    axis names."""
+    ``stage_group`` / ``expert_group`` are the sub-groups (None: the
+    default group for the replica group; no group for a model, seq,
+    stage or expert axis of 1); ``expert_model_group`` the expert×model
+    ranks of one replica, sequence block and stage (the expert group
+    without tensor parallelism, None without expert parallelism);
+    ``replica_host_group`` the group host tensors sum over the replicas
+    in (the replica group itself under gloo, its gloo twin under NCCL;
+    None: the default group). ``axis_names`` are the config's
+    ``(replica, model, seq, expert, stage)`` axis names (the stage last,
+    so the others keep their indices)."""
 
     num_replicas: int
     process_index: int = 0
@@ -149,16 +153,19 @@ class Topology:
     seq_index: int = 0
     expert_parallelism: int = 1
     expert_index: int = 0
+    pipeline_parallelism: int = 1
+    stage_index: int = 0
     rank: int = 0
     world_size: int = 1
     replica_group: Any = None
     replica_host_group: Any = None
     model_group: Any = None
     seq_group: Any = None
+    stage_group: Any = None
     expert_group: Any = None
     expert_model_group: Any = None
-    axis_names: tuple[str, str, str, str] = ("replica", "model", "seq",
-                                             "expert")
+    axis_names: tuple[str, ...] = ("replica", "model", "seq", "expert",
+                                   "stage")
 
     @property
     def blocked_s(self) -> float:
@@ -166,18 +173,23 @@ class Topology:
         return self.comm.blocked_s
 
     @property
-    def sharded(self) -> bool:
-        """Whether a replica spans several processes (``m·s·e > 1``)."""
+    def span(self) -> int:
+        """The processes one replica spans: ``m·s·S·e``."""
         return (self.model_parallelism * self.seq_parallelism
-                * self.expert_parallelism) > 1
+                * self.pipeline_parallelism * self.expert_parallelism)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether a replica spans several processes (``m·s·S·e > 1``)."""
+        return self.span > 1
 
     @property
     def replica_leader(self) -> bool:
         """The process whose measured time fills its replicas' rows:
-        model shard 0, sequence block 0, expert shard 0 (≙ the
+        model shard 0, sequence block 0, stage 0, expert shard 0 (≙ the
         reference's ``measured_timing_supported``: one owner a row)."""
         return (self.model_index == 0 and self.seq_index == 0
-                and self.expert_index == 0)
+                and self.stage_index == 0 and self.expert_index == 0)
 
     @property
     def local_replica_count(self) -> int:
@@ -234,7 +246,7 @@ class Topology:
         process (≙ ``_gather_replicated``'s one-hot psum, where every
         other row adds an exact zero: the max is bitwise the rows as
         well). When a replica spans several processes (:attr:`sharded`)
-        its ``m·s`` processes may each write its rows: a row holds the
+        its ``m·s·S·e`` processes may each write its rows: a row holds the
         largest value written there (write ``-inf`` for no value)."""
         if not self.distributed:
             return x
@@ -319,21 +331,22 @@ _all_gather = getattr(dist, "all_gather_single", None) or getattr(
     dist, "all_gather_into_tensor")
 
 
-def _make_groups(p_r: int, m: int, s: int, e: int) -> dict:
-    """Every sub-group of the ``(P_r, m, s, e)`` layout, made once (all
-    ranks call ``new_group`` for every group, in one order) and kept for
-    later topologies of the layout: this rank's replica, model, seq,
-    expert and expert×model groups, and with an NCCL default group a
-    gloo twin of its replica group for host tensors."""
-    key = (p_r, m, s, e)
+def _make_groups(p_r: int, m: int, s: int, S: int, e: int) -> dict:
+    """Every sub-group of the ``(P_r, m, s, S, e)`` layout, made once
+    (all ranks call ``new_group`` for every group, in one order) and
+    kept for later topologies of the layout: this rank's replica, model,
+    seq, stage, expert and expert×model groups, and with an NCCL default
+    group a gloo twin of its replica group for host tensors."""
+    key = (p_r, m, s, S, e)
     if key in _layouts:
         return _layouts[key]
-    rank_of = lambda p, i, j, k: ((p * m + i) * s + j) * e + k  # noqa: E731
+    rank_of = lambda p, i, j, t, k: (  # noqa: E731
+        (((p * m + i) * s + j) * S + t) * e + k)
     me = dist.get_rank()
     gloo_twin = dist.get_backend() != "gloo"
     mine: dict = {}
-    coords = [(p, i, j, k) for p in range(p_r) for i in range(m)
-              for j in range(s) for k in range(e)]
+    coords = [(p, i, j, t, k) for p in range(p_r) for i in range(m)
+              for j in range(s) for t in range(S) for k in range(e)]
 
     def make(name, free):
         """One group a value of the coordinates not in ``free``, its
@@ -351,12 +364,12 @@ def _make_groups(p_r: int, m: int, s: int, e: int) -> dict:
 
     make("replica", (0,))
     for name, size, free in (("model", m, (1,)), ("seq", s, (2,)),
-                             ("expert", e, (3,))):
+                             ("stage", S, (3,)), ("expert", e, (4,))):
         if size > 1:
             make(name, free)
     if e > 1:
         if m > 1:
-            make("expert_model", (1, 3))
+            make("expert_model", (1, 4))
         else:
             mine["expert_model"] = mine["expert"]
     _layouts[key] = mine
@@ -365,34 +378,40 @@ def _make_groups(p_r: int, m: int, s: int, e: int) -> dict:
 
 def make_topology(cfg: MeshConfig) -> Topology:
     """``mesh.num_replicas`` replicas, or when ``num_replicas`` is -1
-    (the reference's "every device") ``mesh.simulate_devices / (m·s·e)``,
-    else one a replica-process; over the processes of the group
-    :func:`initialize_distributed` made, if any. ``mesh.model_parallelism
-    = m``, ``mesh.seq_parallelism = s`` and ``mesh.expert_parallelism =
-    e`` spread each replica over ``m·s·e`` processes (the layout in the
-    module docstring), which needs a process group of ``P_r·m·s·e``
-    processes: without one this is a ConfigError, never a one-process
-    run. Pipeline parallelism is not ported (Queue A item 8c)."""
-    if cfg.pipeline_parallelism != 1:
-        raise NotImplementedError(
-            "mesh.pipeline_parallelism > 1 is not ported yet (Queue A "
-            "item 8c)")
+    (the reference's "every device") ``mesh.simulate_devices /
+    (m·s·S·e)``, else one a replica-process; over the processes of the
+    group :func:`initialize_distributed` made, if any.
+    ``mesh.model_parallelism = m``, ``mesh.seq_parallelism = s``,
+    ``mesh.pipeline_parallelism = S`` and ``mesh.expert_parallelism =
+    e`` spread each replica over ``m·s·S·e`` processes (the layout in
+    the module docstring), which needs a process group of
+    ``P_r·m·s·S·e`` processes: without one this is a ConfigError, never
+    a one-process run. ``mesh.pipeline_chunks > 1`` needs the ``1f1b``
+    schedule (the reference's check)."""
+    if cfg.pipeline_chunks > 1 and cfg.pipeline_schedule != "1f1b":
+        # chunks only exist under the interleaved schedule — silently
+        # ignoring them would hand back plain GPipe with its full
+        # bubble while the config promises interleaving
+        raise ValueError(
+            f"mesh.pipeline_chunks={cfg.pipeline_chunks} requires "
+            f"pipeline_schedule='1f1b' (got {cfg.pipeline_schedule!r})")
     m, s = int(cfg.model_parallelism), int(cfg.seq_parallelism)
-    e = int(cfg.expert_parallelism)
-    if m < 1 or s < 1 or e < 1:
+    S, e = int(cfg.pipeline_parallelism), int(cfg.expert_parallelism)
+    if m < 1 or s < 1 or S < 1 or e < 1:
         raise ConfigError(f"mesh.model_parallelism={m}, "
-                          f"mesh.seq_parallelism={s} and "
+                          f"mesh.seq_parallelism={s}, "
+                          f"mesh.pipeline_parallelism={S} and "
                           f"mesh.expert_parallelism={e} must be >= 1")
-    span = m * s * e
+    span = m * s * S * e
     world = dist.get_world_size() if dist.is_initialized() else 1
     if span > 1 and (world < span or world % span):
         raise ConfigError(
             f"mesh.model_parallelism={m} × mesh.seq_parallelism={s} × "
-            f"mesh.expert_parallelism={e} spread each replica over {span} "
-            f"processes, but this process group has {world}: launch a "
-            f"multiple of {span} processes under torchrun (e.g. torchrun "
-            f"--nproc_per_node {span} -m distributedmnist_tpu_torch.launch "
-            "train ...)")
+            f"mesh.pipeline_parallelism={S} × mesh.expert_parallelism={e} "
+            f"spread each replica over {span} processes, but this process "
+            f"group has {world}: launch a multiple of {span} processes "
+            f"under torchrun (e.g. torchrun --nproc_per_node {span} -m "
+            "distributedmnist_tpu_torch.launch train ...)")
     p_r = world // span
     n = cfg.num_replicas
     if n == -1:
@@ -401,7 +420,7 @@ def make_topology(cfg: MeshConfig) -> Topology:
     if n < 1:
         raise ValueError(f"mesh.num_replicas must be -1 or >= 1, got {n}")
     names = (cfg.replica_axis, cfg.model_axis, cfg.seq_axis,
-             cfg.expert_axis)
+             cfg.expert_axis, cfg.stage_axis)
     if not dist.is_initialized():
         return Topology(num_replicas=n, axis_names=names)
     rank = dist.get_rank()
@@ -409,8 +428,10 @@ def make_topology(cfg: MeshConfig) -> Topology:
                     process_count=p_r, distributed=True,
                     host_group=_host_group, model_parallelism=m,
                     seq_parallelism=s, expert_parallelism=e,
-                    model_index=(rank // (s * e)) % m,
-                    seq_index=(rank // e) % s, expert_index=rank % e,
+                    pipeline_parallelism=S,
+                    model_index=(rank // (s * S * e)) % m,
+                    seq_index=(rank // (S * e)) % s,
+                    stage_index=(rank // e) % S, expert_index=rank % e,
                     rank=rank, world_size=world,
                     replica_host_group=_host_group, axis_names=names)
     if not topo.measured_timing_supported:
@@ -419,11 +440,12 @@ def make_topology(cfg: MeshConfig) -> Topology:
                          "to a multiple of the process count"
                          + (f" / {span}" if span > 1 else ""))
     if span > 1:
-        groups = _make_groups(p_r, m, s, e)
+        groups = _make_groups(p_r, m, s, S, e)
         topo.replica_group = groups["replica"]
         topo.replica_host_group = groups["replica_host"]
         topo.model_group = groups.get("model")
         topo.seq_group = groups.get("seq")
+        topo.stage_group = groups.get("stage")
         topo.expert_group = groups.get("expert")
         topo.expert_model_group = groups.get("expert_model")
     return topo

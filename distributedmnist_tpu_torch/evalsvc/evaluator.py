@@ -25,6 +25,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ..core.config import (EvalConfig, ExperimentConfig, MeshConfig,
                            effective_model_config)
@@ -35,7 +36,7 @@ from ..data.datasets import Datasets, load_datasets
 from ..models.convert import params_from_reference
 from ..models.registry import get_model
 from ..obsv.tb import SummaryWriter
-from ..parallel.api import build_eval_step
+from ..parallel.api import build_eval_step, tp_shard
 from ..train import checkpoint as ckpt
 from ..train.evaluation import run_full_eval
 
@@ -49,7 +50,13 @@ class Evaluator:
     mesh (the co-located mode beside a live trainer); it refuses what
     the reference refuses there: pipeline-stacked layouts, and an
     expert- or sequence-sharded MoE run without ``model.moe_num_groups``.
-    The batch size is ``eval_cfg.eval_batch_size`` (0: up to 4096)."""
+    Without it the evaluator builds the training mesh — under
+    ``torchrun`` for a mesh that spans processes (``launch eval`` joins
+    the group): each process evaluates its shard of the params (model,
+    expert and stage shards cut from the checkpoint's whole leaves), the
+    processes agree on each step to evaluate (the smallest newest step
+    any of them sees), and only rank 0 writes the eval journals. The
+    batch size is ``eval_cfg.eval_batch_size`` (0: up to 4096)."""
 
     def __init__(self, train_dir: str | Path,
                  eval_cfg: EvalConfig | None = None,
@@ -123,7 +130,8 @@ class Evaluator:
         if restored is None:
             return None
         saved, _, at_step = restored
-        params = params_from_reference(saved, device=self.device)
+        params = tp_shard(params_from_reference(saved, device=self.device),
+                          self.model, self.topo)
         out = run_full_eval(self.eval_fn, params, self.datasets.test,
                             self.eval_cfg.eval_batch_size,
                             device=self.device, topo=self.topo)
@@ -131,8 +139,10 @@ class Evaluator:
                   "num_examples": out["num_examples"],
                   "precision_at_1": out["accuracy"], "loss": out["loss"],
                   "seconds": out["seconds"]}
-        print(eval_line(result["num_examples"], result["precision_at_1"],
-                        result["loss"], result["seconds"]), flush=True)
+        if self.topo.rank == 0:
+            print(eval_line(result["num_examples"],
+                            result["precision_at_1"], result["loss"],
+                            result["seconds"]), flush=True)
         if self._sink is not None:
             self._sink.write(result)
         if self._tb is not None:
@@ -145,10 +155,21 @@ class Evaluator:
     def poll_once(self) -> dict | None:
         """One follow tick: evaluate the newest checkpoint if its step
         advanced past the last one evaluated."""
-        if self.follower.newest_step() is None:
+        newest = self.follower.newest_step()
+        if self.topo.distributed:
+            # every process evaluates the same step: the smallest newest
+            # step any of them sees (a process may read the pointer
+            # before another's view of it moves)
+            seen = torch.tensor([1.0 if newest is None else -newest],
+                                dtype=torch.float64)
+            self.topo.comm.timed(dist.all_reduce, seen,
+                                 op=dist.ReduceOp.MAX,
+                                 group=self.topo.host_group)
+            newest = None if seen.item() > 0 else int(-seen.item())
+        if newest is None:
             logger.info("no checkpoint yet in %s", self.train_dir)
             return None
-        return self.follower.poll(self._read_and_eval)
+        return self.follower.poll(self._read_and_eval, step=newest)
 
     def run(self) -> list[dict]:
         """The poll loop, until ``run_once`` has one result or
@@ -157,9 +178,12 @@ class Evaluator:
         ecfg = self.eval_cfg
         eval_dir = Path(ecfg.eval_dir)
         eval_dir.mkdir(parents=True, exist_ok=True)
-        self._sink = JsonlSink(eval_dir / "eval_log.jsonl")
-        self._recovery_sink = JsonlSink(eval_dir / "recovery_journal.jsonl")
-        self._tb = SummaryWriter(eval_dir / "tb")
+        writer = self.topo.rank == 0
+        if writer:
+            self._sink = JsonlSink(eval_dir / "eval_log.jsonl")
+            self._recovery_sink = JsonlSink(eval_dir /
+                                            "recovery_journal.jsonl")
+            self._tb = SummaryWriter(eval_dir / "tb")
         results: list[dict] = []
         try:
             while True:
@@ -172,9 +196,8 @@ class Evaluator:
                     break
                 time.sleep(ecfg.eval_interval_secs)
         finally:
-            for sink in (self._sink, self._recovery_sink):
-                sink.close()
-            self._sink = self._recovery_sink = None
-            self._tb.close()
-            self._tb = None
+            for sink in (self._sink, self._recovery_sink, self._tb):
+                if sink is not None:
+                    sink.close()
+            self._sink = self._recovery_sink = self._tb = None
         return results

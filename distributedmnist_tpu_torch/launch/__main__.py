@@ -50,7 +50,10 @@ the CPU by default; every rank prints the last line, and the group is
 torn down on every exit. ``eval`` runs the continuous evaluator
 (:class:`~..evalsvc.evaluator.Evaluator`) on ``D``: each new checkpoint
 once, the source paper's ``Num examples: ... Precision @ 1: ...`` line
-for each. ``serve`` boots a :class:`~..servesvc.server.ServingReplica`
+for each; without ``--single_device`` it builds the training mesh, under
+``torchrun`` (joining its group) where that mesh spans processes (a
+pipeline-, tensor- or expert-parallel run: rank 0 prints and
+journals). ``serve`` boots a :class:`~..servesvc.server.ServingReplica`
 (one-shot classification, preferring the ``--precision-tier`` sidecar)
 or, with ``--decode``, a :class:`~..servesvc.decode.DecodeReplica` on
 the newest loadable checkpoint in ``D`` (adopting the run config saved
@@ -94,8 +97,8 @@ reference's entry points switch on its persistent compile cache.
 
 Accepted and not run, each logged once a Trainer: device prefetch, the
 native loader and the ``compile.*`` knobs. Not ported yet (each raises):
-pipeline parallelism (``mesh.pipeline_parallelism``), ZeRO-1 over
-tensor-, sequence- or expert-parallel replicas, ``serve --tp-ranks``
+ZeRO-1 over tensor-, sequence-, pipeline- or expert-parallel replicas,
+``serve --tp-ranks``
 (and the chaos campaign's ``serve_tp_ranks``), the gcloud backend
 (``cluster --backend gcloud``), and the reference's ``pod`` and
 ``fetch`` verbs.
@@ -564,10 +567,18 @@ def main(argv: list[str] | None = None) -> None:
         _VERBS[argv[0]](argv)
         return
     if argv and argv[0] == "eval":
+        from ..core.mesh import initialize_distributed, shutdown_distributed
         from ..evalsvc.__main__ import evaluator_from_args
-        evaluator = evaluator_from_args(build_parser().parse_args(argv))
-        enable_persistent_cache()
-        evaluator.run()
+        args = build_parser().parse_args(argv)
+        # under torchrun the training mesh spans the group's processes
+        if not args.single_device:
+            initialize_distributed(None, args.device)
+        try:
+            evaluator = evaluator_from_args(args)
+            enable_persistent_cache()
+            evaluator.run()
+        finally:
+            shutdown_distributed()
         return
     if argv and argv[0] == "serve-load":
         serve_load(argv)

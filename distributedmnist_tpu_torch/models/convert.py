@@ -8,9 +8,15 @@ list of block dicts. In a checkpoint's flax state-dict form every list
 is a dict keyed ``"0"``, ``"1"``, ... The CNN's is ``{"conv1", "conv2",
 "fc1", "fc2"}`` of ``{"w", "b"}`` (HWIO kernels, ``[in, out]`` dense).
 A mixture-of-experts block adds ``router [d, E]`` and stacks its experts
-as ``w1 [E, d, 4d]``, ``w2 [E, 4d, d]``. The port keeps each layout as
-torch tensors with lists as lists. Both directions copy leaf for leaf;
-no array is transposed or renamed.
+as ``w1 [E, d, 4d]``, ``w2 [E, 4d, d]``. Under pipeline parallelism
+``blocks`` is one dict of leaves stacked on a leading layer dim (the
+reference's ``stack_block_params``; under the 1F1B schedule in its
+chunk-interleaved layer order), the layout a PP checkpoint holds on
+both sides: it converts here like any dict, and
+``models/transformer.py`` ``stack_block_params`` /
+``stack_block_params_chunked`` carry a per-layer tree (numpy arrays or
+tensors) to either stacked layout. The port keeps each layout as torch tensors with lists as lists.
+Both directions copy leaf for leaf; no array is transposed or renamed.
 
 :func:`state_from_reference` / :func:`state_to_reference` carry a whole
 ``TrainState`` (params, optimizer slots and counters) the same way; the

@@ -13,8 +13,15 @@ reference's ``transformer_partition_rules``; ``parallel/
 partition_rules.py`` maps it) and its ``sharded_apply_factory`` (≙
 ``registry.py:369-438``, with ``make_seq_attn``): the apply of the
 DP×TP×SP×EP train step, on one rank's shard of the params and one block
-of the sequence. The CNN and ResNet-20 have neither, so they refuse the
-model, seq and expert axes.
+of the sequence. Its pipeline entries (≙ ``registry.py:441-533``):
+``pp_transform`` / ``pp_transform_chunked`` (the stacked layouts),
+``pp_apply_factory`` / ``pp_1f1b_apply_factory`` (the pipelined
+forward of eval), ``pp_1f1b_grads_factory`` (the fused 1F1B step body)
+and ``pp_grads_factory`` (GPipe's step body: the reference
+differentiates its ``pp_apply`` with AD, which autograd cannot do across
+processes, so the port's GPipe runs its backward through the same
+engine), with the reference's refusals. The CNN and ResNet-20 have
+none of these, so they refuse the model, seq, stage and expert axes.
 """
 
 from __future__ import annotations
@@ -149,7 +156,19 @@ class Model:
       :class:`..core.mesh.CommStats`; None: the model supports none);
     * ``has_aux`` — ``apply(..., return_aux=True)`` returns ``(logits,
       aux)`` and the train step adds ``aux_weight · aux`` to the loss
-      (the MoE load-balance loss).
+      (the MoE load-balance loss);
+    * ``pp_transform(params)`` / ``pp_transform_chunked(params, S, v)``
+      — the stacked layouts of GPipe and of 1F1B;
+    * ``pp_grads_factory(stage_group, M, seq_group, model_group, stats,
+      expert_group, expert_model_group)`` and
+      ``pp_1f1b_grads_factory(stage_group, M, v, ...)`` → ``grads(params,
+      tokens, labels, positions) -> (loss, accuracy, grads)``, the grads
+      float32 leaves in ``tree_leaves`` order (one stage's pipelined step
+      body, ``models/transformer.py _pp_grads``);
+      ``pp_apply_factory(stage_group, M, model_group, stats,
+      expert_group, expert_model_group)`` and
+      ``pp_1f1b_apply_factory(stage_group, M, v, ...)`` → ``apply(params,
+      tokens) -> logits`` on every stage (eval).
     """
 
     name: str
@@ -172,6 +191,12 @@ class Model:
     sharded_apply_factory: Callable[..., Callable] | None = None
     has_aux: bool = False
     aux_weight: float = 0.0
+    pp_transform: Callable[[Any], Any] | None = None
+    pp_transform_chunked: Callable[..., Any] | None = None
+    pp_grads_factory: Callable[..., Callable] | None = None
+    pp_apply_factory: Callable[..., Callable] | None = None
+    pp_1f1b_grads_factory: Callable[..., Callable] | None = None
+    pp_1f1b_apply_factory: Callable[..., Callable] | None = None
 
 
 def transformer_partition_rules(num_experts: int) -> Callable[[Any], list]:
@@ -181,9 +206,10 @@ def transformer_partition_rules(num_experts: int) -> Callable[[Any], list]:
     experts of a mixture-of-experts block (``w1 [E, d, ff]``, ``w2 [E,
     ff, d]``) on their first dim over the expert axis and their hidden
     dim over the model axis, the router, embeddings and norms
-    replicated. The stacked (pipeline) layout's entries are the
-    reference's too; the port does not build that layout yet (Queue A
-    item 8c), so they are not reached."""
+    replicated. Under pipeline parallelism (a stage axis bound) the
+    blocks are the stacked layout's (``models/transformer.py
+    stack_block_params``): every block leaf also split on its leading
+    layer dim over the stage axis, the reference's stacked entries."""
     def rules(axes) -> list:
         m, e, st = axes.model, axes.expert, axes.stage
         out: list = []
@@ -418,6 +444,105 @@ def _transformer(cfg: ModelConfig) -> Model:
                                      moe=groups, return_aux=return_aux)
         return apply_sharded
 
+    def _pp_refusals(expert_group, schedule: str) -> None:
+        if expert_group is not None and not moe:
+            raise ValueError("mesh has expert parallelism but the model has "
+                             "no experts (model.num_experts == 0)")
+        if cfg.remat and cfg.remat_policy != "full":
+            if schedule == "1f1b":
+                raise ValueError(
+                    f"model.remat_policy={cfg.remat_policy!r} is not "
+                    "supported under the 1f1b schedule (chunk recompute is "
+                    "built into the engine); set remat_policy='full'")
+            # the stage bodies checkpoint whole layers; a silently
+            # ignored policy would leave the user at full-remat
+            # throughput while believing save_attn is on
+            raise ValueError(
+                f"model.remat_policy={cfg.remat_policy!r} is not "
+                "supported under pipeline parallelism (stage scans use "
+                "full per-layer remat); set remat_policy='full'")
+
+    def pp_grads_factory(stage_group, num_microbatches, seq_group=None,
+                         model_group=None, stats=None, expert_group=None,
+                         expert_model_group=None):
+        """GPipe's step body over the stage group (TP, SP and EP inside
+        each stage)."""
+        _pp_refusals(expert_group, "gpipe")
+        attn = make_seq_attn(seq_group, stats)
+        groups = moe_groups(expert_group, expert_model_group, seq_group)
+
+        def grads_fn(params, tokens, labels, positions=None):
+            return transformer.grads_pp(
+                params, tokens, labels, num_microbatches=num_microbatches,
+                stage_group=stage_group, num_heads=cfg.num_heads,
+                attention_fn=attn, positions=positions,
+                model_group=model_group, seq_group=seq_group, moe=groups,
+                aux_weight=cfg.moe_aux_weight, compute_dtype=compute_dtype,
+                remat=cfg.remat, stats=stats)
+        return grads_fn
+
+    def pp_1f1b_grads_factory(stage_group, num_microbatches, num_chunks,
+                              seq_group=None, model_group=None, stats=None,
+                              expert_group=None, expert_model_group=None):
+        """The fused interleaved-1F1B step body. Ring attention stays
+        refused, as in the reference (whose ``ppermute`` rendezvous is
+        global; the port's ring would not deadlock, but the port adds no
+        feature the reference lacks)."""
+        _pp_refusals(expert_group, "1f1b")
+        if seq_group is not None and cfg.sp_attention == "ring":
+            raise ValueError(
+                "pipeline_schedule='1f1b' with sequence parallelism "
+                "requires model.sp_attention='ulysses': ring attention's "
+                "ppermute rendezvouses globally and deadlocks inside the "
+                "fused engine's stage-varying branches (all_to_all is "
+                "group-local and composes; use 'gpipe' for ring)")
+        attn = make_seq_attn(seq_group, stats)
+        groups = moe_groups(expert_group, expert_model_group, seq_group)
+
+        def grads_fn(params, tokens, labels, positions=None):
+            return transformer.grads_pp_1f1b(
+                params, tokens, labels, num_microbatches=num_microbatches,
+                num_chunks=num_chunks, stage_group=stage_group,
+                num_heads=cfg.num_heads, attention_fn=attn,
+                positions=positions, model_group=model_group,
+                seq_group=seq_group, moe=groups,
+                aux_weight=cfg.moe_aux_weight, compute_dtype=compute_dtype,
+                stats=stats)
+        return grads_fn
+
+    def pp_apply_factory(stage_group, num_microbatches, model_group=None,
+                         stats=None, expert_group=None,
+                         expert_model_group=None):
+        """GPipe's forward over the whole sequence (eval)."""
+        _pp_refusals(expert_group, "gpipe")
+        groups = moe_groups(expert_group, expert_model_group, None)
+
+        def apply_fn(params, tokens):
+            return transformer.apply_pp(
+                params, tokens, num_microbatches=num_microbatches,
+                stage_group=stage_group, num_heads=cfg.num_heads,
+                attention_fn=attention_fn, model_group=model_group,
+                moe=groups, compute_dtype=compute_dtype, stats=stats)
+        return apply_fn
+
+    def pp_1f1b_apply_factory(stage_group, num_microbatches, num_chunks,
+                              model_group=None, stats=None,
+                              expert_group=None, expert_model_group=None):
+        """The chunked ring's forward (eval under ``1f1b``)."""
+        if expert_group is not None and not moe:
+            raise ValueError("mesh has expert parallelism but the model has "
+                             "no experts (model.num_experts == 0)")
+        groups = moe_groups(expert_group, expert_model_group, None)
+
+        def apply_fn(params, tokens):
+            return transformer.apply_pp_1f1b(
+                params, tokens, num_microbatches=num_microbatches,
+                num_chunks=num_chunks, stage_group=stage_group,
+                num_heads=cfg.num_heads, attention_fn=attention_fn,
+                model_group=model_group, moe=groups,
+                compute_dtype=compute_dtype, stats=stats)
+        return apply_fn
+
     def init_params(seed, device):
         # a torch generator: other numbers than the reference's JAX key
         # (the meta device, which has none, takes the shapes alone)
@@ -443,4 +568,10 @@ def _transformer(cfg: ModelConfig) -> Model:
                  partition_rules=transformer_partition_rules(
                      cfg.num_experts),
                  sharded_apply_factory=sharded_apply_factory,
-                 has_aux=moe, aux_weight=cfg.moe_aux_weight, **decode)
+                 has_aux=moe, aux_weight=cfg.moe_aux_weight,
+                 pp_transform=transformer.stack_block_params,
+                 pp_transform_chunked=transformer.stack_block_params_chunked,
+                 pp_grads_factory=pp_grads_factory,
+                 pp_apply_factory=pp_apply_factory,
+                 pp_1f1b_grads_factory=pp_1f1b_grads_factory,
+                 pp_1f1b_apply_factory=pp_1f1b_apply_factory, **decode)

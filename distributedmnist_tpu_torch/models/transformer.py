@@ -42,8 +42,18 @@ here but the block's global ``positions`` and a sequence-parallel
 make_seq_attn``); :func:`sp_partial_token_loss` is its loss. Expert
 parallelism: ``apply(moe=MoeGroups(...))`` runs each MoE FFN on this
 rank's experts over the expert group (:func:`..ops.moe.moe_ffn`), the
-block's other leaves whole (or tensor-parallel as above). Pipeline
-parallelism is not ported yet.
+block's other leaves whole (or tensor-parallel as above).
+
+Pipeline parallelism (≙ the reference's ``models/transformer.py:
+431-843``): :func:`stack_block_params` / :func:`stack_block_params_chunked`
+give the stacked layouts (``blocks`` one dict of leaves stacked on a
+layer dim, in layer order for GPipe, chunk-interleaved for 1F1B:
+:func:`pp_layer_order`), whose layer dim splits over the stage group;
+:func:`grads_pp` (GPipe) and :func:`grads_pp_1f1b` run one stage's share
+of a training step through :mod:`..ops.pipeline`'s engine — the
+embedding on stage 0, this stage's chunks of layers (TP, SP and EP
+inside them as above), the loss head on the last stage — and
+:func:`apply_pp` / :func:`apply_pp_1f1b` its forward for eval.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -60,6 +71,7 @@ from ..ops.attention import local_self_attention
 from ..ops.collectives import copy_to_group, reduce_from_group
 from ..ops.moe import moe_ffn
 from ..ops.paged_attention import paged_attention, paged_attention_dense
+from ..parallel.partition_rules import map_leaves, tree_leaves
 
 Params = dict[str, Any]
 
@@ -212,6 +224,29 @@ def _head(x: torch.Tensor, p: Params) -> torch.Tensor:
     return (x @ p["embed"].T).float()  # tied head
 
 
+def _check_heads(num_heads: int, model_group) -> None:
+    m = 1 if model_group is None else dist.get_world_size(model_group)
+    if num_heads % m != 0:
+        raise ValueError(f"num_heads={num_heads} not divisible by "
+                         f"model-parallel size {m}")
+
+
+def _sublayers(num_heads: int, attn: Callable, model_group, stats,
+               moe: MoeGroups | None) -> tuple[Callable, Callable]:
+    """A block's two halves: ``attn_part(x, blk) -> x`` and
+    ``ffn_part(x, blk) -> (x, aux)`` (aux 0 for a dense FFN)."""
+    def attn_part(x, blk):
+        return _attn_sublayer(x, blk, num_heads=num_heads, attn=attn,
+                              model_group=model_group, stats=stats)
+
+    def ffn_part(x, blk):
+        if "router" in blk:
+            return _moe_sublayer(x, blk, moe, model_group, stats)
+        return _ffn_sublayer(x, blk, model_group, stats), x.new_zeros(
+            (), dtype=torch.float32)
+    return attn_part, ffn_part
+
+
 def apply(params: Params, tokens: torch.Tensor, *, num_heads: int = 4,
           attention_fn: Callable | None = None,
           positions: torch.Tensor | None = None,
@@ -231,22 +266,11 @@ def apply(params: Params, tokens: torch.Tensor, *, num_heads: int = 4,
     when the params have a ``router``). ``stats`` (a
     :class:`..core.mesh.CommStats`) counts its collectives."""
     attn = attention_fn or local_self_attention
-    m = 1 if model_group is None else dist.get_world_size(model_group)
-    if num_heads % m != 0:
-        raise ValueError(f"num_heads={num_heads} not divisible by "
-                         f"model-parallel size {m}")
+    _check_heads(num_heads, model_group)
     p = cast_params(params, compute_dtype)
     x = _embed(p, tokens, positions)
-
-    def attn_part(x, blk):
-        return _attn_sublayer(x, blk, num_heads=num_heads, attn=attn,
-                              model_group=model_group, stats=stats)
-
-    def ffn_part(x, blk):
-        if "router" in blk:
-            return _moe_sublayer(x, blk, moe, model_group, stats)
-        return _ffn_sublayer(x, blk, model_group, stats), x.new_zeros(
-            (), dtype=torch.float32)
+    attn_part, ffn_part = _sublayers(num_heads, attn, model_group, stats,
+                                     moe)
 
     def block(x, blk):
         return ffn_part(attn_part(x, blk), blk)
@@ -394,3 +418,307 @@ def decode_step(params: Params, tokens: torch.Tensor,
         x = x + o.to(compute_dtype).reshape(num_slots, d) @ blk["wo"]
         x = _ffn_sublayer(x, blk)
     return _head(x, p), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism: layer-stacked params and the stage body
+# ---------------------------------------------------------------------------
+
+def _stack(*leaves):
+    return (torch.stack(leaves) if isinstance(leaves[0], torch.Tensor)
+            else np.stack(leaves))
+
+
+def pp_layer_order(num_layers: int, num_stages: int = 1,
+                   num_chunks: int = 1) -> list[int]:
+    """The layer each row of the stacked layout holds (≙ the reference's
+    ``stack_block_params_chunked`` order): with one chunk a stage, layer
+    order; with ``v`` chunks, stage ``d``'s contiguous shard holds global
+    chunks ``{d, S+d, …, (v-1)·S+d}``, slot-major."""
+    L, S, v = num_layers, num_stages, num_chunks
+    if L % (S * v):
+        raise ValueError(
+            f"num_layers={L} not divisible by stages×chunks={S}×{v}")
+    per = L // (S * v)
+    return [c * per + l for d in range(S) for j in range(v)
+            for c in [j * S + d] for l in range(per)]
+
+
+def stack_block_params(params: Params) -> Params:
+    """``blocks`` from a list of per-layer dicts to one dict of leaves
+    stacked on a leading layer dim (≙ the reference's: the layout whose
+    layer dim splits over the stage group). Tensors or numpy arrays."""
+    blocks = params["blocks"]
+    return {**{k: v for k, v in params.items() if k != "blocks"},
+            "blocks": map_leaves(_stack, blocks[0], *blocks[1:])}
+
+
+def stack_block_params_chunked(params: Params, num_stages: int,
+                               num_chunks: int) -> Params:
+    """The 1F1B layout (≙ the reference's): :func:`stack_block_params`
+    in :func:`pp_layer_order`'s order, so that each stage's contiguous
+    shard holds its chunks slot-major."""
+    order = pp_layer_order(len(params["blocks"]), num_stages, num_chunks)
+    return stack_block_params({**params, "blocks": [params["blocks"][i]
+                                                    for i in order]})
+
+
+class _Stage:
+    """One stage's share of a pipelined transformer: its stacked block
+    leaves cut into ``num_chunks`` slots of ``per`` layers (each slot a
+    tree of views, leaves requiring grad when ``grad``; ``slot_params``
+    their leaves in ``tree_leaves`` order), and
+    ``chunk(slot, x) -> (y, aux)`` running a slot's layers (``aux`` the
+    MoE aux summed over them, None without experts; under ``remat`` each
+    layer checkpointed, the reference's ``jax.checkpoint(layer)``)."""
+
+    def __init__(self, blocks: Params, num_chunks: int, *, num_heads: int,
+                 attn: Callable, model_group, stats, moe, remat: bool,
+                 grad: bool):
+        L_local = tree_leaves(blocks)[0].shape[0]
+        if L_local % num_chunks:
+            raise ValueError(f"{L_local} layers a stage do not split into "
+                             f"{num_chunks} chunks")
+        per = self.per = L_local // num_chunks
+        leaf = ((lambda a: a.detach().requires_grad_(True)) if grad
+                else (lambda a: a))
+        self.slots = [map_leaves(lambda a, j=j: leaf(
+            a[j * per:(j + 1) * per]), blocks) for j in range(num_chunks)]
+        self.slot_params = [tree_leaves(s) for s in self.slots]
+        self.moe = "router" in blocks
+        attn_part, ffn_part = _sublayers(num_heads, attn, model_group, stats,
+                                         moe)
+
+        def layer(x, blk):
+            return ffn_part(attn_part(x, blk), blk)
+        self.layer = ((lambda x, blk: checkpoint(layer, x, blk,
+                                                 use_reentrant=False))
+                      if remat else layer)
+
+    def chunk(self, slot: int, x: torch.Tensor):
+        aux_total = None
+        for li in range(self.per):
+            x, aux = self.layer(x, map_leaves(lambda a: a[li],
+                                              self.slots[slot]))
+            if self.moe:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return x, aux_total
+
+
+def _stage_sum(x: torch.Tensor, group, stats) -> torch.Tensor:
+    """``x`` summed in place over the stage group (its seconds in
+    ``stats``)."""
+    if stats is None:
+        dist.all_reduce(x, group=group)
+    else:
+        stats.timed(dist.all_reduce, x, group=group)
+    return x
+
+
+def _pp_grads(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
+              *, tables, num_heads: int, stage_group, num_microbatches: int,
+              num_chunks: int, recompute: bool,
+              attention_fn: Callable | None = None,
+              positions: torch.Tensor | None = None, model_group=None,
+              seq_group=None, moe: MoeGroups | None = None,
+              aux_weight: float = 0.0,
+              compute_dtype: torch.dtype = torch.bfloat16,
+              remat: bool = False, stats=None):
+    """The pipelined training step body of one stage (params in the
+    stacked layout, this stage's shard of the blocks): the embedding on
+    stage 0, the schedule's chunk-works over the stage group
+    (:func:`..ops.pipeline.run_schedule`), the loss head on the last
+    stage, then one sum over the stage group of what every stage holds
+    whole — the embedding's gradient (the lookup's transpose from the
+    banked input cotangents plus the tied head's), the positions', the
+    final norm's, the losses, the metrics and the MoE aux. Returns
+    ``(loss, accuracy, grads)``: the loss the mean of the microbatches'
+    (``scale = 1/M``, the reference's sum convention), every float32
+    gradient scaled by it, blocks this stage's own.
+
+    Under sequence parallelism (``seq_group``) the tokens are this
+    block's, ``positions`` their global positions, the targets shifted
+    one global position before the engine, and the loss, accuracy and
+    gradients are this block's partials (the caller sums them over the
+    seq group); the gradients are float32 leaves in ``tree_leaves``
+    order of the stacked params (blocks, embed, final_norm, pos). The
+    MoE aux's value term is ``aux_weight / n_seq ·
+    aux_sum / M``; its backward seed is ``aux_weight / n_seq`` too (the
+    port's aux sums its cotangent over the seq group in
+    :func:`..ops.collectives.all_reduce_sum`, where the reference's
+    ``pmean`` transposes without a sum and seeds the full weight)."""
+    from ..ops.collectives import ppermute
+    from ..ops.pipeline import run_schedule
+
+    attn = attention_fn or local_self_attention
+    _check_heads(num_heads, model_group)
+    M = num_microbatches
+    b, s_loc = tokens.shape
+    if b % M:
+        raise ValueError(f"batch {b} not divisible by "
+                         f"num_microbatches={M}")
+    mb = b // M
+    n_seq = 1 if seq_group is None else dist.get_world_size(seq_group)
+    me = dist.get_rank(stage_group)
+    if positions is None:
+        positions = torch.arange(s_loc, device=tokens.device)
+    with torch.no_grad():
+        p = cast_params(params, compute_dtype)
+    d = p["embed"].shape[-1]
+    stage = _Stage(p["blocks"], num_chunks, num_heads=num_heads, attn=attn,
+                   model_group=model_group, stats=stats, moe=moe,
+                   remat=remat, grad=True)
+    inputs = emb = None
+    if me == 0:
+        with torch.enable_grad():
+            emb = [p["embed"].detach().requires_grad_(True),
+                   p["pos"].detach().requires_grad_(True)]
+            x = emb[0][tokens.long()] + emb[1][positions.long()]
+        inputs = list(x.view(M, mb, s_loc, d).unbind(0))
+    if seq_group is None:
+        tgt = labels
+    else:
+        # block j's last target is block j+1's first token
+        nxt = ppermute(labels[:, :1].contiguous(), -1, seq_group, stats)
+        tgt = torch.cat([labels[:, 1:], nxt], dim=1)
+    tgt = tgt.view(M, mb, s_loc)
+    s_global = s_loc * n_seq
+
+    def head_fn(hp, y, m):
+        logits = (_rms_norm(y, {"scale": hp[1]}) @ hp[0].T).float()
+        if seq_group is None:
+            return loss_fn(logits, tgt[m]), accuracy(logits, tgt[m])
+        return sp_partial_token_loss(logits, tgt[m], positions, s_global,
+                                     mb * (s_global - 1))
+
+    head = [p["embed"].detach().requires_grad_(True),
+            p["final_norm"]["scale"].detach().requires_grad_(True)]
+    res = run_schedule(
+        tables, group=stage_group, inputs=inputs,
+        like=p["embed"].new_empty((mb, s_loc, d)), chunk_fn=stage.chunk,
+        num_chunks=num_chunks, num_microbatches=M,
+        slot_params=stage.slot_params, head_fn=head_fn, head_params=head,
+        recompute=recompute, aux_cotangent=aux_weight / n_seq, stats=stats)
+    g_embed, g_norm = res.dhead
+    g_pos = torch.zeros(p["pos"].shape, dtype=torch.float32,
+                        device=g_embed.device)
+    if me == 0:
+        g_lookup, g_pos = torch.autograd.grad(
+            x, emb, torch.stack(res.dinputs).view_as(x))
+        g_embed = g_embed + g_lookup.float()
+        g_pos = g_pos.float()
+    whole = [g_embed, g_pos, g_norm]
+    flat = torch.cat([g.reshape(-1) for g in whole]
+                     + [res.losses.sum().reshape(1),
+                        res.metrics.sum().reshape(1),
+                        res.aux_sum.reshape(1)])
+    _stage_sum(flat, stage_group, stats)
+    at, out = 0, []
+    for g in whole:
+        out.append(flat[at:at + g.numel()].view(g.shape) / M)
+        at += g.numel()
+    loss_sum, acc_sum, aux_sum = flat[at], flat[at + 1], flat[at + 2]
+    loss = loss_sum / M
+    if moe is not None:
+        loss = loss + (aux_weight / n_seq) * aux_sum / M
+    # the stacked block leaves: each slot's rows, slot-major
+    blocks = [torch.cat(rows) / M for rows in zip(*res.dslots)]
+    return loss, acc_sum / M, blocks + [out[0], out[2], out[1]]
+
+
+def _pp_forward(params: Params, tokens: torch.Tensor, *, tables,
+                num_heads: int, stage_group, num_microbatches: int,
+                num_chunks: int, attention_fn: Callable | None = None,
+                model_group=None, moe: MoeGroups | None = None,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                stats=None) -> torch.Tensor:
+    """The pipelined forward (eval): the embedding on stage 0, the
+    schedule's forward works, the last chunk's outputs summed over the
+    stage group (zeros elsewhere: every stage gets them, as the
+    reference's masked ``psum`` broadcasts them) and the head on every
+    stage. Returns logits ``[b, s, V]`` float32."""
+    from ..ops.pipeline import run_schedule
+
+    attn = attention_fn or local_self_attention
+    _check_heads(num_heads, model_group)
+    M = num_microbatches
+    b, s = tokens.shape
+    if b % M:
+        raise ValueError(f"batch {b} not divisible by "
+                         f"num_microbatches={M}")
+    me = dist.get_rank(stage_group)
+    S = dist.get_world_size(stage_group)
+    p = cast_params(params, compute_dtype)
+    d = p["embed"].shape[-1]
+    stage = _Stage(p["blocks"], num_chunks, num_heads=num_heads, attn=attn,
+                   model_group=model_group, stats=stats, moe=moe,
+                   remat=False, grad=False)
+    inputs = (list(_embed(p, tokens, None).view(M, b // M, s, d).unbind(0))
+              if me == 0 else None)
+    res = run_schedule(tables, group=stage_group, inputs=inputs,
+                       like=p["embed"].new_empty((b // M, s, d)),
+                       chunk_fn=stage.chunk, num_chunks=num_chunks,
+                       num_microbatches=M, forward_only=True, stats=stats)
+    out = (torch.cat(res.outputs) if me == S - 1
+           else p["embed"].new_zeros((b, s, d)))
+    return _head(_stage_sum(out, stage_group, stats), p)
+
+
+def grads_pp(params: Params, tokens: torch.Tensor, labels: torch.Tensor, *,
+             num_microbatches: int, stage_group, **kw):
+    """GPipe training (≙ the reference's ``apply_pp`` under AD): all
+    forwards (each keeping its graph; under ``remat`` each layer
+    checkpointed), then all backwards; :func:`_pp_grads`'s contract."""
+    from ..ops.pipeline import make_gpipe_schedule
+    tables = make_gpipe_schedule(dist.get_world_size(stage_group),
+                                 num_microbatches)
+    return _pp_grads(params, tokens, labels, tables=tables,
+                     stage_group=stage_group,
+                     num_microbatches=num_microbatches, num_chunks=1,
+                     recompute=False, **kw)
+
+
+def grads_pp_1f1b(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
+                  *, num_microbatches: int, num_chunks: int, stage_group,
+                  **kw):
+    """Interleaved-1F1B training (≙ the reference's ``grads_pp_1f1b``,
+    params in :func:`stack_block_params_chunked`'s layout): forward and
+    backward chunk-works interleaved by :func:`..ops.pipeline.
+    make_1f1b_schedule`, each backward recomputing its chunk from the
+    saved input; :func:`_pp_grads`'s contract."""
+    from ..ops.pipeline import make_1f1b_schedule
+    tables = make_1f1b_schedule(dist.get_world_size(stage_group),
+                                num_chunks, num_microbatches)
+    return _pp_grads(params, tokens, labels, tables=tables,
+                     stage_group=stage_group,
+                     num_microbatches=num_microbatches,
+                     num_chunks=num_chunks, recompute=True, **kw)
+
+
+def apply_pp(params: Params, tokens: torch.Tensor, *, num_microbatches: int,
+             stage_group, **kw) -> torch.Tensor:
+    """GPipe's forward (≙ the reference's ``apply_pp``, eval): logits
+    on every stage (:func:`_pp_forward`)."""
+    from ..ops.pipeline import make_gpipe_schedule
+    tables = make_gpipe_schedule(dist.get_world_size(stage_group),
+                                 num_microbatches, forward_only=True)
+    return _pp_forward(params, tokens, tables=tables,
+                       stage_group=stage_group,
+                       num_microbatches=num_microbatches, num_chunks=1,
+                       **kw)
+
+
+def apply_pp_1f1b(params: Params, tokens: torch.Tensor, *,
+                  num_microbatches: int, num_chunks: int, stage_group,
+                  **kw) -> torch.Tensor:
+    """The chunked ring's forward (≙ the reference's ``apply_pp_1f1b``,
+    eval under ``1f1b``): the forward-only schedule of the same chunk
+    placement."""
+    from ..ops.pipeline import make_1f1b_schedule
+    tables = make_1f1b_schedule(dist.get_world_size(stage_group),
+                                num_chunks, num_microbatches,
+                                forward_only=True)
+    return _pp_forward(params, tokens, tables=tables,
+                       stage_group=stage_group,
+                       num_microbatches=num_microbatches,
+                       num_chunks=num_chunks, **kw)

@@ -25,19 +25,26 @@ replicated→varying cast (``core/mesh.py`` makes the groups):
 * :func:`all_reduce_sum` — ``psum`` whose gradient is summed over the
   group too: a replicated statistic that enters every rank's partial
   of a loss the caller sums over the group (the MoE aux loss over the
-  seq group, reference ``parallel/api.py:1036-1040``).
+  seq group, reference ``parallel/api.py:1036-1040``);
+* :func:`stage_exchange` — one pipeline tick's point-to-point sends and
+  receives with the previous and next rank of the stage group (≙ the
+  reference's lockstep ``lax.ppermute`` pair of ``ops/pipeline.py``),
+  posted together and waited on together; not differentiable (the
+  pipeline engine carries cotangents itself).
 
 ``group`` None means no group (an axis of size 1): every operation is
 then the identity. Each collective is one call of the group's backend,
 which must run it; nothing falls back to another algorithm. One path is
 explicit: gloo carries point-to-point sends and all-to-alls of host
-tensors only, so for a CUDA tensor on a gloo group :func:`ppermute` and
-:func:`all_to_all` stage the data through host buffers (a copy to the
+tensors only, so for a CUDA tensor on a gloo group :func:`ppermute`,
+:func:`all_to_all` and :func:`stage_exchange` stage the data through
+host buffers (a copy to the
 host, the exchange, a copy back). All-reduces of CUDA tensors run
 through gloo as they are. Given a :class:`..core.mesh.CommStats`
 (``stats``; a ``Topology`` owns one), each call adds its host seconds
 to ``stats.blocked_s`` and each staged exchange one to
-``stats.staged``.
+``stats.staged`` (:func:`stage_exchange`: one a staged tensor sent or
+received, under ``"p2p"``).
 """
 
 from __future__ import annotations
@@ -244,3 +251,42 @@ def all_reduce_sum(x: torch.Tensor, group,
     (a value every rank holds whole, entering partials of a loss that
     is summed over the group; ``x`` as it is without a group)."""
     return x if group is None else _AllReduceSum.apply(x, group, stats)
+
+
+def stage_exchange(sends: list, recvs: list, group,
+                   stats: CommStats | None = None) -> list:
+    """One tick's transfers over the stage ``group``: ``sends`` is a
+    list of ``(tensor, shift, tag)`` — the tensor goes to group rank
+    ``(me + shift) % n`` — and ``recvs`` of ``(like, shift, tag)`` — a
+    tensor shaped like ``like`` comes from group rank ``(me - shift) %
+    n``. Every send and receive is posted at once
+    (``dist.batch_isend_irecv``) and all are waited on, so a ring that
+    wraps cannot deadlock on a blocking send; a message matches the
+    receive of the same pair and tag (one a pair, direction and tag a
+    call). Returns the received tensors, in ``recvs``' order, on
+    ``like``'s device. A CUDA tensor on a gloo group goes through host
+    memory, one count a tensor in ``stats.staged["p2p"]``."""
+    if not sends and not recvs:
+        return []
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    def peer(shift):
+        return dist.get_global_rank(group, (me + shift) % n)
+    ops, out, back = [], [], []
+    for x, shift, tag in sends:
+        buf = (x.cpu() if _staged(group, x, stats, "p2p") else x)
+        ops.append(dist.P2POp(dist.isend, buf.contiguous(), peer(shift),
+                              group, tag))
+    for like, shift, tag in recvs:
+        staged = _staged(group, like, stats, "p2p")
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if staged else like.device)
+        ops.append(dist.P2POp(dist.irecv, buf, peer(-shift), group, tag))
+        out.append(buf)
+        back.append(like.device if staged else None)
+
+    def exchange():
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    _timed(stats, exchange)
+    return [b if d is None else b.to(d) for b, d in zip(out, back)]

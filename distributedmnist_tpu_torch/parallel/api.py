@@ -97,8 +97,23 @@ group. Sharded leaves keep their shard's gradient; the replicated ones
 model and expert rank. The masked mean and every sync mode then run
 over the replica group as above, and LARS/LAMB complete each split
 leaf's sum of squares over the groups it is split over. ZeRO-1 with
-``m·s·e > 1`` is refused (a ConfigError), as is pipeline parallelism
-(not ported).
+``m·s·S·e > 1`` is refused (a ConfigError).
+
+Pipeline parallelism (``mesh.pipeline_parallelism = S``; ≙ the PP
+branches of the reference's ``build_train_step`` and
+``build_eval_step``) adds the stage axis: the params are the stacked
+layout (``blocks`` one dict of leaves stacked on a layer dim; under
+``1f1b`` in the chunk-interleaved order), each stage holding its rows
+of every block leaf (:func:`tp_shard` over the stage group too), and
+each local replica's gradients come from the model's pipelined step
+body (``pp_grads_factory`` for GPipe, ``pp_1f1b_grads_factory``; ≙
+``compute_grads``): the engine of ``ops/pipeline.py`` over the stage
+group, TP, SP and EP inside each stage, the leaves every stage holds
+whole (``embed``, ``pos``, ``final_norm``) summed over the stage group
+— what JAX's transpose of replication gives — and under SP the partial
+loss summed over the seq group as above. Eval pipelines at the largest
+microbatch count up to ``mesh.pipeline_microbatches`` that divides the
+rows (the reference's ``m_eval``).
 
 Checkpoints hold the logical layout whatever the live one
 (:func:`canonical_save_state`; under TP the shards gathered first,
@@ -215,21 +230,17 @@ class TrainState:
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
-    """Raise for what the port does not run: pipeline parallelism (Queue
-    A item 8c), and ZeRO-1 under tensor, sequence or expert parallelism
-    (Queue A item 8d)."""
-    if cfg.mesh.pipeline_parallelism != 1:
-        raise NotImplementedError(
-            "mesh.pipeline_parallelism > 1 is not ported yet (Queue A "
-            "item 8c)")
+    """Raise for what the port does not run: ZeRO-1 under tensor,
+    sequence, pipeline or expert parallelism (Queue A item 8d)."""
     m, s = cfg.mesh.model_parallelism, cfg.mesh.seq_parallelism
-    e = cfg.mesh.expert_parallelism
-    if cfg.parallel.shard_weight_update and m * s * e > 1:
+    S, e = cfg.mesh.pipeline_parallelism, cfg.mesh.expert_parallelism
+    if cfg.parallel.shard_weight_update and m * s * S * e > 1:
         raise ConfigError(
             f"parallel.shard_weight_update=true with mesh.model_parallelism="
-            f"{m} / mesh.seq_parallelism={s} / mesh.expert_parallelism={e}: "
-            "ZeRO-1 over tensor-, sequence- or expert-parallel replicas is "
-            "not ported yet (Queue A item 8d); turn one of them off")
+            f"{m} / mesh.seq_parallelism={s} / mesh.pipeline_parallelism="
+            f"{S} / mesh.expert_parallelism={e}: ZeRO-1 over tensor-, "
+            "sequence-, pipeline- or expert-parallel replicas is not ported "
+            "yet (Queue A item 8d); turn one of them off")
     if cfg.train.grad_accum_steps < 1:
         raise ValueError(f"train.grad_accum_steps must be >= 1, got "
                          f"{cfg.train.grad_accum_steps}")
@@ -250,6 +261,29 @@ def resolved_param_dtype(cfg: ExperimentConfig) -> torch.dtype:
     return torch.float32 if cfg.precision.master_weights else dt
 
 
+def build_params(model: Model, cfg: ExperimentConfig, topo: Topology | None,
+                 device) -> Any:
+    """The model's params from ``model.init_seed`` in the layout the mesh
+    trains (≙ the reference's ``_build_params``): with a stage axis the
+    stacked layout (``pp_transform``; under ``1f1b`` the chunk-interleaved
+    one); on the ``meta`` device, the shapes alone."""
+    params = model.init_params(cfg.model.init_seed, device)
+    S = 1 if topo is None else topo.pipeline_parallelism
+    if S > 1:
+        if model.pp_transform is None:
+            raise ValueError(f"mesh has pipeline stages but model "
+                             f"{model.name!r} has no pp_transform")
+        if cfg.mesh.pipeline_schedule == "1f1b":
+            if model.pp_transform_chunked is None:
+                raise ValueError(
+                    f"pipeline_schedule='1f1b' but model {model.name!r} "
+                    "has no pp_transform_chunked")
+            return model.pp_transform_chunked(params, S,
+                                              cfg.mesh.pipeline_chunks)
+        return model.pp_transform(params)
+    return params
+
+
 def zero1_plan_for(model: Model, cfg: ExperimentConfig, topo: Topology,
                    params: Any = None) -> Zero1Plan | None:
     """The ZeRO-1 plan when ``parallel.shard_weight_update`` is set and
@@ -264,7 +298,7 @@ def zero1_plan_for(model: Model, cfg: ExperimentConfig, topo: Topology,
     if topo.num_replicas <= 1 or cfg.sync.mode == "interval":
         return None
     if params is None:
-        params = model.init_params(cfg.model.init_seed, torch.device("meta"))
+        params = build_params(model, cfg, topo, torch.device("meta"))
     return make_zero1_plan(params, topo.num_replicas,
                            min_leaf_size=par.shard_min_leaf_size,
                            comm_buckets=par.comm_buckets,
@@ -301,14 +335,15 @@ def init_train_state(model: Model, cfg: ExperimentConfig,
     packed too under ``resident_sharded`` — and interval mode's zero
     window."""
     opt = optim_lib.make_optimizer(cfg.optim)
-    params = model.init_params(cfg.model.init_seed, device)
+    params = build_params(model, cfg, topo, device)
     store_dt = resolved_param_dtype(cfg)
     if store_dt != torch.float32:
         # no master copy: cast once, updated in this dtype from now on
         params = tree_map(lambda p: p.to(store_dt) if p.is_floating_point() else p,
                           params)
     if topo is not None:
-        # every model rank draws the full params, then keeps its shard
+        # every model, stage and expert rank draws the full params, then
+        # keeps its shard
         params = tp_shard(params, model, topo)
     plan = (zero1_plan_for(model, cfg, topo, params)
             if topo is not None else None)
@@ -343,17 +378,17 @@ def world_signature(topo: Topology) -> dict:
     mesh record)."""
     n = int(topo.num_replicas)
     sizes = (n, topo.model_parallelism, topo.seq_parallelism,
-             topo.expert_parallelism)
+             topo.expert_parallelism, topo.pipeline_parallelism)
     return {"num_replicas": n, "process_count": int(topo.world_size),
             "mesh": {name: int(k) for name, k in zip(topo.axis_names, sizes)
                      if k > 1}}
 
 
-# -- tensor- and expert-parallel shards ------------------------------------
+# -- tensor-, pipeline- and expert-parallel shards ---------------------------
 
 def _shard_axes(topo: Topology) -> list:
     """``(axis name, this rank's index, size, group)`` of each active
-    axis that splits leaves: model, then expert."""
+    axis that splits leaves: model, then expert, then stage."""
     out = []
     if topo.model_parallelism > 1:
         out.append((topo.axis_names[1], topo.model_index,
@@ -361,17 +396,28 @@ def _shard_axes(topo: Topology) -> list:
     if topo.expert_parallelism > 1:
         out.append((topo.axis_names[3], topo.expert_index,
                     topo.expert_parallelism, topo.expert_group))
+    if topo.pipeline_parallelism > 1:
+        out.append((topo.axis_names[4], topo.stage_index,
+                    topo.pipeline_parallelism, topo.stage_group))
     return out
+
+
+def _splits_leaves(topo: Topology) -> bool:
+    """Whether some leaf is split over this topology's processes (a
+    model, expert or stage axis > 1)."""
+    return (topo.model_parallelism * topo.expert_parallelism
+            * topo.pipeline_parallelism) > 1
 
 
 def tp_specs(model: Model, topo: Topology, params: Any) -> Any | None:
     """The spec a leaf of ``params`` (full or shard shapes) under the
-    model's partition rules with the model and expert axes bound, or
-    None without tensor or expert parallelism. A model with no table or
-    no sharded apply is refused, and one without experts on an expert
-    axis, with the reference's messages."""
+    model's partition rules with the model, expert and stage axes bound,
+    or None without tensor, expert or pipeline parallelism. A model with
+    no table or no sharded apply is refused, and one without experts on
+    an expert axis, with the reference's messages."""
     m, e = topo.model_parallelism, topo.expert_parallelism
-    if m == 1 and e == 1:
+    S = topo.pipeline_parallelism
+    if not _splits_leaves(topo):
         return None
     if e > 1 and not any(n.endswith("router")
                          for n in tree_path_names(params)):
@@ -383,14 +429,15 @@ def tp_specs(model: Model, topo: Topology, params: Any) -> Any | None:
             f"{model.name!r} has no tensor-parallel parameter specs")
     rules = model.partition_rules(RuleAxes(
         model=topo.axis_names[1] if m > 1 else None,
-        expert=topo.axis_names[3] if e > 1 else None))
+        expert=topo.axis_names[3] if e > 1 else None,
+        stage=topo.axis_names[4] if S > 1 else None))
     return match_partition_rules(rules, params)
 
 
 def tp_shard(tree: Any, model: Model, topo: Topology) -> Any:
-    """This rank's model and expert shard of a full params-shaped tree
-    of tensors (a copy of each split leaf, so the full one can go);
-    ``tree`` as it is without tensor or expert parallelism."""
+    """This rank's model, expert and stage shard of a full params-shaped
+    tree of tensors (a copy of each split leaf, so the full one can go);
+    ``tree`` as it is without tensor, expert or pipeline parallelism."""
     specs = tp_specs(model, topo, tree) if tree is not None else None
     if specs is None:
         return tree
@@ -406,10 +453,10 @@ def tp_shard(tree: Any, model: Model, topo: Topology) -> Any:
 
 
 def tp_gather(tree: Any, model: Model, topo: Topology) -> Any:
-    """The full tree on every rank of the model and expert groups from
-    each rank's shard (one all-gather a split leaf and axis; every rank
-    must call it); ``tree`` as it is without tensor or expert
-    parallelism."""
+    """The full tree on every rank of the model, expert and stage groups
+    from each rank's shard (one all-gather a split leaf and axis; every
+    rank must call it); ``tree`` as it is without tensor, expert or
+    pipeline parallelism."""
     specs = tp_specs(model, topo, tree) if tree is not None else None
     if specs is None:
         return tree
@@ -429,9 +476,10 @@ def tp_gather(tree: Any, model: Model, topo: Topology) -> Any:
 def gather_state(state: TrainState, model: Model,
                  topo: Topology) -> TrainState:
     """``state`` with its params, slots and window gathered whole from
-    the model and expert groups' shards (every rank of the groups must
-    call it; ``state`` itself without tensor or expert parallelism)."""
-    if topo.model_parallelism == 1 and topo.expert_parallelism == 1:
+    the model, expert and stage groups' shards (every rank of the groups
+    must call it; ``state`` itself without tensor, expert or pipeline
+    parallelism)."""
+    if not _splits_leaves(topo):
         return state
     full = lambda tree: tp_gather(tree, model, topo)  # noqa: E731
     return dataclasses.replace(
@@ -560,7 +608,7 @@ def restore_for_topology(model: Model, cfg: ExperimentConfig,
     if restored is None:
         return None
     saved, extra, got_step = restored
-    shapes = model.init_params(cfg.model.init_seed, torch.device("meta"))
+    shapes = build_params(model, cfg, topo, torch.device("meta"))
     plan = (zero1_plan_for(model, cfg, topo, shapes)
             or make_zero1_plan(shapes, 1))
     device = tree_leaves(template_state.params)[0].device
@@ -756,8 +804,10 @@ class TrainStep:
                 "accumulator")
         if model.loss is None or model.accuracy is None:
             raise ValueError(f"model {model.name!r} has no loss/accuracy")
-        self.sharded_apply = None
-        if topo.sharded:
+        self.sharded_apply = self.pp_grads = None
+        if topo.pipeline_parallelism > 1:
+            self.pp_grads = self._pipeline_grads(model, cfg, topo)
+        elif topo.sharded:
             self.sharded_apply = self._sharded_apply(model, topo)
         self.opt = optim_lib.make_optimizer(cfg.optim)
         self.default_disc = make_discipline_vector(k, sync.timeout_ms,
@@ -777,7 +827,7 @@ class TrainStep:
         # the input buffer's layout: scale [n], the update's lr, LAMB's
         # two corrections, the interval divisor, then the dropout keys
         # [accum, L, 2] and the drop-connect keys [L, leaves, 2]
-        shapes = model.init_params(cfg.model.init_seed, torch.device("meta"))
+        shapes = build_params(model, cfg, topo, torch.device("meta"))
         n_leaves = len(tree_leaves(shapes))
         self.n_leaves = n_leaves
         # each leaf's sum of squares completes over the groups the leaf
@@ -797,15 +847,25 @@ class TrainStep:
 
     def _norm_reduce(self, spec) -> Callable:
         """How a leaf's sum of squares completes: over the model, expert
-        or expert×model group, as the leaf is split."""
+        or expert×model group, as the leaf is split, then over the stage
+        group for a stacked block leaf (its norm is the whole stacked
+        leaf's, as the reference's is)."""
         topo = self.topo
         split = [split_dim(spec, a) is not None
                  for a in (topo.axis_names[1], topo.axis_names[3])]
-        group = {(True, False): topo.model_group,
-                 (False, True): topo.expert_group,
-                 (True, True): topo.expert_model_group}.get(tuple(split))
-        return ((lambda x: x) if group is None
-                else (lambda x: topo.sum_group(x, group)))
+        groups = [g for g in ({(True, False): topo.model_group,
+                               (False, True): topo.expert_group,
+                               (True, True): topo.expert_model_group}.get(
+                                   tuple(split)),
+                              topo.stage_group if split_dim(
+                                  spec, topo.axis_names[4]) is not None
+                              else None) if g is not None]
+
+        def reduce(x):
+            for g in groups:
+                x = topo.sum_group(x, g)
+            return x
+        return reduce
 
     @staticmethod
     def _sharded_apply(model: Model, topo: Topology) -> Callable:
@@ -829,6 +889,38 @@ class TrainStep:
         return model.sharded_apply_factory(
             topo.seq_group, topo.model_group, topo.comm,
             topo.expert_group, topo.expert_model_group)
+
+    @staticmethod
+    def _pipeline_grads(model: Model, cfg: ExperimentConfig,
+                        topo: Topology) -> Callable:
+        """The model's pipelined step body over this process's groups
+        (≙ the reference's PP branch of ``build_train_step``), with its
+        refusals and messages: an unknown schedule, a model without a
+        pipeline apply or 1F1B support, dropout."""
+        S, mesh = topo.pipeline_parallelism, cfg.mesh
+        if mesh.pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"unknown pipeline_schedule "
+                             f"{mesh.pipeline_schedule!r}")
+        if model.pp_apply_factory is None:
+            raise ValueError(f"mesh has pipeline_parallelism={S} but "
+                             f"model {model.name!r} has no pipeline apply")
+        one_f = mesh.pipeline_schedule == "1f1b"
+        if one_f and model.pp_1f1b_grads_factory is None:
+            raise ValueError(f"model {model.name!r} has no 1f1b "
+                             "pipeline support")
+        if model.dropout_masks is not None:
+            raise ValueError(
+                f"model {model.name!r} uses dropout, but the sharded "
+                "(SP/TP/PP) loss paths do not thread a dropout key; set "
+                "model.dropout_rate=0 or run it data-parallel only")
+        groups = (topo.seq_group, topo.model_group, topo.comm,
+                  topo.expert_group, topo.expert_model_group)
+        if one_f:
+            return model.pp_1f1b_grads_factory(
+                topo.stage_group, mesh.pipeline_microbatches,
+                mesh.pipeline_chunks, *groups)
+        return model.pp_grads_factory(topo.stage_group,
+                                      mesh.pipeline_microbatches, *groups)
 
     # -- the host part ---------------------------------------------------
 
@@ -960,7 +1052,7 @@ class TrainStep:
         PERF.md §6); else, and for a lone local replica, each runs
         autograd directly and writes its row."""
         model, L = self.model, self.L
-        if self.sharded_apply is not None:
+        if self.sharded_apply is not None or self.pp_grads is not None:
             return self._sharded_grads(params, xs, ys)
         keep = None
         if keys is not None:
@@ -1018,46 +1110,54 @@ class TrainStep:
 
     def _sharded_grads(self, params: Any, xs: torch.Tensor,
                        ys: torch.Tensor):
-        """:meth:`_replica_grads` under tensor/sequence parallelism (≙
-        the reference's ``make_sp_loss`` and the seq-axis psums): each
-        local replica in turn runs the sharded apply on its sequence
-        block ``[b, S/s]`` with its global positions; its targets are the
-        tokens shifted one global position (the next block's first
-        column through a ``ppermute``), its partial loss and accuracy
-        normalised by the replica's ``b·(S−1)`` predicted tokens, plus
-        ``aux_weight · aux / s`` for an MoE model (the aux is the
-        full-token value on every block, so the seq sum counts it once);
-        then the loss, the accuracy and every float32 gradient summed
-        over the seq group in one all-reduce. Sharded leaves keep their
-        shard's gradient."""
+        """:meth:`_replica_grads` under tensor/sequence/pipeline
+        parallelism (≙ the reference's ``make_sp_loss`` and the seq-axis
+        psums): each local replica in turn runs the sharded apply on its
+        sequence block ``[b, S/s]`` with its global positions; its
+        targets are the tokens shifted one global position (the next
+        block's first column through a ``ppermute``), its partial loss
+        and accuracy normalised by the replica's ``b·(S−1)`` predicted
+        tokens, plus ``aux_weight · aux / s`` for an MoE model (the aux
+        is the full-token value on every block, so the seq sum counts it
+        once) — or, under pipeline parallelism, the model's pipelined
+        step body gives the same partials and gradients; then the loss,
+        the accuracy and every float32 gradient summed over the seq
+        group in one all-reduce. Sharded leaves keep their shard's
+        gradient."""
         from ..models.transformer import sp_partial_token_loss
         topo, L = self.topo, self.L
         s = topo.seq_parallelism
         leaves = tree_leaves(params)
         losses, accs, grads = [], [], None
+        pp = self.pp_grads is not None
         for p in leaves:
-            p.requires_grad_(True)
+            p.requires_grad_(not pp)
         try:
             for j in range(L):
                 tokens, labels = topo.seq_block(xs[j]), topo.seq_block(ys[j])
                 b, s_loc = tokens.shape
                 positions = topo.seq_positions(s_loc, tokens.device)
-                aux = 0.0
-                if self.model.has_aux:
-                    logits, aux = self.sharded_apply(params, tokens,
-                                                     positions,
-                                                     return_aux=True)
+                if pp:
+                    loss, acc, g = self.pp_grads(params, tokens, labels,
+                                                 positions)
                 else:
-                    logits = self.sharded_apply(params, tokens, positions)
-                # block j takes block j+1's first target column
-                nxt = ppermute(labels[:, :1].contiguous(), -1,
-                               topo.seq_group, topo.comm)
-                tgt = torch.cat([labels[:, 1:], nxt], dim=1)
-                s_global = s_loc * s
-                loss, acc = sp_partial_token_loss(
-                    logits, tgt, positions, s_global, b * (s_global - 1))
-                loss = loss + self.model.aux_weight * aux / s
-                g = torch.autograd.grad(loss, leaves)
+                    aux = 0.0
+                    if self.model.has_aux:
+                        logits, aux = self.sharded_apply(
+                            params, tokens, positions, return_aux=True)
+                    else:
+                        logits = self.sharded_apply(params, tokens,
+                                                    positions)
+                    # block j takes block j+1's first target column
+                    nxt = ppermute(labels[:, :1].contiguous(), -1,
+                                   topo.seq_group, topo.comm)
+                    tgt = torch.cat([labels[:, 1:], nxt], dim=1)
+                    s_global = s_loc * s
+                    loss, acc = sp_partial_token_loss(
+                        logits, tgt, positions, s_global,
+                        b * (s_global - 1))
+                    loss = loss + self.model.aux_weight * aux / s
+                    g = torch.autograd.grad(loss, leaves)
                 with torch.no_grad():
                     flat = torch.cat([gi.float().reshape(-1) for gi in g]
                                      + [loss.detach().reshape(1).float(),
@@ -1428,18 +1528,46 @@ def build_eval_step(model: Model, cfg: ExperimentConfig,
     over ``batch = {"image", "label", "weight"}`` (padded rows carry
     weight 0); no autograd, so attention runs the forward kernel K1.
     ``params`` are logical-shape (:func:`logical_params`), or under
-    tensor or expert parallelism (``topo`` with ``model_parallelism`` or
-    ``expert_parallelism > 1``) this rank's shard, run through the
+    tensor, expert or pipeline parallelism (``topo`` with
+    ``model_parallelism``, ``expert_parallelism`` or
+    ``pipeline_parallelism > 1``) this rank's shard, run through the
     model's sharded apply over the whole sequence (eval batches are not
-    split along it; ≙ the reference's ``build_eval_step``). cuDNN runs
+    split along it; ≙ the reference's ``build_eval_step``) — under a
+    stage axis its pipelined forward, at the largest microbatch count up
+    to ``mesh.pipeline_microbatches`` that divides the batch's rows (the
+    reference's ``m_eval``), the logits on every stage. cuDNN runs
     under the train step's policy."""
-    del cfg
     if model.eval_metrics is None:
         raise ValueError(f"model {model.name!r} has no eval_metrics")
     tf32 = False if model.compute_dtype == torch.float32 else None
     apply = model.apply
-    if topo is not None and (topo.model_parallelism > 1
-                             or topo.expert_parallelism > 1):
+    if topo is not None and topo.pipeline_parallelism > 1:
+        S, mesh = topo.pipeline_parallelism, cfg.mesh
+        if model.pp_apply_factory is None:
+            raise ValueError(f"mesh has pipeline_parallelism={S} but "
+                             f"model {model.name!r} has no pipeline apply")
+        one_f = mesh.pipeline_schedule == "1f1b"
+        if one_f and model.pp_1f1b_apply_factory is None:
+            raise ValueError(f"model {model.name!r} has no 1f1b "
+                             "pipeline support")
+        cap = max(1, mesh.pipeline_microbatches)
+        groups = (topo.model_group, topo.comm, topo.expert_group,
+                  topo.expert_model_group)
+        applies: dict = {}
+
+        def apply(params, images):
+            b = images.shape[0]
+            m_eval = max(m for m in range(1, cap + 1) if b % m == 0)
+            if m_eval not in applies:
+                applies[m_eval] = (
+                    model.pp_1f1b_apply_factory(
+                        topo.stage_group, m_eval, mesh.pipeline_chunks,
+                        *groups) if one_f else
+                    model.pp_apply_factory(topo.stage_group, m_eval,
+                                           *groups))
+            return applies[m_eval](params, images)
+    elif topo is not None and (topo.model_parallelism > 1
+                               or topo.expert_parallelism > 1):
         if model.sharded_apply_factory is None:
             raise ValueError(
                 f"mesh has model_parallelism={topo.model_parallelism} / "

@@ -906,11 +906,14 @@ class CheckpointFollower:
         """The pointer's step (None before the first publish)."""
         return latest_checkpoint_step(self.train_dir)
 
-    def poll(self, read: Callable[[int], Any]) -> Any | None:
+    def poll(self, read: Callable[[int], Any],
+             step: int | None = None) -> Any | None:
         """One tick: ``read(step)``'s result for a newly advanced step,
         else None (nothing new, or the read failed and will be
-        retried)."""
-        step = self.newest_step()
+        retried). ``step``: the step to consider instead of the
+        pointer's (processes that must read the same step agree on it
+        first)."""
+        step = self.newest_step() if step is None else step
         if step is None or step == self.last_step:
             return None
         try:

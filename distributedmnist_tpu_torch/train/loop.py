@@ -34,15 +34,21 @@ SIGTERM/SIGINT request, so every process stops after the same step —
 and only process 0 writes the journals, checkpoints and series dumps;
 every process resumes from the newest loadable checkpoint. The step's
 host time excludes the time spent waiting in collectives. Under tensor,
-sequence or expert parallelism (``mesh.model_parallelism`` /
-``seq_parallelism`` / ``expert_parallelism``) a replica spans ``m·s·e``
-processes: they all read their replica-process's shard of the data, the
-one with model shard 0, sequence block 0 and expert shard 0 fills its
-replicas' measured rows (so every process draws the same flags), a
-save first gathers the model and expert shards (every process takes
-part, so under tensor or expert parallelism the cadence is by steps:
-``save_interval_secs`` is refused; rank 0 writes whole leaves, the
-bytes a one-process run writes) and a restore cuts them again.
+sequence, pipeline or expert parallelism (``mesh.model_parallelism`` /
+``seq_parallelism`` / ``pipeline_parallelism`` / ``expert_parallelism``)
+a replica spans ``m·s·S·e`` processes: they all read their
+replica-process's shard of the data, the one with model shard 0,
+sequence block 0, stage 0 and expert shard 0 fills its replicas'
+measured rows (so every process draws the same flags), a save first
+gathers the model, expert and stage shards (every process takes part,
+so under tensor, pipeline or expert parallelism the cadence is by
+steps: ``save_interval_secs`` is refused; rank 0 writes whole leaves,
+the bytes a one-process run of that layout writes) and a restore cuts
+them again. Under pipeline parallelism the params are the reference's
+stacked layout (in the chunk-interleaved order under ``1f1b``), so a
+checkpoint holds that layout, the reference's, and a resume under the
+other schedule or chunk count is refused (the two layouts' leaves have
+equal shapes and other layer orders).
 
 Checkpoints are written as the reference writes them: the fsync
 policy ``train.durability`` is installed before any durable write, a
@@ -350,6 +356,7 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         split = [f"mesh.{k} > 1" for k in ("model_parallelism",
+                                            "pipeline_parallelism",
                                             "expert_parallelism")
                  if getattr(cfg.mesh, k) > 1]
         if split and cfg.train.save_interval_secs > 0:
@@ -376,6 +383,17 @@ class Trainer:
         if n_seq > 1 and cfg.model.seq_len % n_seq != 0:
             raise ValueError(f"seq_len {cfg.model.seq_len} not divisible by "
                              f"seq_parallelism {n_seq}")
+        n_stage = self.topo.pipeline_parallelism
+        if n_stage > 1:
+            mb = cfg.mesh.pipeline_microbatches
+            if (cfg.data.batch_size // n) % mb != 0:
+                raise ValueError(
+                    f"per-replica batch {cfg.data.batch_size // n} not "
+                    f"divisible by pipeline_microbatches {mb}")
+            if cfg.model.num_layers % n_stage != 0:
+                raise ValueError(
+                    f"num_layers {cfg.model.num_layers} not divisible by "
+                    f"pipeline_parallelism {n_stage}")
         self.model: Model = get_model(effective_model_config(cfg))
         self.datasets = datasets if datasets is not None else load_datasets(
             cfg.data, cfg.model.image_size, cfg.model.num_channels,
@@ -531,6 +549,22 @@ class Trainer:
         if restored is None:
             return
         state, extra, step = restored
+        # the gpipe layer-stacked and 1f1b chunk-interleaved layouts
+        # have identical tree structure and leaf shapes but DIFFERENT
+        # layer order — a shape-matched restore across schedules would
+        # silently permute the model. Refuse instead.
+        saved_mesh = ((extra or {}).get("config") or {}).get("mesh", {})
+        if self.topo.pipeline_parallelism > 1:
+            saved = (saved_mesh.get("pipeline_schedule", "gpipe"),
+                     saved_mesh.get("pipeline_chunks", 1))
+            want = (self.cfg.mesh.pipeline_schedule,
+                    self.cfg.mesh.pipeline_chunks)
+            if saved != want:
+                raise ValueError(
+                    f"checkpoint was written with pipeline layout "
+                    f"(schedule, chunks)={saved} but this run uses "
+                    f"{want}; the stacked layer orders differ — "
+                    "restoring would silently permute the model")
         self._adopt(state, extra)
         self._start_step = self.state.step
         logger.info("resumed from checkpoint step=%d (loop step %d)", step,
@@ -805,10 +839,12 @@ class Trainer:
 
     def evaluate(self, split: str = "test") -> dict[str, float]:
         """One full-split eval pass; also journals an ``eval`` record."""
-        # under tensor or expert parallelism the eval step runs on this
-        # rank's shard
-        params = (self.state.params if (self.topo.model_parallelism > 1
-                                        or self.topo.expert_parallelism > 1)
+        # under tensor, expert or pipeline parallelism the eval step
+        # runs on this rank's shard
+        topo = self.topo
+        params = (self.state.params if (topo.model_parallelism > 1
+                                        or topo.expert_parallelism > 1
+                                        or topo.pipeline_parallelism > 1)
                   else self.logical_params())
         res = run_full_eval(self.eval_fn, params,
                             getattr(self.datasets, split),

@@ -147,8 +147,7 @@ def test_unported_optimizers_and_modes_raise():
     """LARS and LAMB, accumulation, low-precision params and remat build
     now; an unknown optimizer is the reference's ConfigError; tensor
     parallelism on one process is a ConfigError that says to launch the
-    processes under torchrun, and pipeline parallelism still raises "not
-    ported yet"."""
+    processes under torchrun, and so is pipeline parallelism."""
     for name, slots in (("lars", 1), ("lamb", 2)):
         opt = optim.make_optimizer(port_config.OptimConfig(name=name))
         assert (opt.kind, opt.num_slots) == (name, slots)
@@ -167,5 +166,5 @@ def test_unported_optimizers_and_modes_raise():
         api.build_train_step(model, cfg, lr_schedule.constant(0.1))
     cfg = port_config.ExperimentConfig.from_dict(
         dict(RUN, mesh={"pipeline_parallelism": 2}))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(port_config.ConfigError, match="torchrun"):
         api.build_train_step(model, cfg, lr_schedule.constant(0.1))
