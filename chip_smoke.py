@@ -40,7 +40,8 @@ eager step, and the kernel build cache across processes; and the local
 process cluster: a seeded chaos campaign on ``launch train`` workers
 under the supervisor, and the restart latency of a worker; last, the
 serving chaos trial: decode replicas on the card under live load and
-seeded network faults; and the resource broker trading a donor trainer's
+seeded network faults, then two tensor-parallel decode groups of two
+processes each through a hot swap and the SIGKILL of one rank; and the resource broker trading a donor trainer's
 slot for a decode replica at a load peak and back in the trough. The
 flagship campaign (``launch campaign``) runs its evaluated group and its
 other model families after the evaluator.
@@ -69,7 +70,10 @@ One JSON line per phase:
                 K2 (dq), K3 (dk, dv) at the training shape and K4
                 (fused backward) at the short run's, and K1-lse, K2 and
                 K3 at the long-context shape [2, 8192, 8, 128] (checked,
-                not timed); max abs error
+                not timed); K1 at ``[1, s, 8, 128]`` for the TP arm's
+                prefill buckets and K5 over 8 heads, a 2-rank TP serving
+                group's share of the 16 (bf16, the largest bucket and K5
+                timed; ``tp_serving_cases``); max abs error
                 beside the stated tolerance, the relative error of the
                 whole output beside its own, the mean |plain output|,
                 kernel / plain / library times (CUDA events, device
@@ -485,6 +489,28 @@ One JSON line per phase:
                 decode step ``cuda_graph``, no kernel-cache miss; the
                 replicas' K1 and K5 launches (each process's
                 ``kernel_launches.jsonl``) above 0, none by this process.
+                Then its TP arm, a ``serving_chaos_tp`` line (≙
+                ``bench.py bench_tp_serving``; ``TP_SERVING``): two
+                tensor-parallel decode groups of 2 ranks (``launch serve
+                --decode --tp-ranks 2``: the four ranks on ``cuda:0``
+                over gloo with one card, a card a rank over NCCL with
+                more) following a publish dir fed the trial publisher's
+                two kept steps, a failover client over both, the newer
+                step published mid-sweep and rank 1 of group 1
+                SIGKILLed mid-generation. Checked: no request dropped or
+                errored in either sweep; group 1's journal ``rank_exit``
+                → ``group_down`` → ``group_restart`` and a second
+                ``group_start``, the ``serve_group`` and serving
+                invariants clean, the restarted group serving; a swap
+                on the surviving group; every follower's
+                ``shard_verify``; every rank that stopped gracefully on
+                ``cuda:(rank mod cards)`` with K1 and K5 launched and no
+                kernel-cache miss; each decode step eager with the gloo
+                reason, or over NCCL captured and bitwise equal to its
+                eager step. Printed: tokens/s of both sweeps, each
+                rank's boot by stage, and the transfers a decode step
+                staged through the host (all-reduces of CUDA tensors
+                over gloo, work broadcasts).
 21. ``broker``  — the resource broker's trial (``launch/broker.py``;
                 ``cluster chaos --payload serving --serve-decode`` with
                 ``broker=true``; ``BROKER``): ``serving_chaos``'s flash
@@ -519,7 +545,10 @@ spills, shared memory and blocks per SM at the timed shape; for K1 also
 serve phase's by path; for K1, K1-lse, K2 and K3 ``launches_campaign``,
 the campaign phase's ``extras`` run's; for K1 and K5 ``launches_serving_chaos``, the
 serving_chaos replicas' launches (each replica process's count, K5's
-taken from its decode graphs' replays), and ``launches_broker``, the
+taken from its decode graphs' replays), ``launches_tp_serving``, each
+rank's of the TP arm's groups that stopped gracefully,
+``tp_serving_shapes``, the ``kernels`` phase's cases at a TP rank's
+heads, and ``launches_broker``, the
 broker trial's replicas' launches counted the same way; for K1-lse, K2 and K3 also
 ``launches_replicas`` (the ``train_replicas`` run), ``launches_long_context``
 by remat arm, ``long_context``, the kernel's errors at that shape, and
@@ -1062,12 +1091,13 @@ def _k5_width() -> int:
              // DECODE["block_size"])
 
 
-def _k5_bound(lengths, q_item: int, kv_item: int) -> tuple[float, str]:
-    """K5's least time for one call over ``lengths``: q, the live K/V
-    rows, the tables and lengths read once, the float32 output written
-    once; 4 FLOP per live K/V element."""
-    S, H = len(lengths), MODEL["num_heads"]
-    D = MODEL["model_dim"] // H
+def _k5_bound(lengths, q_item: int, kv_item: int,
+              h: int = MODEL["num_heads"]) -> tuple[float, str]:
+    """K5's least time for one call over ``lengths`` at ``h`` heads: q,
+    the live K/V rows, the tables and lengths read once, the float32
+    output written once; 4 FLOP per live K/V element."""
+    S, H = len(lengths), h
+    D = MODEL["model_dim"] // MODEL["num_heads"]
     ctx = sum(lengths)
     nbytes = (S * H * D * q_item + 2 * ctx * H * D * kv_item
               + S * _k5_width() * 4 + S * 4 + S * H * D * 4)
@@ -1128,10 +1158,10 @@ def _k5_cold_ms(dtype, gen, l2_bytes: float = 50e6) -> tuple[float, float]:
     return ms, n_sets * live
 
 
-def _k5_inputs(dtype, gen):
+def _k5_inputs(dtype, gen, h: int = MODEL["num_heads"]):
     import torch
-    S, H = DECODE["decode_slots"], MODEL["num_heads"]
-    D = MODEL["model_dim"] // H
+    S, H = DECODE["decode_slots"], h
+    D = MODEL["model_dim"] // MODEL["num_heads"]
     B, N = DECODE["block_size"], DECODE["num_blocks"]
     P = _k5_width()
     kp = torch.randn(N, B, H, D, device=DEVICE, generator=gen).to(dtype)
@@ -1152,12 +1182,17 @@ def _k5_inputs(dtype, gen):
             torch.tensor(lengths, dtype=torch.int32, device=DEVICE))
 
 
-def _k5_case(dtype, gen, timed: bool) -> dict:
+def _k5_case(dtype, gen, timed: bool, h: int = MODEL["num_heads"],
+             cold: bool = True) -> dict:
+    """K5 at ``h`` heads (a tensor-parallel rank's share with ``h <
+    num_heads``) against its plain version; ``timed``: with its device
+    ms, the plain version's and its bound (``cold``: also over a
+    rotation of page sets larger than the L2)."""
     import torch
 
     from distributedmnist_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_dense)
-    q, kp, vp, tables, lengths = _k5_inputs(dtype, gen)
+    q, kp, vp, tables, lengths = _k5_inputs(dtype, gen, h)
     got = paged_attention(q, kp, vp, tables, lengths)
     again = paged_attention(q, kp, vp, tables, lengths)
     torch.cuda.synchronize()
@@ -1169,18 +1204,19 @@ def _k5_case(dtype, gen, timed: bool) -> dict:
     check(torch.equal(got, again), "K5: two calls differ")
     agree = _agreement(got, want, (TOL[("K5", name)], 0.0))
     rec = {"kernel": "K5", "dtype": name, "slots": q.shape[0],
-           "lengths": lengths.tolist(), "pages": list(kp.shape),
+           "heads": h, "lengths": lengths.tolist(), "pages": list(kp.shape),
            "max_abs_err": agree["max_abs_err"], "tol": TOL[("K5", name)],
            # K5 outputs float32 for either input dtype
            "rel_err": agree["rel_err"], "rel_tol": REL_TOL["float32"],
            "mean_abs_plain": agree["mean_abs_plain"]}
     if timed:
         t, by = _k5_bound(lengths.tolist(), q.element_size(),
-                          kp.element_size())
-        ms_cold, rotation_bytes = _k5_cold_ms(dtype, gen)
+                          kp.element_size(), h)
+        if cold:
+            ms_cold, rotation_bytes = _k5_cold_ms(dtype, gen)
+            rec.update(ms_cold=ms_cold, cold_rotation_bytes=rotation_bytes)
         rec.update(
             ms=time_ms(lambda: paged_attention(q, kp, vp, tables, lengths)),
-            ms_cold=ms_cold, cold_rotation_bytes=rotation_bytes,
             plain_ms=time_ms(lambda: paged_attention_dense(
                 q, kp, vp, tables, lengths)),
             library_ms=None, bound_ms=t * 1e3, bound_by=by)
@@ -1361,6 +1397,14 @@ def phase_kernels() -> dict:
                                     False, lc_h))
     torch.cuda.empty_cache()
     mp_k1, mp_train = _mp_kernel_cases(gen)
+    tp_cases = _tp_kernel_cases(gen)
+    emit({"phase": "kernels", "tp_serving_cases": tp_cases})
+    for c in tp_cases:
+        check(c["max_abs_err"] <= c["tol"]
+              and c["rel_err"] <= c["rel_tol"],
+              f"{c['kernel']} at a TP rank's heads disagrees with its plain "
+              f"version: max abs err {c['max_abs_err']} (tol {c['tol']}), "
+              f"relative {c['rel_err']} (tol {c['rel_tol']})")
     emit({"phase": "kernels", "cases": train_cases + long_cases})
     emit({"phase": "kernels", "model_parallel_cases": mp_k1 + mp_train})
     for c in mp_k1:
@@ -1386,7 +1430,28 @@ def phase_kernels() -> dict:
         timed[c["kernel"]].setdefault("model_parallel_shapes", []).append(
             {k: c[k] for k in ("shape", "packed", "max_abs_err", "rel_err")
              if k in c})
+    for c in tp_cases:
+        timed[c["kernel"]].setdefault("tp_serving_shapes", []).append(
+            {k: c[k] for k in ("shape", "heads", "slots", "max_abs_err",
+                               "rel_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by") if k in c})
     return timed
+
+
+def _tp_kernel_cases(gen) -> list:
+    """K1 and K5 at a rank's share of a 2-rank TP serving group (the
+    ``serving_chaos`` TP arm): K1 at ``[1, s, h/2, hd]`` for the arm's
+    prefill buckets (strided views of the rank's qkv product), K5 over
+    ``h/2`` heads; bfloat16 (the publisher's compute dtype), the largest
+    bucket and K5 timed."""
+    import torch
+    bf, h = torch.bfloat16, MODEL["num_heads"] // TP_SERVING["ranks"]
+    buckets = [2 ** i for i in range(TP_SERVING["max_prompt_len"]
+                                     .bit_length())]
+    cases = [_k1_case(1, s, bf, gen, timed=s == buckets[-1], h=h)
+             for s in buckets]
+    cases.append(_k5_case(bf, gen, timed=True, h=h, cold=False))
+    return cases
 
 
 def _mp_kernel_cases(gen) -> tuple[list, list]:
@@ -6180,6 +6245,11 @@ SERVING_CHAOS = {"name": "serving_chaos", "payload": "serving",
                  "save_interval_steps": 10, "trials": 1, "seed": 0,
                  "shrink": False, "trial_timeout_s": 420.0}
 SERVING_REPLICAS = (1, 2)
+# the TP arm (≙ bench.py bench_tp_serving): two 2-rank decode groups
+# following serving_chaos's publisher's kept steps
+TP_SERVING = {"ranks": 2, "groups": (1, 2), "concurrency": 3,
+              "requests": 24, "slots": 4, "max_new_tokens": 8,
+              "max_prompt_len": 16, "boot_timeout_s": 240.0}
 
 
 def _seed_kernel_cache(cache_dir) -> list:
@@ -6381,7 +6451,261 @@ def phase_serving_chaos(tmp: str) -> dict:
           f"replicas' K1/K5 launches: {launches}")
     check(all(v == 0 for v in parent.values()),
           f"this process launched kernels: {parent}")
+    rec["tp"] = _tp_serving_arm(tmp, f"{trial_dir}/worker0",
+                                cfg.root / "compile_cache")
     return rec
+
+
+def _link_or_copy(src: str, dst: str) -> None:
+    import shutil
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copy2(src, dst)
+
+
+def _tp_rank_lines(serve_dir: str) -> list:
+    """Each rank process's ``kernel_launches.jsonl`` line of one group
+    (rank 0 in the group's dir, rank r in ``rank<r>/``)."""
+    from distributedmnist_tpu_torch.obsv.report import load_jsonl
+    out = []
+    for r in range(TP_SERVING["ranks"]):
+        d = serve_dir if r == 0 else f"{serve_dir}/rank{r}"
+        out += load_jsonl(f"{d}/kernel_launches.jsonl")
+    return out
+
+
+def _tp_serving_arm(tmp: str, src: str, cache_dir) -> dict:
+    """``serving_chaos``'s TP arm (≙ ``bench.py bench_tp_serving``): two
+    2-rank tensor-parallel decode groups (``launch serve --decode
+    --tp-ranks 2``: every rank on ``cuda:0`` over gloo with one card, over
+    NCCL with a card a rank), a failover client over both, a publisher
+    pushing the chaos publisher's newer kept step mid-sweep, and a
+    SIGKILL of rank 1 of group 1 mid-generation. Checked: no request
+    dropped or errored; group 1's journal ``rank_exit`` → ``group_down``
+    → ``group_restart`` → ``group_start`` and the ``serve_group`` replay
+    clean; the restarted group serves; at least one swap on the
+    survivor; the serving invariants green; every follower's
+    ``shard_verify``; every rank that stopped gracefully (the survivor's
+    and the restarted group's) on ``cuda:0`` with K1 and K5 launched and
+    no kernel-cache miss; each rank's ``compile`` records say how its
+    decode steps ran. Tokens/s and the transfers a decode step staged
+    through the host are printed, never gated."""
+    import shutil
+
+    from distributedmnist_tpu_torch.obsv.invariants import (
+        check_serve_group, check_serving)
+    from distributedmnist_tpu_torch.obsv.report import load_jsonl
+    from distributedmnist_tpu_torch.servesvc import ServeClient
+    from distributedmnist_tpu_torch.servesvc.client import discover_endpoints
+    from distributedmnist_tpu_torch.servesvc.loadgen import (make_prompt_fn,
+                                                             run_load)
+    from distributedmnist_tpu_torch.train import checkpoint as ckpt
+    t0 = time.time()
+    T = TP_SERVING
+    root = f"{tmp}/tp_serving"
+    publish, trial = f"{root}/publish", f"{root}/trial"
+    os.makedirs(publish)
+    steps = ckpt.loadable_steps(src)
+    check(len(steps) >= 2, f"the chaos publisher kept {steps}")
+
+    def publish_step(step: int) -> None:
+        name = f"ckpt-{step:08d}.msgpack"
+        for sfx in ("", ".sha256"):
+            _link_or_copy(f"{src}/{name}{sfx}", f"{publish}/{name}{sfx}")
+        with open(f"{publish}/checkpoint.json.tmp", "w") as f:
+            json.dump({"latest_step": step, "latest_path": name,
+                       "written_at": time.time()}, f)
+        os.replace(f"{publish}/checkpoint.json.tmp",
+                   f"{publish}/checkpoint.json")
+
+    def wait_for(pred, timeout_s: float, what: str) -> None:
+        deadline = time.time() + timeout_s
+        while time.time() < deadline:
+            if pred():
+                return
+            time.sleep(0.25)
+        raise RuntimeError(f"TP arm: timed out after {timeout_s:.0f} s "
+                           f"waiting for {what}")
+
+    def actions(k: int) -> list:
+        return [r.get("action") for r in
+                load_jsonl(f"{trial}/worker{k}/group_log.jsonl")]
+
+    publish_step(steps[-2])
+    env = dict(os.environ, DMT_COMPILE_CACHE_DIR=str(cache_dir))
+    sups = {}
+    for k in T["groups"]:
+        os.makedirs(f"{trial}/worker{k}")
+        with open(f"{trial}/worker{k}.log", "w") as log:
+            sups[k] = subprocess.Popen(
+                [sys.executable, "-m", "distributedmnist_tpu_torch.launch",
+                 "serve", "--train-dir", publish, "--serve-dir",
+                 f"{trial}/worker{k}", "--port", "0", "--poll-secs", "0.2",
+                 "--queue-depth", "16", "--decode", "--decode-slots",
+                 str(T["slots"]), "--max-new-tokens",
+                 str(T["max_new_tokens"]), "--max-prompt-len",
+                 str(T["max_prompt_len"]), "--tp-ranks", str(T["ranks"])],
+                env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        wait_for(lambda: len(discover_endpoints(trial)) == len(sups)
+                 or any(p.poll() is not None for p in sups.values()),
+                 T["boot_timeout_s"], "both TP groups' serve.json")
+        check(all(p.poll() is None for p in sups.values()),
+              f"a TP group's supervisor exited: "
+              f"{ {k: p.poll() for k, p in sups.items()} }")
+        t_ready = time.time() - t0
+        client = ServeClient(lambda: discover_endpoints(trial),
+                             deadline_s=120.0, max_attempts=12)
+        make_prompt = make_prompt_fn(1024, T["max_prompt_len"])
+        bucket = 1
+        while bucket <= T["max_prompt_len"]:  # every bucket on both
+            for _ in range(2):
+                out = client.generate([1] * bucket, max_tokens=2)
+                check(out.get("status") == "ok", f"TP warm-up: {out}")
+            bucket *= 2
+        steady = run_load(client, T["requests"], T["concurrency"],
+                          make_prompt, journal_path=f"{root}/steady.jsonl",
+                          decode=True)
+        kill: dict = {}
+
+        def publisher() -> None:
+            time.sleep(0.3)
+            publish_step(steps[-1])
+
+        def killer() -> None:
+            time.sleep(0.6)
+            with open(f"{trial}/worker1/group.json") as f:
+                pid = int(json.load(f)["pids"]["1"])
+            os.kill(pid, signal.SIGKILL)
+            kill.update(pid=pid, at_s=round(time.time() - t0, 3))
+
+        threads = [threading.Thread(target=fn, daemon=True)
+                   for fn in (publisher, killer)]
+        for th in threads:
+            th.start()
+        swap = run_load(client, 2 * T["requests"], T["concurrency"],
+                        make_prompt, journal_path=f"{root}/swap.jsonl",
+                        decode=True, first_id=T["requests"])
+        for th in threads:
+            th.join(timeout=30)
+        wait_for(lambda: "group_restart" in actions(1), 120,
+                 "group 1's unit restart")
+        wait_for(lambda: os.path.exists(f"{trial}/worker1/serve.json"),
+                 T["boot_timeout_s"], "the restarted group 1's endpoint")
+        with open(f"{trial}/worker1/serve.json") as f:
+            ep = json.load(f)
+        confirm = ServeClient([(ep["host"], int(ep["port"]))],
+                              deadline_s=120.0, max_attempts=2).generate(
+            [1, 2, 3], max_tokens=2)
+        t_restart = time.time() - t0
+    finally:
+        for p in sups.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in sups.values():
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+    fault = [{"event": "fault", "action": "kill_worker", "worker": 1,
+              "ts": time.time()}]
+    violations, applicable, _, decode_applicable = check_serving(
+        trial, {"serve_workers": list(T["groups"])}, fault)
+    group_violations, group_applicable = check_serve_group(trial)
+    acts = actions(1)
+    i_exit = acts.index("rank_exit") if "rank_exit" in acts else -1
+    verified = {k: [(r["step"], r["digest"][:12]) for r in load_jsonl(
+        f"{trial}/worker{k}/rank1/serve_log.jsonl")
+        if r.get("action") == "shard_verify"] for k in T["groups"]}
+    swaps = {k: [r["step"] for r in load_jsonl(
+        f"{trial}/worker{k}/serve_log.jsonl")
+        if r.get("action") == "weight_swap" and not r.get("initial")]
+        for k in T["groups"]}
+    ranks = {k: _tp_rank_lines(f"{trial}/worker{k}") for k in T["groups"]}
+    compiles = {k: [{"device": r.get("device"), "source": r.get("source"),
+                     "reason": r.get("reason"),
+                     "bitwise_vs_eager": r.get("bitwise_vs_eager")}
+                    for d in (f"{trial}/worker{k}", f"{trial}/worker{k}/rank1")
+                    for r in load_jsonl(f"{d}/train_log.jsonl", "compile")]
+                for k in T["groups"]}
+    steps_all = sum(r["decode_steps"] for rs in ranks.values() for r in rs)
+    staged = {
+        "all_reduces_per_decode_step": sum(
+            r["decode_all_reduces_staged"] for rs in ranks.values()
+            for r in rs) / max(steps_all, 1),
+        "broadcasts_per_decode_step": sum(
+            r["decode_broadcasts"] for rs in ranks.values() for r in rs)
+        / max(steps_all, 1)}
+    rec = {"card": nvidia_smi(),
+           "backend": sorted({r.get("backend") for rs in ranks.values()
+                              for r in rs}),
+           "steps": steps[-2:], "ready_s": round(t_ready, 1),
+           "restart_ready_s": round(t_restart, 1),
+           "steady": {k: steady.get(k) for k in (
+               "responses", "dropped", "errors", "retried",
+               "tokens_per_sec", "latency_ms", "ttft_ms",
+               "inter_token_ms")},
+           "swap_sweep": {k: swap.get(k) for k in (
+               "responses", "dropped", "errors", "retried",
+               "tokens_per_sec", "latency_ms", "ttft_ms",
+               "inter_token_ms")},
+           "kill": kill, "group1_actions": acts,
+           "confirm": confirm.get("status"), "swaps": swaps,
+           "shard_verify": verified, "staged": staged,
+           "ranks": {k: [{key: r.get(key) for key in (
+               "tp_rank", "device", "launches", "kernel_cache",
+               "decode_steps", "decode_all_reduces_staged",
+               "decode_broadcasts", "blocked_s", "boot_s")} for r in rs]
+               for k, rs in ranks.items()},
+           "compile": compiles,
+           "invariants": {"serving": [str(v) for v in violations],
+                          "serve_group": [str(v) for v in
+                                          group_violations]},
+           "seconds": round(time.time() - t0, 1)}
+    emit({"phase": "serving_chaos_tp", **rec})
+    for name, sweep, n in (("steady", steady, T["requests"]),
+                           ("swap", swap, 2 * T["requests"])):
+        check(sweep["dropped"] == 0 and sweep["errors"] == 0
+              and sweep["responses"] == n,
+              f"TP {name} sweep: {rec[name if name == 'steady' else 'swap_sweep']}")
+    check("pid" in kill, f"TP arm: the kill did not land: {kill}")
+    check(i_exit >= 0 and acts[i_exit:i_exit + 3] == [
+        "rank_exit", "group_down", "group_restart"]
+          and acts.count("group_start") >= 2,
+          f"group 1's journal: {acts}")
+    check(confirm.get("status") == "ok",
+          f"the restarted group does not serve: {confirm}")
+    check(applicable and decode_applicable and not violations,
+          f"TP serving invariants: {rec['invariants']}")
+    check(group_applicable and not group_violations,
+          f"serve_group: {rec['invariants']}")
+    check(len(swaps[2]) >= 1, f"no swap on the surviving group: {swaps}")
+    check(all(verified[k] for k in T["groups"]),
+          f"followers' shard_verify: {verified}")
+    import torch
+    cards = torch.cuda.device_count()
+    for k, rs in ranks.items():
+        # rank r on cuda:(r mod cards); over NCCL every decode step
+        # captured and held bitwise to its eager step, over gloo eager
+        check(len(rs) == T["ranks"] and all(
+            r["device"] == f"cuda:{r['tp_rank'] % cards}"
+            and r["launches"]["K1"] > 0 and r["launches"]["K5"] > 0
+            and r["kernel_cache"]["misses"] == 0 for r in rs),
+              f"group {k}'s ranks: {rec['ranks'][k]}")
+        check(compiles[k] and all(
+            c["device"].startswith("cuda:")
+            and ((c["source"], c["bitwise_vs_eager"]) == ("cuda_graph", True)
+                 if rec["backend"] == ["nccl"] else
+                 c["source"] == "eager" and "gloo" in c["reason"])
+            for c in compiles[k]), f"group {k}'s decode steps: "
+              f"{compiles[k]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": {key: [r["launches"][key] for k in T["groups"]
+                               for r in ranks[k]] for key in ("K1", "K5")},
+            "tokens_per_sec": swap.get("tokens_per_sec"),
+            "staged": staged, "backend": rec["backend"],
+            "seconds": rec["seconds"]}
 
 
 # the resource broker's trial (≙ the reference's `cluster chaos --payload
@@ -6800,15 +7124,21 @@ def _main(now: dict) -> int:
         c = timed[key]
         chaos = runs["serving_chaos"]["launches"]
         brokered = runs["broker"]["launches"]
+        tp = runs["serving_chaos"]["tp"]["launches"]
         extra = ({**k5_in_place, "ms_cold": c["ms_cold"],
                   "launches_serve": serve_launches["K5"],
                   "launches_serving_chaos": chaos["K5"],
+                  "launches_tp_serving": tp["K5"],
                   "launches_broker": brokered["K5"]} if key == "K5"
                  else {"launches_eval": runs["eval"]["k1_launches"],
                        "launches_serve": serve_launches["K1"],
                        "launches_serving_chaos": chaos["K1"],
+                       "launches_tp_serving": tp["K1"],
                        "launches_broker": brokered["K1"]}
                  if key == "K1" else {})
+        if key in ("K1", "K5"):
+            # at a 2-rank TP serving group's share of the heads
+            extra["tp_serving_shapes"] = c["tp_serving_shapes"]
         if key in ("K1", "K1-lse", "K2", "K3"):
             extra["launches_campaign"] = runs["campaign"][
                 "launches_extras"][key]

@@ -96,12 +96,14 @@ class CommStats:
     """What one topology's collectives cost this process: the host
     seconds spent inside them, waiting for peers included, and the
     exchanges staged through host buffers (gloo and a CUDA tensor,
-    :mod:`..ops.collectives`)."""
+    :mod:`..ops.collectives`), and apart the all-reduces of CUDA tensors
+    gloo copies through the host itself."""
 
     blocked_s: float = 0.0
     staged: dict = dataclasses.field(
         default_factory=lambda: {"ppermute": 0, "all_to_all": 0,
                                  "p2p": 0})
+    staged_all_reduces: int = 0
 
     def timed(self, fn, *args, **kw):
         """``fn(*args, **kw)``, its host seconds added to ``blocked_s``."""
@@ -528,3 +530,33 @@ def shutdown_distributed() -> None:
         dist.destroy_process_group()
     _host_group = None
     _layouts.clear()
+
+
+def serving_backend(device: torch.device, tp_ranks: int) -> str:
+    """A tensor-parallel serving group's backend: NCCL when its ranks
+    are on cards and the host has one for each rank, else gloo (ranks
+    sharing a card, or the CPU). Not a fallback: the group runs on the
+    one it is given, and fails when that fails."""
+    if device.type == "cuda" and torch.cuda.device_count() >= tp_ranks:
+        return "nccl"
+    return "gloo"
+
+
+def serving_topology(tp_ranks: int) -> Topology:
+    """The topology of a tensor-parallel serving group (≙ the reference
+    serving replica's ``replica=1 × model=tp_ranks`` mesh,
+    ``servesvc/server.py:131-144``): one replica over the ``tp_ranks``
+    processes of the group :func:`initialize_distributed` joined, this
+    process holding model shard ``rank``; its model group is the whole
+    group. Without such a group this is a ConfigError: the group's
+    supervisor (``launch serve --tp-ranks``) starts its ranks with
+    their rendezvous."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != tp_ranks:
+        raise ConfigError(
+            f"serve.tp_ranks={tp_ranks} serves over a group of {tp_ranks} "
+            f"processes, but this process is in a group of {world}: start "
+            "the group with `launch serve --tp-ranks N`, whose supervisor "
+            "starts each rank with its rendezvous")
+    return make_topology(MeshConfig(num_replicas=1,
+                                    model_parallelism=tp_ranks))

@@ -12,6 +12,8 @@
       --serve-dir S [--precision-tier fp32|bf16|int8] [--device cpu]
   python -m distributedmnist_tpu_torch.launch serve --decode \\
       --train-dir D --serve-dir S [--device cpu] [decode/serve flags]
+  python -m distributedmnist_tpu_torch.launch serve [--decode] \\
+      --train-dir D --serve-dir S --tp-ranks N [--device cpu]
   python -m distributedmnist_tpu_torch.launch serve-load \\
       --endpoints HOST:PORT[,...] | --cluster-root R [--requests N]
   python -m distributedmnist_tpu_torch.launch sweep --configs DIR_OR_FILE \\
@@ -98,10 +100,16 @@ reference's entry points switch on its persistent compile cache.
 Accepted and not run, each logged once a Trainer: device prefetch, the
 native loader and the ``compile.*`` knobs. Not ported yet (each raises):
 ZeRO-1 over tensor-, sequence-, pipeline- or expert-parallel replicas,
-``serve --tp-ranks``
-(and the chaos campaign's ``serve_tp_ranks``), the gcloud backend
-(``cluster --backend gcloud``), and the reference's ``pod`` and
-``fetch`` verbs.
+the gcloud backend (``cluster --backend gcloud``), and the reference's
+``pod`` and ``fetch`` verbs.
+
+``serve --tp-ranks N`` (or ``serve.tp_ranks``) serves one replica as a
+tensor-parallel group of ``N`` processes (:mod:`..servesvc.tp_group`):
+this process becomes the group's supervisor and starts every rank as
+``serve ... --tp-rank r`` with the group's rendezvous in its
+environment; rank 0 serves (the socket, ``serve.json``, the journals),
+ranks > 0 follow it, each on ``cuda:(r mod device_count)`` (or
+``--device``) over NCCL when the host has a card a rank, else gloo.
 """
 
 from __future__ import annotations
@@ -114,7 +122,7 @@ import time
 
 _SERVE_FLAGS = ("host", "port", "max_batch", "queue_depth",
                 "batch_window_ms", "poll_secs", "default_deadline_ms",
-                "precision_tier", "compute_dtype")
+                "precision_tier", "compute_dtype", "tp_ranks")
 _DECODE_FLAGS = ("decode_slots", "max_new_tokens", "max_prompt_len",
                  "swap_policy", "attention_kernel")
 
@@ -203,6 +211,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="dense | paged — decode attention "
                          "(decode.attention_kernel); paged runs the "
                          "paged-attention kernel")
+    pv.add_argument("--tp-ranks", type=int, default=None, dest="tp_ranks",
+                    help="serve the replica as an N-rank tensor-parallel "
+                         "process group (serve.tp_ranks): rank 0 owns "
+                         "the socket, every rank holds its shard of the "
+                         "model; any rank dying takes the whole group "
+                         "down for a unit restart")
+    pv.add_argument("--tp-rank", type=int, default=None, dest="tp_rank",
+                    help=argparse.SUPPRESS)  # set by the group's
+    # supervisor when it starts each rank
     pl = sub.add_parser(
         "serve-load", help="closed-loop load generator over serving "
                            "replicas (failover client, per-request "
@@ -352,6 +369,91 @@ def build_replica(argv: list[str]):
     return _make_replica(args, wait_for_run_config(args.train_dir))
 
 
+def _tp_supervisor_args(argv: list[str]):
+    """The serve flags a TP group's supervisor needs, read without the
+    CLI's parser (which imports torch), when the command line names
+    ``--tp-ranks N > 1`` and no ``--tp-rank``; else None."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--train-dir", "--train_dir", dest="train_dir")
+    p.add_argument("--serve-dir", dest="serve_dir", default=".")
+    p.add_argument("--tp-ranks", type=int, dest="tp_ranks")
+    p.add_argument("--tp-rank", type=int, dest="tp_rank")
+    try:
+        got, _ = p.parse_known_args(argv[1:])
+    except SystemExit:
+        return None  # the full parser reports it
+    if ((got.tp_ranks or 0) > 1 and got.tp_rank is None and got.train_dir
+            and not {"-h", "--help"} & set(argv)):
+        return got
+    return None
+
+
+def _supervise_tp_group(args, argv: list[str], tp_ranks: int,
+                        cfg=None) -> None:
+    """A TP group's supervisor: this very command once a rank (rank 0
+    the replica, the others its followers), babysat die-as-a-unit, with
+    the run config's restart budget and poll cadence (read, when not
+    given, while the ranks boot, after the whole command line is
+    checked: a bad flag ends the supervisor, and its ranks with it)."""
+    from ..servesvc.tp_group import ServeGroup, default_spawn_fn
+
+    def configure(group) -> None:
+        run = cfg
+        if run is None:
+            from ..train.checkpoint import wait_for_run_config
+            build_parser().parse_args(argv)
+            run = wait_for_run_config(args.train_dir)
+        group.max_restarts = run.serve.tp_group_max_restarts
+        group.poll_secs = run.serve.tp_group_poll_secs
+    ServeGroup(args.serve_dir, tp_ranks,
+               default_spawn_fn(argv, args.serve_dir, tp_ranks)
+               ).run_forever(after_start=configure)
+
+
+def _serve_tp_rank(args, cfg, tp_ranks: int) -> None:
+    """One rank of a TP serving group: join the group (the rendezvous
+    its supervisor put in the environment), on ``--device`` or
+    ``cuda:(rank mod device_count)``, build the replica on the group's
+    topology and serve (rank 0) or follow (ranks > 0); the group is
+    torn down on every exit."""
+    import torch
+
+    from ..core.compile_cache import enable_persistent_cache
+    from ..core.device import resolve_device
+    from ..core.log import get_logger
+    from ..core.mesh import (initialize_distributed, serving_backend,
+                             shutdown_distributed)
+    from ..servesvc.tp_group import (GROUP_TIMEOUT_S, process_started_at,
+                                     run_rank_follower)
+
+    marks = {"started": process_started_at(), "imported": time.time()}
+    rank = args.tp_rank
+    if args.device is None:
+        args.device = (f"cuda:{rank % torch.cuda.device_count()}"
+                       if torch.cuda.is_available() else "cuda:0")
+    device = resolve_device(args.device)
+    backend = serving_backend(device, tp_ranks)
+    get_logger("tp_group").info(
+        "TP serving group: rank %d of %d on %s over %s (%d cards for %d "
+        "ranks)", rank, tp_ranks, device, backend,
+        torch.cuda.device_count() if device.type == "cuda" else 0,
+        tp_ranks)
+    initialize_distributed(backend, device, timeout_s=GROUP_TIMEOUT_S)
+    marks["joined"] = time.time()
+    try:
+        args.tp_ranks = tp_ranks
+        replica = _make_replica(args, cfg)
+        marks["built"] = time.time()
+        replica.boot_marks = marks
+        enable_persistent_cache(replica.cfg.compile)
+        if rank > 0:
+            run_rank_follower(replica)
+        else:
+            replica.serve_forever()
+    finally:
+        shutdown_distributed()
+
+
 def _make_replica(args, cfg):
     from ..servesvc.server import ServingReplica
 
@@ -430,15 +532,29 @@ def serve(argv: list[str]) -> None:
     assigns), build the replica and serve until SIGTERM/SIGINT."""
     import os
 
-    from ..core.compile_cache import enable_persistent_cache
-    from ..servesvc.server import wait_for_run_config
-
-    args = build_parser().parse_args(argv)
-    cfg = wait_for_run_config(args.train_dir)
     activation = os.environ.get("DMT_STANDBY_ACTIVATION")
+    early = _tp_supervisor_args(argv)
+    if early is not None and not activation:
+        # the ranks start before this process imports torch and reads the
+        # run config
+        _supervise_tp_group(early, argv, early.tp_ranks)
+        return
+    args = build_parser().parse_args(argv)
+    from ..core.compile_cache import enable_persistent_cache
+    from ..train.checkpoint import wait_for_run_config
+
+    cfg = wait_for_run_config(args.train_dir)
     if activation:
         args.serve_dir = _park_serve_standby(
             activation, _warm_serving_spare(args, cfg))
+    tp_ranks = (args.tp_ranks if args.tp_ranks is not None
+                else cfg.serve.tp_ranks)
+    if tp_ranks > 1 and args.tp_rank is None:
+        _supervise_tp_group(args, argv, tp_ranks, cfg)
+        return
+    if args.tp_rank is not None:
+        _serve_tp_rank(args, cfg, tp_ranks)
+        return
     replica = _make_replica(args, cfg)
     enable_persistent_cache(replica.cfg.compile)
     replica.serve_forever()
@@ -552,8 +668,6 @@ _VERBS = {"sweep": sweep, "report": report, "devices": devices,
 
 
 def main(argv: list[str] | None = None) -> None:
-    from ..core.compile_cache import enable_persistent_cache
-
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "campaign":
         # pre-dispatch: the campaign owns its own flags
@@ -574,6 +688,7 @@ def main(argv: list[str] | None = None) -> None:
         if not args.single_device:
             initialize_distributed(None, args.device)
         try:
+            from ..core.compile_cache import enable_persistent_cache
             evaluator = evaluator_from_args(args)
             enable_persistent_cache()
             evaluator.run()

@@ -37,8 +37,11 @@ faults through seeded chaos proxies (:mod:`.netchaos`) in front of the
 replicas. ``broker`` adds donor trainers to the roster, drives a seeded
 diurnal load trace and lets the resource broker (:mod:`.broker`) trade
 slots between training and serving on the trial's journaled pressure.
-``serve_tp_ranks`` > 1 raises :class:`~.cluster.ClusterError` at config
-build.
+``serve_tp_ranks`` > 1 serves every replica as a tensor-parallel group
+(``launch serve --tp-ranks``, :mod:`..servesvc.tp_group`): a kill-worker
+fault kills the group's supervisor, whose ranks die with it, and the
+trial's replay runs the ``serve_group`` invariant over each group's
+``group_log.jsonl``.
 
 CLI: ``python -m distributedmnist_tpu_torch.launch cluster chaos
 --trials N --seed S --until-step M [--payload train|shell|serving]
@@ -712,9 +715,9 @@ class ChaosConfig:
     decode_max_new_tokens: int = 16
     decode_max_prompt_len: int = 16
     decode_slots: int = 4
-    # the reference boots every serving replica as an N-rank
-    # tensor-parallel process group (serve.tp_ranks); the port serves
-    # one rank a replica, and refuses N > 1 (Queue A item 9)
+    # boot every serving replica as an N-rank tensor-parallel process
+    # group (serve.tp_ranks): the kill-worker faults then hit a group
+    # (its supervisor, whose ranks die with it)
     serve_tp_ranks: int = 1
     # network=true swaps the serving arm's process-fault grammar for
     # the TRANSPORT one (generate_network_schedule): every trial
@@ -835,11 +838,6 @@ class ChaosConfig:
                     f"serve_precision_tiers names unknown tier {t!r}; "
                     f"valid tiers: "
                     f"{', '.join(SERVING_PRECISION_TIERS)}")
-        if self.serve_tp_ranks > 1:
-            raise ClusterError(
-                f"serve_tp_ranks={self.serve_tp_ranks} is not ported: "
-                "the port serves one rank a replica (tensor-parallel "
-                "serving groups are ROADMAP Queue A item 9)")
         if self.serve_decode and any(
                 t and t != "fp32"
                 for t in (self.serve_precision_tiers or ())):
@@ -1063,6 +1061,8 @@ class ChaosConfig:
             cmd += (f" --decode --decode-slots {self.decode_slots}"
                     f" --max-new-tokens {self.decode_max_new_tokens}"
                     f" --max-prompt-len {self.decode_max_prompt_len}")
+        if self.serve_tp_ranks > 1:
+            cmd += f" --tp-ranks {self.serve_tp_ranks}"
         return cmd
 
     def resolved_donor_command(self,

@@ -1261,6 +1261,10 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--serve-decode", action="store_true",
                    help="for chaos (payload=serving): decode replicas "
                         "(token streaming) instead of classifiers")
+    p.add_argument("--tp-ranks", type=int, default=None, dest="tp_ranks",
+                   help="for chaos (payload=serving): serve every "
+                        "replica as an N-rank tensor-parallel group "
+                        "(serve_tp_ranks)")
     p.add_argument("--network", action="store_true",
                    help="for chaos (payload=serving, requires "
                         "--serve-decode): transport faults via per-"
@@ -1330,6 +1334,8 @@ def main(argv: list[str] | None = None) -> None:
         # file's own values survive the merge
         if args.serve_decode:
             overrides["serve_decode"] = True
+        if args.tp_ranks is not None:
+            overrides["serve_tp_ranks"] = args.tp_ranks
         if args.network:
             overrides["network"] = True
         if args.disk:

@@ -145,6 +145,10 @@ class Model:
       block_tables, lengths, *, block_size, attention_kernel)`` — one
       token per slot over the paged cache;
     * ``decode_cache_shape = (num_layers, num_heads, head_dim)``;
+    * ``tp_decode_factory(model_group, stats=None) -> (decode_prefill,
+      decode_step)`` — the two on this rank's tensor-parallel shard
+      (``num_heads / m`` heads, the caches of those heads; the serving
+      group's path);
     * ``partition_rules(axes) -> [(regex, spec)]`` — the table
       :func:`..parallel.partition_rules.match_partition_rules` maps over
       the params (:class:`..parallel.partition_rules.RuleAxes` binds the
@@ -187,6 +191,7 @@ class Model:
     decode_prefill: Callable[..., tuple] | None = None
     decode_step: Callable[..., tuple] | None = None
     decode_cache_shape: tuple[int, int, int] | None = None
+    tp_decode_factory: Callable[..., tuple] | None = None
     partition_rules: Callable[[Any], list] | None = None
     sharded_apply_factory: Callable[..., Callable] | None = None
     has_aux: bool = False
@@ -366,19 +371,28 @@ def _transformer(cfg: ModelConfig) -> Model:
                                  remat_policy=cfg.remat_policy,
                                  moe=local_moe, return_aux=return_aux)
 
-    def decode_prefill(params, tokens, positions=None):
-        return transformer.prefill_with_kv(
-            params, tokens, num_heads=cfg.num_heads,
-            attention_fn=attention_fn, positions=positions,
-            compute_dtype=compute_dtype)
+    def tp_decode_factory(model_group, stats=None):
+        """The decode exports on this rank's tensor-parallel shard over
+        ``model_group`` (None: the whole model): ``(prefill, step)``."""
+        def decode_prefill(params, tokens, positions=None):
+            return transformer.prefill_with_kv(
+                params, tokens, num_heads=cfg.num_heads,
+                attention_fn=attention_fn, positions=positions,
+                compute_dtype=compute_dtype, model_group=model_group,
+                stats=stats)
 
-    def decode_step(params, tokens, positions, k_cache, v_cache,
-                    block_tables, lengths, *, block_size,
-                    attention_kernel="dense"):
-        return transformer.decode_step(
-            params, tokens, positions, k_cache, v_cache, block_tables,
-            lengths, num_heads=cfg.num_heads, block_size=block_size,
-            compute_dtype=compute_dtype, attention_kernel=attention_kernel)
+        def decode_step(params, tokens, positions, k_cache, v_cache,
+                        block_tables, lengths, *, block_size,
+                        attention_kernel="dense"):
+            return transformer.decode_step(
+                params, tokens, positions, k_cache, v_cache, block_tables,
+                lengths, num_heads=cfg.num_heads, block_size=block_size,
+                compute_dtype=compute_dtype,
+                attention_kernel=attention_kernel, model_group=model_group,
+                stats=stats)
+        return decode_prefill, decode_step
+
+    decode_prefill, decode_step = tp_decode_factory(None)
 
     def make_seq_attn(seq_group, stats=None):
         """The attention for a sequence split over ``seq_group``: the
@@ -555,6 +569,7 @@ def _transformer(cfg: ModelConfig) -> Model:
     # token groups; a one-token step has no group to route)
     decode = {} if moe else dict(
         decode_prefill=decode_prefill, decode_step=decode_step,
+        tp_decode_factory=tp_decode_factory,
         decode_cache_shape=(cfg.num_layers, cfg.num_heads,
                             cfg.model_dim // cfg.num_heads))
     return Model(name=cfg.name, init=init, init_params=init_params,

@@ -36,7 +36,10 @@ dim), so this rank computes ``num_heads / m`` heads and its slice of the
 FFN; ``copy_to_group`` (*f*) sits on ``ln1(x)`` and ``ln2(x)`` where they
 enter the column-parallel products and ``reduce_from_group`` (*g*)
 after ``wo`` and ``w2``, so activations, logits and any loss are the
-same on every rank of the group. Sequence parallelism needs nothing
+same on every rank of the group. :func:`prefill_with_kv` and
+:func:`decode_step` take the same ``model_group`` (tensor-parallel
+serving): each rank's prefill K/V and paged cache hold its ``h / m``
+heads. Sequence parallelism needs nothing
 here but the block's global ``positions`` and a sequence-parallel
 ``attention_fn`` (ring or Ulysses, ``models/registry.py
 make_seq_attn``); :func:`sp_partial_token_loss` is its loss. Expert
@@ -81,6 +84,11 @@ def _trunc_normal(shape, stddev, generator, device) -> torch.Tensor:
     ``truncated_normal_init``; a torch generator draws other numbers
     than a JAX key, so tests convert reference params instead)."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.device.type == "meta":
+        # shapes alone; the initializer on the meta device runs torch's
+        # Python references, whose first call imports torch._dynamo (10
+        # s of a serving rank's boot on the H100 host)
+        return t
     return torch.nn.init.trunc_normal_(t, 0.0, stddev, -2 * stddev,
                                        2 * stddev, generator=generator)
 
@@ -337,24 +345,30 @@ def prefill_with_kv(params: Params, tokens: torch.Tensor, *,
                     num_heads: int = 4,
                     attention_fn: Callable | None = None,
                     positions: torch.Tensor | None = None,
-                    compute_dtype: torch.dtype = torch.bfloat16
+                    compute_dtype: torch.dtype = torch.bfloat16,
+                    model_group=None, stats=None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prompt prefill: the causal forward through the configured
     attention (the flash kernel when ``attention_impl="flash"``) that
     also returns every layer's K/V for seeding a decode cache.
 
     tokens [b, s] → (logits [b, s, vocab] float32, k [L, b, s, h, hd],
-    v [L, b, s, h, hd]) with K/V in the compute dtype."""
+    v [L, b, s, h, hd]) with K/V in the compute dtype. Under
+    ``model_group`` the params are this rank's tensor-parallel shard (as
+    :func:`apply`'s): attention runs on its ``h / m`` heads, K/V are
+    those heads', and the logits are the full ones on every rank."""
     attn = attention_fn or local_self_attention
+    _check_heads(num_heads, model_group)
     p = cast_params(params, compute_dtype)
     x = _embed(p, tokens, positions)
     ks, vs = [], []
     for blk in p["blocks"]:
         x, k, v = _attn_sublayer(x, blk, num_heads=num_heads, attn=attn,
-                                 return_kv=True)
+                                 return_kv=True, model_group=model_group,
+                                 stats=stats)
         ks.append(k)
         vs.append(v)
-        x = _ffn_sublayer(x, blk)
+        x = _ffn_sublayer(x, blk, model_group, stats)
     return _head(x, p), torch.stack(ks), torch.stack(vs)
 
 
@@ -364,7 +378,8 @@ def decode_step(params: Params, tokens: torch.Tensor,
                 lengths: torch.Tensor, *, num_heads: int = 4,
                 block_size: int = 16,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                attention_kernel: str = "dense"
+                attention_kernel: str = "dense", model_group=None,
+                stats=None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One incremental decode step over S slots sharing one paged KV
     cache.
@@ -382,6 +397,11 @@ def decode_step(params: Params, tokens: torch.Tensor,
     (``ops/paged_attention.py``), which walks each table in-kernel;
     ``"dense"`` runs its plain version, the full-table gather.
 
+    Under ``model_group`` the params are this rank's tensor-parallel
+    shard and the caches hold its ``h / m`` heads: K5 runs over those,
+    ``wo`` and ``w2`` are row-parallel (summed over the group), and the
+    logits are the full ones on every rank.
+
     Returns (logits [S, vocab] float32, k_cache, v_cache). Unlike the
     reference, which returns new cache arrays, this token's K/V are
     written INTO the given caches (``index_put_``) and the same tensors
@@ -393,6 +413,7 @@ def decode_step(params: Params, tokens: torch.Tensor,
             f"got {attention_kernel!r}")
     attend = paged_attention if attention_kernel == "paged" \
         else paged_attention_dense
+    _check_heads(num_heads, model_group)
     p = cast_params(params, compute_dtype)
     num_slots = tokens.shape[0]
     x = _embed(p, tokens, positions)  # [S, d]
@@ -404,19 +425,23 @@ def decode_step(params: Params, tokens: torch.Tensor,
         1, (positions // block_size)[:, None])[:, 0]
     offs = positions % block_size
     for li, blk in enumerate(p["blocks"]):
-        h = _rms_norm(x, blk["ln1"])
-        qkv = (h @ blk["wqkv"].reshape(d, 3 * d)).view(num_slots, 3, d)
+        e = blk["wqkv"].shape[-1]  # d / m under tensor parallelism
+        h_local = e // hd
+        h = copy_to_group(_rms_norm(x, blk["ln1"]), model_group, stats)
+        qkv = (h @ blk["wqkv"].reshape(d, 3 * e)).view(num_slots, 3, e)
         q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
         k_cache[li].index_put_(
-            (blk_ids, offs), k.reshape(num_slots, num_heads, hd).to(
+            (blk_ids, offs), k.reshape(num_slots, h_local, hd).to(
                 k_cache.dtype))
         v_cache[li].index_put_(
-            (blk_ids, offs), v.reshape(num_slots, num_heads, hd).to(
+            (blk_ids, offs), v.reshape(num_slots, h_local, hd).to(
                 v_cache.dtype))
-        o = attend(q.view(num_slots, num_heads, hd), k_cache[li],
+        o = attend(q.view(num_slots, h_local, hd), k_cache[li],
                    v_cache[li], block_tables, lengths, scale=scale)
-        x = x + o.to(compute_dtype).reshape(num_slots, d) @ blk["wo"]
-        x = _ffn_sublayer(x, blk)
+        x = x + reduce_from_group(
+            o.to(compute_dtype).reshape(num_slots, e) @ blk["wo"],
+            model_group, stats)
+        x = _ffn_sublayer(x, blk, model_group, stats)
     return _head(x, p), k_cache, v_cache
 
 

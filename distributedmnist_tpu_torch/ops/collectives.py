@@ -40,8 +40,10 @@ tensors only, so for a CUDA tensor on a gloo group :func:`ppermute`,
 :func:`all_to_all` and :func:`stage_exchange` stage the data through
 host buffers (a copy to the
 host, the exchange, a copy back). All-reduces of CUDA tensors run
-through gloo as they are. Given a :class:`..core.mesh.CommStats`
-(``stats``; a ``Topology`` owns one), each call adds its host seconds
+through gloo as they are (gloo copies them through the host itself;
+each is counted in ``stats.staged_all_reduces``). Given a
+:class:`..core.mesh.CommStats` (``stats``; a ``Topology`` owns one),
+each call adds its host seconds
 to ``stats.blocked_s`` and each staged exchange one to
 ``stats.staged`` (:func:`stage_exchange`: one a staged tensor sent or
 received, under ``"p2p"``).
@@ -76,6 +78,9 @@ def _staged(group, x: torch.Tensor, stats: CommStats | None,
 
 def _all_reduce(x: torch.Tensor, group, stats) -> torch.Tensor:
     x = x.contiguous()
+    if (stats is not None and x.device.type == "cuda"
+            and dist.get_backend(group) == "gloo"):
+        stats.staged_all_reduces += 1
     _timed(stats, dist.all_reduce, x, group=group)
     return x
 

@@ -565,6 +565,8 @@ def restore_for_topology(model: Model, cfg: ExperimentConfig,
                          topo: Topology, train_dir, template_state: TrainState,
                          step: int | None = None,
                          on_event: Callable[[dict], None] | None = None,
+                         device: torch.device | None = None,
+                         check_optimizer: bool = True,
                          ) -> tuple[TrainState, dict, int] | None:
     """Mesh-portable restore (≙ the reference's): read a checkpoint saved
     under any replica, process or model-parallel count — single file or
@@ -579,12 +581,16 @@ def restore_for_topology(model: Model, cfg: ExperimentConfig,
     ``on_event`` as ``cross_world_restore`` naming both worlds. A
     per-host checkpoint's flat leaves come back in their logical shapes
     first, so it also restores onto a run without ZeRO-1 (a plan over
-    one replica, which shards nothing, does that). None when nothing is
-    loadable."""
+    one replica, which shards nothing, does that). ``device`` (default:
+    the template's) is where the state is built; a consumer of the
+    params alone (a serving replica) passes ``check_optimizer=False``
+    and skips the optimizer probe, a second read of the artifact. None
+    when nothing is loadable."""
     from ..models.convert import state_from_reference
     from ..train import checkpoint as ckpt
     try:
-        extra_got = ckpt.read_checkpoint_extra(train_dir, step)
+        extra_got = (ckpt.read_checkpoint_extra(train_dir, step)
+                     if check_optimizer else None)
     except (OSError, ValueError, KeyError):
         # an unreadable newest artifact: restore_state owns the fallback
         # (older steps carry the same optimizer config)
@@ -611,7 +617,8 @@ def restore_for_topology(model: Model, cfg: ExperimentConfig,
     shapes = build_params(model, cfg, topo, torch.device("meta"))
     plan = (zero1_plan_for(model, cfg, topo, shapes)
             or make_zero1_plan(shapes, 1))
-    device = tree_leaves(template_state.params)[0].device
+    if device is None:
+        device = tree_leaves(template_state.params)[0].device
     state = state_from_reference(pack_restored_state(saved, plan, topo),
                                  device=device)
     store_dt = resolved_param_dtype(cfg)

@@ -6,14 +6,25 @@ power-of-2 batches behind a bounded queue, swapping weights at a batch
 boundary; a :class:`~.decode.DecodeReplica` streams generations over a
 paged KV cache with the ``pin``/``restart`` mid-generation swap
 policies; :class:`~.client.ServeClient` is the failover client and
-:func:`~.loadgen.run_load` the closed-loop load generator."""
+:func:`~.loadgen.run_load` the closed-loop load generator; a
+:class:`~.tp_group.ServeGroup` runs one replica as a tensor-parallel
+group of processes."""
 
-from .client import ServeClient, discover_endpoints
-from .decode import DecodeReplica
-from .kv_cache import BlockAllocator, PagedKVCache
-from .loadgen import run_load
-from .server import ServingReplica
+import importlib
 
-__all__ = ["ServingReplica", "DecodeReplica", "ServeClient",
-           "discover_endpoints", "run_load", "BlockAllocator",
-           "PagedKVCache"]
+# each export's module, imported at the first use of the name, so that
+# a TP group's supervisor (:mod:`.tp_group`) starts its ranks without
+# importing torch first
+_EXPORTS = {"ServingReplica": ".server", "DecodeReplica": ".decode",
+            "ServeClient": ".client", "discover_endpoints": ".client",
+            "run_load": ".loadgen", "BlockAllocator": ".kv_cache",
+            "PagedKVCache": ".kv_cache"}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    return getattr(importlib.import_module(_EXPORTS[name], __name__), name)

@@ -74,6 +74,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import prng
 from ..core.compile_cache import resolve_cache_dir
@@ -82,9 +83,10 @@ from ..models.convert import params_from_reference
 from ..core.log import get_logger
 from ..models.registry import sample_token
 from ..ops.paged_attention import paged_attention
+from ..parallel.api import tree_map
 from ..parallel.graphs import aot_compile
 from .kv_cache import PagedKVCache
-from .server import ServingReplica, _Pending
+from .server import OP_DECODE, OP_PREFILL, ServingReplica, _Pending
 
 logger = get_logger("decode")
 
@@ -142,7 +144,8 @@ class DecodeStep:
 
     def __init__(self, model, params: _Version, cache: PagedKVCache, dcfg,
                  device: torch.device, capture: bool,
-                 cache_dir: str | None = None):
+                 cache_dir: str | None = None, step_fn=None,
+                 eager_reason: str | None = None, verify: bool = False):
         slots = dcfg.decode_slots
         inputs = torch.zeros((3, slots), dtype=torch.int64, device=device)
         tables = torch.zeros((slots, cache.max_blocks_per_seq),
@@ -155,10 +158,11 @@ class DecodeStep:
         # this step, not the other way round
         ref = weakref.ref(params)
         block_size, kernel = dcfg.block_size, dcfg.attention_kernel
+        step_fn = step_fn or model.decode_step
 
         def body():
             k5 = paged_attention.launches
-            logits, _, _ = model.decode_step(
+            logits, _, _ = step_fn(
                 ref(), inputs[0], inputs[1], cache.k, cache.v, tables,
                 inputs[2].to(torch.int32), block_size=block_size,
                 attention_kernel=kernel)
@@ -167,12 +171,30 @@ class DecodeStep:
 
         self.body = body
         self.k5_a_step = 0
+        if not capture:
+            eager_reason = "compile.precompile is off"
         self.replay, self.info = aot_compile(
             {"decode": body}, device, cache_dir=cache_dir,
-            eager_reason=None if capture else "compile.precompile is off")
+            eager_reason=eager_reason)
         if self.replay is not None:
             # the last call of the body was the capture's
             DecodeStep.k5_recorded += self.k5_a_step
+            if verify:
+                self._verify()
+
+    def _verify(self) -> None:
+        """Hold the captured step to the eager body on the same buffers
+        (all-zero tables and lengths: the writes land in the null block)
+        and drop the graph unless the two agree bitwise, saying so in
+        ``info``. Every rank of a group runs both, in one order."""
+        replayed = self.replay.replay("decode").clone()
+        DecodeStep.k5_replayed += self.k5_a_step
+        eager = self.body()
+        self.info["bitwise_vs_eager"] = bool(torch.equal(replayed, eager))
+        if not self.info["bitwise_vs_eager"]:
+            self.replay = None
+            self.info.update(source="eager", reason="the captured step "
+                             "differs from the eager one")
 
     def __call__(self, tokens: np.ndarray, positions: np.ndarray,
                  lengths: np.ndarray, table: torch.Tensor,
@@ -200,9 +222,9 @@ class DecodeReplica(ServingReplica):
     generations with continuous batching over a paged KV cache."""
 
     def __init__(self, train_dir, serve_dir=".", scfg=None, dcfg=None,
-                 cfg=None, device=None):
+                 cfg=None, device=None, topo=None):
         super().__init__(train_dir, serve_dir=serve_dir, scfg=scfg,
-                         cfg=cfg, device=device)
+                         cfg=cfg, device=device, topo=topo)
         if self.tier != "fp32":
             raise ConfigError(
                 f"serve.precision_tier={self.tier!r}: the decode "
@@ -223,6 +245,15 @@ class DecodeReplica(ServingReplica):
                 f"exceeds model.seq_len={self.cfg.model.seq_len} (the "
                 "learned position table is the hard context ceiling)")
         layers, heads, head_dim = self.model.decode_cache_shape
+        if self.tp:
+            # this rank's heads; the allocator that hands out its blocks
+            # runs on rank 0, whose tables every rank follows
+            heads //= self.topo.model_parallelism
+            self._prefill_fn, self._step_fn = self.model.tp_decode_factory(
+                self.topo.model_group, self.topo.comm)
+        else:
+            # the model's own, looked up at each use
+            self._prefill_fn = self._step_fn = None
         self.cache = PagedKVCache(
             layers, self.dcfg.num_blocks, self.dcfg.block_size, heads,
             head_dim, self.dcfg.max_blocks_per_seq(),
@@ -248,6 +279,10 @@ class DecodeReplica(ServingReplica):
         self._tables_cache: dict[tuple[int, int], torch.Tensor] = {}
         # each version's decode-step info, as made (source, compile_s)
         self.decode_compiles: list[dict] = []
+        self._eager_logged = False
+        # a TP rank's decode steps, the all-reduces they staged through
+        # the host and the broadcasts that carried them
+        self.decode_steps = self.decode_staged = self.decode_broadcasts = 0
 
     def _params_on_device(self, tree: dict):
         """Params in the model's compute dtype, cast once here so the
@@ -255,18 +290,45 @@ class DecodeReplica(ServingReplica):
         step (captured here on the card, off the decode loop)."""
         params = _Version(params_from_reference(
             tree, device=self.device, dtype=self.model.compute_dtype))
+        self._prepare_version(params)
+        return params
+
+    def _place(self, shard):
+        """A TP rank's shard in the compute dtype on the device; its
+        decode step is made at the group's install
+        (:meth:`_prepare_version`), on every rank at once."""
+        dt = self.model.compute_dtype
+        return _Version(tree_map(lambda t: t.to(self.device, dt), shard))
+
+    def _prepare_version(self, params) -> None:
+        """A version's decode step. Under a TP group the step's
+        all-reduces go through the group: over gloo they run on the
+        host, outside any CUDA graph, so the step runs eagerly (said in
+        its ``compile`` record); over NCCL it is captured and held to
+        the eager step bitwise before it serves."""
         capture = self.cfg.compile.precompile
         cache_dir = resolve_cache_dir(self.cfg.compile)
+        eager_reason = None
+        if (self.tp and self.device.type == "cuda"
+                and dist.get_backend(self.topo.model_group) == "gloo"):
+            eager_reason = ("tensor-parallel group over gloo: the step's "
+                            "all-reduces run on the host, outside a CUDA "
+                            "graph")
+            if not self._eager_logged:
+                self._eager_logged = True
+                logger.info("decode steps run eagerly: %s", eager_reason)
+        make = lambda capture: DecodeStep(  # noqa: E731
+            self.model, params, self.cache, self.dcfg, self.device,
+            capture, cache_dir=cache_dir, step_fn=self._step_fn,
+            eager_reason=eager_reason, verify=self.tp)
         try:
-            params.decode = DecodeStep(self.model, params, self.cache,
-                                       self.dcfg, self.device, capture,
-                                       cache_dir=cache_dir)
+            params.decode = make(capture)
         except Exception as e:  # the version must still serve
+            if self.tp:
+                raise  # the other ranks captured: the group must agree
             logger.warning("decode step capture failed (%s: %s): the "
                            "version runs eagerly", type(e).__name__, e)
-            params.decode = DecodeStep(self.model, params, self.cache,
-                                       self.dcfg, self.device, False,
-                                       cache_dir=cache_dir)
+            params.decode = make(False)
             params.decode.info["error"] = f"{type(e).__name__}: {e}"
         self.decode_compiles.append(params.decode.info)
         # the boot log says how each version's step runs, as a
@@ -277,7 +339,6 @@ class DecodeReplica(ServingReplica):
                     "event": "compile", "time": time.time(),
                     "stage": "decode_step", "device": str(self.device),
                     **params.decode.info})
-        return params
 
     def kernel_launches(self) -> dict[str, int]:
         """As the classification replica's, with K5 counted on the
@@ -329,6 +390,8 @@ class DecodeReplica(ServingReplica):
     # -- weights: version registry + swap policies ----------------------
 
     def _params_for(self, step: int):
+        if self.tp and self.topo.rank > 0:
+            return self._held[step]
         return (self._params if step == self.model_step
                 else self._versions[step])
 
@@ -338,6 +401,66 @@ class DecodeReplica(ServingReplica):
         if not any(s is not None and s.params_step == step
                    for s in self._slots):
             self._versions.pop(step).decode = None  # its graph with it
+            self._group_flipped(step)
+
+    def _follow_op(self, op: int, f: list[int]) -> None:
+        """A follower's share of a prefill and of a decode step (rank
+        0's tables and tokens; this rank's heads and cache)."""
+        if op == OP_PREFILL:
+            ver, bucket, plen, width = f[:4]
+            toks = self._group_recv((1, bucket), torch.int64)
+            table = self._group_recv((width,), torch.int32)
+            self._run_prefill(ver, toks, table, plen)
+        elif op == OP_DECODE:
+            ver, slots, width, epoch, fresh = f[:5]
+            inputs = self._group_recv((3, slots), torch.int64)
+            key = (ver, epoch)
+            if fresh:
+                table = self._group_recv((slots, width), torch.int32)
+                for k in [k for k in self._tables_cache if k[1] < epoch]:
+                    del self._tables_cache[k]
+                self._tables_cache[key] = torch.from_numpy(table).to(
+                    self.device)
+            self.decode_broadcasts += 2 + fresh
+            self._decode(ver, inputs[0], inputs[1],
+                         inputs[2].astype(np.int32), self._tables_cache[key],
+                         key)
+        else:
+            super()._follow_op(op, f)
+
+    def _decode(self, ver: int, tokens, positions, lengths,
+                table: torch.Tensor, key) -> torch.Tensor:
+        """One decode step of version ``ver`` (its logits on the host),
+        counting under a TP group the all-reduces it staged through the
+        host."""
+        staged = self.topo.comm.staged_all_reduces if self.tp else 0
+        logits = self._params_for(ver).decode(tokens, positions, lengths,
+                                              table, key)
+        if self.tp:
+            self.decode_steps += 1
+            self.decode_staged += (self.topo.comm.staged_all_reduces
+                                   - staged)
+        return logits
+
+    def _group_counts(self) -> dict:
+        """The TP rank's counts, with its decode steps, the all-reduces
+        they staged through the host and the work broadcasts they took."""
+        out = super()._group_counts()
+        if self.tp:
+            out.update(decode_steps=self.decode_steps,
+                       decode_all_reduces_staged=self.decode_staged,
+                       decode_broadcasts=self.decode_broadcasts)
+        return out
+
+    def _run_prefill(self, ver: int, toks: np.ndarray, table: np.ndarray,
+                     plen: int) -> torch.Tensor:
+        """The prefill of one padded prompt on version ``ver``, its K/V
+        written to the sequence's blocks: the logits."""
+        prefill = self._prefill_fn or self.model.decode_prefill
+        logits, ks, vs = prefill(
+            self._params_for(ver), torch.from_numpy(toks).to(self.device))
+        self.cache.write_prompt(table, ks[:, 0], vs[:, 0], plen)
+        return logits
 
     def _maybe_swap(self) -> None:
         """Decode-loop-boundary flip under ``decode.swap_policy``;
@@ -349,6 +472,11 @@ class DecodeReplica(ServingReplica):
         install, t0 = staged
         if install["step"] <= self.model_step:
             return  # monotone: never swap backwards
+        ready = self._group_ready(install)
+        if ready is None:
+            self._restage(staged)
+        if not ready:
+            return
         in_flight = [s for s in self._slots if s is not None]
         prev_step = self.model_step
         pinned = restarted = 0
@@ -364,6 +492,8 @@ class DecodeReplica(ServingReplica):
         self._install(install, t0,
                       extra={"sequences_pinned": pinned,
                              "sequences_restarted": restarted})
+        if prev_step not in self._versions:
+            self._group_flipped(prev_step)
         if restarted:
             for s in in_flight:
                 self._restart_seq(s, prev_step)
@@ -427,6 +557,7 @@ class DecodeReplica(ServingReplica):
             self._admit_new()
             self._note_kv_low()
             self._step_active()
+            self._group_idle()
             self._maybe_heartbeat()
         # graceful drain: in-flight generations, deferred admissions and
         # everything still queued get a TYPED terminal
@@ -497,10 +628,11 @@ class DecodeReplica(ServingReplica):
         bucket = self._bucket(plen, self.dcfg.max_prompt_len)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :plen] = s.inputs
-        logits, ks, vs = self.model.decode_prefill(
-            self._params_for(s.params_step),
-            torch.from_numpy(toks).to(self.device))
-        self.cache.write_prompt(s.block_table, ks[:, 0], vs[:, 0], plen)
+        if self.tp:
+            self._group_send(OP_PREFILL, s.params_step, bucket, plen,
+                             s.block_table.size,
+                             payloads=(toks, s.block_table))
+        logits = self._run_prefill(s.params_step, toks, s.block_table, plen)
         if restart:
             self.restarts += 1
         else:
@@ -519,21 +651,30 @@ class DecodeReplica(ServingReplica):
         self._journal(rec)
         self._maybe_finish(self._slots.index(s), s)
 
-    def _tables_for(self, ver: int, mine) -> torch.Tensor:
-        """The device-resident [slots, width] block tables of one params
-        version's step. Rows of slots not on this version are zero (the
-        null block) — load-bearing: the step writes every slot's token
-        K/V through its row, and zero routes those writes into the
-        reserved null block instead of a live sequence's first block."""
-        key = (ver, self._tables_epoch)
-        cached = self._tables_cache.get(key)
-        if cached is not None:
-            return cached
+    def _table_rows(self, mine) -> np.ndarray:
+        """The [slots, width] block tables of the slots ``mine``, the
+        other rows zero."""
         tables = np.zeros((self.dcfg.decode_slots,
                            self.cache.max_blocks_per_seq), np.int32)
         for i, s in mine:
             tables[i] = s.block_table
-        dev = self._tables_cache[key] = torch.from_numpy(tables).to(
+        return tables
+
+    def _tables_for(self, ver: int, mine,
+                    rows: np.ndarray | None = None) -> torch.Tensor:
+        """The device-resident [slots, width] block tables of one params
+        version's step (``rows`` when already built). Rows of slots not
+        on this version are zero (the null block) — load-bearing: the
+        step writes every slot's token K/V through its row, and zero
+        routes those writes into the reserved null block instead of a
+        live sequence's first block."""
+        key = (ver, self._tables_epoch)
+        cached = self._tables_cache.get(key)
+        if cached is not None:
+            return cached
+        if rows is None:
+            rows = self._table_rows(mine)
+        dev = self._tables_cache[key] = torch.from_numpy(rows).to(
             self.device)
         return dev
 
@@ -563,9 +704,21 @@ class DecodeReplica(ServingReplica):
                 tokens[i] = s.tokens[-1]
                 positions[i] = s.length
                 lengths[i] = s.length + 1
-            logits = self._params_for(ver).decode(
-                tokens, positions, lengths, self._tables_for(ver, mine),
-                (ver, self._tables_epoch))
+            key = (ver, self._tables_epoch)
+            rows = None
+            if self.tp:
+                # the followers get this version's tables when they change
+                fresh = key not in self._tables_cache
+                rows = self._table_rows(mine) if fresh else None
+                self._group_send(
+                    OP_DECODE, ver, n, self.cache.max_blocks_per_seq,
+                    self._tables_epoch, int(fresh),
+                    payloads=((np.stack([tokens, positions,
+                                         lengths.astype(np.int64)]),)
+                              + ((rows,) if fresh else ())))
+                self.decode_broadcasts += 2 + fresh
+            logits = self._decode(ver, tokens, positions, lengths,
+                                  self._tables_for(ver, mine, rows), key)
             self.version_steps += 1
             for i, s in mine:
                 s.length += 1  # the fed token's K/V is now cached

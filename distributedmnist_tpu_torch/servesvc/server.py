@@ -63,8 +63,26 @@ kernel_launches`) as a line of ``kernel_launches.jsonl``, so a
 supervisor or a script can read what a replica process ran on the card
 after the process is gone.
 
-Not ported yet: tensor-parallel serving groups (``serve.tp_ranks > 1``
-is refused).
+**Tensor-parallel groups** (``serve.tp_ranks = m > 1``, a group
+:mod:`.tp_group` supervises): the replica is rank 0 of ``m`` processes
+over ``core/mesh.py serving_topology`` (``replica=1 × model=m``). Every
+publish is restored through ``parallel/api.py restore_for_topology``
+(``follow_cross_world_restore`` when the trainer's world differs) and cut
+to this rank's shard by the model's partition rules; a model without
+them is a ``ConfigError``. Rank 0 runs every unit of work — a predict
+batch, a version install, (decode) a prefill or a decode step — by first
+broadcasting it to the followers over the group's host group (one
+``int64`` header, then the payload arrays), so every rank runs its shard
+of the same forward and the row-parallel all-reduces give rank 0 the
+full logits. An install is in lockstep: rank 0 names the step it
+staged, the followers restore that step on threads of their own (and
+journal ``shard_verify``) while the group goes on serving, rank 0 asks
+at each batch boundary whether every rank has it, and an all-reduced ok
+flag then lets the version flip at that boundary on every rank at once.
+Rank 0 sends a no-op when it has had nothing to send for a second, so an
+idle group's collectives never reach the group's timeout; a failed
+collective ends the process, and the supervisor restarts the group as a
+unit. A TP group serves the fp32 tier only.
 """
 
 from __future__ import annotations
@@ -82,6 +100,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.compile_cache import cache_stats
 from ..core.config import (SERVING_PRECISION_TIERS, ConfigError,
@@ -89,18 +108,29 @@ from ..core.config import (SERVING_PRECISION_TIERS, ConfigError,
                            effective_model_config)
 from ..core.device import resolve_device
 from ..core.log import JsonlSink, get_logger
+from ..core.mesh import Topology, serving_topology
 from ..models.convert import params_from_reference
 from ..models.registry import get_model
 from ..ops.flash_attention import flash_attention_bshd
 from ..ops.paged_attention import paged_attention
+from ..parallel.api import restore_for_topology, tree_map
 from ..quant.ptq import build_tier_predict
 from ..train import checkpoint as ckpt
+from .tp_group import held_shard_digest
 
 logger = get_logger("serve")
 
 _MAX_REQUEST_BYTES = 4 << 20  # a request is one image/sequence, not a shard
 
 wait_for_run_config = ckpt.wait_for_run_config
+
+# the work a TP group's rank 0 broadcasts to its followers: the op is
+# word 0 of an int64 header of _HEADER words, its fields the next ones
+OP_NOOP, OP_STOP, OP_INSTALL, OP_PREDICT, OP_PREFILL, OP_DECODE, \
+    OP_RELEASE, OP_PREPARE, OP_QUERY = range(9)
+_HEADER = 8
+# rank 0 sends a no-op after this long without work for the group
+_IDLE_NOOP_S = 1.0
 
 
 def settle(device: torch.device) -> None:
@@ -123,15 +153,30 @@ class _Pending:
         self.deadline_at = deadline_at
 
 
+def build_tp_predict(model, topo: Topology, device: torch.device):
+    """The fp32 predict of a TP group's rank: the model's sharded apply
+    over the group's model group on this rank's shard, then its
+    ``predictions`` (the full distribution on every rank)."""
+    apply = model.sharded_apply_factory(None, topo.model_group, topo.comm)
+
+    @torch.no_grad()
+    def predict(tree, x):
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(device, torch.int64)
+        return model.predictions(apply(tree, x, None))
+    return predict
+
+
 class ServingReplica:
     """Load the newest digest-verified checkpoint and serve it; keep
     following publishes and hot-swap without dropping in-flight work.
     ``device`` defaults to ``cuda:0`` (an error without CUDA); the tests
-    pass ``"cpu"``."""
+    pass ``"cpu"``. ``topo``: a TP group's topology (default: made from
+    the process group when ``serve.tp_ranks > 1``)."""
 
     def __init__(self, train_dir: str | Path, serve_dir: str | Path = ".",
                  scfg: ServeConfig | None = None,
-                 cfg: ExperimentConfig | None = None, device=None):
+                 cfg: ExperimentConfig | None = None, device=None,
+                 topo: Topology | None = None):
         self.device = resolve_device(device)
         self.train_dir = Path(train_dir)
         self.serve_dir = Path(serve_dir)
@@ -140,10 +185,12 @@ class ServingReplica:
             cfg = wait_for_run_config(self.train_dir)
         self.cfg = cfg
         self.scfg = scfg or cfg.serve
-        if int(self.scfg.tp_ranks) > 1:
-            raise ConfigError(
-                f"serve.tp_ranks={self.scfg.tp_ranks}: tensor-parallel "
-                "serving groups are not ported yet")
+        self.tp_ranks = max(1, int(self.scfg.tp_ranks))
+        if topo is None and cfg.mesh.pipeline_parallelism > 1:
+            # the reference's refusal (its server.py:127-130)
+            raise ValueError(
+                "serving cannot restore pipeline-stacked parameter "
+                "layouts; serve from a non-pipeline checkpoint")
         # serve.compute_dtype → precision.compute_dtype → the model's
         self.model = get_model(effective_model_config(cfg, serving=True))
         self.tier = self.scfg.precision_tier or "fp32"
@@ -151,12 +198,32 @@ class ServingReplica:
             raise ConfigError(
                 f"serve.precision_tier={self.tier!r} is not a known "
                 f"tier; valid tiers: {', '.join(SERVING_PRECISION_TIERS)}")
+        self.topo = topo
+        if self.tp_ranks > 1:
+            self._check_tp_model()
+            if self.topo is None:
+                self.topo = serving_topology(self.tp_ranks)
+        self.tp = self.topo is not None and self.topo.model_parallelism > 1
         self.follower = ckpt.CheckpointFollower(self.train_dir)
         # one predict per tier (fp32 now, a quant tier's at its first
         # sidecar install); the installed weights' predict flips with them
         self._tier_predict_fns: dict[str, Any] = {
-            "fp32": build_tier_predict(self.model, "fp32", self.device)}
+            "fp32": (build_tp_predict(self.model, self.topo, self.device)
+                     if self.tp else
+                     build_tier_predict(self.model, "fp32", self.device))}
         self._predict = None
+        # a TP group's: rank 0's last send and the step it asked the
+        # followers to restore; a follower's versions and its restore
+        self._last_sent = time.monotonic()
+        self._preparing: int | None = None
+        self._held: dict[int, Any] = {}
+        self._restores: dict[int, dict] = {}
+        self.shards_verified = 0
+        self.broadcasts = 0
+        # a TP rank's boot, on the wall clock: process start, imports
+        # and the run config read, group joined, replica built (the
+        # launcher's), and its first version installed
+        self.boot_marks: dict[str, float | None] = {}
 
         # current weights (batcher-owned) + the buffer the follower
         # stages, flipped at a batch boundary
@@ -195,6 +262,210 @@ class ServingReplica:
         self._dedup: collections.OrderedDict[Any, tuple[dict, float]] = \
             collections.OrderedDict()
         self.dedup_hits = 0
+
+    def _check_tp_model(self) -> None:
+        """The reference's refusal of a model without tensor-parallel
+        partition rules (its ``server.py:164-167``), and of heads that
+        do not divide over the ranks; a TP group serves fp32 only."""
+        m, name = self.tp_ranks, self.cfg.model.name
+        if (self.model.partition_rules is None
+                or self.model.sharded_apply_factory is None):
+            raise ConfigError(
+                f"serve.tp_ranks={m} needs a model with tensor-parallel "
+                f"partition rules: mesh has model_parallelism={m} but "
+                f"model {name!r} has no tensor-parallel parameter specs")
+        if self.cfg.model.num_heads % m:
+            raise ConfigError(
+                f"serve.tp_ranks={m} needs num_heads divisible by it: "
+                f"model {name!r} has num_heads={self.cfg.model.num_heads}")
+        if self.tier != "fp32":
+            raise ConfigError(
+                f"serve.tp_ranks={m} with serve.precision_tier="
+                f"{self.tier!r}: a tensor-parallel group serves the fp32 "
+                "tier only")
+
+    # -- the TP group's work channel ----------------------------------
+
+    def _bcast(self, t: torch.Tensor) -> None:
+        self.topo.comm.timed(dist.broadcast, t, src=0,
+                             group=self.topo.host_group)
+        self.broadcasts += 1
+
+    def _group_send(self, op: int, *fields: int, payloads=()) -> None:
+        """Rank 0: one unit of work to the followers — its header, then
+        each payload array (host tensors, shapes the header implies)."""
+        hdr = torch.zeros(_HEADER, dtype=torch.int64)
+        hdr[0] = op
+        hdr[1:1 + len(fields)] = torch.tensor([int(f) for f in fields],
+                                              dtype=torch.int64)
+        self._bcast(hdr)
+        for arr in payloads:
+            self._bcast(torch.from_numpy(np.ascontiguousarray(arr)))
+        self._last_sent = time.monotonic()
+
+    def _group_recv(self, shape, dtype: torch.dtype) -> np.ndarray:
+        """A follower: the next payload array rank 0 broadcasts."""
+        t = torch.empty(tuple(int(d) for d in shape), dtype=dtype)
+        self._bcast(t)
+        return t.numpy()
+
+    def _group_agree(self, ok: bool) -> bool:
+        """Whether every rank says ok (an all-reduced minimum)."""
+        flag = torch.tensor([1 if ok else 0], dtype=torch.int32)
+        self.topo.comm.timed(dist.all_reduce, flag, op=dist.ReduceOp.MIN,
+                             group=self.topo.host_group)
+        return bool(flag.item())
+
+    def _group_idle(self) -> None:
+        """Rank 0: a no-op to the followers when the group has had no
+        work for ``_IDLE_NOOP_S`` (their wait must not time out)."""
+        if self.tp and time.monotonic() - self._last_sent > _IDLE_NOOP_S:
+            self._group_send(OP_NOOP)
+
+    def _group_prepare(self, step: int) -> None:
+        """Rank 0: the followers start restoring ``step`` (on threads of
+        their own; they go on taking work meanwhile)."""
+        if self._preparing != step:
+            self._group_send(OP_PREPARE, step)
+            self._preparing = step
+
+    def _group_ready(self, staged: dict) -> bool | None:
+        """Rank 0, at a batch boundary: every rank installs ``staged``'s
+        step, or none does — True, or False when a follower could not
+        restore it. None while a follower is still restoring it (the
+        caller keeps it staged and asks again at the next boundary).
+        Outside a group, True."""
+        if not self.tp:
+            return True
+        step = staged["step"]
+        self._group_prepare(step)
+        self._group_send(OP_QUERY, step)
+        if not self._group_agree(True):
+            return None
+        self._preparing = None
+        self._group_send(OP_INSTALL, step)
+        if not self._group_agree(True):
+            logger.warning("a follower could not install step %d; the "
+                           "group keeps serving step %d", step,
+                           self.model_step)
+            return False
+        self._prepare_version(staged["params"])
+        return True
+
+    def _restage(self, staged: tuple) -> None:
+        """Put back a staged install the group is not ready for, unless
+        the follower thread staged a newer one meanwhile."""
+        with self._staged_lock:
+            if self._staged is None:
+                self._staged = staged
+
+    def _group_flipped(self, prev_step: int) -> None:
+        """Rank 0, after a flip: the followers drop the version the group
+        no longer runs."""
+        if self.tp and prev_step >= 0:
+            self._group_send(OP_RELEASE, prev_step)
+
+    def _prepare_version(self, params) -> None:
+        """What a version needs before it serves, made on every rank of
+        a group at once (the decode replica's decode step)."""
+
+    def _thread_failed(self, args) -> None:
+        """``threading.excepthook`` of a TP group's rank 0: the batcher
+        runs every collective of the group, so its death ends the
+        process, and the supervisor restarts the group as a unit."""
+        if args.thread is not None and args.thread.name == "serve-_batch_loop":
+            logger.error("rank 0 of the TP group failed; exiting",
+                         exc_info=(args.exc_type, args.exc_value,
+                                   args.exc_traceback))
+            os._exit(70)
+        threading.__excepthook__(args)
+
+    def follow_group(self) -> None:
+        """A follower rank's loop (:func:`.tp_group.run_rank_follower`):
+        run each unit of work rank 0 broadcasts until its stop."""
+        if not self.tp or self.topo.rank == 0:
+            raise RuntimeError("follow_group runs on a TP group's ranks "
+                               "> 0")
+        try:
+            while True:
+                hdr = self._group_recv((_HEADER,), torch.int64)
+                op, fields = int(hdr[0]), [int(v) for v in hdr[1:]]
+                if op == OP_STOP:
+                    break
+                if op != OP_NOOP:
+                    self._follow_op(op, fields)
+        finally:
+            self._close_journals()
+
+    def _follow_op(self, op: int, f: list[int]) -> None:
+        """A follower: one unit of work (the decode replica adds its
+        own)."""
+        if op == OP_PREPARE:
+            if f[0] not in self._restores:
+                self._restores = {f[0]: self._start_restore(f[0])}
+        elif op == OP_QUERY:
+            box = self._restores.get(f[0])
+            self._group_agree(box is not None and box["done"].is_set())
+        elif op == OP_INSTALL:
+            self._follower_install(f[0])
+        elif op == OP_RELEASE:
+            self._held.pop(f[0], None)
+        elif op == OP_PREDICT:
+            x = self._group_recv((f[1], f[2]), torch.int64)
+            self._tier_predict("fp32")(self._held[f[0]], x)
+        else:
+            raise RuntimeError(f"unknown TP group op {op}")
+
+    def _start_restore(self, step: int) -> dict:
+        """A follower: restore ``step`` on a thread of its own — cut to
+        this rank's shard, its digest journaled (``shard_verify``), put
+        on the device — into the returned box (``params`` None when it
+        could not be read)."""
+        box = {"params": None, "done": threading.Event()}
+
+        def run():
+            try:
+                restored = restore_for_topology(
+                    self.model, self.cfg, self.topo, self.train_dir, None,
+                    step=step, on_event=self._follow_event,
+                    device=torch.device("cpu"), check_optimizer=False)
+                if restored is not None and restored[2] == step:
+                    shard = restored[0].params
+                    self._journal({
+                        "action": "shard_verify", "rank": self.topo.rank,
+                        "step": step, "digest": held_shard_digest(shard),
+                        "source_digest": ckpt.artifact_digest(
+                            self.train_dir, step)})
+                    box["params"] = self._place(shard)
+                    settle(self.device)
+            except (OSError, ValueError, KeyError) as e:
+                logger.warning("rank %d could not restore step %d (%s: %s)",
+                               self.topo.rank, step, type(e).__name__, e)
+            finally:
+                box["done"].set()
+        threading.Thread(target=run, daemon=True,
+                         name=f"tp-restore-{step}").start()
+        return box
+
+    def _follower_install(self, step: int) -> None:
+        """A follower: take the step rank 0 named from its restore and
+        hold it once every rank has it."""
+        box = self._restores.pop(step, None)
+        if box is not None:
+            box["done"].wait()
+        params = box["params"] if box is not None else None
+        if not self._group_agree(params is not None) or params is None:
+            return
+        self._prepare_version(params)
+        self._held[step] = params
+        self.model_step = step
+        self.boot_marks.setdefault("installed", time.time())
+        self.shards_verified += 1
+        with self._journal_lock:
+            self._heartbeat.write({"event": "heartbeat",
+                                   "step": self.shards_verified,
+                                   "time": time.time(),
+                                   "tp_rank": self.topo.rank})
 
     # -- journal ------------------------------------------------------
 
@@ -268,6 +539,17 @@ class ServingReplica:
         port's params on this replica's device, float32 as saved."""
         return params_from_reference(tree, device=self.device)
 
+    def _place(self, shard):
+        """A TP rank's restored shard (the port's layout, on the host) on
+        this replica's device."""
+        return tree_map(lambda t: t.to(self.device), shard)
+
+    def _follow_event(self, rec: dict) -> None:
+        """A checkpoint-layer record as the journal's ``follow_*``."""
+        self._journal({"action": "follow_" + rec.get("action", "?"),
+                       **{k: v for k, v in rec.items()
+                          if k not in ("layer", "action")}})
+
     def _read_quant_tier(self, step: int, t0: float):
         """The sidecar half of the follower's read: a digest-verified
         sidecar holding the configured tier → a staged install;
@@ -321,11 +603,16 @@ class ServingReplica:
             got = self._read_quant_tier(ptr_step, t0)
             if got is not None:
                 return got
-        on_event = lambda rec: self._journal(
-            {"action": "follow_" + rec.get("action", "?"),
-             **{k: v for k, v in rec.items()
-                if k not in ("layer", "action")}})
-        restored = ckpt.restore_params(self.train_dir, on_event=on_event)
+        if self.tp:
+            # the mesh-portable restore: the trainer saved under its own
+            # world, and this rank keeps its shard of each leaf
+            restored = restore_for_topology(
+                self.model, self.cfg, self.topo, self.train_dir, None,
+                on_event=self._follow_event, device=torch.device("cpu"),
+                check_optimizer=False)
+        else:
+            restored = ckpt.restore_params(self.train_dir,
+                                           on_event=self._follow_event)
         if restored is None:
             return None
         tree, _, at_step = restored
@@ -333,7 +620,8 @@ class ServingReplica:
             # the newest publish was unusable and the fallback landed on
             # what is served: consume the pointer step
             return ("noswap", at_step)
-        params = self._params_on_device(tree)
+        params = (self._place(tree.params) if self.tp
+                  else self._params_on_device(tree))
         settle(self.device)
         digest = ckpt.artifact_digest(self.train_dir, at_step)
         return ("swap", {
@@ -365,17 +653,28 @@ class ServingReplica:
                **(extra or {})}
         if initial:
             rec["initial"] = True
+            self.boot_marks.setdefault("installed", time.time())
         self._journal(rec)
 
     def _load_initial(self, timeout_s: float = 600.0) -> None:
         deadline = time.time() + timeout_s
+        if self.tp and self.follower.newest_step() is not None:
+            # the followers restore the newest step while this rank does
+            self._group_prepare(self.follower.newest_step())
+        pending = None
         while time.time() < deadline and not self._stop.is_set():
-            got = self.follower.poll(self._read_weights)
+            got = pending or self.follower.poll(self._read_weights)
             if got is not None and got[0] == "swap":
                 _, staged, t0 = got
-                self._install(staged, t0, initial=True)
-                return
-            time.sleep(min(1.0, self.scfg.poll_secs))
+                ready = self._group_ready(staged)
+                if ready:
+                    self._install(staged, t0, initial=True)
+                    return
+                pending = got if ready is None else None
+                if ready is False:
+                    self.follower.last_step = -1  # read it again
+            self._group_idle()
+            time.sleep(0.05 if pending else min(1.0, self.scfg.poll_secs))
         raise TimeoutError(
             f"no loadable checkpoint in {self.train_dir} within "
             f"{timeout_s:.0f}s")
@@ -403,7 +702,13 @@ class ServingReplica:
         install, t0 = staged
         if install["step"] <= self.model_step:
             return  # monotone: never swap backwards
-        self._install(install, t0)
+        ready = self._group_ready(install)
+        if ready is None:
+            self._restage(staged)
+        elif ready:
+            prev = self.model_step
+            self._install(install, t0)
+            self._group_flipped(prev)
 
     # -- socket front door --------------------------------------------
 
@@ -610,6 +915,9 @@ class ServingReplica:
             x[i] = it.inputs
         step, digest, tier = (self.model_step, self.model_digest,
                               self.model_tier)
+        if self.tp:
+            self._group_send(OP_PREDICT, step, *x.shape,
+                             payloads=(x.astype(np.int64),))
         probs = self._predict(self._params, x)
         if isinstance(probs, torch.Tensor):
             probs = probs.float().cpu().numpy()
@@ -637,6 +945,7 @@ class ServingReplica:
             items = self._gather()
             if items:
                 self._run_batch(items)
+            self._group_idle()
             self._maybe_heartbeat()
         # graceful drain: everything still queued gets a TYPED reject
         while True:
@@ -661,6 +970,8 @@ class ServingReplica:
         self._sock.bind((self.scfg.host, self.scfg.port))
         self._sock.listen(128)
         self.bound_port = self._sock.getsockname()[1]
+        if self.tp:
+            threading.excepthook = self._thread_failed
         for target in (self._follow_loop, self._accept_loop,
                        self._batch_loop):
             t = threading.Thread(target=target, daemon=True,
@@ -697,6 +1008,9 @@ class ServingReplica:
                 pass
         for t in self._threads:
             t.join(timeout=30)
+        if self.tp and not any(t.is_alive() for t in self._threads):
+            # the batcher, which sent every other unit of work, is done
+            self._group_send(OP_STOP)
         # a handler that passed its stop check just before
         # request_stop() may enqueue after the worker's final drain:
         # join the handlers, then drain once more
@@ -714,6 +1028,11 @@ class ServingReplica:
         self._journal({"action": "serve_stop",
                        "terminals": self._terminals,
                        "model_step": self.model_step, "swaps": self.swaps})
+        self._close_journals()
+
+    def _close_journals(self) -> None:
+        """Close the journals and, the first time, append this process's
+        kernel launches to ``kernel_launches.jsonl``."""
         with self._journal_lock:
             first_stop = not self._journal_closed
             self._journal_closed = True
@@ -726,7 +1045,26 @@ class ServingReplica:
                 "pid": os.getpid(), "time": time.time(),
                 "device": str(self.device),
                 "launches": self.kernel_launches(),
-                "kernel_cache": cache_stats()}) + "\n")
+                "kernel_cache": cache_stats(), **self._group_counts()})
+                + "\n")
+
+    def _group_counts(self) -> dict:
+        """A TP rank's share of ``kernel_launches.jsonl``: its rank, the
+        group's backend, the work broadcasts it took part in, and its
+        collectives' staged exchanges and host seconds."""
+        if not self.tp:
+            return {}
+        marks = self.boot_marks
+        names = [n for n in ("started", "imported", "joined", "built",
+                             "installed") if marks.get(n) is not None]
+        return {"tp_rank": self.topo.rank,
+                "boot_s": {b: round(marks[b] - marks[a], 3)
+                           for a, b in zip(names, names[1:])},
+                "backend": dist.get_backend(),
+                "broadcasts": self.broadcasts,
+                "staged": {**self.topo.comm.staged,
+                           "all_reduce": self.topo.comm.staged_all_reduces},
+                "blocked_s": round(self.topo.comm.blocked_s, 3)}
 
     def kernel_launches(self) -> dict[str, int]:
         """The launches this process made of the kernels a replica can

@@ -199,6 +199,37 @@ def test_transformer_one_shot_predict_matches_the_reference(tmp_path):
         rep.stop()
 
 
+@pytest.mark.parametrize("kind", ["classification", "decode"])
+def test_pipeline_checkpoint_refused_like_the_reference(tmp_path, kind):
+    """A run trained with ``mesh.pipeline_parallelism=2`` saves the
+    stacked layout: both packages refuse to serve it at construction,
+    with the same message, the classification replica and the decode
+    replica alike."""
+    from distributedmnist_tpu.core.config import \
+        ExperimentConfig as RefConfig
+    from distributedmnist_tpu.servesvc.decode import \
+        DecodeReplica as RefDecode
+    from distributedmnist_tpu.servesvc.server import \
+        ServingReplica as RefReplica
+    from distributedmnist_tpu_torch.servesvc import DecodeReplica
+
+    run = {"model": {"name": "transformer", "seq_len": 16, "model_dim": 32,
+                     "num_heads": 4, "num_layers": 2, "vocab_size": 32,
+                     "compute_dtype": "float32"},
+           "mesh": {"pipeline_parallelism": 2}}
+    ref_cls, cls = ((RefReplica, ServingReplica) if kind == "classification"
+                    else (RefDecode, DecodeReplica))
+    messages = []
+    for make, cfg, kw in ((ref_cls, RefConfig, {}),
+                          (cls, ExperimentConfig, {"device": "cpu"})):
+        with pytest.raises(ValueError) as err:
+            make(tmp_path / "nope", serve_dir=tmp_path / "s",
+                 cfg=cfg.from_dict(run), **kw)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+    assert "pipeline-stacked" in messages[1]
+
+
 # -- the replica end to end (≙ tests/test_servesvc.py) ------------------------
 
 def test_serve_responds_and_hot_swaps(published, tmp_path):

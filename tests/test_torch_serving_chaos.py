@@ -4,8 +4,8 @@ launch/chaos.py`` with ``payload="serving"``) held to the reference's:
 the reference's refuses, with its message, and resolves the rest to the
 reference's payloads on the port's verbs (the publisher's pace adapted
 to a measured boot, the replicas' commands, the quant sidecar tiers,
-the roster size, with ``broker`` its donor trainers); ``serve_tp_ranks``
-> 1 stays refused, naming where it is queued; ``_merge_load_summaries``
+the roster size, with ``broker`` its donor trainers, with
+``serve_tp_ranks`` > 1 its ``--tp-ranks``); ``_merge_load_summaries``
 folds as the
 reference's does; the reference's wiring tests
 (``tests/test_servesvc.py:563``, ``tests/test_decode.py:614``) on the
@@ -132,9 +132,15 @@ def test_broker_is_refused_naming_slice_10(kw):
 
 @pytest.mark.parametrize("ranks", [2, 4])
 def test_tp_ranks_above_one_are_refused_naming_item_9(ranks):
-    ref_chaos.ChaosConfig(payload="serving", serve_tp_ranks=ranks)
-    with pytest.raises(ClusterError, match="Queue A item 9"):
-        ChaosConfig(payload="serving", serve_tp_ranks=ranks)
+    """Once refused naming Queue A item 9, ``serve_tp_ranks`` > 1 now
+    resolves as the reference's does: every serving replica's command
+    (decode or not) ends in ``--tp-ranks N`` on the port's verb."""
+    for decode in (False, True):
+        got, want = _both(payload="serving", serve_tp_ranks=ranks,
+                          serve_decode=decode)
+        assert not isinstance(got, Exception), got
+        _assert_resolves_alike(got, want)
+        assert got.resolved_serve_command().endswith(f" --tp-ranks {ranks}")
 
 
 def test_every_reference_key_parses(tmp_path):
