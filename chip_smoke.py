@@ -203,7 +203,8 @@ One JSON line per phase:
                 d = tempfile.mkdtemp(); print(json.dumps(
                 cs._dist_zero1_nccl(d)))"``.
 10b. ``model_parallel`` — tensor, sequence, expert and pipeline
-                parallelism (Queue A items 8a–8c) in one launch of 4 worker
+                parallelism and ZeRO-1 over them (Queue A items 8a–8d)
+                in one launch of 4 worker
                 processes (gloo, all on
                 ``cuda:0``; the dist phase's launcher, each child
                 joining the group and building its Trainer through
@@ -220,8 +221,14 @@ One JSON line per phase:
                 with 2 microbatches on D's model (step 1 alone); G, PP
                 2 × TP 2 under interleaved 1F1B (2 chunks a stage, 4
                 microbatches) on the training model at its 4 layers,
-                batch 8; and as float32 controls, A, the ring and D
-                again at ``compute_dtype=float32``, step 1 alone (C's
+                batch 8; H, DP 2 × TP 2 with ZeRO-1 (2 buckets, resident
+                params) under heavy-ball momentum on A's model (its
+                first update is lr·g, so its step 1 is gated as SGD's;
+                its one-process reference runs 2 local replicas with
+                ZeRO-1 on, and each replica-process is fed its rows of
+                the reference's global batch); and as float32 controls,
+                A, the ring, D and H again at
+                ``compute_dtype=float32``, step 1 alone (C's
                 ring takes step 1 alone; the one-step arms run first,
                 beside the references). Each arm's
                 step 1 against the same config's one-process step in
@@ -238,13 +245,16 @@ One JSON line per phase:
                 in the test eval of A, B, D and E), F's and G's at the
                 counts their schedules predict (``_pp_launches``), and
                 their step 1 read in the stacked layout
-                (``_stacked_gaps``). Printed: ms a step by
-                CUDA events (step 2), tokens/s, peak GB and seconds
-                in collectives a process, the exchanges staged through
-                host memory (gloo carries no CUDA point-to-point or
-                all-to-all), each arm's seconds. With 4 cards arms B, D
-                and G again over NCCL, one card a process; else null
-                with the card count.
+                (``_stacked_gaps``); H's optimizer-slot bytes on every
+                rank those of its plan (``_zero1_slot_bytes``: half the
+                ZeRO-1 leaves' slots, the rank's TP shard of the
+                fallback leaves'). Printed: ms a step by
+                CUDA events (step 2), tokens/s, peak GB, seconds
+                in collectives and slot bytes a process, the exchanges
+                staged through host memory (gloo carries no CUDA
+                point-to-point or all-to-all), each arm's seconds. With
+                4 cards arms B, D, G and H again over NCCL, one card a
+                process; else null with the card count.
 11. ``resnet``  — the CIFAR-10 fixture written at the archive's size
                 (50,000 / 10,000) by the port's ``data/fixtures.py``, in
                 a process started with ``train`` and waited for before
@@ -1463,7 +1473,8 @@ def _mp_kernel_cases(gen) -> tuple[list, list]:
     K1-lse/K2/K3 at A's TP 4 (strided), at B's Ulysses after TP 2, at
     C's Ulysses at S = 8192 (contiguous, from the all-to-all), at D's
     16 heads and E's TP 2 (strided), at F's microbatch of 4 rows (16
-    heads) and G's of 2 rows (TP 2, strided)."""
+    heads), G's of 2 rows (TP 2, strided) and H's replica of 4 rows
+    (TP 2, strided)."""
     import torch
     bf, b, s, h = torch.bfloat16, MP_BATCH, MODEL["seq_len"], \
         MODEL["num_heads"]
@@ -1478,7 +1489,8 @@ def _mp_kernel_cases(gen) -> tuple[list, list]:
                                 LONG["num_heads"] // MP_WORLD, False),
                                (b, s, h, True), (b, s, h // 2, True),
                                (b // 2, s, h, True),
-                               (b // 4, s, h // 2, True)):
+                               (b // 4, s, h // 2, True),
+                               (b // 2, s, h // 2, True)):
         train.append(_k1_lse_case(bb, ss, bf, gen, False, hh, packed))
         for kernel in ("K2", "K3"):
             train.append(_bwd_case(kernel, bb, ss, bf, gen, False, hh,
@@ -3108,6 +3120,9 @@ def phase_dist(tmp: str) -> dict:
 # its full 4 layers (1 layer a chunk, so the ring wraps: chunk 2 is on
 # stage 0), step 2 timed, eval on. Their params are the stacked layout,
 # so step 1 is held against the one-process step read in that layout.
+# H = DP 2 × TP 2 with ZeRO-1 on A's model: 2 replica-processes of 2
+# model shards, each process fed its replica-process's rows of the
+# one-process reference's global batch (2 local replicas, ZeRO-1 on).
 MP_WORLD, MP_STEPS, MP_BATCH = 4, 2, 8
 # the launch's own limit: its 11 arms took 105.6 s on an H100 80GB HBM3
 # at 700 W (PERF.md §6), over DIST_CHILD_TIMEOUT_S on a host a third
@@ -3132,12 +3147,25 @@ MP_MOE = {**MP_TRAIN,
                     "moe_num_groups": 4, "moe_router_top_k": 2}}
 # G's kind: the training model at its full depth, batch 8
 MP_TRAIN4 = {**MP_TRAIN, "model": MODEL}
+# H's kind: A's and B's model over 2 replicas under heavy-ball momentum
+# (its first update is lr·g, so step 1 is gated as SGD's is) with
+# ZeRO-1's bucketed layout and resident params
+MP_ZERO1 = {**MP_TRAIN,
+            "optim": {**MP_TRAIN["optim"], "name": "momentum",
+                      "momentum": 0.9},
+            "parallel": {"shard_weight_update": True, "comm_buckets": 2,
+                         "resident_sharded": True}}
 _F32 = lambda c: {**c, "model": {**c["model"],  # noqa: E731
                                  "compute_dtype": "float32"}}
 MP_KINDS = {"train": MP_TRAIN, "long": MP_LONG, "moe": MP_MOE,
-            "train4": MP_TRAIN4,
+            "train4": MP_TRAIN4, "zero1": MP_ZERO1,
             "train_f32": _F32(MP_TRAIN), "long_f32": _F32(MP_LONG),
-            "moe_f32": _F32(MP_MOE), "train4_f32": _F32(MP_TRAIN4)}
+            "moe_f32": _F32(MP_MOE), "train4_f32": _F32(MP_TRAIN4),
+            "zero1_f32": _F32(MP_ZERO1)}
+# the replicas of a kind's one-process reference (and of its arms): H's
+# 2, every other kind's 1
+MP_REPLICAS = {"zero1": 2, "zero1_f32": 2}
+_H_MESH = ("mesh.num_replicas=2", "mesh.model_parallelism=2")
 _RING = ("mesh.seq_parallelism=4", "model.sp_attention=ring",
          "model.remat=true", "model.remat_policy=full")
 # each arm: its kind, its overrides, whether it runs the flash kernels
@@ -3153,6 +3181,7 @@ MP_ARMS = {
     "F_pp2_ep2_gpipe": ("moe", ("mesh.pipeline_parallelism=2",
                                 "mesh.expert_parallelism=2",
                                 "mesh.pipeline_microbatches=2"), True, 1),
+    "H_dp2_tp2_zero1_f32": ("zero1_f32", _H_MESH, True, 1),
     "A_tp4": ("train", ("mesh.model_parallelism=4",), True, MP_STEPS),
     "B_tp2_sp2_ulysses": ("train", ("mesh.model_parallelism=2",
                                     "mesh.seq_parallelism=2",
@@ -3169,13 +3198,17 @@ MP_ARMS = {
                                   "mesh.pipeline_schedule=1f1b",
                                   "mesh.pipeline_chunks=2",
                                   "mesh.pipeline_microbatches=4"), True,
-                       MP_STEPS)}
+                       MP_STEPS),
+    "H_dp2_tp2_zero1": ("zero1", _H_MESH, True, MP_STEPS)}
 # the pipeline arms' (schedule, stages, chunks a stage, microbatches):
 # their stacked layout, and the flash launches their schedule predicts
 MP_PP = {"F_pp2_ep2_gpipe": ("gpipe", 2, 1, 2),
          "G_pp2_tp2_1f1b": ("1f1b", 2, 2, 4)}
 # arms without an eval (F's gate is its step; G evaluates the pipeline)
 MP_NO_EVAL = ("F_pp2_ep2_gpipe",)
+# the arms that run again over NCCL, a card a process, on a 4-card host
+MP_NCCL_ARMS = ("B_tp2_sp2_ulysses", "D_ep4", "G_pp2_tp2_1f1b",
+                "H_dp2_tp2_zero1")
 # step 1 against the one-process step from the same params and batch.
 # The loss (~6.9) within MP_LOSS_TOL. Each leaf's update (lr ·
 # gradient, SGD) as ||sharded − one process|| / ||one-process update||.
@@ -3205,7 +3238,8 @@ spec = json.loads(os.environ["DMT_SPEC"])
 rank = int(os.environ["RANK"])
 initialize_distributed(spec["backend"], spec["device"], timeout_s=120)
 try:
-    from distributedmnist_tpu_torch.data.pipeline import to_device
+    from distributedmnist_tpu_torch.data.pipeline import (
+        make_train_iterator, to_device)
     from distributedmnist_tpu_torch.launch.__main__ import build_trainer
     from distributedmnist_tpu_torch.ops import flash_attention as fa
     from distributedmnist_tpu_torch.parallel.api import tree_leaves
@@ -3222,8 +3256,20 @@ try:
             f.launches = 0
         t = build_trainer(["train", "--config", run["config"],
                            *run["overrides"], "--device", spec["device"]])
-        feed = [to_device(next(t.train_iter), t.device)
-                for _ in range(run["steps"])]
+        topo = t.topo
+        if topo.process_count == 1:
+            feed = [to_device(next(t.train_iter), t.device)
+                    for _ in range(run["steps"])]
+        else:
+            # over several replica-processes: each one's rows of the
+            # global batches the one-process reference reads
+            whole = make_train_iterator(t.datasets.train, t.cfg.data,
+                                        seed=t.cfg.train.seed)
+            rows = t.cfg.data.batch_size // topo.process_count
+            lo = topo.process_index * rows
+            feed = [to_device({k: v[lo:lo + rows]
+                               for k, v in next(whole).items()}, t.device)
+                    for _ in range(run["steps"])]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         blocked0 = t.topo.blocked_s
@@ -3263,7 +3309,9 @@ try:
                        / (len(feed) - 1))
         res.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                    collective_s=t.topo.blocked_s - blocked0,
-                   staged=t.topo.comm.staged)
+                   staged=t.topo.comm.staged,
+                   slot_bytes=sum(x.numel() * x.element_size()
+                                  for x in tree_leaves(t.state.momentum)))
         if run.get("eval"):
             res["eval_loss"] = t.evaluate()["loss"]
         res["launches"] = {k: f.launches for k, f in kernels.items()}
@@ -3300,14 +3348,19 @@ def _mp_reference(tmp: str, kind: str, refs: dict) -> dict:
         tree_path_names
     t = build_trainer(["train", "--config", _mp_config(tmp, kind),
                        f"train.train_dir={tmp}/mp_ref_{kind}",
-                       "mesh.num_replicas=1", "--device", DEVICE])
-    before = [p.detach().float().cpu() for p in tree_leaves(t.state.params)]
+                       f"mesh.num_replicas={MP_REPLICAS.get(kind, 1)}",
+                       "--device", DEVICE])
+    # the logical params (H's reference keeps its ZeRO-1 leaves as
+    # resident chunks)
+    before = [p.detach().float().cpu()
+              for p in tree_leaves(t.logical_params())]
     state, m = t.step_fn(t.state, to_device(next(t.train_iter), t.device))
-    after = [p.detach().float().cpu() for p in tree_leaves(state.params)]
+    logical = t.logical_params()
+    after = [p.detach().float().cpu() for p in tree_leaves(logical)]
     rec = {"loss1": m["loss"].item(), "after": after,
            "update_norm": [float((a - b).norm())
                            for a, b in zip(after, before)],
-           "names": tree_path_names(state.params)}
+           "names": tree_path_names(logical)}
     if not kind.endswith("_f32"):
         # each leaf's bf16 noise: this step's distance from the float32
         # step (the float32 kind's reference is made first)
@@ -3329,7 +3382,7 @@ def _mp_runs(tmp: str, name: str, arms: list) -> list:
         kind, overrides, _, steps = MP_ARMS[arm]
         runs.append({"name": arm, "config": _mp_config(tmp, kind),
                      "steps": steps,
-                     "eval": (kind in ("train", "moe", "train4")
+                     "eval": (kind in ("train", "moe", "train4", "zero1")
                               and arm not in MP_NO_EVAL),
                      "save": f"{tmp}/{name}_{arm}.pt",
                      "hold": f"{tmp}/mp_references_done",
@@ -3418,14 +3471,46 @@ def _pp_launches(arm: str, steps: int, evaluate: bool) -> dict:
     return out
 
 
+def _zero1_slot_bytes(kind: str, overrides: tuple) -> int:
+    """A rank's optimizer-slot bytes under a ZeRO-1 arm's plan, from the
+    model's shapes alone: its replicas' chunks of every leaf the plan
+    shards over the replica group, its model shard of every fallback
+    leaf, in the slots' dtype, for each slot tree."""
+    import torch
+
+    from distributedmnist_tpu_torch.core.config import (
+        ExperimentConfig, effective_model_config, parse_cli_overrides)
+    from distributedmnist_tpu_torch.core.mesh import Topology
+    from distributedmnist_tpu_torch.models.registry import get_model
+    from distributedmnist_tpu_torch.parallel import api
+    from distributedmnist_tpu_torch.parallel.partition_rules import \
+        tree_leaves
+    from distributedmnist_tpu_torch.train import optim as optim_lib
+    cfg = ExperimentConfig.from_dict(MP_KINDS[kind]).override(
+        parse_cli_overrides(list(overrides)))
+    n, m = cfg.mesh.num_replicas, cfg.mesh.model_parallelism
+    topo = Topology(num_replicas=n, process_count=MP_WORLD // m,
+                    distributed=True, model_parallelism=m)
+    model = get_model(effective_model_config(cfg))
+    plan = api.zero1_plan_for(model, cfg, topo)
+    shards = tree_leaves(api.tp_shard(api.build_params(
+        model, cfg, topo, torch.device("meta")), model, topo))
+    size = torch.empty((), dtype=optim_lib.slot_dtype(
+        api.resolved_param_dtype(cfg))).element_size()
+    per_tree = sum(topo.local_replica_count * lp.chunk if lp.sharded
+                   else x.numel() for lp, x in zip(plan.leaves(), shards))
+    return optim_lib.make_optimizer(cfg.optim).num_slots * per_tree * size
+
+
 def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
     """One arm's record from every process's result, and what fails its
     checks: step 1 against the one-process step (a pipeline arm's in the
     stacked layout), the same loss on every rank, a card a process, the
     flash kernels launched by every process (a pipeline arm's at the
-    counts its schedule predicts)."""
+    counts its schedule predicts), a ZeRO-1 arm's slot bytes on every
+    rank those of its plan."""
     import torch
-    kind, _, flash, steps = MP_ARMS[run["name"]]
+    kind, overrides, flash, steps = MP_ARMS[run["name"]]
     ref, f32 = refs[kind], kind.endswith("_f32")
     procs = [r["runs"][run["name"]] for r in results]
     pp = MP_PP.get(run["name"])
@@ -3466,6 +3551,7 @@ def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
            "launches_by_rank": [p["launches"] for p in procs],
            "devices": [p["device"] for p in procs],
            "eval_loss": procs[0].get("eval_loss"),
+           "slot_bytes_by_rank": [p["slot_bytes"] for p in procs],
            "seconds_by_rank": [p["seconds"] for p in procs]}
     if not f32:
         # each leaf: the one-process bf16 step's own distance from the
@@ -3478,6 +3564,10 @@ def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
         rec["pipeline"] = {"schedule": pp[0], "stages": pp[1],
                            "chunks": pp[2], "microbatches": pp[3],
                            "launches_expected": want}
+    slots = None
+    if MP_KINDS[kind].get("parallel", {}).get("shard_weight_update"):
+        slots = rec["slot_bytes_expected"] = _zero1_slot_bytes(kind,
+                                                               overrides)
     fails = [msg for ok, msg in (
         (all(d.startswith("cuda") for d in rec["devices"]),
          f"{name}: devices {rec['devices']}"),
@@ -3496,17 +3586,20 @@ def _mp_arm(results: list, run: dict, refs: dict) -> tuple[dict, list]:
          f"{name}: flash launches {rec['launches_by_rank']}"),
         (want is None or all(p["launches"] == want for p in procs),
          f"{name}: flash launches {rec['launches_by_rank']}, the schedule "
-         f"predicts {want} a process")) if not ok]
+         f"predicts {want} a process"),
+        (slots is None or all(p["slot_bytes"] == slots for p in procs),
+         f"{name}: slot bytes {rec['slot_bytes_by_rank']}, the plan's "
+         f"{slots} a rank")) if not ok]
     return rec, fails
 
 
 def phase_model_parallel(tmp: str) -> dict:
-    """Tensor, sequence, expert and pipeline parallelism (Queue A items
-    8a–8c): the arms of ``MP_ARMS`` in one launch of ``MP_WORLD`` gloo
-    processes sharing ``cuda:0``, each arm's step 1 against the
-    one-process step of its model here; with 4 cards, arms B, D and G
-    again over NCCL, one card a process (else null with the card
-    count)."""
+    """Tensor, sequence, expert and pipeline parallelism and ZeRO-1 over
+    them (Queue A items 8a–8d): the arms of ``MP_ARMS`` in one launch of
+    ``MP_WORLD`` gloo processes sharing ``cuda:0``, each arm's step 1
+    against the one-process step of its model here; with 4 cards, arms
+    B, D, G and H again over NCCL, one card a process (else null with
+    the card count)."""
     import torch
     t_phase = time.time()
     ref_s, refs = {}, {}
@@ -3538,10 +3631,9 @@ def phase_model_parallel(tmp: str) -> dict:
         fails += f
     t_gloo = time.time() - t_phase
     cards = torch.cuda.device_count()
-    nccl_arms = ("B_tp2_sp2_ulysses", "D_ep4", "G_pp2_tp2_1f1b")
-    nccl = {"cards": cards, **dict.fromkeys(nccl_arms)}
+    nccl = {"cards": cards, **dict.fromkeys(MP_NCCL_ARMS)}
     if cards >= MP_WORLD:
-        runs = _mp_runs(tmp, "mp_nccl", list(nccl_arms))
+        runs = _mp_runs(tmp, "mp_nccl", list(MP_NCCL_ARMS))
         res = _dist_group(tmp, "mp_nccl", "nccl",
                           [f"cuda:{i}" for i in range(MP_WORLD)], runs,
                           child=_MP_CHILD, timeout_s=MP_CHILD_TIMEOUT_S)

@@ -33,10 +33,11 @@ from ..core.device import resolve_device
 from ..core.log import JsonlSink, eval_line, get_logger
 from ..core.mesh import Topology, make_topology
 from ..data.datasets import Datasets, load_datasets
-from ..models.convert import params_from_reference
+from ..models.convert import list_form, params_from_reference
 from ..models.registry import get_model
 from ..obsv.tb import SummaryWriter
-from ..parallel.api import build_eval_step, tp_shard
+from ..parallel.api import build_eval_step, build_params, tp_shard
+from ..parallel.partition_rules import make_zero1_plan, zero1_logical
 from ..train import checkpoint as ckpt
 from ..train.evaluation import run_full_eval
 
@@ -98,6 +99,13 @@ class Evaluator:
             cfg.data, cfg.model.image_size, cfg.model.num_channels,
             cfg.model.num_classes, cfg.model.seq_len, cfg.model.vocab_size)
         self.eval_fn = build_eval_step(self.model, cfg, self.topo)
+        # the params' logical shapes where a per-host checkpoint holds
+        # resident ZeRO-1 params flat and padded (drawn only then: the
+        # CNN's threefry init takes seconds even on the meta device)
+        self._logical = (make_zero1_plan(build_params(
+            self.model, cfg, self.topo, torch.device("meta")), None, 1)
+            if cfg.parallel.shard_weight_update
+            and cfg.parallel.resident_sharded else None)
         self.follower = ckpt.CheckpointFollower(self.train_dir,
                                                 on_event=self._skipped)
         self._sink: JsonlSink | None = None
@@ -130,6 +138,8 @@ class Evaluator:
         if restored is None:
             return None
         saved, _, at_step = restored
+        if self._logical is not None:
+            saved = zero1_logical(list_form(saved), self._logical)
         params = tp_shard(params_from_reference(saved, device=self.device),
                           self.model, self.topo)
         out = run_full_eval(self.eval_fn, params, self.datasets.test,

@@ -96,8 +96,7 @@ group. Sharded leaves keep their shard's gradient; the replicated ones
 (attention, router, norms, embeddings) come out identical on every
 model and expert rank. The masked mean and every sync mode then run
 over the replica group as above, and LARS/LAMB complete each split
-leaf's sum of squares over the groups it is split over. ZeRO-1 with
-``m·s·S·e > 1`` is refused (a ConfigError).
+leaf's sum of squares over the groups it is split over.
 
 Pipeline parallelism (``mesh.pipeline_parallelism = S``; ≙ the PP
 branches of the reference's ``build_train_step`` and
@@ -114,6 +113,17 @@ whole (``embed``, ``pos``, ``final_norm``) summed over the stage group
 loss summed over the seq group as above. Eval pipelines at the largest
 microbatch count up to ``mesh.pipeline_microbatches`` that divides the
 rows (the reference's ``m_eval``).
+
+ZeRO-1 composes with all of them (≙ the reference's ``_zero1_update``
+under ``shard_map``): the plan reads the rule engine's specs, so a leaf
+split over the model, expert or stage axis is a fallback leaf — it
+keeps its shard, takes the masked-mean all-reduce over the replica
+group and its full update, its trust-ratio norms completed over the
+groups it is split over — and every other leaf shards over the replica
+group alone: its reduce-scatter, its norms and its all-gather run over
+the ``P_r`` processes of one ``(model, seq, stage, expert)``
+coordinate. The seq group's gradient sum (SP) and the stage group's sum
+of the whole leaves (PP) come first, inside the ``grads`` stage.
 
 Checkpoints hold the logical layout whatever the live one
 (:func:`canonical_save_state`; under TP the shards gathered first,
@@ -229,18 +239,9 @@ class TrainState:
     next_apply_ms: float = 1000.0
 
 
-def _check_ported(cfg: ExperimentConfig) -> None:
-    """Raise for what the port does not run: ZeRO-1 under tensor,
-    sequence, pipeline or expert parallelism (Queue A item 8d)."""
-    m, s = cfg.mesh.model_parallelism, cfg.mesh.seq_parallelism
-    S, e = cfg.mesh.pipeline_parallelism, cfg.mesh.expert_parallelism
-    if cfg.parallel.shard_weight_update and m * s * S * e > 1:
-        raise ConfigError(
-            f"parallel.shard_weight_update=true with mesh.model_parallelism="
-            f"{m} / mesh.seq_parallelism={s} / mesh.pipeline_parallelism="
-            f"{S} / mesh.expert_parallelism={e}: ZeRO-1 over tensor-, "
-            "sequence-, pipeline- or expert-parallel replicas is not ported "
-            "yet (Queue A item 8d); turn one of them off")
+def _check_config(cfg: ExperimentConfig) -> None:
+    """Raise for a config the step cannot run: an accumulation count
+    below 1, an unknown storage dtype."""
     if cfg.train.grad_accum_steps < 1:
         raise ValueError(f"train.grad_accum_steps must be >= 1, got "
                          f"{cfg.train.grad_accum_steps}")
@@ -289,8 +290,11 @@ def zero1_plan_for(model: Model, cfg: ExperimentConfig, topo: Topology,
     """The ZeRO-1 plan when ``parallel.shard_weight_update`` is set and
     applies, else None. It does not apply to one replica (nothing is
     redundant) nor in interval mode (the window accumulates the whole
-    mean). ``params`` (logical shapes) default to the model's on the
-    ``meta`` device."""
+    mean). ``params`` (logical shapes, stacked under a stage axis)
+    default to the model's on the ``meta`` device; the specs are the
+    rule engine's for ``topo`` (:func:`tp_specs`), so a leaf split over
+    the model, expert or stage axis stays a fallback leaf (≙ the
+    reference's ``zero1_plan_for`` over ``params_partition_specs``)."""
     par = cfg.parallel
     par.validate()
     if not par.shard_weight_update:
@@ -299,7 +303,8 @@ def zero1_plan_for(model: Model, cfg: ExperimentConfig, topo: Topology,
         return None
     if params is None:
         params = build_params(model, cfg, topo, torch.device("meta"))
-    return make_zero1_plan(params, topo.num_replicas,
+    return make_zero1_plan(params, tp_specs(model, topo, params),
+                           topo.num_replicas,
                            min_leaf_size=par.shard_min_leaf_size,
                            comm_buckets=par.comm_buckets,
                            params_sharded=par.resident_sharded)
@@ -341,12 +346,13 @@ def init_train_state(model: Model, cfg: ExperimentConfig,
         # no master copy: cast once, updated in this dtype from now on
         params = tree_map(lambda p: p.to(store_dt) if p.is_floating_point() else p,
                           params)
-    if topo is not None:
-        # every model, stage and expert rank draws the full params, then
-        # keeps its shard
-        params = tp_shard(params, model, topo)
+    # the plan reads the logical shapes, before any shard is cut
     plan = (zero1_plan_for(model, cfg, topo, params)
             if topo is not None else None)
+    if topo is not None:
+        # every model, stage and expert rank draws the full params, then
+        # keeps its shard (the plan's replicated leaves stay whole)
+        params = tp_shard(params, model, topo)
 
     def one_slot_tree():
         if plan is not None:
@@ -616,7 +622,7 @@ def restore_for_topology(model: Model, cfg: ExperimentConfig,
     saved, extra, got_step = restored
     shapes = build_params(model, cfg, topo, torch.device("meta"))
     plan = (zero1_plan_for(model, cfg, topo, shapes)
-            or make_zero1_plan(shapes, 1))
+            or make_zero1_plan(shapes, None, 1))
     if device is None:
         device = tree_leaves(template_state.params)[0].device
     state = state_from_reference(pack_restored_state(saved, plan, topo),
@@ -780,7 +786,7 @@ class TrainStep:
     def __init__(self, model: Model, cfg: ExperimentConfig,
                  schedule: Schedule, topo: Topology | None = None, *,
                  cudnn_deterministic: bool = True):
-        _check_ported(cfg)
+        _check_config(cfg)
         topo = topo or make_topology(cfg.mesh)
         self.model, self.cfg, self.schedule, self.topo = (model, cfg,
                                                           schedule, topo)
@@ -1311,6 +1317,9 @@ class TrainStep:
             if apply:
                 lr, corrections = self._lr(b)
                 leaves, slots = b.leaves, b.slots
+                # a sharded leaf's chunks complete its norms over the
+                # replica group (its spec is replicated on every other
+                # axis); a fallback leaf's over the groups that split it
                 reduce = ((lambda x: x) if all_local
                           else topo.sum_processes)
                 updated = {}
@@ -1319,7 +1328,7 @@ class TrainStep:
                     adapt = len(lp.shape) > 1
                     if not lp.sharded:
                         opt.update_leaf(p, mean[i], sl, lr, corrections,
-                                        lambda x: x, adapt)
+                                        self.norm_reduce[i], adapt)
                     elif all_local:
                         # every chunk is here: update the logical
                         # elements in place (the padding stays zero)

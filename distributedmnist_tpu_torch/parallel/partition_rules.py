@@ -16,15 +16,17 @@ tables live with the models (``models/registry.py``).
 **The ZeRO-1 plan**: which leaves' optimizer state (and, under
 ``parallel.resident_sharded``, params) split over the ``n`` replicas,
 their padded flat layout, and the layer-ordered communication buckets.
-It runs without tensor, sequence or expert parallelism only
-(``parallel/api.py`` refuses them together), so every leaf it sees is
-replicated.
+A leaf splits over the replicas only when its spec is replicated on
+every other axis (:func:`spec_is_replicated`): a leaf the rule engine
+splits over the model, stage or expert axis keeps its shard and its
+placement and takes the replicated update (the reference's rule,
+``partition_rules.py:179``).
 
 A sharded leaf of ``size`` elements lives flattened and zero-padded to
 ``pad = chunk·n`` elements, ``chunk = ceil(size / n)``; replica ``r``
-owns elements ``[r·chunk, (r+1)·chunk)``. A leaf shards when it has at
-least ``max(n, min_leaf_size or n)`` elements; a smaller one keeps its
-logical shape and takes the replicated update. Leaves are indexed in
+owns elements ``[r·chunk, (r+1)·chunk)``. A replicated leaf shards when
+it has at least ``max(n, min_leaf_size or n)`` elements; a smaller one
+keeps its logical shape and takes the replicated update. Leaves are indexed in
 ``tree_leaves`` order (dict keys sorted, lists in order), the
 reference's ``jax.tree.leaves`` order.
 
@@ -135,6 +137,11 @@ def split_dim(spec: Spec, axis: str | None) -> int | None:
     return None
 
 
+def spec_is_replicated(spec: Spec) -> bool:
+    """Whether ``spec`` splits no dim over any axis."""
+    return all(entry is None for entry in tuple(spec))
+
+
 def shard_leaf(x: Any, spec: Spec, axis: str | None, rank: int,
                size: int) -> Any:
     """Rank ``rank``'s block of ``x`` (a tensor or array) along the dim
@@ -225,23 +232,31 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
-def make_zero1_plan(params: Any, n: int, min_leaf_size: int = 0,
-                    comm_buckets: int = 1,
+def make_zero1_plan(params: Any, param_specs: Any, n: int,
+                    min_leaf_size: int = 0, comm_buckets: int = 1,
                     params_sharded: bool = False) -> Zero1Plan:
-    """The plan of ``params`` (tensors or arrays; only shapes are read)
-    over ``n`` replicas. ``min_leaf_size`` 0 means ``n``: a leaf smaller
-    than the replica count cannot give every replica a slice."""
+    """The plan of ``params`` (logical shapes, the stacked layout under
+    pipeline parallelism; tensors or arrays, only shapes are read) over
+    ``n`` replicas, with ``param_specs`` the rule engine's spec a leaf
+    (:func:`match_partition_rules`; None: every leaf replicated). A leaf
+    shards only when its spec is replicated. ``min_leaf_size`` 0 means
+    ``n``: a leaf smaller than the replica count cannot give every
+    replica a slice."""
     floor = max(n, min_leaf_size or n)
 
-    def leaf_plan(p: Any) -> LeafShardPlan:
+    def leaf_plan(p: Any, spec: Spec) -> LeafShardPlan:
         shape = tuple(int(d) for d in p.shape)
         size = math.prod(shape)
         chunk = -(-size // n)
-        return LeafShardPlan(sharded=bool(size >= floor and n > 1),
-                             size=size, pad=chunk * n, chunk=chunk,
-                             shape=shape)
+        return LeafShardPlan(
+            sharded=bool(spec_is_replicated(spec) and size >= floor
+                         and n > 1),
+            size=size, pad=chunk * n, chunk=chunk, shape=shape)
 
-    return Zero1Plan(n=n, leaf_plans=map_leaves(leaf_plan, params),
+    if param_specs is None:
+        param_specs = map_leaves(lambda _: (), params)
+    return Zero1Plan(n=n, leaf_plans=map_leaves(leaf_plan, params,
+                                                param_specs),
                      comm_buckets=max(1, int(comm_buckets)),
                      params_sharded=bool(params_sharded))
 

@@ -50,11 +50,12 @@ thread before the artifact and the pointer.
 
 Where a process holds only its replicas' chunks of some state (ZeRO-1
 over several processes), a save uses the reference's per-host layout
-instead (:func:`save_sharded_state`): every process writes
+instead (:func:`save_sharded_state`): every replica-process writes
 ``ckpt-%08d.shard%03d-of-%03d.msgpack`` (with its ``.sha256``) holding
 ``{"leaves": {"a/b/c": array | {"indices", "datas"}}}`` — whole leaves
-from process 0 only, and each process's slabs of the split ones — and
-process 0 writes ``ckpt-%08d.manifest.json`` (each leaf's global shape
+from process 0 only, and each replica-process's slabs of the split
+ones (under model parallelism from its leader alone) — and process 0
+writes ``ckpt-%08d.manifest.json`` (each leaf's global shape
 and dtype, the ``extra`` payload and a checksum of its own) and then
 the pointer. Any process count reads it back (:func:`restore_state`
 reassembles the global arrays). :class:`OptimizerStateMismatchError`

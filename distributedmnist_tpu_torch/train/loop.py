@@ -80,10 +80,15 @@ reads params (the evaluator, the digest, the quant publisher via the
 saved state, the NaN guard via the checkpoints) sees the logical ones
 (:func:`..parallel.api.logical_params`). Checkpoints hold the logical
 layout (``canonical_save_state``); where a process holds only its
-replicas' chunks (ZeRO-1 over several processes) every process writes
-its part of the per-host layout, synchronously, on the step cadence
-(``save_interval_secs`` is refused: the processes' clocks would not
-agree on the steps). A resume, and a NaN rollback, go through
+replicas' chunks (ZeRO-1 over several replica-processes) each
+replica-process writes its part of the per-host layout, synchronously,
+on the step cadence (``save_interval_secs`` is refused: the processes'
+clocks would not agree on the steps). Under tensor, pipeline or expert
+parallelism every rank first takes part in gathering the split leaves,
+then only each replica-process's leader (model shard 0, sequence block
+0, stage 0, expert shard 0) writes its chunks, and rank 0 the gathered
+whole leaves: one shard file a replica-process, the reference's
+manifest and leaf paths. A resume, and a NaN rollback, go through
 :func:`..parallel.api.restore_for_topology`: a checkpoint of another
 replica or process count is repacked for this run (and journaled as
 ``cross_world_restore``), one of another optimizer-state kind raises
@@ -426,7 +431,7 @@ class Trainer:
         # one process writes: under TP/SP every process of replica-process
         # 0 reads its data, but only rank 0 journals and saves
         self.is_writer = self.topo.rank == 0
-        # every process writes its chunks when none holds them all
+        # each replica-process writes its chunks when none holds them all
         self._sharded_ckpt = (self._zero1_plan is not None
                               and self._zero1_plan.any_sharded
                               and self.topo.process_count > 1)
@@ -596,13 +601,15 @@ class Trainer:
     def _save(self) -> None:
         """Process 0 writes; the others go on (no barrier: nothing waits
         on a save, as in the reference) — except in the per-host layout,
-        where each process writes its part. A save that fails after the
-        I/O retries is journaled as ``save_failed`` and skipped."""
-        # under tensor or expert parallelism the checkpoint holds whole
-        # leaves: every rank takes part in gathering them, then the
-        # writer writes
+        where each replica-process's leader writes its part. A save that
+        fails after the I/O retries is journaled as ``save_failed`` and
+        skipped."""
+        # under tensor, pipeline or expert parallelism the checkpoint
+        # holds whole leaves: every rank takes part in gathering them,
+        # then the writers write
         source = gather_state(self.state, self.model, self.topo)
-        if not self.is_writer and not self._sharded_ckpt:
+        if not (self.is_writer or (self._sharded_ckpt
+                                   and self.topo.replica_leader)):
             return
         t0 = time.perf_counter()
         at_step = self.state.step
@@ -648,18 +655,21 @@ class Trainer:
                               "errno": getattr(e, "errno", None),
                               "where": "async"})
 
-    def _save_sharded(self, at_step: int, extra: dict) -> None:
-        """This process's part of the per-host layout: its replicas'
-        chunks of every split leaf as one slab (at ``first·chunk`` of the
-        ``[pad]`` layout), the whole leaves from process 0 only."""
+    def _save_sharded(self, source: TrainState, at_step: int,
+                      extra: dict) -> None:
+        """This replica-process's part of the per-host layout, from
+        ``source`` (the live state, its model, expert and stage shards
+        gathered whole): its replicas' chunks of every ZeRO-1 leaf as one
+        slab (at ``first·chunk`` of the ``[pad]`` layout), the whole
+        leaves from rank 0 only."""
         plan, topo = self._zero1_plan, self.topo
         by_path = dict(ckpt.flat_state_items(plan.leaf_plans))
-        host = state_to_reference(self.state)
+        host = state_to_reference(source)
         split = {"momentum"} | ({"params"} if plan.params_sharded else set())
         local, meta = {}, {}
         for key, leaf in ckpt.flat_state_items(host):
             field, _, rest = key.partition("/")
-            if field == "momentum" and is_slot_dict(self.state.momentum):
+            if field == "momentum" and is_slot_dict(source.momentum):
                 rest = rest.partition("/")[2]  # drop LAMB's m/v level
             lp = by_path.get(rest) if field in split else None
             if lp is None or not lp.sharded:
@@ -684,7 +694,7 @@ class Trainer:
         its gathered copy) as step ``at_step``'s checkpoint."""
         keep = self.cfg.train.keep_checkpoints
         if self._sharded_ckpt:
-            self._save_sharded(at_step, extra)
+            self._save_sharded(source, at_step, extra)
             return
         canonical = canonical_save_state(source, self._zero1_plan)
         if not self._use_async_ckpt:
@@ -840,11 +850,12 @@ class Trainer:
     def evaluate(self, split: str = "test") -> dict[str, float]:
         """One full-split eval pass; also journals an ``eval`` record."""
         # under tensor, expert or pipeline parallelism the eval step
-        # runs on this rank's shard
+        # runs on this rank's shard (its ZeRO-1 chunks gathered)
         topo = self.topo
-        params = (self.state.params if (topo.model_parallelism > 1
-                                        or topo.expert_parallelism > 1
-                                        or topo.pipeline_parallelism > 1)
+        params = (logical_params(self.state.params, self._zero1_plan, topo)
+                  if (topo.model_parallelism > 1
+                      or topo.expert_parallelism > 1
+                      or topo.pipeline_parallelism > 1)
                   else self.logical_params())
         res = run_full_eval(self.eval_fn, params,
                             getattr(self.datasets, split),

@@ -23,6 +23,7 @@ from distributedmnist_tpu_torch.train import lr_schedule
 
 from _torch_tp_cases import CPU, LR, _np, _process_rows, _state
 from _torch_tp_cases import save_initial  # noqa: F401 — a case here too
+from _torch_tp_cases import zero1_step  # noqa: F401 — a case here too
 
 
 def coords(topo) -> tuple:

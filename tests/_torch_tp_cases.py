@@ -265,3 +265,123 @@ def sp_trainer(p: dict) -> dict:
     return {"final_step": summary["final_step"],
             "last": summary["last_metrics"], "flags": flags,
             "eval": t.evaluate("test"), "impl": t.train_iter.state()["impl"]}
+
+
+# -- ZeRO-1 over model-parallel replicas --------------------------------------
+
+def _full_params(cfg, params):
+    """The reference's per-layer params converted, in the layout the mesh
+    trains: the stacked one under a stage axis (chunk-interleaved under
+    ``1f1b``)."""
+    from distributedmnist_tpu_torch.models import transformer
+    params = copy.deepcopy(params)
+    mesh = cfg.mesh
+    if mesh.pipeline_parallelism > 1:
+        params = (transformer.stack_block_params_chunked(
+            params, mesh.pipeline_parallelism, mesh.pipeline_chunks)
+            if mesh.pipeline_schedule == "1f1b"
+            else transformer.stack_block_params(params))
+    return params_from_reference(params, device=CPU)
+
+
+def _live_params(model, cfg, topo, plan, full):
+    """``full`` cut to this rank's model, expert and stage shard and, under
+    a resident plan, each ZeRO-1 leaf to this replica-process's chunks of
+    its zero-padded flat layout."""
+    from distributedmnist_tpu_torch.parallel.partition_rules import \
+        map_leaves
+    shard = api.tp_shard(full, model, topo)
+    if plan is None or not plan.params_sharded:
+        return shard
+    lo, count = topo.first_replica, topo.local_replica_count
+
+    def chunks(x, lp):
+        if not lp.sharded:
+            return x
+        flat = torch.nn.functional.pad(x.reshape(-1), (0, lp.pad - lp.size))
+        return flat[lo * lp.chunk:(lo + count) * lp.chunk].clone()
+    return map_leaves(chunks, shard, plan.leaf_plans)
+
+
+def logical_state(state, model, topo, plan):
+    """The params and every slot tree of ``state`` whole and in their
+    logical shapes on every rank: the ZeRO-1 chunks gathered over the
+    replica group, then the split leaves over the model, expert and
+    stage groups (numpy copies in the reference layout)."""
+    import dataclasses
+
+    from distributedmnist_tpu_torch.train import optim as optim_lib
+    if plan is not None:
+        packed = dataclasses.replace(plan, params_sharded=True)
+        slots = optim_lib.map_slots(
+            lambda t: api.logical_params(t, packed, topo), state.momentum)
+    else:
+        slots = state.momentum
+    whole = lambda t: api.tp_gather(t, model, topo)  # noqa: E731
+    return (_np(whole(api.logical_params(state.params, plan, topo))),
+            _np(optim_lib.map_slots(whole, slots)))
+
+
+def zero1_step(p: dict) -> dict:
+    """``len(p["batches"])`` train steps from the reference's params with
+    the config's ZeRO-1 knobs (or without them): every step's loss and
+    params gathered whole, and this rank's slot and shard element
+    counts a leaf with the plan's decisions."""
+    from distributedmnist_tpu_torch.parallel.partition_rules import \
+        tree_leaves
+    cfg = ExperimentConfig.from_dict(p["cfg"])
+    topo = make_topology(cfg.mesh)
+    model = get_model(cfg.model)
+    state = api.init_train_state(model, cfg, CPU, topo)
+    fn = api.build_train_step(model, cfg, lr_schedule.constant(LR), topo)
+    plan = fn.plan
+    state.params = _live_params(model, cfg, topo, plan,
+                                _full_params(cfg, p["params"]))
+    shards = api.tp_shard(api.build_params(model, cfg, topo,
+                                           torch.device("meta")), model, topo)
+    out = {"plan": None if plan is None else [
+               (lp.sharded, lp.chunk) for lp in plan.leaves()],
+           "local": topo.local_replica_count,
+           "slot_numels": [x.numel() for x in tree_leaves(state.momentum)],
+           "shard_numels": [x.numel() for x in tree_leaves(shards)],
+           "losses": [], "params": []}
+    for b in p["batches"]:
+        state, m = fn(state, _process_rows(b, topo))
+        out["losses"].append(float(m["loss"]))
+        out["params"].append(logical_state(state, model, topo, plan)[0])
+    return out
+
+
+def zero1_trainer(p: dict) -> dict:
+    """The Trainer with ZeRO-1 over a model-parallel mesh: a fresh run of
+    ``max_steps`` steps with saves by steps and its eval; a resume from
+    its last save (the restored state gathered whole, beside the one
+    that was saved) run on to ``resume_steps``; a resume from
+    ``p["restore_dir"]`` (a one-process run's checkpoint without ZeRO-1)
+    with its params and slots gathered whole."""
+    from distributedmnist_tpu_torch.train.loop import Trainer
+    d = p["cfg"]
+    t = Trainer(ExperimentConfig.from_dict(d), device=CPU)
+    summary = t.run()
+    out = {"coords": _coords(t.topo), "is_writer": t.is_writer,
+           "leader": t.topo.replica_leader,
+           "final_step": summary["final_step"],
+           "digest": summary["params_digest"], "eval": t.evaluate("test"),
+           "saved": logical_state(t.state, t.model, t.topo, t._zero1_plan)}
+    d2 = copy.deepcopy(d)
+    d2["train"].update(resume=True, max_steps=p["resume_steps"])
+    t2 = Trainer(ExperimentConfig.from_dict(d2), device=CPU)
+    out["resumed_start"] = t2._start_step
+    out["restored"] = logical_state(t2.state, t2.model, t2.topo,
+                                    t2._zero1_plan)
+    s2 = t2.run()
+    out["resumed_final"], out["resumed_digest"] = (s2["final_step"],
+                                                   s2["params_digest"])
+    d3 = copy.deepcopy(d)
+    d3["train"].update(resume=True, train_dir=p["restore_dir"],
+                       max_steps=0)
+    t3 = Trainer(ExperimentConfig.from_dict(d3), device=CPU)
+    out["from_one_step"] = t3._start_step
+    out["from_one"] = logical_state(t3.state, t3.model, t3.topo,
+                                    t3._zero1_plan)
+    return out

@@ -29,10 +29,14 @@ reference's params (converted) and numpy batches made from a seed.
 * In process: the N-replica ``vmap`` step of an MoE model against the
   reference's data-parallel step, the rule engine's expert specs
   against the reference engine's, ``shard_params``/``gather_params``
-  over the expert axis, and the refusals (ZeRO-1 × EP, EP on a dense
-  model, a wall-clock save cadence, the single-device evaluator's
-  ``moe_num_groups``).
+  over the expert axis, and the refusals (ZeRO-1 × EP on one process
+  only for its missing process group, EP on a dense model, a wall-clock
+  save cadence, the single-device evaluator's ``moe_num_groups``).
 * ``launch train`` over two gloo processes at expert parallelism 2.
+* ZeRO-1 at DP 2 × EP 2 (``_torch_zero1_mp``), monolithic and bucketed
+  with resident params: two momentum steps against the reference's
+  ZeRO-1 step and the port's replicated one; the plan shards the leaves
+  the rules leave whole, the experts keep their shards.
 """
 
 import copy
@@ -60,6 +64,7 @@ from distributedmnist_tpu_torch.train.loop import Trainer
 
 from _torch_mp import run_world
 from _torch_tp_cases import LR
+from _torch_zero1_mp import check_zero1, ref_mesh, with_knob, zero1_jobs
 
 E, D, FF = 4, 8, 16
 # the reference test's own tolerances for a sharded moe_ffn against the
@@ -190,6 +195,8 @@ def ep4(tmp_path_factory):
     ds = _trainer_cfg(root / "ep_save")
     ds["train"]["max_steps"] = 0
     jobs.append(("save", {"case": "save_initial", "cfg": ds}))
+    dz = _cfg(2, 2, 1, 1)
+    jobs += zero1_jobs("z1", dz, _ref_params(dz), _zero1_batches(dz))
     return run_world(root / "run", 4, jobs, cases="_torch_ep_cases"), root
 
 
@@ -683,7 +690,10 @@ def test_shard_and_gather_params_over_the_expert_axis():
         np.testing.assert_array_equal(a, b)
 
 
-def test_zero1_under_expert_parallelism_is_refused():
+def test_zero1_under_expert_parallelism_needs_only_torchrun():
+    """ZeRO-1 over expert-parallel replicas on one process is refused
+    only for the missing process group (``make_topology``'s ConfigError
+    naming ``torchrun``)."""
     from distributedmnist_tpu_torch.core.config import ConfigError
     from distributedmnist_tpu_torch.models.registry import get_model
     from distributedmnist_tpu_torch.parallel import api
@@ -691,9 +701,30 @@ def test_zero1_under_expert_parallelism_is_refused():
     d = _cfg(2, 2, 1, 1)
     d["parallel"] = {"shard_weight_update": True}
     cfg = ExperimentConfig.from_dict(d)
-    with pytest.raises(ConfigError, match="item 8d"):
+    with pytest.raises(ConfigError, match="torchrun") as got:
         api.build_train_step(get_model(cfg.model), cfg,
                              lr_schedule.constant(LR))
+    assert "shard_weight_update" not in str(got.value)
+
+
+def _zero1_batches(d: dict) -> list:
+    return [_tokens(d, 0), _tokens(d, 1)]
+
+
+def test_zero1_over_ep_matches_the_reference(ep4):
+    """Two float32 momentum steps of ZeRO-1 at DP 2 × EP 2, monolithic
+    and bucketed with resident params, against the reference's ZeRO-1
+    step on the same mesh and params and the port's replicated step:
+    the plan shards the 13 leaves the rules leave whole (the experts'
+    ``w1``/``w2`` keep their expert shards)."""
+    res, _ = ep4
+    d = _cfg(2, 2, 1, 1)
+
+    def ref_cfg(knob):
+        return _ref_cfg(with_knob(d, knob)).override(
+            {"optim.name": "momentum", "optim.momentum": 0.9})
+    shards = check_zero1(res, "z1", ref_cfg, ref_mesh(d), _zero1_batches(d))
+    assert shards == {"mono": 13, "resident": 13}
 
 
 def test_expert_axis_needs_experts_and_torchrun():

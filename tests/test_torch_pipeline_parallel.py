@@ -29,6 +29,12 @@ numpy batches made from a seed.
 * ``launch train`` over two gloo processes at
   ``mesh.pipeline_parallelism=2`` under 1F1B, then ``launch eval`` with
   the training mesh over two processes on its checkpoint.
+* ZeRO-1 (``_torch_zero1_mp``) at DP 2 × PP 2 (GPipe) and DP 2 × PP 2 ×
+  TP 2 (1F1B, 2 chunks), monolithic and bucketed with resident params:
+  two momentum steps against the reference's ZeRO-1 step and the
+  port's replicated one, in the stacked layout; the plan shards only
+  ``embed``, ``pos`` and ``final_norm``, the stacked block leaves keep
+  the stage axis.
 """
 
 import copy
@@ -50,6 +56,7 @@ from distributedmnist_tpu_torch.train import checkpoint as ckpt
 
 from _torch_mp import run_world
 from _torch_tp_cases import LR
+from _torch_zero1_mp import check_zero1, ref_mesh, with_knob, zero1_jobs
 
 # (n, S, m, s, e, M, schedule, chunks, layers, moe, sp_attention)
 GPIPE = [(1, 4, 1, 1, 1, 4), (2, 4, 1, 1, 1, 2), (1, 2, 1, 1, 1, 1),
@@ -278,6 +285,9 @@ def pp4(tmp_path_factory):
     ds = _trainer_cfg(root / "port_save", RT_MESH, 0, 2)
     jobs.append(("save_port", {"case": "save_initial", "cfg": ds,
                                "params": _ref_params(ds)}))
+    dz = ZERO1["dp2_pp2_gpipe"]
+    jobs += zero1_jobs("z1_dp2_pp2_gpipe", dz, _ref_params(dz),
+                       _zero1_batches(dz))
     res = run_world(root / "run", 4, jobs, timeout_s=300,
                     cases="_torch_pp_cases")
     return res, root, jax.tree.map(np.asarray, jax.device_get(state.params))
@@ -289,6 +299,9 @@ def pp8(tmp_path_factory):
     jobs = [(name, {"case": "step", "cfg": d, "params": _ref_params(d),
                     "batch": _tokens(d)})
             for name, (d, world) in CASES.items() if world == 8]
+    dz = ZERO1["dp2_pp2_tp2_1f1b"]
+    jobs += zero1_jobs("z1_dp2_pp2_tp2_1f1b", dz, _ref_params(dz),
+                       _zero1_batches(dz))
     return run_world(root / "run", 8, jobs, timeout_s=300,
                      cases="_torch_pp_cases")
 
@@ -506,3 +519,34 @@ def test_launch_train_and_eval_at_pipeline_parallelism_2(tmp_path):
     from distributedmnist_tpu_torch.evalsvc.evaluator import Evaluator
     with pytest.raises(ValueError, match="pipeline-stacked"):
         Evaluator(run, single_device=True, device="cpu")
+
+
+# -- ZeRO-1 over pipeline-parallel replicas ----------------------------------
+
+ZERO1 = {"dp2_pp2_gpipe": _cfg(_mesh(2, 2, 1, 1, 1, 2)),
+         "dp2_pp2_tp2_1f1b": _cfg(_mesh(2, 2, 2, 1, 1, 2, "1f1b", 2),
+                                  sp_attention="ulysses")}
+
+
+def _zero1_batches(d: dict) -> list:
+    return [_tokens(d, 0), _tokens(d, 1)]
+
+
+@pytest.mark.parametrize("name", list(ZERO1))
+def test_zero1_over_pp_matches_the_reference(pp4, pp8, name):
+    """Two float32 momentum steps of ZeRO-1 at DP 2 × PP 2 (GPipe, in
+    ``pp4``) and DP 2 × PP 2 × TP 2 (1F1B, 2 chunks, in ``pp8``),
+    monolithic and bucketed with resident params, against the
+    reference's ZeRO-1 step on the same mesh and params and the port's
+    replicated step, in the stacked layout: the plan shards ``embed``,
+    ``pos`` and ``final_norm`` (summed over the stages before their
+    reduce-scatter), the stacked block leaves keep their stage rows."""
+    d = ZERO1[name]
+    res = pp4[0] if name.endswith("gpipe") else pp8
+
+    def ref_cfg(knob):
+        return _ref_cfg(with_knob(d, knob)).override(
+            {"optim.name": "momentum", "optim.momentum": 0.9})
+    shards = check_zero1(res, f"z1_{name}", ref_cfg, ref_mesh(d),
+                         _zero1_batches(d))
+    assert shards == {"mono": 3, "resident": 3}

@@ -25,9 +25,20 @@ batches.
   over measured host times with the same flags on every rank.
 * ``launch eval --single_device`` on the TP checkpoint.
 * ``launch train`` over two gloo processes at model parallelism 2.
+* ZeRO-1 (``_torch_zero1_mp``) at DP 2 × TP 2 and DP 2 × SP 2
+  (Ulysses), monolithic and bucketed with resident params, two momentum
+  steps against the reference's ZeRO-1 step and the port's replicated
+  one; LAMB at DP 2 × TP 2 the same way (each split leaf's trust ratio
+  over the model group); the Trainer at DP 2 × TP 2 with ZeRO-1 and
+  resident params: one shard file a replica-process, a bitwise resume,
+  the save restored at TP 1 without ZeRO-1, by the reference's
+  ``restore_checkpoint`` and by ``launch eval --single_device``, a
+  one-process checkpoint restored into the ZeRO-1 shards; ``launch
+  train`` with ZeRO-1 over four gloo processes at DP 2 × TP 2.
 * In process: the rule engine's specs against the reference engine's,
-  ``shard_params`` / ``gather_params`` round trips, ZeRO-1 × TP refused,
-  a wall-clock save cadence under TP refused.
+  ``shard_params`` / ``gather_params`` round trips, ZeRO-1 × TP on one
+  process refused only for the missing process group, a wall-clock
+  save cadence under TP refused.
 """
 
 import copy
@@ -52,6 +63,8 @@ from distributedmnist_tpu_torch.train.loop import Trainer
 
 from _torch_mp import run_world
 from _torch_tp_cases import LR, cfg_dict
+from _torch_zero1_mp import (KNOBS, MOMENTUM, check_zero1, ref_mesh,
+                             with_knob, zero1_jobs)
 
 MESHES = [(1, 4, 1), (2, 2, 1), (2, 2, 2)]
 REPLICATED = ("blocks/0/ln1/scale", "blocks/0/ln2/scale", "embed",
@@ -146,6 +159,16 @@ def tp4(tmp_path_factory):
     jobs.append(("measured", {"case": "sp_trainer", "cfg": dq}))
     jobs.append(("layout", {"case": "world_env",
                             "cfg": _mesh_cfg((1, 2, 2))}))
+    for prefix, d, optim in _zero1_meshes():
+        jobs += zero1_jobs(prefix, d, params, _zero1_batches(d), optim)
+    one = _zero1_trainer_cfg(root / "z1_one")
+    one["mesh"], one["parallel"] = {"num_replicas": 2}, KNOBS["replicated"]
+    one["train"]["max_steps"] = 2
+    Trainer(ExperimentConfig.from_dict(one), device="cpu").run()
+    jobs.append(("z1_trainer", {"case": "zero1_trainer",
+                                "cfg": _zero1_trainer_cfg(root / "z1"),
+                                "resume_steps": 6,
+                                "restore_dir": str(root / "z1_one")}))
     return run_world(root / "run", 4, jobs), params, root
 
 
@@ -548,18 +571,20 @@ def test_shard_and_gather_params_round_trip(m):
         np.testing.assert_array_equal(a, b)
 
 
-def test_zero1_under_tensor_parallelism_is_refused():
-    """ZeRO-1 over tensor- or sequence-parallel replicas is not ported:
-    a ConfigError naming the ROADMAP item, before any process group."""
+def test_zero1_under_tensor_parallelism_needs_only_torchrun():
+    """ZeRO-1 over tensor-parallel replicas on one process is refused
+    only for the missing process group: ``make_topology``'s ConfigError
+    naming ``torchrun``, before any step is built."""
     from distributedmnist_tpu_torch.core.config import ConfigError
     from distributedmnist_tpu_torch.models.registry import get_model
     from distributedmnist_tpu_torch.parallel import api
     from distributedmnist_tpu_torch.train import lr_schedule
     d = _mesh_cfg((2, 2, 1), parallel={"shard_weight_update": True})
     cfg = ExperimentConfig.from_dict(d)
-    with pytest.raises(ConfigError, match="item 8d"):
+    with pytest.raises(ConfigError, match="torchrun") as got:
         api.build_train_step(get_model(cfg.model), cfg,
                              lr_schedule.constant(LR))
+    assert "shard_weight_update" not in str(got.value)
 
 
 def test_time_based_saves_under_tensor_parallelism_are_refused(tmp_path):
@@ -571,3 +596,169 @@ def test_time_based_saves_under_tensor_parallelism_are_refused(tmp_path):
                                     "train_dir": str(tmp_path)})
     with pytest.raises(ValueError, match="save_interval_steps"):
         Trainer(ExperimentConfig.from_dict(d), device="cpu")
+
+
+# -- ZeRO-1 over tensor- and sequence-parallel replicas ----------------------
+
+def _zero1_meshes() -> list:
+    """(job prefix, config, optimizer) of each ZeRO-1 mesh in ``tp4``."""
+    return [("z1_dp2_tp2", _mesh_cfg((2, 2, 1)), MOMENTUM),
+            ("z1_dp2_sp2", _mesh_cfg((2, 1, 2), sp_attention="ulysses"),
+             MOMENTUM),
+            ("z1_lamb_dp2_tp2", _mesh_cfg((2, 2, 1)), {"name": "lamb"})]
+
+
+def _zero1_batches(d: dict) -> list:
+    return [_tokens(d, 0), _tokens(d, 1)]
+
+
+def _zero1_ref_cfg(d: dict, optim: dict):
+    def cfg(knob):
+        return _ref_cfg(with_knob(d, knob)).override(
+            {f"optim.{k}": v for k, v in optim.items()})
+    return cfg
+
+
+@pytest.mark.parametrize("n", range(3), ids=[m[0] for m in _zero1_meshes()])
+def test_zero1_over_tp_and_sp_matches_the_reference(tp4, n):
+    """Two float32 steps of each ZeRO-1 layout against the reference's
+    ZeRO-1 step on the same mesh and params and against the port's
+    replicated step. Under TP the plan shards only the leaves the rules
+    leave whole (the embeddings and norms), under SP every leaf; LAMB's
+    split leaves complete their trust-ratio norms over the model group
+    (with the identity there instead, this case fails)."""
+    res, _, _ = tp4
+    prefix, d, optim = _zero1_meshes()[n]
+    shards = check_zero1(res, prefix, _zero1_ref_cfg(d, optim), ref_mesh(d),
+                         _zero1_batches(d), lamb=optim["name"] == "lamb")
+    want = 15 if "sp2" in prefix else 7  # every leaf under SP
+    assert shards == {"mono": want, "resident": want}
+
+
+def _zero1_trainer_cfg(train_dir) -> dict:
+    return _mesh_cfg((2, 2, 1), sync={"mode": "quorum",
+                                      "num_replicas_to_aggregate": 1,
+                                      "straggler_profile": "lognormal"},
+                     optim=MOMENTUM, parallel=KNOBS["resident"],
+                     train={"max_steps": 4, "train_dir": str(train_dir),
+                            "log_every_steps": 2, "save_interval_secs": 0,
+                            "save_interval_steps": 2})
+
+
+def _assert_trees_equal(got, want):
+    got, want = jax.tree.leaves(got), jax.tree.leaves(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_zero1_trainer_checkpoint_is_one_file_a_replica_process(tp4):
+    """The Trainer at DP 2 × TP 2 with resident ZeRO-1 params: each save
+    is one shard file a replica-process and the manifest (each written
+    by its replica-process's leader, rank 0 the whole leaves), every
+    rank ends on the same params, and a resume restores the saved
+    params and slots bit for bit."""
+    res, _, root = tp4
+    outs = _by_rank(res, "z1_trainer")
+    assert [o["is_writer"] for o in outs] == [True, False, False, False]
+    assert [o["leader"] for o in outs] == [True, False, True, False]
+    names = sorted(x.name for x in (root / "z1").iterdir()
+                   if x.name.startswith("ckpt-00000004"))
+    assert names == ["ckpt-00000004.manifest.json",
+                     "ckpt-00000004.shard000-of-002.msgpack",
+                     "ckpt-00000004.shard000-of-002.msgpack.sha256",
+                     "ckpt-00000004.shard001-of-002.msgpack",
+                     "ckpt-00000004.shard001-of-002.msgpack.sha256"]
+    for out in outs:
+        assert out["final_step"] == 4 and out["resumed_start"] == 4
+        assert out["resumed_final"] == 6
+        assert out["digest"] == outs[0]["digest"]
+        assert out["resumed_digest"] == outs[0]["resumed_digest"]
+        assert np.isfinite(out["eval"]["loss"])
+        _assert_trees_equal(out["restored"], out["saved"])
+        _assert_trees_equal(out["saved"], outs[0]["saved"])
+
+
+def test_zero1_trainer_checkpoint_restores_elsewhere(tp4, tmp_path):
+    """The DP 2 × TP 2 ZeRO-1 save (step 6) restores at TP 1 without
+    ZeRO-1, in the reference's ``restore_checkpoint`` into its own
+    ZeRO-1 template of the saving mesh, and through ``launch eval
+    --single_device``; a one-process checkpoint without ZeRO-1 restores
+    into the DP 2 × TP 2 ZeRO-1 shards (``cross_world_restore``
+    journaled)."""
+    import shutil
+    from distributedmnist_tpu.train import checkpoint as ref_ckpt
+    from distributedmnist_tpu_torch.evalsvc.evaluator import Evaluator
+    from distributedmnist_tpu_torch.parallel.api import tree_leaves
+    res, _, root = tp4
+    shutil.copytree(root / "z1", tmp_path / "z1")
+    d = _zero1_trainer_cfg(tmp_path / "z1")
+    d["mesh"], d["parallel"] = {"num_replicas": 2}, KNOBS["replicated"]
+    d["train"].update(resume=True, max_steps=6)
+    t = Trainer(ExperimentConfig.from_dict(d), device="cpu")
+    assert t._start_step == 6
+    outs = _by_rank(res, "z1_trainer")
+    digest = ckpt.params_digest(params_to_reference(t.logical_params(),
+                                                    keep_bfloat16=True))
+    assert digest == outs[0]["resumed_digest"]
+    ev = [r for r in _journal(tmp_path / "z1")
+          if r.get("action") == "cross_world_restore"]
+    assert ev[-1]["saved_world"]["mesh"] == {"replica": 2, "model": 2}
+    assert ev[-1]["new_world"]["mesh"] == {"replica": 2}
+    # the reference reads the same files into its ZeRO-1 template
+    z = _zero1_trainer_cfg(tmp_path / "z1")
+    rcfg = _ref_cfg(z).override({"optim.name": "momentum",
+                                 "optim.momentum": 0.9})
+    topo = ref_topology(RefMesh(num_replicas=2, model_parallelism=2))
+    model = ref_get_model(rcfg.model)
+    template = ref_api.init_train_state(model, rcfg, topo)
+    state, _, step = ref_ckpt.restore_checkpoint(tmp_path / "z1", template)
+    assert step == 6
+    plan = ref_api.zero1_plan_for(model, rcfg, topo)
+    canon = ref_api.canonical_save_state(state, plan)
+    _assert_trees_equal(ref_api.logical_params(state.params, plan, topo),
+                        params_to_reference(t.logical_params()))
+    _assert_trees_equal(canon.momentum, params_to_reference(t.state.momentum))
+    got = Evaluator(tmp_path / "z1", single_device=True,
+                    device="cpu").evaluate_checkpoint()
+    want = t.evaluate("test")
+    assert got["step"] == 6 and got["num_examples"] == want["num_examples"]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-6)
+    # the one-process save (2 replicas, no ZeRO-1) in the ZeRO-1 shards
+    saved, _, step = ckpt.restore_state(root / "z1_one")
+    for out in outs:
+        assert out["from_one_step"] == step == 2
+        params, slots = out["from_one"]
+        _assert_trees_equal(params, saved["params"])
+        _assert_trees_equal(slots, saved["momentum"])
+    ev = [r for r in _journal(root / "z1_one")
+          if r.get("action") == "cross_world_restore"]
+    assert ev[-1]["new_world"] == {"num_replicas": 2, "process_count": 4,
+                                   "mesh": {"replica": 2, "model": 2}}
+    assert len(tree_leaves(t.state.momentum)) == len(
+        jax.tree.leaves(saved["momentum"]))
+
+
+def test_launch_train_zero1_at_dp2_tp2(tmp_path):
+    """``launch train`` over four gloo processes at DP 2 × TP 2 with
+    ZeRO-1 (bucketed, resident params): every rank runs to
+    ``max_steps`` with the same digest and the run saves."""
+    logs = run_world(tmp_path / "cli", 4, [], argv=[
+        "-m", "distributedmnist_tpu_torch.launch", "train",
+        "--config", "configs/synthetic_lm_transformer.json",
+        "mesh.num_replicas=2", "mesh.model_parallelism=2",
+        "parallel.shard_weight_update=true", "parallel.comm_buckets=2",
+        "parallel.resident_sharded=true",
+        "optim.name=momentum", "optim.momentum=0.9",
+        "model.model_dim=32", "model.seq_len=32", "model.vocab_size=37",
+        "model.compute_dtype=float32", "data.batch_size=8",
+        "data.synthetic_train_size=64", "data.synthetic_test_size=16",
+        "train.max_steps=3", f"train.train_dir={tmp_path / 'run'}",
+        "--device", "cpu", "--dist-backend", "gloo"])
+    lines = [json.loads(log.strip().splitlines()[-1]) for log in logs]
+    for line in lines:
+        assert line["summary"]["final_step"] == 3
+        assert np.isfinite(line["summary"]["last_metrics"]["loss"])
+        assert line["summary"]["params_digest"] == \
+            lines[0]["summary"]["params_digest"]
+    assert ckpt.latest_checkpoint_step(tmp_path / "run") == 3

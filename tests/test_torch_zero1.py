@@ -93,7 +93,8 @@ def test_plan_and_buckets_match_reference(model, n):
             rp = ref_pr.make_zero1_plan(ref_params, specs, "replica", n,
                                         min_leaf_size=floor,
                                         comm_buckets=buckets)
-            pp = pr.make_zero1_plan(port_params, n, min_leaf_size=floor,
+            pp = pr.make_zero1_plan(port_params, None, n,
+                                    min_leaf_size=floor,
                                     comm_buckets=buckets)
             assert _plan_rows(pp.leaf_plans, False) == _plan_rows(
                 rp.leaf_plans, True), (buckets, floor)
@@ -112,7 +113,7 @@ def test_pack_unpack_match_reference():
             "c": rng.normal(size=(2,)).astype(np.float32)}
     specs = jax.tree.map(lambda _: P(), tree)
     rp = ref_pr.make_zero1_plan(tree, specs, "replica", 4)
-    pp = pr.make_zero1_plan(tree, 4)
+    pp = pr.make_zero1_plan(tree, None, 4)
     packed = pr.zero1_pack(tree, pp)
     want = ref_pr.zero1_pack(tree, rp)
     for a, b in zip(jax.tree.leaves(packed), jax.tree.leaves(want)):
